@@ -1,0 +1,64 @@
+"""Move parameter trees between the JAX package and the port via numpy.
+
+The port never imports JAX: :func:`tree_from_numpy` takes a tree whose
+leaves are array-likes (numpy arrays, or JAX arrays, which ``np.array``
+reads) and duck-types QTensors — any leaf with ``q``, ``scales``,
+``bits``, ``mode``, ``block`` and ``orig_shape`` becomes a
+:class:`~repro_torch.core.quant.QTensor` — so a test can hand over a JAX
+tree as it is. :func:`tree_to_numpy` is the inverse.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch import tree as tree_lib
+from repro_torch.core.quant import QTensor
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16, "float64": torch.float64}
+_QT_FIELDS = ("q", "scales", "bits", "mode", "block", "orig_shape")
+
+
+def _is_qtensor_like(leaf) -> bool:
+    return all(hasattr(leaf, f) for f in _QT_FIELDS)
+
+
+def _torch_dtype(d) -> torch.dtype:
+    if isinstance(d, torch.dtype):
+        return d
+    return _DTYPES[np.dtype(d).name if not isinstance(d, str) else d]
+
+
+def tree_from_numpy(tree, device=None):
+    """A port tree (torch tensors on ``device``) from array-like leaves."""
+    dev = resolve_device(device)
+
+    def conv(leaf):
+        if _is_qtensor_like(leaf):
+            out_dtype = getattr(leaf, "out_dtype", None)
+            return QTensor(
+                q=torch.as_tensor(np.array(leaf.q), device=dev),
+                scales=torch.as_tensor(np.array(leaf.scales), device=dev),
+                bits=int(leaf.bits), mode=str(leaf.mode),
+                block=int(leaf.block),
+                out_dtype=torch.float32 if out_dtype is None
+                else _torch_dtype(out_dtype),
+                orig_shape=tuple(int(s) for s in leaf.orig_shape))
+        return torch.as_tensor(np.array(leaf), device=dev)
+    return tree_lib.tree_map(conv, tree)
+
+
+def tree_to_numpy(tree):
+    """numpy leaves from a port tree; a QTensor keeps its dataclass with
+    numpy ``q``/``scales`` and ``out_dtype`` as a dtype name."""
+    def conv(leaf):
+        if isinstance(leaf, QTensor):
+            return dataclasses.replace(
+                leaf, q=leaf.q.cpu().numpy(), scales=leaf.scales.cpu().numpy(),
+                out_dtype=str(leaf.out_dtype).replace("torch.", ""))
+        return leaf.detach().cpu().numpy()
+    return tree_lib.tree_map(conv, tree)

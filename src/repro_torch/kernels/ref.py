@@ -1,0 +1,120 @@
+"""Plain PyTorch versions of the CUDA kernels, port of ``repro.kernels.ref``.
+
+Each function here is the CPU path of its op (``kernels.ops``) and the
+oracle its CUDA kernel is held against on the card. They repeat the
+kernels' arithmetic in plain tensor ops and are no yardstick of speed.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import quant as qlib
+
+NEG_INF = -1e30
+
+
+# ------------------------------------------------------------------
+# flash attention (causal / sliding-window / bidirectional), GQA-aware
+# ------------------------------------------------------------------
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None) -> torch.Tensor:
+    """q: (B, S, H, D); k, v: (B, Skv, Hkv, D) -> (B, S, H, D).
+
+    Masked softmax(QK^T/sqrt(D))V in fp32 with the Pallas kernel's
+    conventions (``kernels/flash_attention.py``): masked keys carry
+    probability 0 and a row with no valid key gives 0 (``l`` floors at
+    1e-30). On every row with at least one valid key this equals
+    ``repro.kernels.ref.flash_attention``."""
+    B, S, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qf = q.to(torch.float32) * scale
+    kf = k.to(torch.float32).repeat_interleave(G, dim=2)   # kv head h // G
+    vf = v.to(torch.float32).repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhqk,bkhd->bqhd", p / l, vf)
+    return out.to(q.dtype)
+
+
+# ------------------------------------------------------------------
+# fused dequant-matmul (QLoRA backbone / serve-head hot path)
+# ------------------------------------------------------------------
+def quant_matmul(x: torch.Tensor, qt: qlib.QTensor) -> torch.Tensor:
+    """x: (..., K) @ dequant(qt): (K, N) -> (..., N).
+
+    ``qt`` may cover a K zero-padded to a block multiple (the odd-K
+    ``blockwise_quant`` contract); x's contraction dim zero-pads to
+    match. A stacked QTensor (q ``(T, G, ., N)``) contracts pairwise along
+    the stack axis: x is ``(T, K)`` or ``(T, ..., K)``."""
+    w = qlib.dequantize(qt, x.dtype)
+    Kq, K = w.shape[-2], x.shape[-1]
+    if Kq != K:
+        if Kq < K or (Kq - K) >= qt.block:
+            raise ValueError(
+                f"quantized contraction dim {Kq} incompatible with "
+                f"x's {K} (block {qt.block})")
+        x = F.pad(x, (0, Kq - K))
+    if w.ndim > 2:
+        lead = tuple(w.shape[:-2])
+        if tuple(x.shape[:len(lead)]) != lead:
+            raise ValueError(
+                f"stacked quant_matmul needs matching lead dims: x "
+                f"{tuple(x.shape)} vs dequant(qt) {tuple(w.shape)}")
+        mid = tuple(x.shape[len(lead):-1])
+        x3 = x.reshape(*lead, -1, Kq)
+        return torch.matmul(x3, w).reshape(*lead, *mid, w.shape[-1])
+    return torch.matmul(x, w)
+
+
+# ------------------------------------------------------------------
+# fused LoRA matmul (the QLoRA arm's whole linear layer)
+# ------------------------------------------------------------------
+def lora_matmul(x: torch.Tensor, w, a: torch.Tensor, b: torch.Tensor, *,
+                scale: float) -> torch.Tensor:
+    """``y = x @ W(+dequant) + scale·(x@A)@B`` with fp32 accumulation,
+    cast back to ``x.dtype``. ``w`` may be a QTensor or a dense matrix.
+    ``a``/``b`` may carry a leading batch axis matching x's (one LoRA
+    pair per row of a stacked tenant batch)."""
+    xf = x.to(torch.float32)
+    if isinstance(w, qlib.QTensor):
+        base = quant_matmul(xf, w)
+    else:
+        base = torch.matmul(xf, w.to(torch.float32))
+    h = torch.matmul(xf, a.to(torch.float32))
+    delta = torch.matmul(h, b.to(torch.float32))
+    return (base + scale * delta).to(x.dtype)
+
+
+# ------------------------------------------------------------------
+# blockwise quantization (at-rest adapters, communication compression)
+# ------------------------------------------------------------------
+def blockwise_quant(x: torch.Tensor, *, bits: int = 8, block: int = 128,
+                    mode: str = "linear") -> qlib.QTensor:
+    """Same contract as the kernel, including odd K: a contraction dim
+    not divisible by the block zero-pads to the next block multiple (pad
+    rows never perturb a block's absmax scale), the payload covers the
+    padded K, and ``orig_shape`` records the true shape."""
+    *lead, K, N = x.shape
+    blk = min(block, K)
+    Kp = -(-K // blk) * blk
+    if Kp == K:
+        return qlib.quantize(x, bits=bits, block=block, mode=mode)
+    qt = qlib.quantize(F.pad(x, (0, 0, 0, Kp - K)), bits=bits,
+                       block=block, mode=mode)
+    return dataclasses.replace(qt, orig_shape=tuple(x.shape))
