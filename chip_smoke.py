@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving plane once on one NVIDIA H100.
+"""Drive the PyTorch port's two paths once on one NVIDIA H100: the
+serving plane and the federated QLoRA trainer.
 
     python3 chip_smoke.py
 
@@ -7,13 +8,23 @@ Phases (a failed phase raises and the script exits non-zero):
  1. set-up: the card's name and power limit, TF32 off, and a build of
     every CUDA kernel from ``src/repro_torch/kernels/csrc``;
  2. each kernel against its plain PyTorch version on the card, at the
-    serve path's shapes and at edge shapes, with times beside its bound;
+    serve path's and the trainer's shapes and at edge shapes, with times
+    beside its bound; the attention gradient against autograd through
+    the plain attention;
  3. the serving plane at CLIP ViT-B/32 width (seeded weights): 16 users,
     half adapter-only and half LoRA, an int8-at-rest store with
     evictions, a Zipf request trace replayed through ``ServeEngine``, and
     the per-request ``serve_sequential`` oracle; then one flight at int4
     and one unquantized. The kernel launch counts are zeroed just before
-    this phase and read right after it.
+    this phase and read right after it;
+ 4. one ``train_step``'s gradients at full Yi-9B width with 2 layers
+    (NF4 backbone, seeded weights, 4 x 64 tokens) on the card with the
+    kernels and on the CPU with the plain versions, on the same weights;
+ 5. the federated QLoRA trainer (``repro_torch.launch.train``) on Yi-9B
+    at full width and depth: NF4 block 64, int8 uplink, 2 rounds x 2
+    clients x 2 local steps of 4 x 64 tokens, through ``client_update``
+    and ``aggregate``; launch counts zeroed just before and read right
+    after; then one step under the profiler.
 The last two lines are the ``kernels`` record and the device record.
 It needs one card, imports nothing of JAX, and runs nothing on the CPU
 in place of a kernel.
@@ -21,6 +32,7 @@ in place of a kernel.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -31,8 +43,11 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import convert  # noqa: E402
 from repro_torch import tree as tree_lib  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import clip as clip_lib  # noqa: E402
+from repro_torch.core import optim  # noqa: E402
 from repro_torch.core import quant as qlib  # noqa: E402
 from repro_torch.data.synthetic import SPECS, class_tokens  # noqa: E402
 from repro_torch.fl import client as client_lib  # noqa: E402
@@ -41,7 +56,10 @@ from repro_torch.fl.strategies import STRATEGIES  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import blockwise_quant as bq_kernel  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
+from repro_torch.kernels import lora_matmul as lm_kernel  # noqa: E402
 from repro_torch.kernels import quant_matmul as qmm_kernel  # noqa: E402
+from repro_torch.launch import train as train_lib  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 
 # H100 SXM data-sheet rates (dense): HBM bytes/s and the peak operation
 # rate for the operands' type (fp32 outside the tensor cores, bf16)
@@ -55,13 +73,24 @@ VIT_B32 = clip_lib.CLIPConfig(
     d_model=768, n_heads=12, d_ff=3072, vocab=49408, max_text_len=77,
     proj_dim=512)
 
+# Yi-9B (arXiv:2403.04652) as launch/train.py --quant 4 sets it up
+YI_NF4 = dict(quant_bits=4, quant_mode="nf4", quant_block=64)
+# the trainer's LoRA linears at Yi-9B width: (K, N)
+YI_LINEARS = {"wq_wo": (4096, 4096), "wk_wv": (4096, 512),
+              "wg_wu": (4096, 11008), "wd": (11008, 4096)}
+
 REPLACES = {
     "quant_matmul": "src/repro/kernels/quant_matmul.py:66",
     "blockwise_quant": "src/repro/kernels/blockwise_quant.py:38",
     "flash_attention": "src/repro/kernels/flash_attention.py:72",
+    "lora_matmul": "src/repro/kernels/lora_matmul.py:64",
+    "quant_matmul_t": "src/repro/kernels/lora_matmul.py:146",
 }
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
            for name in REPLACES}
+SOURCES["quant_matmul_t"] = SOURCES["lora_matmul"]
+SERVE_KERNELS = ("quant_matmul", "blockwise_quant", "flash_attention")
+TRAIN_KERNELS = ("lora_matmul", "quant_matmul_t", "flash_attention")
 
 
 # -- measurement helpers -----------------------------------------------
@@ -129,12 +158,28 @@ def report(row: dict) -> None:
 
 # -- phase 1: set-up ---------------------------------------------------
 
-def setup() -> None:
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str) -> str:
+    """One line for a kernel source's ptxas report: its kernels' largest
+    register count, spill bytes and static shared memory."""
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log)]
+    smem = [int(m) for m in re.findall(r"(\d+) bytes smem", log)]
+    return (f"{len(regs)} kernels, registers <= {max(regs, default=0)}, "
+            f"spill stores <= {max(spills, default=0)} B, static smem <= "
+            f"{max(smem, default=0)} B")
+
+
+def setup() -> None:
+    print(card_line(), flush=True)
     cap = torch.cuda.get_device_capability(0)
     if cap != (9, 0):
         raise RuntimeError(f"needs a Hopper card (sm_90), got sm_{cap[0]}{cap[1]}")
@@ -147,9 +192,7 @@ def setup() -> None:
     print(f"build: {time.perf_counter() - t0:.1f} s wall "
           + " ".join(f"{k}={v:.1f}s" for k, v in took.items()), flush=True)
     for name, log in build.BUILD_LOG.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}", flush=True)
+        print(f"  ptxas {name}: {ptxas_summary(log)}", flush=True)
 
 
 # -- phase 2: kernels against their plain versions ---------------------
@@ -290,6 +333,145 @@ def check_flash_attention(gen) -> dict:
     return main
 
 
+def _tol(dtype) -> float:
+    """fp32: 1e-5 of the largest magnitude (TF32 off); bf16: 2e-2 of it,
+    the JAX package's bf16 bound (tests/test_kernels.py)."""
+    return 1e-5 if dtype == torch.float32 else 2e-2
+
+
+def check_lora_kernels(gen) -> tuple:
+    """``lora_matmul`` and ``quant_matmul_t`` at the trainer's four Yi-9B
+    (K, N) pairs (M = 4 x 64 tokens, NF4 block 64, bf16 x, rank 16, fp32
+    g) and at int8, int4, fp32 x, odd K = 200 and ragged N = 33. Returns
+    the two records at the wg/wu shape (the largest per-call work)."""
+    dev = "cuda"
+    cases = [(name, 256, K, N, 4, "nf4", torch.bfloat16, 16)
+             for name, (K, N) in YI_LINEARS.items()] + [
+        ("int8_f32", 64, 512, 256, 8, "linear", torch.float32, 16),
+        ("int4_f32", 64, 512, 256, 4, "linear", torch.float32, 16),
+        ("nf4_bf16_oddK_raggedN", 37, 200, 33, 4, "nf4", torch.bfloat16, 4),
+        ("int8_f32_oddK_raggedN", 37, 200, 33, 8, "linear", torch.float32, 4),
+    ]
+    main = {}
+    for name, M, K, N, bits, mode, dtype, r in cases:
+        w = (torch.randn((K, N), generator=gen, device=dev) / K ** 0.5
+             ).to(torch.bfloat16)
+        qt = ref.blockwise_quant(w, bits=bits, block=64, mode=mode)
+        x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+        a = torch.randn((K, r), generator=gen, device=dev) / K ** 0.5
+        b = torch.randn((r, N), generator=gen, device=dev) * 0.05
+        g = torch.randn((M, N), generator=gen, device=dev)
+        Kq = qt.q.shape[-3] * qt.block
+        for kname, run, plain, out_dt, nops, ins in (
+                ("lora_matmul",
+                 lambda: lm_kernel.lora_matmul(x, qt, a, b, scale=2.0),
+                 lambda: ref.lora_matmul(x, qt, a, b, scale=2.0), dtype,
+                 2.0 * M * (Kq * N + K * r + r * N), (x, a, b)),
+                ("quant_matmul_t", lambda: lm_kernel.quant_matmul_t(g, qt),
+                 lambda: ref.quant_matmul_t(g, qt), torch.float32,
+                 2.0 * M * Kq * N, (g,))):
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            abs_e, rel_e = rel_err(got, want)
+            if not (rel_e <= _tol(out_dt) and torch.isfinite(got).all()):
+                raise AssertionError(f"{kname} {name}: rel err {rel_e} > "
+                                     f"{_tol(out_dt)}")
+            b_ms, b_by = bound(nbytes(*ins, qt.q, qt.scales, got), nops,
+                               ins[0].dtype)
+            row = {"case": name, "max_abs_err": abs_e, "rel_err": rel_e,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            timed(row, "ms", run)
+            timed(row, "plain_ms", plain)
+            report({kname: 1, **row})
+            if name == "wg_wu":
+                main[kname] = row
+    print("  library: no single PyTorch call computes x @ dequant(W_q) + "
+          "s(x@A)@B or g @ dequant(W_q)^T from the quantized payload "
+          "(library_ms = null)", flush=True)
+    return main["lora_matmul"], main["quant_matmul_t"]
+
+
+def sdpa_backend(fn) -> str:
+    """Which SDPA backend ran ``fn``, from its kernels' names."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = " ".join(e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    low = names.lower()
+    for key, backend in (("cudnn", "cudnn"), ("flash", "flash"),
+                         ("fmha", "efficient"), ("cutlass", "efficient")):
+        if key in low:
+            return backend
+    return "math (" + names[:80] + ")"
+
+
+def check_flash_train(gen) -> dict:
+    """The trainer's two attention shapes, bf16 and causal: the backbone
+    (4, 64, 32, 128) with 4 KV heads and the adapter (4, 64, 8, 512);
+    forward against the plain version, the autograd.Function's backward
+    against autograd through the plain version. Returns the adapter's
+    forward record."""
+    cases = [("backbone_gqa_d128", 4, 64, 32, 4, 128),
+             ("adapter_d512", 4, 64, 8, 8, 512)]
+    main = None
+    for name, B, S, H, Hkv, D in cases:
+        dt = torch.bfloat16
+        q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
+        k = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dt)
+        v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dt)
+        do = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
+        run = lambda: fa_kernel.flash_attention(q, k, v, causal=True)
+        got = run()
+        want = ref.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        abs_e, rel_e = rel_err(got, want)
+        if not (rel_e <= _tol(dt) and torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention {name}: rel err {rel_e}")
+        pairs = _valid_pairs(S, S, True, None)
+        b_ms, b_by = bound(nbytes(q, k, v, got), 4.0 * B * H * D * pairs, dt)
+        row = {"case": name, "max_abs_err": abs_e, "rel_err": rel_e,
+               "bound_ms": b_ms, "bound_by": b_by}
+        timed(row, "ms", run)
+        timed(row, "plain_ms", lambda: ref.flash_attention(q, k, v,
+                                                           causal=True))
+        G = H // Hkv
+        qt_, kt_, vt_ = (t.transpose(1, 2).contiguous() for t in (
+            q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt_, kt_, vt_, is_causal=True)
+        timed(row, "library_ms", sdpa)
+        row["library"] = "sdpa/" + sdpa_backend(sdpa)
+        report({"flash_attention": 1, **row})
+
+        # backward: the Function's PyTorch-op gradient vs autograd of plain
+        grads = []
+        for fn in (ops.flash_attention, ref.flash_attention):
+            ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+            (fn(*ts, causal=True).float() * do.float()).sum().backward()
+            grads.append([t.grad for t in ts])
+        errs = [rel_err(g_, w_)[1] for g_, w_ in zip(*grads)]
+        if not max(errs) <= _tol(dt):
+            raise AssertionError(f"flash_attention backward {name}: rel "
+                                 f"errs dq/dk/dv {errs}")
+        brow = {"case": name + "_bwd", "rel_err_dq_dk_dv": max(errs)}
+        b_ms, b_by = bound(nbytes(q, k, v, do, q, k, v),
+                           10.0 * B * H * D * pairs, dt)
+        brow.update(bound_ms=b_ms, bound_by=b_by)
+        timed(brow, "ms", lambda: ops.flash_attention_bwd(q, k, v, do,
+                                                          causal=True))
+
+        def plain_bwd():
+            ts = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            torch.autograd.grad(ref.flash_attention(*ts, causal=True), ts, do)
+        timed(brow, "plain_ms", plain_bwd)
+        report({"flash_attention_bwd (PyTorch ops)": 1, **brow})
+        if name == "adapter_d512":
+            main = row
+    return main
+
+
 # -- phase 3: the serving plane ----------------------------------------
 
 def perturbed(tree, gen, device):
@@ -419,6 +601,213 @@ def serve_phase(device, cfg, *, n_users=16, n_requests=96, max_entries=12,
             "bytes_at_rest": engine.store.bytes_at_rest()}
 
 
+# -- phase 4: a full-width step on the card against the CPU ------------
+
+def _leaf_errs(got_tree, want_tree) -> dict:
+    """Per trainable leaf: max |card - CPU| over max |CPU|."""
+    want = dict(tree_lib.flatten_with_path(want_tree))
+    return {"/".join(map(str, path)): rel_err(g.cpu(), want[path])[1]
+            for path, g in tree_lib.flatten_with_path(got_tree)}
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+# trainable leaves whose gradient passes the adapter's ReLU gate
+RELU_GATED = ("adapter/w1", "adapter/b1")
+
+
+def _leaf_norm_errs(got_tree, want_tree) -> dict:
+    """Per trainable leaf: ||card - CPU|| / ||CPU||."""
+    want = dict(tree_lib.flatten_with_path(want_tree))
+    out = {}
+    for path, g in tree_lib.flatten_with_path(got_tree):
+        w = want[path].float()
+        out["/".join(map(str, path))] = (
+            (g.cpu().float() - w).norm() / w.norm().clamp_min(1e-30)).item()
+    return out
+
+
+def step_check_phase(seed: int = 0, n_layers: int = 2,
+                     device="cuda") -> dict:
+    """One ``train_step``'s loss and gradients at full Yi-9B width with
+    ``n_layers`` layers (NF4 backbone, seeded weights with the zero-init
+    LoRA B and adapter wo/w2 perturbed so every path carries gradient,
+    one batch of 4 x 64 tokens): on the card through the kernels and on
+    the CPU through the plain versions, on the same weights, once with
+    an fp32 and once with the trainer's bf16 model dtype. Loss, grad norm
+    and every grad leaf agree within 2e-2, a leaf measured as
+    ||card - CPU|| / ||CPU||, except the two leaves behind the adapter's
+    ReLU in bf16, which are reported only. A pre-activation within
+    rounding of zero takes that ReLU the other way on the other device
+    and moves the unit's w1 column and b1 entry for that token: a few
+    such units in fp32 (3.8% of the w1 leaf's largest entry on an H100,
+    the loss bit-equal), many more in bf16, where both devices round
+    every activation to 8 bits (6% in norm on w1 on an H100, every other
+    leaf within 1.6%, loss and grad norm within 1e-4). The largest
+    elementwise difference over a leaf's largest magnitude is reported
+    beside each leaf. ``device`` is the card except in a rehearsal on
+    the CPU."""
+    out = {}
+    for dname in ("float32", "bfloat16"):
+        cfg = get_config("yi-9b").replace(n_layers=n_layers, dtype=dname,
+                                          **YI_NF4)
+        model = build_model(cfg)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = model.init_params(gen, device=device)
+        frozen = params["frozen"]
+        tr = perturbed(params["trainable"], gen, device)
+        toks = train_lib.synthetic_token_stream(
+            np.random.RandomState(seed), cfg.vocab_size, 1,
+            docs_per_client=4, seq=64)[0]
+        ops.reset_kernel_traces()
+        t0 = time.perf_counter()
+        (loss_d, _), g_d = model.grads(frozen, tr,
+                                       train_lib.make_batch(toks, device))
+        _sync(device)
+        card_s = time.perf_counter() - t0
+        traces = dict(ops.KERNEL_TRACES)
+        bad = [k for k in traces if k.endswith("_ref")]
+        if bad and torch.device(device).type == "cuda":
+            raise AssertionError(f"card step took plain routes: {bad}")
+        t0 = time.perf_counter()
+        (loss_h, _), g_h = model.grads(convert.tree_to(frozen, "cpu"),
+                                       convert.tree_to(tr, "cpu"),
+                                       train_lib.make_batch(toks, "cpu"))
+        cpu_s = time.perf_counter() - t0
+        del frozen, params
+        errs = _leaf_errs(g_d, g_h)
+        norm_errs = _leaf_norm_errs(g_d, g_h)
+        gn_d = float(optim.global_norm(g_d))
+        gn_h = float(optim.global_norm(g_h))
+        res = {"dtype": dname, "layers": n_layers,
+               "loss_card": float(loss_d), "loss_cpu": float(loss_h),
+               "loss_rel": abs(float(loss_d) - float(loss_h))
+               / abs(float(loss_h)),
+               "grad_norm_card": gn_d, "grad_norm_cpu": gn_h,
+               "grad_norm_rel": abs(gn_d - gn_h) / gn_h,
+               "worst_leaf": max(norm_errs, key=norm_errs.get),
+               "worst_leaf_norm_rel": max(norm_errs.values()),
+               "worst_leaf_maxabs": max(errs, key=errs.get),
+               "worst_leaf_maxabs_rel": max(errs.values()), "card_s": card_s,
+               "cpu_s": cpu_s, "traces": traces, "leaf_rel": errs,
+               "leaf_norm_rel": norm_errs}
+        held = {k: v for k, v in norm_errs.items()
+                if dname == "float32" or k not in RELU_GATED}
+        if not (res["loss_rel"] <= 2e-2 and res["grad_norm_rel"] <= 2e-2
+                and max(held.values()) <= 2e-2):
+            raise AssertionError(f"full-width step card vs CPU: {res}")
+        out[dname] = res
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 5: the federated QLoRA trainer at full width and depth -------
+
+def profile_step(model, frozen, tr, toks) -> dict:
+    """One local step under the profiler: wall, device busy time, idle
+    share, the top device entries and the launches per kernel."""
+    cuda = torch.autograd.DeviceType.CUDA
+    batch = train_lib.make_batch(toks, "cuda")
+    opt = optim.adam_init(tr)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.train_step(frozen, tr, opt, batch, lr=1e-3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == cuda:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us()
+    busy = sum(by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_s": wall, "device_busy_s": busy,
+            "idle_share": 1.0 - busy / wall,
+            "launches": {k: launches[k] for k in TRAIN_KERNELS},
+            "top_ms": [(n[:60], round(us / 1e3, 2)) for n, us in top]}
+
+
+def train_phase(*, rounds=2, clients=2, steps=2, batch=4, seq=64,
+                n_layers=None, seed=0, device="cuda") -> dict:
+    """``repro_torch.launch.train``'s main path on Yi-9B: init, then
+    ``rounds`` of ``clients`` x ``client_update`` and ``aggregate``. The
+    launch counts are zeroed just before the rounds and read right after.
+    Every per-round mean loss must be finite and every uplink's byte
+    count must equal ``tree_bytes`` of its quantized delta. A rehearsal on
+    the CPU passes ``device="cpu"``, a smaller ``n_layers`` and gets no
+    profile."""
+    on_card = torch.device(device).type == "cuda"
+    cfg = get_config("yi-9b").replace(**YI_NF4)
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
+    model = build_model(cfg)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(
+        torch.Generator(device=device).manual_seed(seed), device=device)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    frozen, tr = params["frozen"], params["trainable"]
+    res = {"layers": cfg.n_layers, "init_s": init_s,
+           "backbone_bytes": qlib.tree_bytes(frozen),
+           "layer_stack_bytes": qlib.tree_bytes(frozen["layers"]),
+           "trainable_bytes": qlib.tree_bytes(tr), "rounds": []}
+    data = train_lib.synthetic_token_stream(
+        np.random.RandomState(seed), cfg.vocab_size, clients, seq=seq)
+
+    ops.reset_kernel_traces()
+    ops.reset_launch_counts()
+    n_steps = 0
+    for rnd in range(rounds):
+        t0 = time.perf_counter()
+        updates, losses, uplink = [], [], 0
+        for c in range(clients):
+            d, nb, loss, ns, _ = train_lib.client_update(
+                model, frozen, tr, data[c], steps=steps, batch=batch,
+                lr=1e-3, comm_bits=8, seed=rnd * 100 + c)
+            if nb != qlib.tree_bytes(d):
+                raise AssertionError(f"uplink {nb} != tree_bytes")
+            updates.append((len(data[c]), d))
+            losses.append(loss)
+            uplink += nb
+            n_steps += ns
+        tr = train_lib.aggregate(tr, updates)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"round {rnd}: non-finite losses {losses}")
+        res["rounds"].append({"round": rnd, "mean_loss": float(np.mean(losses)),
+                              "uplink_bytes": uplink, "wall_s": wall,
+                              "s_per_local_step": wall / (clients * steps)})
+    launches = ops.launch_counts()
+    traces = dict(ops.KERNEL_TRACES)
+    res.update(launches=launches, traces=traces, steps=n_steps,
+               max_memory_allocated=torch.cuda.max_memory_allocated()
+               if on_card else None, profile=None)
+    if not on_card:
+        return res
+    ref_routes = [k for k in traces if k.endswith("_ref") and
+                  k.startswith(TRAIN_KERNELS)]
+    if ref_routes:
+        raise AssertionError(f"the trainer took plain routes: {ref_routes}")
+    for name in TRAIN_KERNELS:
+        if launches[name] < 1:
+            raise AssertionError(f"the trainer launched no {name} kernel")
+    idx = np.random.RandomState(seed).randint(0, len(data[0]), batch)
+    res["profile"] = profile_step(model, frozen, tr, data[0][idx])
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -428,8 +817,11 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     print("kernels vs plain versions:", flush=True)
     main_rows = {"quant_matmul": check_quant_matmul(gen),
-                 "blockwise_quant": check_blockwise_quant(gen),
-                 "flash_attention": check_flash_attention(gen)}
+                 "blockwise_quant": check_blockwise_quant(gen)}
+    check_flash_attention(gen)      # the serve shapes
+    main_rows["flash_attention"] = check_flash_train(gen)
+    main_rows["lora_matmul"], main_rows["quant_matmul_t"] = \
+        check_lora_kernels(gen)
 
     print("serve plane at CLIP ViT-B/32 width:", flush=True)
     t0 = time.perf_counter()
@@ -460,10 +852,48 @@ def main() -> int:
     for name in ("quant_matmul", "blockwise_quant"):
         if res["after_replay"][name] < 1:
             raise AssertionError(f"the replay launched no {name} kernel")
-    for name, n in launches.items():
-        if n < 1:
+    for name in SERVE_KERNELS:
+        if launches[name] < 1:
             raise AssertionError(f"the serve path launched no {name} kernel")
+    serve_launches = launches
+    del res
+    torch.cuda.empty_cache()
 
+    print("full-width Yi-9B step (2 layers), card vs CPU:", flush=True)
+    t0 = time.perf_counter()
+    for res in step_check_phase().values():
+        report({k: v for k, v in res.items()
+                if k not in ("traces", "leaf_rel", "leaf_norm_rel")})
+        for key, what in (("leaf_norm_rel", "|card-cpu|/|cpu|"),
+                          ("leaf_rel", "max|card-cpu|/max|cpu|")):
+            print(f"  per-leaf {what}: " + " ".join(
+                f"{k}={v:.3g}" for k, v in res[key].items()), flush=True)
+    report({"step_check_phase_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+
+    print("federated QLoRA trainer, Yi-9B full width and depth:", flush=True)
+    t0 = time.perf_counter()
+    tres = train_phase()
+    report({"layers": tres["layers"], "init_s": tres["init_s"],
+            "backbone_bytes": tres["backbone_bytes"],
+            "layer_stack_bytes": tres["layer_stack_bytes"],
+            "trainable_bytes": tres["trainable_bytes"],
+            "max_memory_allocated": tres["max_memory_allocated"],
+            "phase_s": time.perf_counter() - t0})
+    for r in tres["rounds"]:
+        report(r)
+    report({"launches_train": {k: tres["launches"][k] for k in TRAIN_KERNELS},
+            "local_steps": tres["steps"],
+            "launches_per_step": {k: tres["launches"][k] / tres["steps"]
+                                  for k in TRAIN_KERNELS},
+            "traces": tres["traces"]})
+    prof = tres["profile"]
+    report({k: v for k, v in prof.items() if k != "top_ms"})
+    print(f"  step top device time (ms): {prof['top_ms']}", flush=True)
+
+    print(card_line(), flush=True)
+    launches = {**serve_launches,
+                **{k: tres["launches"][k] for k in TRAIN_KERNELS}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],

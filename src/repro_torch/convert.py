@@ -4,8 +4,12 @@ The port never imports JAX: :func:`tree_from_numpy` takes a tree whose
 leaves are array-likes (numpy arrays, or JAX arrays, which ``np.array``
 reads) and duck-types QTensors — any leaf with ``q``, ``scales``,
 ``bits``, ``mode``, ``block`` and ``orig_shape`` becomes a
-:class:`~repro_torch.core.quant.QTensor` — so a test can hand over a JAX
-tree as it is. :func:`tree_to_numpy` is the inverse.
+:class:`~repro_torch.core.quant.QTensor`, stacked layer payloads and a
+bf16 ``out_dtype`` included — so a test can hand over a JAX tree (a
+``Model.init_params`` tree too) as it is. bf16 arrays cross bit for bit
+(their 16-bit patterns are reinterpreted). :func:`tree_to_numpy` is the
+inverse, except that bf16 tensors come back as float32 arrays (numpy has
+no bf16 of its own).
 """
 from __future__ import annotations
 
@@ -33,6 +37,15 @@ def _torch_dtype(d) -> torch.dtype:
     return _DTYPES[np.dtype(d).name if not isinstance(d, str) else d]
 
 
+def _tensor(arr, device) -> torch.Tensor:
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)
+                                .astype(np.int16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.as_tensor(a, device=device)
+
+
 def tree_from_numpy(tree, device=None):
     """A port tree (torch tensors on ``device``) from array-like leaves."""
     dev = resolve_device(device)
@@ -41,14 +54,14 @@ def tree_from_numpy(tree, device=None):
         if _is_qtensor_like(leaf):
             out_dtype = getattr(leaf, "out_dtype", None)
             return QTensor(
-                q=torch.as_tensor(np.array(leaf.q), device=dev),
-                scales=torch.as_tensor(np.array(leaf.scales), device=dev),
+                q=_tensor(np.array(leaf.q), dev),
+                scales=_tensor(np.array(leaf.scales), dev),
                 bits=int(leaf.bits), mode=str(leaf.mode),
                 block=int(leaf.block),
                 out_dtype=torch.float32 if out_dtype is None
                 else _torch_dtype(out_dtype),
                 orig_shape=tuple(int(s) for s in leaf.orig_shape))
-        return torch.as_tensor(np.array(leaf), device=dev)
+        return _tensor(np.array(leaf), dev)
     return tree_lib.tree_map(conv, tree)
 
 
@@ -60,5 +73,20 @@ def tree_to_numpy(tree):
             return dataclasses.replace(
                 leaf, q=leaf.q.cpu().numpy(), scales=leaf.scales.cpu().numpy(),
                 out_dtype=str(leaf.out_dtype).replace("torch.", ""))
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.to(torch.float32)
         return leaf.detach().cpu().numpy()
     return tree_lib.tree_map(conv, tree)
+
+
+def tree_to(tree, device):
+    """The same tree with every tensor (QTensor payloads included) on
+    ``device``, dtypes unchanged: the card's weights on the CPU, say."""
+    dev = torch.device(device)
+
+    def move(leaf):
+        if isinstance(leaf, QTensor):
+            return dataclasses.replace(leaf, q=leaf.q.to(dev),
+                                       scales=leaf.scales.to(dev))
+        return leaf.to(dev)
+    return tree_lib.tree_map(move, tree)

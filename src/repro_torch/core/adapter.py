@@ -5,8 +5,10 @@
     CLIP_adapted(D) = Adapter(CLIP_pre(D))
 
 One multi-head attention plus a 2-layer ReLU FFN on top of the frozen
-backbone's hidden states, with residuals (wo/W2 zero-init). ``prefill``
-and ``decode`` are not ported yet.
+backbone's hidden states, with residuals (wo/W2 zero-init). ``apply`` is
+differentiable: a decoder LM runs it causally over the whole sequence,
+and its Att(D) takes the flash-attention op's gradient. ``prefill`` and
+``decode`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -41,7 +43,8 @@ def init(generator: torch.Generator, d: int, *, n_heads: int = 8,
 def apply(params, x: torch.Tensor, *, n_heads: int = 8,
           causal: bool = True) -> torch.Tensor:
     """x: (B, S, d) hidden states -> (B, S, d). Att(D) runs through the
-    flash-attention op (the CUDA kernel on the card)."""
+    flash-attention op (the CUDA kernel on the card; head dim d / n_heads,
+    512 at Yi-9B width)."""
     B, S, d = x.shape
     dh = d // n_heads
     dt = x.dtype

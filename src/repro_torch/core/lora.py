@@ -1,17 +1,33 @@
-"""Low-rank adaptation, port of ``repro.core.lora`` (forward only).
+"""Low-rank adaptation, port of ``repro.core.lora``.
 
 A LoRA pair for a frozen weight W (k, n) is {A: (k, r), B: (r, n)}; the
-effective weight is W + (alpha/r)·A@B. A pair may carry a leading batch
-axis (A ``(T, k, r)``) to give every row of a stacked tenant batch its own
-factors. The ``autograd.Function`` for the fused op's gradient comes with
-the training slice.
+effective weight is W + (alpha/r)·A@B. A is Kaiming-init, B zero-init so
+training starts at the pretrained function. A pair may carry a leading
+batch axis (A ``(T, k, r)``) to give every row of a stacked tenant batch
+its own factors. ``linear`` is differentiable in x, A and B: with a
+quantized W its gradient runs through the ``autograd.Function`` of
+``kernels.ops.lora_matmul`` (the fused kernels on the card).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.core.quant import QTensor, maybe_dequantize
 from repro_torch.kernels import ops as kops
+
+
+def init_pair(generator: torch.Generator, k: int, n: int, rank: int, *,
+              dtype=torch.float32, lead=(), device=None):
+    """A ``(*lead, k, rank)`` drawn N(0, 1/k) from ``generator``, B
+    ``(*lead, rank, n)`` zeros, on ``device`` (the generator's device
+    when None)."""
+    dev = generator.device if device is None else torch.device(device)
+    a = torch.randn((*lead, k, rank), generator=generator,
+                    device=generator.device) * (1.0 / math.sqrt(k))
+    return {"a": a.to(device=dev, dtype=dtype),
+            "b": torch.zeros((*lead, rank, n), dtype=dtype, device=dev)}
 
 
 def apply(x: torch.Tensor, lora, *, alpha: float, rank: int) -> torch.Tensor:

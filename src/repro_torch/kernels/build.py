@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/torch_kernels/<name>-<hash>.so`` at the repository root
 (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``), loaded
-with ``ctypes``. The hash covers the source and the flags, so an edited
-kernel rebuilds and an unchanged one loads from disk. :func:`build_all`
+with ``ctypes``. The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited kernel rebuilds and an
+unchanged one loads from disk. :func:`build_all`
 starts one ``nvcc`` per source, all at once. No ``--use_fast_math``:
 the quantizer's divisions must stay IEEE-rounded.
 
@@ -23,7 +24,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-KERNELS = ("quant_matmul", "blockwise_quant", "flash_attention")
+KERNELS = ("quant_matmul", "blockwise_quant", "flash_attention",
+           "lora_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,6 +48,8 @@ def nvcc() -> str:
 
 def so_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -10,7 +10,9 @@
 //
 // Design: grid (B*H, ceil(S/16)); 4 warps per block, each warp owns 4 of
 // the block's 16 query rows and keeps their running max m, sum l and
-// output accumulator in fp32 registers (D <= 256: 8 dims per lane). The
+// output accumulator in fp32 registers: DPL = 8 dims per lane for
+// D <= 256 and 16 for D <= 512 (the adapter's 4096 / 8 heads at Yi-9B
+// width), two instantiations so the short-D path keeps its registers. The
 // block loops over 32-key tiles of K and V staged in shared memory (K
 // rows padded to D+1 floats, so lane j reading key j is conflict-free):
 // lane j scores key j, the warp reduces max and sum with shuffles, and
@@ -20,8 +22,12 @@
 // tiles wholly outside the causal/window band are skipped, which is exact
 // since a masked key adds nothing. GQA reads kv head h / (H / Hkv). A row
 // with no valid key gives 0, as the TPU kernel's max(l, 1e-30) does.
-// D need not be a power of two (192 at CLIP width); D <= 256.
-// Simple first: no tensor cores.
+// D need not be a power of two (192 at CLIP width); D <= 512. At D = 512
+// the block's Q, K and V tiles take 164 KB of shared memory, past the
+// 48 KB default: the launcher raises the kernel's dynamic limit once per
+// instantiation (cudaFuncSetAttribute), so one block runs per SM there.
+// Simple first: no tensor cores. The gradient is not a kernel yet: the
+// port's autograd.Function (kernels/ops.py) recomputes P in PyTorch.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -32,8 +38,7 @@ constexpr int NWARP = 4;
 constexpr int BQ = 16;                  // query rows per block
 constexpr int RPW = BQ / NWARP;         // rows per warp
 constexpr int BK = 32;                  // keys per tile (one per lane)
-constexpr int MAXD = 256;
-constexpr int DPL = MAXD / 32;          // output dims per lane
+constexpr int MAXD = 512;
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -62,7 +67,8 @@ size_t smem_bytes(int D) {
 }
 
 // q (B, S, H, D); k, v (B, Skv, Hkv, D) -> o (B, S, H, D)
-template <typename T>
+// DPL: output dims per lane, so D <= 32 * DPL
+template <typename T, int DPL>
 __global__ void __launch_bounds__(NWARP * 32)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int S, int Skv,
@@ -162,25 +168,37 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <typename T, int DPL>
+cudaError_t launch_dpl(const void* q, const void* k, const void* v, void* o,
+                       int B, int S, int Skv, int H, int Hkv, int D,
+                       float scale, int causal, int window,
+                       cudaStream_t stream) {
+  const size_t bytes = smem_bytes(D);
+  static bool attr_set = false;   // the 32 * DPL bound: one setting is enough
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_kernel<T, DPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes(32 * DPL));
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const dim3 grid(B * H, (S + BQ - 1) / BQ);
+  flash_kernel<T, DPL><<<grid, NWARP * 32, bytes, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, Skv, H, Hkv, D, scale,
+      causal, window);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_typed(const void* q, const void* k, const void* v, void* o,
                          int B, int S, int Skv, int H, int Hkv, int D,
                          float scale, int causal, int window,
                          cudaStream_t stream) {
-  const size_t bytes = smem_bytes(D);
-  static bool attr_set = false;   // the MAXD bound makes one setting enough
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes(MAXD));
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
-  const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  flash_kernel<T><<<grid, NWARP * 32, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, Skv, H, Hkv, D, scale,
-      causal, window);
-  return cudaGetLastError();
+  if (D <= 256)
+    return launch_dpl<T, 8>(q, k, v, o, B, S, Skv, H, Hkv, D, scale, causal,
+                            window, stream);
+  return launch_dpl<T, 16>(q, k, v, o, B, S, Skv, H, Hkv, D, scale, causal,
+                           window, stream);
 }
 
 }  // namespace

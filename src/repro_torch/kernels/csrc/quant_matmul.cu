@@ -19,36 +19,23 @@
 //    shared memory (loads coalesced along N), fp32 accumulation.
 // Either way the loop over quant groups inside the block takes the place
 // of the TPU's sequential grid axis. Packed 4-bit row j holds rows 2j
-// (hi nibble) and 2j+1 (lo nibble); NF4 codes map through the 16-entry
-// codebook in constant memory. No tensor cores and no async copies yet.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+// (hi nibble) and 2j+1 (lo nibble); the decode is dequant.cuh's, shared
+// with lora_matmul.cu, and NF4 codes map through the 16-entry codebook in
+// shared memory. No tensor cores and no async copies yet.
+#include "dequant.cuh"
 
 namespace {
+
+using dq::FMT_INT4;
+using dq::FMT_INT8;
+using dq::FMT_NF4;
+using dq::load_f;
+using dq::store_f;
 
 constexpr int BN = 64;              // output columns per block
 constexpr int TY = 4;               // row groups per block
 constexpr int NTHREADS = BN * TY;   // 256
 constexpr int KT = 32;              // K rows per tile
-
-enum { FMT_INT8 = 0, FMT_INT4 = 1, FMT_NF4 = 2 };
-
-__constant__ float kNF4[16] = {
-    -1.0f, -0.6961928009986877f, -0.5250730514526367f,
-    -0.39491748809814453f, -0.28444138169288635f, -0.18477343022823334f,
-    -0.09105003625154495f, 0.0f, 0.07958029955625534f,
-    0.16093020141124725f, 0.24611230194568634f, 0.33791524171829224f,
-    0.44070982933044434f, 0.5626170039176941f, 0.7229568362236023f, 1.0f};
-
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // x (T, M, Kq), q (T, G, rows, N), s (T, G, 1, N) -> y (T, M, N).
 // RM output rows per thread, so a block covers BM = TY * RM rows.
@@ -60,6 +47,9 @@ qmm_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
   constexpr int BM = TY * RM;
   __shared__ float xs[BM][KT + 1];
   __shared__ float ws[KT][BN];
+  __shared__ float code[16];
+  dq::load_codebook(code);
+  __syncthreads();
   const int G = Kq / block;
   const int t = blockIdx.z;
   const int n0 = blockIdx.x * BN;
@@ -84,17 +74,8 @@ qmm_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
       const int kk = i / BN, nn = i % BN;
       const int k = k0 + kk, n = n0 + nn;
       float w = 0.f;
-      if (k < Kq && n < N) {
-        const int g = k / block, r = k - g * block;
-        const float sc = st[(size_t)g * N + n];
-        if (FMT == FMT_INT8) {
-          w = (float)(int8_t)qt[((size_t)g * rows + r) * N + n] * sc;
-        } else {
-          const uint8_t p = qt[((size_t)g * rows + (r >> 1)) * N + n];
-          const int nib = (r & 1) ? (p & 0xF) : (p >> 4);
-          w = (FMT == FMT_NF4 ? kNF4[nib] : (float)(nib - 8)) * sc;
-        }
-      }
+      if (k < Kq && n < N)
+        w = dq::weight_at<FMT>(qt, st, k, n, N, block, rows, code);
       ws[kk][nn] = w;
     }
     __syncthreads();
@@ -137,7 +118,7 @@ qmv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
   // lanes index the codebook divergently: constant memory would
   // serialise that, shared memory serves 16 distinct words at once
   __shared__ float code[16];
-  if (threadIdx.x < 16) code[threadIdx.x] = kNF4[threadIdx.x];
+  dq::load_codebook(code);
   __syncthreads();
   const int t = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -175,8 +156,8 @@ qmv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
             acc[m][c] = fmaf(load_f(xt + (size_t)m * Kq + k), w, acc[m][c]);
         } else {
           const int hi = b >> 4, lo = b & 0xF;
-          const float whi = (FMT == FMT_NF4 ? code[hi] : (float)(hi - 8)) * sc[c];
-          const float wlo = (FMT == FMT_NF4 ? code[lo] : (float)(lo - 8)) * sc[c];
+          const float whi = dq::decode4<FMT>(hi, code) * sc[c];
+          const float wlo = dq::decode4<FMT>(lo, code) * sc[c];
 #pragma unroll
           for (int m = 0; m < MR; ++m) {
             acc[m][c] = fmaf(load_f(xt + (size_t)m * Kq + k), whi, acc[m][c]);

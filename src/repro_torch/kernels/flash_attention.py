@@ -3,9 +3,10 @@
 ``flash_attention(q, k, v)`` runs blocked online-softmax attention on
 the card (source: ``csrc/flash_attention.cu``) with the Pallas kernel's
 layout and masks: q ``(B, S, H, D)``, k/v ``(B, Skv, Hkv, D)``, GQA
-through ``h // (H / Hkv)``, causal, sliding ``window``. Any D up to 256
-(the adapter's D is 192 at CLIP ViT-B/32 width). The plain version is
-:func:`repro_torch.kernels.ref.flash_attention`.
+through ``h // (H / Hkv)``, causal, sliding ``window``. Any D up to 512
+(the adapter's D is 192 at CLIP ViT-B/32 width and 512 at Yi-9B width).
+The plain version is :func:`repro_torch.kernels.ref.flash_attention`; the
+gradient is ``kernels.ops.flash_attention``'s ``autograd.Function``.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 
 from repro_torch.kernels import build
 
-MAX_D = 256
+MAX_D = 512
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,

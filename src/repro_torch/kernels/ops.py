@@ -8,16 +8,26 @@ launch. There is no fallback from the kernel to the plain version.
 ``KERNEL_TRACES`` counts which implementation each call took (the JAX
 package counts at trace time; PyTorch runs eagerly, so here it is per
 call), and every kernel wrapper keeps its own integer ``launches``.
+
+``lora_matmul`` and ``flash_attention`` are ``torch.autograd.Function``s:
+the first ports the custom VJP of ``repro.kernels.ops.lora_matmul`` (its
+dx gemm is the ``quant_matmul_t`` kernel on the card), the second gives
+the attention kernel a gradient computed in plain PyTorch from q, k, v
+(the JAX package differentiates its plain version; it has no backward
+kernel either).
 """
 from __future__ import annotations
 
 from typing import Dict
+
+import math
 
 import torch
 
 from repro_torch.core import quant as qlib
 from repro_torch.kernels import blockwise_quant as bq_kernel
 from repro_torch.kernels import flash_attention as fa_kernel
+from repro_torch.kernels import lora_matmul as lm_kernel
 from repro_torch.kernels import quant_matmul as qmm_kernel
 from repro_torch.kernels import ref
 
@@ -28,6 +38,8 @@ KERNELS = {
     "quant_matmul": qmm_kernel.quant_matmul,
     "blockwise_quant": bq_kernel.blockwise_quant,
     "flash_attention": fa_kernel.flash_attention,
+    "lora_matmul": lm_kernel.lora_matmul,
+    "quant_matmul_t": lm_kernel.quant_matmul_t,
 }
 
 
@@ -56,18 +68,68 @@ def _on_cuda(t: torch.Tensor, op: str) -> bool:
     raise NotImplementedError(f"{op}: no kernel for device {t.device}")
 
 
+# -- attention -----------------------------------------------------------
+def flash_attention_bwd(q, k, v, do, *, causal=True, window=None):
+    """The gradient of masked ``softmax(QKᵀ/√D)V`` for q (B, S, H, D), k/v
+    (B, Skv, Hkv, D): P is recomputed from q, k and the masks
+    (``ref.attention_probs``, not autograd through the forward), then
+    ``dV = Pᵀ dO``, ``dS = P∘(dO Vᵀ − rowsum(P∘(dO Vᵀ)))`` (the rowsum
+    equals ``rowsum(dO∘O)``, here without the rounding of the stored O),
+    ``dQ = dS K/√D`` and ``dK = dSᵀ Q/√D``, GQA summed over each KV
+    group; all in fp32, cast back to the inputs' dtypes. A row that sees
+    no key has P = 0 and gets no gradient, as the forward gives it 0."""
+    B, S, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    p = ref.attention_probs(q, k, causal=causal, window=window)
+    qf = q.to(torch.float32) * scale
+    kf = k.to(torch.float32).repeat_interleave(G, dim=2)
+    vf = v.to(torch.float32).repeat_interleave(G, dim=2)
+    dof = do.to(torch.float32)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    if G > 1:
+        dk = dk.reshape(B, Skv, Hkv, G, D).sum(3)
+        dv = dv.reshape(B, Skv, Hkv, G, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.causal, ctx.window = causal, window
+        ctx.save_for_backward(q, k, v)
+        if _on_cuda(q, "flash_attention"):
+            trace_count("flash_attention_cuda")
+            return fa_kernel.flash_attention(q, k, v, causal=causal,
+                                             window=window)
+        trace_count("flash_attention_ref")
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        trace_count("flash_attention_bwd")
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal=True, window=None):
-    if _on_cuda(q, "flash_attention"):
-        trace_count("flash_attention_cuda")
-        return fa_kernel.flash_attention(q, k, v, causal=causal,
-                                         window=window)
-    trace_count("flash_attention_ref")
-    return ref.flash_attention(q, k, v, causal=causal, window=window)
+    return _FlashAttention.apply(q, k, v, causal, window)
 
 
 def quant_matmul(x, qt: qlib.QTensor):
     # qt.q.ndim == 3: a plain 2-D weight; 4: a stacked (per-user) one
     if _on_cuda(x, "quant_matmul"):
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise NotImplementedError(
+                "quant_matmul kernel has no backward: a gradient through a "
+                "quantized weight without LoRA takes lora_matmul")
         trace_count("quant_matmul_cuda" if qt.q.ndim == 3
                     else "quant_matmul_cuda_stacked")
         return qmm_kernel.quant_matmul(x, qt)
@@ -75,16 +137,60 @@ def quant_matmul(x, qt: qlib.QTensor):
     return ref.quant_matmul(x, qt)
 
 
+# -- fused LoRA linear -----------------------------------------------------
+class _QLoraMatmul(torch.autograd.Function):
+    """Port of the custom VJP at ``repro/kernels/ops.py:195-247`` for a
+    QTensor W (frozen: the payload gets no gradient).
+
+    On the card the forward is the fused kernel and the backward's dx
+    through Wᵀ is the ``quant_matmul_t`` kernel, sliced ``[:, :K]``; only
+    x, A and B are saved, never a dequantized W (an fp32 W per layer
+    would be 33 GB at Yi-9B and undo QLoRA). On the CPU it follows the
+    JAX package's plain branch: the forward dequantizes W to fp32 and
+    saves it for the backward's Wᵀ gemm. dA, dB and ``scale·gB Aᵀ`` are
+    ``torch.matmul``, as the JAX package computes them outside any
+    kernel."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, qt, scale):
+        ctx.qt, ctx.scale = qt, scale
+        if _on_cuda(x, "lora_matmul"):
+            trace_count("lora_matmul_cuda")
+            ctx.save_for_backward(x, a, b)
+            return lm_kernel.lora_matmul(x, qt, a, b, scale=scale)
+        trace_count("lora_matmul_ref")
+        wd = qlib.dequantize(qt, torch.float32)[:x.shape[-1]]
+        ctx.save_for_backward(x, a, b, wd)
+        return ref.lora_matmul(x, wd, a, b, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, a, b, *wd = ctx.saved_tensors
+        scale, K = ctx.scale, x.shape[-1]
+        x2 = x.reshape(-1, K).to(torch.float32)
+        g2 = g.reshape(-1, g.shape[-1]).to(torch.float32)
+        af, bf = a.to(torch.float32), b.to(torch.float32)
+        gb = g2 @ bf.t()                                  # (M, r)
+        if wd:
+            dxw = g2 @ wd[0].t()                          # (M, K) exactly
+        else:
+            trace_count("quant_matmul_t_cuda")
+            dxw = lm_kernel.quant_matmul_t(g2, ctx.qt)[:, :K]
+        dx = (dxw + scale * gb @ af.t()).reshape(x.shape).to(x.dtype)
+        da = (scale * (x2.t() @ gb)).to(a.dtype)
+        db = (scale * ((x2 @ af).t() @ g2)).to(b.dtype)
+        return dx, da, db, None, None
+
+
 def lora_matmul(x, w, a, b, *, scale: float):
-    """``y = x @ W + scale·(x@A)@B`` with fp32 accumulation. A dense W
-    is plain PyTorch on every device, as the JAX package computes that
-    branch outside any Pallas kernel. A QTensor W on the card needs the
-    fused LoRA kernel, which is not ported yet."""
-    if isinstance(w, qlib.QTensor) and _on_cuda(x, "lora_matmul"):
-        raise NotImplementedError(
-            "lora_matmul with a quantized W on CUDA: fused LoRA kernel not "
-            "yet ported")
-    trace_count("lora_matmul_ref")
+    """``y = x @ W + scale·(x@A)@B`` as one op with fp32 accumulation and
+    a gradient for x, A and B (``_QLoraMatmul``). A dense W is plain
+    PyTorch on every device (autograd gives dW too), as the JAX package
+    computes that branch outside any Pallas kernel; its A/B may carry a
+    leading batch axis (one pair per row of a stacked tenant batch)."""
+    if isinstance(w, qlib.QTensor):
+        return _QLoraMatmul.apply(x, a, b, w, float(scale))
+    trace_count("lora_matmul_dense")
     return ref.lora_matmul(x, w, a, b, scale=float(scale))
 
 

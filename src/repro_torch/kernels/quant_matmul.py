@@ -23,31 +23,41 @@ _ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)
 _FMT = {(8, "linear"): 0, (4, "linear"): 1, (4, "nf4"): 2}
 
 
-def quant_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """x: (..., K) @ dequant(qt (K, N)) -> (..., N); for a stacked ``qt``
-    x is ``(T, ..., K)``. fp32 accumulation, output in x's dtype."""
+def check_qtensor(x: torch.Tensor, qt: QTensor, op: str, ndims=(3, 4)):
+    """The checks every quantized-weight kernel makes before it launches:
+    ``x`` and the payload on one CUDA device, f32/bf16 ``x``, a supported
+    format with contiguous payload and scales of the right shapes.
+    Returns ``(fmt, G, rows, N)``."""
     q, s = qt.q, qt.scales
     if not (x.is_cuda and q.device == x.device and s.device == x.device):
-        raise ValueError("quant_matmul kernel needs x, q and scales on one "
+        raise ValueError(f"{op} kernel needs its input, q and scales on one "
                          f"CUDA device, got {x.device}/{q.device}/{s.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"quant_matmul kernel takes f32/bf16 x, got {x.dtype}")
+        raise TypeError(f"{op} kernel takes f32/bf16 input, got {x.dtype}")
     fmt = _FMT.get((qt.bits, qt.mode))
     want_q = torch.int8 if qt.bits == 8 else torch.uint8
     if fmt is None or q.dtype != want_q or s.dtype != torch.float32:
         raise TypeError(f"unsupported QTensor: bits={qt.bits} mode={qt.mode} "
                         f"q {q.dtype} scales {s.dtype}")
-    if q.ndim not in (3, 4):
-        raise NotImplementedError(
-            f"quant_matmul kernel: q.ndim={q.ndim} (more than one stack axis)")
+    if q.ndim not in ndims:
+        raise NotImplementedError(f"{op} kernel: q.ndim={q.ndim} (takes "
+                                  f"{ndims})")
     if not (q.is_contiguous() and s.is_contiguous()):
-        raise ValueError("quant_matmul kernel needs contiguous q and scales")
+        raise ValueError(f"{op} kernel needs contiguous q and scales")
     G, rows, N = q.shape[-3:]
-    T = q.shape[0] if q.ndim == 4 else 1
     if tuple(s.shape[-3:]) != (G, 1, N) or rows != (
             qt.block if qt.bits == 8 else qt.block // 2):
         raise ValueError(f"QTensor payload {tuple(q.shape)} / scales "
                          f"{tuple(s.shape)} disagree with block {qt.block}")
+    return fmt, G, rows, N
+
+
+def quant_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """x: (..., K) @ dequant(qt (K, N)) -> (..., N); for a stacked ``qt``
+    x is ``(T, ..., K)``. fp32 accumulation, output in x's dtype."""
+    q, s = qt.q, qt.scales
+    fmt, G, rows, N = check_qtensor(x, qt, "quant_matmul")
+    T = q.shape[0] if q.ndim == 4 else 1
     Kq, K = G * qt.block, x.shape[-1]
     if Kq != K:
         if Kq < K or (Kq - K) >= qt.block:

@@ -20,22 +20,16 @@ NEG_INF = -1e30
 # ------------------------------------------------------------------
 # flash attention (causal / sliding-window / bidirectional), GQA-aware
 # ------------------------------------------------------------------
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window=None) -> torch.Tensor:
-    """q: (B, S, H, D); k, v: (B, Skv, Hkv, D) -> (B, S, H, D).
-
-    Masked softmax(QK^T/sqrt(D))V in fp32 with the Pallas kernel's
-    conventions (``kernels/flash_attention.py``): masked keys carry
-    probability 0 and a row with no valid key gives 0 (``l`` floors at
-    1e-30). On every row with at least one valid key this equals
-    ``repro.kernels.ref.flash_attention``."""
+def attention_probs(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+                    window=None) -> torch.Tensor:
+    """The masked ``softmax(QKᵀ/√D)`` of :func:`flash_attention` in fp32,
+    ``(B, H, S, Skv)``, with kv head ``h // (H / Hkv)`` for query head h:
+    masked keys carry probability 0 and a row with no valid key is all 0
+    (``l`` floors at 1e-30), as in the Pallas kernel."""
     B, S, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    G = H // Hkv
-    scale = 1.0 / math.sqrt(D)
-    qf = q.to(torch.float32) * scale
-    kf = k.to(torch.float32).repeat_interleave(G, dim=2)   # kv head h // G
-    vf = v.to(torch.float32).repeat_interleave(G, dim=2)
+    qf = q.to(torch.float32) * (1.0 / math.sqrt(D))
+    kf = k.to(torch.float32).repeat_interleave(H // Hkv, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
     qpos = torch.arange(S, device=q.device)[:, None]
     kpos = torch.arange(Skv, device=q.device)[None, :]
@@ -47,8 +41,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
-    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bhqk,bkhd->bqhd", p / l, vf)
+    return p / p.sum(-1, keepdim=True).clamp_min(1e-30)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None) -> torch.Tensor:
+    """q: (B, S, H, D); k, v: (B, Skv, Hkv, D) -> (B, S, H, D).
+
+    Masked softmax(QK^T/sqrt(D))V in fp32 with the Pallas kernel's
+    conventions (``kernels/flash_attention.py``, :func:`attention_probs`).
+    On every row with at least one valid key this equals
+    ``repro.kernels.ref.flash_attention``."""
+    p = attention_probs(q, k, causal=causal, window=window)
+    vf = v.to(torch.float32).repeat_interleave(q.shape[2] // v.shape[2],
+                                               dim=2)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
     return out.to(q.dtype)
 
 
@@ -99,6 +106,20 @@ def lora_matmul(x: torch.Tensor, w, a: torch.Tensor, b: torch.Tensor, *,
     h = torch.matmul(xf, a.to(torch.float32))
     delta = torch.matmul(h, b.to(torch.float32))
     return (base + scale * delta).to(x.dtype)
+
+
+def quant_matmul_t(g: torch.Tensor, qt: qlib.QTensor) -> torch.Tensor:
+    """``g (..., N) @ dequant(qt (Kq, N))ᵀ -> (..., Kq)`` in fp32, cast
+    back to ``g.dtype``: the dx gemm of the LoRA VJP. The output covers
+    the padded Kq (the odd-K contract); callers slice ``[..., :K]``."""
+    if qt.q.ndim != 3:
+        raise ValueError(f"quant_matmul_t takes one 2-D weight, got q "
+                         f"{tuple(qt.q.shape)}")
+    if g.shape[-1] != qt.q.shape[-1]:
+        raise ValueError(f"contraction dim {g.shape[-1]} != quantized N "
+                         f"{qt.q.shape[-1]}")
+    w = qlib.dequantize(qt, torch.float32)
+    return torch.matmul(g.to(torch.float32), w.t()).to(g.dtype)
 
 
 # ------------------------------------------------------------------

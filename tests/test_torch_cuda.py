@@ -5,13 +5,16 @@ machine with an H100 and PyTorch alone:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Without a Hopper GPU every test skips with its reason. Tolerances: fp32
-1e-5 (TF32 off), ``blockwise_quant`` bitwise."""
+1e-5 (TF32 off), bf16 2e-2 times the largest magnitude (the JAX
+package's bf16 bound), ``blockwise_quant`` bitwise."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import blockwise_quant as bq_kernel
 from repro_torch.kernels import flash_attention as fa_kernel
+from repro_torch.kernels import lora_matmul as lm_kernel
+from repro_torch.kernels import ops
 from repro_torch.kernels import quant_matmul as qmm_kernel
 from repro_torch.kernels import ref
 
@@ -21,6 +24,14 @@ FLASH_CASES = [  # (B, S, H, Hkv, D, causal, window)
     (2, 40, 4, 2, 16, True, 8),        # GQA, causal, sliding window
     (1, 33, 2, 2, 24, False, None),    # D not a power of two
     (1, 5, 4, 4, 16, True, None),      # the adapter's causal S=5
+    (4, 64, 8, 8, 512, True, None),    # the adapter at Yi-9B width
+    (2, 40, 4, 2, 512, True, 8),       # D=512 with GQA and a window
+]
+LORA_CASES = [  # (M, K, N, bits, mode, dtype, rank)
+    (256, 4096, 512, 4, "nf4", torch.bfloat16, 16),   # Yi-9B wk/wv
+    (37, 200, 33, 8, "linear", torch.float32, 4),     # odd K, ragged N
+    (37, 200, 33, 4, "linear", torch.float32, 4),
+    (9, 128, 96, 4, "nf4", torch.float32, 20),        # rank padded to 32
 ]
 
 
@@ -73,3 +84,78 @@ def test_cuda_flash_attention_matches_plain(cuda_device, B, S, H, Hkv, D,
     torch.testing.assert_close(
         got, ref.flash_attention(q, k, v, causal=causal, window=window),
         rtol=1e-5, atol=1e-5)
+
+
+def _close(got, want):
+    if want.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        tol = 2e-2 * max(1.0, want.float().abs().max().item())
+        assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def _lora_inputs(dev, M, K, N, bits, mode, dtype, r):
+    w = torch.from_numpy(_np(29, K, N) / np.sqrt(K)).to(dev)
+    qt = ref.blockwise_quant(w, bits=bits, block=64, mode=mode)
+    x = torch.from_numpy(_np(30, M, K)).to(dev).to(dtype)
+    a = torch.from_numpy(_np(31, K, r) / np.sqrt(K)).to(dev)
+    b = torch.from_numpy(_np(32, r, N)).to(dev)
+    return qt, x, a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,bits,mode,dtype,r", LORA_CASES)
+def test_cuda_lora_matmul_matches_plain(cuda_device, M, K, N, bits, mode,
+                                        dtype, r):
+    qt, x, a, b = _lora_inputs(cuda_device, M, K, N, bits, mode, dtype, r)
+    got = lm_kernel.lora_matmul(x, qt, a, b, scale=2.0)
+    _close(got, ref.lora_matmul(x, qt, a, b, scale=2.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,bits,mode,dtype,r", LORA_CASES)
+def test_cuda_quant_matmul_t_matches_plain(cuda_device, M, K, N, bits, mode,
+                                           dtype, r):
+    qt, _, _, _ = _lora_inputs(cuda_device, M, K, N, bits, mode, dtype, r)
+    g = torch.from_numpy(_np(33, M, N)).to(cuda_device)
+    got = lm_kernel.quant_matmul_t(g, qt)
+    assert got.shape == (M, qt.q.shape[0] * qt.block)
+    _close(got, ref.quant_matmul_t(g, qt))
+
+
+@pytest.mark.cuda
+def test_cuda_lora_op_grads_match_the_cpu_route(cuda_device):
+    """The autograd.Function on the card (fused kernel forward,
+    quant_matmul_t backward) against its CPU route (plain forward with
+    the dequantized-W residual) on the same inputs."""
+    grads = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        qt, x, a, b = _lora_inputs(dev, 37, 200, 33, 4, "nf4",
+                                   torch.float32, 4)
+        ct = torch.from_numpy(_np(34, 37, 33)).to(dev)
+        ts = [t.clone().requires_grad_(True) for t in (x, a, b)]
+        ops.reset_kernel_traces()
+        (ops.lora_matmul(ts[0], qt, ts[1], ts[2], scale=2.0) * ct).sum() \
+            .backward()
+        grads[dev.type] = [t.grad.cpu() for t in ts]
+        if dev.type == "cuda":
+            assert ops.KERNEL_TRACES == {"lora_matmul_cuda": 1,
+                                         "quant_matmul_t_cuda": 1}
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,D,causal,window", FLASH_CASES[1:])
+def test_cuda_flash_attention_backward_matches_autograd_of_plain(
+        cuda_device, B, S, H, Hkv, D, causal, window):
+    q, k, v = (torch.from_numpy(_np(s, B, S, h, D)).to(cuda_device)
+               for s, h in ((35, H), (36, Hkv), (37, Hkv)))
+    ct = torch.from_numpy(_np(38, B, S, H, D)).to(cuda_device)
+    got, want = [], []
+    for fn, out in ((ops.flash_attention, got), (ref.flash_attention, want)):
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        (fn(*ts, causal=causal, window=window) * ct).sum().backward()
+        out.extend(t.grad for t in ts)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)

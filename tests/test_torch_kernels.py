@@ -28,6 +28,7 @@ from repro.kernels.quant_matmul import quant_matmul as pallas_qmm
 from repro_torch import convert
 from repro_torch.kernels import blockwise_quant as bq_kernel
 from repro_torch.kernels import flash_attention as fa_kernel
+from repro_torch.kernels import lora_matmul as lm_kernel
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_matmul as qmm_kernel
 from repro_torch.kernels import ref
@@ -173,7 +174,8 @@ def test_ops_dispatch_cpu_tensors_to_plain_versions():
                                  "quant_matmul_ref": 1,
                                  "flash_attention_ref": 1}
     assert ops.launch_counts() == {"quant_matmul": 0, "blockwise_quant": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0, "lora_matmul": 0,
+                                   "quant_matmul_t": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -187,6 +189,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     q = torch.from_numpy(_np(20, 1, 2, 2, 8))
     with pytest.raises(ValueError, match="CUDA"):
         fa_kernel.flash_attention(q, q, q)
+    a, b = torch.from_numpy(_np(25, 64, 4)), torch.from_numpy(_np(26, 4, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        lm_kernel.lora_matmul(x[:2], qt, a, b, scale=1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        lm_kernel.quant_matmul_t(x[:2], qt)
 
 
 def test_ops_refuse_unported_kernel_paths(monkeypatch):
@@ -197,11 +204,28 @@ def test_ops_refuse_unported_kernel_paths(monkeypatch):
     # a device with no kernel and no plain path
     with pytest.raises(NotImplementedError, match="no kernel"):
         ops.quant_matmul(x.to("meta"), qt)
-    # the fused LoRA kernel is not ported: a quantized W on the card
-    # raises instead of quietly taking the plain path
+    # a quantized W on the card routes to the fused LoRA kernel, and the
+    # backward's dx to quant_matmul_t, never to the plain versions
+    calls = []
     monkeypatch.setattr(ops, "_on_cuda", lambda t, op: True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ops.lora_matmul(x, qt, a, b, scale=1.0)
+    monkeypatch.setattr(
+        ops.lm_kernel, "lora_matmul",
+        lambda x_, w, a_, b_, scale: calls.append("lora_matmul") or
+        ref.lora_matmul(x_, w, a_, b_, scale=scale))
+    monkeypatch.setattr(
+        ops.lm_kernel, "quant_matmul_t",
+        lambda g, w: calls.append("quant_matmul_t") or
+        ref.quant_matmul_t(g, w))
+    ops.reset_kernel_traces()
+    xg = x.clone().requires_grad_(True)
+    ops.lora_matmul(xg, qt, a, b, scale=1.0).sum().backward()
+    assert calls == ["lora_matmul", "quant_matmul_t"]
+    assert ops.KERNEL_TRACES == {"lora_matmul_cuda": 1,
+                                 "quant_matmul_t_cuda": 1}
+    np.testing.assert_allclose(
+        xg.grad.numpy(), (ref.quant_matmul_t(torch.ones(2, 32), qt)
+                          + (torch.ones(2, 32) @ b.t()) @ a.t()).numpy(),
+        rtol=1e-5, atol=1e-5)
     with pytest.raises(NotImplementedError, match="2-D linear"):
         ops.blockwise_quant(x, bits=4, block=32, mode="nf4")
 
@@ -211,6 +235,8 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import sys; sys.path.insert(0, 'src'); sys.path.insert(0, '.')\n"
         "import repro_torch, repro_torch.fl.serve, repro_torch.convert\n"
         "import repro_torch.kernels.ops, chip_smoke\n"
+        "import repro_torch.models, repro_torch.launch.train\n"
+        "import repro_torch.configs\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.'))\n"
