@@ -3,7 +3,8 @@
 ``get_config(arch_id)`` returns the exact assigned configuration and
 ``get_reduced(arch_id)`` the CPU smoke-test variant of the same family.
 The port carries the configs of the families it runs (the dense
-decoders, and ``clip-b32``'s trunk); an arch of a family that is not
+decoders, the Mamba-1 SSM ``falcon-mamba-7b``, and ``clip-b32``'s
+trunk); an arch of a family that is not
 ported yet raises ``NotImplementedError`` naming the ROADMAP slice that
 brings it.
 """
@@ -19,13 +20,12 @@ _MODULES = {
     "h2o-danube-3-4b": "h2o_danube_3_4b",
     "codeqwen1.5-7b": "codeqwen1_5_7b",
     "starcoder2-15b": "starcoder2_15b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
     "clip-b32": "clip_b32",
 }
 
 # arch -> (family, the ROADMAP slice that ports it)
 _UNPORTED = {
-    "falcon-mamba-7b": ("ssm", "the next slice: falcon-mamba-7b training "
-                        "with the selective_scan kernel (ROADMAP Queue B 6)"),
     "qwen3-moe-235b-a22b": ("moe", "the large-model zoo's other families "
                             "(ROADMAP Queue A item 14)"),
     "kimi-k2-1t-a32b": ("moe", "the large-model zoo's other families "

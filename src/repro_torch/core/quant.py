@@ -46,8 +46,18 @@ class QTensor:
             self.scales.numel() * self.scales.element_size()
 
 
+_CODES: dict = {}
+
+
 def _code(device) -> torch.Tensor:
-    return torch.as_tensor(NF4_CODE, device=device)
+    """The NF4 codebook on ``device``, copied there once: a fresh copy
+    per call is a blocking host-to-device transfer, which on the card
+    drains the stream before every dequantize."""
+    dev = torch.device(device)
+    code = _CODES.get(dev)
+    if code is None:
+        code = _CODES[dev] = torch.as_tensor(NF4_CODE, device=dev)
+    return code
 
 
 def _div(x: torch.Tensor, levels: float) -> torch.Tensor:

@@ -9,12 +9,12 @@ launch. There is no fallback from the kernel to the plain version.
 package counts at trace time; PyTorch runs eagerly, so here it is per
 call), and every kernel wrapper keeps its own integer ``launches``.
 
-``lora_matmul`` and ``flash_attention`` are ``torch.autograd.Function``s:
-the first ports the custom VJP of ``repro.kernels.ops.lora_matmul`` (its
-dx gemm is the ``quant_matmul_t`` kernel on the card), the second gives
-the attention kernel a gradient computed in plain PyTorch from q, k, v
-(the JAX package differentiates its plain version; it has no backward
-kernel either).
+``lora_matmul``, ``flash_attention`` and ``selective_scan`` are
+``torch.autograd.Function``s: the first ports the custom VJP of
+``repro.kernels.ops.lora_matmul`` (its dx gemm is the ``quant_matmul_t``
+kernel on the card), the other two give their kernel a gradient computed
+in plain PyTorch from the saved inputs (the JAX package differentiates
+their plain versions; it has no backward kernel for either).
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import lora_matmul as lm_kernel
 from repro_torch.kernels import quant_matmul as qmm_kernel
 from repro_torch.kernels import ref
+from repro_torch.kernels import selective_scan as ss_kernel
 
 KERNEL_TRACES: Dict[str, int] = {}
 
@@ -40,6 +41,7 @@ KERNELS = {
     "flash_attention": fa_kernel.flash_attention,
     "lora_matmul": lm_kernel.lora_matmul,
     "quant_matmul_t": lm_kernel.quant_matmul_t,
+    "selective_scan": ss_kernel.selective_scan,
 }
 
 
@@ -204,3 +206,70 @@ def blockwise_quant(x, *, bits=8, block=128, mode="linear"):
         return bq_kernel.blockwise_quant(x, bits=bits, block=block)
     trace_count("blockwise_quant_ref")
     return ref.blockwise_quant(x, bits=bits, block=block, mode=mode)
+
+
+# -- selective scan (Mamba-1) -----------------------------------------------
+@torch.no_grad()
+def selective_scan_bwd(dt, x, Bm, Cm, A, gy, gh_last, *, need_a=True):
+    """The gradient of :func:`ref.selective_scan` for the cotangents gy
+    ``(B, S, di)`` and gh_last ``(B, di, N)``, by the explicit reverse
+    recurrence, time-major in fp32. The states are recomputed from the
+    inputs (one in-place FMA per step), then
+    ``g_t = gy_t ⊗ C_t + a_{t+1} ∘ g_{t+1}`` (plus gh_last at the last
+    step) runs backwards the same way, and with ``q_t = g_t ∘ a_t ∘
+    h_{t-1}`` (the gradient of ``dt_t ⊗ A``):
+    ``d dt = Σ_n q A + x Σ_n g B``, ``dx = dt Σ_n g B``,
+    ``dB = Σ_d g (dt x)``, ``dC = Σ_d gy h``, ``dA = Σ_{b,t} q dt``.
+    Four (S, B, di, N) buffers live during the call; none is saved
+    between forward and backward. ``dA`` is None unless ``need_a``."""
+    f32 = torch.float32
+    dtT, xT, BT, CT, gyT = (t.to(f32).transpose(0, 1) for t in
+                            (dt, x, Bm, Cm, gy))
+    A = A.to(f32)
+    S = dtT.shape[0]
+    a = torch.exp(dtT[..., None] * A)                      # (S, B, di, N)
+    h = ((dtT * xT)[..., None] * BT[:, :, None, :]).contiguous()
+    g = (gyT[..., None] * CT[:, :, None, :]).contiguous()
+    g[S - 1] += gh_last.to(f32)
+    # per-step views made once: one launch per step, not four
+    a_t, h_t, g_t = a.unbind(0), h.unbind(0), g.unbind(0)
+    for t in range(1, S):                                  # h_t, in place
+        h_t[t].addcmul_(a_t[t], h_t[t - 1])
+    for t in range(S - 2, -1, -1):
+        g_t[t].addcmul_(a_t[t + 1], g_t[t + 1])
+    dC = torch.einsum("sbd,sbdn->sbn", gyT, h)
+    q = a.mul_(g)                                          # reuses a
+    q[1:] *= h[:-1]
+    q[0] = 0.0
+    gB = torch.einsum("sbdn,sbn->sbd", g, BT)
+    ddt = torch.einsum("sbdn,dn->sbd", q, A) + xT * gB
+    dx = dtT * gB
+    dB = torch.einsum("sbdn,sbd->sbn", g, dtT * xT)
+    dA = torch.einsum("sbdn,sbd->dn", q, dtT) if need_a else None
+    back = lambda t, like: t.transpose(0, 1).to(like.dtype)
+    return (back(ddt, dt), back(dx, x), back(dB, Bm), back(dC, Cm),
+            None if dA is None else dA.to(A.dtype))
+
+
+class _SelectiveScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dt, x, Bm, Cm, A):
+        ctx.save_for_backward(dt, x, Bm, Cm, A)
+        if _on_cuda(dt, "selective_scan"):
+            trace_count("selective_scan_cuda")
+            return ss_kernel.selective_scan(dt, x, Bm, Cm, A)
+        trace_count("selective_scan_ref")
+        return ref.selective_scan(dt, x, Bm, Cm, A)
+
+    @staticmethod
+    def backward(ctx, gy, gh_last):
+        trace_count("selective_scan_bwd")
+        dt, x, Bm, Cm, A = ctx.saved_tensors
+        return selective_scan_bwd(dt, x, Bm, Cm, A, gy, gh_last,
+                                  need_a=ctx.needs_input_grad[4])
+
+
+def selective_scan(dt, x, Bm, Cm, A):
+    """The Mamba-1 recurrence from h0 = 0, ``(y, h_last)``, fp32, with a
+    gradient for every input (``_SelectiveScan``)."""
+    return _SelectiveScan.apply(dt, x, Bm, Cm, A)

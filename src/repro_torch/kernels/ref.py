@@ -139,3 +139,23 @@ def blockwise_quant(x: torch.Tensor, *, bits: int = 8, block: int = 128,
     qt = qlib.quantize(F.pad(x, (0, 0, 0, Kp - K)), bits=bits,
                        block=block, mode=mode)
     return dataclasses.replace(qt, orig_shape=tuple(x.shape))
+
+
+# ------------------------------------------------------------------
+# selective scan (Mamba-1 recurrence) — naive sequential oracle
+# ------------------------------------------------------------------
+def selective_scan(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor,
+                   Cm: torch.Tensor, A: torch.Tensor) -> tuple:
+    """dt, x: (B, S, di); Bm, Cm: (B, S, N); A: (di, N); all fp32.
+    ``h_t = exp(dt_t ⊗ A) ∘ h_{t-1} + (dt_t x_t) ⊗ B_t`` from h0 = 0 and
+    ``y_t = ⟨h_t, C_t⟩``, one time step at a time. Returns
+    ``(y (B, S, di), h_last (B, di, N))``."""
+    B, S, di = x.shape
+    h = torch.zeros((B, di, A.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(S):
+        a = torch.exp(dt[:, t, :, None] * A)
+        h = a * h + (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None, :]
+        ys.append((h * Cm[:, t, None, :]).sum(-1))
+    return torch.stack(ys, dim=1), h

@@ -1,5 +1,5 @@
-"""The model facade for the dense decoder family, port of
-``repro.models.model``.
+"""The model facade for the dense decoder and Mamba-1 SSM families, port
+of ``repro.models.model``.
 
 A ``Model`` exposes:
   init_params(generator, device) -> {"frozen", "trainable": {"lora", "adapter"}}
@@ -17,9 +17,12 @@ so weights convert structurally (:mod:`repro_torch.convert`). The JAX
 ``lax.scan`` over the stack is a Python loop over per-layer slices;
 ``cfg.remat`` checkpoints each layer
 (``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``), as the
-JAX scan body is checkpointed. The layer stack's constraint hooks for a
-device mesh are no-ops on one card and are not ported; prefill/decode
-and the other families come with later slices.
+JAX scan body is checkpointed. An SSM layer is ``x + mamba_block(
+rms_norm(x))`` (:mod:`repro_torch.models.ssm`); on one device the JAX
+package does not rematerialize it, so there the checkpoint changes
+memory only. The layer stack's constraint hooks for a device mesh are
+no-ops on one card and are not ported; prefill/decode and the other
+families come with later slices.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ from repro_torch.core import lora as lora_lib
 from repro_torch.core import losses, optim
 from repro_torch.core import quant as qlib
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as ssm_lib
 
 
 def split(generator: torch.Generator, n: int, device) -> list:
@@ -50,6 +54,8 @@ def split(generator: torch.Generator, n: int, device) -> list:
 
 def _lora_targets(cfg: ModelConfig) -> Dict[str, tuple]:
     d, qd, kvd, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    if cfg.family == "ssm":
+        return dict(in_proj_x=(d, cfg.d_inner), out_proj=(cfg.d_inner, d))
     t = dict(wq=(d, qd), wk=(d, kvd), wv=(d, kvd), wo=(qd, d),
              wu=(d, ff), wd=(ff, d))
     if cfg.mlp == "swiglu":
@@ -58,10 +64,13 @@ def _lora_targets(cfg: ModelConfig) -> Dict[str, tuple]:
 
 
 def _init_layer(cfg: ModelConfig, generator, dtype, device):
-    """One dense backbone layer, drawn from its own generator."""
+    """One backbone layer, drawn from its own generator."""
     d = cfg.d_model
-    p: Dict[str, Any] = {"ln1": torch.zeros((d,), device=device),
-                         "ln2": torch.zeros((d,), device=device)}
+    p: Dict[str, Any] = {"ln1": torch.zeros((d,), device=device)}
+    if cfg.family == "ssm":
+        p.update(ssm_lib.init_mamba(generator, cfg, dtype, device))
+        return p
+    p["ln2"] = torch.zeros((d,), device=device)
     p.update(L.init_attention(generator, cfg, dtype, device))
     p.update(L.init_mlp(generator, d, cfg.d_ff, cfg.mlp, dtype, device))
     return p
@@ -93,12 +102,12 @@ def _layer_slice(tree, i: int):
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense" or not cfg.use_rope:
+        if cfg.family not in ("dense", "ssm") or not cfg.use_rope:
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family"
                 f"{'' if cfg.use_rope else ' without RoPE'} is not ported "
-                "yet (ssm comes with the falcon-mamba-7b slice, the others "
-                "with the zoo's later slices; see ROADMAP)")
+                "yet (they come with the zoo's later slices; see ROADMAP "
+                "Queue A item 14)")
         self.cfg = cfg
 
     # ---------------------------------------------------------- params
@@ -168,6 +177,10 @@ class Model:
     # ---------------------------------------------------------- forward
     def _block(self, p, lo, positions, x):
         cfg = self.cfg
+        if cfg.family == "ssm":
+            h, _ = ssm_lib.mamba_block(p, L.rms_norm(x, p["ln1"]), cfg,
+                                       lora=lo)
+            return x + h
         x = x + L.attention(p, L.rms_norm(x, p["ln1"]), positions, cfg,
                             lora=lo)
         return x + L.mlp(p, L.rms_norm(x, p["ln2"]), cfg, lora=lo)

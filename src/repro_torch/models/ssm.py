@@ -1,0 +1,120 @@
+"""The Mamba-1 selective-scan block (falcon-mamba) for training, port of
+``repro.models.ssm``.
+
+``mamba_block`` is the JAX package's single-device path (no Runtime, so
+no shard_map over d_inner): every QTensor leaf of the layer is
+dequantized, the projections are plain products (their LoRA deltas
+einsums, as in the JAX package, not the fused LoRA kernel), the
+depthwise causal conv is ``F.conv1d`` over a left pad of K - 1, and the
+recurrence is ``kernels.ops.selective_scan``: the hand-written CUDA
+kernel for a CUDA tensor, the plain time loop on the CPU, where the JAX
+package runs its chunked associative scan; the two agree within the
+JAX package's ref-vs-chunked bound. The dtype flow is the JAX package's:
+x1 and z in the model dtype, the x_proj output, dt and the scan in fp32.
+
+Not ported here, with the slice that brings each (ROADMAP Queue A item
+14): a start state ``h0``, ``cfg.calibrate`` and the chunked scans
+(``chunked_linear_scan``, ``_chunked_ssm_scan``) come with prefill/decode
+and the hybrid family; so do ``mamba_decode`` and the decode caches.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.quant import maybe_dequantize
+from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import _normal
+
+_LATER = ("is not ported yet; it comes with Mamba prefill/decode "
+          "(ROADMAP Queue A item 14)")
+
+
+# ---------------------------------------------------------------- params
+def init_mamba(generator, cfg: ModelConfig, dtype, device):
+    d, di, N, R, K = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank,
+                      cfg.ssm_conv)
+    f32 = torch.float32
+    n = _normal
+    return {
+        "in_proj_x": n(generator, (d, di), d, dtype, device),
+        "in_proj_z": n(generator, (d, di), d, dtype, device),
+        "conv_w": n(generator, (K, di), K, dtype, device),
+        "x_proj": n(generator, (di, R + 2 * N), di, dtype, device),
+        "dt_proj": n(generator, (R, di), R, dtype, device),
+        "dt_bias": torch.full((di,), -2.0, dtype=f32, device=device),
+        "a_log": torch.log(torch.arange(1, N + 1, dtype=f32, device=device)
+                           ).expand(di, N).contiguous(),
+        "d_skip": torch.ones((di,), dtype=f32, device=device),
+        "out_proj": n(generator, (di, d), di, dtype, device),
+    }
+
+
+def mamba_cache_init(*args, **kwargs):
+    raise NotImplementedError("the Mamba decode cache " + _LATER)
+
+
+# ---------------------------------------------------------------- forward
+def _causal_conv(conv_w: torch.Tensor, x1: torch.Tensor, dtype):
+    """Depthwise causal conv over S. x1: (B, S, di); conv_w: (K, di).
+    Both the JAX conv and ``F.conv1d`` are cross-correlations, so the
+    (K, di) weight becomes torch's (di, 1, K) without a flip."""
+    K, di = conv_w.shape
+    w = conv_w.to(dtype).t().unsqueeze(1)
+    xp = F.pad(x1.transpose(1, 2), (K - 1, 0))
+    return F.conv1d(xp, w, groups=di).transpose(1, 2)
+
+
+def _lora_delta(x: torch.Tensor, pair, alpha: float, rank: int):
+    """``(alpha/r)·(x@A)@B`` with ``h`` in the trainable dtype, cast to
+    x's dtype."""
+    if pair is None:
+        return 0.0
+    h = x.to(pair["a"].dtype) @ pair["a"]
+    return ((h @ pair["b"]) * (alpha / rank)).to(x.dtype)
+
+
+def _mamba_core(p, x: torch.Tensor, cfg: ModelConfig, lo):
+    """x: (B, S, d) -> (out, cache) with dense layer weights ``p``."""
+    S = x.shape[1]
+    dtype = x.dtype
+    N, R, K = cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
+    alpha, rank = cfg.lora_alpha, cfg.lora_rank
+
+    x1 = x @ p["in_proj_x"].to(dtype) + _lora_delta(
+        x, lo.get("in_proj_x"), alpha, rank)
+    z = x @ p["in_proj_z"].to(dtype)
+    xc = F.silu(_causal_conv(p["conv_w"], x1, dtype))
+
+    proj = (xc @ p["x_proj"].to(dtype)).to(torch.float32)
+    dt_r, Bm, Cm = torch.split(proj, [R, N, N], dim=-1)
+    dt = F.softplus(dt_r @ p["dt_proj"].to(torch.float32) + p["dt_bias"])
+    A = -torch.exp(p["a_log"])
+    xcf = xc.to(torch.float32)
+    y, h_last = kops.selective_scan(dt, xcf, Bm, Cm, A)
+    y = y + p["d_skip"] * xcf
+    y = y.to(dtype) * F.silu(z)
+    out = y @ p["out_proj"].to(dtype) + _lora_delta(
+        y, lo.get("out_proj"), alpha, rank)
+    tail = x1[:, -(K - 1):, :] if S >= K - 1 else \
+        F.pad(x1, (0, 0, K - 1 - S, 0))
+    return out, {"h": h_last, "conv": tail}
+
+
+def mamba_block(p, x: torch.Tensor, cfg: ModelConfig, *, lora=None,
+                h0=None):
+    """x: (B, S, d) -> (y (B, S, d), cache {"h": h_last, "conv": tail}).
+    The quantized leaves of ``p`` are dequantized to their output dtype
+    first (QLoRA keeps them NF4 at rest)."""
+    if h0 is not None:
+        raise NotImplementedError("a start state h0 " + _LATER)
+    if cfg.calibrate:
+        raise NotImplementedError(
+            "cfg.calibrate (the dry run's chunked scan) " + _LATER)
+    p = {k: maybe_dequantize(v) for k, v in p.items()}
+    return _mamba_core(p, x, cfg, lora or {})
+
+
+def mamba_decode(*args, **kwargs):
+    raise NotImplementedError("mamba_decode " + _LATER)

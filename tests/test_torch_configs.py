@@ -1,8 +1,9 @@
 """The port's config registry (repro_torch.configs) and its other dense
 decoders against the JAX package, on the CPU.
 
-Every dense config the port carries equals the JAX package's field for
-field, reduced and full; an arch of a family that is not ported raises
+Every config the port carries (the dense decoders and the Mamba-1
+falcon-mamba-7b) equals the JAX package's field for field, reduced and
+full; an arch of a family that is not ported raises
 NotImplementedError naming the slice that brings it. The sliding-window
 (h2o-danube-3-4b, window 64 under a 80-token sequence) and GELU
 (starcoder2-15b) decoders give the JAX package's logits and loss on the
@@ -24,9 +25,10 @@ from repro_torch.models import build_model
 torch.set_num_threads(1)
 DENSE = ("yi-9b", "h2o-danube-3-4b", "codeqwen1.5-7b", "starcoder2-15b",
          "clip-b32")
+PORTED = DENSE + ("falcon-mamba-7b",)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_dense_configs_equal_the_jax_package(arch):
     for get, jget in ((configs.get_config, jconfigs.get_config),
                       (configs.get_reduced, jconfigs.get_reduced)):
@@ -35,11 +37,11 @@ def test_dense_configs_equal_the_jax_package(arch):
     assert get(arch).layer_kinds() == jget(arch).layer_kinds()
 
 
-@pytest.mark.parametrize("arch", sorted(set(jconfigs.ARCHS) - set(DENSE)))
+@pytest.mark.parametrize("arch", sorted(set(jconfigs.ARCHS) - set(PORTED)))
 def test_unported_families_raise_naming_their_slice(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         configs.get_config(arch)
-    # the model refuses a non-dense family too, given its config data
+    # the model refuses such a family too, given its config data
     cfg = configs.ModelConfig(**dataclasses.asdict(jconfigs.get_reduced(arch)))
     with pytest.raises(NotImplementedError, match="not ported"):
         build_model(cfg)

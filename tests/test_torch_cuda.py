@@ -6,7 +6,9 @@ machine with an H100 and PyTorch alone:
 
 Without a Hopper GPU every test skips with its reason. Tolerances: fp32
 1e-5 (TF32 off), bf16 2e-2 times the largest magnitude (the JAX
-package's bf16 bound), ``blockwise_quant`` bitwise."""
+package's bf16 bound), ``blockwise_quant`` bitwise, ``selective_scan``
+and its gradient 1e-5 times each output's largest magnitude (the JAX
+package's interpret-vs-plain bound)."""
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,7 @@ from repro_torch.kernels import lora_matmul as lm_kernel
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_matmul as qmm_kernel
 from repro_torch.kernels import ref
+from repro_torch.kernels import selective_scan as ss_kernel
 
 FORMATS = [(8, "linear"), (4, "linear"), (4, "nf4")]
 FLASH_CASES = [  # (B, S, H, Hkv, D, causal, window)
@@ -32,6 +35,12 @@ LORA_CASES = [  # (M, K, N, bits, mode, dtype, rank)
     (37, 200, 33, 8, "linear", torch.float32, 4),     # odd K, ragged N
     (37, 200, 33, 4, "linear", torch.float32, 4),
     (9, 128, 96, 4, "nf4", torch.float32, 20),        # rank padded to 32
+]
+SCAN_CASES = [  # (B, S, di, N)
+    (4, 64, 8192, 16),     # the trainer's shape at Falcon-Mamba-7B width
+    (1, 50, 520, 4),       # S and di off every block size, B = 1
+    (2, 50, 520, 8),
+    (2, 130, 33, 5),       # several time chunks, N padded to 8
 ]
 
 
@@ -159,3 +168,48 @@ def test_cuda_flash_attention_backward_matches_autograd_of_plain(
         out.extend(t.grad for t in ts)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def _scan_inputs(dev, B, S, di, N):
+    return (torch.from_numpy(np.abs(_np(39, B, S, di)) * 0.1).to(dev),
+            torch.from_numpy(_np(40, B, S, di)).to(dev),
+            torch.from_numpy(_np(41, B, S, N)).to(dev),
+            torch.from_numpy(_np(42, B, S, N)).to(dev),
+            -torch.from_numpy(np.abs(_np(43, di, N))).to(dev))
+
+
+def _close_rel(got, want, rel=1e-5):
+    assert got.shape == want.shape
+    err = (got - want).abs().max().item()
+    assert err <= rel * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,di,N", SCAN_CASES)
+def test_cuda_selective_scan_matches_plain(cuda_device, B, S, di, N):
+    ins = _scan_inputs(cuda_device, B, S, di, N)
+    y, h = ss_kernel.selective_scan(*ins)
+    y0, h0 = ref.selective_scan(*ins)
+    _close_rel(y, y0)
+    _close_rel(h, h0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,di,N", SCAN_CASES[1:])
+def test_cuda_selective_scan_grads_match_autograd_of_plain(cuda_device, B, S,
+                                                          di, N):
+    """The op on the card (kernel forward, PyTorch-op backward) against
+    autograd through the plain time loop, for both outputs' cotangents."""
+    ins = _scan_inputs(cuda_device, B, S, di, N)
+    gy = torch.from_numpy(_np(44, B, S, di)).to(cuda_device)
+    gh = torch.from_numpy(_np(45, B, di, N)).to(cuda_device)
+    grads = []
+    for fn in (ops.selective_scan, ref.selective_scan):
+        ts = [t.clone().requires_grad_(True) for t in ins]
+        ops.reset_kernel_traces()
+        grads.append(torch.autograd.grad(fn(*ts), ts, (gy, gh)))
+        if fn is ops.selective_scan:
+            assert ops.KERNEL_TRACES == {"selective_scan_cuda": 1,
+                                         "selective_scan_bwd": 1}
+    for got, want in zip(*grads):
+        _close_rel(got, want)
