@@ -31,7 +31,10 @@ Phases (a failed phase raises and the script exits non-zero):
     peak device memory.
 Phase 2 also holds ``selective_scan`` at the trainer's shape and at edge
 shapes, and its gradient (kernel forward, PyTorch-op backward) against
-autograd through the plain scan.
+autograd through the plain scan. bf16 calls of ``flash_attention`` and
+``lora_matmul`` run their tensor-core kernels and fp32 calls their
+CUDA-core ones; each row prints the route it took, and the bf16 trainer
+must launch only the tensor-core kernels of the two.
 The last two lines are the ``kernels`` record and the device record.
 It needs one card, imports nothing of JAX, and runs nothing on the CPU
 in place of a kernel.
@@ -115,7 +118,8 @@ def timings(fn, iters: int = 50) -> tuple:
     records over ``iters`` calls (what the kernels themselves take);
     call time comes from CUDA events around ``iters`` back-to-back calls
     and includes the host's dispatch, which bounds it at small shapes.
-    Device time is None when the profiler records no device activity."""
+    A profiler session that records no device activity is repeated, up
+    to three sessions; device time is None if none records any."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -127,13 +131,17 @@ def timings(fn, iters: int = 50) -> tuple:
     t1.record()
     torch.cuda.synchronize()
     call_ms = t0.elapsed_time(t1) / iters
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    dev_us = 0.0
+    for _ in range(3):   # a profiler session now and then records nothing
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        if dev_us > 0:
+            break
     return (dev_us / 1e3 / iters if dev_us > 0 else None), call_ms
 
 
@@ -163,6 +171,15 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def routed(wrapper, run) -> tuple:
+    """``run()``'s result and the route its launch took, read from the
+    kernel wrapper's own count of tensor-core launches."""
+    before = wrapper.tc_launches
+    out = run()
+    return out, ("tensor cores" if wrapper.tc_launches > before
+                 else "cuda cores")
 
 
 def report(row: dict) -> None:
@@ -304,12 +321,16 @@ def _valid_pairs(S, Skv, causal, window) -> int:
 
 def check_flash_attention(gen) -> dict:
     """The serve oracle's (1, 1, 4, 192) and a (2, 300, 8, 64) GQA
-    (Hkv=2) causal window-64 case, plus a bf16 run."""
+    (Hkv=2) causal window-64 case, plus bf16 runs (the tensor-core
+    kernel): long S, D % 8 != 0 (element loads) and a ragged S = 50
+    with a window."""
     cases = [  # (name, B, S, H, Hkv, D, causal, window, dtype)
         ("serve_1x1x4x192", 1, 1, 4, 4, 192, False, None, torch.float32),
         ("gqa_causal_w64", 2, 300, 8, 2, 64, True, 64, torch.float32),
         ("bidir_d256", 1, 77, 4, 4, 256, False, None, torch.float32),
         ("gqa_causal_bf16", 2, 300, 8, 2, 64, True, None, torch.bfloat16),
+        ("d36_causal_bf16", 1, 33, 2, 2, 36, True, None, torch.bfloat16),
+        ("s50_w8_gqa_bf16", 2, 50, 4, 2, 64, True, 8, torch.bfloat16),
     ]
     main = None
     for name, B, S, H, Hkv, D, causal, window, dtype in cases:
@@ -318,7 +339,7 @@ def check_flash_attention(gen) -> dict:
         v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dtype)
         run = lambda: fa_kernel.flash_attention(q, k, v, causal=causal,
                                                 window=window)
-        got = run()
+        got, route = routed(fa_kernel.flash_attention, run)
         want = ref.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         abs_e, rel_e = rel_err(got, want)
@@ -332,8 +353,9 @@ def check_flash_attention(gen) -> dict:
         b_ms, b_by = bound(nbytes(q, k, v, got),
                            4.0 * B * H * D * _valid_pairs(S, S, causal, window),
                            dtype)
-        row = {"case": name, "max_abs_err": abs_e, "rel_err": rel_e,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        row = {"case": name, "route": route, "max_abs_err": abs_e,
+               "rel_err": rel_e, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None}
         timed(row, "ms", run)
         timed(row, "plain_ms", lambda: ref.flash_attention(
             q, k, v, causal=causal, window=window))
@@ -356,15 +378,25 @@ def _tol(dtype) -> float:
 def check_lora_kernels(gen) -> tuple:
     """``lora_matmul`` and ``quant_matmul_t`` at the trainer's four Yi-9B
     (K, N) pairs (M = 4 x 64 tokens, NF4 block 64, bf16 x, rank 16, fp32
-    g) and at int8, int4, fp32 x, odd K = 200 and ragged N = 33. Returns
-    the two records at the wg/wu shape (the largest per-call work)."""
+    g) and at int8, int4, fp32 x, odd K = 200 and ragged N = 33, K = 201
+    (element loads of x), rank 20 (padded to 32) and M below the tile.
+    A bf16 x takes the tensor-core kernel with ``plan``'s split count,
+    printed beside it, and a dense bf16 ``torch.matmul`` of the same
+    (M, K, N) is timed as context (not a yardstick: it reads a dense W).
+    Returns the two records at the wg/wu shape (the largest per-call
+    work)."""
     dev = "cuda"
-    cases = [(name, 256, K, N, 4, "nf4", torch.bfloat16, 16)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(name, 256, K, N, 4, "nf4", bf16, 16)
              for name, (K, N) in YI_LINEARS.items()] + [
-        ("int8_f32", 64, 512, 256, 8, "linear", torch.float32, 16),
-        ("int4_f32", 64, 512, 256, 4, "linear", torch.float32, 16),
-        ("nf4_bf16_oddK_raggedN", 37, 200, 33, 4, "nf4", torch.bfloat16, 4),
-        ("int8_f32_oddK_raggedN", 37, 200, 33, 8, "linear", torch.float32, 4),
+        ("int8_f32", 64, 512, 256, 8, "linear", f32, 16),
+        ("int4_f32", 64, 512, 256, 4, "linear", f32, 16),
+        ("int8_bf16", 64, 512, 256, 8, "linear", bf16, 16),
+        ("int4_bf16", 64, 512, 256, 4, "linear", bf16, 16),
+        ("nf4_bf16_oddK_raggedN", 37, 200, 33, 4, "nf4", bf16, 4),
+        ("nf4_bf16_K201", 37, 201, 48, 4, "nf4", bf16, 4),
+        ("nf4_bf16_r20_M9", 9, 128, 96, 4, "nf4", bf16, 20),
+        ("int8_f32_oddK_raggedN", 37, 200, 33, 8, "linear", f32, 4),
     ]
     main = {}
     for name, M, K, N, bits, mode, dtype, r in cases:
@@ -384,7 +416,8 @@ def check_lora_kernels(gen) -> tuple:
                 ("quant_matmul_t", lambda: lm_kernel.quant_matmul_t(g, qt),
                  lambda: ref.quant_matmul_t(g, qt), torch.float32,
                  2.0 * M * Kq * N, (g,))):
-            got, want = run(), plain()
+            got, route = routed(lm_kernel.lora_matmul, run)
+            want = plain()
             torch.cuda.synchronize()
             abs_e, rel_e = rel_err(got, want)
             if not (rel_e <= _tol(out_dt) and torch.isfinite(got).all()):
@@ -392,10 +425,18 @@ def check_lora_kernels(gen) -> tuple:
                                      f"{_tol(out_dt)}")
             b_ms, b_by = bound(nbytes(*ins, qt.q, qt.scales, got), nops,
                                ins[0].dtype)
-            row = {"case": name, "max_abs_err": abs_e, "rel_err": rel_e,
-                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            row = {"case": name, "route": route}
+            if kname == "lora_matmul" and dtype == bf16:
+                if route != "tensor cores":
+                    raise AssertionError(f"lora_matmul {name}: bf16 x took "
+                                         f"{route}")
+                row["splits"] = lm_kernel.plan(M, K, N, qt.block).splits
+            row.update(max_abs_err=abs_e, rel_err=rel_e, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=None)
             timed(row, "ms", run)
             timed(row, "plain_ms", plain)
+            if kname == "lora_matmul" and name in YI_LINEARS:
+                timed(row, "dense_bf16_ms", lambda: x @ w)
             report({kname: 1, **row})
             if name == "wg_wu":
                 main[kname] = row
@@ -437,16 +478,18 @@ def check_flash_train(gen) -> dict:
         v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dt)
         do = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
         run = lambda: fa_kernel.flash_attention(q, k, v, causal=True)
-        got = run()
+        got, route = routed(fa_kernel.flash_attention, run)
         want = ref.flash_attention(q, k, v, causal=True)
         torch.cuda.synchronize()
         abs_e, rel_e = rel_err(got, want)
         if not (rel_e <= _tol(dt) and torch.isfinite(got).all()):
             raise AssertionError(f"flash_attention {name}: rel err {rel_e}")
+        if route != "tensor cores":
+            raise AssertionError(f"flash_attention {name}: bf16 took {route}")
         pairs = _valid_pairs(S, S, True, None)
         b_ms, b_by = bound(nbytes(q, k, v, got), 4.0 * B * H * D * pairs, dt)
-        row = {"case": name, "max_abs_err": abs_e, "rel_err": rel_e,
-               "bound_ms": b_ms, "bound_by": b_by}
+        row = {"case": name, "route": route, "max_abs_err": abs_e,
+               "rel_err": rel_e, "bound_ms": b_ms, "bound_by": b_by}
         timed(row, "ms", run)
         timed(row, "plain_ms", lambda: ref.flash_attention(q, k, v,
                                                            causal=True))
@@ -803,8 +846,9 @@ def step_check_phase(seed: int = 0, n_layers: int = 2, device="cuda",
 
 def profile_step(model, frozen, tr, toks, kernels) -> dict:
     """One local step under the profiler: wall, device busy time, idle
-    share, the top device entries, the launches of each of ``kernels``,
-    and what the host dispatched: the ATen ops called from Python (not
+    share, the top device entries, the launches of each of ``kernels``
+    (and how many of them took a tensor-core kernel), and what the host
+    dispatched: the ATen ops called from Python (not
     from inside another op) and the device activities they caused."""
     cuda = torch.autograd.DeviceType.CUDA
     batch = train_lib.make_batch(toks, "cuda")
@@ -819,6 +863,7 @@ def profile_step(model, frozen, tr, toks, kernels) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = ops.launch_counts()
+    tc_launches = ops.tc_launch_counts()
     by_name: dict = {}
     host_ops = device_ops = 0
     for e in prof.events():
@@ -835,6 +880,8 @@ def profile_step(model, frozen, tr, toks, kernels) -> dict:
             "idle_share": 1.0 - busy / wall, "host_aten_ops": host_ops,
             "device_activities": device_ops,
             "launches": {k: launches[k] for k in kernels},
+            "tc_launches": {k: n for k, n in tc_launches.items()
+                            if k in kernels},
             "top_ms": [(n[:60], round(us / 1e3, 2)) for n, us in top]}
 
 
@@ -909,6 +956,13 @@ def train_phase(*, arch="yi-9b", rounds=2, clients=2, steps=2, batch=4,
     for name in kernels:
         if launches[name] < 1:
             raise AssertionError(f"the trainer launched no {name} kernel")
+    # the bf16 model's attention and LoRA linears take the tensor cores
+    tc = ops.tc_launch_counts()
+    for name in set(kernels) & set(tc):
+        if cfg.dtype == "bfloat16" and tc[name] != launches[name]:
+            raise AssertionError(f"{name}: {tc[name]} of {launches[name]} "
+                                 "launches on tensor cores in a bf16 model")
+    res["tc_launches"] = tc
     if arch == "falcon-mamba-7b" and \
             launches["selective_scan"] < 2 * cfg.n_layers * n_steps:
         raise AssertionError(
@@ -951,7 +1005,8 @@ def trainer_report(arch: str) -> dict:
     for r in tres["rounds"]:
         report(r)
     launches = {k: tres["launches"][k] for k in kernels}
-    report({"launches_train": launches, "local_steps": tres["steps"],
+    report({"launches_train": launches, "tc_launches": tres["tc_launches"],
+            "local_steps": tres["steps"],
             "launches_per_step": {k: n / tres["steps"]
                                   for k, n in launches.items()},
             "traces": tres["traces"]})

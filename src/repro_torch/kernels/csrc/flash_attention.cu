@@ -3,34 +3,67 @@
 // Replaces: src/repro/kernels/flash_attention.py:flash_attention (Pallas
 // TPU kernel, body _kernel).
 //
-// Bound on the H100: at the serve oracle's shape (B=1, S=1, H=4, D=192)
-// the work is a few kilobytes and the launch dominates; at long S it is
-// memory-bound on K/V for small D and turns compute-bound (fp32 CUDA
-// cores here) as S grows.
+// Layout and masks of the Pallas kernel: q (B, S, H, D), k/v (B, Skv,
+// Hkv, D), kv head h / (H / Hkv) (GQA); key kp is valid for query qp when
+// kp < Skv, plus qp >= kp when causal, plus qp - kp < window; tiles wholly
+// outside the causal/window band are skipped, which is exact since a
+// masked key adds nothing. A row with no valid key gives 0, as the TPU
+// kernel's max(l, 1e-30) does. Any D <= 512. Two instantiations, chosen
+// by dtype in the wrapper (kernels/flash_attention.py), never as a
+// fallback of one another.
 //
-// Design: grid (B*H, ceil(S/16)); 4 warps per block, each warp owns 4 of
-// the block's 16 query rows and keeps their running max m, sum l and
-// output accumulator in fp32 registers: DPL = 8 dims per lane for
-// D <= 256 and 16 for D <= 512 (the adapter's 4096 / 8 heads at Yi-9B
-// width), two instantiations so the short-D path keeps its registers. The
-// block loops over 32-key tiles of K and V staged in shared memory (K
-// rows padded to D+1 floats, so lane j reading key j is conflict-free):
-// lane j scores key j, the warp reduces max and sum with shuffles, and
-// p_j is broadcast by shuffle into the P.V update (over the keys that
-// exist only; rows past S are skipped whole). The mask is
-// kpos < Skv, plus qpos >= kpos when causal, plus qpos - kpos < window;
-// tiles wholly outside the causal/window band are skipped, which is exact
-// since a masked key adds nothing. GQA reads kv head h / (H / Hkv). A row
-// with no valid key gives 0, as the TPU kernel's max(l, 1e-30) does.
-// D need not be a power of two (192 at CLIP width); D <= 512. At D = 512
-// the block's Q, K and V tiles take 164 KB of shared memory, past the
-// 48 KB default: the launcher raises the kernel's dynamic limit once per
-// instantiation (cudaFuncSetAttribute), so one block runs per SM there.
-// Simple first: no tensor cores. The gradient is not a kernel yet: the
-// port's autograd.Function (kernels/ops.py) recomputes P in PyTorch.
+// bf16: flash_tc_kernel, tensor cores (flash_attention_tc_launch).
+// Bound on the H100 at the trainer's shapes (S = 64): bytes (q, k, v, o
+// read/written once: 4 MB at the adapter's (4, 64, 8, 512)); the work is
+// small, so latency and the number of blocks in flight decide the time.
+//  - mma.sync.m16n8k16 with ldmatrix (csrc/mma.cuh), bf16 operands and
+//    fp32 accumulators, not wgmma: a warp owns 16 query rows, as in
+//    FlashAttention-2, so the scores' C fragments become the bf16 A
+//    fragments of P @ V in registers (the running max m, the sum l and O
+//    stay fp32 in registers). wgmma's 64-row warpgroup tile would leave
+//    most of a 64-query block idle under the causal mask and needs P
+//    staged in shared memory.
+//  - P enters P @ V as two bf16 parts, hi = bf16(p) and lo = bf16(p -
+//    hi) (split_bf16, two mma passes; about 16 bits of p). With P
+//    rounded once to bf16, as FlashAttention-2 does, the 2-layer Yi-9B
+//    card-vs-CPU step check's worst held gradient (adapter wq) sat at
+//    1.8% of its 2% bound; with the split, 1.6% (PERF.md, PR 14). The
+//    second pass adds 32 mma to a D = 512 tile's 160.
+//  - Grid (B * H * ceil(D / 128), ceil(S / 64)): 4 warps, 64 query rows
+//    and one 128-wide slice of D per block. Each block computes the full
+//    Q K^T over all of D (cheap) but P @ V only for its slice, so O takes
+//    64 fp32 registers a lane at any D <= 512, and the adapter's 32
+//    (b, h) pairs at D = 512 give 128 blocks, the backbone's (4, 64, 32,
+//    128) 128 blocks.
+//  - K and V tiles of 32 keys are staged by cp.async in two stages (Q
+//    with the first), so the next tile's load overlaps this tile's math;
+//    rows are padded by 16 bytes (conflict-free ldmatrix) and D up to a
+//    multiple of 16 with zeros, which is exact. D % 8 != 0 takes plain
+//    element loads into the same tiles. Shared memory is 147 KB at
+//    D = 512 (cudaFuncSetAttribute once), 20 KB at D = 128.
+//
+// fp32: flash_kernel, fp32 CUDA cores, the first design, kept so fp32
+// callers (the serve oracle at D = 192) meet 1e-5; tensor cores at fp32
+// would need TF32. Bound at the serve oracle's shape (B=1, S=1, H=4,
+// D=192): the launch. Grid (B*H, ceil(S/16)); 4 warps per block, each
+// warp owns 4 of the block's 16 query rows and keeps their running max
+// m, sum l and output accumulator in fp32 registers: DPL = 8 dims per
+// lane for D <= 256 and 16 for D <= 512, two instantiations so the
+// short-D path keeps its registers. The block loops over 32-key tiles of
+// K and V staged in shared memory (K rows padded to D+1 floats, so lane
+// j reading key j is conflict-free): lane j scores key j, the warp
+// reduces max and sum with shuffles, and p_j is broadcast by shuffle
+// into the P.V update (over the keys that exist only; rows past S are
+// skipped whole). At D = 512 the block's Q, K and V tiles take 164 KB of
+// shared memory (cudaFuncSetAttribute once per instantiation).
+//
+// The gradient is not a kernel yet: the port's autograd.Function
+// (kernels/ops.py) recomputes P in PyTorch.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -42,14 +75,6 @@ constexpr int MAXD = 512;
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -68,10 +93,10 @@ size_t smem_bytes(int D) {
 
 // q (B, S, H, D); k, v (B, Skv, Hkv, D) -> o (B, S, H, D)
 // DPL: output dims per lane, so D <= 32 * DPL
-template <typename T, int DPL>
+template <int DPL>
 __global__ void __launch_bounds__(NWARP * 32)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int S, int Skv,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o, int S, int Skv,
              int H, int Hkv, int D, float scale, int causal, int window) {
   extern __shared__ float smem[];
   float* qs = smem;                      // BQ x D
@@ -84,7 +109,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int i = threadIdx.x; i < BQ * D; i += blockDim.x) {
     const int r = i / D, d = i - r * D, qp = q0 + r;
-    qs[i] = qp < S ? load_f(q + (((size_t)b * S + qp) * H + h) * D + d) * scale
+    qs[i] = qp < S ? q[(((size_t)b * S + qp) * H + h) * D + d] * scale
                    : 0.f;
   }
 
@@ -108,8 +133,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = threadIdx.x; i < BK * D; i += blockDim.x) {
       const int j = i / D, d = i - j * D, kp = kt + j;
       const size_t off = (((size_t)b * Skv + kp) * Hkv + hk) * D + d;
-      ks[j * (D + 1) + d] = kp < Skv ? load_f(k + off) : 0.f;
-      vs[j * D + d] = kp < Skv ? load_f(v + off) : 0.f;
+      ks[j * (D + 1) + d] = kp < Skv ? k[off] : 0.f;
+      vs[j * D + d] = kp < Skv ? v[off] : 0.f;
     }
     __syncthreads();
     const int kp = kt + lane;
@@ -159,16 +184,16 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qp = q0 + warp * RPW + rr;
     if (qp >= S) continue;
     const float inv = 1.f / fmaxf(l[rr], 1e-30f);
-    T* orow = o + (((size_t)b * S + qp) * H + h) * D;
+    float* orow = o + (((size_t)b * S + qp) * H + h) * D;
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
       const int d = lane + 32 * i;
-      if (d < D) store_f(orow + d, acc[rr][i] * inv);
+      if (d < D) orow[d] = acc[rr][i] * inv;
     }
   }
 }
 
-template <typename T, int DPL>
+template <int DPL>
 cudaError_t launch_dpl(const void* q, const void* k, const void* v, void* o,
                        int B, int S, int Skv, int H, int Hkv, int D,
                        float scale, int causal, int window,
@@ -177,46 +202,285 @@ cudaError_t launch_dpl(const void* q, const void* k, const void* v, void* o,
   static bool attr_set = false;   // the 32 * DPL bound: one setting is enough
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<T, DPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_kernel<DPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem_bytes(32 * DPL));
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  flash_kernel<T, DPL><<<grid, NWARP * 32, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, Skv, H, Hkv, D, scale,
-      causal, window);
+  flash_kernel<DPL><<<grid, NWARP * 32, bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, S, Skv,
+      H, Hkv, D, scale, causal, window);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_typed(const void* q, const void* k, const void* v, void* o,
-                         int B, int S, int Skv, int H, int Hkv, int D,
-                         float scale, int causal, int window,
-                         cudaStream_t stream) {
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       int B, int S, int Skv, int H, int Hkv, int D,
+                       float scale, int causal, int window,
+                       cudaStream_t stream) {
   if (D <= 256)
-    return launch_dpl<T, 8>(q, k, v, o, B, S, Skv, H, Hkv, D, scale, causal,
-                            window, stream);
-  return launch_dpl<T, 16>(q, k, v, o, B, S, Skv, H, Hkv, D, scale, causal,
-                           window, stream);
+    return launch_dpl<8>(q, k, v, o, B, S, Skv, H, Hkv, D, scale, causal,
+                         window, stream);
+  return launch_dpl<16>(q, k, v, o, B, S, Skv, H, Hkv, D, scale, causal,
+                        window, stream);
 }
+
+// ---- bf16: tensor cores ------------------------------------------------
+namespace ft {
+
+constexpr int NWT = 4;                  // warps per block, 16 query rows each
+constexpr int BQT = 16 * NWT;           // query rows per block
+constexpr int BKV = 32;                 // keys per staged tile
+constexpr int DV = 128;                 // output columns per block
+constexpr int LDV = DV + 8;
+
+struct Args {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  __nv_bfloat16* o;
+  int S, Skv, H, Hkv, D, Dp, nsl, causal, window;
+  float scale_log2;                     // log2(e) / sqrt(D)
+  bool vec;                             // 16-byte cp.async (D % 8 == 0)
+};
+
+size_t smem_bytes(int Dp) {             // Q, two K and two V tiles, bf16
+  return 2 * ((size_t)(BQT + 2 * BKV) * (Dp + 8) + 2 * (size_t)BKV * LDV);
+}
+
+// Rows [0, rows) x columns [0, cols) of a tile whose row i starts at
+// src + i * rstride; rows >= rvalid and columns >= cvalid are zero.
+__device__ __forceinline__ void stage(__nv_bfloat16* dst, int ld,
+                                      const __nv_bfloat16* src,
+                                      size_t rstride, int rows, int rvalid,
+                                      int cols, int cvalid, bool vec) {
+  if (vec) {                            // cvalid % 8 == 0
+    const int cc = cols / 8;
+    for (int i = threadIdx.x; i < rows * cc; i += NWT * 32) {
+      const int r = i / cc, c = (i % cc) * 8;
+      const bool ok = r < rvalid && c < cvalid;
+      tc::cp_async16(dst + r * ld + c, ok ? src + r * rstride + c : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * cols; i += NWT * 32) {
+      const int r = i / cols, c = i % cols;
+      dst[r * ld + c] = (r < rvalid && c < cvalid) ? src[r * rstride + c]
+                                                   : __float2bfloat16(0.f);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NWT * 32) flash_tc_kernel(const Args p) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const int ld = p.Dp + 8;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + BQT * ld;    // [2][BKV][ld]
+  __nv_bfloat16* vs = ks + 2 * BKV * ld;  // [2][BKV][LDV]
+  const int sl = blockIdx.x % p.nsl, bh = blockIdx.x / p.nsl;
+  const int b = bh / p.H, h = bh % p.H, hk = h / (p.H / p.Hkv);
+  const int d0 = sl * DV, dvp = min(DV, p.Dp - d0);
+  const int q0 = blockIdx.y * BQT;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int wq0 = q0 + warp * 16;       // this warp's first query row
+
+  // keys this block can see: causal stops at its last row, a window
+  // starts window-1 before its first row
+  const int q_last = min(q0 + BQT, p.S) - 1;
+  const int k_end = p.causal ? min(p.Skv, q_last + 1) : p.Skv;
+  const int k_begin =
+      p.window > 0 ? (max(0, q0 - p.window + 1) / BKV) * BKV : 0;
+  const int ntile = k_end > k_begin ? (k_end - k_begin + BKV - 1) / BKV : 0;
+
+  const size_t qstride = (size_t)p.H * p.D, kstride = (size_t)p.Hkv * p.D;
+  const __nv_bfloat16* kbase = p.k + ((size_t)b * p.Skv * p.Hkv + hk) * p.D;
+  const __nv_bfloat16* vbase = p.v + ((size_t)b * p.Skv * p.Hkv + hk) * p.D;
+
+  float o[DV / 8][4];
+#pragma unroll
+  for (int j = 0; j < DV / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  if (ntile > 0) {
+    stage(qs, ld, p.q + (((size_t)b * p.S + q0) * p.H + h) * p.D, qstride,
+          BQT, p.S - q0, p.Dp, p.D, p.vec);
+    stage(ks, ld, kbase + (size_t)k_begin * kstride, kstride, BKV,
+          p.Skv - k_begin, p.Dp, p.D, p.vec);
+    stage(vs, LDV, vbase + (size_t)k_begin * kstride + d0, kstride, BKV,
+          p.Skv - k_begin, dvp, p.D - d0, p.vec);
+    tc::cp_commit();
+  }
+  for (int t = 0; t < ntile; ++t) {
+    const int kt = k_begin + t * BKV;
+    if (t + 1 < ntile) {                // the next tile loads meanwhile
+      const int kn = kt + BKV, sn = (t + 1) & 1;
+      stage(ks + sn * BKV * ld, ld, kbase + (size_t)kn * kstride, kstride,
+            BKV, p.Skv - kn, p.Dp, p.D, p.vec);
+      stage(vs + sn * BKV * LDV, LDV, vbase + (size_t)kn * kstride + d0,
+            kstride, BKV, p.Skv - kn, dvp, p.D - d0, p.vec);
+      tc::cp_commit();
+      tc::cp_wait<1>();
+    } else {
+      tc::cp_wait<0>();
+    }
+    __syncthreads();                    // tile t is in
+    const bool active =
+        wq0 < p.S && !(p.causal && kt > min(wq0 + 15, p.S - 1)) &&
+        !(p.window > 0 && kt + BKV - 1 < wq0 - p.window + 1);
+    if (active) {                       // warp-uniform
+      const __nv_bfloat16* kst = ks + (t & 1) * BKV * ld;
+      const __nv_bfloat16* vst = vs + (t & 1) * BKV * LDV;
+      float sc[BKV / 8][4];
+#pragma unroll
+      for (int n = 0; n < BKV / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < p.Dp; d += 16) {   // S = Q K^T over all of D
+        uint32_t qa[4];
+        tc::frag_a(qa, qs, ld, warp * 16, d, lane);
+#pragma unroll
+        for (int jj = 0; jj < BKV / 16; ++jj) {
+          uint32_t kb[4];
+          tc::frag_b_nk(kb, kst, ld, jj * 16, d, lane);
+          tc::mma_bf16(sc[2 * jj], qa, kb[0], kb[1]);
+          tc::mma_bf16(sc[2 * jj + 1], qa, kb[2], kb[3]);
+        }
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {  // rows g and g + 8 of the warp
+        const int qp = wq0 + g + 8 * hh;
+        float mx = NEG_INF;
+#pragma unroll
+        for (int n = 0; n < BKV / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kp = kt + n * 8 + c2 + e;
+            bool valid = kp < p.Skv;
+            if (p.causal) valid = valid && qp >= kp;
+            if (p.window > 0) valid = valid && (qp - kp) < p.window;
+            const float v = valid ? sc[n][2 * hh + e] * p.scale_log2 : NEG_INF;
+            sc[n][2 * hh + e] = v;
+            mx = fmaxf(mx, v);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+        const float m_new = fmaxf(m[hh], mx);
+        const float corr = exp2f(m[hh] - m_new);
+        float rs = 0.f;
+#pragma unroll
+        for (int n = 0; n < BKV / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float v = sc[n][2 * hh + e];
+            const float pv = v > NEG_INF ? exp2f(v - m_new) : 0.f;
+            sc[n][2 * hh + e] = pv;
+            rs += pv;
+          }
+        l[hh] = l[hh] * corr + rs;      // this lane's share of the row
+#pragma unroll
+        for (int j = 0; j < DV / 8; ++j) {
+          o[j][2 * hh] *= corr;
+          o[j][2 * hh + 1] *= corr;
+        }
+        m[hh] = m_new;
+      }
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {   // O += P V, P as hi + lo
+        uint32_t ph[4], pl[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          tc::split_bf16(sc[2 * kk + e / 2][2 * (e % 2)],
+                         sc[2 * kk + e / 2][2 * (e % 2) + 1], ph[e], pl[e]);
+#pragma unroll
+        for (int dj = 0; dj < DV / 16; ++dj) {
+          if (dj * 16 >= dvp) break;
+          uint32_t vb[4];
+          tc::frag_b_kn(vb, vst, LDV, kk * 16, dj * 16, lane);
+          tc::mma_bf16(o[2 * dj], ph, vb[0], vb[1]);
+          tc::mma_bf16(o[2 * dj], pl, vb[0], vb[1]);
+          tc::mma_bf16(o[2 * dj + 1], ph, vb[2], vb[3]);
+          tc::mma_bf16(o[2 * dj + 1], pl, vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();                    // tile t consumed
+  }
+
+  const bool pairs = (p.D & 1) == 0;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float lt = l[hh];
+    lt += __shfl_xor_sync(FULL, lt, 1);
+    lt += __shfl_xor_sync(FULL, lt, 2);
+    const float inv = 1.f / fmaxf(lt, 1e-30f);
+    const int qp = wq0 + g + 8 * hh;
+    if (qp >= p.S) continue;
+    __nv_bfloat16* orow = p.o + (((size_t)b * p.S + qp) * p.H + h) * p.D;
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j) {
+      const int d = d0 + j * 8 + c2;
+      if (j * 8 >= dvp) break;
+      const float v0 = o[j][2 * hh] * inv, v1 = o[j][2 * hh + 1] * inv;
+      if (pairs && d + 1 < p.D) {
+        *reinterpret_cast<uint32_t*>(orow + d) = tc::pack_bf16(v0, v1);
+      } else {
+        if (d < p.D) orow[d] = __float2bfloat16(v0);
+        if (d + 1 < p.D) orow[d + 1] = __float2bfloat16(v1);
+      }
+    }
+  }
+}
+
+}  // namespace ft
 
 }  // namespace
 
-// window <= 0 means no sliding window; is_bf16 selects bf16 q/k/v/o.
+// fp32 q/k/v/o: the CUDA-core kernel. window <= 0: no sliding window.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
                                       int Skv, int H, int Hkv, int D,
                                       float scale, int causal, int window,
-                                      int is_bf16, void* stream) {
+                                      void* stream) {
   if (B < 1 || S < 1 || Skv < 1 || H < 1 || Hkv < 1 || H % Hkv || D < 1 ||
       D > MAXD || S > 65535 * BQ)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t err =
-      is_bf16 ? launch_typed<__nv_bfloat16>(q, k, v, o, B, S, Skv, H, Hkv, D,
-                                            scale, causal, window, st)
-              : launch_typed<float>(q, k, v, o, B, S, Skv, H, Hkv, D, scale,
-                                    causal, window, st);
-  return (int)err;
+  return (int)launch_f32(q, k, v, o, B, S, Skv, H, Hkv, D, scale,
+                                  causal, window, (cudaStream_t)stream);
+}
+
+// bf16 q/k/v/o: the tensor-core kernel. window <= 0: no sliding window.
+extern "C" int flash_attention_tc_launch(const void* q, const void* k,
+                                         const void* v, void* o, int B,
+                                         int S, int Skv, int H, int Hkv,
+                                         int D, float scale, int causal,
+                                         int window, void* stream) {
+  if (B < 1 || S < 1 || Skv < 1 || H < 1 || Hkv < 1 || H % Hkv || D < 1 ||
+      D > MAXD || S > 65535 * ft::BQT)
+    return (int)cudaErrorInvalidValue;
+  static bool attr_set = false;         // sized for D = 512 once
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        ft::flash_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)ft::smem_bytes(MAXD));
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  ft::Args p;
+  p.q = (const __nv_bfloat16*)q;
+  p.k = (const __nv_bfloat16*)k;
+  p.v = (const __nv_bfloat16*)v;
+  p.o = (__nv_bfloat16*)o;
+  p.S = S; p.Skv = Skv; p.H = H; p.Hkv = Hkv; p.D = D;
+  p.Dp = (D + 15) / 16 * 16;
+  p.nsl = (p.Dp + ft::DV - 1) / ft::DV;
+  p.causal = causal; p.window = window;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  p.vec = D % 8 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  const dim3 grid(B * H * p.nsl, (S + ft::BQT - 1) / ft::BQT);
+  ft::flash_tc_kernel<<<grid, ft::NWT * 32, ft::smem_bytes(p.Dp),
+                        (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
 }

@@ -9,31 +9,80 @@
 // Bound on the H100: at the federated QLoRA trainer's shapes (M = 256
 // tokens, K, N in {4096, 512, 11008}, NF4 block 64) each call is about
 // 2*M flops per weight against half a byte per weight, so the work is
-// operations-bound on the bf16 tensor-core rate and far above it on the
-// fp32 CUDA cores this first design uses.
+// operations-bound on the bf16 tensor-core rate.
 //
-// Design (simple and correct first; no tensor cores, no async copies):
-// each block owns a (64 x 128) output tile, 256 threads as 16 x 16, each
-// thread a 4 x 8 register micro-tile at stride 16 (conflict-free shared
-// reads). The block walks the reduction axis in 32-deep tiles: the
-// activation tile is staged transposed, the weight tile is dequantized
-// into shared memory straight from the quantized payload (dequant.cuh,
-// the decode quant_matmul.cu uses), so W is never written dense. A loop
-// inside the block takes the place of the TPU's sequential quant-group
-// grid axis.
+// Two instantiations of lora_matmul, chosen by x's dtype in the wrapper
+// (kernels/lora_matmul.py), never as a fallback of one another:
+//
+// bf16 x: lora_tc_kernel, tensor cores (lora_matmul_tc_launch).
+//  - mma.sync.m16n8k16 (bf16 operands, fp32 accumulators) fed by
+//    ldmatrix (csrc/mma.cuh), not wgmma: the trainer's tiles are small
+//    (M = 256), the decoded weight tile is written by the block's own
+//    threads rather than by TMA, and mma.sync needs no shared-memory
+//    descriptors or warpgroup fences; that keeps the kernel short.
+//  - Block tile 256 x 128 (BM x BN), 16 warps as 4 x 4, each a 64 x 32
+//    warp tile; K walks in 32-deep tiles. BM = 256 covers the trainer's
+//    M = 256 tokens, so each weight is decoded once per call (per split). x, the packed payload, the
+//    scale rows a tile touches and the rows of A are staged by cp.async
+//    in a 4-stage ring as 16-byte cp.async chunks (zero-filled past M, K,
+//    Kq and N), so three tiles' loads are in flight during each tile's
+//    math. Each thread's copies are a fixed, unrolled set of chunks: the
+//    first version's generic strided loops and per-row divisions by the
+//    block size cost ~2200 SASS instructions per 36 mma (cuobjdump on
+//    the card). The block is a power of two >= 16 (shifts, not
+//    divisions), A arrives padded to 16 or 32 columns, and K % 8 != 0 or
+//    N % 16 != 0 take element-wise staging of x or of the payload.
+//  - Decode once per block: each weight of the block's column range is
+//    decoded (code * fp32 scale, the plain version's product) into
+//    shared tiles that all 256 rows use, as two bf16 parts, hi = bf16(w)
+//    and lo = bf16(w - hi), and x multiplies both (two mma passes, about
+//    16 bits of w). One pass (w rounded to bf16, as the TPU's default-
+//    precision MXU pass rounds it) held each call to the bf16 bound but
+//    moved the 2-layer Yi-9B step's gradients 2.4% (adapter wq/wk) from
+//    the CPU's fp32 products, past that check's 2% (PERF.md, PR 14).
+//    The decode of tile t+1 is interleaved with the two k16 steps of
+//    tile t's mma (double-buffered weight tiles, one barrier per tile),
+//    so the ALUs decode while the tensor cores multiply.
+//  - h = x @ A rides in the same loop as an n = 16 / 32 tensor-core
+//    product (A split into hi and lo the same way, r padded with zero
+//    columns); after the loop h (fp32) and the rows of B (fp32) meet in
+//    shared memory and each thread adds scale * h @ B to its
+//    accumulators in fp32.
+//  - Split-K (grid z) where the tile grid is too small for 132 SMs:
+//    kernels/lora_matmul.plan picks the split count; splits fall on
+//    multiples of lcm(block, 32), so every split owns whole quant groups
+//    and whole k-tiles. Each split writes fp32 partials, its own
+//    scale * h_s @ B included (the term is linear in h), to an
+//    (splits, M, N) workspace, and splitk_sum adds them in split order
+//    and casts to bf16: deterministic, no atomics.
+//  - Shared memory 140 KB (NF4/int4, r <= 16) to 160 KB (int8,
+//    r <= 32): one block of 16 warps per SM.
+//
+// fp32 x: lora_kernel, fp32 CUDA cores, the first design, kept so fp32
+// callers meet 1e-5 (tensor cores at fp32 would need TF32). Each block
+// owns a (64 x 128) output tile, 256 threads as 16 x 16, each thread a
+// 4 x 8 register micro-tile at stride 16 (conflict-free shared reads).
+// The block walks the reduction axis in 32-deep tiles: the activation
+// tile is staged transposed, the weight tile is dequantized into shared
+// memory straight from the quantized payload (dequant.cuh, the decode
+// quant_matmul.cu uses), so W is never written dense. A loop inside the
+// block takes the place of the TPU's sequential quant-group grid axis.
 //  - lora_matmul also stages the matching rows of A and accumulates
 //    h = x @ A (64 x r, fp32 registers) in the same loop, as the Pallas
 //    kernel's (bm, r) scratch does; after the loop h and the (r x 128)
 //    tile of B meet in shared memory and y = acc + scale * h @ B is
-//    written in x's dtype. r is padded to 16 or 32 with zero columns.
-//  - quant_matmul_t reduces over N and writes columns of Kq: its weight
-//    tile is W^T, read along N (coalesced) and stored transposed in
-//    shared memory with a padded stride. Columns past N (ragged N)
-//    load as zeros, as the Pallas kernel's zero scales make them.
+//    written. r is padded to 16 or 32 with zero columns.
+//  - quant_matmul_t (fp32 CUDA cores for both dtypes; the trainer's
+//    backward calls it with fp32 g) reduces over N and writes columns of
+//    Kq: its weight tile is W^T, read along N (coalesced) and stored
+//    transposed in shared memory with a padded stride. Columns past N
+//    (ragged N) load as zeros, as the Pallas kernel's zero scales make
+//    them.
 // Odd K: x and A are masked past the true K and W's pad rows are zero,
 // which contracts as the zero-padding of lora_matmul.py:75-84 does.
-// All accumulation is fp32.
+// All accumulation is fp32. No route writes a dense W to device memory.
 #include "dequant.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -86,11 +135,11 @@ __device__ __forceinline__ void mma_tile(float (&acc)[TM][TN],
 
 // x (M, K), q (G, rows, N), s (G, 1, N), a (K, r), b (r, N) -> y (M, N);
 // RP is r padded to 16 or 32.
-template <typename T, int FMT, int RP>
+template <int FMT, int RP>
 __global__ void __launch_bounds__(NT)
-lora_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
+lora_kernel(const float* __restrict__ x, const uint8_t* __restrict__ q,
             const float* __restrict__ s, const float* __restrict__ a,
-            const float* __restrict__ b, T* __restrict__ y, int M, int K,
+            const float* __restrict__ b, float* __restrict__ y, int M, int K,
             int Kq, int N, int r, int block, int rows, float scale) {
   constexpr int HT = BM * RP / NT;          // h entries per thread
   constexpr int BUF1 = BK * LDA > BM * (RP + 1) ? BK * LDA : BM * (RP + 1);
@@ -235,35 +284,440 @@ qmt_kernel(const T* __restrict__ g, const uint8_t* __restrict__ q,
   }
 }
 
-template <typename T, int FMT>
+// ---- bf16 x: tensor cores ----------------------------------------------
+namespace lt {
+
+constexpr int BM = 256, BN = 128, BK = 32;
+constexpr int NS = 4;               // cp.async ring depth (tiles)
+constexpr int NT = 512;             // 16 warps: 4 (rows) x 4 (columns)
+constexpr int SR = 2;               // scale rows per tile (2 when block 16)
+constexpr int MIN_BLOCK = 16;       // block: a power of two >= 16
+constexpr int LDX = BK + 8;         // bf16 strides padded by 16 bytes:
+constexpr int LDW = BN + 8;         // ldmatrix rows hit distinct banks
+
+template <int FMT, int RP>
+struct Layout {
+  static constexpr int RSTEP = FMT == FMT_INT8 ? 1 : 2;  // weight rows a byte
+  static constexpr int QROWS = BK / RSTEP;               // payload rows a tile
+  static constexpr int LDA = RP + 8;
+  static constexpr int X = 0;                        // bf16 [BM][LDX]
+  static constexpr int Q = X + BM * LDX * 2;         // u8 [QROWS][BN]
+  static constexpr int S = Q + QROWS * BN;           // f32 [SR][BN]
+  static constexpr int A = S + SR * BN * 4;          // f32 [BK][RP]
+  static constexpr int STAGE = A + BK * RP * 4;
+  // decoded tiles, double-buffered, each as a bf16 hi and lo part
+  static constexpr int WB = NS * STAGE;              // bf16 [2][2][BK][LDW]
+  static constexpr int AB = WB + 4 * BK * LDW * 2;   // bf16 [2][2][BK][LDA]
+  static constexpr int CODE = AB + 4 * BK * LDA * 2; // f32 [16]
+  static constexpr int BYTES = CODE + 16 * 4;
+  // 16-byte chunks a tile stages: x, payload, one scale row, A
+  static constexpr int XCH = BM * BK / 8 / NT;       // per thread
+  static constexpr int QCH = QROWS * BN / 16;        // threads tid < QCH
+  static constexpr int ACH = BK * RP / 4;            // threads tid < ACH
+  static_assert(XCH * NT * 8 == BM * BK && QCH <= NT && ACH <= NT, "chunks");
+  static_assert(STAGE % 16 == 0 && WB % 16 == 0 && AB % 16 == 0, "align");
+  // the epilogue's h [BM][RP + 1] and B rows [RP][BN] reuse the ring
+  static_assert((BM * (RP + 1) + RP * BN) * 4 <= WB, "epilogue fits");
+};
+
+struct Args {
+  const __nv_bfloat16* x;
+  const uint8_t* q;
+  const float* s;
+  const float* a;                   // (K, RP): r zero-padded to RP
+  const float* b;                   // (r, N)
+  __nv_bfloat16* y;                 // the output when splits == 1
+  float* ws;                        // splits > 1: (splits, M, N) partials
+  int M, K, Kq, N, r, bshift, unit; // block = 1 << bshift
+  float scale;
+  bool x_vec, w_vec;                // 16-byte cp.async for x / payload+scales
+};
+
+// Stage k-tile [k0, k0 + BK) of the split ending at ke into one ring slot.
+// Payload row j of the (G, rows, N) layout is weight row j * RSTEP, so a
+// tile's payload is QROWS consecutive rows from k0 / RSTEP; the scale row
+// of weight row k is k >> bshift. Each thread copies a fixed, unrolled set
+// of 16-byte chunks. Zero fill past M, K, ke and N; K % 8 != 0 (x) or
+// N % 16 != 0 (payload, scales) take element copies instead.
+template <int FMT, int RP>
+__device__ __forceinline__ void load_tile(const Args& p, uint8_t* st, int m0,
+                                          int n0, int k0, int ke) {
+  using L = Layout<FMT, RP>;
+  const int tid = threadIdx.x;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(st + L::X);
+  uint8_t* qs = st + L::Q;
+  float* ss = reinterpret_cast<float*>(st + L::S);
+  float* as = reinterpret_cast<float*>(st + L::A);
+  const int kx = min(p.K, ke);
+  if (p.x_vec) {                    // K % 8 == 0: a chunk is all in or out
+#pragma unroll
+    for (int e = 0; e < L::XCH; ++e) {
+      const int i = tid + e * NT, row = i >> 2, c = (i & 3) * 8;
+      const int m = m0 + row, k = k0 + c;
+      const bool ok = m < p.M && k < kx;
+      tc::cp_async16(xs + row * LDX + c, ok ? p.x + (size_t)m * p.K + k : p.x,
+                     ok);
+    }
+  } else {
+    for (int i = tid; i < BM * BK; i += NT) {
+      const int row = i / BK, c = i % BK, m = m0 + row, k = k0 + c;
+      xs[row * LDX + c] = (m < p.M && k < kx) ? p.x[(size_t)m * p.K + k]
+                                              : __float2bfloat16(0.f);
+    }
+  }
+  const int g0 = k0 >> p.bshift;
+  const int nsr = p.bshift >= 5 ? 1 : SR;           // block 16: two groups
+  if (p.w_vec) {                    // N % 16 == 0
+    if (tid < L::QCH) {
+      const int pr = tid >> 3, c = (tid & 7) * 16, n = n0 + c;
+      const bool ok = k0 + L::RSTEP * pr < ke && n < p.N;
+      tc::cp_async16(
+          qs + pr * BN + c,
+          ok ? p.q + (size_t)(k0 / L::RSTEP + pr) * p.N + n : p.q, ok);
+    }
+    if (tid < nsr * BN / 4) {
+      const int sr = tid >> 5, c = (tid & 31) * 4, n = n0 + c;
+      const bool ok = n < p.N && ((g0 + sr) << p.bshift) < ke;
+      tc::cp_async16(ss + sr * BN + c,
+                     ok ? p.s + (size_t)(g0 + sr) * p.N + n : p.s, ok);
+    }
+  } else {
+    for (int i = tid; i < L::QROWS * BN; i += NT) {
+      const int pr = i / BN, c = i % BN, n = n0 + c;
+      qs[i] = (k0 + L::RSTEP * pr < ke && n < p.N)
+                  ? p.q[(size_t)(k0 / L::RSTEP + pr) * p.N + n]
+                  : (uint8_t)0;
+    }
+    for (int i = tid; i < nsr * BN; i += NT) {
+      const int n = n0 + i % BN;
+      const bool ok = n < p.N && ((g0 + i / BN) << p.bshift) < ke;
+      tc::cp_async4(ss + i, ok ? p.s + (size_t)(g0 + i / BN) * p.N + n : p.s,
+                    ok);
+    }
+  }
+  if (tid < L::ACH) {               // A rows are RP floats: 16-byte chunks
+    const int k = k0 + tid / (RP / 4);
+    const bool ok = k < kx;
+    tc::cp_async16(as + tid * 4,
+                   ok ? p.a + (size_t)k0 * RP + tid * 4 : p.a, ok);
+  }
+}
+
+template <int FMT>
+__device__ __forceinline__ float code4(int nib, const float* code) {
+  return FMT == FMT_NF4 ? code[nib] : (float)(nib - 8);
+}
+
+// Decode half `part` (0 or 1) of a staged tile into the weight tile wb:
+// w = code * scale in fp32 as bf16 hi [BK][LDW] then lo [BK][LDW] parts
+// (split_bf16); part 0 also splits the tile's A rows into ab (hi, lo,
+// [BK][LDA] each). Rows at or past ke decode to zero (their staged scale
+// rows are stale).
+template <int FMT, int RP>
+__device__ __forceinline__ void decode_part(const Args& p, const uint8_t* st,
+                                            __nv_bfloat16* wb,
+                                            __nv_bfloat16* ab,
+                                            const float* code, int k0,
+                                            int ke, int part) {
+  using L = Layout<FMT, RP>;
+  const int tid = threadIdx.x;
+  const uint8_t* qs = st + L::Q;
+  const float* ss = reinterpret_cast<const float*>(st + L::S);
+  const bool full = k0 + BK <= ke;
+  // 4-byte payload words: int8 gives each thread one per part, 4-bit one
+  // per tile (the first half of the block in part 0, the second in 1)
+  constexpr int PER = L::QROWS * BN / 4 / NT;
+  constexpr int PP = PER >= 2 ? PER / 2 : 1;
+  const bool mine = PER >= 2 || (tid >= NT / 2) == (part == 1);
+#pragma unroll
+  for (int e = 0; e < PP; ++e) {
+    if (!mine) break;
+    const int w = PER >= 2 ? tid + (part * PP + e) * NT : tid;
+    const int pr = w >> 5, c4 = (w & 31) * 4;
+    const int row = L::RSTEP * pr;                   // first weight row
+    const uint32_t word = *reinterpret_cast<const uint32_t*>(qs + pr * BN + c4);
+    const int sr = ((k0 + row) >> p.bshift) - (k0 >> p.bshift);
+    const float4 sc4 = *reinterpret_cast<const float4*>(ss + sr * BN + c4);
+    const float sc[4] = {sc4.x, sc4.y, sc4.z, sc4.w};
+    const bool ok = full || k0 + row < ke;
+    float wv[L::RSTEP][4];             // rows row (hi nibble), row + 1
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int byte = (word >> (8 * j)) & 0xff;
+      if (FMT == FMT_INT8) {
+        wv[0][j] = ok ? (float)(int8_t)byte * sc[j] : 0.f;
+      } else {
+        wv[0][j] = ok ? code4<FMT>(byte >> 4, code) * sc[j] : 0.f;
+        wv[L::RSTEP - 1][j] = ok ? code4<FMT>(byte & 0xf, code) * sc[j] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < L::RSTEP; ++rr) {
+      uint2 h, l;
+      tc::split_bf16(wv[rr][0], wv[rr][1], h.x, l.x);
+      tc::split_bf16(wv[rr][2], wv[rr][3], h.y, l.y);
+      *reinterpret_cast<uint2*>(wb + (row + rr) * LDW + c4) = h;
+      *reinterpret_cast<uint2*>(wb + (BK + row + rr) * LDW + c4) = l;
+    }
+  }
+  static_assert(BK * RP / 2 <= NT, "one A pair per thread");
+  if (part == 0 && tid < BK * RP / 2) {
+    const float* as = reinterpret_cast<const float*>(st + L::A);
+    {
+      const int i = tid, kk = (2 * i) / RP, c = (2 * i) % RP;
+      const float2 v = *reinterpret_cast<const float2*>(as + 2 * i);
+      tc::split_bf16(v.x, v.y,
+                     *reinterpret_cast<uint32_t*>(ab + kk * L::LDA + c),
+                     *reinterpret_cast<uint32_t*>(ab + (BK + kk) * L::LDA + c));
+    }
+  }
+}
+
+template <int FMT, int RP>
+__global__ void __launch_bounds__(NT, 1) lora_tc_kernel(const Args p) {
+  using L = Layout<FMT, RP>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __nv_bfloat16* wbuf = reinterpret_cast<__nv_bfloat16*>(smem + L::WB);
+  __nv_bfloat16* abuf = reinterpret_cast<__nv_bfloat16*>(smem + L::AB);
+  float* code = reinterpret_cast<float*>(smem + L::CODE);
+  dq::load_codebook(code);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  // this split's contraction range: whole units of lcm(block, BK)
+  const int nu = (p.Kq + p.unit - 1) / p.unit, z = blockIdx.z;
+  const int kb = (int)((long long)z * nu / gridDim.z) * p.unit;
+  const int ke = min((int)((long long)(z + 1) * nu / gridDim.z) * p.unit,
+                     p.Kq);
+  const int ntile = ke > kb ? (ke - kb + BK - 1) / BK : 0;
+  float acc[4][4][4];
+  float hacc[RP / 8][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < RP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) hacc[j][e] = 0.f;
+
+#pragma unroll
+  for (int t = 0; t < NS - 1; ++t) {
+    if (t < ntile)
+      load_tile<FMT, RP>(p, smem + t * L::STAGE, m0, n0, kb + t * BK, ke);
+    tc::cp_commit();                // one group per tile, empty or not
+  }
+  tc::cp_wait<NS - 2>();
+  __syncthreads();                  // tile 0 and the codebook are in
+  if (ntile > 0)
+    for (int part = 0; part < 2; ++part)
+      decode_part<FMT, RP>(p, smem, wbuf, abuf, code, kb, ke, part);
+
+  for (int t = 0; t < ntile; ++t) {
+    tc::cp_wait<NS - 3>();          // tile t + 1 has landed
+    __syncthreads();                // tile t decoded; tile t - 1 consumed
+    if (t + NS - 1 < ntile)
+      load_tile<FMT, RP>(p, smem + ((t + NS - 1) % NS) * L::STAGE, m0, n0,
+                         kb + (t + NS - 1) * BK, ke);
+    tc::cp_commit();
+    const __nv_bfloat16* xs =
+        reinterpret_cast<const __nv_bfloat16*>(smem + (t % NS) * L::STAGE);
+    const __nv_bfloat16* wb = wbuf + (t & 1) * 2 * BK * LDW;
+    const __nv_bfloat16* ab = abuf + (t & 1) * 2 * BK * L::LDA;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      uint32_t af[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        tc::frag_a(af[i], xs, LDX, wm * 64 + i * 16, kk * 16, lane);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        uint32_t bh[4], bl[4];          // W's hi and lo parts
+        tc::frag_b_kn(bh, wb, LDW, kk * 16, wn * 32 + jj * 16, lane);
+        tc::frag_b_kn(bl, wb + BK * LDW, LDW, kk * 16, wn * 32 + jj * 16,
+                      lane);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          tc::mma_bf16(acc[i][2 * jj], af[i], bh[0], bh[1]);
+          tc::mma_bf16(acc[i][2 * jj], af[i], bl[0], bl[1]);
+          tc::mma_bf16(acc[i][2 * jj + 1], af[i], bh[2], bh[3]);
+          tc::mma_bf16(acc[i][2 * jj + 1], af[i], bl[2], bl[3]);
+        }
+      }
+      // h += x @ A over this warp's 16 rows of h (x rows wm*64 + wn*16..)
+      uint32_t ah[4];
+      tc::frag_a(ah, xs, LDX, wm * 64 + wn * 16, kk * 16, lane);
+#pragma unroll
+      for (int jj = 0; jj < RP / 16; ++jj) {
+        uint32_t hb[4], hl[4];
+        tc::frag_b_kn(hb, ab, L::LDA, kk * 16, jj * 16, lane);
+        tc::frag_b_kn(hl, ab + BK * L::LDA, L::LDA, kk * 16, jj * 16, lane);
+        tc::mma_bf16(hacc[2 * jj], ah, hb[0], hb[1]);
+        tc::mma_bf16(hacc[2 * jj], ah, hl[0], hl[1]);
+        tc::mma_bf16(hacc[2 * jj + 1], ah, hb[2], hb[3]);
+        tc::mma_bf16(hacc[2 * jj + 1], ah, hl[2], hl[3]);
+      }
+      if (t + 1 < ntile)            // decode the next tile meanwhile
+        decode_part<FMT, RP>(p, smem + ((t + 1) % NS) * L::STAGE,
+                             wbuf + ((t + 1) & 1) * 2 * BK * LDW,
+                             abuf + ((t + 1) & 1) * 2 * BK * L::LDA, code,
+                             kb + (t + 1) * BK, ke, kk);
+    }
+  }
+
+  // acc += scale * h @ B over the block's tile, in fp32
+  tc::cp_wait<0>();
+  __syncthreads();
+  float* hs = reinterpret_cast<float*>(smem);        // [BM][RP + 1]
+  float* bs = hs + BM * (RP + 1);                    // [RP][BN]
+#pragma unroll
+  for (int j = 0; j < RP / 8; ++j) {
+    const int row = wm * 64 + wn * 16 + g, col = j * 8 + c2;
+    hs[row * (RP + 1) + col] = hacc[j][0];
+    hs[row * (RP + 1) + col + 1] = hacc[j][1];
+    hs[(row + 8) * (RP + 1) + col] = hacc[j][2];
+    hs[(row + 8) * (RP + 1) + col + 1] = hacc[j][3];
+  }
+  for (int i = tid; i < RP * BN; i += NT) {
+    const int c = i / BN, n = n0 + i % BN;
+    bs[i] = (c < p.r && n < p.N) ? p.b[(size_t)c * p.N + n] : 0.f;
+  }
+  __syncthreads();
+  for (int c = 0; c < p.r; ++c) {
+    float hv[4][2], bv[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = wm * 64 + i * 16 + g;
+      hv[i][0] = p.scale * hs[row * (RP + 1) + c];
+      hv[i][1] = p.scale * hs[(row + 8) * (RP + 1) + c];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      bv[j][0] = bs[c * BN + wn * 32 + j * 8 + c2];
+      bv[j][1] = bs[c * BN + wn * 32 + j * 8 + c2 + 1];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j][0] = fmaf(hv[i][0], bv[j][0], acc[i][j][0]);
+        acc[i][j][1] = fmaf(hv[i][0], bv[j][1], acc[i][j][1]);
+        acc[i][j][2] = fmaf(hv[i][1], bv[j][0], acc[i][j][2]);
+        acc[i][j][3] = fmaf(hv[i][1], bv[j][1], acc[i][j][3]);
+      }
+  }
+
+  const bool pairs = (p.N & 1) == 0;
+  float* part = gridDim.z > 1 ? p.ws + (size_t)z * p.M * p.N : nullptr;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * 64 + i * 16 + g + 8 * h;
+      if (m >= p.M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + wn * 32 + j * 8 + c2;
+        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        const size_t o = (size_t)m * p.N + n;
+        if (gridDim.z == 1) {
+          if (pairs && n + 1 < p.N) {
+            *reinterpret_cast<uint32_t*>(p.y + o) = tc::pack_bf16(v0, v1);
+          } else {
+            if (n < p.N) p.y[o] = __float2bfloat16(v0);
+            if (n + 1 < p.N) p.y[o + 1] = __float2bfloat16(v1);
+          }
+        } else if (pairs && n + 1 < p.N) {
+          *reinterpret_cast<float2*>(part + o) = make_float2(v0, v1);
+        } else {
+          if (n < p.N) part[o] = v0;
+          if (n + 1 < p.N) part[o + 1] = v1;
+        }
+      }
+    }
+}
+
+// y = bf16(the sum over s of ws[s]), split 0 first: a fixed order
+__global__ void splitk_sum(const float* __restrict__ ws,
+                           __nv_bfloat16* __restrict__ y, long long mn,
+                           int splits) {
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= mn) return;
+  if (mn % 4 == 0) {
+    float4 v = *reinterpret_cast<const float4*>(ws + i);
+    for (int s = 1; s < splits; ++s) {
+      const float4 u = *reinterpret_cast<const float4*>(ws + s * mn + i);
+      v.x += u.x;
+      v.y += u.y;
+      v.z += u.z;
+      v.w += u.w;
+    }
+    *reinterpret_cast<uint2*>(y + i) =
+        make_uint2(tc::pack_bf16(v.x, v.y), tc::pack_bf16(v.z, v.w));
+    return;
+  }
+  for (long long j = i; j < i + 4 && j < mn; ++j) {
+    float v = ws[j];
+    for (int s = 1; s < splits; ++s) v += ws[s * mn + j];
+    y[j] = __float2bfloat16(v);
+  }
+}
+
+template <int FMT, int RP>
+cudaError_t launch(const Args& p, int splits, cudaStream_t st) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        lora_tc_kernel<FMT, RP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Layout<FMT, RP>::BYTES);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, splits);
+  lora_tc_kernel<FMT, RP><<<grid, NT, Layout<FMT, RP>::BYTES, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <int FMT>
+cudaError_t launch_fmt(const Args& p, int splits, cudaStream_t st) {
+  return p.r <= 16 ? launch<FMT, 16>(p, splits, st)
+                   : launch<FMT, 32>(p, splits, st);
+}
+
+}  // namespace lt
+
+template <int FMT>
 cudaError_t lora_fmt(const void* x, const void* q, const void* s,
                      const void* a, const void* b, void* y, int M, int K,
                      int Kq, int N, int r, int block, int rows, float scale,
                      cudaStream_t st) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   if (r <= 16)
-    lora_kernel<T, FMT, 16><<<grid, NT, 0, st>>>(
-        (const T*)x, (const uint8_t*)q, (const float*)s, (const float*)a,
-        (const float*)b, (T*)y, M, K, Kq, N, r, block, rows, scale);
+    lora_kernel<FMT, 16><<<grid, NT, 0, st>>>(
+        (const float*)x, (const uint8_t*)q, (const float*)s, (const float*)a,
+        (const float*)b, (float*)y, M, K, Kq, N, r, block, rows, scale);
   else
-    lora_kernel<T, FMT, 32><<<grid, NT, 0, st>>>(
-        (const T*)x, (const uint8_t*)q, (const float*)s, (const float*)a,
-        (const float*)b, (T*)y, M, K, Kq, N, r, block, rows, scale);
+    lora_kernel<FMT, 32><<<grid, NT, 0, st>>>(
+        (const float*)x, (const uint8_t*)q, (const float*)s, (const float*)a,
+        (const float*)b, (float*)y, M, K, Kq, N, r, block, rows, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t lora_typed(int fmt, const void* x, const void* q, const void* s,
-                       const void* a, const void* b, void* y, int M, int K,
-                       int Kq, int N, int r, int block, int rows, float scale,
-                       cudaStream_t st) {
+cudaError_t lora_f32(int fmt, const void* x, const void* q, const void* s,
+                     const void* a, const void* b, void* y, int M, int K,
+                     int Kq, int N, int r, int block, int rows, float scale,
+                     cudaStream_t st) {
   switch (fmt) {
     case FMT_INT8:
-      return lora_fmt<T, FMT_INT8>(x, q, s, a, b, y, M, K, Kq, N, r, block, rows, scale, st);
+      return lora_fmt<FMT_INT8>(x, q, s, a, b, y, M, K, Kq, N, r, block, rows, scale, st);
     case FMT_INT4:
-      return lora_fmt<T, FMT_INT4>(x, q, s, a, b, y, M, K, Kq, N, r, block, rows, scale, st);
+      return lora_fmt<FMT_INT4>(x, q, s, a, b, y, M, K, Kq, N, r, block, rows, scale, st);
     case FMT_NF4:
-      return lora_fmt<T, FMT_NF4>(x, q, s, a, b, y, M, K, Kq, N, r, block, rows, scale, st);
+      return lora_fmt<FMT_NF4>(x, q, s, a, b, y, M, K, Kq, N, r, block, rows, scale, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -300,23 +754,63 @@ bool bad_layout(int fmt, int Kq, int block, int rows) {
 
 }  // namespace
 
-// fmt: 0 int8, 1 int4 (packed), 2 NF4 (packed); is_bf16: x and y dtype
-// (a and b are fp32). K is x's true width, Kq = G * block >= K.
+// fp32 x, y: the CUDA-core kernel. fmt: 0 int8, 1 int4 (packed), 2 NF4
+// (packed); a and b are fp32. K is x's true width, Kq = G * block >= K.
 extern "C" int lora_matmul_launch(const void* x, const void* q, const void* s,
                                   const void* a, const void* b, void* y,
                                   int M, int K, int Kq, int N, int r,
                                   int block, int rows, int fmt, float scale,
-                                  int is_bf16, void* stream) {
+                                  void* stream) {
   if (M < 1 || N < 1 || K < 1 || K > Kq || r < 1 || r > 32 ||
       (M + BM - 1) / BM > 65535 || bad_layout(fmt, Kq, block, rows))
     return (int)cudaErrorInvalidValue;
+  return (int)lora_f32(fmt, x, q, s, a, b, y, M, K, Kq, N, r, block, rows,
+                       scale, (cudaStream_t)stream);
+}
+
+// bf16 x, y: the tensor-core kernel, then (splits > 1) splitk_sum over
+// the fp32 workspace ws (splits, M, N). a is (K, RP) fp32 with r
+// zero-padded to RP = 16 (r <= 16) or 32; block is a power of two >= 16;
+// unit, the split granule, is a multiple of both block and 32
+// (kernels/lora_matmul.plan).
+extern "C" int lora_matmul_tc_launch(const void* x, const void* q,
+                                     const void* s, const void* a,
+                                     const void* b, void* y, void* ws, int M,
+                                     int K, int Kq, int N, int r, int block,
+                                     int rows, int fmt, float scale,
+                                     int splits, int unit, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || K > Kq || r < 1 || r > 32 ||
+      (M + lt::BM - 1) / lt::BM > 65535 || bad_layout(fmt, Kq, block, rows) ||
+      block < lt::MIN_BLOCK || (block & (block - 1)) || splits < 1 ||
+      splits > 64 || unit < 1 || unit % lt::BK || unit % block ||
+      (splits > 1 && ws == nullptr) || (uintptr_t)a % 16)
+    return (int)cudaErrorInvalidValue;
+  lt::Args p;
+  p.x = (const __nv_bfloat16*)x;
+  p.q = (const uint8_t*)q;
+  p.s = (const float*)s;
+  p.a = (const float*)a;
+  p.b = (const float*)b;
+  p.y = (__nv_bfloat16*)y;
+  p.ws = (float*)ws;
+  p.M = M; p.K = K; p.Kq = Kq; p.N = N; p.r = r;
+  p.bshift = __builtin_ctz(block); p.unit = unit; p.scale = scale;
+  p.x_vec = K % 8 == 0 && (uintptr_t)x % 16 == 0;
+  p.w_vec = N % 16 == 0 && ((uintptr_t)q | (uintptr_t)s) % 16 == 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t err =
-      is_bf16 ? lora_typed<__nv_bfloat16>(fmt, x, q, s, a, b, y, M, K, Kq, N,
-                                          r, block, rows, scale, st)
-              : lora_typed<float>(fmt, x, q, s, a, b, y, M, K, Kq, N, r,
-                                  block, rows, scale, st);
-  return (int)err;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (fmt) {
+    case FMT_INT8: err = lt::launch_fmt<FMT_INT8>(p, splits, st); break;
+    case FMT_INT4: err = lt::launch_fmt<FMT_INT4>(p, splits, st); break;
+    case FMT_NF4: err = lt::launch_fmt<FMT_NF4>(p, splits, st); break;
+  }
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long mn = (long long)M * N;
+  const int threads = 256;
+  const long long blocks = (mn + 4LL * threads - 1) / (4LL * threads);
+  lt::splitk_sum<<<(unsigned)blocks, threads, 0, st>>>(
+      (const float*)ws, (__nv_bfloat16*)y, mn, splits);
+  return (int)cudaGetLastError();
 }
 
 // g (M, N) -> o (M, Kq); is_bf16: g and o dtype.

@@ -7,6 +7,11 @@ through ``h // (H / Hkv)``, causal, sliding ``window``. Any D up to 512
 (the adapter's D is 192 at CLIP ViT-B/32 width and 512 at Yi-9B width).
 The plain version is :func:`repro_torch.kernels.ref.flash_attention`; the
 gradient is ``kernels.ops.flash_attention``'s ``autograd.Function``.
+Two instantiations, chosen here by dtype and counted: bf16 runs the
+tensor-core kernel (``flash_attention_tc_launch``; ``tc_launches``
+counts it), fp32 the CUDA-core one (``flash_attention_launch``), which
+keeps fp32 callers at 1e-5. Neither stands in for the other: an input
+the chosen kernel refuses raises.
 """
 from __future__ import annotations
 
@@ -21,7 +26,12 @@ MAX_D = 512
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
-         _I, _P)
+         _P)
+
+
+def uses_tensor_cores(t: torch.Tensor) -> bool:
+    """Whether a call on ``t``'s dtype takes the tensor-core kernel."""
+    return t.dtype == torch.bfloat16
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -47,15 +57,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window={window} must be >= 1")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
-    fn = build.function("flash_attention", "flash_attention_launch", _ARGS)
+    tc = uses_tensor_cores(q)
+    fn = build.function("flash_attention", "flash_attention_tc_launch" if tc
+                        else "flash_attention_launch", _ARGS)
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                    B, S, Skv, H, Hkv, D, 1.0 / math.sqrt(D), int(causal),
                    0 if window is None else int(window),
-                   int(q.dtype == torch.bfloat16),
                    torch.cuda.current_stream(q.device).cuda_stream),
                 "flash_attention")
     flash_attention.launches += 1
+    flash_attention.tc_launches += int(tc)
     return o
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0

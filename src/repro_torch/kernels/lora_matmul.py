@@ -2,17 +2,27 @@
 ``repro.kernels.lora_matmul``.
 
 ``lora_matmul(x, qt, a, b, scale=s)`` computes ``x @ dequant(qt) +
-s·(x@A)@B`` in one launch and ``quant_matmul_t(g, qt)`` computes ``g @
+s·(x@A)@B`` in one launch (a bf16 call with split K adds a second,
+``splitk_sum``) and ``quant_matmul_t(g, qt)`` computes ``g @
 dequant(qt)ᵀ`` over the padded ``Kq`` (source: ``csrc/lora_matmul.cu``);
 neither writes the dequantized weight. Their plain versions are
 :func:`repro_torch.kernels.ref.lora_matmul` and
 :func:`repro_torch.kernels.ref.quant_matmul_t`; ``kernels.ops`` takes
 those for tensors on the CPU and puts both kernels behind the op's
 ``autograd.Function``.
+
+``lora_matmul`` has two instantiations, chosen here by x's dtype and
+counted: bf16 x runs the tensor-core kernel (``lora_matmul_tc_launch``,
+``tc_launches`` counts it) with the split-K that :func:`plan` picks,
+fp32 x the CUDA-core one (``lora_matmul_launch``), which keeps fp32
+callers at 1e-5. Neither stands in for the other: an input the chosen
+kernel refuses raises.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import math
 
 import torch
 
@@ -24,8 +34,88 @@ MAX_RANK = 32
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LORA_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-              ctypes.c_float, _I, _P)
+              ctypes.c_float, _P)
+_TC_ARGS = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+            ctypes.c_float, _I, _I, _P)
 _T_ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
+
+# The tensor-core kernel's tile (csrc/lora_matmul.cu, namespace lt) and
+# the cost model behind plan(), fitted to the kernel's times on an NVIDIA
+# H100 80GB HBM3 (700 W) at the four Yi-9B shapes and split counts 1-16
+# (PERF.md, PR 14; chip_smoke.py prints the planned count's time): one
+# block (16 warps, 140-160 KB of shared memory) runs per SM and takes
+# TILE_US per 256 x 128 x 32 tile, and the split-K partials (fp32,
+# written, read back, summed to bf16) move at PARTIAL_BYTES_PER_US.
+SMS = 132
+BM, BN, BK = 256, 128, 32
+MIN_BLOCK = 16
+SPLITS = (1, 2, 3, 4, 8, 16, 32)
+MIN_TILES_PER_SPLIT = 4
+TILE_US = 2.05
+PARTIAL_BYTES_PER_US = 2.28e6
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the tensor-core kernel covers one (M, K, N, block) call: a grid
+    of ``tiles`` output tiles (BM x BN) times ``splits`` slices of the
+    padded contraction dim, split z owning ``ranges[z] = (k0, k1)``; the
+    ranges fall on multiples of ``unit = lcm(block, BK)`` (whole quant
+    groups, whole k-tiles) and cover [0, Kq) once, in order."""
+    tiles: int
+    splits: int
+    unit: int
+    ranges: tuple
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+
+def plan_cost_us(M: int, N: int, tiles: int, tiles_per_split: int,
+                 splits: int) -> float:
+    """The model's time of one call: the busiest SM runs
+    ``ceil(blocks / SMS)`` blocks one after another, then the partials."""
+    t = -(-tiles * splits // SMS) * tiles_per_split * TILE_US
+    if splits > 1:
+        t += (2 * splits * M * N * 4 + M * N * 2) / PARTIAL_BYTES_PER_US
+    return t
+
+
+def plan(M: int, K: int, N: int, block: int) -> Plan:
+    """The split count for ``x (M, K) @ W (K, N)`` quantized at ``block``:
+    the fewest of ``SPLITS`` whose modelled time (:func:`plan_cost_us`)
+    is within 2% of the least, and none that leaves a split fewer than 4
+    k-tiles. The ranges are those the kernel computes from (splits,
+    unit) in ``lora_tc_kernel``."""
+    Kq = -(-K // block) * block
+    unit = math.lcm(block, BK)
+    nu = -(-Kq // unit)
+    tiles = -(-M // BM) * -(-N // BN)
+    cost = {}
+    for s in SPLITS:
+        if s > 1 and (nu < s or (nu // s) * unit // BK < MIN_TILES_PER_SPLIT):
+            break
+        cost[s] = plan_cost_us(M, N, tiles, -(-nu // s) * unit // BK, s)
+    least = min(cost.values())
+    best = min(s for s, c in cost.items() if c <= 1.02 * least)
+    return Plan(tiles=tiles, splits=best, unit=unit,
+                ranges=split_ranges(Kq, unit, best))
+
+
+def split_ranges(Kq: int, unit: int, splits: int) -> tuple:
+    """The (k0, k1) of each split, as ``lora_tc_kernel`` computes them:
+    split z owns units [z·nu/splits, (z+1)·nu/splits) of the
+    ``nu = ceil(Kq / unit)`` units, the last one cut at Kq."""
+    nu = -(-Kq // unit)
+    return tuple((z * nu // splits * unit,
+                  min((z + 1) * nu // splits * unit, Kq))
+                 for z in range(splits))
+
+
+def uses_tensor_cores(x: torch.Tensor) -> bool:
+    """Whether a call with ``x``'s dtype takes the tensor-core kernel."""
+    return x.dtype == torch.bfloat16
 
 
 def _factor(t: torch.Tensor, shape, name: str) -> torch.Tensor:
@@ -40,6 +130,12 @@ def lora_matmul(x: torch.Tensor, qt: QTensor, a: torch.Tensor,
     ``a`` (K, r), ``b`` (r, N). ``qt`` may cover a K zero-padded to a
     block multiple (the odd-K contract). fp32 accumulation, output in
     x's dtype."""
+    return _lora_matmul(x, qt, a, b, scale, None)
+
+
+def _lora_matmul(x, qt, a, b, scale, splits):
+    """:func:`lora_matmul` with the split count of a bf16 call forced to
+    ``splits`` (None: :func:`plan`'s), for the checks of each count."""
     fmt, G, rows, N = check_qtensor(x, qt, "lora_matmul", ndims=(3,))
     K = x.shape[-1]
     Kq = G * qt.block
@@ -58,14 +154,33 @@ def lora_matmul(x: torch.Tensor, qt: QTensor, a: torch.Tensor,
     x2 = x.reshape(-1, K).contiguous()
     M = x2.shape[0]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    fn = build.function("lora_matmul", "lora_matmul_launch", _LORA_ARGS)
-    build.check(fn(x2.data_ptr(), qt.q.data_ptr(), qt.scales.data_ptr(),
-                   a32.data_ptr(), b32.data_ptr(), y.data_ptr(), M, K, Kq,
-                   N, r, qt.block, rows, fmt, float(scale),
-                   int(x.dtype == torch.bfloat16),
-                   torch.cuda.current_stream(x.device).cuda_stream),
-                "lora_matmul")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if uses_tensor_cores(x):
+        if qt.block < MIN_BLOCK or qt.block & (qt.block - 1):
+            raise NotImplementedError(
+                f"lora_matmul tensor-core kernel: block {qt.block} is not a "
+                f"power of two >= {MIN_BLOCK}")
+        rp = 16 if r <= 16 else 32      # A's rows padded to 16-byte chunks
+        if r != rp or a32.data_ptr() % 16:
+            a32 = torch.nn.functional.pad(a32, (0, rp - r))
+        pl = plan(M, K, N, qt.block)
+        n_split = pl.splits if splits is None else int(splits)
+        ws = torch.empty((n_split, M, N), dtype=torch.float32,
+                         device=x.device) if n_split > 1 else None
+        fn = build.function("lora_matmul", "lora_matmul_tc_launch",
+                            _TC_ARGS)
+        rc = fn(x2.data_ptr(), qt.q.data_ptr(), qt.scales.data_ptr(),
+                a32.data_ptr(), b32.data_ptr(), y.data_ptr(),
+                None if ws is None else ws.data_ptr(), M, K, Kq, N, r,
+                qt.block, rows, fmt, float(scale), n_split, pl.unit, stream)
+    else:
+        fn = build.function("lora_matmul", "lora_matmul_launch", _LORA_ARGS)
+        rc = fn(x2.data_ptr(), qt.q.data_ptr(), qt.scales.data_ptr(),
+                a32.data_ptr(), b32.data_ptr(), y.data_ptr(), M, K, Kq, N, r,
+                qt.block, rows, fmt, float(scale), stream)
+    build.check(rc, "lora_matmul")
     lora_matmul.launches += 1
+    lora_matmul.tc_launches += int(uses_tensor_cores(x))
     return y.reshape(*lead, N)
 
 
@@ -92,4 +207,5 @@ def quant_matmul_t(g: torch.Tensor, qt: QTensor) -> torch.Tensor:
 
 
 lora_matmul.launches = 0
+lora_matmul.tc_launches = 0
 quant_matmul_t.launches = 0

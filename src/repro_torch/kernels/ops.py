@@ -8,6 +8,10 @@ launch. There is no fallback from the kernel to the plain version.
 ``KERNEL_TRACES`` counts which implementation each call took (the JAX
 package counts at trace time; PyTorch runs eagerly, so here it is per
 call), and every kernel wrapper keeps its own integer ``launches``.
+``flash_attention`` and ``lora_matmul`` have a tensor-core instantiation
+for bf16 and a CUDA-core one for fp32, chosen by dtype in the wrapper;
+their bf16 calls are traced as ``<op>_cuda_tc``, fp32 as ``<op>_cuda``,
+and the wrappers count the tensor-core launches in ``tc_launches``.
 
 ``lora_matmul``, ``flash_attention`` and ``selective_scan`` are
 ``torch.autograd.Function``s: the first ports the custom VJP of
@@ -53,13 +57,24 @@ def reset_kernel_traces() -> None:
     KERNEL_TRACES.clear()
 
 
+# the wrappers with a tensor-core instantiation, each with ``tc_launches``
+TC_KERNELS = {"flash_attention": fa_kernel.flash_attention,
+              "lora_matmul": lm_kernel.lora_matmul}
+
+
 def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def tc_launch_counts() -> Dict[str, int]:
+    return {name: fn.tc_launches for name, fn in TC_KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    for fn in TC_KERNELS.values():
+        fn.tc_launches = 0
 
 
 def _on_cuda(t: torch.Tensor, op: str) -> bool:
@@ -106,7 +121,9 @@ class _FlashAttention(torch.autograd.Function):
         ctx.causal, ctx.window = causal, window
         ctx.save_for_backward(q, k, v)
         if _on_cuda(q, "flash_attention"):
-            trace_count("flash_attention_cuda")
+            trace_count("flash_attention_cuda_tc"
+                        if fa_kernel.uses_tensor_cores(q)
+                        else "flash_attention_cuda")
             return fa_kernel.flash_attention(q, k, v, causal=causal,
                                              window=window)
         trace_count("flash_attention_ref")
@@ -157,7 +174,9 @@ class _QLoraMatmul(torch.autograd.Function):
     def forward(ctx, x, a, b, qt, scale):
         ctx.qt, ctx.scale = qt, scale
         if _on_cuda(x, "lora_matmul"):
-            trace_count("lora_matmul_cuda")
+            trace_count("lora_matmul_cuda_tc"
+                        if lm_kernel.uses_tensor_cores(x)
+                        else "lora_matmul_cuda")
             ctx.save_for_backward(x, a, b)
             return lm_kernel.lora_matmul(x, qt, a, b, scale=scale)
         trace_count("lora_matmul_ref")

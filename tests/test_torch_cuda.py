@@ -8,7 +8,9 @@ Without a Hopper GPU every test skips with its reason. Tolerances: fp32
 1e-5 (TF32 off), bf16 2e-2 times the largest magnitude (the JAX
 package's bf16 bound), ``blockwise_quant`` bitwise, ``selective_scan``
 and its gradient 1e-5 times each output's largest magnitude (the JAX
-package's interpret-vs-plain bound)."""
+package's interpret-vs-plain bound). bf16 ``flash_attention`` and
+``lora_matmul`` run their tensor-core kernels, fp32 their CUDA-core
+ones."""
 import numpy as np
 import pytest
 import torch
@@ -22,20 +24,45 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import selective_scan as ss_kernel
 
 FORMATS = [(8, "linear"), (4, "linear"), (4, "nf4")]
-FLASH_CASES = [  # (B, S, H, Hkv, D, causal, window)
-    (1, 1, 4, 4, 192, False, None),    # the adapter at S=1, CLIP width
-    (2, 40, 4, 2, 16, True, 8),        # GQA, causal, sliding window
-    (1, 33, 2, 2, 24, False, None),    # D not a power of two
-    (1, 5, 4, 4, 16, True, None),      # the adapter's causal S=5
-    (4, 64, 8, 8, 512, True, None),    # the adapter at Yi-9B width
-    (2, 40, 4, 2, 512, True, 8),       # D=512 with GQA and a window
+F32, BF16 = torch.float32, torch.bfloat16
+FLASH_CASES = [  # (B, S, H, Hkv, D, causal, window, dtype)
+    (1, 1, 4, 4, 192, False, None, F32),   # the adapter at S=1, CLIP width
+    (2, 40, 4, 2, 16, True, 8, F32),       # GQA, causal, sliding window
+    (1, 33, 2, 2, 24, False, None, F32),   # D not a power of two
+    (1, 5, 4, 4, 16, True, None, F32),     # the adapter's causal S=5
+    (4, 64, 8, 8, 512, True, None, F32),   # the adapter at Yi-9B width
+    (2, 40, 4, 2, 512, True, 8, F32),      # D=512 with GQA and a window
+    # bf16: the tensor-core kernel
+    (4, 64, 32, 4, 128, True, None, BF16),  # Yi-9B backbone, GQA 32/4
+    (4, 64, 8, 8, 512, True, None, BF16),   # the adapter at Yi-9B width
+    (1, 33, 2, 2, 72, False, None, BF16),   # D % 16 != 0: zero-padded
+    (1, 33, 2, 2, 36, True, None, BF16),    # D % 8 != 0: element loads
+    (2, 50, 4, 2, 64, True, 8, BF16),       # ragged S = 50, a window
+    (2, 40, 4, 2, 512, False, None, BF16),  # GQA with D = 512
+    (1, 1, 4, 4, 192, False, None, BF16),   # S = 1, three D slices
 ]
+# (M, K, N) at which lora_matmul.plan returns each split count (NF4,
+# block 64; tests/test_torch_lora_plan.py pins them on the CPU)
+SPLIT_SHAPES = {1: (512, 512, 4096), 2: (64, 1024, 8192),
+                3: (256, 4096, 11008), 4: (256, 4096, 4096),
+                8: (64, 1024, 1024), 16: (64, 2048, 1024),
+                32: (256, 4096, 512)}
 LORA_CASES = [  # (M, K, N, bits, mode, dtype, rank)
-    (256, 4096, 512, 4, "nf4", torch.bfloat16, 16),   # Yi-9B wk/wv
-    (37, 200, 33, 8, "linear", torch.float32, 4),     # odd K, ragged N
-    (37, 200, 33, 4, "linear", torch.float32, 4),
-    (9, 128, 96, 4, "nf4", torch.float32, 20),        # rank padded to 32
-]
+    (256, 4096, 512, 4, "nf4", BF16, 16),     # Yi-9B wk/wv
+    (37, 200, 33, 8, "linear", F32, 4),       # odd K, ragged N
+    (37, 200, 33, 4, "linear", F32, 4),
+    (9, 128, 96, 4, "nf4", F32, 20),          # rank padded to 32
+    # bf16: the tensor-core kernel
+    (256, 4096, 4096, 4, "nf4", BF16, 16),    # Yi-9B wq/wo
+    (256, 4096, 11008, 4, "nf4", BF16, 16),   # Yi-9B wg/wu
+    (256, 11008, 4096, 4, "nf4", BF16, 16),   # Yi-9B wd
+    (37, 200, 33, 4, "nf4", BF16, 4),         # odd K, ragged N, r = 4
+    (37, 201, 48, 4, "nf4", BF16, 4),         # K % 8 != 0: element loads
+    (64, 512, 256, 8, "linear", BF16, 16),    # int8
+    (64, 512, 256, 4, "linear", BF16, 16),    # int4
+    (9, 128, 96, 4, "nf4", BF16, 20),         # r = 20 padded to 32, M < 128
+] + [(M, K, N, 4, "nf4", BF16, 16) for s, (M, K, N) in SPLIT_SHAPES.items()
+     if s not in (3, 4, 32)]        # 3, 4, 32: wg/wu, wq/wo, wk/wv above
 SCAN_CASES = [  # (B, S, di, N)
     (4, 64, 8192, 16),     # the trainer's shape at Falcon-Mamba-7B width
     (1, 50, 520, 4),       # S and di off every block size, B = 1
@@ -84,15 +111,16 @@ def test_cuda_blockwise_quant_bitwise(cuda_device, bits):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,Hkv,D,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("B,S,H,Hkv,D,causal,window,dtype", FLASH_CASES)
 def test_cuda_flash_attention_matches_plain(cuda_device, B, S, H, Hkv, D,
-                                            causal, window):
-    q, k, v = (torch.from_numpy(_np(s, B, S, h, D)).to(cuda_device)
+                                            causal, window, dtype):
+    q, k, v = (torch.from_numpy(_np(s, B, S, h, D)).to(cuda_device, dtype)
                for s, h in ((26, H), (27, Hkv), (28, Hkv)))
+    before = fa_kernel.flash_attention.tc_launches
     got = fa_kernel.flash_attention(q, k, v, causal=causal, window=window)
-    torch.testing.assert_close(
-        got, ref.flash_attention(q, k, v, causal=causal, window=window),
-        rtol=1e-5, atol=1e-5)
+    assert fa_kernel.flash_attention.tc_launches - before == \
+        int(dtype == BF16)
+    _close(got, ref.flash_attention(q, k, v, causal=causal, window=window))
 
 
 def _close(got, want):
@@ -117,12 +145,71 @@ def _lora_inputs(dev, M, K, N, bits, mode, dtype, r):
 def test_cuda_lora_matmul_matches_plain(cuda_device, M, K, N, bits, mode,
                                         dtype, r):
     qt, x, a, b = _lora_inputs(cuda_device, M, K, N, bits, mode, dtype, r)
+    before = lm_kernel.lora_matmul.tc_launches
+    got = lm_kernel.lora_matmul(x, qt, a, b, scale=2.0)
+    assert lm_kernel.lora_matmul.tc_launches - before == int(dtype == BF16)
+    _close(got, ref.lora_matmul(x, qt, a, b, scale=2.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [16, 32, 128])
+@pytest.mark.parametrize("bits,mode", FORMATS)
+def test_cuda_lora_matmul_bf16_other_blocks(cuda_device, block, bits, mode):
+    """The tensor-core kernel at quant blocks other than the trainer's 64:
+    two groups per 32-row tile (16), one (32), a group over four tiles
+    (128); K = 200 leaves a partial last tile."""
+    w = torch.from_numpy(_np(29, 200, 40) / np.sqrt(200)).to(cuda_device)
+    qt = ref.blockwise_quant(w, bits=bits, block=block, mode=mode)
+    x = torch.from_numpy(_np(30, 37, 200)).to(cuda_device, BF16)
+    a = torch.from_numpy(_np(31, 200, 16) / np.sqrt(200)).to(cuda_device)
+    b = torch.from_numpy(_np(32, 16, 40)).to(cuda_device)
     got = lm_kernel.lora_matmul(x, qt, a, b, scale=2.0)
     _close(got, ref.lora_matmul(x, qt, a, b, scale=2.0))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,K,N,bits,mode,dtype,r", LORA_CASES)
+@pytest.mark.parametrize("splits", lm_kernel.SPLITS)
+def test_cuda_lora_matmul_every_split_count(cuda_device, splits):
+    """The tensor-core kernel with each split count forced at wk/wv's
+    shape, against the plain version and against the unsplit kernel."""
+    qt, x, a, b = _lora_inputs(cuda_device, 256, 4096, 512, 4, "nf4", BF16,
+                               16)
+    got = lm_kernel._lora_matmul(x, qt, a, b, 2.0, splits)
+    _close(got, ref.lora_matmul(x, qt, a, b, scale=2.0))
+    one = lm_kernel._lora_matmul(x, qt, a, b, 2.0, 1)
+    _close(got, one)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_routes_are_traced_and_refusals_raise(cuda_device):
+    """bf16 takes the tensor-core kernels under their own trace keys; an
+    input the tensor-core kernel does not take raises and launches
+    nothing else (no fallback to the CUDA-core kernel or the plain
+    version)."""
+    qt, x, a, b = _lora_inputs(cuda_device, 37, 200, 33, 4, "nf4", BF16, 4)
+    q = torch.from_numpy(_np(26, 2, 40, 4, 64)).to(cuda_device, BF16)
+    ops.reset_kernel_traces()
+    ops.reset_launch_counts()
+    ops.lora_matmul(x, qt, a, b, scale=2.0)
+    ops.flash_attention(q, q, q, causal=True)
+    assert ops.KERNEL_TRACES == {"lora_matmul_cuda_tc": 1,
+                                 "flash_attention_cuda_tc": 1}
+    assert ops.tc_launch_counts() == {"flash_attention": 1, "lora_matmul": 1}
+    w8 = ref.blockwise_quant(torch.from_numpy(_np(29, 64, 32)).to(
+        cuda_device), bits=4, block=8, mode="nf4")
+    with pytest.raises(NotImplementedError, match="block 8"):
+        lm_kernel.lora_matmul(x[:, :64].contiguous(), w8, a[:64], b[:, :32],
+                              scale=2.0)
+    qd = torch.from_numpy(_np(26, 1, 4, 2, 520)).to(cuda_device, BF16)
+    with pytest.raises(NotImplementedError, match="D=520"):
+        fa_kernel.flash_attention(qd, qd, qd)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lora_matmul"] == 1
+    assert ops.launch_counts()["flash_attention"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,bits,mode,dtype,r", LORA_CASES[:4])
 def test_cuda_quant_matmul_t_matches_plain(cuda_device, M, K, N, bits, mode,
                                            dtype, r):
     qt, _, _, _ = _lora_inputs(cuda_device, M, K, N, bits, mode, dtype, r)
@@ -155,10 +242,10 @@ def test_cuda_lora_op_grads_match_the_cpu_route(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,Hkv,D,causal,window", FLASH_CASES[1:])
+@pytest.mark.parametrize("B,S,H,Hkv,D,causal,window,dtype", FLASH_CASES[1:])
 def test_cuda_flash_attention_backward_matches_autograd_of_plain(
-        cuda_device, B, S, H, Hkv, D, causal, window):
-    q, k, v = (torch.from_numpy(_np(s, B, S, h, D)).to(cuda_device)
+        cuda_device, B, S, H, Hkv, D, causal, window, dtype):
+    q, k, v = (torch.from_numpy(_np(s, B, S, h, D)).to(cuda_device, dtype)
                for s, h in ((35, H), (36, Hkv), (37, Hkv)))
     ct = torch.from_numpy(_np(38, B, S, H, D)).to(cuda_device)
     got, want = [], []
@@ -167,7 +254,7 @@ def test_cuda_flash_attention_backward_matches_autograd_of_plain(
         (fn(*ts, causal=causal, window=window) * ct).sum().backward()
         out.extend(t.grad for t in ts)
     for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+        _close(g, w)
 
 
 def _scan_inputs(dev, B, S, di, N):
