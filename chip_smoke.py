@@ -31,10 +31,11 @@ Phases (a failed phase raises and the script exits non-zero):
     peak device memory.
 Phase 2 also holds ``selective_scan`` at the trainer's shape and at edge
 shapes, and its gradient (kernel forward, PyTorch-op backward) against
-autograd through the plain scan. bf16 calls of ``flash_attention`` and
-``lora_matmul`` run their tensor-core kernels and fp32 calls their
-CUDA-core ones; each row prints the route it took, and the bf16 trainer
-must launch only the tensor-core kernels of the two.
+autograd through the plain scan. bf16 calls of ``flash_attention``,
+``lora_matmul`` and ``quant_matmul_t`` (a bf16 cotangent) run their
+tensor-core kernels and fp32 calls their CUDA-core ones; each row prints
+the route it took, and the bf16 trainer must launch only the tensor-core
+kernels of the three.
 The last two lines are the ``kernels`` record and the device record.
 It needs one card, imports nothing of JAX, and runs nothing on the CPU
 in place of a kernel.
@@ -46,6 +47,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -108,6 +110,9 @@ TRAIN_KERNELS = {"yi-9b": ("lora_matmul", "quant_matmul_t", "flash_attention"),
                  "falcon-mamba-7b": ("selective_scan", "flash_attention")}
 # the scan's trainer shape at Falcon-Mamba-7B width: (B, S, d_inner, N)
 MAMBA_SCAN = (4, 64, 8192, 16)
+# LoRA linears of a dense block (wq, wk, wv, wo, wg, wu, wd): one
+# quant_matmul_t launch each per local step
+DENSE_LORA_LINEARS = 7
 
 
 # -- measurement helpers -----------------------------------------------
@@ -209,6 +214,22 @@ def ptxas_summary(log: str) -> str:
             f"{max(smem, default=0)} B")
 
 
+def ptxas_kernels(log: str) -> dict:
+    """Per kernel name (template instances merged): the largest register
+    count and spill-store bytes in a source's ptxas report."""
+    out: dict = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        mangled = chunk.split("'", 1)[0]
+        m = re.search(r"\d([a-z_]+_(?:kernel|sum))", mangled)
+        name = m.group(1) if m else mangled[:40]
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        r0, s0 = out.get(name, (0, 0))
+        out[name] = (max(r0, int(regs.group(1)) if regs else 0),
+                     max(s0, int(spill.group(1)) if spill else 0))
+    return out
+
+
 def setup() -> None:
     print(card_line(), flush=True)
     cap = torch.cuda.get_device_capability(0)
@@ -224,6 +245,9 @@ def setup() -> None:
           + " ".join(f"{k}={v:.1f}s" for k, v in took.items()), flush=True)
     for name, log in build.BUILD_LOG.items():
         print(f"  ptxas {name}: {ptxas_summary(log)}", flush=True)
+        if name == "lora_matmul":
+            print("    per kernel (registers, spill store bytes): " + " ".join(
+                f"{k}={v}" for k, v in ptxas_kernels(log).items()), flush=True)
 
 
 # -- phase 2: kernels against their plain versions ---------------------
@@ -360,9 +384,7 @@ def check_flash_attention(gen) -> dict:
         timed(row, "plain_ms", lambda: ref.flash_attention(
             q, k, v, causal=causal, window=window))
         if window is None:   # SDPA has no sliding window
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            timed(row, "library_ms",
-                  lambda: sdpa(qt_, kt_, vt_, is_causal=causal))
+            time_sdpa_backends(row, qt_, kt_, vt_, causal)
         report({"flash_attention": 1, **row})
         if name.startswith("serve"):
             main = row
@@ -377,14 +399,18 @@ def _tol(dtype) -> float:
 
 def check_lora_kernels(gen) -> tuple:
     """``lora_matmul`` and ``quant_matmul_t`` at the trainer's four Yi-9B
-    (K, N) pairs (M = 4 x 64 tokens, NF4 block 64, bf16 x, rank 16, fp32
-    g) and at int8, int4, fp32 x, odd K = 200 and ragged N = 33, K = 201
+    (K, N) pairs (M = 4 x 64 tokens, NF4 block 64, bf16 x and g, rank
+    16) and at int8, int4, fp32, odd K = 200 and ragged N = 33, K = 201
     (element loads of x), rank 20 (padded to 32) and M below the tile.
-    A bf16 x takes the tensor-core kernel with ``plan``'s split count,
-    printed beside it, and a dense bf16 ``torch.matmul`` of the same
-    (M, K, N) is timed as context (not a yardstick: it reads a dense W).
-    Returns the two records at the wg/wu shape (the largest per-call
-    work)."""
+    bf16 calls take the tensor-core kernels with ``plan``'s / ``plan_t``'s
+    split count, printed beside them; ``quant_matmul_t`` with a bf16 g
+    writes fp32, as the trainer's backward calls it, and is held to 1e-4
+    of the largest magnitude (its fp32-g route to 1e-5). At the Yi shapes
+    a dense bf16 ``torch.matmul`` of the same (M, K, N) is timed as
+    context for ``lora_matmul`` (not a yardstick: it reads a dense W),
+    and the fp32-g route of ``quant_matmul_t`` (the trainer's before this
+    kernel) on the same values. Returns the two records at the wg/wu
+    shape (the largest per-call work)."""
     dev = "cuda"
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [(name, 256, K, N, 4, "nf4", bf16, 16)
@@ -406,37 +432,42 @@ def check_lora_kernels(gen) -> tuple:
         x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
         a = torch.randn((K, r), generator=gen, device=dev) / K ** 0.5
         b = torch.randn((r, N), generator=gen, device=dev) * 0.05
-        g = torch.randn((M, N), generator=gen, device=dev)
+        g = torch.randn((M, N), generator=gen, device=dev).to(dtype)
         Kq = qt.q.shape[-3] * qt.block
-        for kname, run, plain, out_dt, nops, ins in (
-                ("lora_matmul",
+        for kname, wrapper, run, plain, tol, nops, ins in (
+                ("lora_matmul", lm_kernel.lora_matmul,
                  lambda: lm_kernel.lora_matmul(x, qt, a, b, scale=2.0),
-                 lambda: ref.lora_matmul(x, qt, a, b, scale=2.0), dtype,
+                 lambda: ref.lora_matmul(x, qt, a, b, scale=2.0), _tol(dtype),
                  2.0 * M * (Kq * N + K * r + r * N), (x, a, b)),
-                ("quant_matmul_t", lambda: lm_kernel.quant_matmul_t(g, qt),
-                 lambda: ref.quant_matmul_t(g, qt), torch.float32,
-                 2.0 * M * Kq * N, (g,))):
-            got, route = routed(lm_kernel.lora_matmul, run)
+                ("quant_matmul_t", lm_kernel.quant_matmul_t,
+                 lambda: lm_kernel.quant_matmul_t(g, qt, out_dtype=f32),
+                 lambda: ref.quant_matmul_t(g, qt, out_dtype=f32),
+                 1e-4 if dtype == bf16 else 1e-5, 2.0 * M * Kq * N, (g,))):
+            got, route = routed(wrapper, run)
             want = plain()
             torch.cuda.synchronize()
             abs_e, rel_e = rel_err(got, want)
-            if not (rel_e <= _tol(out_dt) and torch.isfinite(got).all()):
-                raise AssertionError(f"{kname} {name}: rel err {rel_e} > "
-                                     f"{_tol(out_dt)}")
+            if not (rel_e <= tol and torch.isfinite(got).all()):
+                raise AssertionError(f"{kname} {name}: rel err {rel_e} > {tol}")
             b_ms, b_by = bound(nbytes(*ins, qt.q, qt.scales, got), nops,
                                ins[0].dtype)
             row = {"case": name, "route": route}
-            if kname == "lora_matmul" and dtype == bf16:
+            if dtype == bf16:
                 if route != "tensor cores":
-                    raise AssertionError(f"lora_matmul {name}: bf16 x took "
-                                         f"{route}")
-                row["splits"] = lm_kernel.plan(M, K, N, qt.block).splits
-            row.update(max_abs_err=abs_e, rel_err=rel_e, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=None)
+                    raise AssertionError(f"{kname} {name}: bf16 took {route}")
+                row["splits"] = (lm_kernel.plan(M, K, N, qt.block)
+                                 if kname == "lora_matmul" else
+                                 lm_kernel.plan_t(M, Kq, N)).splits
+            row.update(max_abs_err=abs_e, rel_err=rel_e, tol=tol,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
             timed(row, "ms", run)
             timed(row, "plain_ms", plain)
-            if kname == "lora_matmul" and name in YI_LINEARS:
+            if name in YI_LINEARS and kname == "lora_matmul":
                 timed(row, "dense_bf16_ms", lambda: x @ w)
+            if name in YI_LINEARS and kname == "quant_matmul_t":
+                g32 = g.float()
+                timed(row, "fp32_g_ms",
+                      lambda: lm_kernel.quant_matmul_t(g32, qt))
             report({kname: 1, **row})
             if name == "wg_wu":
                 main[kname] = row
@@ -446,20 +477,72 @@ def check_lora_kernels(gen) -> tuple:
     return main["lora_matmul"], main["quant_matmul_t"]
 
 
-def sdpa_backend(fn) -> str:
-    """Which SDPA backend ran ``fn``, from its kernels' names."""
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = " ".join(e.name for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
-    low = names.lower()
-    for key, backend in (("cudnn", "cudnn"), ("flash", "flash"),
-                         ("fmha", "efficient"), ("cutlass", "efficient")):
-        if key in low:
-            return backend
-    return "math (" + names[:80] + ")"
+def qmt_split_sweep(gen, counts=(1, 2, 3, 4, 8, 16)) -> None:
+    """``quant_matmul_t``'s tensor-core kernel (bf16 g, fp32 out) at the
+    four Yi-9B shapes with each split count forced: the device time of
+    each, beside ``plan_t``'s modelled time and its pick (the data its
+    tile-time constant is fitted to), each count held to the plain
+    version at 1e-4."""
+    f32 = torch.float32
+    for name, (K, N) in YI_LINEARS.items():
+        w = torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5
+        qt = ref.blockwise_quant(w, bits=4, block=64, mode="nf4")
+        g = torch.randn((256, N), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        Kq = qt.q.shape[-3] * qt.block
+        want = ref.quant_matmul_t(g, qt, out_dtype=f32)
+        pl = lm_kernel.plan_t(256, Kq, N)
+        ms, model = {}, {}
+        for s_ in counts:
+            run = lambda: lm_kernel._quant_matmul_t(g, qt, f32, s_)
+            rel_e = rel_err(run(), want)[1]
+            if not rel_e <= 1e-4:
+                raise AssertionError(f"quant_matmul_t {name} at {s_} splits: "
+                                     f"rel err {rel_e}")
+            dev_ms, call_ms = timings(run, iters=20)
+            ms[s_] = round(dev_ms if dev_ms is not None else call_ms, 5)
+            tiles_per_split = -(-(-(-N // lm_kernel.BK)) // s_)
+            model[s_] = round(lm_kernel.plan_cost_us(
+                256, Kq, pl.tiles, tiles_per_split, s_,
+                lm_kernel.T_TILE_US, lm_kernel.T_PARTIAL_BYTES_PER_US) / 1e3, 5)
+        report({"quant_matmul_t_splits": name, "planned": pl.splits,
+                "device_ms": ms, "model_ms": model})
+
+
+def time_sdpa_backends(row: dict, q, k, v, causal: bool) -> None:
+    """Time ``scaled_dot_product_attention`` on (B, H, S, D) inputs under
+    each backend that accepts them, one at a time
+    (``torch.nn.attention.sdpa_kernel``); a backend that refuses the
+    shape or dtype is reported as such. ``row["library_ms"]`` is the
+    fastest, ``row["library"]`` its name, ``row["sdpa_ms"]`` every
+    backend's device time."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {}
+    for name, backend in (("flash", SDPBackend.FLASH_ATTENTION),
+                          ("efficient", SDPBackend.EFFICIENT_ATTENTION),
+                          ("cudnn", SDPBackend.CUDNN_ATTENTION),
+                          ("math", SDPBackend.MATH)):
+        def run(backend=backend):
+            with sdpa_kernel(backend):
+                return sdpa(q, k, v, is_causal=causal)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                run()
+                torch.cuda.synchronize()
+        except RuntimeError:
+            times[name] = "refused"
+            continue
+        t: dict = {}
+        timed(t, "ms", run)
+        times[name] = t["ms"]
+    ran = {n: t for n, t in times.items() if not isinstance(t, str)}
+    best = min(ran, key=ran.get) if ran else None
+    row["library_ms"] = ran[best] if best else None
+    row["library"] = f"sdpa/{best}" if best else "sdpa: every backend refused"
+    row["sdpa_ms"] = {n: (f"{t:.4g}" if not isinstance(t, str) else t)
+                      for n, t in times.items()}
 
 
 def check_flash_train(gen) -> dict:
@@ -496,10 +579,7 @@ def check_flash_train(gen) -> dict:
         G = H // Hkv
         qt_, kt_, vt_ = (t.transpose(1, 2).contiguous() for t in (
             q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)))
-        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt_, kt_, vt_, is_causal=True)
-        timed(row, "library_ms", sdpa)
-        row["library"] = "sdpa/" + sdpa_backend(sdpa)
+        time_sdpa_backends(row, qt_, kt_, vt_, True)
         report({"flash_attention": 1, **row})
 
         # backward: the Function's PyTorch-op gradient vs autograd of plain
@@ -833,6 +913,8 @@ def step_check_phase(seed: int = 0, n_layers: int = 2, device="cuda",
                "leaf_norm_rel": norm_errs}
         held = {k: v for k, v in norm_errs.items()
                 if dname == "float32" or k not in RELU_GATED}
+        res["worst_held_leaf"] = max(held, key=held.get)
+        res["worst_held_leaf_norm_rel"] = max(held.values())
         if not (res["loss_rel"] <= 1e-3 and res["grad_norm_rel"] <= 2e-2
                 and max(held.values()) <= 2e-2):
             raise AssertionError(f"full-width step card vs CPU: {res}")
@@ -963,6 +1045,14 @@ def train_phase(*, arch="yi-9b", rounds=2, clients=2, steps=2, batch=4,
             raise AssertionError(f"{name}: {tc[name]} of {launches[name]} "
                                  "launches on tensor cores in a bf16 model")
     res["tc_launches"] = tc
+    if "quant_matmul_t" in kernels and cfg.dtype == "bfloat16":
+        per_step = traces.get("quant_matmul_t_cuda_tc", 0) / n_steps
+        if "quant_matmul_t_cuda" in traces or \
+                per_step != DENSE_LORA_LINEARS * cfg.n_layers:
+            raise AssertionError(
+                f"quant_matmul_t: {per_step} tensor-core launches per local "
+                f"step (want {DENSE_LORA_LINEARS * cfg.n_layers}), traces "
+                f"{traces}")
     if arch == "falcon-mamba-7b" and \
             launches["selective_scan"] < 2 * cfg.n_layers * n_steps:
         raise AssertionError(
@@ -1032,6 +1122,7 @@ def main() -> int:
     main_rows["flash_attention"] = check_flash_train(gen)
     main_rows["lora_matmul"], main_rows["quant_matmul_t"] = \
         check_lora_kernels(gen)
+    qmt_split_sweep(gen)
     main_rows["selective_scan"] = check_selective_scan(gen)
 
     print("serve plane at CLIP ViT-B/32 width:", flush=True)

@@ -11,8 +11,10 @@
 // 2*M flops per weight against half a byte per weight, so the work is
 // operations-bound on the bf16 tensor-core rate.
 //
-// Two instantiations of lora_matmul, chosen by x's dtype in the wrapper
-// (kernels/lora_matmul.py), never as a fallback of one another:
+// Each op has two instantiations, chosen by the activation's dtype in the
+// wrapper (kernels/lora_matmul.py), never as a fallback of one another:
+// bf16 runs the tensor-core kernels below, fp32 the CUDA-core ones, which
+// keep fp32 callers at 1e-5 (tensor cores at fp32 would need TF32).
 //
 // bf16 x: lora_tc_kernel, tensor cores (lora_matmul_tc_launch).
 //  - mma.sync.m16n8k16 (bf16 operands, fp32 accumulators) fed by
@@ -22,27 +24,29 @@
 //    descriptors or warpgroup fences; that keeps the kernel short.
 //  - Block tile 256 x 128 (BM x BN), 16 warps as 4 x 4, each a 64 x 32
 //    warp tile; K walks in 32-deep tiles. BM = 256 covers the trainer's
-//    M = 256 tokens, so each weight is decoded once per call (per split). x, the packed payload, the
-//    scale rows a tile touches and the rows of A are staged by cp.async
-//    in a 4-stage ring as 16-byte cp.async chunks (zero-filled past M, K,
-//    Kq and N), so three tiles' loads are in flight during each tile's
-//    math. Each thread's copies are a fixed, unrolled set of chunks: the
-//    first version's generic strided loops and per-row divisions by the
-//    block size cost ~2200 SASS instructions per 36 mma (cuobjdump on
-//    the card). The block is a power of two >= 16 (shifts, not
-//    divisions), A arrives padded to 16 or 32 columns, and K % 8 != 0 or
-//    N % 16 != 0 take element-wise staging of x or of the payload.
-//  - Decode once per block: each weight of the block's column range is
-//    decoded (code * fp32 scale, the plain version's product) into
-//    shared tiles that all 256 rows use, as two bf16 parts, hi = bf16(w)
-//    and lo = bf16(w - hi), and x multiplies both (two mma passes, about
-//    16 bits of w). One pass (w rounded to bf16, as the TPU's default-
-//    precision MXU pass rounds it) held each call to the bf16 bound but
-//    moved the 2-layer Yi-9B step's gradients 2.4% (adapter wq/wk) from
-//    the CPU's fp32 products, past that check's 2% (PERF.md, PR 14).
-//    The decode of tile t+1 is interleaved with the two k16 steps of
-//    tile t's mma (double-buffered weight tiles, one barrier per tile),
-//    so the ALUs decode while the tensor cores multiply.
+//    M = 256 tokens, so each weight is decoded once per call (per split).
+//    x, the packed payload, the scale rows a tile touches and the rows
+//    of A are staged by cp.async in a 4-stage ring as 16-byte chunks
+//    (zero-filled past M, K, Kq and N), so three tiles' loads are in
+//    flight during each tile's math. Each thread's copies are a fixed,
+//    unrolled set of chunks: the first version's generic strided loops
+//    and per-row divisions by the block size cost ~2200 SASS
+//    instructions per 36 mma (cuobjdump on the card). The block is a
+//    power of two >= 16 (shifts, not divisions), A arrives padded to 16
+//    or 32 columns, and K % 8 != 0 or N % 16 != 0 take element-wise
+//    staging of x or of the payload.
+//  - Decode once per block (decode_words): each weight of the block's
+//    column range is decoded (code * fp32 scale, the plain version's
+//    product) into shared tiles that all 256 rows use, as two bf16
+//    parts, hi = bf16(w) and lo = bf16(w - hi), and x multiplies both
+//    (two mma passes, about 16 bits of w). One pass (w rounded to bf16,
+//    as the TPU's default-precision MXU pass rounds it) held each call
+//    to the bf16 bound but moved the 2-layer Yi-9B step's gradients 2.4%
+//    (adapter wq/wk) from the CPU's fp32 products, past that check's 2%
+//    (PERF.md). The decode of tile t+1 is interleaved with the
+//    two k16 steps of tile t's mma (double-buffered weight tiles, one
+//    barrier per tile), so the ALUs decode while the tensor cores
+//    multiply.
 //  - h = x @ A rides in the same loop as an n = 16 / 32 tensor-core
 //    product (A split into hi and lo the same way, r padded with zero
 //    columns); after the loop h (fp32) and the rows of B (fp32) meet in
@@ -54,12 +58,35 @@
 //    and whole k-tiles. Each split writes fp32 partials, its own
 //    scale * h_s @ B included (the term is linear in h), to an
 //    (splits, M, N) workspace, and splitk_sum adds them in split order
-//    and casts to bf16: deterministic, no atomics.
+//    and casts to the output dtype: deterministic, no atomics.
 //  - Shared memory 140 KB (NF4/int4, r <= 16) to 160 KB (int8,
 //    r <= 32): one block of 16 warps per SM.
 //
-// fp32 x: lora_kernel, fp32 CUDA cores, the first design, kept so fp32
-// callers meet 1e-5 (tensor cores at fp32 would need TF32). Each block
+// bf16 g: qmt_tc_kernel, tensor cores (quant_matmul_t_tc_launch), the
+// same design turned over. The trainer's cotangent is bf16 (the model's
+// dtype), so it is the A operand as it is: only W is split into hi + lo
+// (two mma passes), and g.float() @ W^T and g @ W^T with fp32 products
+// are the same sum.
+//  - Block tile 256 (M) x 128 (Kq, output columns), 16 warps as 4 x 4,
+//    each 64 x 32; the contraction walks N in 32-deep tiles. W's stored
+//    orientation (Kq rows, N contiguous) is already the [n][k] layout
+//    mma.sync's col-major B operand wants, so a tile decodes into
+//    [128 Kq rows][32 N columns] (decode_words, the same decoder as
+//    lora_tc_kernel's at another tile shape) and is read with plain
+//    ldmatrix (frag_b_nk). g's [256][32] tile, the payload's 64 (4-bit)
+//    or 128 (int8) rows of 32 bytes and the tile's 128 / block scale
+//    rows are staged by cp.async in a 4-stage ring.
+//  - Split over N (grid z): a 128-column tile grid is 32 blocks at
+//    Kq = 4096 and 86 at 11008, against 132 SMs. N carries no quant
+//    group (the groups run along Kq), so the granule is one 32-wide
+//    k-tile; kernels/lora_matmul.plan_t picks the count, fp32 partials
+//    (splits, M, Kq) are summed in split order by splitk_sum into fp32
+//    or bf16.
+//  - Columns past N (ragged N) stage as zeros in both g and W, so they
+//    contract inertly, as the Pallas kernel's zero scales make them;
+//    Kq rows past the true Kq decode to zero and are not written.
+//
+// fp32 x: lora_kernel, fp32 CUDA cores, the first design. Each block
 // owns a (64 x 128) output tile, 256 threads as 16 x 16, each thread a
 // 4 x 8 register micro-tile at stride 16 (conflict-free shared reads).
 // The block walks the reduction axis in 32-deep tiles: the activation
@@ -72,12 +99,10 @@
 //    kernel's (bm, r) scratch does; after the loop h and the (r x 128)
 //    tile of B meet in shared memory and y = acc + scale * h @ B is
 //    written. r is padded to 16 or 32 with zero columns.
-//  - quant_matmul_t (fp32 CUDA cores for both dtypes; the trainer's
-//    backward calls it with fp32 g) reduces over N and writes columns of
-//    Kq: its weight tile is W^T, read along N (coalesced) and stored
-//    transposed in shared memory with a padded stride. Columns past N
-//    (ragged N) load as zeros, as the Pallas kernel's zero scales make
-//    them.
+// fp32 g: qmt_kernel, the same CUDA-core tiles for quant_matmul_t. It
+// reduces over N and writes columns of Kq: its weight tile is W^T, read
+// along N (coalesced) and stored transposed in shared memory with a
+// padded stride. Columns past N (ragged N) load as zeros.
 // Odd K: x and A are masked past the true K and W's pad rows are zero,
 // which contracts as the zero-padding of lora_matmul.py:75-84 does.
 // All accumulation is fp32. No route writes a dense W to device memory.
@@ -228,10 +253,10 @@ lora_kernel(const float* __restrict__ x, const uint8_t* __restrict__ q,
 }
 
 // g (M, N), q (G, rows, N), s (G, 1, N) -> o (M, Kq) = g @ dequant(W)^T
-template <typename T, int FMT>
+template <int FMT>
 __global__ void __launch_bounds__(NT)
-qmt_kernel(const T* __restrict__ g, const uint8_t* __restrict__ q,
-           const float* __restrict__ s, T* __restrict__ o, int M, int Kq,
+qmt_kernel(const float* __restrict__ g, const uint8_t* __restrict__ q,
+           const float* __restrict__ s, float* __restrict__ o, int M, int Kq,
            int N, int block, int rows) {
   __shared__ float gs[BK * LDA];            // g tile, transposed
   __shared__ float wt[BK * LDT];            // W^T tile: [n][k]
@@ -408,11 +433,69 @@ __device__ __forceinline__ float code4(int nib, const float* code) {
   return FMT == FMT_NF4 ? code[nib] : (float)(nib - 8);
 }
 
-// Decode half `part` (0 or 1) of a staged tile into the weight tile wb:
-// w = code * scale in fp32 as bf16 hi [BK][LDW] then lo [BK][LDW] parts
-// (split_bf16); part 0 also splits the tile's A rows into ab (hi, lo,
-// [BK][LDA] each). Rows at or past ke decode to zero (their staged scale
-// rows are stale).
+// Decode half `part` (0 or 1) of a staged quantized tile of ROWS weight
+// rows by COLS columns into bf16 hi [ROWS][LDW] and lo [ROWS][LDW]
+// parts at wb (w = code * scale in fp32, split_bf16). Staged as the
+// (G, rows, N) layout lies: payload [ROWS / RSTEP][COLS] bytes (byte row
+// j holds weight rows RSTEP j ..), scales [.][COLS] fp32, the scale row
+// of weight row k0 + row at ((k0 + row) >> bshift) - (k0 >> bshift).
+// Weight rows at or past ke decode to zero (their staged scale rows may
+// be stale). Each thread takes fixed 4-byte payload words: with one word
+// a thread per tile, the first half of the block decodes in part 0 and
+// the second in part 1; with more, each part takes half of them.
+// lora_tc_kernel decodes [32 K rows][128 N columns] tiles, qmt_tc_kernel
+// [128 Kq rows][32 N columns]: the same [weight row][column] orientation.
+template <int FMT, int ROWS, int COLS, int LDW>
+__device__ __forceinline__ void decode_words(const uint8_t* qs,
+                                             const float* ss,
+                                             __nv_bfloat16* wb,
+                                             const float* code, int k0,
+                                             int ke, int bshift, int part) {
+  constexpr int RSTEP = FMT == FMT_INT8 ? 1 : 2;   // weight rows a byte
+  constexpr int WPR = COLS / 4;                    // words a payload row
+  constexpr int PER = ROWS / RSTEP * WPR / NT;     // words a thread
+  constexpr int PP = PER >= 2 ? PER / 2 : 1;       // ... a part
+  static_assert(PER >= 1 && (PER == 1 || PER % 2 == 0), "words a thread");
+  const int tid = threadIdx.x;
+  const bool full = k0 + ROWS <= ke;
+  const bool mine = PER >= 2 || (tid >= NT / 2) == (part == 1);
+#pragma unroll
+  for (int e = 0; e < PP; ++e) {
+    if (!mine) break;
+    const int w = PER >= 2 ? tid + (part * PP + e) * NT : tid;
+    const int pr = (int)((unsigned)w / WPR);
+    const int c4 = (int)((unsigned)w % WPR) * 4;
+    const int row = RSTEP * pr;                      // first weight row
+    const uint32_t word = *reinterpret_cast<const uint32_t*>(qs + pr * COLS + c4);
+    const int sr = ((k0 + row) >> bshift) - (k0 >> bshift);
+    const float4 sc4 = *reinterpret_cast<const float4*>(ss + sr * COLS + c4);
+    const float sc[4] = {sc4.x, sc4.y, sc4.z, sc4.w};
+    const bool ok = full || k0 + row < ke;
+    float wv[RSTEP][4];                // rows row (hi nibble), row + 1
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int byte = (word >> (8 * j)) & 0xff;
+      if (FMT == FMT_INT8) {
+        wv[0][j] = ok ? (float)(int8_t)byte * sc[j] : 0.f;
+      } else {
+        wv[0][j] = ok ? code4<FMT>(byte >> 4, code) * sc[j] : 0.f;
+        wv[RSTEP - 1][j] = ok ? code4<FMT>(byte & 0xf, code) * sc[j] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < RSTEP; ++rr) {
+      uint2 h, l;
+      tc::split_bf16(wv[rr][0], wv[rr][1], h.x, l.x);
+      tc::split_bf16(wv[rr][2], wv[rr][3], h.y, l.y);
+      *reinterpret_cast<uint2*>(wb + (row + rr) * LDW + c4) = h;
+      *reinterpret_cast<uint2*>(wb + (ROWS + row + rr) * LDW + c4) = l;
+    }
+  }
+}
+
+// Decode half `part` of a staged tile of lora_tc_kernel into the weight
+// tile wb (decode_words); part 0 also splits the tile's A rows into ab
+// (hi, lo, [BK][LDA] each).
 template <int FMT, int RP>
 __device__ __forceinline__ void decode_part(const Args& p, const uint8_t* st,
                                             __nv_bfloat16* wb,
@@ -421,45 +504,9 @@ __device__ __forceinline__ void decode_part(const Args& p, const uint8_t* st,
                                             int ke, int part) {
   using L = Layout<FMT, RP>;
   const int tid = threadIdx.x;
-  const uint8_t* qs = st + L::Q;
-  const float* ss = reinterpret_cast<const float*>(st + L::S);
-  const bool full = k0 + BK <= ke;
-  // 4-byte payload words: int8 gives each thread one per part, 4-bit one
-  // per tile (the first half of the block in part 0, the second in 1)
-  constexpr int PER = L::QROWS * BN / 4 / NT;
-  constexpr int PP = PER >= 2 ? PER / 2 : 1;
-  const bool mine = PER >= 2 || (tid >= NT / 2) == (part == 1);
-#pragma unroll
-  for (int e = 0; e < PP; ++e) {
-    if (!mine) break;
-    const int w = PER >= 2 ? tid + (part * PP + e) * NT : tid;
-    const int pr = w >> 5, c4 = (w & 31) * 4;
-    const int row = L::RSTEP * pr;                   // first weight row
-    const uint32_t word = *reinterpret_cast<const uint32_t*>(qs + pr * BN + c4);
-    const int sr = ((k0 + row) >> p.bshift) - (k0 >> p.bshift);
-    const float4 sc4 = *reinterpret_cast<const float4*>(ss + sr * BN + c4);
-    const float sc[4] = {sc4.x, sc4.y, sc4.z, sc4.w};
-    const bool ok = full || k0 + row < ke;
-    float wv[L::RSTEP][4];             // rows row (hi nibble), row + 1
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int byte = (word >> (8 * j)) & 0xff;
-      if (FMT == FMT_INT8) {
-        wv[0][j] = ok ? (float)(int8_t)byte * sc[j] : 0.f;
-      } else {
-        wv[0][j] = ok ? code4<FMT>(byte >> 4, code) * sc[j] : 0.f;
-        wv[L::RSTEP - 1][j] = ok ? code4<FMT>(byte & 0xf, code) * sc[j] : 0.f;
-      }
-    }
-#pragma unroll
-    for (int rr = 0; rr < L::RSTEP; ++rr) {
-      uint2 h, l;
-      tc::split_bf16(wv[rr][0], wv[rr][1], h.x, l.x);
-      tc::split_bf16(wv[rr][2], wv[rr][3], h.y, l.y);
-      *reinterpret_cast<uint2*>(wb + (row + rr) * LDW + c4) = h;
-      *reinterpret_cast<uint2*>(wb + (BK + row + rr) * LDW + c4) = l;
-    }
-  }
+  decode_words<FMT, BK, BN, LDW>(st + L::Q,
+                                 reinterpret_cast<const float*>(st + L::S),
+                                 wb, code, k0, ke, p.bshift, part);
   static_assert(BK * RP / 2 <= NT, "one A pair per thread");
   if (part == 0 && tid < BK * RP / 2) {
     const float* as = reinterpret_cast<const float*>(st + L::A);
@@ -641,10 +688,18 @@ __global__ void __launch_bounds__(NT, 1) lora_tc_kernel(const Args p) {
     }
 }
 
-// y = bf16(the sum over s of ws[s]), split 0 first: a fixed order
-__global__ void splitk_sum(const float* __restrict__ ws,
-                           __nv_bfloat16* __restrict__ y, long long mn,
-                           int splits) {
+__device__ __forceinline__ void store4(__nv_bfloat16* y, float4 v) {
+  *reinterpret_cast<uint2*>(y) =
+      make_uint2(tc::pack_bf16(v.x, v.y), tc::pack_bf16(v.z, v.w));
+}
+__device__ __forceinline__ void store4(float* y, float4 v) {
+  *reinterpret_cast<float4*>(y) = v;
+}
+
+// y = T(the sum over s of ws[s]), split 0 first: a fixed order
+template <typename T>
+__global__ void splitk_sum(const float* __restrict__ ws, T* __restrict__ y,
+                           long long mn, int splits) {
   const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
   if (i >= mn) return;
   if (mn % 4 == 0) {
@@ -656,15 +711,23 @@ __global__ void splitk_sum(const float* __restrict__ ws,
       v.z += u.z;
       v.w += u.w;
     }
-    *reinterpret_cast<uint2*>(y + i) =
-        make_uint2(tc::pack_bf16(v.x, v.y), tc::pack_bf16(v.z, v.w));
+    store4(y + i, v);
     return;
   }
   for (long long j = i; j < i + 4 && j < mn; ++j) {
     float v = ws[j];
     for (int s = 1; s < splits; ++s) v += ws[s * mn + j];
-    y[j] = __float2bfloat16(v);
+    store_f(y + j, v);
   }
+}
+
+template <typename T>
+cudaError_t sum_splits(const float* ws, T* y, long long mn, int splits,
+                       cudaStream_t st) {
+  const int threads = 256;
+  const long long blocks = (mn + 4LL * threads - 1) / (4LL * threads);
+  splitk_sum<T><<<(unsigned)blocks, threads, 0, st>>>(ws, y, mn, splits);
+  return cudaGetLastError();
 }
 
 template <int FMT, int RP>
@@ -689,6 +752,242 @@ cudaError_t launch_fmt(const Args& p, int splits, cudaStream_t st) {
 }
 
 }  // namespace lt
+
+// ---- bf16 g: tensor cores ----------------------------------------------
+namespace qmt {
+
+using lt::MIN_BLOCK;
+using lt::NS;
+using lt::NT;
+constexpr int BM = 256;             // rows of g and of dx a block
+constexpr int BN = 128;             // columns of dx (rows of W) a block
+constexpr int BK = 32;              // N (the contraction) a tile
+constexpr int LDG = BK + 8;         // bf16 strides padded by 16 bytes:
+constexpr int LDW = BK + 8;         // ldmatrix rows hit distinct banks
+constexpr int SR = BN / MIN_BLOCK;  // scale rows a tile can touch
+
+template <int FMT>
+struct Layout {
+  static constexpr int RSTEP = FMT == FMT_INT8 ? 1 : 2;
+  static constexpr int QROWS = BN / RSTEP;           // payload rows a tile
+  static constexpr int G = 0;                        // bf16 [BM][LDG]
+  static constexpr int Q = G + BM * LDG * 2;         // u8 [QROWS][BK]
+  static constexpr int S = Q + QROWS * BK;           // f32 [SR][BK]
+  static constexpr int STAGE = S + SR * BK * 4;
+  // decoded W tiles, double-buffered, each a bf16 hi and lo [BN][LDW]
+  static constexpr int WB = NS * STAGE;
+  static constexpr int CODE = WB + 4 * BN * LDW * 2; // f32 [16]
+  static constexpr int BYTES = CODE + 16 * 4;
+  // 16-byte chunks a tile stages: g, payload (scales: tid < rows * 8)
+  static constexpr int GCH = BM * BK / 8 / NT;       // per thread
+  static constexpr int QCH = QROWS * BK / 16;        // threads tid < QCH
+  static_assert(GCH * NT * 8 == BM * BK && QCH <= NT && SR * 8 <= NT,
+                "chunks");
+  static_assert(STAGE % 16 == 0 && WB % 16 == 0, "align");
+};
+
+struct Args {
+  const __nv_bfloat16* g;           // (M, N)
+  const uint8_t* q;                 // (G, rows, N)
+  const float* s;                   // (G, 1, N)
+  void* o;                          // (M, Kq), fp32 or bf16: splits == 1
+  float* ws;                        // splits > 1: (splits, M, Kq) partials
+  int M, Kq, N, bshift, unit;       // block = 1 << bshift; unit: N granule
+  bool out_f32;
+  bool g_vec, w_vec;                // 16-byte cp.async for g / payload+scales
+};
+
+// Stage N-tile [n0, n0 + BK) (of the split ending at ne) of g rows m0..
+// and of W rows kb0.. into one ring slot: payload row j of the (G, rows,
+// N) layout is weight row j * RSTEP, so the block's payload is QROWS
+// consecutive rows from kb0 / RSTEP, 32 bytes of each; the scale row of
+// weight row k is k >> bshift. Zero fill past M, ne (<= N) and Kq;
+// N % 8 != 0 (g) or N % 16 != 0 (payload, scales) take element copies.
+template <int FMT>
+__device__ __forceinline__ void load_tile(const Args& p, uint8_t* st, int m0,
+                                          int kb0, int n0, int ne) {
+  using L = Layout<FMT>;
+  const int tid = threadIdx.x;
+  __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(st + L::G);
+  uint8_t* qs = st + L::Q;
+  float* ss = reinterpret_cast<float*>(st + L::S);
+  if (p.g_vec) {                    // N % 8 == 0: a chunk is all in or out
+#pragma unroll
+    for (int e = 0; e < L::GCH; ++e) {
+      const int i = tid + e * NT, row = i >> 2, c = (i & 3) * 8;
+      const int m = m0 + row, n = n0 + c;
+      const bool ok = m < p.M && n < ne;
+      tc::cp_async16(gs + row * LDG + c, ok ? p.g + (size_t)m * p.N + n : p.g,
+                     ok);
+    }
+  } else {
+    for (int i = tid; i < BM * BK; i += NT) {
+      const int row = i / BK, c = i % BK, m = m0 + row, n = n0 + c;
+      gs[row * LDG + c] = (m < p.M && n < ne) ? p.g[(size_t)m * p.N + n]
+                                              : __float2bfloat16(0.f);
+    }
+  }
+  const int g0 = kb0 >> p.bshift;
+  const int nsr = p.bshift >= 7 ? 1 : BN >> p.bshift;  // scale rows
+  if (p.w_vec) {                    // N % 16 == 0
+    if (tid < L::QCH) {
+      const int pr = tid >> 1, c = (tid & 1) * 16, n = n0 + c;
+      const bool ok = kb0 + L::RSTEP * pr < p.Kq && n < ne;
+      tc::cp_async16(
+          qs + pr * BK + c,
+          ok ? p.q + (size_t)(kb0 / L::RSTEP + pr) * p.N + n : p.q, ok);
+    }
+    if (tid < nsr * 8) {
+      const int sr = tid >> 3, c = (tid & 7) * 4, n = n0 + c;
+      const bool ok = n < ne && ((g0 + sr) << p.bshift) < p.Kq;
+      tc::cp_async16(ss + sr * BK + c,
+                     ok ? p.s + (size_t)(g0 + sr) * p.N + n : p.s, ok);
+    }
+  } else {
+    for (int i = tid; i < L::QROWS * BK; i += NT) {
+      const int pr = i / BK, n = n0 + i % BK;
+      qs[i] = (kb0 + L::RSTEP * pr < p.Kq && n < ne)
+                  ? p.q[(size_t)(kb0 / L::RSTEP + pr) * p.N + n]
+                  : (uint8_t)0;
+    }
+    for (int i = tid; i < nsr * BK; i += NT) {
+      const int sr = i / BK, n = n0 + i % BK;
+      const bool ok = n < ne && ((g0 + sr) << p.bshift) < p.Kq;
+      tc::cp_async4(ss + i, ok ? p.s + (size_t)(g0 + sr) * p.N + n : p.s,
+                    ok);
+    }
+  }
+}
+
+template <int FMT>
+__device__ __forceinline__ void decode(const Args& p, const uint8_t* st,
+                                       __nv_bfloat16* wb, const float* code,
+                                       int kb0, int part) {
+  using L = Layout<FMT>;
+  lt::decode_words<FMT, BN, BK, LDW>(
+      st + L::Q, reinterpret_cast<const float*>(st + L::S), wb, code, kb0,
+      p.Kq, p.bshift, part);
+}
+
+// dx tile (m0.., kb0..) of split z = sum over its N-tiles of
+// g_tile @ (W hi + W lo)_tile^T: two mma passes, fp32 accumulators.
+template <int FMT>
+__global__ void __launch_bounds__(NT, 1) qmt_tc_kernel(const Args p) {
+  using L = Layout<FMT>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __nv_bfloat16* wbuf = reinterpret_cast<__nv_bfloat16*>(smem + L::WB);
+  float* code = reinterpret_cast<float*>(smem + L::CODE);
+  dq::load_codebook(code);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int kb0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  // this split's contraction range: whole units of BK columns of N
+  const int nu = (p.N + p.unit - 1) / p.unit, z = blockIdx.z;
+  const int nb = (int)((long long)z * nu / gridDim.z) * p.unit;
+  const int ne = min((int)((long long)(z + 1) * nu / gridDim.z) * p.unit,
+                     p.N);
+  const int ntile = ne > nb ? (ne - nb + BK - 1) / BK : 0;
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int t = 0; t < NS - 1; ++t) {
+    if (t < ntile)
+      load_tile<FMT>(p, smem + t * L::STAGE, m0, kb0, nb + t * BK, ne);
+    tc::cp_commit();                // one group per tile, empty or not
+  }
+  tc::cp_wait<NS - 2>();
+  __syncthreads();                  // tile 0 and the codebook are in
+  if (ntile > 0)
+    for (int part = 0; part < 2; ++part)
+      decode<FMT>(p, smem, wbuf, code, kb0, part);
+
+  for (int t = 0; t < ntile; ++t) {
+    tc::cp_wait<NS - 3>();          // tile t + 1 has landed
+    __syncthreads();                // tile t decoded; tile t - 1 consumed
+    if (t + NS - 1 < ntile)
+      load_tile<FMT>(p, smem + ((t + NS - 1) % NS) * L::STAGE, m0, kb0,
+                     nb + (t + NS - 1) * BK, ne);
+    tc::cp_commit();
+    const __nv_bfloat16* gs =
+        reinterpret_cast<const __nv_bfloat16*>(smem + (t % NS) * L::STAGE);
+    const __nv_bfloat16* wb = wbuf + (t & 1) * 2 * BN * LDW;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      uint32_t af[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        tc::frag_a(af[i], gs, LDG, wm * 64 + i * 16, kk * 16, lane);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        uint32_t bh[4], bl[4];          // W's hi and lo parts, [n][k]
+        tc::frag_b_nk(bh, wb, LDW, wn * 32 + jj * 16, kk * 16, lane);
+        tc::frag_b_nk(bl, wb + BN * LDW, LDW, wn * 32 + jj * 16, kk * 16,
+                      lane);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          tc::mma_bf16(acc[i][2 * jj], af[i], bh[0], bh[1]);
+          tc::mma_bf16(acc[i][2 * jj], af[i], bl[0], bl[1]);
+          tc::mma_bf16(acc[i][2 * jj + 1], af[i], bh[2], bh[3]);
+          tc::mma_bf16(acc[i][2 * jj + 1], af[i], bl[2], bl[3]);
+        }
+      }
+      if (t + 1 < ntile)            // decode the next tile meanwhile
+        decode<FMT>(p, smem + ((t + 1) % NS) * L::STAGE,
+                    wbuf + ((t + 1) & 1) * 2 * BN * LDW, code, kb0, kk);
+    }
+  }
+
+  // Kq is a multiple of the block (>= 16), so a column pair k, k + 1 is
+  // all in or all out
+  float* part = gridDim.z > 1 ? p.ws + (size_t)z * p.M * p.Kq : nullptr;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * 64 + i * 16 + g + 8 * h;
+      if (m >= p.M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = kb0 + wn * 32 + j * 8 + c2;
+        if (k >= p.Kq) continue;
+        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        const size_t o = (size_t)m * p.Kq + k;
+        if (part != nullptr)
+          *reinterpret_cast<float2*>(part + o) = make_float2(v0, v1);
+        else if (p.out_f32)
+          *reinterpret_cast<float2*>(static_cast<float*>(p.o) + o) =
+              make_float2(v0, v1);
+        else
+          *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.o) +
+                                       o) = tc::pack_bf16(v0, v1);
+      }
+    }
+}
+
+template <int FMT>
+cudaError_t launch(const Args& p, int splits, cudaStream_t st) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        qmt_tc_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Layout<FMT>::BYTES);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const dim3 grid((p.Kq + BN - 1) / BN, (p.M + BM - 1) / BM, splits);
+  qmt_tc_kernel<FMT><<<grid, NT, Layout<FMT>::BYTES, st>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace qmt
 
 template <int FMT>
 cudaError_t lora_fmt(const void* x, const void* q, const void* s,
@@ -722,23 +1021,22 @@ cudaError_t lora_f32(int fmt, const void* x, const void* q, const void* s,
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
-cudaError_t qmt_typed(int fmt, const void* g, const void* q, const void* s,
-                      void* o, int M, int Kq, int N, int block, int rows,
-                      cudaStream_t st) {
+cudaError_t qmt_f32(int fmt, const void* g, const void* q, const void* s,
+                    void* o, int M, int Kq, int N, int block, int rows,
+                    cudaStream_t st) {
   const dim3 grid((Kq + BN - 1) / BN, (M + BM - 1) / BM);
   switch (fmt) {
     case FMT_INT8:
-      qmt_kernel<T, FMT_INT8><<<grid, NT, 0, st>>>(
-          (const T*)g, (const uint8_t*)q, (const float*)s, (T*)o, M, Kq, N, block, rows);
+      qmt_kernel<FMT_INT8><<<grid, NT, 0, st>>>(
+          (const float*)g, (const uint8_t*)q, (const float*)s, (float*)o, M, Kq, N, block, rows);
       break;
     case FMT_INT4:
-      qmt_kernel<T, FMT_INT4><<<grid, NT, 0, st>>>(
-          (const T*)g, (const uint8_t*)q, (const float*)s, (T*)o, M, Kq, N, block, rows);
+      qmt_kernel<FMT_INT4><<<grid, NT, 0, st>>>(
+          (const float*)g, (const uint8_t*)q, (const float*)s, (float*)o, M, Kq, N, block, rows);
       break;
     case FMT_NF4:
-      qmt_kernel<T, FMT_NF4><<<grid, NT, 0, st>>>(
-          (const T*)g, (const uint8_t*)q, (const float*)s, (T*)o, M, Kq, N, block, rows);
+      qmt_kernel<FMT_NF4><<<grid, NT, 0, st>>>(
+          (const float*)g, (const uint8_t*)q, (const float*)s, (float*)o, M, Kq, N, block, rows);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -805,26 +1103,58 @@ extern "C" int lora_matmul_tc_launch(const void* x, const void* q,
     case FMT_NF4: err = lt::launch_fmt<FMT_NF4>(p, splits, st); break;
   }
   if (err != cudaSuccess || splits == 1) return (int)err;
-  const long long mn = (long long)M * N;
-  const int threads = 256;
-  const long long blocks = (mn + 4LL * threads - 1) / (4LL * threads);
-  lt::splitk_sum<<<(unsigned)blocks, threads, 0, st>>>(
-      (const float*)ws, (__nv_bfloat16*)y, mn, splits);
-  return (int)cudaGetLastError();
+  return (int)lt::sum_splits((const float*)ws, (__nv_bfloat16*)y,
+                             (long long)M * N, splits, st);
 }
 
-// g (M, N) -> o (M, Kq); is_bf16: g and o dtype.
+// fp32 g, o: the CUDA-core kernel. g (M, N) -> o (M, Kq).
 extern "C" int quant_matmul_t_launch(const void* g, const void* q,
                                      const void* s, void* o, int M, int Kq,
                                      int N, int block, int rows, int fmt,
-                                     int is_bf16, void* stream) {
+                                     void* stream) {
   if (M < 1 || N < 1 || Kq < 1 || (M + BM - 1) / BM > 65535 ||
       bad_layout(fmt, Kq, block, rows))
     return (int)cudaErrorInvalidValue;
+  return (int)qmt_f32(fmt, g, q, s, o, M, Kq, N, block, rows,
+                      (cudaStream_t)stream);
+}
+
+// bf16 g: the tensor-core kernel, g (M, N) -> o (M, Kq) in fp32
+// (out_f32) or bf16, then (splits > 1) splitk_sum over the fp32
+// workspace ws (splits, M, Kq). block is a power of two >= 16; unit, the
+// split granule along N, is a multiple of 32 (kernels/lora_matmul.plan_t).
+extern "C" int quant_matmul_t_tc_launch(const void* g, const void* q,
+                                        const void* s, void* o, void* ws,
+                                        int M, int Kq, int N, int block,
+                                        int rows, int fmt, int out_f32,
+                                        int splits, int unit, void* stream) {
+  if (M < 1 || N < 1 || Kq < 1 || (M + qmt::BM - 1) / qmt::BM > 65535 ||
+      bad_layout(fmt, Kq, block, rows) || block < qmt::MIN_BLOCK ||
+      (block & (block - 1)) || splits < 1 || splits > 64 || unit < 1 ||
+      unit % qmt::BK || (splits > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  qmt::Args p;
+  p.g = (const __nv_bfloat16*)g;
+  p.q = (const uint8_t*)q;
+  p.s = (const float*)s;
+  p.o = o;
+  p.ws = (float*)ws;
+  p.M = M; p.Kq = Kq; p.N = N;
+  p.bshift = __builtin_ctz(block); p.unit = unit;
+  p.out_f32 = out_f32 != 0;
+  p.g_vec = N % 8 == 0 && (uintptr_t)g % 16 == 0;
+  p.w_vec = N % 16 == 0 && ((uintptr_t)q | (uintptr_t)s) % 16 == 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t err =
-      is_bf16 ? qmt_typed<__nv_bfloat16>(fmt, g, q, s, o, M, Kq, N, block,
-                                         rows, st)
-              : qmt_typed<float>(fmt, g, q, s, o, M, Kq, N, block, rows, st);
-  return (int)err;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (fmt) {
+    case FMT_INT8: err = qmt::launch<FMT_INT8>(p, splits, st); break;
+    case FMT_INT4: err = qmt::launch<FMT_INT4>(p, splits, st); break;
+    case FMT_NF4: err = qmt::launch<FMT_NF4>(p, splits, st); break;
+  }
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long mn = (long long)M * Kq;
+  return p.out_f32
+             ? (int)lt::sum_splits((const float*)ws, (float*)o, mn, splits, st)
+             : (int)lt::sum_splits((const float*)ws, (__nv_bfloat16*)o, mn,
+                                   splits, st);
 }

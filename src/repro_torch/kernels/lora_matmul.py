@@ -11,12 +11,13 @@ neither writes the dequantized weight. Their plain versions are
 those for tensors on the CPU and puts both kernels behind the op's
 ``autograd.Function``.
 
-``lora_matmul`` has two instantiations, chosen here by x's dtype and
-counted: bf16 x runs the tensor-core kernel (``lora_matmul_tc_launch``,
-``tc_launches`` counts it) with the split-K that :func:`plan` picks,
-fp32 x the CUDA-core one (``lora_matmul_launch``), which keeps fp32
-callers at 1e-5. Neither stands in for the other: an input the chosen
-kernel refuses raises.
+Each has two instantiations, chosen here by the activation's dtype and
+counted: a bf16 ``x`` or ``g`` runs the tensor-core kernel
+(``lora_matmul_tc_launch`` with the split-K that :func:`plan` picks,
+``quant_matmul_t_tc_launch`` with the split over N that :func:`plan_t`
+picks; ``tc_launches`` counts them), fp32 the CUDA-core one, which keeps
+fp32 callers at 1e-5. Neither stands in for the other: an input the
+chosen kernel refuses raises.
 """
 from __future__ import annotations
 
@@ -37,7 +38,8 @@ _LORA_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
               ctypes.c_float, _P)
 _TC_ARGS = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
             ctypes.c_float, _I, _I, _P)
-_T_ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
+_T_ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+_T_TC_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)
 
 # The tensor-core kernel's tile (csrc/lora_matmul.cu, namespace lt) and
 # the cost model behind plan(), fitted to the kernel's times on an NVIDIA
@@ -53,15 +55,23 @@ SPLITS = (1, 2, 3, 4, 8, 16, 32)
 MIN_TILES_PER_SPLIT = 4
 TILE_US = 2.05
 PARTIAL_BYTES_PER_US = 2.28e6
+# quant_matmul_t's tensor-core kernel (namespace qmt): the same 256 x 128
+# output tile and 32-deep k-tiles, the contraction along N, in the same
+# model with its own constants, fitted to its times at split counts 1-16
+# on the four Yi-9B shapes on the same card (PERF.md; chip_smoke.py
+# prints them): within 5% of every time but wk/wv's at 1-2 splits
+T_TILE_US = 1.77
+T_PARTIAL_BYTES_PER_US = 2.7e6
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How the tensor-core kernel covers one (M, K, N, block) call: a grid
-    of ``tiles`` output tiles (BM x BN) times ``splits`` slices of the
-    padded contraction dim, split z owning ``ranges[z] = (k0, k1)``; the
-    ranges fall on multiples of ``unit = lcm(block, BK)`` (whole quant
-    groups, whole k-tiles) and cover [0, Kq) once, in order."""
+    """How a tensor-core kernel covers one call: a grid of ``tiles``
+    output tiles (BM x BN) times ``splits`` slices of the (padded)
+    contraction dim, split z owning ``ranges[z] = (k0, k1)``; the ranges
+    fall on multiples of ``unit`` (for ``lora_matmul`` lcm(block, BK):
+    whole quant groups, whole k-tiles; for ``quant_matmul_t`` one k-tile
+    of N) and cover the contraction once, in order."""
     tiles: int
     splits: int
     unit: int
@@ -73,40 +83,58 @@ class Plan:
 
 
 def plan_cost_us(M: int, N: int, tiles: int, tiles_per_split: int,
-                 splits: int) -> float:
-    """The model's time of one call: the busiest SM runs
-    ``ceil(blocks / SMS)`` blocks one after another, then the partials."""
-    t = -(-tiles * splits // SMS) * tiles_per_split * TILE_US
+                 splits: int, tile_us: float = TILE_US,
+                 partial_rate: float = PARTIAL_BYTES_PER_US) -> float:
+    """The model's time of one call with an (M, N) output: the busiest
+    SM runs ``ceil(blocks / SMS)`` blocks one after another, then the
+    partials move at ``partial_rate`` bytes per µs."""
+    t = -(-tiles * splits // SMS) * tiles_per_split * tile_us
     if splits > 1:
-        t += (2 * splits * M * N * 4 + M * N * 2) / PARTIAL_BYTES_PER_US
+        t += (2 * splits * M * N * 4 + M * N * 2) / partial_rate
     return t
 
 
-def plan(M: int, K: int, N: int, block: int) -> Plan:
-    """The split count for ``x (M, K) @ W (K, N)`` quantized at ``block``:
-    the fewest of ``SPLITS`` whose modelled time (:func:`plan_cost_us`)
-    is within 2% of the least, and none that leaves a split fewer than 4
-    k-tiles. The ranges are those the kernel computes from (splits,
-    unit) in ``lora_tc_kernel``."""
+def plan(M: int, K: int, N: int, block: int, *, granule: int = 0,
+         tile_us: float = TILE_US,
+         partial_rate: float = PARTIAL_BYTES_PER_US) -> Plan:
+    """The split count for a contraction of depth K, padded to a
+    multiple of ``block``, into an (M, N) output (``lora_matmul``:
+    ``x (M, K) @ W (K, N)`` quantized at ``block``): the fewest of
+    ``SPLITS`` whose modelled time (:func:`plan_cost_us` at ``tile_us``
+    and ``partial_rate``) is within 2% of the least, and none that
+    leaves a split fewer than 4 k-tiles. Splits fall on multiples of
+    ``granule`` (default lcm(block, BK)). The ranges are those the
+    kernels compute from (splits, unit)."""
     Kq = -(-K // block) * block
-    unit = math.lcm(block, BK)
+    unit = granule or math.lcm(block, BK)
     nu = -(-Kq // unit)
     tiles = -(-M // BM) * -(-N // BN)
     cost = {}
     for s in SPLITS:
         if s > 1 and (nu < s or (nu // s) * unit // BK < MIN_TILES_PER_SPLIT):
             break
-        cost[s] = plan_cost_us(M, N, tiles, -(-nu // s) * unit // BK, s)
+        cost[s] = plan_cost_us(M, N, tiles, -(-nu // s) * unit // BK, s,
+                               tile_us, partial_rate)
     least = min(cost.values())
     best = min(s for s, c in cost.items() if c <= 1.02 * least)
     return Plan(tiles=tiles, splits=best, unit=unit,
                 ranges=split_ranges(Kq, unit, best))
 
 
+def plan_t(M: int, Kq: int, N: int) -> Plan:
+    """The split over N of ``quant_matmul_t``'s tensor-core kernel for
+    ``g (M, N) @ W (Kq, N)ᵀ``: :func:`plan` with the contraction N
+    (nothing to pad: N carries no quant group), the output (M, Kq), the
+    granule one 32-wide k-tile and the kernel's own constants."""
+    return plan(M, N, Kq, 1, granule=BK, tile_us=T_TILE_US,
+                partial_rate=T_PARTIAL_BYTES_PER_US)
+
+
 def split_ranges(Kq: int, unit: int, splits: int) -> tuple:
-    """The (k0, k1) of each split, as ``lora_tc_kernel`` computes them:
-    split z owns units [z·nu/splits, (z+1)·nu/splits) of the
-    ``nu = ceil(Kq / unit)`` units, the last one cut at Kq."""
+    """The (k0, k1) of each split of a contraction of depth Kq, as
+    ``lora_tc_kernel`` and ``qmt_tc_kernel`` compute them: split z owns
+    units [z·nu/splits, (z+1)·nu/splits) of the ``nu = ceil(Kq / unit)``
+    units, the last one cut at Kq."""
     nu = -(-Kq // unit)
     return tuple((z * nu // splits * unit,
                   min((z + 1) * nu // splits * unit, Kq))
@@ -114,8 +142,16 @@ def split_ranges(Kq: int, unit: int, splits: int) -> tuple:
 
 
 def uses_tensor_cores(x: torch.Tensor) -> bool:
-    """Whether a call with ``x``'s dtype takes the tensor-core kernel."""
+    """Whether a call with ``x``'s (or ``g``'s) dtype takes the
+    tensor-core kernel."""
     return x.dtype == torch.bfloat16
+
+
+def _check_tc_block(qt: QTensor, op: str) -> None:
+    if qt.block < MIN_BLOCK or qt.block & (qt.block - 1):
+        raise NotImplementedError(
+            f"{op} tensor-core kernel: block {qt.block} is not a power of "
+            f"two >= {MIN_BLOCK}")
 
 
 def _factor(t: torch.Tensor, shape, name: str) -> torch.Tensor:
@@ -156,10 +192,7 @@ def _lora_matmul(x, qt, a, b, scale, splits):
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if uses_tensor_cores(x):
-        if qt.block < MIN_BLOCK or qt.block & (qt.block - 1):
-            raise NotImplementedError(
-                f"lora_matmul tensor-core kernel: block {qt.block} is not a "
-                f"power of two >= {MIN_BLOCK}")
+        _check_tc_block(qt, "lora_matmul")
         rp = 16 if r <= 16 else 32      # A's rows padded to 16-byte chunks
         if r != rp or a32.data_ptr() % 16:
             a32 = torch.nn.functional.pad(a32, (0, rp - r))
@@ -184,10 +217,24 @@ def _lora_matmul(x, qt, a, b, scale, splits):
     return y.reshape(*lead, N)
 
 
-def quant_matmul_t(g: torch.Tensor, qt: QTensor) -> torch.Tensor:
+def quant_matmul_t(g: torch.Tensor, qt: QTensor, *,
+                   out_dtype: torch.dtype = None) -> torch.Tensor:
     """``g (..., N) @ dequant(qt (Kq, N))ᵀ -> (..., Kq)``, fp32
-    accumulation, output in g's dtype. The output covers the padded Kq;
-    callers slice ``[..., :K]``."""
+    accumulation, output in ``out_dtype`` (default g's dtype; a bf16 g
+    may write fp32). The output covers the padded Kq; callers slice
+    ``[..., :K]``."""
+    return _quant_matmul_t(g, qt, out_dtype, None)
+
+
+def _quant_matmul_t(g, qt, out_dtype, splits):
+    """:func:`quant_matmul_t` with the split count of a bf16 call forced
+    to ``splits`` (None: :func:`plan_t`'s), for the checks of each
+    count."""
+    tc = uses_tensor_cores(g)
+    out_dtype = g.dtype if out_dtype is None else out_dtype
+    if out_dtype != g.dtype and not (tc and out_dtype == torch.float32):
+        raise TypeError(f"quant_matmul_t: out_dtype {out_dtype} for a "
+                        f"{g.dtype} g (only a bf16 g may write fp32)")
     fmt, G, rows, N = check_qtensor(g, qt, "quant_matmul_t", ndims=(3,))
     if g.shape[-1] != N:
         raise ValueError(f"contraction dim {g.shape[-1]} != quantized N {N}")
@@ -195,17 +242,31 @@ def quant_matmul_t(g: torch.Tensor, qt: QTensor) -> torch.Tensor:
     lead = g.shape[:-1]
     g2 = g.reshape(-1, N).contiguous()
     M = g2.shape[0]
-    o = torch.empty((M, Kq), dtype=g.dtype, device=g.device)
-    fn = build.function("lora_matmul", "quant_matmul_t_launch", _T_ARGS)
-    build.check(fn(g2.data_ptr(), qt.q.data_ptr(), qt.scales.data_ptr(),
-                   o.data_ptr(), M, Kq, N, qt.block, rows, fmt,
-                   int(g.dtype == torch.bfloat16),
-                   torch.cuda.current_stream(g.device).cuda_stream),
-                "quant_matmul_t")
+    o = torch.empty((M, Kq), dtype=out_dtype, device=g.device)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    if tc:
+        _check_tc_block(qt, "quant_matmul_t")
+        pl = plan_t(M, Kq, N)
+        n_split = pl.splits if splits is None else int(splits)
+        ws = torch.empty((n_split, M, Kq), dtype=torch.float32,
+                         device=g.device) if n_split > 1 else None
+        fn = build.function("lora_matmul", "quant_matmul_t_tc_launch",
+                            _T_TC_ARGS)
+        rc = fn(g2.data_ptr(), qt.q.data_ptr(), qt.scales.data_ptr(),
+                o.data_ptr(), None if ws is None else ws.data_ptr(), M, Kq,
+                N, qt.block, rows, fmt, int(out_dtype == torch.float32),
+                n_split, pl.unit, stream)
+    else:
+        fn = build.function("lora_matmul", "quant_matmul_t_launch", _T_ARGS)
+        rc = fn(g2.data_ptr(), qt.q.data_ptr(), qt.scales.data_ptr(),
+                o.data_ptr(), M, Kq, N, qt.block, rows, fmt, stream)
+    build.check(rc, "quant_matmul_t")
     quant_matmul_t.launches += 1
+    quant_matmul_t.tc_launches += int(tc)
     return o.reshape(*lead, Kq)
 
 
 lora_matmul.launches = 0
 lora_matmul.tc_launches = 0
 quant_matmul_t.launches = 0
+quant_matmul_t.tc_launches = 0

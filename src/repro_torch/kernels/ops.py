@@ -8,10 +8,11 @@ launch. There is no fallback from the kernel to the plain version.
 ``KERNEL_TRACES`` counts which implementation each call took (the JAX
 package counts at trace time; PyTorch runs eagerly, so here it is per
 call), and every kernel wrapper keeps its own integer ``launches``.
-``flash_attention`` and ``lora_matmul`` have a tensor-core instantiation
-for bf16 and a CUDA-core one for fp32, chosen by dtype in the wrapper;
-their bf16 calls are traced as ``<op>_cuda_tc``, fp32 as ``<op>_cuda``,
-and the wrappers count the tensor-core launches in ``tc_launches``.
+``flash_attention``, ``lora_matmul`` and ``quant_matmul_t`` have a
+tensor-core instantiation for bf16 and a CUDA-core one for fp32, chosen
+by dtype in the wrapper; their bf16 calls are traced as
+``<op>_cuda_tc``, fp32 as ``<op>_cuda``, and the wrappers count the
+tensor-core launches in ``tc_launches``.
 
 ``lora_matmul``, ``flash_attention`` and ``selective_scan`` are
 ``torch.autograd.Function``s: the first ports the custom VJP of
@@ -59,7 +60,8 @@ def reset_kernel_traces() -> None:
 
 # the wrappers with a tensor-core instantiation, each with ``tc_launches``
 TC_KERNELS = {"flash_attention": fa_kernel.flash_attention,
-              "lora_matmul": lm_kernel.lora_matmul}
+              "lora_matmul": lm_kernel.lora_matmul,
+              "quant_matmul_t": lm_kernel.quant_matmul_t}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -162,7 +164,10 @@ class _QLoraMatmul(torch.autograd.Function):
     QTensor W (frozen: the payload gets no gradient).
 
     On the card the forward is the fused kernel and the backward's dx
-    through Wᵀ is the ``quant_matmul_t`` kernel, sliced ``[:, :K]``; only
+    through Wᵀ is the ``quant_matmul_t`` kernel (fp32 out), sliced
+    ``[:, :K]``; a bf16 cotangent goes to its tensor-core kernel as it
+    is (its fp32 copy holds the same values, so the products and their
+    fp32 sum are the same), an fp32 one to the CUDA-core kernel; only
     x, A and B are saved, never a dequantized W (an fp32 W per layer
     would be 33 GB at Yi-9B and undo QLoRA). On the CPU it follows the
     JAX package's plain branch: the forward dequantizes W to fp32 and
@@ -195,8 +200,12 @@ class _QLoraMatmul(torch.autograd.Function):
         if wd:
             dxw = g2 @ wd[0].t()                          # (M, K) exactly
         else:
-            trace_count("quant_matmul_t_cuda")
-            dxw = lm_kernel.quant_matmul_t(g2, ctx.qt)[:, :K]
+            tc = lm_kernel.uses_tensor_cores(g)
+            trace_count("quant_matmul_t_cuda_tc" if tc
+                        else "quant_matmul_t_cuda")
+            gk = g.reshape(-1, g.shape[-1]) if tc else g2
+            dxw = lm_kernel.quant_matmul_t(
+                gk, ctx.qt, out_dtype=torch.float32)[:, :K]
         dx = (dxw + scale * gb @ af.t()).reshape(x.shape).to(x.dtype)
         da = (scale * (x2.t() @ gb)).to(a.dtype)
         db = (scale * ((x2 @ af).t() @ g2)).to(b.dtype)

@@ -108,10 +108,12 @@ def lora_matmul(x: torch.Tensor, w, a: torch.Tensor, b: torch.Tensor, *,
     return (base + scale * delta).to(x.dtype)
 
 
-def quant_matmul_t(g: torch.Tensor, qt: qlib.QTensor) -> torch.Tensor:
+def quant_matmul_t(g: torch.Tensor, qt: qlib.QTensor, *,
+                   out_dtype: torch.dtype = None) -> torch.Tensor:
     """``g (..., N) @ dequant(qt (Kq, N))ᵀ -> (..., Kq)`` in fp32, cast
-    back to ``g.dtype``: the dx gemm of the LoRA VJP. The output covers
-    the padded Kq (the odd-K contract); callers slice ``[..., :K]``."""
+    to ``out_dtype`` (default ``g.dtype``): the dx gemm of the LoRA VJP.
+    The output covers the padded Kq (the odd-K contract); callers slice
+    ``[..., :K]``."""
     if qt.q.ndim != 3:
         raise ValueError(f"quant_matmul_t takes one 2-D weight, got q "
                          f"{tuple(qt.q.shape)}")
@@ -119,7 +121,8 @@ def quant_matmul_t(g: torch.Tensor, qt: qlib.QTensor) -> torch.Tensor:
         raise ValueError(f"contraction dim {g.shape[-1]} != quantized N "
                          f"{qt.q.shape[-1]}")
     w = qlib.dequantize(qt, torch.float32)
-    return torch.matmul(g.to(torch.float32), w.t()).to(g.dtype)
+    return torch.matmul(g.to(torch.float32), w.t()).to(
+        g.dtype if out_dtype is None else out_dtype)
 
 
 # ------------------------------------------------------------------

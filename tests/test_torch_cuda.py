@@ -10,7 +10,9 @@ package's bf16 bound), ``blockwise_quant`` bitwise, ``selective_scan``
 and its gradient 1e-5 times each output's largest magnitude (the JAX
 package's interpret-vs-plain bound). bf16 ``flash_attention`` and
 ``lora_matmul`` run their tensor-core kernels, fp32 their CUDA-core
-ones."""
+ones; so does ``quant_matmul_t`` by g's dtype, its bf16-g route held to
+1e-4 of the largest magnitude in fp32 output (W enters as two bf16
+parts, about 16 bits)."""
 import numpy as np
 import pytest
 import torch
@@ -194,7 +196,8 @@ def test_cuda_bf16_routes_are_traced_and_refusals_raise(cuda_device):
     ops.flash_attention(q, q, q, causal=True)
     assert ops.KERNEL_TRACES == {"lora_matmul_cuda_tc": 1,
                                  "flash_attention_cuda_tc": 1}
-    assert ops.tc_launch_counts() == {"flash_attention": 1, "lora_matmul": 1}
+    assert ops.tc_launch_counts() == {"flash_attention": 1, "lora_matmul": 1,
+                                      "quant_matmul_t": 0}
     w8 = ref.blockwise_quant(torch.from_numpy(_np(29, 64, 32)).to(
         cuda_device), bits=4, block=8, mode="nf4")
     with pytest.raises(NotImplementedError, match="block 8"):
@@ -217,6 +220,131 @@ def test_cuda_quant_matmul_t_matches_plain(cuda_device, M, K, N, bits, mode,
     got = lm_kernel.quant_matmul_t(g, qt)
     assert got.shape == (M, qt.q.shape[0] * qt.block)
     _close(got, ref.quant_matmul_t(g, qt))
+
+
+QMT_CASES = [  # (M, K, N, bits, mode): bf16 g, the tensor-core kernel
+    (256, 4096, 4096, 4, "nf4"),    # Yi-9B wq/wo's backward
+    (256, 4096, 512, 4, "nf4"),     # wk/wv
+    (256, 4096, 11008, 4, "nf4"),   # wg/wu
+    (256, 11008, 4096, 4, "nf4"),   # wd
+    (37, 200, 33, 4, "nf4"),        # odd K (Kq = 256), ragged N
+    (37, 200, 33, 8, "linear"),
+    (64, 512, 256, 8, "linear"),    # int8
+    (64, 512, 256, 4, "linear"),    # int4
+    (9, 128, 96, 4, "nf4"),         # M below the tile
+    (300, 384, 40, 4, "nf4"),       # two row tiles; N % 16 != 0
+    (5, 192, 20, 8, "linear"),      # N below one k-tile
+]
+
+
+def _qmt_inputs(dev, M, K, N, bits, mode, block=64):
+    """W (K, N) quantized (an odd K pads to Kq), a bf16 g (M, N)."""
+    w = torch.from_numpy(_np(47, K, N) / np.sqrt(K)).to(dev)
+    qt = ref.blockwise_quant(w, bits=bits, block=block, mode=mode)
+    g = torch.from_numpy(_np(48, M, N)).to(dev).to(BF16)
+    return qt, g
+
+
+def _close_qmt(got, want):
+    """1e-4 of the largest magnitude: the bf16-g route's bound."""
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-4 * want.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,bits,mode", QMT_CASES)
+def test_cuda_quant_matmul_t_bf16_matches_plain(cuda_device, M, K, N, bits,
+                                                mode):
+    qt, g = _qmt_inputs(cuda_device, M, K, N, bits, mode)
+    before = lm_kernel.quant_matmul_t.tc_launches
+    got = lm_kernel.quant_matmul_t(g, qt, out_dtype=F32)
+    assert lm_kernel.quant_matmul_t.tc_launches - before == 1
+    assert got.dtype == F32
+    _close_qmt(got, ref.quant_matmul_t(g, qt, out_dtype=F32))
+    # bf16 out: the same sums, rounded once
+    got16 = lm_kernel.quant_matmul_t(g, qt)
+    assert got16.dtype == BF16
+    _close(got16, ref.quant_matmul_t(g, qt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", lm_kernel.SPLITS)
+@pytest.mark.parametrize("M,K,N", [(256, 4096, 1024), (37, 200, 130)])
+def test_cuda_quant_matmul_t_every_split_count(cuda_device, M, K, N,
+                                               splits):
+    """The tensor-core kernel with each split count forced (more splits
+    than 32-column units leave some empty), against the plain version
+    and the unsplit kernel, in fp32 and bf16 output."""
+    qt, g = _qmt_inputs(cuda_device, M, K, N, 4, "nf4")
+    got = lm_kernel._quant_matmul_t(g, qt, F32, splits)
+    _close_qmt(got, ref.quant_matmul_t(g, qt, out_dtype=F32))
+    _close_qmt(got, lm_kernel._quant_matmul_t(g, qt, F32, 1))
+    _close(lm_kernel._quant_matmul_t(g, qt, BF16, splits),
+           ref.quant_matmul_t(g, qt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [16, 32, 128, 256])
+@pytest.mark.parametrize("bits,mode", FORMATS)
+def test_cuda_quant_matmul_t_bf16_other_blocks(cuda_device, block, bits,
+                                               mode):
+    """Quant blocks other than the trainer's 64: eight scale rows per
+    128-row tile (16), four (32), one (128) and a group over two tiles
+    (256); K = 700 pads to Kq = 704 (16, 32: a partial last column
+    tile) or 768."""
+    qt, g = _qmt_inputs(cuda_device, 37, 700, 72, bits, mode, block=block)
+    _close_qmt(lm_kernel.quant_matmul_t(g, qt, out_dtype=F32),
+               ref.quant_matmul_t(g, qt, out_dtype=F32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,bits,mode", QMT_CASES[4:6])
+def test_cuda_quant_matmul_t_fp32_route_unchanged(cuda_device, M, K, N,
+                                                  bits, mode):
+    """An fp32 g keeps the CUDA-core kernel at 1e-5 and counts no
+    tensor-core launch."""
+    qt, g = _qmt_inputs(cuda_device, M, K, N, bits, mode)
+    before = lm_kernel.quant_matmul_t.tc_launches
+    got = lm_kernel.quant_matmul_t(g.float(), qt)
+    assert lm_kernel.quant_matmul_t.tc_launches == before
+    assert got.dtype == F32
+    _close(got, ref.quant_matmul_t(g.float(), qt))
+
+
+@pytest.mark.cuda
+def test_cuda_quant_matmul_t_bf16_refuses_a_block_it_does_not_take(
+        cuda_device):
+    """A bf16 g at a block the tensor-core kernel does not take raises
+    and launches nothing: no fallback to the CUDA-core kernel."""
+    qt, g = _qmt_inputs(cuda_device, 5, 64, 32, 4, "nf4", block=8)
+    before = lm_kernel.quant_matmul_t.launches
+    with pytest.raises(NotImplementedError, match="block 8"):
+        lm_kernel.quant_matmul_t(g, qt, out_dtype=F32)
+    assert lm_kernel.quant_matmul_t.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_lora_op_bf16_grads_match_the_cpu_route(cuda_device):
+    """The bf16 autograd.Function on the card (tensor-core forward, the
+    bf16 cotangent into quant_matmul_t's tensor-core kernel) against its
+    CPU route (plain forward, the dequantized-W residual) on the same
+    inputs, at the bf16 bound."""
+    grads = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        qt, x, a, b = _lora_inputs(dev, 37, 200, 33, 4, "nf4", BF16, 4)
+        ct = torch.from_numpy(_np(34, 37, 33)).to(dev)
+        ts = [t.clone().requires_grad_(True) for t in (x, a, b)]
+        ops.reset_kernel_traces()
+        (ops.lora_matmul(ts[0], qt, ts[1], ts[2], scale=2.0) * ct).sum() \
+            .backward()
+        grads[dev.type] = [t.grad.cpu() for t in ts]
+        if dev.type == "cuda":
+            assert ops.KERNEL_TRACES == {"lora_matmul_cuda_tc": 1,
+                                         "quant_matmul_t_cuda_tc": 1}
+    assert grads["cuda"][0].dtype == BF16
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        _close(got, want)
 
 
 @pytest.mark.cuda

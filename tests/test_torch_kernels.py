@@ -212,10 +212,12 @@ def test_ops_refuse_unported_kernel_paths(monkeypatch):
         ops.lm_kernel, "lora_matmul",
         lambda x_, w, a_, b_, scale: calls.append("lora_matmul") or
         ref.lora_matmul(x_, w, a_, b_, scale=scale))
+    cotangents = []
     monkeypatch.setattr(
         ops.lm_kernel, "quant_matmul_t",
-        lambda g, w: calls.append("quant_matmul_t") or
-        ref.quant_matmul_t(g, w))
+        lambda g, w, out_dtype=None: calls.append("quant_matmul_t") or
+        cotangents.append((g.dtype, out_dtype)) or
+        ref.quant_matmul_t(g, w, out_dtype=out_dtype))
     ops.reset_kernel_traces()
     xg = x.clone().requires_grad_(True)
     ops.lora_matmul(xg, qt, a, b, scale=1.0).sum().backward()
@@ -226,6 +228,22 @@ def test_ops_refuse_unported_kernel_paths(monkeypatch):
         xg.grad.numpy(), (ref.quant_matmul_t(torch.ones(2, 32), qt)
                           + (torch.ones(2, 32) @ b.t()) @ a.t()).numpy(),
         rtol=1e-5, atol=1e-5)
+    # a bf16 x: the backward hands the kernel the bf16 cotangent itself,
+    # with an fp32 output, on the tensor-core route
+    ops.reset_kernel_traces()
+    calls.clear()
+    xb = x.to(torch.bfloat16).requires_grad_(True)
+    ops.lora_matmul(xb, qt, a, b, scale=1.0).sum().backward()
+    assert calls == ["lora_matmul", "quant_matmul_t"]
+    assert cotangents == [(torch.float32, torch.float32),
+                          (torch.bfloat16, torch.float32)]
+    assert ops.KERNEL_TRACES == {"lora_matmul_cuda_tc": 1,
+                                 "quant_matmul_t_cuda_tc": 1}
+    np.testing.assert_allclose(
+        xb.grad.float().numpy(),
+        (ref.quant_matmul_t(torch.ones(2, 32), qt)
+         + (torch.ones(2, 32) @ b.t()) @ a.t()).to(torch.bfloat16).float()
+        .numpy(), rtol=1e-5, atol=1e-5)
     with pytest.raises(NotImplementedError, match="2-D linear"):
         ops.blockwise_quant(x, bits=4, block=32, mode="nf4")
 

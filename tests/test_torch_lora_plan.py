@@ -154,5 +154,6 @@ def test_card_routes_are_traced_by_dtype(monkeypatch, dtype, lora_key,
 def test_launch_counters_reset_together():
     ops.reset_launch_counts()
     assert ops.tc_launch_counts() == {"flash_attention": 0,
-                                      "lora_matmul": 0}
+                                      "lora_matmul": 0,
+                                      "quant_matmul_t": 0}
     assert set(ops.TC_KERNELS) <= set(ops.KERNELS)
