@@ -27,11 +27,17 @@ Phases (a failed phase raises and the script exits non-zero):
     after; then one step under the profiler;
  6. phase 4 at full Falcon-Mamba-7B width with 2 layers;
  7. phase 5 on Falcon-Mamba-7B at full width and depth (64 Mamba
-    layers, every scan through the ``selective_scan`` kernel), with the
-    peak device memory.
-Phase 2 also holds ``selective_scan`` at the trainer's shape and at edge
-shapes, and its gradient (kernel forward, PyTorch-op backward) against
-autograd through the plain scan. bf16 calls of ``flash_attention``,
+    layers, every scan through the ``selective_scan`` kernel and its
+    gradient through ``selective_scan_bwd``), with the peak device
+    memory; the profiled step's top device entries name the ATen op
+    and the region (``record_function`` range or backward node) that
+    launched them.
+Phase 2 also holds ``selective_scan`` and its backward kernel
+``selective_scan_bwd`` at the trainer's shape and at edge shapes (the
+backward against the plain ``ops.selective_scan_bwd``, bitwise equal
+across two calls), and the op's gradient (both kernels) against autograd
+through the plain scan; phase 7 must show 128 forward and 64 backward
+scan kernels per local step. bf16 calls of ``flash_attention``,
 ``lora_matmul`` and ``quant_matmul_t`` (a bf16 cotangent) run their
 tensor-core kernels and fp32 calls their CUDA-core ones; each row prints
 the route it took, and the bf16 trainer must launch only the tensor-core
@@ -100,14 +106,18 @@ REPLACES = {
     "lora_matmul": "src/repro/kernels/lora_matmul.py:64",
     "quant_matmul_t": "src/repro/kernels/lora_matmul.py:146",
     "selective_scan": "src/repro/kernels/selective_scan.py:54",
+    # the JAX package has no Pallas backward: its gradient is autodiff
+    "selective_scan_bwd": "jax.vjp of src/repro/kernels/selective_scan.py:54",
 }
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
            for name in REPLACES}
 SOURCES["quant_matmul_t"] = SOURCES["lora_matmul"]
+SOURCES["selective_scan_bwd"] = SOURCES["selective_scan"]
 SERVE_KERNELS = ("quant_matmul", "blockwise_quant", "flash_attention")
 # the kernels each trainer's main path launches
 TRAIN_KERNELS = {"yi-9b": ("lora_matmul", "quant_matmul_t", "flash_attention"),
-                 "falcon-mamba-7b": ("selective_scan", "flash_attention")}
+                 "falcon-mamba-7b": ("selective_scan", "selective_scan_bwd",
+                                     "flash_attention")}
 # the scan's trainer shape at Falcon-Mamba-7B width: (B, S, d_inner, N)
 MAMBA_SCAN = (4, 64, 8192, 16)
 # LoRA linears of a dense block (wq, wk, wv, wo, wg, wu, wd): one
@@ -245,9 +255,14 @@ def setup() -> None:
           + " ".join(f"{k}={v:.1f}s" for k, v in took.items()), flush=True)
     for name, log in build.BUILD_LOG.items():
         print(f"  ptxas {name}: {ptxas_summary(log)}", flush=True)
-        if name == "lora_matmul":
+        if name in ("lora_matmul", "selective_scan"):
             print("    per kernel (registers, spill store bytes): " + " ".join(
                 f"{k}={v}" for k, v in ptxas_kernels(log).items()), flush=True)
+    print(f"  selective_scan blocks per SM (N = 16): forward "
+          f"{ss_kernel.occupancy('fwd')} ({ss_kernel.FWD_LANES} lanes a "
+          f"channel), backward {ss_kernel.occupancy('bwd')} (with dA "
+          f"{ss_kernel.occupancy('bwd', need_a=True)}; one thread a "
+          f"channel)", flush=True)
 
 
 # -- phase 2: kernels against their plain versions ---------------------
@@ -617,17 +632,44 @@ def _scan_inputs(gen, B, S, di, N):
             -r(di, N).abs())
 
 
-def check_selective_scan(gen) -> dict:
+def _peak_beyond(fn) -> int:
+    """Device bytes ``fn()`` holds at its peak beyond what was allocated
+    before it (its outputs and scratch)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
+def scan_bwd_ops(B, S, di, N, need_a) -> float:
+    """Operations of the scan's gradient: per (b, t, d, n) the forward
+    recompute (dt A, exp, a h, dt x B, +: 5) and the reverse step
+    (g = gy C + carry: 2, a g, q = a g h: 2, q A and g B summed over n: 4,
+    g dt x and gy h summed over d: 4; q dt summed for dA: 2); per
+    (b, t, d) dt x, dt log2 e, ddt and dx: 4."""
+    return B * S * di * ((18.0 + 2.0 * need_a) * N + 4)
+
+
+def check_selective_scan(gen) -> tuple:
     """``selective_scan`` against the plain time loop at the trainer's
     Falcon-Mamba-7B shape and at edge shapes (S = 50, di = 520, N = 4
-    and 8, B = 1): y and h_last within 1e-5 of each output's largest
-    magnitude. Then the op's gradient (kernel forward, PyTorch-op
-    backward) against autograd through the plain scan, at the trainer's
-    shape, with the backward's time and its peak device memory beyond
-    its inputs. Returns the trainer-shape record."""
+    and 8, B = 1; S = 130 over several chunks, di = 33, N = 5): y and
+    h_last within 1e-5 of each output's largest magnitude. Then at the
+    same shapes the backward kernel ``selective_scan_bwd`` against the
+    plain ``ops.selective_scan_bwd`` on the same inputs, as the trainer
+    calls it (no h_last cotangent, A frozen) and with both (dA on): each
+    of ddt, dx, dB, dC (dA) within 1e-5 of its largest magnitude, and two
+    calls bitwise equal; at the trainer's shape with times, a bound and
+    the peak device bytes beyond the inputs of both. Last the op's
+    gradient (both kernels) against autograd through the plain scan.
+    Returns the trainer-shape forward and backward records."""
     cases = [("trainer", *MAMBA_SCAN), ("S50_di520_N4_B1", 1, 50, 520, 4),
              ("S50_di520_N8", 2, 50, 520, 8), ("S130_di33_N5", 2, 130, 33, 5)]
-    main = None
+    main = {}
     for name, B, S, di, N in cases:
         ins = _scan_inputs(gen, B, S, di, N)
         run = lambda: ss_kernel.selective_scan(*ins)
@@ -648,10 +690,54 @@ def check_selective_scan(gen) -> dict:
         timed(row, "plain_ms", lambda: ref.selective_scan(*ins))
         report({"selective_scan": 1, **row})
         if name == "trainer":
-            main = row
+            main["selective_scan"] = row
     print("  library: no single PyTorch call computes the selective scan "
           "(library_ms = null)", flush=True)
 
+    names = ("ddt", "dx", "dB", "dC", "dA")
+    for name, B, S, di, N in cases:
+        ins = _scan_inputs(gen, B, S, di, N)
+        gy = torch.randn((B, S, di), generator=gen, device="cuda")
+        gh = torch.randn((B, di, N), generator=gen, device="cuda")
+        for with_gh, need_a in ((False, False), (True, True)):
+            run = lambda: ss_kernel.selective_scan_bwd(
+                *ins, gy, gh if with_gh else None, need_a=need_a)
+            plain = lambda: ops.selective_scan_bwd(
+                *ins, gy, gh if with_gh else torch.zeros_like(gh),
+                need_a=need_a)
+            got, again, want = run(), run(), plain()
+            torch.cuda.synchronize()
+            errs = {n: rel_err(g, w) for n, g, w in zip(names, got, want)
+                    if w is not None}
+            worst = max(r for _, r in errs.values())
+            if not (worst <= 1e-5 and
+                    all(torch.isfinite(g).all() for g in got if g is not None)):
+                raise AssertionError(f"selective_scan_bwd {name} gh={with_gh}"
+                                     f" dA={need_a}: rel errs {errs}")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)
+                       if a is not None):
+                raise AssertionError(f"selective_scan_bwd {name}: two calls "
+                                     "differ")
+            row = {"case": name + ("" if with_gh else "_as_trainer"),
+                   "gh_last": with_gh, "need_a": need_a,
+                   "max_abs_err": max(a for a, _ in errs.values()),
+                   "rel_err": worst, "bitwise_repeat": True}
+            if name == "trainer" and not with_gh:
+                outs = [t for t in got if t is not None]
+                row["bound_ms"], row["bound_by"] = bound(
+                    nbytes(*ins, gy, *outs), scan_bwd_ops(B, S, di, N, need_a),
+                    torch.float32)
+                row["library_ms"] = None
+                timed(row, "ms", run)
+                timed(row, "plain_ms", plain)
+                row["peak_bytes_beyond_inputs"] = _peak_beyond(run)
+                row["plain_peak_bytes_beyond_inputs"] = _peak_beyond(plain)
+                main["selective_scan_bwd"] = row
+            report({"selective_scan_bwd": 1, **row})
+    print("  library: no single PyTorch call computes the scan's gradient "
+          "(library_ms = null)", flush=True)
+
+    # the op (both kernels) against autograd through the plain time loop
     B, S, di, N = MAMBA_SCAN
     ins = _scan_inputs(gen, B, S, di, N)
     gy = torch.randn((B, S, di), generator=gen, device="cuda")
@@ -660,30 +746,23 @@ def check_selective_scan(gen) -> dict:
     def grads(fn):
         ts = [t.detach().requires_grad_(True) for t in ins]
         return torch.autograd.grad(fn(*ts), ts, (gy, gh))
-    errs = [rel_err(g, w)[1] for g, w in zip(grads(ops.selective_scan),
-                                           grads(ref.selective_scan))]
+    ops.reset_kernel_traces()
+    got = grads(ops.selective_scan)
+    if ops.KERNEL_TRACES != {"selective_scan_cuda": 1,
+                             "selective_scan_bwd_cuda": 1}:
+        raise AssertionError(f"the scan op's routes: {ops.KERNEL_TRACES}")
+    errs = [rel_err(g, w)[1] for g, w in zip(got, grads(ref.selective_scan))]
     if not max(errs) <= 1e-5:
         raise AssertionError(f"selective_scan gradient: rel errs ddt/dx/dB/"
                              f"dC/dA {errs} > 1e-5")
-    # as in the model: A = -exp(a_log) is frozen, h_last unused
-    bwd = lambda: ops.selective_scan_bwd(*ins, gy, torch.zeros_like(gh),
-                                         need_a=False)
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    bwd()
-    torch.cuda.synchronize()
-    brow = {"case": "trainer_bwd", "rel_err_grads": max(errs),
-            "peak_bytes_beyond_inputs": torch.cuda.max_memory_allocated()
-            - base}
-    timed(brow, "ms", bwd)
 
-    def plain_bwd():
+    def autograd_plain():
         ts = [t.detach().requires_grad_(i < 4) for i, t in enumerate(ins)]
         torch.autograd.grad(ref.selective_scan(*ts)[0], ts[:4], gy)
-    timed(brow, "plain_ms", plain_bwd)
-    report({"selective_scan_bwd (PyTorch ops)": 1, **brow})
-    return main
+    brow = {"case": "trainer_op_grad", "rel_err_grads": max(errs)}
+    timed(brow, "autograd_plain_ms", autograd_plain)
+    report({"selective_scan gradient (op vs autograd of plain)": 1, **brow})
+    return main["selective_scan"], main["selective_scan_bwd"]
 
 
 # -- phase 3: the serving plane ----------------------------------------
@@ -926,12 +1005,28 @@ def step_check_phase(seed: int = 0, n_layers: int = 2, device="cuda",
 
 # -- phase 5: the federated QLoRA trainer at full width and depth -------
 
+def _region(e) -> str:
+    """The innermost ``record_function`` range or autograd backward node
+    around the CPU event ``e``."""
+    while e is not None:
+        if e.is_user_annotation:
+            return e.name
+        if e.name.startswith("autograd::engine::evaluate_function: "):
+            return "backward " + e.name.split(": ", 1)[1]
+        e = e.cpu_parent
+    return "-"
+
+
 def profile_step(model, frozen, tr, toks, kernels) -> dict:
     """One local step under the profiler: wall, device busy time, idle
     share, the top device entries, the launches of each of ``kernels``
     (and how many of them took a tensor-core kernel), and what the host
     dispatched: the ATen ops called from Python (not
-    from inside another op) and the device activities they caused."""
+    from inside another op) and the device activities they caused.
+    Each top device entry names the ops that launched it, with the
+    region each ran in (a ``record_function`` range of the model, such
+    as ``mamba.dequantize``, or a backward node), and ``regions_ms``
+    sums the device time by region."""
     cuda = torch.autograd.DeviceType.CUDA
     batch = train_lib.make_batch(toks, "cuda")
     opt = optim.adam_init(tr)
@@ -948,7 +1043,15 @@ def profile_step(model, frozen, tr, toks, kernels) -> dict:
     tc_launches = ops.tc_launch_counts()
     by_name: dict = {}
     host_ops = device_ops = 0
-    for e in prof.events():
+    events = prof.events()
+    # a record_function range also appears on the device timeline as a
+    # span over its kernels: not device work of its own
+    ranges = {e.name for e in events
+              if e.device_type != cuda and e.is_user_annotation}
+    for e in events:
+        if e.device_type == cuda and (e.is_user_annotation or
+                                      e.name in ranges):
+            continue
         if e.device_type == cuda:
             device_ops += 1
             by_name[e.name] = by_name.get(e.name, 0.0) + \
@@ -958,13 +1061,31 @@ def profile_step(model, frozen, tr, toks, kernels) -> dict:
             host_ops += 1
     busy = sum(by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # the launching op and region of each kernel (by correlation id)
+    launched_by: dict = {}
+    regions: dict = {}
+    for e in events:
+        if e.device_type != cuda and e.kernels:
+            where = (e.name, _region(e))
+            for k in e.kernels:
+                d = launched_by.setdefault(k.name, {})
+                d[where] = d.get(where, 0.0) + k.duration
+                regions[where[1]] = regions.get(where[1], 0.0) + k.duration
+    top_by = []
+    for n, us in top:
+        srcs = sorted(launched_by.get(n, {}).items(), key=lambda kv: -kv[1])
+        top_by.append((n[:60], round(us / 1e3, 2),
+                       [(op, reg, round(t / 1e3, 2)) for (op, reg), t in
+                        srcs[:3]]))
     return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": 1.0 - busy / wall, "host_aten_ops": host_ops,
             "device_activities": device_ops,
             "launches": {k: launches[k] for k in kernels},
             "tc_launches": {k: n for k, n in tc_launches.items()
                             if k in kernels},
-            "top_ms": [(n[:60], round(us / 1e3, 2)) for n, us in top]}
+            "top_ms": top_by,
+            "regions_ms": [(r, round(us / 1e3, 2)) for r, us in sorted(
+                regions.items(), key=lambda kv: -kv[1])[:12]]}
 
 
 def train_phase(*, arch="yi-9b", rounds=2, clients=2, steps=2, batch=4,
@@ -976,9 +1097,9 @@ def train_phase(*, arch="yi-9b", rounds=2, clients=2, steps=2, batch=4,
     loss must be finite and every uplink's byte count must equal
     ``tree_bytes`` of its quantized delta; on the card every kernel of
     the arch's path must have launched and no op may have taken its
-    plain version, and on Falcon-Mamba-7B the scan kernel must have run
-    at least twice per layer and local step (forward and remat
-    recompute). A rehearsal on the CPU passes ``device="cpu"``, a smaller
+    plain version, and on Falcon-Mamba-7B every local step must trace
+    two forward scan kernels per layer (the forward and its remat
+    recompute) and one backward scan kernel. A rehearsal on the CPU passes ``device="cpu"``, a smaller
     ``n_layers`` and gets no profile."""
     on_card = torch.device(device).type == "cuda"
     kernels = TRAIN_KERNELS[arch]
@@ -1053,11 +1174,18 @@ def train_phase(*, arch="yi-9b", rounds=2, clients=2, steps=2, batch=4,
                 f"quant_matmul_t: {per_step} tensor-core launches per local "
                 f"step (want {DENSE_LORA_LINEARS * cfg.n_layers}), traces "
                 f"{traces}")
-    if arch == "falcon-mamba-7b" and \
-            launches["selective_scan"] < 2 * cfg.n_layers * n_steps:
-        raise AssertionError(
-            f"{launches['selective_scan']} selective_scan launches in "
-            f"{n_steps} local steps of {cfg.n_layers} layers")
+    if arch == "falcon-mamba-7b":
+        # each layer: the forward, its remat recompute and the backward
+        want = {"selective_scan_cuda": 2 * cfg.n_layers,
+                "selective_scan_bwd_cuda": cfg.n_layers}
+        per_step = {k: traces.get(k, 0) / n_steps for k in want}
+        if per_step != want or \
+                launches["selective_scan"] != want["selective_scan_cuda"] \
+                * n_steps or launches["selective_scan_bwd"] != \
+                want["selective_scan_bwd_cuda"] * n_steps:
+            raise AssertionError(
+                f"scan traces per local step {per_step} (want {want}), "
+                f"launches {launches} in {n_steps} local steps")
     idx = np.random.RandomState(seed).randint(0, len(data[0]), batch)
     res["profile"] = profile_step(model, frozen, tr, data[0][idx], kernels)
     return res
@@ -1101,8 +1229,14 @@ def trainer_report(arch: str) -> dict:
                                   for k, n in launches.items()},
             "traces": tres["traces"]})
     prof = tres["profile"]
-    report({k: v for k, v in prof.items() if k != "top_ms"})
-    print(f"  step top device time (ms): {prof['top_ms']}", flush=True)
+    report({k: v for k, v in prof.items()
+            if k not in ("top_ms", "regions_ms")})
+    print("  step top device time (ms), each with its launching ops "
+          "(op, region, ms):", flush=True)
+    for n, ms, srcs in prof["top_ms"]:
+        print(f"    {ms} {n}: {srcs}", flush=True)
+    print(f"  step device time by region (ms): {prof['regions_ms']}",
+          flush=True)
     del tres
     torch.cuda.empty_cache()
     return launches
@@ -1123,7 +1257,8 @@ def main() -> int:
     main_rows["lora_matmul"], main_rows["quant_matmul_t"] = \
         check_lora_kernels(gen)
     qmt_split_sweep(gen)
-    main_rows["selective_scan"] = check_selective_scan(gen)
+    main_rows["selective_scan"], main_rows["selective_scan_bwd"] = \
+        check_selective_scan(gen)
 
     print("serve plane at CLIP ViT-B/32 width:", flush=True)
     t0 = time.perf_counter()
@@ -1168,7 +1303,8 @@ def main() -> int:
 
     print(card_line(), flush=True)
     launches = {**serve_launches, **yi_launches,
-                "selective_scan": mamba_launches["selective_scan"]}
+                "selective_scan": mamba_launches["selective_scan"],
+                "selective_scan_bwd": mamba_launches["selective_scan_bwd"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],

@@ -17,9 +17,12 @@ tensor-core launches in ``tc_launches``.
 ``lora_matmul``, ``flash_attention`` and ``selective_scan`` are
 ``torch.autograd.Function``s: the first ports the custom VJP of
 ``repro.kernels.ops.lora_matmul`` (its dx gemm is the ``quant_matmul_t``
-kernel on the card), the other two give their kernel a gradient computed
-in plain PyTorch from the saved inputs (the JAX package differentiates
-their plain versions; it has no backward kernel for either).
+kernel on the card); ``flash_attention`` gives its kernel a gradient
+computed in plain PyTorch from the saved inputs, and ``selective_scan``
+a backward kernel on the card (``selective_scan_bwd_cuda``) and the plain
+reverse recurrence on the CPU (``selective_scan_bwd_ref``). The JAX
+package differentiates the plain versions of both; it has no backward
+kernel for either.
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ KERNELS = {
     "lora_matmul": lm_kernel.lora_matmul,
     "quant_matmul_t": lm_kernel.quant_matmul_t,
     "selective_scan": ss_kernel.selective_scan,
+    "selective_scan_bwd": ss_kernel.selective_scan_bwd,
 }
 
 
@@ -249,7 +253,9 @@ def selective_scan_bwd(dt, x, Bm, Cm, A, gy, gh_last, *, need_a=True):
     ``d dt = Σ_n q A + x Σ_n g B``, ``dx = dt Σ_n g B``,
     ``dB = Σ_d g (dt x)``, ``dC = Σ_d gy h``, ``dA = Σ_{b,t} q dt``.
     Four (S, B, di, N) buffers live during the call; none is saved
-    between forward and backward. ``dA`` is None unless ``need_a``."""
+    between forward and backward. ``dA`` is None unless ``need_a``. The
+    CPU path of the op's backward and the card's oracle for its kernel
+    (``kernels.selective_scan.selective_scan_bwd``)."""
     f32 = torch.float32
     dtT, xT, BT, CT, gyT = (t.to(f32).transpose(0, 1) for t in
                             (dt, x, Bm, Cm, gy))
@@ -280,8 +286,14 @@ def selective_scan_bwd(dt, x, Bm, Cm, A, gy, gh_last, *, need_a=True):
 
 
 class _SelectiveScan(torch.autograd.Function):
+    """The scan with its gradient: the kernels on the card, the plain
+    versions on the CPU. An unused output's cotangent arrives as None
+    (``set_materialize_grads(False)``): the kernel skips a None gh_last,
+    as the model leaves h_last unused."""
+
     @staticmethod
     def forward(ctx, dt, x, Bm, Cm, A):
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(dt, x, Bm, Cm, A)
         if _on_cuda(dt, "selective_scan"):
             trace_count("selective_scan_cuda")
@@ -291,10 +303,20 @@ class _SelectiveScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gh_last):
-        trace_count("selective_scan_bwd")
         dt, x, Bm, Cm, A = ctx.saved_tensors
+        if gy is None:
+            gy = torch.zeros_like(x)
+        need_a = ctx.needs_input_grad[4]
+        if _on_cuda(dt, "selective_scan"):
+            trace_count("selective_scan_bwd_cuda")
+            return ss_kernel.selective_scan_bwd(dt, x, Bm, Cm, A, gy,
+                                                gh_last, need_a=need_a)
+        trace_count("selective_scan_bwd_ref")
+        if gh_last is None:
+            gh_last = torch.zeros((x.shape[0], x.shape[2], A.shape[1]),
+                                  dtype=torch.float32, device=x.device)
         return selective_scan_bwd(dt, x, Bm, Cm, A, gy, gh_last,
-                                  need_a=ctx.needs_input_grad[4])
+                                  need_a=need_a)
 
 
 def selective_scan(dt, x, Bm, Cm, A):

@@ -92,7 +92,8 @@ def _mamba_core(p, x: torch.Tensor, cfg: ModelConfig, lo):
     dt = F.softplus(dt_r @ p["dt_proj"].to(torch.float32) + p["dt_bias"])
     A = -torch.exp(p["a_log"])
     xcf = xc.to(torch.float32)
-    y, h_last = kops.selective_scan(dt, xcf, Bm, Cm, A)
+    with torch.profiler.record_function("mamba.scan"):
+        y, h_last = kops.selective_scan(dt, xcf, Bm, Cm, A)
     y = y + p["d_skip"] * xcf
     y = y.to(dtype) * F.silu(z)
     out = y @ p["out_proj"].to(dtype) + _lora_delta(
@@ -106,13 +107,15 @@ def mamba_block(p, x: torch.Tensor, cfg: ModelConfig, *, lora=None,
                 h0=None):
     """x: (B, S, d) -> (y (B, S, d), cache {"h": h_last, "conv": tail}).
     The quantized leaves of ``p`` are dequantized to their output dtype
-    first (QLoRA keeps them NF4 at rest)."""
+    first (QLoRA keeps them NF4 at rest). Profiler ranges name the
+    decode (``mamba.dequantize``) and the scan (``mamba.scan``)."""
     if h0 is not None:
         raise NotImplementedError("a start state h0 " + _LATER)
     if cfg.calibrate:
         raise NotImplementedError(
             "cfg.calibrate (the dry run's chunked scan) " + _LATER)
-    p = {k: maybe_dequantize(v) for k, v in p.items()}
+    with torch.profiler.record_function("mamba.dequantize"):
+        p = {k: maybe_dequantize(v) for k, v in p.items()}
     return _mamba_core(p, x, cfg, lora or {})
 
 

@@ -6,9 +6,10 @@ machine with an H100 and PyTorch alone:
 
 Without a Hopper GPU every test skips with its reason. Tolerances: fp32
 1e-5 (TF32 off), bf16 2e-2 times the largest magnitude (the JAX
-package's bf16 bound), ``blockwise_quant`` bitwise, ``selective_scan``
-and its gradient 1e-5 times each output's largest magnitude (the JAX
-package's interpret-vs-plain bound). bf16 ``flash_attention`` and
+package's bf16 bound), ``blockwise_quant`` bitwise, ``selective_scan``,
+its backward kernel and the op's gradient 1e-5 times each output's
+largest magnitude (the JAX package's interpret-vs-plain bound), the
+backward kernel bitwise equal across two calls. bf16 ``flash_attention`` and
 ``lora_matmul`` run their tensor-core kernels, fp32 their CUDA-core
 ones; so does ``quant_matmul_t`` by g's dtype, its bf16-g route held to
 1e-4 of the largest magnitude in fp32 output (W enters as two bf16
@@ -425,6 +426,48 @@ def test_cuda_selective_scan_grads_match_autograd_of_plain(cuda_device, B, S,
         grads.append(torch.autograd.grad(fn(*ts), ts, (gy, gh)))
         if fn is ops.selective_scan:
             assert ops.KERNEL_TRACES == {"selective_scan_cuda": 1,
-                                         "selective_scan_bwd": 1}
+                                         "selective_scan_bwd_cuda": 1}
     for got, want in zip(*grads):
         _close_rel(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_gh,need_a", [(False, False), (True, True),
+                                            (True, False)])
+@pytest.mark.parametrize("B,S,di,N", SCAN_CASES)
+def test_cuda_selective_scan_bwd_matches_plain(cuda_device, B, S, di, N,
+                                               with_gh, need_a):
+    """The backward kernel against the plain reverse recurrence
+    (``ops.selective_scan_bwd``) on the same inputs, as the trainer calls
+    it (no h_last cotangent, A frozen) and with both; two calls give the
+    same bits (fixed-order partial sums, no atomics)."""
+    ins = _scan_inputs(cuda_device, B, S, di, N)
+    gy = torch.from_numpy(_np(46, B, S, di)).to(cuda_device)
+    gh = torch.from_numpy(_np(47, B, di, N)).to(cuda_device)
+    ss_kernel.selective_scan_bwd.launches = 0
+    got = ss_kernel.selective_scan_bwd(*ins, gy, gh if with_gh else None,
+                                       need_a=need_a)
+    again = ss_kernel.selective_scan_bwd(*ins, gy, gh if with_gh else None,
+                                         need_a=need_a)
+    want = ops.selective_scan_bwd(*ins, gy, gh if with_gh else
+                                  torch.zeros_like(gh), need_a=need_a)
+    assert ss_kernel.selective_scan_bwd.launches == 2
+    assert (got[4] is None) == (not need_a)
+    for g, g2, w in zip(got, again, want):
+        if w is None:
+            continue
+        _close_rel(g, w)
+        assert torch.equal(g, g2)
+
+
+@pytest.mark.cuda
+def test_cuda_selective_scan_bwd_refuses_what_it_does_not_take(cuda_device):
+    ins = _scan_inputs(cuda_device, 1, 9, 40, 4)
+    gy = torch.zeros((1, 9, 40), device=cuda_device)
+    with pytest.raises(TypeError, match="fp32"):
+        ss_kernel.selective_scan_bwd(*ins, gy.double())
+    with pytest.raises(ValueError, match="cotangent"):
+        ss_kernel.selective_scan_bwd(*ins, gy[:, :8])
+    big = _scan_inputs(cuda_device, 1, 9, 40, 17)
+    with pytest.raises(NotImplementedError, match="N=17"):
+        ss_kernel.selective_scan_bwd(*big, gy)

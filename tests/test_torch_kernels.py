@@ -175,7 +175,8 @@ def test_ops_dispatch_cpu_tensors_to_plain_versions():
                                  "flash_attention_ref": 1}
     assert ops.launch_counts() == {"quant_matmul": 0, "blockwise_quant": 0,
                                    "flash_attention": 0, "lora_matmul": 0,
-                                   "quant_matmul_t": 0, "selective_scan": 0}
+                                   "quant_matmul_t": 0, "selective_scan": 0,
+                                   "selective_scan_bwd": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -96,7 +96,7 @@ def test_scan_gradient_matches_jax_vjp(B, S, di, N, with_gh):
         if with_gh else ((y,), (torch.from_numpy(gy),))
     got = torch.autograd.grad(outs, ts, cts)
     assert ops.KERNEL_TRACES == {"selective_scan_ref": 1,
-                                 "selective_scan_bwd": 1}
+                                 "selective_scan_bwd_ref": 1}
     for g, w, name in zip(got, want, ("ddt", "dx", "dB", "dC", "dA")):
         w = np.asarray(w)
         np.testing.assert_allclose(g.numpy(), w, atol=1e-5 * np.abs(w).max(),
@@ -116,7 +116,29 @@ def test_scan_dispatch_and_kernel_wrapper_refuse_other_devices():
         ops.selective_scan(*(t.to("meta") for t in ins))
     with pytest.raises(ValueError, match="CUDA"):
         ss_kernel.selective_scan(*ins)
-    assert "selective_scan" in ops.launch_counts()
+    # the backward kernel's wrapper refuses CPU tensors too: no fallback
+    gy = torch.ones((1, 3, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        ss_kernel.selective_scan_bwd(*ins, gy)
+    with pytest.raises(ValueError, match="CUDA"):
+        ss_kernel.selective_scan_bwd(*ins, gy, torch.zeros((1, 8, 4)),
+                                     need_a=False)
+    # on the CPU the op's backward takes the plain reverse recurrence
+    ts = [t.clone().requires_grad_(True) for t in ins]
+    ops.reset_kernel_traces()
+    ops.reset_launch_counts()
+    torch.autograd.grad(ops.selective_scan(*ts)[0].sum(), ts)
+    assert ops.KERNEL_TRACES == {"selective_scan_ref": 1,
+                                 "selective_scan_bwd_ref": 1}
+    counts = ops.launch_counts()
+    assert counts["selective_scan"] == counts["selective_scan_bwd"] == 0
+    # y unused: its cotangent arrives as None and counts as zero
+    ts = [t.clone().requires_grad_(True) for t in ins]
+    got = torch.autograd.grad(ops.selective_scan(*ts)[1].sum(), ts)
+    want = ops.selective_scan_bwd(*ins, torch.zeros((1, 3, 8)),
+                                  torch.ones((1, 8, 4)))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 # -- the block ---------------------------------------------------------
@@ -246,7 +268,7 @@ def test_logits_loss_and_grads_match_jax(pair):
     _assert_tree_close(grads, jgrads, 1e-4, "grad")
     # each layer's scan: forward, remat recompute, backward
     assert ops.KERNEL_TRACES["selective_scan_ref"] == 4
-    assert ops.KERNEL_TRACES["selective_scan_bwd"] == 2
+    assert ops.KERNEL_TRACES["selective_scan_bwd_ref"] == 2
 
 
 def test_one_adam_step_matches_jax_and_remat_changes_nothing(pair):

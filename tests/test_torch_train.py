@@ -5,11 +5,14 @@ an NF4 backbone (block 64).
 The token streams are numpy in both packages and equal bit for bit. A
 client's local round runs on the same weights (the JAX init, converted)
 and the same batch indices (``RandomState(seed)`` in both): its int8
-uplink has the same byte count, and each dequantized delta leaf lies
+uplink has the same byte count. At each local step the port's gradients
+at the JAX package's parameters agree with the JAX gradients within
+1e-5 of each leaf's largest magnitude. Each dequantized delta leaf lies
 within one int8 step (the leaf's largest quantization scale) of the JAX
-package's, but for at most 0.1% of a leaf's elements whose grad is near
-Adam's eps (those stay within the range of the local updates). FedAvg
-of the same quantized deltas agrees to fp32 rounding.
+package's, but for at most 0.1% of the elements whose gradient stays
+well above Adam's eps at every step, and every element within the range
+of the local updates. FedAvg of the same quantized deltas agrees to
+fp32 rounding.
 The two-round loss decrease of tests/test_system.py holds on the port."""
 import numpy as np
 import pytest
@@ -18,6 +21,7 @@ import torch
 import jax
 
 from repro.configs import get_reduced as j_reduced
+from repro.core import optim as joptim
 from repro.core import quant as jq
 from repro.launch import train as jtrain
 from repro.models import build_model as j_build
@@ -76,14 +80,44 @@ def round_pair():
     tf, ttr = (convert.tree_from_numpy(t, "cpu") for t in (frozen, tr))
     tout = [train.client_update(tm, tf, ttr, data[c], seed=c, **kw)
             for c in range(2)]
-    return tr, ttr, data, jout, tout
+    # each client's steps again along the JAX trajectory: the JAX
+    # gradients and the port's at the same (JAX) parameters, per step
+    grad_fn = jax.jit(jax.value_and_grad(
+        lambda t, f, b: jm.loss_fn(f, t, b), has_aux=True))
+    step_fn = jax.jit(lambda f, t, o, b: jm.train_step(f, t, o, b,
+                                                       lr=kw["lr"]))
+    grads = []
+    for c in range(2):
+        rng, jt = np.random.RandomState(c), tr
+        jopt = joptim.adam_init(jt)
+        per_step = []
+        for _ in range(kw["steps"]):
+            toks = data[c][rng.randint(0, len(data[c]), kw["batch"])]
+            jb = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                  "mask": np.ones(toks[:, 1:].shape, np.float32)}
+            _, jg = grad_fn(jt, frozen, jb)
+            jt_np, jg = (jax.tree.map(np.asarray, t) for t in (jt, jg))
+            _, tg = tm.grads(tf, convert.tree_from_numpy(jt_np, "cpu"),
+                             train.make_batch(toks, "cpu"))
+            per_step.append((_flat_np(convert.tree_from_numpy(jg, "cpu")),
+                             _flat_np(tg)))
+            jt, jopt, _ = step_fn(frozen, jt, jopt, jb)
+        grads.append(per_step)
+    return tr, ttr, data, jout, tout, grads
 
 
 def test_client_update_uplink_matches_jax(round_pair):
-    _, _, _, jout, tout = round_pair
-    kw_lr = 1e-3
-    for (jd, jbytes, jloss, jsteps, jn), (td, tbytes, tloss, tsteps, tn) in \
-            zip(jout, tout):
+    _, _, _, jout, tout, grads = round_pair
+    kw_lr, eps = 1e-3, 1e-8       # the trainer's lr, Adam's eps
+    for (jd, jbytes, jloss, jsteps, jn), (td, tbytes, tloss, tsteps, tn), \
+            per_step in zip(jout, tout, grads):
+        # before Adam: the same gradients at the same parameters
+        for jg, tg in per_step:
+            for path, w in jg.items():
+                np.testing.assert_allclose(
+                    tg[path], w, rtol=0,
+                    atol=1e-5 * max(1e-30, float(np.abs(w).max())),
+                    err_msg=f"grad {path}")
         assert tbytes == jbytes == jq.tree_bytes(jd) == qlib.tree_bytes(td)
         assert (tsteps, tn) == (jsteps, jn) == (2, 8)
         np.testing.assert_allclose(tloss, jloss, rtol=1e-4)
@@ -101,17 +135,25 @@ def test_client_update_uplink_matches_jax(round_pair):
         for path, w in want.items():
             err = np.abs(got[path] - w)
             tol = steps[path] + 1e-6 * max(1.0, float(np.abs(w).max()))
-            # Adam divides each grad by its own magnitude, so where a
-            # grad sits near eps (the adapter's w1 before its zero-init
-            # w2 has moved) an fp32 difference in the grad moves the
-            # update by up to its whole range; such elements are rare
-            # and bounded by the range of 2 steps' updates
-            assert (err > tol).mean() <= 1e-3, path
+            # Adam divides each grad by its own magnitude: where a grad
+            # sits near eps (the adapter's wq/wk at the second step,
+            # behind wo's first update; w1 before the zero-init w2 has
+            # moved) the fp32 noise of the step before, carried in the
+            # parameters, moves the update by up to its whole range.
+            # Those elements are held only to the range of 2 steps'
+            # updates; the rest to one int8 step
+            well = np.ones(w.shape, bool)
+            for jg, _ in per_step:
+                well &= (np.abs(jg[path]) >= 100 * eps) | (jg[path] == 0)
+            # the one-step bound holds most of every leaf (97.5% or more
+            # here), so it cannot pass by holding nothing
+            assert well.mean() >= 0.9, (path, well.mean())
+            assert (err > tol)[well].mean() <= 1e-3, path
             assert err.max() <= 2 * kw_lr * 2 + tol, path
 
 
 def test_aggregate_matches_jax(round_pair):
-    jtr, ttr, data, jout, _ = round_pair
+    jtr, ttr, data, jout, _, _ = round_pair
     # the same quantized deltas into both aggregators
     jup = [(len(data[c]), jout[c][0]) for c in range(2)]
     tup = [(m, convert.tree_from_numpy(d, "cpu")) for m, d in jup]
