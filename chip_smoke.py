@@ -42,12 +42,20 @@ scan kernels per local step. bf16 calls of ``flash_attention``,
 tensor-core kernels and fp32 calls their CUDA-core ones; each row prints
 the route it took, and the bf16 trainer must launch only the tensor-core
 kernels of the three.
+``quant_matmul`` is timed at the shape that every serve replay launch
+has (4 users x 1 row, 768 x 768, block 64), each row with the route it
+took (the cluster split-K GEMV or the tiled kernel), the GEMV's plan and
+two calls held bitwise equal, and phase 3 counts the replay's
+``quant_matmul`` launches by users, route and planned CTAs, and requires
+the GEMV for every one.
 The last two lines are the ``kernels`` record and the device record.
 It needs one card, imports nothing of JAX, and runs nothing on the CPU
 in place of a kernel.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import re
 import subprocess
@@ -255,7 +263,8 @@ def setup() -> None:
           + " ".join(f"{k}={v:.1f}s" for k, v in took.items()), flush=True)
     for name, log in build.BUILD_LOG.items():
         print(f"  ptxas {name}: {ptxas_summary(log)}", flush=True)
-        if name in ("lora_matmul", "selective_scan"):
+        if name in ("lora_matmul", "selective_scan", "quant_matmul",
+                    "blockwise_quant"):
             print("    per kernel (registers, spill store bytes): " + " ".join(
                 f"{k}={v}" for k, v in ptxas_kernels(log).items()), flush=True)
     print(f"  selective_scan blocks per SM (N = 16): forward "
@@ -267,16 +276,36 @@ def setup() -> None:
 
 # -- phase 2: kernels against their plain versions ---------------------
 
+def gemv_route(run) -> tuple:
+    """``run()``'s result and the route its ``quant_matmul`` launch took,
+    read from the wrapper's own count of GEMV launches."""
+    before = qmm_kernel.quant_matmul.gemv_launches
+    out = run()
+    return out, ("gemv" if qmm_kernel.quant_matmul.gemv_launches > before
+                 else "tiled")
+
+
+def gemv_plan_row(T, M, G, N, block) -> dict:
+    """The GEMV's plan for a call, as a row prints it."""
+    pl = qmm_kernel.plan(max(T, 1), M, G, N)
+    return {"plan_cols": pl.cols, "plan_cluster": pl.cluster,
+            "plan_ctas": pl.ctas,
+            "smem_B": qmm_kernel.gemv_smem_bytes(pl, M, G, block)}
+
+
 def check_quant_matmul(gen) -> dict:
-    """Every format and dtype at the serve shape (8 users x 1 row,
-    768x768, block 64), one large shape and the odd-K / ragged-N edge.
-    Returns the serve-shape int8 record."""
+    """Every format and dtype at the serve replay's shape (4 users x 1
+    row, 768x768, block 64; every replay launch has this shape), one and
+    eight users, one large shape and the odd-K / ragged-N edge; two calls
+    must be bitwise equal. Returns the replay-shape int8 record."""
     dev = "cuda"
     cases = [  # (name, T, M, K, N, bits, mode, dtype)
-        ("serve_int8", 8, 1, 768, 768, 8, "linear", torch.float32),
-        ("serve_int4", 8, 1, 768, 768, 4, "linear", torch.float32),
-        ("serve_nf4", 8, 1, 768, 768, 4, "nf4", torch.float32),
-        ("serve_int8_bf16", 8, 1, 768, 768, 8, "linear", torch.bfloat16),
+        ("serve_t4_int8", 4, 1, 768, 768, 8, "linear", torch.float32),
+        ("serve_t1_int8", 1, 1, 768, 768, 8, "linear", torch.float32),
+        ("serve_t8_int8", 8, 1, 768, 768, 8, "linear", torch.float32),
+        ("serve_t4_int4", 4, 1, 768, 768, 4, "linear", torch.float32),
+        ("serve_t4_nf4", 4, 1, 768, 768, 4, "nf4", torch.float32),
+        ("serve_t4_int8_bf16", 4, 1, 768, 768, 8, "linear", torch.bfloat16),
         ("large_int8", 0, 800, 768, 3072, 8, "linear", torch.float32),
         ("large_nf4_bf16", 0, 800, 768, 3072, 4, "nf4", torch.bfloat16),
         ("gemv_m3_nf4", 4, 3, 256, 96, 4, "nf4", torch.float32),
@@ -293,56 +322,63 @@ def check_quant_matmul(gen) -> dict:
         else:
             qt = qlib.quantize(w, bits=bits, block=64, mode=mode)
         x = torch.randn((*lead, M, K), generator=gen, device=dev).to(dtype)
-        if T:
-            x = x[:, 0] if M == 1 else x     # (T, K): one row per user
-        got = qmm_kernel.quant_matmul(x, qt)
+        got, route = gemv_route(lambda: qmm_kernel.quant_matmul(x, qt))
+        again = qmm_kernel.quant_matmul(x, qt)
         want = ref.quant_matmul(x, qt)
         torch.cuda.synchronize()
         abs_e, rel_e = rel_err(got, want)
         tol = 1e-5 if dtype == torch.float32 else 1.6e-2
         if not (rel_e <= tol and torch.isfinite(got).all()):
             raise AssertionError(f"quant_matmul {name}: rel err {rel_e} > {tol}")
-        Kq = qt.q.shape[-3] * qt.block
+        if not torch.equal(got, again):
+            raise AssertionError(f"quant_matmul {name}: two calls differ")
+        G = qt.q.shape[-3]
+        Kq = G * qt.block
         b_ms, b_by = bound(nbytes(x, qt.q, qt.scales, got),
                            2.0 * max(T, 1) * M * Kq * N, dtype)
-        row = {"case": name, "max_abs_err": abs_e, "rel_err": rel_e,
+        row = {"case": name, "route": route, "max_abs_err": abs_e,
+               "rel_err": rel_e, "repeat_bitwise": True,
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        if route == "gemv":
+            row.update(gemv_plan_row(T, M, G, N, qt.block))
         timed(row, "ms", lambda: qmm_kernel.quant_matmul(x, qt))
         timed(row, "plain_ms", lambda: ref.quant_matmul(x, qt))
         report({"quant_matmul": 1, **row})
-        if name == "serve_int8":
+        if name == "serve_t4_int8":
             main = row
     return main
 
 
 def check_blockwise_quant(gen) -> dict:
-    """int8 and int4 at the store's (768, 768) block 64 and at the odd
-    (100, 70); payload and scales must equal the plain version bitwise."""
+    """int8 and int4 at the store's (768, 768) block 64 and block 128, at
+    the odd (100, 70) and the ragged N = 770; payload and scales must
+    equal the plain version bitwise."""
     main = None
-    for K, N in ((768, 768), (100, 70)):
+    for K, N, block in ((768, 768, 64), (768, 768, 128), (100, 70, 64),
+                        (768, 770, 64)):
         for bits in (8, 4):
             x = torch.randn((K, N), generator=gen, device="cuda")
-            got = bq_kernel.blockwise_quant(x, bits=bits, block=64)
-            want = ref.blockwise_quant(x, bits=bits, block=64)
+            got = bq_kernel.blockwise_quant(x, bits=bits, block=block)
+            want = ref.blockwise_quant(x, bits=bits, block=block)
             torch.cuda.synchronize()
             if not (torch.equal(got.q, want.q) and
                     torch.equal(got.scales, want.scales) and
                     got.orig_shape == want.orig_shape):
                 raise AssertionError(
-                    f"blockwise_quant ({K},{N}) int{bits}: not bitwise equal "
-                    f"({(got.q != want.q).sum().item()} codes, "
+                    f"blockwise_quant ({K},{N}) int{bits} block {block}: not "
+                    f"bitwise equal ({(got.q != want.q).sum().item()} codes, "
                     f"{(got.scales != want.scales).sum().item()} scales)")
             b_ms, b_by = bound(nbytes(x, got.q, got.scales),
                                3.0 * x.numel(), torch.float32)
-            row = {"case": f"({K},{N})_int{bits}",
+            row = {"case": f"({K},{N})_int{bits}_block{block}",
                    "max_abs_err": (got.scales - want.scales).abs().max().item(),
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
             timed(row, "ms", lambda: bq_kernel.blockwise_quant(
-                x, bits=bits, block=64))
+                x, bits=bits, block=block))
             timed(row, "plain_ms", lambda: ref.blockwise_quant(
-                x, bits=bits, block=64))
+                x, bits=bits, block=block))
             report({"blockwise_quant": 1, **row})
-            if (K, N, bits) == (768, 768, 8):
+            if (K, N, block, bits) == (768, 768, 64, 8):
                 main = row
     return main
 
@@ -827,6 +863,35 @@ def profile_replay(engine, trace, images) -> dict:
             "top_us": [(name[:60], round(us, 1)) for name, us in top]}
 
 
+@contextlib.contextmanager
+def record_quant_matmul():
+    """Count the ``quant_matmul`` kernel launches made inside the block
+    by (users T, rows a user M, route, the plan's CTAs; 0 for the tiled
+    route), read around each call of the op ``ops.quant_matmul``, which
+    the serve engine calls; the kernel wrapper and its counts are left
+    as they are."""
+    calls: collections.Counter = collections.Counter()
+    op, wrapper = ops.quant_matmul, qmm_kernel.quant_matmul
+
+    def recorded(x, qt):
+        before = (wrapper.launches, wrapper.gemv_launches)
+        y = op(x, qt)
+        if wrapper.launches > before[0]:
+            T = qt.q.shape[0] if qt.q.ndim == 4 else 1
+            M = x.numel() // (T * x.shape[-1])
+            gemv = wrapper.gemv_launches > before[1]
+            ctas = qmm_kernel.plan(T, M, qt.q.shape[-3],
+                                   qt.q.shape[-1]).ctas if gemv else 0
+            calls[(T, M, "gemv" if gemv else "tiled", ctas)] += 1
+        return y
+
+    ops.quant_matmul = recorded
+    try:
+        yield calls
+    finally:
+        ops.quant_matmul = op
+
+
 def serve_phase(device, cfg, *, n_users=16, n_requests=96, max_entries=12,
                 max_batch=8, seed=0) -> dict:
     """Replay a Zipf trace through the int8 plane and the sequential
@@ -847,7 +912,8 @@ def serve_phase(device, cfg, *, n_users=16, n_requests=96, max_entries=12,
                          device=device)
 
     ops.reset_launch_counts()
-    rec = serve_lib.replay(engine, trace, images)
+    with record_quant_matmul() as qmm_calls:
+        rec = serve_lib.replay(engine, trace, images)
     after_replay = ops.launch_counts()
     t0 = time.perf_counter()
     oracle = serve_lib.serve_sequential(frozen, cfg, class_emb, backing,
@@ -887,7 +953,7 @@ def serve_phase(device, cfg, *, n_users=16, n_requests=96, max_entries=12,
     profile = profile_replay(engine, trace, images) \
         if torch.device(device).type == "cuda" else None
     return {"profile": profile, "launches": launches,
-            "after_replay": after_replay,
+            "after_replay": after_replay, "qmm_calls": dict(qmm_calls),
             "rec": rec, "err_int8": err8, "err_int4_vs_dequant": err4_deq,
             "err_int4_vs_fp32": err4_fp, "err_fp32": err0,
             "oracle_s": oracle_s, "store": engine.store.stats(),
@@ -1109,6 +1175,8 @@ def train_phase(*, arch="yi-9b", rounds=2, clients=2, steps=2, batch=4,
     model = build_model(cfg)
     if on_card:
         torch.cuda.reset_peak_memory_stats()
+    # what earlier phases leave allocated counts in the peak below
+    allocated_at_start = torch.cuda.memory_allocated() if on_card else None
     t0 = time.perf_counter()
     params = model.init_params(
         torch.Generator(device=device).manual_seed(seed), device=device)
@@ -1150,7 +1218,8 @@ def train_phase(*, arch="yi-9b", rounds=2, clients=2, steps=2, batch=4,
     traces = dict(ops.KERNEL_TRACES)
     res.update(launches=launches, traces=traces, steps=n_steps,
                max_memory_allocated=torch.cuda.max_memory_allocated()
-               if on_card else None, profile=None)
+               if on_card else None, allocated_at_start=allocated_at_start,
+               profile=None)
     if not on_card:
         return res
     ref_routes = [k for k in traces if k.endswith("_ref")]
@@ -1219,6 +1288,7 @@ def trainer_report(arch: str) -> dict:
             "layer_stack_bytes": tres["layer_stack_bytes"],
             "trainable_bytes": tres["trainable_bytes"],
             "max_memory_allocated": tres["max_memory_allocated"],
+            "allocated_at_start": tres["allocated_at_start"],
             "phase_s": time.perf_counter() - t0})
     for r in tres["rounds"]:
         report(r)
@@ -1289,6 +1359,17 @@ def main() -> int:
     for name in ("quant_matmul", "blockwise_quant"):
         if res["after_replay"][name] < 1:
             raise AssertionError(f"the replay launched no {name} kernel")
+    qmm_calls = res["qmm_calls"]
+    print("  replay quant_matmul launches by (users T, rows M, route, plan "
+          "CTAs): " + " ".join(f"{k}={n}" for k, n in sorted(qmm_calls.items())),
+          flush=True)
+    if sum(qmm_calls.values()) != res["after_replay"]["quant_matmul"]:
+        raise AssertionError("the replay's quant_matmul calls and launches "
+                             "disagree")
+    for (T, M, route, ctas), n in qmm_calls.items():
+        if route != "gemv" or ctas < qmm_kernel.SMS:
+            raise AssertionError(f"{n} replay quant_matmul launches at T={T} "
+                                 f"took the {route} route with {ctas} CTAs")
     for name in SERVE_KERNELS:
         if launches[name] < 1:
             raise AssertionError(f"the serve path launched no {name} kernel")

@@ -5,7 +5,10 @@
 the :class:`~repro_torch.core.quant.QTensor` layout on the card (source:
 ``csrc/blockwise_quant.cu``); payload and scales equal the plain version
 (:func:`repro_torch.kernels.ref.blockwise_quant`) bit for bit. Odd K
-zero-pads to a block multiple, as in the JAX kernel.
+zero-pads to a block multiple, as in the JAX kernel. The kernel reads
+every input element once and holds it in a register from the absmax
+through to its code; its launcher picks the threads for the block and
+refuses a block past 8192 rows.
 """
 from __future__ import annotations
 

@@ -72,6 +72,39 @@ __device__ __forceinline__ void weight_pair_at(const uint8_t* q,
   *w1 = decode4<FMT>(p & 0xF, code) * sc;
 }
 
+// The float of an unsigned byte u held in byte c (0-3, little-endian) of
+// a word: u becomes the low mantissa byte of 2^23 (one byte permute),
+// and the caller subtracts 2^23 plus its bias, exactly, in place of an
+// integer-to-float conversion, which issues at a quarter of the FMA rate.
+__device__ __forceinline__ float biased_byte(uint32_t word, int c) {
+  return __int_as_float(__byte_perm(word, 0x4B000000u, 0x7540 | c));
+}
+
+// The int8 code in byte c of a 32-bit payload word, as a float: one
+// column of a code row loaded 4 columns a word (exact: the byte biased
+// by 128, then 2^23 + 128 taken off).
+__device__ __forceinline__ float code8(uint32_t word, int c) {
+  return biased_byte(word ^ 0x80808080u, c) - 8388736.0f;
+}
+
+// The weights of rows 2j (hi nibble) and 2j + 1 (lo nibble) in byte c of
+// a packed 4-bit payload word, at one scale (both rows share the block):
+// int4 codes as biased bytes (2^23 + 8 taken off), NF4 codes through
+// the codebook in shared memory.
+template <int FMT>
+__device__ __forceinline__ void pair4(uint32_t word, int c, float sc,
+                                      const float* code, float* whi,
+                                      float* wlo) {
+  const uint32_t hi = (word >> 4) & 0x0F0F0F0Fu, lo = word & 0x0F0F0F0Fu;
+  if (FMT == FMT_NF4) {
+    *whi = code[(hi >> (8 * c)) & 0xF] * sc;
+    *wlo = code[(lo >> (8 * c)) & 0xF] * sc;
+  } else {
+    *whi = (biased_byte(hi, c) - 8388616.0f) * sc;
+    *wlo = (biased_byte(lo, c) - 8388616.0f) * sc;
+  }
+}
+
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
   return __bfloat162float(*p);

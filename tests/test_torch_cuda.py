@@ -9,7 +9,7 @@ Without a Hopper GPU every test skips with its reason. Tolerances: fp32
 package's bf16 bound), ``blockwise_quant`` bitwise, ``selective_scan``,
 its backward kernel and the op's gradient 1e-5 times each output's
 largest magnitude (the JAX package's interpret-vs-plain bound), the
-backward kernel bitwise equal across two calls. bf16 ``flash_attention`` and
+backward kernel and ``quant_matmul`` bitwise equal across two calls. bf16 ``flash_attention`` and
 ``lora_matmul`` run their tensor-core kernels, fp32 their CUDA-core
 ones; so does ``quant_matmul_t`` by g's dtype, its bf16-g route held to
 1e-4 of the largest magnitude in fp32 output (W enters as two bf16
@@ -66,6 +66,21 @@ LORA_CASES = [  # (M, K, N, bits, mode, dtype, rank)
     (9, 128, 96, 4, "nf4", BF16, 20),         # r = 20 padded to 32, M < 128
 ] + [(M, K, N, 4, "nf4", BF16, 16) for s, (M, K, N) in SPLIT_SHAPES.items()
      if s not in (3, 4, 32)]        # 3, 4, 32: wg/wu, wq/wo, wk/wv above
+QMM_CASES = [  # (T, M, K, N): T users of M rows; T = 0 a plain 2-D weight
+    (4, 3, 100, 70),       # ragged N: the tiled kernel; odd K pads
+    (4, 1, 100, 96),       # the GEMV with an odd K
+    (4, 6, 100, 128),      # the tiled kernel past 4 rows
+    (0, 2, 100, 64),       # the GEMV on a plain 2-D weight
+    (1, 1, 768, 768),      # one user: a cluster of 12 CTAs
+    (1, 1, 1024, 768),     # 16 quant groups: a cluster of 8 CTAs
+    (2, 2, 768, 768),
+    (4, 1, 768, 768),      # the serve replay's shape
+    (8, 4, 768, 768),
+    (4, 3, 256, 100),      # N % 16 != 0: the GEMV's 4-byte code loads
+]
+# (bits, block) of the quantizer: the store's 64 and the other blocks
+# it can pick; odd blocks only at int8 (int4 packs row pairs)
+BQ_BLOCKS = [(b, k) for b in (8, 4) for k in (2, 16, 64, 128)] + [(8, 5)]
 SCAN_CASES = [  # (B, S, di, N)
     (4, 64, 8192, 16),     # the trainer's shape at Falcon-Mamba-7B width
     (1, 50, 520, 4),       # S and di off every block size, B = 1
@@ -91,25 +106,68 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("bits,mode", FORMATS)
-@pytest.mark.parametrize("M,N", [(3, 70), (1, 96), (6, 128)])
-def test_cuda_quant_matmul_matches_plain(cuda_device, bits, mode, M, N):
-    # (1, 96): the GEMV path; (3, 70): the tiled path (ragged N);
-    # (6, 128): the tiled path past 4 rows; odd K=100 pads in all three
-    w = torch.from_numpy(_np(23, 4, 100, N)).to(cuda_device)
-    x = torch.from_numpy(_np(24, 4, M, 100)).to(cuda_device)
+@pytest.mark.parametrize("T,M,K,N", QMM_CASES)
+def test_cuda_quant_matmul_matches_plain(cuda_device, T, M, K, N, bits,
+                                         mode, dtype):
+    """Every format and dtype, through the GEMV (M <= 4, N % 4 == 0) or
+    the tiled kernel, counted by route; two calls bitwise equal."""
+    lead = (T,) if T else ()
+    # the serve widths' weights at 1/sqrt(K), so outputs are O(1) as the
+    # head's are; the K = 100 edge cases keep their unit weights
+    w = _np(23, *lead, K, N) / (np.sqrt(K) if K > 100 else 1.0)
+    w = torch.from_numpy(w).to(cuda_device)
+    x = torch.from_numpy(_np(24, *lead, M, K)).to(cuda_device, dtype)
     qt = ref.blockwise_quant(w, bits=bits, block=64, mode=mode)
-    got = qmm_kernel.quant_matmul(x, qt)
-    torch.testing.assert_close(got, ref.quant_matmul(x, qt), rtol=1e-5,
-                               atol=1e-5)
+    fn = qmm_kernel.quant_matmul
+    before = (fn.launches, fn.gemv_launches)
+    got = fn(x, qt)
+    again = fn(x, qt)
+    gemv = M <= qmm_kernel.MAX_ROWS and N % 4 == 0
+    assert (fn.launches - before[0], fn.gemv_launches - before[1]) == \
+        (2, 2 * int(gemv))
+    assert torch.equal(got, again)
+    _close(got, ref.quant_matmul(x, qt))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bits", [8, 4])
-def test_cuda_blockwise_quant_bitwise(cuda_device, bits):
-    x = torch.from_numpy(_np(25, 100, 70)).to(cuda_device)
-    got = bq_kernel.blockwise_quant(x, bits=bits, block=64)
-    want = ref.blockwise_quant(x, bits=bits, block=64)
+@pytest.mark.parametrize("cols", [64, 128, 256])
+@pytest.mark.parametrize("cluster", [1, 2, 3, 4, 6, 12])
+def test_cuda_quant_matmul_gemv_every_plan(cuda_device, cols, cluster):
+    """The GEMV at the serve replay's shape (4 users, one row, 768 x
+    768, 12 quant groups) with each column tile and cluster size forced,
+    against the plain version."""
+    w = torch.from_numpy(_np(31, 4, 768, 768) / np.sqrt(768)).to(cuda_device)
+    x = torch.from_numpy(_np(32, 4, 1, 768)).to(cuda_device)
+    qt = ref.blockwise_quant(w, bits=8, block=64)
+    pl = qmm_kernel.GemvPlan(users=4, cols=cols, tiles=-(-768 // cols),
+                             cluster=cluster,
+                             groups=qmm_kernel.group_ranges(12, cluster))
+    _close(qmm_kernel._quant_matmul(x, qt, pl), ref.quant_matmul(x, qt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [48, 80, 96])
+def test_cuda_quant_matmul_gemv_refuses_uneven_tiles(cuda_device, cols):
+    """A column tile whose 16-column threads do not divide the CTA's 128
+    threads evenly is refused at launch, not run."""
+    w = torch.from_numpy(_np(31, 4, 768, 768) / np.sqrt(768)).to(cuda_device)
+    x = torch.from_numpy(_np(32, 4, 1, 768)).to(cuda_device)
+    qt = ref.blockwise_quant(w, bits=8, block=64)
+    pl = qmm_kernel.GemvPlan(users=4, cols=cols, tiles=-(-768 // cols),
+                             cluster=1, groups=qmm_kernel.group_ranges(12, 1))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        qmm_kernel._quant_matmul(x, qt, pl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,block", BQ_BLOCKS)
+@pytest.mark.parametrize("K,N", [(768, 768), (100, 70), (768, 770)])
+def test_cuda_blockwise_quant_bitwise(cuda_device, K, N, bits, block):
+    x = torch.from_numpy(_np(25, K, N)).to(cuda_device)
+    got = bq_kernel.blockwise_quant(x, bits=bits, block=block)
+    want = ref.blockwise_quant(x, bits=bits, block=block)
     assert torch.equal(got.q, want.q) and torch.equal(got.scales, want.scales)
 
 
