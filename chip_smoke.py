@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one NVIDIA H100: the serving
-plane and the federated QLoRA trainer on Yi-9B and on Falcon-Mamba-7B.
+plane, the federated QLoRA trainer on Yi-9B and on Falcon-Mamba-7B, and
+the paper's federated CLIP round (``run_federated``).
 
     python3 chip_smoke.py
 
@@ -31,7 +32,23 @@ Phases (a failed phase raises and the script exits non-zero):
     gradient through ``selective_scan_bwd``), with the peak device
     memory; the profiled step's top device entries name the ATen op
     and the region (``record_function`` range or backward node) that
-    launched them.
+    launched them;
+ 8. ``repro_torch.fl.simulator.run_federated`` through its entry point
+    at the JAX package's ``CLIPConfig()`` and the paper preset's round
+    settings (pacs, 5 clients, 10 local steps, batch 32, 60 samples a
+    class, lr 3e-3): 3 cohort rounds, pipelined, for ``fedclip`` and
+    ``qlora_nogan``, each run's launch counts zeroed just before it and
+    read right after; its History printed and checked (finite, uplink
+    bytes 5 x the per-client payload), then one sequential round on the
+    same streams and the first round's trainables, cohort against the
+    sequential oracle, at ``tests/test_fl.py``'s tolerances;
+ 9. one full-participation round at CLIP ViT-B/32 width (seeded
+    weights; the pacs images repeated 7 x along each spatial axis to
+    224 x 224), both arms through ``CohortEngine``, ``FullSyncScheduler``
+    and ``SequentialExec``, cohort against sequential; launch counts
+    zeroed before the arms and read after them; each cohort round
+    profiled, with the peak device memory; then a 2-vision-layer cut of
+    the round on the card against the CPU on the same weights.
 Phase 2 also holds ``selective_scan`` and its backward kernel
 ``selective_scan_bwd`` at the trainer's shape and at edge shapes (the
 backward against the plain ``ops.selective_scan_bwd``, bitwise equal
@@ -47,7 +64,12 @@ has (4 users x 1 row, 768 x 768, block 64), each row with the route it
 took (the cluster split-K GEMV or the tiled kernel), the GEMV's plan and
 two calls held bitwise equal, and phase 3 counts the replay's
 ``quant_matmul`` launches by users, route and planned CTAs, and requires
-the GEMV for every one.
+the GEMV for every one. ``flash_attention`` is also held at the
+federated round's fp32 shapes (S = Skv = 1, 4 heads, D = 16 and 192,
+batches of 32, 128 and 160 rows) with its gradient at (160, 1, 4, 192);
+phases 8 and 9 require at least a launch a local step and no plain
+attention, and its ``launches`` in the ``kernels`` record sum every
+path's.
 The last two lines are the ``kernels`` record and the device record.
 It needs one card, imports nothing of JAX, and runs nothing on the CPU
 in place of a kernel.
@@ -56,6 +78,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import json
 import re
 import subprocess
@@ -75,9 +98,14 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import clip as clip_lib  # noqa: E402
 from repro_torch.core import optim  # noqa: E402
 from repro_torch.core import quant as qlib  # noqa: E402
-from repro_torch.data.synthetic import SPECS, class_tokens  # noqa: E402
+from repro_torch.data.synthetic import (SPECS, class_tokens,  # noqa: E402
+                                        make_dataset)
 from repro_torch.fl import client as client_lib  # noqa: E402
+from repro_torch.fl import cohort as cohort_lib  # noqa: E402
+from repro_torch.fl import partition  # noqa: E402
+from repro_torch.fl import sched as sched_lib  # noqa: E402
 from repro_torch.fl import serve as serve_lib  # noqa: E402
+from repro_torch.fl import simulator as sim_lib  # noqa: E402
 from repro_torch.fl.strategies import STRATEGIES  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import blockwise_quant as bq_kernel  # noqa: E402
@@ -131,6 +159,23 @@ MAMBA_SCAN = (4, 64, 8192, 16)
 # LoRA linears of a dense block (wq, wk, wv, wo, wg, wu, wd): one
 # quant_matmul_t launch each per local step
 DENSE_LORA_LINEARS = 7
+# the federated round's attention: the adapter's Att(D) at S = Skv = 1,
+# 4 heads, fp32, no mask, as (B, D): D = d_model / 4 (16 at the JAX
+# package's CLIPConfig(), 192 at ViT-B/32), B = one client's batch (32,
+# the sequential oracle), the cohort's 5 x 32 (160) or the eval batch
+FL_ATTENTION = [(32, 16), (160, 16), (128, 16), (32, 192), (160, 192),
+                (128, 192)]
+# the per-round settings of the paper preset (benchmarks/fl_common.py,
+# PRESET["paper"] and fl_config; batch 32 is FLConfig's default)
+FL_PAPER = dict(dataset="pacs", n_clients=5, local_steps=10, batch_size=32,
+                n_per_class=60, lr=3e-3)
+FL_ARMS = ("fedclip", "qlora_nogan")
+# cohort vs sequential: tests/test_fl.py's oracle tolerances for the
+# losses and accuracies; a trainable leaf is held in norm to UPDATE_REL of
+# its round's update (the two behind the adapter's ReLU to GATED_REL),
+# its largest difference reported beside leaf_atol (``round_diffs``)
+ORACLE = dict(leaf_atol=5e-4, loss_atol=1e-3, loss_rtol=1e-4, acc_atol=1e-5)
+UPDATE_REL, GATED_REL = 2e-2, 1e-1
 
 
 # -- measurement helpers -----------------------------------------------
@@ -1084,7 +1129,15 @@ def _region(e) -> str:
 
 
 def profile_step(model, frozen, tr, toks, kernels) -> dict:
-    """One local step under the profiler: wall, device busy time, idle
+    """One local step under the profiler (:func:`profile_run`)."""
+    batch = train_lib.make_batch(toks, "cuda")
+    opt = optim.adam_init(tr)
+    return profile_run(
+        lambda: model.train_step(frozen, tr, opt, batch, lr=1e-3), kernels)
+
+
+def profile_run(run, kernels) -> dict:
+    """``run()`` under the profiler: wall, device busy time, idle
     share, the top device entries, the launches of each of ``kernels``
     (and how many of them took a tensor-core kernel), and what the host
     dispatched: the ATen ops called from Python (not
@@ -1094,15 +1147,13 @@ def profile_step(model, frozen, tr, toks, kernels) -> dict:
     as ``mamba.dequantize``, or a backward node), and ``regions_ms``
     sums the device time by region."""
     cuda = torch.autograd.DeviceType.CUDA
-    batch = train_lib.make_batch(toks, "cuda")
-    opt = optim.adam_init(tr)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.train_step(frozen, tr, opt, batch, lr=1e-3)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -1312,6 +1363,432 @@ def trainer_report(arch: str) -> dict:
     return launches
 
 
+def check_flash_round(gen) -> dict:
+    """``flash_attention`` at the federated round's shapes (``FL_ATTENTION``:
+    fp32, S = Skv = 1, 4 heads, no mask) against the plain version at
+    1e-5, with times, bounds and every SDPA backend; then the op's
+    gradient at the cohort's ViT-B/32 shape (160, 1, 4, 192) against
+    autograd through the plain version. Returns the rows by (B, D)."""
+    rows = {}
+    for B, D in FL_ATTENTION:
+        q, k, v = (torch.randn((B, 1, 4, D), generator=gen, device="cuda")
+                   for _ in range(3))
+        run = lambda: fa_kernel.flash_attention(q, k, v, causal=False)
+        got, route = routed(fa_kernel.flash_attention, run)
+        want = ref.flash_attention(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        abs_e, rel_e = rel_err(got, want)
+        if not (rel_e <= 1e-5 and torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention round ({B},1,4,{D}): rel "
+                                 f"err {rel_e} > 1e-5")
+        b_ms, b_by = bound(nbytes(q, k, v, got), 4.0 * B * 4 * D,
+                           torch.float32)
+        row = {"case": f"round_{B}x1x4x{D}", "route": route,
+               "max_abs_err": abs_e, "rel_err": rel_e, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": None}
+        timed(row, "ms", run)
+        timed(row, "plain_ms", lambda: ref.flash_attention(q, k, v,
+                                                           causal=False))
+        time_sdpa_backends(row, *(t.transpose(1, 2).contiguous()
+                                  for t in (q, k, v)), False)
+        report({"flash_attention": 1, **row})
+        rows[(B, D)] = row
+
+    B, D = 160, 192
+    q, k, v, do = (torch.randn((B, 1, 4, D), generator=gen, device="cuda")
+                   for _ in range(4))
+    grads = []
+    for fn in (ops.flash_attention, ref.flash_attention):
+        ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        (fn(*ts, causal=False) * do).sum().backward()
+        grads.append([t.grad for t in ts])
+    errs = [rel_err(g_, w_)[0] for g_, w_ in zip(*grads)]
+    if not max(errs) <= 1e-5:
+        raise AssertionError(f"flash_attention round backward: abs errs "
+                             f"dq/dk/dv {errs}")
+    brow = {"case": f"round_{B}x1x4x{D}_bwd", "abs_err_dq_dk_dv": max(errs)}
+    brow["bound_ms"], brow["bound_by"] = bound(
+        nbytes(q, k, v, do, q, k, v), 10.0 * B * 4 * D, torch.float32)
+    timed(brow, "ms", lambda: ops.flash_attention_bwd(q, k, v, do,
+                                                      causal=False))
+
+    def plain_bwd():
+        ts = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        torch.autograd.grad(ref.flash_attention(*ts, causal=False), ts, do)
+    timed(brow, "plain_ms", plain_bwd)
+    report({"flash_attention_bwd (PyTorch ops)": 1, **brow})
+    return rows
+
+
+# -- phases 8 and 9: the paper's federated round -----------------------
+
+def nf4_round_trip(frozen) -> tuple:
+    """The QLoRA arm's backbone as ``run_federated`` sets it up: the
+    vision tower NF4, block 64, then dequantized for the round. Returns
+    (frozen, the NF4 tower's bytes)."""
+    q = qlib.quantize_tree(frozen["vision"], bits=4, mode="nf4", block=64,
+                           min_size=1024)
+    return dict(frozen, vision=qlib.dequantize_tree(q)), qlib.tree_bytes(q)
+
+
+@torch.no_grad()
+def class_embedding(frozen, ccfg, device):
+    spec = SPECS["pacs"]
+    toks = torch.as_tensor(class_tokens(spec, np.arange(spec.n_classes)),
+                           dtype=torch.long, device=device)
+    return clip_lib.text_embedding(frozen, ccfg, toks)
+
+
+def fl_clients(data, n_clients, alpha, seed, strat, repeat=1):
+    """``run_federated``'s clients: a Dirichlet partition, empty shards
+    dropped; each image repeated ``repeat`` times along both spatial
+    axes (this script's way to 224 x 224 inputs from the 32 x 32 data)."""
+    imgs = data["images"]
+    if repeat > 1:
+        imgs = np.repeat(np.repeat(imgs, repeat, axis=1), repeat, axis=2)
+    parts = partition.dirichlet_partition(data["labels"], n_clients, alpha,
+                                          seed=seed)
+    clients = [client_lib.Client(
+        cid=i, images=imgs[p], labels=data["labels"][p],
+        n_classes=data["spec"].n_classes, strategy=strat)
+        for i, p in enumerate(parts)]
+    return [c for c in clients if c.n > 0]
+
+
+def round_diffs(got_tree, want_tree, base_tree) -> dict:
+    """Two rounds' trainables from the same start ``base_tree`` (trees on
+    any devices), per leaf: the largest |got - want|, how many elements
+    lie beyond ``ORACLE["leaf_atol"]``, and ||got - want|| over the norm
+    of the round's own update of the leaf, which is held to
+    ``UPDATE_REL`` (``GATED_REL`` for the two leaves behind the adapter's
+    ReLU, ``RELU_GATED``). Adam's step is about ``lr`` whatever a
+    gradient's size, so an element whose gradient sits within fp32
+    rounding of zero in some step (behind the zero-init wo, w2 and LoRA
+    b) can move by up to ``lr`` differently in two computations that
+    round differently; and a pre-activation within rounding of zero
+    takes the ReLU the other way in the other computation, moving its
+    unit's column of w1 and entry of b1 for that token."""
+    want = {tree_lib.path_str(p): l for p, l in
+            tree_lib.flatten_with_path(want_tree)}
+    base = {tree_lib.path_str(p): l for p, l in
+            tree_lib.flatten_with_path(base_tree)}
+    leaves = {}
+    for p, g in tree_lib.flatten_with_path(got_tree):
+        k = tree_lib.path_str(p)
+        w = want[k].to(g.device).float()
+        d = (g.float() - w).abs()
+        step = (w - base[k].to(g.device).float()).norm().item()
+        leaves[k] = (d.max().item(), int((d > ORACLE["leaf_atol"]).sum()),
+                     d.norm().item() / step if step else d.norm().item())
+    worst = max(leaves, key=lambda k: leaves[k][0])
+    return {"worst_leaf": worst, "worst_leaf_abs": leaves[worst][0],
+            "elements_beyond_atol": sum(v[1] for v in leaves.values()),
+            "worst_update_rel": max(v[2] for v in leaves.values()),
+            "leaf_abs_n_rel": {k: (float(f"{v[0]:.3g}"), v[1],
+                                   float(f"{v[2]:.3g}"))
+                               for k, v in leaves.items()},
+            "ok": all(v[2] <= (GATED_REL if k in RELU_GATED else UPDATE_REL)
+                      for k, v in leaves.items())}
+
+
+def oracle_round(frozen, ccfg, class_emb, clients, global_tr, strat, key, *,
+                 steps, batch, lr, device) -> dict:
+    """One full-participation round through ``FullSyncScheduler`` on the
+    stacked ``CohortEngine`` and on ``SequentialExec`` (every client's
+    ``local_train``, then ``server.aggregate``), on the same batch
+    indices; the leaves held as ``round_diffs`` holds them, losses and
+    accuracies at ``ORACLE``'s tolerances, bytes equal."""
+    engine = cohort_lib.CohortEngine(
+        frozen=frozen, ccfg=ccfg, class_emb=class_emb, clients=clients,
+        cfg=cohort_lib.CohortConfig(strategy=strat, local_steps=steps,
+                                    batch_size=batch, lr=lr))
+    trace = sched_lib.uniform_trace(len(clients))
+    coh = sched_lib.FullSyncScheduler(
+        executor=sched_lib.CohortExec(engine), trace=trace, local_steps=steps)
+    seq = sched_lib.FullSyncScheduler(
+        executor=sched_lib.SequentialExec(
+            clients=clients, frozen=frozen, ccfg=ccfg, class_emb=class_emb,
+            local_steps=steps, batch_size=batch, lr=lr),
+        trace=trace, local_steps=steps)
+    _sync(device)
+    t0 = time.perf_counter()
+    tr_c, m_c = coh.step(global_tr, 0, key)
+    _sync(device)
+    cohort_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tr_s, m_s = seq.step(global_tr, 0, key)
+    _sync(device)
+    seq_s = time.perf_counter() - t0
+    loss_c, acc_c = m_c["loss"].cpu().numpy(), m_c["acc"].cpu().numpy()
+    diffs = round_diffs(tr_c, tr_s, global_tr)
+    res = {"clients": len(clients), "pool": int(engine.pool_staged.shape[1]),
+           "cohort_round_s": cohort_s, "sequential_round_s": seq_s,
+           **diffs,
+           "loss_abs": float(np.abs(loss_c - m_s["loss"]).max()),
+           "acc_abs": float(np.abs(acc_c - m_s["acc"]).max()),
+           "uplink_bytes": m_c["uplink_bytes"],
+           "per_client_uplink_bytes":
+               engine.per_client_uplink_bytes(global_tr),
+           "mean_loss": float(loss_c.mean())}
+    if not (res.pop("ok") and np.allclose(
+            loss_c, m_s["loss"], atol=ORACLE["loss_atol"],
+            rtol=ORACLE["loss_rtol"]) and res["acc_abs"] <= ORACLE["acc_atol"]
+            and m_c["uplink_bytes"] == m_s["uplink_bytes"] ==
+            engine.uplink_bytes(global_tr) and np.isfinite(loss_c).all()):
+        raise AssertionError(f"cohort round vs sequential oracle: {res}")
+    res.update(engine=engine, tr=tr_c)
+    return res
+
+
+def like_run(cfg, device, streams) -> tuple:
+    """The frozen backbone, class embeddings, clients and global
+    trainables that ``run_federated(cfg, device, streams)`` trains (its
+    pretrained CLIP is the cached one)."""
+    strat = STRATEGIES[cfg.strategy]
+    ccfg = clip_lib.CLIPConfig()
+    data = make_dataset(cfg.dataset, n_per_class=cfg.n_per_class,
+                        seed=cfg.seed, longtail_gamma=cfg.longtail_gamma)
+    clients = fl_clients(data, cfg.n_clients, cfg.alpha, cfg.seed, strat)
+    frozen = sim_lib.pretrained_clip(cfg.dataset, ccfg, seed=1234,
+                                     init=streams.clip_init, device=device)
+    if strat.backbone_bits:
+        frozen = nf4_round_trip(frozen)[0]
+    return (frozen, ccfg, class_embedding(frozen, ccfg, device), clients,
+            convert.tree_from_numpy(streams.trainable_init, device), strat)
+
+
+def fl_round_phase(device="cuda", rounds=3, **settings) -> dict:
+    """Phase 8: ``run_federated`` through its entry point, both arms, at
+    the paper preset's per-round settings (``FL_PAPER``, overridable for
+    a rehearsal) and the JAX package's ``CLIPConfig()``: ``rounds`` cohort
+    rounds, pipelined. Launch counts are zeroed just before each run and
+    read right after it. Every History value must be finite and every
+    round's uplink ``n_clients x per_client_uplink_bytes``; then one
+    round of ``engine="sequential"`` on the same streams against the
+    cohort run's first round, and the first round's trainables through
+    ``oracle_round``, at the oracle tolerances."""
+    on_card = torch.device(device).type == "cuda"
+    st = {**FL_PAPER, **settings}
+    out = {}
+    for arm in FL_ARMS:
+        cfg = sim_lib.FLConfig(strategy=arm, rounds=rounds, engine="cohort",
+                               pipeline="pipelined", **st)
+        streams = sim_lib.seeded_streams(cfg)
+        ops.reset_kernel_traces()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        h = sim_lib.run_federated(cfg, device=device, streams=streams)
+        _sync(device)
+        run_s = time.perf_counter() - t0
+        launches, traces = ops.launch_counts(), dict(ops.KERNEL_TRACES)
+        hs = sim_lib.run_federated(
+            dataclasses.replace(cfg, rounds=1, engine="sequential"),
+            device=device, streams=streams)
+        fz, ccfg, ce, clients, g0, strat = like_run(cfg, device, streams)
+        orc = oracle_round(fz, ccfg, ce, clients, g0, strat,
+                           cohort_lib.RoundKey(streams.batch_indices, 0),
+                           steps=cfg.local_steps, batch=cfg.batch_size,
+                           lr=cfg.lr, device=device)
+        per_client = orc["per_client_uplink_bytes"]
+        vals = [h.server_acc, h.tail_acc, h.server_loss, h.client_loss,
+                h.client_acc]
+        if not all(np.isfinite(np.asarray(v, np.float64)).all()
+                   for v in vals) or len(h.server_acc) != rounds:
+            raise AssertionError(f"{arm}: bad History {h}")
+        n_act = h.meta["n_clients_active"]
+        if h.uplink_bytes != [n_act * per_client] * rounds:
+            raise AssertionError(f"{arm}: uplink {h.uplink_bytes} != "
+                                 f"{n_act} x {per_client}")
+        seq_vs = {
+            "client_loss_abs": float(np.abs(np.subtract(
+                h.client_loss[0], hs.client_loss[0])).max()),
+            "client_acc_abs": float(np.abs(np.subtract(
+                h.client_acc[0], hs.client_acc[0])).max()),
+            "server_loss_abs": abs(h.server_loss[0] - hs.server_loss[0]),
+            "server_acc_abs": abs(h.server_acc[0] - hs.server_acc[0])}
+        if not (np.allclose(h.client_loss[0], hs.client_loss[0],
+                            atol=ORACLE["loss_atol"],
+                            rtol=ORACLE["loss_rtol"])
+                and np.allclose(h.server_loss[0], hs.server_loss[0],
+                                atol=ORACLE["loss_atol"],
+                                rtol=ORACLE["loss_rtol"])
+                and seq_vs["client_acc_abs"] <= ORACLE["acc_atol"]
+                and hs.uplink_bytes[0] == h.uplink_bytes[0]):
+            raise AssertionError(f"{arm}: sequential round vs cohort: "
+                                 f"{seq_vs}")
+        if on_card:
+            want = rounds * cfg.local_steps
+            if traces.get("flash_attention_cuda", 0) < want or \
+                    launches["flash_attention"] < want or \
+                    "flash_attention_ref" in traces:
+                raise AssertionError(
+                    f"{arm}: flash_attention launches {launches} traces "
+                    f"{traces} (want >= {want} kernel launches, no plain "
+                    "route)")
+        orc.pop("engine"), orc.pop("tr")
+        out[arm] = {"history": h, "meta": h.meta, "run_s": run_s,
+                    "launches": launches, "traces": traces,
+                    "sequential_vs_cohort": seq_vs, "oracle": orc}
+    return out
+
+
+def vit_round_phase(device="cuda", ccfg=VIT_B32, *, steps=10, batch=32,
+                    n_clients=5, n_per_class=60, seed=0, cut_layers=2,
+                    profile=True) -> dict:
+    """Phase 9: one full-participation round at ``ccfg``'s width (CLIP
+    ViT-B/32), seeded weights, both arms, through ``CohortEngine``,
+    ``FullSyncScheduler`` and ``SequentialExec`` (``oracle_round``).
+    The data: 5 clients of a Dirichlet(0.5) partition of
+    ``make_dataset("pacs", n_per_class=60)``, each 32 x 32 image
+    repeated along both spatial axes to the config's image size. Launch
+    counts are zeroed before the arms and read after them; on the card
+    each arm's cohort round is then profiled, and a ``cut_layers``-
+    vision-layer cut of the same round runs on the card (kernel) and on
+    the CPU (plain path) on the same weights and indices."""
+    on_card = torch.device(device).type == "cuda"
+    data = make_dataset("pacs", n_per_class=n_per_class, seed=seed)
+    repeat = ccfg.image_size // data["images"].shape[1]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    frozen0 = clip_lib.init_clip(gen, ccfg, device=device)
+    key = cohort_lib.RoundKey(cohort_lib.seeded_index_stream(seed), 0)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_traces()
+    ops.reset_launch_counts()
+    arms = {}
+    for arm in FL_ARMS:
+        strat = STRATEGIES[arm]
+        frozen = nf4_round_trip(frozen0)[0] if strat.backbone_bits \
+            else frozen0
+        ce = class_embedding(frozen, ccfg, device)
+        clients = fl_clients(data, n_clients, 0.5, seed, strat, repeat)
+        g0 = client_lib.init_trainable(gen, ccfg, strat, device=device)
+        orc = oracle_round(frozen, ccfg, ce, clients, g0, strat, key,
+                           steps=steps, batch=batch, lr=3e-3, device=device)
+        arms[arm] = dict(orc, frozen=frozen, class_emb=ce,
+                         client_list=clients, global_tr=g0, strat=strat)
+    launches, traces = ops.launch_counts(), dict(ops.KERNEL_TRACES)
+    res = {"launches": launches, "traces": traces, "arms": {},
+           "max_memory_allocated": torch.cuda.max_memory_allocated()
+           if on_card else None}
+    if on_card and (launches["flash_attention"] < 2 * steps or
+                    traces.get("flash_attention_cuda", 0) < 2 * steps or
+                    "flash_attention_ref" in traces):
+        raise AssertionError(f"ViT-B/32 round: flash_attention launches "
+                             f"{launches} traces {traces}")
+    for arm, a in arms.items():
+        row = {k: v for k, v in a.items() if k not in (
+            "engine", "tr", "frozen", "class_emb", "client_list",
+            "global_tr", "strat")}
+        if on_card and profile:
+            row["profile"] = profile_run(
+                lambda: a["engine"].run_round(a["global_tr"], key),
+                ("flash_attention",))
+        row["cut"] = cut_check(a, ccfg, cut_layers, gen, key, steps=steps,
+                               batch=batch, device=device)
+        res["arms"][arm] = row
+    return res
+
+
+def cut_check(a, ccfg, layers, gen, key, *, steps, batch, device) -> dict:
+    """The round of ``a`` with the vision tower cut to ``layers`` blocks,
+    on ``device`` and on the CPU on the same weights and batch indices:
+    leaves as ``round_diffs`` holds them, losses at the oracle's loss
+    tolerance, each client's accuracy within one of its ``batch``
+    samples."""
+    ccfg2 = dataclasses.replace(ccfg, vision_layers=layers)
+    fz = a["frozen"]
+    fz2 = dict(fz, vision=dict(fz["vision"], blocks={
+        k: v[:layers] for k, v in fz["vision"]["blocks"].items()}))
+    g2 = client_lib.init_trainable(gen, ccfg2, a["strat"], device=device)
+    outs = {}
+    for dev in (device, "cpu"):
+        fzd, ced, gd = (convert.tree_to(t, dev)
+                        for t in (fz2, a["class_emb"], g2))
+        eng = cohort_lib.CohortEngine(
+            frozen=fzd, ccfg=ccfg2, class_emb=ced, clients=a["client_list"],
+            cfg=cohort_lib.CohortConfig(strategy=a["strat"],
+                                        local_steps=steps, batch_size=batch,
+                                        lr=3e-3))
+        t0 = time.perf_counter()
+        tr, m = eng.run_round(gd, key)
+        _sync(dev)
+        outs[dev] = (tr, m["loss"].cpu().numpy(), m["acc"].cpu().numpy(),
+                     time.perf_counter() - t0)
+    (tr_d, l_d, a_d, s_d), (tr_h, l_h, a_h, s_h) = outs[device], outs["cpu"]
+    res = {"layers": layers, **round_diffs(tr_d, tr_h, g2),
+           "loss_abs": float(np.abs(l_d - l_h).max()),
+           "acc_abs": float(np.abs(a_d - a_h).max()),
+           "device_round_s": s_d, "cpu_round_s": s_h}
+    if not (res.pop("ok") and np.allclose(
+            l_d, l_h, atol=ORACLE["loss_atol"], rtol=ORACLE["loss_rtol"])
+            and res["acc_abs"] <= 1.0 / batch + 1e-6):
+        raise AssertionError(f"{layers}-layer round, card vs CPU: {res}")
+    return res
+
+
+def fl_round_report() -> int:
+    """Phase 8 on the card, reported. Returns its flash_attention
+    launches."""
+    print("federated round (run_federated), CLIPConfig(), paper preset's "
+          "round settings, 3 cohort rounds pipelined:", flush=True)
+    t0 = time.perf_counter()
+    res = fl_round_phase()
+    n = 0
+    for arm, r in res.items():
+        h, m = r["history"], r["meta"]
+        for i in range(len(h.rounds)):
+            report({"arm": arm, "round": h.rounds[i],
+                    "server_acc": h.server_acc[i], "tail_acc": h.tail_acc[i],
+                    "server_loss": h.server_loss[i],
+                    "mean_client_loss": float(np.mean(h.client_loss[i])),
+                    "uplink_bytes": h.uplink_bytes[i],
+                    "round_time_s": h.round_time_s[i]})
+        report({"arm": arm, "run_s": r["run_s"],
+                **{k: m[k] for k in (
+                    "n_clients_active", "backbone_bytes", "footprint_bytes",
+                    "util_proxy_const", "trainable_params", "frozen_params",
+                    "n_compiles", "n_compiles_by_kind", "compile_time_s",
+                    "sync_counts", "loop_wall_s")}})
+        report({"arm": arm, "launches": r["launches"],
+                "traces": r["traces"]})
+        report({"arm": arm, "sequential_round_vs_cohort":
+                r["sequential_vs_cohort"]})
+        report({"arm": arm, "oracle": r["oracle"]})
+        n += r["launches"]["flash_attention"]
+    report({"fl_round_phase_s": time.perf_counter() - t0})
+    return n
+
+
+def vit_round_report() -> int:
+    """Phase 9 on the card, reported. Returns its flash_attention
+    launches."""
+    print("federated round at CLIP ViT-B/32 width (seeded weights), "
+          "cohort vs sequential, then a 2-layer cut card vs CPU:",
+          flush=True)
+    t0 = time.perf_counter()
+    res = vit_round_phase()
+    report({"launches": res["launches"], "traces": res["traces"],
+            "max_memory_allocated": res["max_memory_allocated"]})
+    for arm, r in res["arms"].items():
+        prof = r.pop("profile", None)
+        cut = r.pop("cut")
+        report({"arm": arm, **r})
+        report({"arm": arm, "cut": cut})
+        if prof is not None:
+            report({"arm": arm, **{k: v for k, v in prof.items()
+                                   if k not in ("top_ms", "regions_ms")}})
+            print(f"  {arm} round top device time (ms), each with its "
+                  "launching ops (op, region, ms):", flush=True)
+            for name, ms, srcs in prof["top_ms"]:
+                print(f"    {ms} {name}: {srcs}", flush=True)
+            print(f"  {arm} round device time by region (ms): "
+                  f"{prof['regions_ms']}", flush=True)
+    report({"vit_round_phase_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    return res["launches"]["flash_attention"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -1324,6 +1801,7 @@ def main() -> int:
                  "blockwise_quant": check_blockwise_quant(gen)}
     check_flash_attention(gen)      # the serve shapes
     main_rows["flash_attention"] = check_flash_train(gen)
+    check_flash_round(gen)          # the federated round's shapes
     main_rows["lora_matmul"], main_rows["quant_matmul_t"] = \
         check_lora_kernels(gen)
     qmt_split_sweep(gen)
@@ -1381,9 +1859,18 @@ def main() -> int:
     yi_launches = trainer_report("yi-9b")
     step_check_report("falcon-mamba-7b")
     mamba_launches = trainer_report("falcon-mamba-7b")
+    fl_launches = fl_round_report()
+    vit_launches = vit_round_report()
 
     print(card_line(), flush=True)
+    # flash_attention runs on every path: its launches over all of them
+    flash = {"serve": serve_launches["flash_attention"],
+             "yi-9b": yi_launches["flash_attention"],
+             "falcon-mamba-7b": mamba_launches["flash_attention"],
+             "fl_round": fl_launches, "vit_round": vit_launches}
+    print(f"flash_attention launches by path: {flash}", flush=True)
     launches = {**serve_launches, **yi_launches,
+                "flash_attention": sum(flash.values()),
                 "selective_scan": mamba_launches["selective_scan"],
                 "selective_scan_bwd": mamba_launches["selective_scan_bwd"]}
     print(json.dumps({"kernels": [

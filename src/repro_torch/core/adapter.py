@@ -7,8 +7,11 @@
 One multi-head attention plus a 2-layer ReLU FFN on top of the frozen
 backbone's hidden states, with residuals (wo/W2 zero-init). ``apply`` is
 differentiable: a decoder LM runs it causally over the whole sequence,
-and its Att(D) takes the flash-attention op's gradient. ``prefill`` and
-``decode`` are not ported yet.
+and its Att(D) takes the flash-attention op's gradient.
+``apply_stacked`` is the same function for a cohort of clients, each
+with its own adapter: the projections are batched matmuls and the
+attention folds the cohort into the batch (one flash-attention launch).
+``prefill`` and ``decode`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -58,3 +61,28 @@ def apply(params, x: torch.Tensor, *, n_heads: int = 8,
     x = x + a @ params["wo"].to(dt)
     h = torch.relu(x @ params["w1"].to(dt) + params["b1"].to(dt))
     return x + h @ params["w2"].to(dt) + params["b2"].to(dt)
+
+
+def apply_stacked(params, x: torch.Tensor, *, n_heads: int = 8,
+                  causal: bool = True) -> torch.Tensor:
+    """:func:`apply` for C clients at once: every leaf of ``params``
+    carries a leading client axis, and x is (C, B, S, d) -> (C, B, S, d).
+    Client c's rows meet only client c's weights; Att(D) runs once over
+    the (C·B, S, heads, d/heads) fold of the cohort."""
+    C, B, S, d = x.shape
+    dh = d // n_heads
+    dt = x.dtype
+    xf = x.reshape(C, B * S, d)
+
+    def mm(h, w):
+        return torch.matmul(h, w.to(dt))
+
+    def proj(w):
+        return mm(xf, w).reshape(C * B, S, n_heads, dh)
+
+    q, k, v = proj(params["wq"]), proj(params["wk"]), proj(params["wv"])
+    a = kops.flash_attention(q, k, v, causal=causal and S > 1)
+    xf = xf + mm(a.reshape(C, B * S, d), params["wo"])
+    h = torch.relu(mm(xf, params["w1"]) + params["b1"].to(dt)[:, None])
+    out = xf + mm(h, params["w2"]) + params["b2"].to(dt)[:, None]
+    return out.reshape(C, B, S, d)

@@ -1,4 +1,4 @@
-"""CLIP-style dual encoder, port of ``repro.core.clip`` (forward only).
+"""CLIP-style dual encoder, port of ``repro.core.clip``.
 
 A ViT image encoder and a causal text transformer sharing one
 ``d_model``; zero-shot classification = cosine(image embedding, class-
@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.core import lora as lora_lib
+from repro_torch.core import losses
 
 
 @dataclass(frozen=True)
@@ -166,14 +167,27 @@ def encode_image(params, cfg: CLIPConfig, images, *, lora=None,
 
 def encode_text(params, cfg: CLIPConfig, tokens):
     t = params["text"]
-    x = t["embed"][tokens] + t["pos"][None, :tokens.shape[1]]
+    # F.embedding, not t["embed"][tokens]: the same rows, and a backward
+    # that sums a token's repeats in a fixed order (the index backward's
+    # threaded accumulation varies from run to run on the CPU)
+    x = F.embedding(tokens, t["embed"]) + t["pos"][None, :tokens.shape[1]]
     x = _run_blocks(t["blocks"], x, cfg.n_heads, True)
     x = _ln(x, t["ln"])
     return x[:, -1]                            # last token
 
 
+def image_embedding(params, cfg: CLIPConfig, images, *, lora=None):
+    return encode_image(params, cfg, images, lora=lora) @ params["proj_v"]
+
+
 def text_embedding(params, cfg: CLIPConfig, tokens):
     return encode_text(params, cfg, tokens) @ params["proj_t"]
+
+
+def contrastive_loss(params, cfg: CLIPConfig, images, tokens):
+    ie = image_embedding(params, cfg, images)
+    te = text_embedding(params, cfg, tokens)
+    return losses.clip_contrastive(ie, te, params["logit_scale"])
 
 
 def zero_shot_logits(img_emb, class_text_emb, logit_scale):

@@ -181,6 +181,40 @@ def quantize_tree(params, *, bits: int, block: int = 128,
     return tree_lib.map_with_path(one, params)
 
 
+def qtensor_specs(shape, dtype, *, bits: int, block: int = 128,
+                  mode: str = "linear") -> QTensor:
+    """The QTensor ``quantize`` would return for ``shape``, its payload
+    and scales on the ``meta`` device: sizes only, no data."""
+    *lead, K, N = shape
+    b = _pick_block(K, block)
+    if b % 2:
+        bits, mode = 8, "linear"
+    G = K // b
+    meta = torch.device("meta")
+    if bits == 4:
+        q = torch.empty((*lead, G, b // 2, N), dtype=torch.uint8, device=meta)
+    else:
+        q = torch.empty((*lead, G, b, N), dtype=torch.int8, device=meta)
+    scales = torch.empty((*lead, G, 1, N), dtype=torch.float32, device=meta)
+    return QTensor(q=q, scales=scales, bits=bits, mode=mode, block=b,
+                   out_dtype=dtype, orig_shape=tuple(shape))
+
+
+def quantize_tree_specs(specs, *, bits: int, block: int = 128,
+                        mode: str = "linear", min_size: int = 4096,
+                        skip_names=DEFAULT_SKIP):
+    """The shape-only analogue of ``quantize_tree`` over a tree of
+    ``meta`` tensors."""
+    def one(path, leaf):
+        if isinstance(leaf, QTensor) or not _quantizable(
+                tree_lib.path_str(path), leaf.shape, leaf.dtype, min_size,
+                skip_names):
+            return leaf
+        return qtensor_specs(tuple(leaf.shape), leaf.dtype, bits=bits,
+                             block=block, mode=mode)
+    return tree_lib.map_with_path(one, specs)
+
+
 def dequantize_tree(params, dtype=None):
     return tree_lib.tree_map(
         lambda l: dequantize(l, dtype) if isinstance(l, QTensor) else l,

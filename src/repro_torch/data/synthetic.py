@@ -85,3 +85,33 @@ def make_dataset(name: str, *, n_per_class: int = 60, seed: int = 0,
     images, labels, domains = images[order], labels[order], domains[order]
     return {"images": images, "labels": labels, "domains": domains,
             "tokens": class_tokens(spec, labels), "spec": spec}
+
+
+def make_eval_set(name: str, *, n_per_class: int = 20, seed: int = 1):
+    """Balanced held-out set (no long tail) for server-side accuracy."""
+    return make_dataset(name, n_per_class=n_per_class, seed=seed,
+                        longtail_gamma=1.0)
+
+
+def stage_client_pools(pools):
+    """Pad ragged per-client (images, labels) pools to one fixed-shape
+    cohort array, so a round's clients stack on a leading axis.
+
+    ``pools`` — sequence of (images (n_i, H, W, C), labels (n_i,)).
+    Returns numpy (images (n_clients, P, H, W, C) f32, labels
+    (n_clients, P) i32, lens (n_clients,) i32) with P = max n_i. Padding
+    rows are zeros and are never sampled: batch indices are drawn in
+    [0, lens[i]).
+    """
+    n_clients = len(pools)
+    P = max(len(labs) for _, labs in pools)
+    sample_shape = pools[0][0].shape[1:]
+    images = np.zeros((n_clients, P, *sample_shape), np.float32)
+    labels = np.zeros((n_clients, P), np.int32)
+    lens = np.zeros((n_clients,), np.int32)
+    for i, (imgs, labs) in enumerate(pools):
+        n = len(labs)
+        images[i, :n] = imgs
+        labels[i, :n] = labs
+        lens[i] = n
+    return images, labels, lens

@@ -1,6 +1,8 @@
 """Client availability traces, port of ``repro.fl.sched.traces`` reduced
-to :class:`AvailabilityTrace` and its diurnal ``availability_at``, which
-the request-trace driver uses as its rate modulator. Plain numpy.
+to :class:`AvailabilityTrace` (its diurnal ``availability_at`` is the
+request-trace driver's rate modulator) and the uniform trace that the
+full-participation round runs under. Plain numpy. The skewed and
+diurnal traces and trace files wait for ``ROADMAP.md`` Queue A item 6.
 """
 from __future__ import annotations
 
@@ -48,6 +50,14 @@ class AvailabilityTrace:
         object.__setattr__(self, "device_class", dc)
         object.__setattr__(self, "phase", ph)
 
+    @property
+    def n(self) -> int:
+        return len(self.availability)
+
+    @property
+    def n_device_classes(self) -> int:
+        return int(np.max(self.device_class)) + 1
+
     def availability_at(self, t: float = 0.0) -> np.ndarray:
         """Selection propensity at virtual time ``t``: the static vector,
         diurnally modulated when ``period > 0``."""
@@ -57,3 +67,24 @@ class AvailabilityTrace:
         cyc = np.sin(2.0 * np.pi * (float(t) / float(self.period) +
                                     np.asarray(self.phase, np.float64)))
         return a * (1.0 + float(self.amplitude) * cyc)
+
+
+def uniform_trace(n: int) -> AvailabilityTrace:
+    """Idealized population: always available, unit speed, homogeneous
+    local steps."""
+    return AvailabilityTrace(
+        availability=np.ones(n, np.float64),
+        speed=np.ones(n, np.float64),
+        step_mult=np.ones(n, np.int32),
+        name="uniform")
+
+
+def resolve_trace(spec, n: int, *, seed: int = 0) -> AvailabilityTrace:
+    """``None`` or ``"uniform"``; any other spec raises (the skewed and
+    diurnal traces, trace files and custom traces are ``ROADMAP.md``
+    Queue A item 6)."""
+    if spec is None or spec == "uniform":
+        return uniform_trace(n)
+    raise NotImplementedError(
+        f"trace {spec!r}: the port runs the uniform trace only so far "
+        "(ROADMAP.md Queue A item 6)")

@@ -54,3 +54,14 @@ def tree_map(fn: Callable, tree, *rest):
                for i, v in enumerate(tree)]
         return type(tree)(out)
     return fn(tree, *rest)
+
+
+def from_leaves(tree, new_leaves):
+    """``tree``'s structure with ``new_leaves`` (in :func:`leaves` order)
+    in place of its leaves."""
+    paths = [p for p, _ in flatten_with_path(tree)]
+    if len(paths) != len(new_leaves):
+        raise ValueError(f"{len(new_leaves)} leaves for a tree of "
+                         f"{len(paths)}")
+    by_path = dict(zip(paths, new_leaves))
+    return map_with_path(lambda path, _: by_path[path], tree)

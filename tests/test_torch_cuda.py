@@ -30,6 +30,11 @@ FORMATS = [(8, "linear"), (4, "linear"), (4, "nf4")]
 F32, BF16 = torch.float32, torch.bfloat16
 FLASH_CASES = [  # (B, S, H, Hkv, D, causal, window, dtype)
     (1, 1, 4, 4, 192, False, None, F32),   # the adapter at S=1, CLIP width
+    # the federated round's adapter: a cohort of 5 x 32 rows at ViT-B/32
+    # width, one client's 32 and the eval batch at CLIPConfig()'s D = 16
+    (160, 1, 4, 4, 192, False, None, F32),
+    (32, 1, 4, 4, 16, False, None, F32),
+    (128, 1, 4, 4, 16, False, None, F32),
     (2, 40, 4, 2, 16, True, 8, F32),       # GQA, causal, sliding window
     (1, 33, 2, 2, 24, False, None, F32),   # D not a power of two
     (1, 5, 4, 4, 16, True, None, F32),     # the adapter's causal S=5
@@ -529,3 +534,97 @@ def test_cuda_selective_scan_bwd_refuses_what_it_does_not_take(cuda_device):
     big = _scan_inputs(cuda_device, 1, 9, 40, 17)
     with pytest.raises(NotImplementedError, match="N=17"):
         ss_kernel.selective_scan_bwd(*big, gy)
+
+
+# the federated round at a small size (tests/test_torch_simulator.py's)
+FL_SMALL = dict(dataset="pacs", n_clients=3, rounds=2, local_steps=3,
+                n_per_class=12, batch_size=8, lr=3e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["fedclip", "qlora_nogan"])
+def test_cuda_cohort_round_matches_sequential(cuda_device, arm):
+    """One stacked round on the card against the sequential clients on
+    the card, same weights and indices: tests/test_fl.py's oracle
+    tolerances (leaves 5e-4, loss 1e-3 / 1e-4, accuracy 1e-5), bytes
+    equal; the adapter's attention through the kernel only."""
+    from repro_torch import convert
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import clip as clip_lib
+    from repro_torch.data.synthetic import class_tokens, make_dataset
+    from repro_torch.fl import client as client_lib
+    from repro_torch.fl import cohort as cohort_lib
+    from repro_torch.fl import partition, server
+    from repro_torch.fl import simulator as sim_lib
+    from repro_torch.fl.strategies import STRATEGIES
+    cfg = sim_lib.FLConfig(strategy=arm, **FL_SMALL)
+    streams = sim_lib.seeded_streams(cfg)
+    strat, ccfg = STRATEGIES[arm], clip_lib.CLIPConfig()
+    frozen = sim_lib.pretrained_clip("pacs", ccfg, steps=20,
+                                     init=streams.clip_init,
+                                     device=cuda_device)
+    data = make_dataset("pacs", n_per_class=12, seed=0)
+    parts = partition.dirichlet_partition(data["labels"], 3, 0.5)
+    clients = [client_lib.Client(cid=i, images=data["images"][p],
+                                 labels=data["labels"][p], n_classes=7,
+                                 strategy=strat) for i, p in enumerate(parts)]
+    toks = torch.as_tensor(class_tokens(data["spec"], np.arange(7)),
+                           dtype=torch.long, device=cuda_device)
+    with torch.no_grad():
+        class_emb = clip_lib.text_embedding(frozen, ccfg, toks)
+    g0 = convert.tree_from_numpy(streams.trainable_init, cuda_device)
+    engine = cohort_lib.CohortEngine(
+        frozen=frozen, ccfg=ccfg, class_emb=class_emb, clients=clients,
+        cfg=cohort_lib.CohortConfig(strategy=strat, local_steps=3,
+                                    batch_size=8, lr=3e-3))
+    key = cohort_lib.RoundKey(streams.batch_indices, 0)
+    ops.reset_kernel_traces()
+    new, m = engine.run_round(g0, key)
+    assert ops.KERNEL_TRACES.get("flash_attention_cuda") == 3
+    assert "flash_attention_ref" not in ops.KERNEL_TRACES
+    idx = cohort_lib.round_indices(key, engine.lens, 3, 8)
+    outs = [c.local_train(frozen, g0, class_emb, ccfg, steps=3, batch_size=8,
+                          lr=3e-3, indices=idx[i])
+            for i, c in enumerate(clients)]
+    ups = [c.make_update(g0, tr) for c, (tr, _) in zip(clients, outs)]
+    ref_tr = server.aggregate(g0, [(c.n, u) for c, (u, _) in
+                                   zip(clients, ups)])
+    want = dict(tree_lib.flatten_with_path(ref_tr))
+    for path, leaf in tree_lib.flatten_with_path(new):
+        torch.testing.assert_close(leaf, want[path], atol=5e-4, rtol=0)
+    np.testing.assert_allclose(m["loss"].cpu().numpy(),
+                               [o["loss"] for _, o in outs], atol=1e-3,
+                               rtol=1e-4)
+    np.testing.assert_allclose(m["acc"].cpu().numpy(),
+                               [o["acc"] for _, o in outs], atol=1e-5)
+    assert m["uplink_bytes"] == sum(nb for _, nb in ups)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["fedclip", "qlora_nogan"])
+def test_cuda_run_federated_matches_cpu(cuda_device, arm):
+    """``run_federated`` on the card against the CPU on the same streams.
+    Each device pretrains its own CLIP (300 Adam steps), so the losses
+    are held as tests/test_torch_simulator.py holds the port to the JAX
+    package with its own pretraining (server loss 5e-3 and a client's
+    last-step batch loss 1e-1 relative); accuracies within one sample,
+    bytes equal; no plain attention on the card."""
+    from repro_torch.fl import simulator as sim_lib
+    cfg = sim_lib.FLConfig(strategy=arm, **FL_SMALL)
+    streams = sim_lib.seeded_streams(cfg)
+    ops.reset_kernel_traces()
+    card = sim_lib.run_federated(cfg, device=cuda_device, streams=streams)
+    assert "flash_attention_ref" not in ops.KERNEL_TRACES
+    assert ops.KERNEL_TRACES.get("flash_attention_cuda", 0) >= \
+        cfg.rounds * cfg.local_steps
+    cpu = sim_lib.run_federated(cfg, device="cpu", streams=streams)
+    assert card.uplink_bytes == cpu.uplink_bytes
+    for key in ("backbone_bytes", "footprint_bytes", "trainable_params"):
+        assert card.meta[key] == cpu.meta[key]
+    rel = lambda a, b: np.abs(np.subtract(a, b)) / np.abs(b)
+    assert rel(card.server_loss, cpu.server_loss).max() <= 5e-3
+    assert rel(card.client_loss, cpu.client_loss).max() <= 1e-1
+    assert np.abs(np.subtract(card.server_acc, cpu.server_acc)).max() \
+        <= 1 / 140 + 1e-12
+    assert np.abs(np.subtract(card.client_acc, cpu.client_acc)).max() \
+        <= 1 / 8 + 1e-12
