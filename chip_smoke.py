@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one NVIDIA H100: the serving
 plane, the federated QLoRA trainer on Yi-9B and on Falcon-Mamba-7B, and
-the paper's federated CLIP round (``run_federated``).
+the paper's federated CLIP round (``run_federated``), its GAN included.
 
     python3 chip_smoke.py
 
@@ -33,22 +33,34 @@ Phases (a failed phase raises and the script exits non-zero):
     memory; the profiled step's top device entries name the ATen op
     and the region (``record_function`` range or backward node) that
     launched them;
- 8. ``repro_torch.fl.simulator.run_federated`` through its entry point
-    at the JAX package's ``CLIPConfig()`` and the paper preset's round
-    settings (pacs, 5 clients, 10 local steps, batch 32, 60 samples a
-    class, lr 3e-3): 3 cohort rounds, pipelined, for ``fedclip`` and
-    ``qlora_nogan``, each run's launch counts zeroed just before it and
-    read right after; its History printed and checked (finite, uplink
-    bytes 5 x the per-client payload), then one sequential round on the
-    same streams and the first round's trainables, cohort against the
-    sequential oracle, at ``tests/test_fl.py``'s tolerances;
+ 8. first the ``tripleplay`` arm's GAN alone (``GANConfig()``, the
+    clients below): the fleet engine against the sequential
+    ``Client.prepare_gan`` loop and the card against the CPU at 10 GAN
+    steps (labels bitwise, generator leaves within 2e-3, images within
+    5e-3), the fleet at 150 steps (every needed row delivered, finite
+    losses; wall time, then profiled: device busy, idle share, ATen
+    ops), and the GAN's convolutions through cuDNN against the gemm
+    forms with TF32 off; then ``repro_torch.fl.simulator.run_federated``
+    through its entry point at the JAX package's ``CLIPConfig()`` and
+    the paper preset's round settings (pacs, 5 clients, 10 local steps,
+    batch 32, 60 samples a class, lr 3e-3, 150 GAN steps): 3 cohort
+    rounds, pipelined, for ``fedclip``, ``qlora_nogan`` and
+    ``tripleplay`` (fleet GAN), each run's launch counts zeroed just
+    before it and read right after; its History printed and checked
+    (finite, uplink bytes 5 x the per-client payload, the GAN meta), then
+    one sequential round on the same streams and the first round's
+    trainables, cohort against the sequential oracle, at
+    ``tests/test_fl.py``'s tolerances; for tripleplay also 3 rounds of
+    the sequential engine after the sequential GAN engine;
  9. one full-participation round at CLIP ViT-B/32 width (seeded
     weights; the pacs images repeated 7 x along each spatial axis to
-    224 x 224), both arms through ``CohortEngine``, ``FullSyncScheduler``
-    and ``SequentialExec``, cohort against sequential; launch counts
-    zeroed before the arms and read after them; each cohort round
-    profiled, with the peak device memory; then a 2-vision-layer cut of
-    the round on the card against the CPU on the same weights.
+    224 x 224; tripleplay's fleet GAN trained on the 32 x 32 pools and
+    its rows repeated likewise), the three arms through
+    ``CohortEngine``, ``FullSyncScheduler`` and ``SequentialExec``,
+    cohort against sequential; launch counts zeroed before the arms and
+    read after them; each cohort round profiled, with the peak device
+    memory; then a 2-vision-layer cut of the round on the card against
+    the CPU on the same weights.
 Phase 2 also holds ``selective_scan`` and its backward kernel
 ``selective_scan_bwd`` at the trainer's shape and at edge shapes (the
 backward against the plain ``ops.selective_scan_bwd``, bitwise equal
@@ -96,17 +108,20 @@ from repro_torch import convert  # noqa: E402
 from repro_torch import tree as tree_lib  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import clip as clip_lib  # noqa: E402
+from repro_torch.core import gan as gan_lib  # noqa: E402
 from repro_torch.core import optim  # noqa: E402
 from repro_torch.core import quant as qlib  # noqa: E402
 from repro_torch.data.synthetic import (SPECS, class_tokens,  # noqa: E402
                                         make_dataset)
 from repro_torch.fl import client as client_lib  # noqa: E402
 from repro_torch.fl import cohort as cohort_lib  # noqa: E402
-from repro_torch.fl import partition  # noqa: E402
+from repro_torch.fl import fleetgan, partition  # noqa: E402
 from repro_torch.fl import sched as sched_lib  # noqa: E402
 from repro_torch.fl import serve as serve_lib  # noqa: E402
 from repro_torch.fl import simulator as sim_lib  # noqa: E402
-from repro_torch.fl.strategies import STRATEGIES  # noqa: E402
+from repro_torch.fl.strategies import (GAN_MIN_POOL,  # noqa: E402
+                                       GAN_RNG_OFFSET, STRATEGIES)
+from repro_torch.kernels import gan_conv  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import blockwise_quant as bq_kernel  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
@@ -169,7 +184,17 @@ FL_ATTENTION = [(32, 16), (160, 16), (128, 16), (32, 192), (160, 192),
 # PRESET["paper"] and fl_config; batch 32 is FLConfig's default)
 FL_PAPER = dict(dataset="pacs", n_clients=5, local_steps=10, batch_size=32,
                 n_per_class=60, lr=3e-3)
-FL_ARMS = ("fedclip", "qlora_nogan")
+FL_ARMS = ("fedclip", "qlora_nogan", "tripleplay")
+# the tripleplay arm's GAN held to its sequential oracle and the card to
+# the CPU: tests/test_fleetgan.py's bounds on the generator's leaves and
+# the synthesized images, at GAN_CHECK_STEPS
+GAN_BOUNDS = dict(gen_atol=2e-3, img_atol=5e-3)
+GAN_CHECK_STEPS = 10
+# the GAN's six convolutions at GANConfig() and its minibatch of 64:
+# (op, batch, input side, ci, co), discriminator then generator
+GAN_CONVS = [("conv", 64, 32, 3, 32), ("conv", 64, 16, 32, 64),
+             ("conv", 64, 8, 64, 128), ("convT", 64, 4, 64, 32),
+             ("convT", 64, 8, 32, 32), ("convT", 64, 16, 32, 3)]
 # cohort vs sequential: tests/test_fl.py's oracle tolerances for the
 # losses and accuracies; a trainable leaf is held in norm to UPDATE_REL of
 # its round's update (the two behind the adapter's ReLU to GATED_REL),
@@ -1543,12 +1568,17 @@ def oracle_round(frozen, ccfg, class_emb, clients, global_tr, strat, key, *,
 def like_run(cfg, device, streams) -> tuple:
     """The frozen backbone, class embeddings, clients and global
     trainables that ``run_federated(cfg, device, streams)`` trains (its
-    pretrained CLIP is the cached one)."""
+    pretrained CLIP is the cached one; a GAN arm's clients rebalanced by
+    the fleet engine on the run's GAN streams)."""
     strat = STRATEGIES[cfg.strategy]
     ccfg = clip_lib.CLIPConfig()
     data = make_dataset(cfg.dataset, n_per_class=cfg.n_per_class,
                         seed=cfg.seed, longtail_gamma=cfg.longtail_gamma)
     clients = fl_clients(data, cfg.n_clients, cfg.alpha, cfg.seed, strat)
+    if strat.use_gan:
+        fleetgan.prepare_gan_fleet(
+            clients, [streams.gan(i) for i in range(len(clients))],
+            steps=cfg.gan_steps, device=device)
     frozen = sim_lib.pretrained_clip(cfg.dataset, ccfg, seed=1234,
                                      init=streams.clip_init, device=device)
     if strat.backbone_bits:
@@ -1557,16 +1587,190 @@ def like_run(cfg, device, streams) -> tuple:
             convert.tree_from_numpy(streams.trainable_init, device), strat)
 
 
+def gan_clients(**settings) -> tuple:
+    """Phase 8's clients for the tripleplay arm (``FL_PAPER``, 5 clients
+    of a Dirichlet(0.5) partition, 60 samples a class before the long
+    tail) and their GAN streams, as ``run_federated`` builds them."""
+    cfg = sim_lib.FLConfig(strategy="tripleplay", **{**FL_PAPER, **settings})
+    data = make_dataset(cfg.dataset, n_per_class=cfg.n_per_class,
+                        seed=cfg.seed, longtail_gamma=cfg.longtail_gamma)
+    clients = fl_clients(data, cfg.n_clients, cfg.alpha, cfg.seed,
+                         STRATEGIES["tripleplay"])
+    streams = sim_lib.seeded_streams(cfg).gan
+    return clients, [streams(i) for i in range(len(clients))]
+
+
+def gan_need(clients) -> int:
+    """The synthetic rows the eligible clients need (the local max count
+    of every class)."""
+    return sum(len(gan_lib.rebalance_labels(c.labels, c.n_classes))
+               for c in clients if c.n >= GAN_MIN_POOL)
+
+
+def gan_diffs(want, got) -> dict:
+    """Two GAN preps of the same clients: eligibility and rebalancing
+    labels equal (else it raises), the largest generator-leaf and
+    synthesized-image differences, and whether they are within
+    ``GAN_BOUNDS``."""
+    gen = img = 0.0
+    for i, (a, b) in enumerate(zip(want, got)):
+        if (a.gan_params is None) != (b.gan_params is None):
+            raise AssertionError(f"client {i}: GAN eligibility differs")
+        if a.gan_params is None:
+            continue
+        if not np.array_equal(a.aug_labels, b.aug_labels):
+            raise AssertionError(f"client {i}: rebalancing labels differ")
+        for (p, la), (_, lb) in zip(
+                tree_lib.flatten_with_path(a.gan_params["gen"]),
+                tree_lib.flatten_with_path(b.gan_params["gen"])):
+            gen = max(gen, (la.cpu() - lb.cpu()).abs().max().item())
+        if len(a.aug_labels):
+            img = max(img, float(np.abs(a.aug_images - b.aug_images).max()))
+    return {"gen_leaf_abs": gen, "image_abs": img,
+            "ok": gen <= GAN_BOUNDS["gen_atol"] and
+            img <= GAN_BOUNDS["img_atol"]}
+
+
+def check_gan_convs(gen) -> list:
+    """The GAN's convolutions (``GAN_CONVS``) with the fleet's axis of 5
+    clients, ``conv_impl="lax"`` (cuDNN, TF32 off) against ``"gemm"``
+    (cuBLAS): outputs and both gradients within 1e-5 of the largest
+    value, each form's forward + backward timed."""
+    clients = 5
+    if torch.backends.cudnn.allow_tf32 or \
+            torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 must be off for the GAN's parity")
+    fns = {"conv": (gan_conv.conv4x4_s2, gan_conv.conv4x4_s2_lax),
+           "convT": (gan_conv.convT4x4_s2, gan_conv.convT4x4_s2_lax)}
+    rows = []
+    for op, b, hw, ci, co in GAN_CONVS:
+        out_hw = hw // 2 if op == "conv" else hw * 2
+        x = torch.randn((clients, b, hw, hw, ci), generator=gen,
+                        device="cuda")
+        w = torch.randn((clients, 4, 4, ci, co), generator=gen,
+                        device="cuda") * 0.05
+        ct = torch.randn((clients, b, out_hw, out_hw, co), generator=gen,
+                         device="cuda")
+
+        def run(fn):
+            xt, wt = (t.detach().requires_grad_(True) for t in (x, w))
+            out = fn(xt, wt)
+            gx, gw = torch.autograd.grad(out, (xt, wt), ct)
+            return out.detach(), gx, gw
+
+        got, want = run(fns[op][0]), run(fns[op][1])
+        torch.cuda.synchronize()
+        errs = [rel_err(g_, w_)[1] for g_, w_ in zip(got, want)]
+        row = {"case": f"{op}_C{clients}x{b}x{hw}x{hw}x{ci}->{co}",
+               "rel_err_out_dx_dw": [float(f"{e:.3g}") for e in errs]}
+        if not (max(errs) <= 1e-5 and all(torch.isfinite(t).all()
+                                          for t in got)):
+            raise AssertionError(f"GAN {row['case']}: lax vs gemm {errs}")
+        timed(row, "gemm_ms", lambda: run(fns[op][0]))
+        timed(row, "lax_ms", lambda: run(fns[op][1]))
+        report(row)
+        rows.append(row)
+    return rows
+
+
+def gan_phase(device="cuda", *, check_steps=GAN_CHECK_STEPS, steps=150,
+              profile_steps=15, profile=True, **settings) -> dict:
+    """The tripleplay arm's GAN prep on phase 8's clients at the
+    reference's ``GANConfig()``: the fleet engine against the sequential
+    ``Client.prepare_gan`` loop at ``check_steps`` (labels bitwise, the
+    generator and images within ``GAN_BOUNDS``), the card against the
+    CPU likewise, then the fleet at the full ``steps``: finite losses,
+    every needed row delivered, and its wall time; then a prep of
+    ``profile_steps`` under the profiler (a window of the same steps:
+    building the profiler's events of all 150 steps, about 1.8 million,
+    takes minutes on the host) for the device busy time, idle share and
+    ATen ops a step."""
+    on_card = torch.device(device).type == "cuda"
+    fresh = lambda: gan_clients(**settings)[0]
+    _, streams = gan_clients(**settings)
+    fleet, seq = fresh(), fresh()
+    fleetgan.prepare_gan_fleet(fleet, streams, steps=check_steps,
+                               device=device)
+    for c, st in zip(seq, streams):
+        if c.n >= GAN_MIN_POOL:
+            c.prepare_gan(st, steps=check_steps, device=device)
+    res = {"clients": [c.n for c in fleet], "need": gan_need(fleet),
+           "fleet_vs_sequential": gan_diffs(seq, fleet)}
+    if on_card:
+        host = fresh()
+        fleetgan.prepare_gan_fleet(host, streams, steps=check_steps,
+                                   device="cpu")
+        res["card_vs_cpu"] = gan_diffs(host, fleet)
+    for k in ("fleet_vs_sequential", "card_vs_cpu"):
+        if k in res and not res[k].pop("ok"):
+            raise AssertionError(f"GAN {k} at {check_steps} steps: {res[k]}")
+    full = fresh()
+    _sync(device)
+    t0 = time.perf_counter()
+    rep = fleetgan.prepare_gan_fleet(full, streams, steps=steps,
+                                     device=device)
+    _sync(device)
+    res["prep_s"] = time.perf_counter() - t0
+    res.update(steps=steps, n_eligible=rep.n_eligible, n_synth=rep.n_synth,
+               groups=rep.groups, prep_time_s=rep.prep_time_s,
+               d_loss=rep.d_loss, g_loss=rep.g_loss)
+    losses = list(rep.d_loss.values()) + list(rep.g_loss.values())
+    imgs = [c.aug_images for c in full if c.aug_images is not None]
+    if not (rep.n_synth == res["need"] > 0 and np.isfinite(losses).all()
+            and all(np.isfinite(a).all() and np.abs(a).max() <= 1.0
+                    for a in imgs)
+            and all(l.device.type == torch.device(device).type
+                    for c in full if c.gan_params is not None
+                    for l in tree_lib.leaves(c.gan_params))):
+        raise AssertionError(f"GAN prep at {steps} steps: {res}")
+    if on_card and profile:
+        again = fresh()
+        res["profile"] = dict(steps=profile_steps, **profile_run(
+            lambda: fleetgan.prepare_gan_fleet(again, streams,
+                                               steps=profile_steps,
+                                               device=device), ()))
+    return res
+
+
+def gan_report() -> None:
+    """The GAN phase on the card, reported; the convolutions' cuDNN form
+    against the gemm form with it."""
+    print("tripleplay GAN (GANConfig(), phase 8's 5 clients): fleet vs "
+          "sequential and card vs CPU at 10 steps, then 150 steps, then a "
+          "profiled window:", flush=True)
+    t0 = time.perf_counter()
+    res = gan_phase()
+    prof = res.pop("profile")
+    report({k: res[k] for k in ("clients", "need", "fleet_vs_sequential",
+                                "card_vs_cpu")})
+    report({k: v for k, v in res.items() if k not in (
+        "clients", "need", "fleet_vs_sequential", "card_vs_cpu")})
+    report({"gan_profiled_" + k: v for k, v in prof.items()
+            if k not in ("top_ms", "regions_ms", "launches", "tc_launches")})
+    print(f"  GAN prep top device time (ms), each with its launching ops: "
+          f"{prof['top_ms']}", flush=True)
+    print("  the GAN's convolutions, lax (cuDNN) vs gemm (cuBLAS), "
+          "forward + backward:", flush=True)
+    check_gan_convs(torch.Generator(device="cuda").manual_seed(7))
+    report({"gan_phase_s": time.perf_counter() - t0})
+
+
 def fl_round_phase(device="cuda", rounds=3, **settings) -> dict:
-    """Phase 8: ``run_federated`` through its entry point, both arms, at
-    the paper preset's per-round settings (``FL_PAPER``, overridable for
-    a rehearsal) and the JAX package's ``CLIPConfig()``: ``rounds`` cohort
-    rounds, pipelined. Launch counts are zeroed just before each run and
-    read right after it. Every History value must be finite and every
-    round's uplink ``n_clients x per_client_uplink_bytes``; then one
-    round of ``engine="sequential"`` on the same streams against the
-    cohort run's first round, and the first round's trainables through
-    ``oracle_round``, at the oracle tolerances."""
+    """Phase 8: ``run_federated`` through its entry point, the three
+    arms, at the paper preset's per-round settings (``FL_PAPER``,
+    overridable for a rehearsal) and the JAX package's ``CLIPConfig()``:
+    ``rounds`` cohort rounds, pipelined (tripleplay: the fleet GAN at
+    ``gan_steps``, 150 unless overridden). Launch counts are zeroed just
+    before each run and read right after it. Every History value must be
+    finite and every round's uplink ``n_clients x
+    per_client_uplink_bytes``; then one round of ``engine="sequential"``
+    on the same streams against the cohort run's first round, and the
+    first round's trainables through ``oracle_round``, at the oracle
+    tolerances. For tripleplay the GAN meta must count every eligible
+    client and every needed row, and ``rounds`` rounds of the sequential
+    engine with the sequential GAN engine run as well (their History is
+    reported beside the cohort run's, checked finite, with the same
+    eligibility and uplink)."""
     on_card = torch.device(device).type == "cuda"
     st = {**FL_PAPER, **settings}
     out = {}
@@ -1585,6 +1789,37 @@ def fl_round_phase(device="cuda", rounds=3, **settings) -> dict:
             dataclasses.replace(cfg, rounds=1, engine="sequential"),
             device=device, streams=streams)
         fz, ccfg, ce, clients, g0, strat = like_run(cfg, device, streams)
+        gan = {}
+        if strat.use_gan:
+            n_el = sum(c.n >= GAN_MIN_POOL for c in clients)
+            if (h.meta["gan_eligible"], h.meta["gan_synth"]) != (
+                    n_el, gan_need(clients)) or \
+                    hs.meta["gan_synth"] != h.meta["gan_synth"]:
+                raise AssertionError(f"{arm}: GAN meta {h.meta} (want "
+                                     f"{n_el} eligible, "
+                                     f"{gan_need(clients)} rows)")
+            t0 = time.perf_counter()
+            hss = sim_lib.run_federated(
+                dataclasses.replace(cfg, engine="sequential",
+                                    gan_engine="sequential"),
+                device=device, streams=streams)
+            _sync(device)
+            gan = {"seq_seq_run_s": time.perf_counter() - t0,
+                   "seq_seq_meta": {k: v for k, v in hss.meta.items()
+                                    if k.startswith("gan_")},
+                   "seq_seq_server_acc": hss.server_acc,
+                   "seq_seq_tail_acc": hss.tail_acc,
+                   "seq_seq_server_loss": hss.server_loss,
+                   "seq_seq_vs_cohort_fleet_client_loss_rel": float(np.max(
+                       np.abs(np.subtract(hss.client_loss, h.client_loss)) /
+                       np.abs(h.client_loss)))}
+            if not (all(np.isfinite(np.asarray(v, np.float64)).all()
+                        for v in (hss.server_loss, hss.client_loss,
+                                  hss.server_acc, hss.tail_acc))
+                    and hss.uplink_bytes == h.uplink_bytes
+                    and hss.meta["gan_eligible"] == n_el):
+                raise AssertionError(f"{arm}: sequential + sequential GAN "
+                                     f"run {hss}")
         orc = oracle_round(fz, ccfg, ce, clients, g0, strat,
                            cohort_lib.RoundKey(streams.batch_indices, 0),
                            steps=cfg.local_steps, batch=cfg.batch_size,
@@ -1628,21 +1863,42 @@ def fl_round_phase(device="cuda", rounds=3, **settings) -> dict:
         orc.pop("engine"), orc.pop("tr")
         out[arm] = {"history": h, "meta": h.meta, "run_s": run_s,
                     "launches": launches, "traces": traces,
-                    "sequential_vs_cohort": seq_vs, "oracle": orc}
+                    "sequential_vs_cohort": seq_vs, "oracle": orc, **gan}
     return out
+
+
+def rebalanced_clients(data, n_clients, alpha, seed, strat, repeat, *,
+                       gan_steps, device) -> list:
+    """``fl_clients`` at ``repeat`` x the data's side with a GAN arm's
+    rebalancing set: the fleet GAN (which consumes only 32 x 32 images)
+    trained on the 32 x 32 pools with the seeded GAN streams of
+    ``run_federated``, its synthetic rows then repeated like the real
+    ones."""
+    small = fl_clients(data, n_clients, alpha, seed, strat)
+    fleetgan.prepare_gan_fleet(
+        small, [gan_lib.SeededGANStream((seed, GAN_RNG_OFFSET + i))
+                for i in range(len(small))], steps=gan_steps, device=device)
+    big = fl_clients(data, n_clients, alpha, seed, strat, repeat)
+    for b, c in zip(big, small):
+        if c.aug_images is not None:
+            b.aug_images = np.repeat(np.repeat(c.aug_images, repeat, axis=1),
+                                     repeat, axis=2)
+            b.aug_labels = c.aug_labels
+    return big
 
 
 def vit_round_phase(device="cuda", ccfg=VIT_B32, *, steps=10, batch=32,
                     n_clients=5, n_per_class=60, seed=0, cut_layers=2,
-                    profile=True) -> dict:
+                    gan_steps=150, profile=True) -> dict:
     """Phase 9: one full-participation round at ``ccfg``'s width (CLIP
-    ViT-B/32), seeded weights, both arms, through ``CohortEngine``,
+    ViT-B/32), seeded weights, the three arms, through ``CohortEngine``,
     ``FullSyncScheduler`` and ``SequentialExec`` (``oracle_round``).
     The data: 5 clients of a Dirichlet(0.5) partition of
     ``make_dataset("pacs", n_per_class=60)``, each 32 x 32 image
-    repeated along both spatial axes to the config's image size. Launch
-    counts are zeroed before the arms and read after them; on the card
-    each arm's cohort round is then profiled, and a ``cut_layers``-
+    repeated along both spatial axes to the config's image size
+    (tripleplay: the fleet GAN's rows too, ``rebalanced_clients``).
+    Launch counts are zeroed before the arms and read after them; on the
+    card each arm's cohort round is then profiled, and a ``cut_layers``-
     vision-layer cut of the same round runs on the card (kernel) and on
     the CPU (plain path) on the same weights and indices."""
     on_card = torch.device(device).type == "cuda"
@@ -1661,31 +1917,40 @@ def vit_round_phase(device="cuda", ccfg=VIT_B32, *, steps=10, batch=32,
         frozen = nf4_round_trip(frozen0)[0] if strat.backbone_bits \
             else frozen0
         ce = class_embedding(frozen, ccfg, device)
-        clients = fl_clients(data, n_clients, 0.5, seed, strat, repeat)
-        g0 = client_lib.init_trainable(gen, ccfg, strat, device=device)
+        clients = rebalanced_clients(
+            data, n_clients, 0.5, seed, strat, repeat, gan_steps=gan_steps,
+            device=device) if strat.use_gan else \
+            fl_clients(data, n_clients, 0.5, seed, strat, repeat)
+        # the GAN arm draws its trainables from a generator of its own,
+        # so adding it leaves the other arms' draws (and their cuts') as
+        # they were
+        arm_gen = torch.Generator(device=device).manual_seed(seed + 1) \
+            if strat.use_gan else gen
+        g0 = client_lib.init_trainable(arm_gen, ccfg, strat, device=device)
         orc = oracle_round(frozen, ccfg, ce, clients, g0, strat, key,
                            steps=steps, batch=batch, lr=3e-3, device=device)
-        arms[arm] = dict(orc, frozen=frozen, class_emb=ce,
+        arms[arm] = dict(orc, frozen=frozen, class_emb=ce, gen=arm_gen,
                          client_list=clients, global_tr=g0, strat=strat)
     launches, traces = ops.launch_counts(), dict(ops.KERNEL_TRACES)
     res = {"launches": launches, "traces": traces, "arms": {},
            "max_memory_allocated": torch.cuda.max_memory_allocated()
            if on_card else None}
-    if on_card and (launches["flash_attention"] < 2 * steps or
-                    traces.get("flash_attention_cuda", 0) < 2 * steps or
+    want = len(FL_ARMS) * steps
+    if on_card and (launches["flash_attention"] < want or
+                    traces.get("flash_attention_cuda", 0) < want or
                     "flash_attention_ref" in traces):
         raise AssertionError(f"ViT-B/32 round: flash_attention launches "
                              f"{launches} traces {traces}")
     for arm, a in arms.items():
         row = {k: v for k, v in a.items() if k not in (
             "engine", "tr", "frozen", "class_emb", "client_list",
-            "global_tr", "strat")}
+            "global_tr", "strat", "gen")}
         if on_card and profile:
             row["profile"] = profile_run(
                 lambda: a["engine"].run_round(a["global_tr"], key),
                 ("flash_attention",))
-        row["cut"] = cut_check(a, ccfg, cut_layers, gen, key, steps=steps,
-                               batch=batch, device=device)
+        row["cut"] = cut_check(a, ccfg, cut_layers, a["gen"], key,
+                               steps=steps, batch=batch, device=device)
         res["arms"][arm] = row
     return res
 
@@ -1755,6 +2020,11 @@ def fl_round_report() -> int:
         report({"arm": arm, "sequential_round_vs_cohort":
                 r["sequential_vs_cohort"]})
         report({"arm": arm, "oracle": r["oracle"]})
+        if "seq_seq_meta" in r:
+            report({"arm": arm, **{k: m[k] for k in m
+                                   if k.startswith("gan_")}})
+            report({"arm": arm, **{k: v for k, v in r.items()
+                                   if k.startswith("seq_seq")}})
         n += r["launches"]["flash_attention"]
     report({"fl_round_phase_s": time.perf_counter() - t0})
     return n
@@ -1859,6 +2129,7 @@ def main() -> int:
     yi_launches = trainer_report("yi-9b")
     step_check_report("falcon-mamba-7b")
     mamba_launches = trainer_report("falcon-mamba-7b")
+    gan_report()
     fl_launches = fl_round_report()
     vit_launches = vit_round_report()
 

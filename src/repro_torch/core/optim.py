@@ -111,6 +111,17 @@ def _where(live: torch.Tensor, new, old):
         lambda a, b: torch.where(_rows(live, a), a, b), new, old)
 
 
+def keep_where(live: torch.Tensor, params, state: AdamState, old_params,
+               old_state: AdamState):
+    """A masked step: where ``live`` (0-d, or ``(C,)`` per client) is
+    False, the old params and the whole optimizer state (moments and
+    step counter) are kept bitwise through ``torch.where``."""
+    return _where(live, params, old_params), AdamState(
+        torch.where(live, state.step, old_state.step),
+        _where(live, state.mu, old_state.mu),
+        _where(live, state.nu, old_state.nu))
+
+
 def adam_scan(grad_fn: Callable, params, state: AdamState, xs, *, lr: float,
               b1=0.9, b2=0.999, eps=1e-8, grad_clip=0.0, active=None,
               stacked: bool = False):
@@ -132,11 +143,7 @@ def adam_scan(grad_fn: Callable, params, state: AdamState, xs, *, lr: float,
         p2, s2 = adam_update(g, state, params, lr=lr, b1=b1, b2=b2,
                              eps=eps, grad_clip=grad_clip, stacked=stacked)
         if active is not None:
-            live = active[t]
-            p2 = _where(live, p2, params)
-            s2 = AdamState(torch.where(live, s2.step, state.step),
-                           _where(live, s2.mu, state.mu),
-                           _where(live, s2.nu, state.nu))
+            p2, s2 = keep_where(active[t], p2, s2, params, state)
         params, state = p2, s2
         auxs.append(aux)
     if auxs and isinstance(auxs[0], tuple):

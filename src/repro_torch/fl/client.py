@@ -6,8 +6,9 @@ is held to.
 Per round a client runs local Adam steps on the adapter (+ vision LoRA)
 against the zero-shot class-prompt head and returns its *update* (the
 delta of its trainables), blockwise-quantized when the strategy
-compresses communication. The GAN rebalancing of the ``tripleplay`` arm
-(``Client.prepare_gan``) waits for ``ROADMAP.md`` Queue A item 4.
+compresses communication. For the ``tripleplay`` arm,
+``Client.prepare_gan`` first trains the client's conditional GAN and
+synthesizes the rebalancing set that ``pool()`` adds to its samples.
 """
 from __future__ import annotations
 
@@ -18,12 +19,14 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import convert, resolve_device
 from repro_torch import tree as tree_lib
 from repro_torch.core import adapter as adapter_lib
 from repro_torch.core import clip as clip_lib
+from repro_torch.core import gan as gan_lib
 from repro_torch.core import losses, optim
 from repro_torch.core.quant import tree_bytes
+from repro_torch.fl import strategies as strategies_lib
 from repro_torch.fl.strategies import Strategy
 
 LORA_RANK = 4
@@ -88,6 +91,10 @@ class Client:
     labels: np.ndarray
     n_classes: int
     strategy: Strategy
+    gan_params: Optional[dict] = None
+    gan_cfg: Optional[gan_lib.GANConfig] = None
+    aug_images: Optional[np.ndarray] = None
+    aug_labels: Optional[np.ndarray] = None
     # availability-trace heterogeneity hook: this client runs
     # ``step_mult`` x the configured local steps per round
     step_mult: int = 1
@@ -101,14 +108,43 @@ class Client:
         compute multiplier."""
         return int(base_steps) * max(1, int(self.step_mult))
 
-    def prepare_gan(self, rng, *, steps: int = 150):
-        raise NotImplementedError(
-            "GAN rebalancing (the tripleplay arm) is not ported yet "
-            "(ROADMAP.md Queue A item 4)")
+    def prepare_gan(self, stream: gan_lib.GANStream, *, steps: int = 150,
+                    device=None):
+        """Train the local conditional GAN on ``device`` (the card unless
+        the caller asks for the CPU) with the draws of ``stream`` and
+        synthesize a rebalancing set so every class reaches the local
+        max count (paper §III-B). The sequential per-client path: one
+        step at a time, the fleet engine's oracle
+        (``fl.fleetgan.prepare_gan_fleet``) on the same stream."""
+        dev = resolve_device(device)
+        cfg = self.gan_cfg = gan_lib.GANConfig(n_classes=self.n_classes)
+        idx, z, z2 = gan_lib.train_draws(
+            stream, cfg, self.n, steps, strategies_lib.gan_batch_size(self.n))
+        as_t = lambda a: torch.as_tensor(a, device=dev)
+        self.gan_params, _ = gan_lib.train_gan(
+            convert.tree_from_numpy(stream.init(cfg), dev), cfg,
+            as_t(np.asarray(self.images, np.float32)),
+            as_t(np.asarray(self.labels, np.int64)), as_t(idx), as_t(z),
+            as_t(z2))
+        need = gan_lib.rebalance_labels(self.labels, self.n_classes)
+        if len(need) == 0:
+            self.aug_images = np.zeros((0, *self.images.shape[1:]),
+                                       np.float32)
+            self.aug_labels = np.zeros((0,), np.int32)
+            return
+        with torch.no_grad():
+            imgs = gan_lib.synthesize(
+                as_t(gan_lib.synth_draws(stream, cfg, len(need))),
+                self.gan_params["gen"], cfg, as_t(need.astype(np.int64)))
+        self.aug_images = imgs.cpu().numpy().astype(np.float32)
+        self.aug_labels = need
 
     def pool(self):
-        """Local training pool: the client's samples (the GAN
-        rebalancing set joins them with Queue A item 4)."""
+        """Local training pool: real samples + GAN rebalancing set."""
+        if self.strategy.use_gan and self.aug_images is not None and \
+                len(self.aug_labels):
+            return (np.concatenate([self.images, self.aug_images]),
+                    np.concatenate([self.labels, self.aug_labels]))
         return self.images, self.labels
 
     def local_train(self, frozen, trainable, class_emb, ccfg, *,

@@ -27,8 +27,12 @@ the clients explicitly:
 Batch indices come from outside the program, as in the JAX package: a
 :class:`RoundKey` names the stream and the round, and
 :func:`round_indices` draws the same indices for the engine and for the
-sequential oracle (``Client.local_train``). Subset rounds, async waves,
-fleet-GAN pools and meshes raise: ``ROADMAP.md`` Queue A items 4 and 6.
+sequential oracle (``Client.local_train``). A pending fleet-GAN job
+(``gan_job``) lands in the staged pools as in the reference: raw rows
+and zero rows reserved for the synthetic ones are staged first, then
+the job is resolved and its rows encoded into their slots. Subset
+rounds, async waves and meshes raise: ``ROADMAP.md`` Queue A items 6
+and 8.
 """
 from __future__ import annotations
 
@@ -235,8 +239,6 @@ class CohortEngine:
     def __init__(self, *, frozen, ccfg, class_emb,
                  clients: Sequence[client_lib.Client], cfg: CohortConfig,
                  runtime=None, gan_job=None):
-        if gan_job is not None:
-            self._merge_gan_features(gan_job, clients)
         self.cfg = cfg
         self.runtime = runtime if runtime is not None else \
             runtime_lib.ProgramRuntime()
@@ -247,7 +249,22 @@ class CohortEngine:
                 f"clients {empty} have empty pools; federated rounds "
                 "(sequential or cohort) need every participant to hold "
                 "data — drop them from the cohort")
-        imgs, labs, lens = stage_client_pools([c.pool() for c in clients])
+        if gan_job is not None:
+            # the job's rebalancing labels are known at launch, so the
+            # pool layout is final now: stage the raw rows and zero rows
+            # reserved for the synthetic ones (overwritten in feature
+            # space once the job resolves, below)
+            pools = []
+            for i, c in enumerate(clients):
+                nd = gan_job.need.get(i, np.zeros((0,), np.int32))
+                pools.append((
+                    np.concatenate([np.asarray(c.images, np.float32),
+                                    np.zeros((len(nd), *c.images.shape[1:]),
+                                             np.float32)]),
+                    np.concatenate([np.asarray(c.labels, np.int32), nd])))
+        else:
+            pools = [c.pool() for c in clients]
+        imgs, labs, lens = stage_client_pools(pools)
         self.client_n = np.asarray([c.n for c in clients], np.float32)
         weights = self.client_n / self.client_n.sum()
         server.check_weights(weights, self.n_clients)   # on the host
@@ -275,11 +292,36 @@ class CohortEngine:
         self._static_key = (cfg.strategy, ccfg, cfg.local_steps,
                             cfg.batch_size, cfg.lr, self._het,
                             self.max_steps)
+        if gan_job is not None:
+            self._merge_gan_features(gan_job, clients)
 
+    @torch.no_grad()
     def _merge_gan_features(self, gan_job, clients):
-        raise NotImplementedError(
-            "fleet-GAN pools (the tripleplay arm) are not ported yet "
-            "(ROADMAP.md Queue A item 4)")
+        """Land a pending fleet-GAN job in the staged pools: resolve it,
+        encode the synthesized rows through ``encode_rows`` and scatter
+        them into their reserved slots, right after each client's raw
+        rows (the layout ``Client.pool()`` gives)."""
+        gan_job.resolve()
+        # a client dropped between launch and resolve delivered no rows:
+        # its reserved slots stay out of its sampling bound
+        for i in sorted(gan_job.dropped):
+            if len(gan_job.need.get(i, ())):
+                self.lens[i] = clients[i].n
+        aug = [(i, c.aug_images) for i, c in enumerate(clients)
+               if c.aug_images is not None and len(c.aug_images)]
+        if not aug:
+            return
+        dev = self.pool_staged.device
+        rows = torch.as_tensor(np.concatenate([a for _, a in aug]),
+                               dtype=torch.float32, device=dev)
+        feats = encode_rows(self.frozen, self.ccfg,
+                            use_lora=self.cfg.strategy.use_lora, rows=rows,
+                            runtime=self.runtime)
+        ci = np.concatenate([np.full(len(a), i) for i, a in aug])
+        ri = np.concatenate([clients[i].n + np.arange(len(a))
+                             for i, a in aug])
+        self.pool_staged[torch.as_tensor(ci, device=dev),
+                         torch.as_tensor(ri, device=dev)] = feats
 
     def _sample_idx(self, key: RoundKey, lens, steps: int) -> torch.Tensor:
         """Per-round batch indices through the runtime cache (kind

@@ -195,6 +195,11 @@ class ProgramRuntime:
             kind, {"n_compiles": 0, "compile_time_s": 0.0})
         k[counter] = int(k.get(counter, 0)) + int(n)
 
+    def clear(self) -> None:
+        """Drop every cached program and reset the ledger."""
+        self._progs.clear()
+        self._kinds.clear()
+
     def stats(self) -> Dict[str, Dict[str, float]]:
         return {k: dict(v) for k, v in self._kinds.items()}
 

@@ -14,14 +14,21 @@ per-client sequential oracle; ``pipeline="pipelined"`` defers metric
 materialization to bulk flushes and gives bitwise the ``"barrier"``
 loop's History.
 
-The JAX package draws four things with ``jax.random``: the CLIP init,
-the global trainables' init, the warm-up round's batch indices and each
-round's. The port takes them as :class:`Streams` (``streams=``), so a
-test can inject the JAX package's draws; with ``streams=None``,
-:func:`seeded_streams` draws them with ``torch.Generator``s seeded from
-the run's seed. The ``tripleplay`` arm (GAN), partial and async
-participation, other traces, chaos and ``serve_store`` raise until
-their ``ROADMAP.md`` items (Queue A items 4, 6 and 7).
+The JAX package draws five things with ``jax.random``: the CLIP init,
+the global trainables' init, the warm-up round's batch indices, each
+round's, and (for the ``tripleplay`` arm) each client's GAN draws. The
+port takes them as :class:`Streams` (``streams=``), so a test can inject
+the JAX package's draws; with ``streams=None``, :func:`seeded_streams`
+draws them with ``torch.Generator``s seeded from the run's seed.
+
+The ``tripleplay`` arm trains every eligible client's conditional GAN
+before the rounds: by default on the fleet engine (``fl.fleetgan``,
+all clients stacked; with the cohort engine the job is launched before
+the pools are staged and resolved into them), or with
+``gan_engine="sequential"`` one ``Client.prepare_gan`` at a time, its
+oracle. Partial and async participation, other traces, chaos and
+``serve_store`` raise until their ``ROADMAP.md`` items (Queue A items 6
+and 7).
 """
 from __future__ import annotations
 
@@ -36,14 +43,16 @@ import torch
 from repro_torch import convert, resolve_device
 from repro_torch import tree as tree_lib
 from repro_torch.core import clip as clip_lib
+from repro_torch.core import gan as gan_lib
 from repro_torch.core import losses, optim
 from repro_torch.core.quant import dequantize_tree, quantize_tree, tree_bytes
 from repro_torch.data.synthetic import class_tokens, make_dataset, make_eval_set
 from repro_torch.fl import client as client_lib
 from repro_torch.fl import cohort as cohort_lib
-from repro_torch.fl import partition
+from repro_torch.fl import fleetgan, partition
 from repro_torch.fl import runtime as runtime_lib
 from repro_torch.fl import sched as sched_lib
+from repro_torch.fl import strategies as strategies_lib
 from repro_torch.fl.strategies import STRATEGIES
 
 
@@ -63,7 +72,7 @@ class FLConfig:
     seed: int = 0
     eval_every: int = 1
     engine: str = "cohort"        # "cohort" | "sequential"
-    gan_engine: str = "fleet"
+    gan_engine: str = "fleet"     # "fleet" | "sequential" (the oracle)
     participation: str = "full"   # "full" (ported) | "sync-partial" | "async"
     clients_per_round: int = 0
     staleness_beta: float = 0.5
@@ -106,10 +115,13 @@ class Streams:
     """The run's random draws: ``clip_init`` and ``trainable_init`` are
     numpy trees (the backbone before pretraining, the global trainables),
     ``batch_indices(rnd, lens, steps, batch) -> (C, steps, batch)`` draws
-    the batch indices of round ``rnd`` (-1: the warm-up round)."""
+    the batch indices of round ``rnd`` (-1: the warm-up round), and
+    ``gan(i)`` is the ``core.gan.GANStream`` of the i-th client (after
+    empty shards are dropped), which a GAN arm needs."""
     clip_init: Any
     trainable_init: Any
     batch_indices: Callable
+    gan: Callable = None
 
 
 def _seed(*words: int) -> int:
@@ -120,7 +132,8 @@ def seeded_streams(cfg: FLConfig, ccfg=None) -> Streams:
     """Standalone draws from ``torch.Generator``s: the CLIP init from seed
     1234 (as the JAX package's ``init_clip(PRNGKey(1234))``), the
     trainables from (cfg.seed, 2), batch indices from
-    ``cohort.seeded_index_stream(cfg.seed)``."""
+    ``cohort.seeded_index_stream(cfg.seed)``, client i's GAN draws from
+    (cfg.seed, ``GAN_RNG_OFFSET`` + i)."""
     ccfg = ccfg or clip_lib.CLIPConfig()
     clip_init = clip_lib.init_clip(torch.Generator().manual_seed(1234),
                                    ccfg, device="cpu")
@@ -129,7 +142,9 @@ def seeded_streams(cfg: FLConfig, ccfg=None) -> Streams:
         STRATEGIES[cfg.strategy], device="cpu")
     return Streams(convert.tree_to_numpy(clip_init),
                    convert.tree_to_numpy(tr_init),
-                   cohort_lib.seeded_index_stream(cfg.seed))
+                   cohort_lib.seeded_index_stream(cfg.seed),
+                   lambda i: gan_lib.SeededGANStream(
+                       (cfg.seed, strategies_lib.GAN_RNG_OFFSET + i)))
 
 
 _CLIP_CACHE: Dict = {}
@@ -278,10 +293,8 @@ def run_federated(cfg: FLConfig, *, runtime=None, serve_store=None,
         raise ValueError(f"unknown pipeline mode {cfg.pipeline!r}")
     if cfg.engine not in ("cohort", "sequential"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
-    if strat.use_gan:
-        raise NotImplementedError(
-            f"strategy {cfg.strategy!r}: GAN rebalancing is not ported yet "
-            "(ROADMAP.md Queue A item 4)")
+    if strat.use_gan and cfg.gan_engine not in ("fleet", "sequential"):
+        raise ValueError(f"unknown gan_engine {cfg.gan_engine!r}")
     if serve_store is not None:
         raise NotImplementedError(
             "serve_store: the port's AdapterStore has no "
@@ -296,6 +309,9 @@ def run_federated(cfg: FLConfig, *, runtime=None, serve_store=None,
     sched_lib.resolve_chaos(cfg.chaos)        # None, or it raises
     dev = resolve_device(device)
     streams = streams if streams is not None else seeded_streams(cfg)
+    if strat.use_gan and streams.gan is None:
+        raise ValueError(f"strategy {cfg.strategy!r} needs Streams.gan, "
+                         "the clients' GAN draws")
 
     data = make_dataset(cfg.dataset, n_per_class=cfg.n_per_class,
                         seed=cfg.seed, longtail_gamma=cfg.longtail_gamma)
@@ -335,6 +351,28 @@ def run_federated(cfg: FLConfig, *, runtime=None, serve_store=None,
         proto = torch.as_tensor(class_tokens(spec, np.arange(spec.n_classes)),
                                 dtype=torch.long, device=dev)
         class_emb = clip_lib.text_embedding(frozen, ccfg, proto)
+
+    gan_meta: Dict[str, Any] = {}
+    gan_job = gan_rep = None
+    if strat.use_gan:
+        gan_streams = [streams.gan(i) for i in range(len(clients))]
+        if cfg.gan_engine == "fleet":
+            # with the cohort engine the job stays pending: the engine
+            # stages its pools, then resolves the job into them
+            gan_job = fleetgan.launch_gan_fleet(
+                clients, gan_streams, steps=cfg.gan_steps, runtime=rt,
+                device=dev)
+            if cfg.engine != "cohort":
+                gan_rep = gan_job.resolve()
+                gan_job = None
+        else:
+            t0, n_el = time.time(), 0
+            for c, stream in zip(clients, gan_streams):
+                if c.n >= strategies_lib.GAN_MIN_POOL:
+                    c.prepare_gan(stream, steps=cfg.gan_steps, device=dev)
+                    n_el += 1
+            gan_meta = {"gan_engine": "sequential", "gan_eligible": n_el,
+                        "gan_prep_time_s": time.time() - t0}
     global_tr = convert.tree_from_numpy(streams.trainable_init, dev)
 
     if cfg.engine == "cohort":
@@ -343,13 +381,25 @@ def run_federated(cfg: FLConfig, *, runtime=None, serve_store=None,
             cfg=cohort_lib.CohortConfig(
                 strategy=strat, local_steps=cfg.local_steps,
                 batch_size=cfg.batch_size, lr=cfg.lr),
-            runtime=rt)
+            runtime=rt, gan_job=gan_job)
         executor = sched_lib.CohortExec(engine)
+        if gan_job is not None:
+            gan_rep = gan_job.report       # resolved by the engine
     else:
         executor = sched_lib.SequentialExec(
             clients=clients, frozen=frozen, ccfg=ccfg,
             class_emb=class_emb, local_steps=cfg.local_steps,
             batch_size=cfg.batch_size, lr=cfg.lr)
+
+    if gan_rep is not None:
+        gan_meta = {
+            "gan_engine": "fleet",
+            "gan_eligible": gan_rep.n_eligible,
+            "gan_synth": gan_rep.n_synth,
+            "gan_groups": [list(g) for g in gan_rep.groups],
+            "gan_prep_time_s": gan_rep.prep_time_s,
+            "gan_compile_time_s": gan_rep.compile_time_s,
+        }
 
     trainable_params = sum(l.numel() for l in tree_lib.leaves(global_tr))
     frozen_params = sum(l.numel() for l in tree_lib.leaves(frozen))
@@ -367,6 +417,8 @@ def run_federated(cfg: FLConfig, *, runtime=None, serve_store=None,
         "util_proxy_const": float(
             (backbone_bytes + trainable_params * 12) /
             (frozen_params * 4 + trainable_params * 12)),
+        # GAN-prep accounting only for use_gan arms
+        **gan_meta,
     })
 
     sched = sched_lib.make_scheduler(

@@ -20,7 +20,14 @@ MAX_STEP_MULT = 4
 # GAN rebalancing thresholds
 GAN_MIN_POOL = 8          # clients with n < this skip GAN rebalancing
 GAN_BATCH_MAX = 64        # GAN minibatch cap
-GAN_RNG_OFFSET = 100      # client i's GAN key = fold_in(rng, OFFSET + i)
+GAN_RNG_OFFSET = 100      # client i's GAN stream is seeded from OFFSET + i
+
+
+def gan_batch_size(n: int) -> int:
+    """The GAN minibatch of a client with ``n`` local samples:
+    ``min(GAN_BATCH_MAX, n)``. The fleet engine groups clients by it (a
+    batch-mean loss cannot be padded without its mask correction)."""
+    return min(GAN_BATCH_MAX, int(n))
 
 
 @dataclass(frozen=True)

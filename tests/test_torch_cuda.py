@@ -538,7 +538,7 @@ def test_cuda_selective_scan_bwd_refuses_what_it_does_not_take(cuda_device):
 
 # the federated round at a small size (tests/test_torch_simulator.py's)
 FL_SMALL = dict(dataset="pacs", n_clients=3, rounds=2, local_steps=3,
-                n_per_class=12, batch_size=8, lr=3e-3)
+                n_per_class=12, batch_size=8, lr=3e-3, gan_steps=4)
 
 
 @pytest.mark.cuda
@@ -601,7 +601,7 @@ def test_cuda_cohort_round_matches_sequential(cuda_device, arm):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arm", ["fedclip", "qlora_nogan"])
+@pytest.mark.parametrize("arm", ["fedclip", "qlora_nogan", "tripleplay"])
 def test_cuda_run_federated_matches_cpu(cuda_device, arm):
     """``run_federated`` on the card against the CPU on the same streams.
     Each device pretrains its own CLIP (300 Adam steps), so the losses
@@ -628,3 +628,39 @@ def test_cuda_run_federated_matches_cpu(cuda_device, arm):
         <= 1 / 140 + 1e-12
     assert np.abs(np.subtract(card.client_acc, cpu.client_acc)).max() \
         <= 1 / 8 + 1e-12
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_gan_matches_cpu(cuda_device):
+    """The fleet GAN prep on the card against the CPU on the same
+    streams (the GAN has no kernel of its own: cuBLAS gemm forms, TF32
+    off): rebalancing labels bitwise, generator leaves within 2e-3 and
+    images within 5e-3 (tests/test_fleetgan.py's bounds)."""
+    from repro_torch.core import gan as gan_lib
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.fl import client as client_lib
+    from repro_torch.fl import fleetgan
+    from repro_torch.fl.strategies import STRATEGIES
+    data = make_dataset("pacs", n_per_class=30, seed=0, longtail_gamma=4.0)
+    streams = [gan_lib.SeededGANStream((0, 100 + i)) for i in range(3)]
+
+    def clients():
+        return [client_lib.Client(
+            cid=i, images=data["images"][30 * i:30 * i + n],
+            labels=data["labels"][30 * i:30 * i + n], n_classes=7,
+            strategy=STRATEGIES["tripleplay"])
+            for i, n in enumerate((24, 21, 5))]
+
+    card, cpu = clients(), clients()
+    fleetgan.prepare_gan_fleet(card, streams, steps=4, device=cuda_device)
+    fleetgan.prepare_gan_fleet(cpu, streams, steps=4, device="cpu")
+    for a, b in zip(card, cpu):
+        if b.gan_params is None:
+            assert a.gan_params is None
+            continue
+        np.testing.assert_array_equal(a.aug_labels, b.aug_labels)
+        for k, v in b.gan_params["gen"].items():
+            torch.testing.assert_close(a.gan_params["gen"][k].cpu(), v,
+                                       atol=2e-3, rtol=0)
+        np.testing.assert_allclose(a.aug_images, b.aug_images, atol=5e-3,
+                                   rtol=0)

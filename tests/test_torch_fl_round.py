@@ -29,12 +29,14 @@ from repro_torch import convert
 from repro_torch import tree as tree_lib
 from repro_torch.core import adapter as tadapter
 from repro_torch.core import clip as tclip
+from repro_torch.core import gan as tgan
 from repro_torch.core import losses as tlosses
 from repro_torch.core import optim as toptim
 from repro_torch.core import quant as tquant
 from repro_torch.data import synthetic as tsynth
 from repro_torch.fl import client as tclient
 from repro_torch.fl import cohort as tcohort
+from repro_torch.fl import fleetgan
 from repro_torch.fl import partition as tpartition
 from repro_torch.fl import server as tserver
 from repro_torch.fl.strategies import STRATEGIES
@@ -592,9 +594,10 @@ def test_unported_engine_paths_raise(fl):
     with pytest.raises(NotImplementedError):
         tcohort.CohortConfig(strategy=fl["strat_t"], local_steps=1,
                              batch_size=2, lr=1e-3, mesh=object())
-    with pytest.raises(NotImplementedError):
-        fl["clients_t"][0].prepare_gan(None)
-    with pytest.raises(NotImplementedError):
-        tcohort.CohortEngine(
-            frozen=fl["frozen_t"], ccfg=CFG_T, class_emb=fl["class_emb_t"],
-            clients=fl["clients_t"], cfg=fl["eng_t"].cfg, gan_job=object())
+    # the GAN pieces the tripleplay arm does not run: a mesh, int8 gemms
+    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+        fleetgan.FleetGANConfig(mesh=object())
+    with pytest.raises(NotImplementedError, match="Queue B item 9"):
+        fleetgan.prepare_gan_fleet(
+            fl["clients_t"][:1], [tgan.SeededGANStream((0,))], steps=1,
+            conv_impl="gemm_int8", device="cpu")

@@ -17,8 +17,14 @@ accuracy within one of its 8). Losses, relative per History entry:
    qlora_nogan, whose NF4 codes amplify the backbones' difference);
  - the port on the JAX package's pretrained backbone: ``LOSS_TOL``
    (measured worst 7.3e-6).
-Within the port: pipelined == barrier bitwise, cohort == sequential at
-``tests/test_fl.py``'s oracle tolerances, unported options raise."""
+The ``tripleplay`` arm (4 GAN steps), its GAN draws injected too
+(``tests/_jax_gan_stream.py``), on the JAX package's backbone:
+``GAN_LOSS_TOL`` relative (the trained generators agree to the fleet
+engine's 2e-3, not bitwise, so the synthetic rows differ slightly), the
+``gan_*`` counts equal. Within the port: pipelined == barrier bitwise,
+cohort == sequential at ``tests/test_fl.py``'s oracle tolerances, the
+fleet GAN engine == the sequential one within ``GAN_LOSS_TOL``,
+unported options raise."""
 import dataclasses
 
 import numpy as np
@@ -27,24 +33,29 @@ import torch
 
 import jax
 
+from _jax_gan_stream import JaxGANStream
 from repro.core import clip as jclip
 from repro.fl import client as jclient
 from repro.fl import cohort as jcohort
 from repro.fl import simulator as jsim
+from repro.fl.strategies import GAN_RNG_OFFSET
 from repro.fl.strategies import STRATEGIES as JSTRATEGIES
 from repro_torch import convert
 from repro_torch import tree as tree_lib
 from repro_torch.core import clip as tclip
+from repro_torch.core import gan as tgan
 from repro_torch.fl import runtime as truntime
 from repro_torch.fl import simulator as tsim
 
 torch.set_num_threads(2)
 ARMS = ("fedclip", "qlora_nogan")
+ALL_ARMS = ARMS + ("tripleplay",)
 SMALL = dict(dataset="pacs", n_clients=3, rounds=2, local_steps=3,
-             n_per_class=12, batch_size=8, lr=3e-3)
+             n_per_class=12, batch_size=8, lr=3e-3, gan_steps=4)
 # losses: relative, per History entry (the measured worst is printed)
 OWN_LOSS_TOL, OWN_CLIENT_LOSS_TOL = 5e-3, 1e-1
 LOSS_TOL = 1e-4
+GAN_LOSS_TOL = 1e-3
 # pretrained_clip after 300 Adam steps: per leaf, max |port - JAX| over
 # max |JAX|
 PRETRAIN_TOL = 1e-3
@@ -54,10 +65,11 @@ EXACT_META = ("strategy", "dataset", "n_clients", "n_clients_active",
               "participation", "clients_per_round", "trace",
               "staleness_beta", "device_classes", "pipeline",
               "prepared_rounds")
+GAN_META = ("gan_engine", "gan_eligible", "gan_synth", "gan_groups")
 
 
 def jax_streams(cfg):
-    """The JAX package's four draws for ``cfg``, as port ``Streams``."""
+    """The JAX package's draws for ``cfg``, as port ``Streams``."""
     rng = jax.random.PRNGKey(cfg.seed)
     ccfg = jclip.CLIPConfig()
 
@@ -71,7 +83,9 @@ def jax_streams(cfg):
             jax.random.PRNGKey(1234), ccfg)),
         trainable_init=jax.tree.map(np.asarray, jclient.init_trainable(
             jax.random.fold_in(rng, 2), ccfg, JSTRATEGIES[cfg.strategy])),
-        batch_indices=draw)
+        batch_indices=draw,
+        gan=lambda i: JaxGANStream(jax.random.fold_in(
+            rng, GAN_RNG_OFFSET + i)))
 
 
 def _run_port(arm, streams=None, **kw):
@@ -89,12 +103,10 @@ def pair(request):
     return {"arm": arm, "want": want, "got": got, "streams": streams}
 
 
-@pytest.fixture(scope="module", params=ARMS)
-def pair_same_backbone(request):
-    """The port's run on the JAX package's pretrained backbone (placed in
-    the port's cache under the key its run looks up): what is left is
-    the rounds themselves."""
-    arm = request.param
+def _on_jax_backbone(arm):
+    """The JAX package's run and the port's on the JAX package's
+    pretrained backbone (placed in the port's cache under the key its
+    run looks up): what is left is the rounds themselves."""
     jcfg = jsim.FLConfig(strategy=arm, **SMALL)
     want = jsim.run_federated(jcfg)
     streams = jax_streams(jcfg)
@@ -111,6 +123,16 @@ def pair_same_backbone(request):
         else:
             tsim._CLIP_CACHE[key] = own
     return {"arm": arm, "want": want, "got": got}
+
+
+@pytest.fixture(scope="module", params=ARMS)
+def pair_same_backbone(request):
+    return _on_jax_backbone(request.param)
+
+
+@pytest.fixture(scope="module")
+def tripleplay_pair():
+    return _on_jax_backbone("tripleplay")
 
 
 def _rel(a, b):
@@ -149,6 +171,16 @@ def test_history_matches_jax(pair):
 
 def test_history_on_the_jax_backbone_matches_jax(pair_same_backbone):
     _check_history(pair_same_backbone, LOSS_TOL, LOSS_TOL)
+
+
+def test_tripleplay_history_on_the_jax_backbone_matches_jax(tripleplay_pair):
+    """The fleet GAN on the JAX package's draws, then the rounds on the
+    rebalanced pools: the same eligibility, synthetic row count and
+    bucket, and the History within ``GAN_LOSS_TOL``."""
+    _check_history(tripleplay_pair, GAN_LOSS_TOL, GAN_LOSS_TOL)
+    got, want = tripleplay_pair["got"].meta, tripleplay_pair["want"].meta
+    for key in GAN_META:
+        assert got[key] == want[key], key
 
 
 def test_pretrained_clip_matches_jax(pair):
@@ -194,7 +226,7 @@ def _same_history(a, b):
         assert getattr(a, f.name) == getattr(b, f.name), f.name
 
 
-@pytest.mark.parametrize("arm", ARMS)
+@pytest.mark.parametrize("arm", ALL_ARMS)
 def test_pipelined_history_is_bitwise_barrier(arm):
     pipe = _run_port(arm, pipeline="pipelined")
     bar = _run_port(arm, pipeline="barrier")
@@ -206,9 +238,10 @@ def test_pipelined_history_is_bitwise_barrier(arm):
         SMALL["rounds"]
 
 
-@pytest.mark.parametrize("arm", ARMS)
+@pytest.mark.parametrize("arm", ALL_ARMS)
 def test_cohort_history_matches_sequential(arm):
-    """The port's oracle contract end to end, on its default streams."""
+    """The port's oracle contract end to end, on its default streams (for
+    tripleplay both run the fleet GAN engine: the same pools)."""
     coh = _run_port(arm, engine="cohort")
     seq = _run_port(arm, engine="sequential")
     assert coh.uplink_bytes == seq.uplink_bytes
@@ -217,9 +250,43 @@ def test_cohort_history_matches_sequential(arm):
     np.testing.assert_allclose(coh.client_acc, seq.client_acc, atol=1e-5)
     np.testing.assert_allclose(coh.server_loss, seq.server_loss,
                                atol=1e-3, rtol=1e-4)
-    assert seq.meta["n_compiles_by_kind"] == {"server_eval": 1}
-    assert set(coh.meta["n_compiles_by_kind"]) >= {
+    round_kinds = lambda h: {k: n for k, n in h.meta["n_compiles_by_kind"]
+                             .items() if not k.startswith("gan_")}
+    assert round_kinds(seq) == {"server_eval": 1}
+    assert set(round_kinds(coh)) >= {
         "full_round", "sample_idx", "server_eval", "stage_encode"}
+    if arm == "tripleplay":
+        assert coh.meta["gan_synth"] == seq.meta["gan_synth"] > 0
+
+
+def test_fleet_gan_engine_matches_sequential_gan_engine():
+    """The stacked GAN prep against the per-client ``prepare_gan`` loop,
+    end to end, and the ``gan_*`` meta each engine reports."""
+    fleet = _run_port("tripleplay", gan_engine="fleet")
+    seq = _run_port("tripleplay", gan_engine="sequential")
+    assert fleet.uplink_bytes == seq.uplink_bytes
+    for name in ("client_loss", "server_loss"):
+        assert _rel(getattr(fleet, name), getattr(seq, name)).max() <= \
+            GAN_LOSS_TOL, name
+    n_eval = 7 * 20
+    assert np.abs(np.subtract(fleet.server_acc, seq.server_acc)).max() \
+        <= 1.0 / n_eval + 1e-12
+    assert {k for k in fleet.meta if k.startswith("gan_")} == {
+        "gan_engine", "gan_eligible", "gan_synth", "gan_groups",
+        "gan_prep_time_s", "gan_compile_time_s"}
+    assert {k for k in seq.meta if k.startswith("gan_")} == {
+        "gan_engine", "gan_eligible", "gan_prep_time_s"}
+    assert (fleet.meta["gan_engine"], seq.meta["gan_engine"]) == \
+        ("fleet", "sequential")
+    assert fleet.meta["gan_eligible"] == seq.meta["gan_eligible"] >= 1
+    assert fleet.meta["gan_groups"] and fleet.meta["gan_synth"] > 0
+    assert fleet.meta["gan_prep_time_s"] > 0 and \
+        seq.meta["gan_prep_time_s"] > 0
+    assert fleet.meta["gan_compile_time_s"] >= 0
+    # class-0 (long tail) accuracy is tracked every eval round
+    assert len(fleet.tail_acc) == len(fleet.rounds) == SMALL["rounds"]
+    assert all(0.0 <= t <= 1.0 for t in fleet.tail_acc)
+    assert not any(k.startswith("gan_") for k in _run_port("fedclip").meta)
 
 
 def test_metrics_flush_every_counts_its_syncs():
@@ -230,7 +297,8 @@ def test_metrics_flush_every_counts_its_syncs():
 
 
 @pytest.mark.parametrize("change", [
-    {"strategy": "tripleplay"}, {"participation": "sync-partial"},
+    {"strategy": "tripleplay", "chaos": "light"},
+    {"participation": "sync-partial"},
     {"participation": "async"}, {"trace": "skewed"}, {"chaos": "light"}])
 def test_unported_options_raise(change):
     cfg = tsim.FLConfig(**{**SMALL, "strategy": "fedclip", **change})
@@ -248,6 +316,14 @@ def test_bad_options_and_serve_store_raise():
     with pytest.raises(NotImplementedError):
         tsim.run_federated(tsim.FLConfig(**SMALL, strategy="fedclip"),
                            device="cpu", serve_store=object())
+    with pytest.raises(ValueError, match="gan_engine"):
+        tsim.run_federated(tsim.FLConfig(**{**SMALL, "strategy": "tripleplay",
+                                            "gan_engine": "bogus"}),
+                           device="cpu")
+    cfg = tsim.FLConfig(**SMALL, strategy="tripleplay")
+    with pytest.raises(ValueError, match="Streams.gan"):
+        tsim.run_federated(cfg, device="cpu", streams=dataclasses.replace(
+            tsim.seeded_streams(cfg), gan=None))
 
 
 def test_no_device_and_no_gpu_raises():
@@ -293,3 +369,8 @@ def test_seeded_streams_are_deterministic():
     assert i0.shape == (3, 3, 8) and (i0.max(axis=(1, 2)) < lens).all()
     assert not np.array_equal(i0, a.batch_indices(1, lens, 3, 8))
     assert "lora" in convert.tree_from_numpy(a.trainable_init, "cpu")
+    gcfg = tgan.GANConfig()
+    for x, y in zip(a.gan(1).train(gcfg, 9, 2, 9), b.gan(1).train(gcfg, 9, 2,
+                                                                  9)):
+        np.testing.assert_array_equal(x, y)
+    assert not np.array_equal(a.gan(0).synth(gcfg, 3), a.gan(1).synth(gcfg, 3))
