@@ -60,7 +60,28 @@ Phases (a failed phase raises and the script exits non-zero):
     cohort against sequential; launch counts zeroed before the arms and
     read after them; each cohort round profiled, with the peak device
     memory; then a 2-vision-layer cut of the round on the card against
-    the CPU on the same weights.
+    the CPU on the same weights;
+10. the scheduler layer (``fl.sched``: partial and async participation,
+    availability traces, chaos fault injection) through
+    ``run_federated``: (a) Fig. 7's sweep (``benchmarks/fig7_scalability.py``)
+    at ``CLIPConfig()``: tripleplay (fleet GAN, 150 steps), 10 clients of
+    48 a class, skewed trace, K in {2, 5} under sync-partial and async,
+    3 commits each, cohort engine, pipelined, each run twice (the draws'
+    columns must repeat), every History checked (finite, participation
+    K wide, staleness 0 / >= 0, virtual time non-decreasing, uplink K x
+    the per-client payload); one commit of each policy cohort against
+    the sequential clients, and sync-partial at K = N = 10 on a uniform
+    trace bitwise the full round; (b) the reference's fault study
+    (``benchmarks/fl_round_bench.py``: fedclip, 8 clients of 24 a class,
+    diurnal trace, dropout 0.25, stragglers 0.5, uplink loss 0.1, K = 3,
+    6 rounds, both policies), then tripleplay under ``"heavy"``: each run
+    twice and on the sequential engine, the same participation, virtual
+    time, bytes and fault ledger (non-empty; GAN drops for tripleplay);
+    (c) ``qlora_nogan`` at ViT-B/32 width on phase 9's clients: a
+    sync-partial round at K = 3 (bucket 4, one pad row) and an async
+    commit (buffer 2, concurrency 4), cohort against sequential, then
+    each profiled with the peak device memory. Launch counts are zeroed
+    before each run of (a) and (b) and before (c), and read right after.
 Phase 2 also holds ``selective_scan`` and its backward kernel
 ``selective_scan_bwd`` at the trainer's shape and at edge shapes (the
 backward against the plain ``ops.selective_scan_bwd``, bitwise equal
@@ -79,7 +100,7 @@ two calls held bitwise equal, and phase 3 counts the replay's
 the GEMV for every one. ``flash_attention`` is also held at the
 federated round's fp32 shapes (S = Skv = 1, 4 heads, D = 16 and 192,
 batches of 32, 128 and 160 rows) with its gradient at (160, 1, 4, 192);
-phases 8 and 9 require at least a launch a local step and no plain
+phases 8, 9 and 10 require at least a launch a local step and no plain
 attention, and its ``launches`` in the ``kernels`` record sum every
 path's.
 The last two lines are the ``kernels`` record and the device record.
@@ -91,6 +112,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -1821,7 +1843,7 @@ def fl_round_phase(device="cuda", rounds=3, **settings) -> dict:
                 raise AssertionError(f"{arm}: sequential + sequential GAN "
                                      f"run {hss}")
         orc = oracle_round(fz, ccfg, ce, clients, g0, strat,
-                           cohort_lib.RoundKey(streams.batch_indices, 0),
+                           cohort_lib.RoundKey(streams, (3, 0)),
                            steps=cfg.local_steps, batch=cfg.batch_size,
                            lr=cfg.lr, device=device)
         per_client = orc["per_client_uplink_bytes"]
@@ -1906,7 +1928,7 @@ def vit_round_phase(device="cuda", ccfg=VIT_B32, *, steps=10, batch=32,
     repeat = ccfg.image_size // data["images"].shape[1]
     gen = torch.Generator(device=device).manual_seed(seed)
     frozen0 = clip_lib.init_clip(gen, ccfg, device=device)
-    key = cohort_lib.RoundKey(cohort_lib.seeded_index_stream(seed), 0)
+    key = cohort_lib.RoundKey(cohort_lib.SeededDraws(seed), (3, 0))
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     ops.reset_kernel_traces()
@@ -1990,6 +2012,361 @@ def cut_check(a, ccfg, layers, gen, key, *, steps, batch, device) -> dict:
             and res["acc_abs"] <= 1.0 / batch + 1e-6):
         raise AssertionError(f"{layers}-layer round, card vs CPU: {res}")
     return res
+
+
+# -- phase 10: the scheduler layer --------------------------------------
+
+# Fig. 7's scheduler sweep (benchmarks/fig7_scalability.py: N = 10, 48 a
+# class, skewed trace, K of N under both policies) at the paper preset's
+# round settings, 3 commits each (cut from 12)
+SCHED_SWEEP = dict(dataset="pacs", strategy="tripleplay", n_clients=10,
+                   n_per_class=48, local_steps=10, batch_size=32, lr=3e-3,
+                   gan_steps=150, trace="skewed", rounds=3)
+SCHED_KS = (2, 5)
+SCHED_POLICIES = ("sync-partial", "async")
+# the reference's fault study (benchmarks/fl_round_bench.py:661-682)
+FAULT_STUDY = dict(dataset="pacs", n_clients=8, n_per_class=24,
+                   local_steps=6, batch_size=32, lr=3e-3, trace="diurnal",
+                   clients_per_round=3, rounds=6)
+FAULT_CHAOS = sched_lib.ChaosConfig(dropout_prob=0.25, straggler_sigma=0.5,
+                                    uplink_loss_prob=0.1)
+
+
+def _finite(*vals) -> bool:
+    return all(np.isfinite(np.asarray(v, np.float64)).all() for v in vals
+               if len(v))
+
+
+def _columns(h) -> dict:
+    """The host-side History columns a run's draws decide."""
+    return {"participation": h.participation, "staleness": h.staleness,
+            "vtime": h.vtime, "uplink_bytes": h.uplink_bytes,
+            "class_counts": h.class_counts,
+            "fault_ledger": h.meta.get("fault_ledger")}
+
+
+def sched_run(cfg, device, streams) -> dict:
+    """``run_federated(cfg)`` with the launch counts and traces zeroed
+    just before it and read right after it; on the card every cohort
+    commit (sync round or async wave) must launch ``flash_attention`` at
+    least once a local step, none on the plain route."""
+    ops.reset_kernel_traces()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    h = sim_lib.run_federated(cfg, device=device, streams=streams)
+    _sync(device)
+    run_s = time.perf_counter() - t0
+    launches, traces = ops.launch_counts(), dict(ops.KERNEL_TRACES)
+    if torch.device(device).type == "cuda" and cfg.engine == "cohort":
+        want = cfg.rounds * cfg.local_steps
+        if launches["flash_attention"] < want or \
+                traces.get("flash_attention_cuda", 0) < want or \
+                "flash_attention_ref" in traces:
+            raise AssertionError(
+                f"{cfg.strategy} {cfg.participation}: flash_attention "
+                f"launches {launches} traces {traces} (want >= {want})")
+    if not _finite(h.server_acc, h.tail_acc, h.server_loss,
+                   *h.client_loss, *h.client_acc) or \
+            len(h.vtime) != cfg.rounds or \
+            any(b < a for a, b in zip(h.vtime, h.vtime[1:])):
+        raise AssertionError(f"{cfg.strategy} {cfg.participation}: bad "
+                             f"History {_columns(h)}")
+    return {"history": h, "run_s": run_s,
+            "flash_launches": launches["flash_attention"]}
+
+
+def commit_vs_sequential(mk, engine, seq, g0, key, device) -> dict:
+    """One ``step`` (a sync round or an async commit) of the scheduler
+    ``mk(executor)`` builds, through the stacked engine and through the
+    sequential clients from ``g0`` on ``key``: the trainables held by
+    ``round_diffs``, the committed clients' losses and accuracies at the
+    oracle tolerances, participation and bytes equal (else it raises).
+    Returns the row, with the cohort step's wall time."""
+    _sync(device)
+    t0 = time.perf_counter()
+    tr_c, m_c = mk(sched_lib.CohortExec(engine)).step(g0, 0, key)
+    _sync(device)
+    cohort_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tr_s, m_s = mk(seq).step(g0, 0, key)
+    _sync(device)
+    seq_s = time.perf_counter() - t0
+    vals = lambda m, f: np.asarray([float(v) for v in m[f]])
+    row = {"cohort_s": cohort_s, "sequential_s": seq_s,
+           **round_diffs(tr_c, tr_s, g0),
+           "participation": [int(c) for c in m_c["participation"]],
+           "loss_abs": float(np.abs(vals(m_c, "loss") -
+                                    vals(m_s, "loss")).max()),
+           "acc_abs": float(np.abs(vals(m_c, "acc") - vals(m_s, "acc")).max()),
+           "uplink_bytes": m_c["uplink_bytes"]}
+    if not (row.pop("ok") and list(m_c["participation"]) ==
+            list(m_s["participation"]) and np.allclose(
+                vals(m_c, "loss"), vals(m_s, "loss"),
+                atol=ORACLE["loss_atol"], rtol=ORACLE["loss_rtol"])
+            and row["acc_abs"] <= ORACLE["acc_atol"]
+            and m_c["uplink_bytes"] == m_s["uplink_bytes"]):
+        raise AssertionError(f"cohort vs sequential: {row}")
+    return row
+
+
+def sched_oracle(cfg, device, streams, k) -> dict:
+    """On the clients, backbone and trainables ``run_federated(cfg)``
+    builds: one commit of each policy at width ``k`` through the stacked
+    engine and through the sequential clients, held as ``oracle_round``
+    holds a round; and sync-partial at K = N on a uniform trace against
+    the full round, bitwise."""
+    fz, ccfg, ce, clients, g0, strat = like_run(cfg, device, streams)
+    engine = cohort_lib.CohortEngine(
+        frozen=fz, ccfg=ccfg, class_emb=ce, clients=clients,
+        cfg=cohort_lib.CohortConfig(strategy=strat,
+                                    local_steps=cfg.local_steps,
+                                    batch_size=cfg.batch_size, lr=cfg.lr))
+    seq = sched_lib.SequentialExec(
+        clients=clients, frozen=fz, ccfg=ccfg, class_emb=ce,
+        local_steps=cfg.local_steps, batch_size=cfg.batch_size, lr=cfg.lr)
+    trace = sched_lib.resolve_trace(cfg.trace, len(clients), seed=cfg.seed)
+    key = cohort_lib.RoundKey(streams, (3, 0))
+    out = {"per_client_uplink_bytes": engine.per_client_uplink_bytes(g0)}
+    for policy in SCHED_POLICIES:
+        mk = lambda ex: sched_lib.make_scheduler(
+            policy, executor=ex, trace=trace, local_steps=cfg.local_steps,
+            clients_per_round=k, client_n=[c.n for c in clients])
+        res = {"k": k, **commit_vs_sequential(mk, engine, seq, g0, key,
+                                              device)}
+        if res["uplink_bytes"] != k * out["per_client_uplink_bytes"]:
+            raise AssertionError(f"{policy} commit uplink: {res}")
+        out[policy] = res
+    n = len(clients)
+    tr_f, m_f = engine.run_round(g0, key)
+    tr_p, m_p = sched_lib.SyncPartialScheduler(
+        executor=sched_lib.CohortExec(engine),
+        trace=sched_lib.uniform_trace(n), local_steps=cfg.local_steps,
+        clients_per_round=n).step(g0, 0, key)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_lib.leaves(tr_f), tree_lib.leaves(tr_p))) and \
+        torch.equal(m_f["loss"], m_p["loss"]) and \
+        torch.equal(m_f["acc"], m_p["acc"])
+    if not same or list(m_p["participation"]) != list(range(n)):
+        raise AssertionError("sync-partial at K = N is not bitwise the "
+                             "full round")
+    out["k_eq_n_bitwise"] = {"n": n, "equal": same}
+    return out
+
+
+def sched_sweep_phase(device="cuda", **settings) -> dict:
+    """Phase 10 (a): Fig. 7's scheduler sweep through ``run_federated``
+    (``SCHED_SWEEP``, overridable for a rehearsal): K in ``SCHED_KS``
+    under both policies, cohort engine, pipelined, each run twice (the
+    draws' columns must repeat); every History checked (finite,
+    participation K wide, staleness 0 for sync and >= 0 for async,
+    ``vtime`` non-decreasing, uplink K x the per-client payload); then
+    ``sched_oracle`` at the largest K."""
+    st = {**SCHED_SWEEP, **settings}
+    base = sim_lib.FLConfig(engine="cohort", pipeline="pipelined", **st)
+    streams = sim_lib.seeded_streams(base)
+    orc = sched_oracle(base, device, streams, max(SCHED_KS))
+    per_client = orc["per_client_uplink_bytes"]
+    out = {"oracle": orc, "runs": {}, "flash_launches": 0}
+    for policy in SCHED_POLICIES:
+        for k in SCHED_KS:
+            cfg = dataclasses.replace(base, participation=policy,
+                                      clients_per_round=k)
+            runs = [sched_run(cfg, device, streams) for _ in range(2)]
+            h = runs[0]["history"]
+            if _columns(h) != _columns(runs[1]["history"]):
+                raise AssertionError(f"{policy} K={k}: two runs differ: "
+                                     f"{_columns(h)} vs "
+                                     f"{_columns(runs[1]['history'])}")
+            if any(len(p) != k for p in h.participation) or \
+                    h.uplink_bytes != [k * per_client] * cfg.rounds or \
+                    any(t != 0 if policy == "sync-partial" else t < 0
+                        for row in h.staleness for t in row):
+                raise AssertionError(f"{policy} K={k}: {_columns(h)} "
+                                     f"(per-client payload {per_client})")
+            out["runs"][(policy, k)] = runs
+            out["flash_launches"] += sum(r["flash_launches"] for r in runs)
+    return out
+
+
+def fault_study_phase(device="cuda", **settings) -> dict:
+    """Phase 10 (b): the reference's fault study through ``run_federated``
+    (``FAULT_STUDY``: fedclip under ``FAULT_CHAOS``), then tripleplay
+    under ``"heavy"``, both policies, each cohort run twice (columns and
+    ledger must repeat) and once on the sequential engine (the same
+    participation, virtual time, bytes and ledger; the first round's
+    client losses at the oracle tolerance). Every ledger must be
+    non-empty, tripleplay's with GAN drops: it runs at seed 1, since at
+    seed 0 the heavy preset's GAN-drop draw (p = 0.25) drops no eligible
+    client (its smallest uniform over the 8 clients is 0.268)."""
+    st = {**FAULT_STUDY, **settings}
+    out = {"runs": {}, "flash_launches": 0}
+    for arm, chaos, seed in (("fedclip", FAULT_CHAOS, 0),
+                             ("tripleplay", "heavy", 1)):
+        for policy in SCHED_POLICIES:
+            cfg = sim_lib.FLConfig(strategy=arm, participation=policy,
+                                   chaos=chaos, engine="cohort", seed=seed,
+                                   **st)
+            streams = sim_lib.seeded_streams(cfg)
+            runs = [sched_run(cfg, device, streams) for _ in range(2)]
+            seq = sched_run(dataclasses.replace(cfg, engine="sequential"),
+                            device, streams)
+            h, hs = runs[0]["history"], seq["history"]
+            led = h.meta["fault_ledger"]
+            if _columns(h) != _columns(runs[1]["history"]) or \
+                    _columns(h) != _columns(hs):
+                raise AssertionError(f"{arm} {policy}: runs or engines "
+                                     f"differ: {_columns(h)} vs "
+                                     f"{_columns(runs[1]['history'])} vs "
+                                     f"{_columns(hs)}")
+            if not sum(led.values()) or (arm == "tripleplay" and
+                                         not led["gan_dropped"]):
+                raise AssertionError(f"{arm} {policy}: ledger {led}")
+            first = next((i for i, r in enumerate(h.client_loss) if r), None)
+            if first is not None and not np.allclose(
+                    h.client_loss[first], hs.client_loss[first],
+                    atol=ORACLE["loss_atol"], rtol=ORACLE["loss_rtol"]):
+                raise AssertionError(f"{arm} {policy}: round {first} client "
+                                     f"losses {h.client_loss[first]} vs "
+                                     f"sequential {hs.client_loss[first]}")
+            out["runs"][(arm, policy)] = runs + [seq]
+            out["flash_launches"] += sum(r["flash_launches"] for r in runs)
+    return out
+
+
+def vit_sched_phase(device="cuda", ccfg=VIT_B32, *, steps=10, batch=32,
+                    n_clients=5, n_per_class=60, seed=0,
+                    profile=True) -> dict:
+    """Phase 10 (c): ``qlora_nogan`` at ``ccfg``'s width (CLIP ViT-B/32)
+    on phase 9's clients (seeded weights, images repeated to the config's
+    size): one sync-partial round at K = 3 (width bucket 4: a pad row of
+    zero weight) and one async commit (buffer 2, concurrency 4: waves of
+    4 and of 2 in bucket 4), each through the stacked engine and the
+    sequential clients, held by ``round_diffs``; launch counts zeroed
+    before and read after; then each profiled, with the peak device
+    memory."""
+    on_card = torch.device(device).type == "cuda"
+    data = make_dataset("pacs", n_per_class=n_per_class, seed=seed)
+    repeat = ccfg.image_size // data["images"].shape[1]
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    strat = STRATEGIES["qlora_nogan"]
+    frozen = nf4_round_trip(clip_lib.init_clip(gen, ccfg, device=device))[0]
+    ce = class_embedding(frozen, ccfg, device)
+    clients = fl_clients(data, n_clients, 0.5, seed, strat, repeat)
+    g0 = client_lib.init_trainable(gen, ccfg, strat, device=device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    engine = cohort_lib.CohortEngine(
+        frozen=frozen, ccfg=ccfg, class_emb=ce, clients=clients,
+        cfg=cohort_lib.CohortConfig(strategy=strat, local_steps=steps,
+                                    batch_size=batch, lr=3e-3))
+    seq = sched_lib.SequentialExec(
+        clients=clients, frozen=frozen, ccfg=ccfg, class_emb=ce,
+        local_steps=steps, batch_size=batch, lr=3e-3)
+    trace = sched_lib.uniform_trace(len(clients))
+    key = cohort_lib.RoundKey(cohort_lib.SeededDraws(seed), (3, 0))
+    cases = {"sync-partial": (3, 0), "async": (2, 4)}
+
+    def mk(policy, ex):
+        k, conc = cases[policy]
+        return sched_lib.make_scheduler(
+            policy, executor=ex, trace=trace, local_steps=steps,
+            clients_per_round=k, concurrency=conc,
+            client_n=[c.n for c in clients])
+
+    ops.reset_kernel_traces()
+    ops.reset_launch_counts()
+    res = {"policies": {}}
+    for policy in cases:
+        res["policies"][policy] = {
+            "k": cases[policy][0],
+            **commit_vs_sequential(functools.partial(mk, policy), engine,
+                                   seq, g0, key, device)}
+    res["launches"] = ops.launch_counts()
+    res["traces"] = dict(ops.KERNEL_TRACES)
+    # programs: sync a bucket-4 round; async a wave of 4, one of 2 in 4
+    want = 3 * steps
+    if on_card and (res["launches"]["flash_attention"] < want or
+                    res["traces"].get("flash_attention_cuda", 0) < want or
+                    "flash_attention_ref" in res["traces"]):
+        raise AssertionError(f"ViT-B/32 scheduler: flash_attention "
+                             f"launches {res['launches']} traces "
+                             f"{res['traces']}")
+    if on_card and profile:
+        for policy in cases:
+            res["policies"][policy]["profile"] = profile_run(
+                lambda: mk(policy, sched_lib.CohortExec(engine)).step(
+                    g0, 0, key), ("flash_attention",))
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated() \
+        if on_card else None
+    return res
+
+
+def sched_report() -> int:
+    """Phase 10 on the card, reported (each case once: the repeat runs
+    and the sequential engine were checked equal on the draws' columns;
+    their times beside run 0's). Returns its flash_attention launches."""
+    print(f"scheduler layer (participation, traces, chaos), {card_line()}:",
+          flush=True)
+    t_all = t0 = time.perf_counter()
+    rnd = lambda xs: [round(x, 4) for x in xs]
+    sweep = sched_sweep_phase()
+    orc = sweep["oracle"]
+    for policy in SCHED_POLICIES:
+        report({"sweep_oracle": policy, **{k: v for k, v in orc[policy].items()
+                                           if k != "leaf_abs_n_rel"}})
+    report({"k_eq_n_bitwise": orc["k_eq_n_bitwise"],
+            "per_client_uplink_bytes": orc["per_client_uplink_bytes"]})
+    for (policy, k), runs in sweep["runs"].items():
+        h = runs[0]["history"]
+        report({"sweep": f"{policy} K={k}",
+                "run_s": rnd(r["run_s"] for r in runs),
+                "round_time_s": [rnd(r["history"].round_time_s)
+                                 for r in runs],
+                "gan_prep_time_s": rnd(r["history"].meta["gan_prep_time_s"]
+                                       for r in runs),
+                "server_acc": rnd(h.server_acc),
+                "server_loss": rnd(h.server_loss),
+                "flash_launches": runs[0]["flash_launches"],
+                **{c: v for c, v in _columns(h).items()
+                   if c not in ("fault_ledger", "class_counts")}})
+    n = sweep["flash_launches"]
+    report({"sweep_phase_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    study = fault_study_phase()
+    for (arm, policy), runs in study["runs"].items():
+        h = runs[0]["history"]
+        report({"fault_study": f"{arm} {policy}",
+                "run_s_cohort_cohort_sequential": rnd(r["run_s"]
+                                                      for r in runs),
+                "round_time_s": [rnd(r["history"].round_time_s)
+                                 for r in runs],
+                "server_acc": rnd(h.server_acc),
+                "flash_launches": runs[0]["flash_launches"],
+                **_columns(h)})
+        report({"fault_study": f"{arm} {policy}", "device_class_report": [
+            {k: round(v, 4) for k, v in r.items()}
+            for r in h.meta["device_class_report"]]})
+    n += study["flash_launches"]
+    report({"fault_study_phase_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    vit = vit_sched_phase()
+    report({"vit_launches": vit["launches"], "vit_traces": vit["traces"],
+            "max_memory_allocated": vit["max_memory_allocated"]})
+    for policy, row in vit["policies"].items():
+        prof = row.pop("profile", None)
+        report({"vit": policy, **{k: v for k, v in row.items()
+                                  if k != "leaf_abs_n_rel"}})
+        if prof is not None:
+            report({"vit": policy, **{k: v for k, v in prof.items()
+                                      if k not in ("top_ms", "regions_ms")}})
+            print(f"  {policy} top device time (ms), with launching ops: "
+                  f"{prof['top_ms'][:5]}", flush=True)
+    n += vit["launches"]["flash_attention"]
+    report({"vit_sched_phase_s": time.perf_counter() - t0,
+            "sched_phase_s": time.perf_counter() - t_all,
+            "flash_launches": n, "card": card_line()})
+    torch.cuda.empty_cache()
+    return n
 
 
 def fl_round_report() -> int:
@@ -2132,13 +2509,15 @@ def main() -> int:
     gan_report()
     fl_launches = fl_round_report()
     vit_launches = vit_round_report()
+    sched_launches = sched_report()
 
     print(card_line(), flush=True)
     # flash_attention runs on every path: its launches over all of them
     flash = {"serve": serve_launches["flash_attention"],
              "yi-9b": yi_launches["flash_attention"],
              "falcon-mamba-7b": mamba_launches["flash_attention"],
-             "fl_round": fl_launches, "vit_round": vit_launches}
+             "fl_round": fl_launches, "vit_round": vit_launches,
+             "sched": sched_launches}
     print(f"flash_attention launches by path: {flash}", flush=True)
     launches = {**serve_launches, **yi_launches,
                 "flash_attention": sum(flash.values()),

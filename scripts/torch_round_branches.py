@@ -67,7 +67,7 @@ def main(argv=None) -> int:
     ce = cs.class_embedding(frozen, ccfg, dev)
     clients = cs.rebalanced_clients(data, 5, 0.5, seed, strat, 7,
                                     gan_steps=150, device=dev)
-    key = cs.cohort_lib.RoundKey(cs.cohort_lib.seeded_index_stream(seed), 0)
+    key = cs.cohort_lib.RoundKey(cs.cohort_lib.SeededDraws(seed), (3, 0))
     trace = cs.sched_lib.uniform_trace(len(clients))
 
     def sequential(cl):

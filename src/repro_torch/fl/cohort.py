@@ -30,14 +30,22 @@ Batch indices come from outside the program, as in the JAX package: a
 sequential oracle (``Client.local_train``). A pending fleet-GAN job
 (``gan_job``) lands in the staged pools as in the reference: raw rows
 and zero rows reserved for the synthetic ones are staged first, then
-the job is resolved and its rows encoded into their slots. Subset
-rounds, async waves and meshes raise: ``ROADMAP.md`` Queue A items 6
-and 8.
+the job is resolved and its rows encoded into their slots.
+
+Subset rounds (``run_subset_round``, sync-partial participation) and
+async waves (``run_wave``) run the same local training on a selection of
+K clients: it is gathered from the staged pools at a power-of-two
+bucketed width (``runtime.bucket_width``; pad rows train on client 0's
+pool at index 0 and carry zero aggregation weight), with batch indices
+drawn at the true K before any padding. Heterogeneous step counts (a
+trace's multipliers, or chaos cuts with ``CohortConfig.force_het``) mask
+the tail of the fixed-length scan per client (``optim.step_mask``). A
+mesh raises: ``ROADMAP.md`` Queue A item 8.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +71,9 @@ class CohortConfig:
     batch_size: int
     lr: float
     mesh: Any = None
+    # stage the masked (heterogeneous-step) programs even when every
+    # client's trace multiplier is 1: chaos cuts step counts per client
+    force_het: bool = False
 
     def __post_init__(self):
         if self.mesh is not None:
@@ -73,33 +84,102 @@ class CohortConfig:
 
 @dataclass(frozen=True)
 class RoundKey:
-    """The port's stand-in for a round's PRNG key: the stream that draws
-    batch indices, ``draw(rnd, lens, steps, batch) -> (C, steps, batch)``,
-    and the round it draws for (-1: the warm-up round)."""
-    draw: Callable
-    rnd: int
+    """The port's stand-in for a PRNG key: ``draws`` serves the run's
+    random draws and ``path`` is the tuple of ``jax.random.fold_in`` tags
+    from the run's root key that names this key (in ``run_federated``:
+    the warm-up key ``(4,)``, round r's ``(3, r)``, the chaos key
+    ``(5,)``), so an injected stream can rebuild the JAX package's key.
+    ``draws`` has ``batch_indices(path, lens, steps, batch)``,
+    ``choice(path, n, k, p)``, ``uniform(path, n)`` and
+    ``normal(path, n)`` (``simulator.Streams``, or :class:`SeededDraws`);
+    every draw is checked here, since it may be injected."""
+    draws: Any
+    path: Tuple[int, ...] = ()
+
+    def fold(self, tag: int) -> "RoundKey":
+        """The key ``jax.random.fold_in(key, tag)`` would give."""
+        return RoundKey(self.draws, self.path + (int(tag),))
+
+    def _fn(self, kind: str):
+        fn = getattr(self.draws, kind, None)
+        if fn is None:
+            raise ValueError(f"the run's draws cannot serve a {kind} draw "
+                             f"(key path {self.path})")
+        return fn
+
+    def choice(self, n: int, k: int, p) -> np.ndarray:
+        """``k`` distinct positions in [0, n), drawn without replacement
+        with probabilities ``p``."""
+        pick = np.asarray(self._fn("choice")(
+            self.path, int(n), int(k), np.asarray(p, np.float64)))
+        if pick.shape != (k,) or len(np.unique(pick)) != k or (
+                k and (pick.min() < 0 or pick.max() >= n)):
+            raise ValueError(f"choice stream gave {pick} for {k} distinct "
+                             f"of {n}")
+        return pick.astype(np.int64)
+
+    def _vector(self, kind: str, n: int) -> np.ndarray:
+        v = np.asarray(self._fn(kind)(self.path, int(n)))
+        if v.shape != (n,) or v.dtype != np.float32 or \
+                not np.isfinite(v).all():
+            raise ValueError(f"{kind} stream gave {v.dtype}{v.shape}, want "
+                             f"finite float32 ({n},)")
+        return v
+
+    def uniform(self, n: int) -> np.ndarray:
+        """``(n,)`` float32 in [0, 1), as ``jax.random.uniform``."""
+        u = self._vector("uniform", n)
+        if n and (u.min() < 0 or u.max() >= 1):
+            raise ValueError("uniform stream drew outside [0, 1)")
+        return u
+
+    def normal(self, n: int) -> np.ndarray:
+        """``(n,)`` float32 standard normal, as ``jax.random.normal``."""
+        return self._vector("normal", n)
 
 
-def seeded_index_stream(seed: int) -> Callable:
-    """A batch-index stream for standalone runs: a CPU
-    ``torch.Generator`` seeded from (``seed``, round) draws client i's
-    ``(steps, batch)`` indices in [0, lens[i]), clients in order. A pure
-    function of its arguments, so every executor sees the same batches."""
-    def draw(rnd, lens, steps, batch):
-        words = [seed, 4] if rnd < 0 else [seed, 3, rnd]
-        g = torch.Generator().manual_seed(
-            int(np.random.SeedSequence(words).generate_state(1)[0]))
+class SeededDraws:
+    """Draws for standalone runs: each from a CPU ``torch.Generator``
+    seeded from (``seed``, *path) through ``np.random.SeedSequence``
+    (the kinds other than batch indices add a spawn key of their own), so
+    each is a pure function of its arguments and every executor sees the
+    same draws."""
+
+    def __init__(self, seed: int):
+        self.seed = int(seed)
+
+    def _gen(self, path, kind: int = 0) -> torch.Generator:
+        ss = np.random.SeedSequence([self.seed, *path],
+                                    spawn_key=(kind,) if kind else ())
+        return torch.Generator().manual_seed(int(ss.generate_state(1)[0]))
+
+    def batch_indices(self, path, lens, steps, batch) -> np.ndarray:
+        """Client i's ``(steps, batch)`` indices in [0, lens[i]), clients
+        in order."""
+        g = self._gen(path)
         return np.stack([torch.randint(0, int(n), (steps, batch),
                                        generator=g).numpy() for n in lens])
-    return draw
+
+    def choice(self, path, n, k, p) -> np.ndarray:
+        return torch.multinomial(torch.as_tensor(p, dtype=torch.float64), k,
+                                 replacement=False,
+                                 generator=self._gen(path, 1)).numpy()
+
+    def uniform(self, path, n) -> np.ndarray:
+        return torch.rand(n, generator=self._gen(path, 2)).numpy()
+
+    def normal(self, path, n) -> np.ndarray:
+        return torch.randn(n, generator=self._gen(path, 3)).numpy()
 
 
 def round_indices(key: RoundKey, lens, steps: int, batch: int) -> np.ndarray:
     """One round's per-client batch indices, ``(C, steps, batch)``,
     client i's in [0, lens[i]); checked, since the stream may be
-    injected."""
+    injected. For subset rounds pass ``lens[sel]`` (and the engine's
+    ``max_steps``): the engine and the sequential oracle then see the
+    same batches."""
     lens = np.asarray(lens, np.int32)
-    idx = np.asarray(key.draw(key.rnd, lens, steps, batch))
+    idx = np.asarray(key._fn("batch_indices")(key.path, lens, steps, batch))
     if idx.shape != (len(lens), steps, batch):
         raise ValueError(f"index stream gave shape {idx.shape}, want "
                          f"{(len(lens), steps, batch)}")
@@ -275,7 +355,7 @@ class CohortEngine:
                 f"client step multipliers {self.step_mult.max()} exceed "
                 f"strategies.MAX_STEP_MULT={strategies_lib.MAX_STEP_MULT}")
         self.max_steps = cfg.local_steps * int(self.step_mult.max())
-        self._het = bool(self.step_mult.max() > 1)
+        self._het = bool(self.step_mult.max() > 1 or cfg.force_het)
 
         dev = class_emb.device
         self.pool_staged = stage_encoded_pools(
@@ -324,8 +404,9 @@ class CohortEngine:
                          torch.as_tensor(ri, device=dev)] = feats
 
     def _sample_idx(self, key: RoundKey, lens, steps: int) -> torch.Tensor:
-        """Per-round batch indices through the runtime cache (kind
-        ``sample_idx``), as a long tensor on the engine's device."""
+        """Batch indices through the runtime cache (kind ``sample_idx``,
+        one program per selection width), as a long tensor on the
+        engine's device."""
         batch = self.cfg.batch_size
 
         def build():
@@ -359,20 +440,24 @@ class CohortEngine:
         return self.n_clients * self.per_client_uplink_bytes(global_tr)
 
     # -- the round ------------------------------------------------------
-    def _train_cohort(self, global_tr, staged, labs, idx, frozen,
-                      class_emb):
-        """Broadcast the global trainables over the cohort, run every
-        client's local steps, and return (stacked quantized deltas,
-        last-step loss, last-step acc)."""
-        C = idx.shape[0]
+    def _train_cohort(self, global_tr, staged, labs, rows, idx, n_steps,
+                      frozen, class_emb):
+        """Broadcast the global trainables over the cohort and run every
+        client's local steps: client c trains on staged pool row
+        ``rows[c]`` at batch indices ``idx[c]`` (``(C, S, B)``). With
+        ``n_steps`` (``(C,)``) the steps past client c's count are masked
+        (``optim.step_mask``: bitwise no-ops) and its loss/acc are taken
+        at step ``n_steps[c] - 1``; without, at the last step. Returns
+        (stacked quantized deltas, loss, acc)."""
+        C, S = idx.shape[:2]
         use_lora = self.cfg.strategy.use_lora
         ccfg = self.ccfg
         cohort_tr = tree_lib.tree_map(
             lambda g: g.expand(C, *g.shape).contiguous(), global_tr)
-        rows = torch.arange(C, device=idx.device)[:, None]
+        pick = rows[:, None]
 
         def grad_fn(t, ixt):
-            bx, by = staged[rows, ixt], labs[rows, ixt]
+            bx, by = staged[pick, ixt], labs[pick, ixt]
 
             def loss_fn(tt):
                 logits = cohort_logits(frozen, ccfg, tt, bx, class_emb,
@@ -385,33 +470,144 @@ class CohortEngine:
             (_, aux), g = optim.value_and_grad(loss_fn, t)
             return g, aux
 
+        active = None if n_steps is None else optim.step_mask(n_steps, S)
         tr, _, (ls, accs) = optim.adam_scan(
             grad_fn, cohort_tr, optim.adam_init(cohort_tr, stacked=True),
             idx.transpose(0, 1), lr=self.cfg.lr, grad_clip=1.0,
-            stacked=True)
+            active=active, stacked=True)
         delta = tree_lib.tree_map(
             lambda a, g: (a - g[None]).to(torch.float32), tr, global_tr)
-        return comm_quantize_stacked(delta, self.cfg.strategy), ls[-1], \
-            accs[-1]
+        if n_steps is None:
+            loss, acc = ls[-1], accs[-1]
+        else:
+            last, cols = n_steps - 1, torch.arange(C, device=idx.device)
+            loss, acc = ls[last, cols], accs[last, cols]
+        return comm_quantize_stacked(delta, self.cfg.strategy), loss, acc
 
     def _build_round(self):
         def round_fn(global_tr, idx, pool_staged, pool_labs, weights,
                      frozen, class_emb):
+            rows = torch.arange(idx.shape[0], device=idx.device)
             delta, loss, acc = self._train_cohort(
-                global_tr, pool_staged, pool_labs, idx, frozen, class_emb)
+                global_tr, pool_staged, pool_labs, rows, idx, None, frozen,
+                class_emb)
             return server.aggregate_stacked(global_tr, weights, delta), \
                 loss, acc
 
         return round_fn
 
-    def run_subset_round(self, global_tr, sel, key, n_steps=None):
-        raise NotImplementedError(
-            "subset rounds (sync-partial participation) are not ported "
-            "yet (ROADMAP.md Queue A item 6)")
+    def _build_subset_round(self):
+        """Sync-partial round at a bucketed width: train the selected
+        rows of the staged pools, quantize, and FedAvg in the program
+        with the host-normalized subset weights (zero for pad rows)."""
+        het = self._het
 
-    def run_wave(self, global_tr, sel, key, n_steps=None):
-        raise NotImplementedError(
-            "async waves are not ported yet (ROADMAP.md Queue A item 6)")
+        def round_fn(global_tr, sel, n_steps, idx, pool_staged, pool_labs,
+                     weights, frozen, class_emb):
+            delta, loss, acc = self._train_cohort(
+                global_tr, pool_staged, pool_labs, sel, idx,
+                n_steps if het else None, frozen, class_emb)
+            return server.aggregate_stacked(global_tr, weights, delta), \
+                loss, acc
+
+        return round_fn
+
+    def _build_wave(self):
+        """Async wave: the same local training, stopped before
+        aggregation; returns the stacked quantized deltas for the
+        scheduler to buffer and commit later."""
+        het = self._het
+
+        def wave_fn(global_tr, sel, n_steps, idx, pool_staged, pool_labs,
+                    frozen, class_emb):
+            return self._train_cohort(
+                global_tr, pool_staged, pool_labs, sel, idx,
+                n_steps if het else None, frozen, class_emb)
+
+        return wave_fn
+
+    def _subset_inputs(self, sel, key: RoundKey, n_steps=None):
+        """Canonicalize a selection (sorted: a subset is a set, so K = N
+        is the identity) and its step counts, draw its batch indices at
+        the true width K, and pad the three cohort-axis inputs to the
+        width bucket B: pad rows gather client 0's pool at index 0 and
+        run one step (the drawn rows are untouched, so the sample stream
+        is exactly the unbucketed one). Returns (sel, K, B, device sel,
+        device n_steps, device idx)."""
+        sel = np.asarray(sel, np.int64)
+        order = np.argsort(sel, kind="stable")
+        sel = sel[order]
+        if len(sel) == 0 or len(np.unique(sel)) != len(sel) or \
+                sel.min() < 0 or sel.max() >= self.n_clients:
+            raise ValueError(f"invalid client subset {sel}")
+        if n_steps is None:
+            n_steps = self.cfg.local_steps * self.step_mult[sel]
+        else:
+            # the scheduler's step counts, reordered with the selection;
+            # a profile the staged program cannot honor fails loudly
+            n_steps = np.asarray(n_steps, np.int64)[order]
+            if n_steps.shape != sel.shape:
+                raise ValueError(
+                    f"n_steps shape {n_steps.shape} != sel {sel.shape}")
+            if n_steps.min() < 1 or n_steps.max() > self.max_steps:
+                raise ValueError(
+                    f"n_steps {n_steps} outside [1, {self.max_steps}] "
+                    "(engine staged with max step multiplier "
+                    f"{int(self.step_mult.max())})")
+            if not self._het and np.any(n_steps != self.cfg.local_steps):
+                raise ValueError(
+                    "engine was staged homogeneous (every client "
+                    "step_mult==1) but the scheduler requested "
+                    f"heterogeneous step counts {n_steps}; set "
+                    "Client.step_mult before building the engine")
+        K = len(sel)
+        B = runtime_lib.bucket_width(K, self.n_clients)
+        idx = self._sample_idx(key, self.lens[sel], self.max_steps)
+        dev = self.pool_labs.device
+        pad = lambda a, fill: torch.as_tensor(
+            np.concatenate([a, np.full(B - K, fill, np.int64)]), device=dev)
+        return (sel, K, B, pad(sel, 0), pad(n_steps, 1),
+                runtime_lib.pad_leading(idx, B))
+
+    def run_subset_round(self, global_tr, sel, key: RoundKey, n_steps=None):
+        """Sync-partial round over client positions ``sel`` (a set):
+        weights are the selected clients' sample counts renormalized over
+        the subset, zero for the pad rows of the width bucket.
+        ``n_steps`` optionally overrides the per-client step counts
+        (aligned with ``sel``). Returns (new global trainables, metrics:
+        loss/acc sliced to the true K on the device, uplink bytes K x the
+        per-client payload, the sorted ``sel``)."""
+        sel, K, B, sel_d, steps_d, idx = self._subset_inputs(sel, key,
+                                                             n_steps)
+        weights = np.zeros(B, np.float32)
+        weights[:K] = self.client_n[sel] / self.client_n[sel].sum()
+        server.check_weights(weights, B)
+        args = (global_tr, sel_d, steps_d, idx, self.pool_staged,
+                self.pool_labs,
+                torch.as_tensor(weights, device=self.pool_labs.device),
+                self.frozen, self.class_emb)
+        new_tr, loss, acc = self.runtime.run(
+            "subset_round", self._build_subset_round, args,
+            static_key=self._static_key)
+        return new_tr, {"loss": loss[:K], "acc": acc[:K],
+                        "uplink_bytes": K * self.per_client_uplink_bytes(
+                            global_tr), "sel": sel}
+
+    def run_wave(self, global_tr, sel, key: RoundKey, n_steps=None):
+        """Train client positions ``sel`` from ``global_tr`` without
+        committing: returns (stacked quantized delta tree, metrics). The
+        true clients occupy rows [0, K) of the width bucket (slice them
+        with :func:`slice_client_delta`); pad rows are never committed."""
+        sel, K, B, sel_d, steps_d, idx = self._subset_inputs(sel, key,
+                                                             n_steps)
+        args = (global_tr, sel_d, steps_d, idx, self.pool_staged,
+                self.pool_labs, self.frozen, self.class_emb)
+        delta, loss, acc = self.runtime.run(
+            "wave_round", self._build_wave, args,
+            static_key=self._static_key)
+        return delta, {"loss": loss[:K], "acc": acc[:K],
+                       "uplink_bytes": K * self.per_client_uplink_bytes(
+                           global_tr), "sel": sel}
 
     def run_round(self, global_tr, key: RoundKey):
         """Advance one full-cohort federated round. Returns
@@ -421,7 +617,9 @@ class CohortEngine:
         if self._het:
             raise ValueError(
                 "run_round is the homogeneous (unmasked) full-cohort "
-                f"program, but clients carry step_mult {self.step_mult}")
+                f"program, but clients carry step_mult {self.step_mult}"
+                " - use run_subset_round(sel=arange(n_clients)) so the "
+                "masked scan honors the heterogeneous step counts")
         uplink = self.uplink_bytes(global_tr)
         idx = self._sample_idx(key, self.lens, self.cfg.local_steps)
         args = (global_tr, idx, self.pool_staged, self.pool_labs,

@@ -6,7 +6,7 @@
 applied in the trainable (LoRA/adapter) basis: updates are deltas, so the
 new global trainables are w_global + Σ weighted deltas. The guards fail
 loudly where the JAX ones do. The hierarchical form (``tree_partials``,
-``aggregate_tree``) waits for ``ROADMAP.md`` Queue A item 6.
+``aggregate_tree``), the mesh's, waits for ``ROADMAP.md`` Queue A item 8.
 """
 from __future__ import annotations
 

@@ -10,28 +10,36 @@ loss/acc, uplink bytes and the footprint-based utilization proxy.
 
 Rounds run through one scheduler path (``Scheduler.step``) on the
 stacked cohort engine (``engine="cohort"``, the default) or the
-per-client sequential oracle; ``pipeline="pipelined"`` defers metric
-materialization to bulk flushes and gives bitwise the ``"barrier"``
-loop's History.
+per-client sequential oracle, under a participation policy
+(``participation``: every client, K of N a round, or buffered async), an
+availability trace (``trace``) and optional fault injection (``chaos``);
+``pipeline="pipelined"`` defers metric materialization to bulk flushes
+and gives bitwise the ``"barrier"`` loop's History.
 
-The JAX package draws five things with ``jax.random``: the CLIP init,
-the global trainables' init, the warm-up round's batch indices, each
-round's, and (for the ``tripleplay`` arm) each client's GAN draws. The
+The JAX package draws with ``jax.random``: the CLIP init, the global
+trainables' init, batch indices, client selections, async jitter, chaos
+faults and (for the ``tripleplay`` arm) each client's GAN draws. The
 port takes them as :class:`Streams` (``streams=``), so a test can inject
 the JAX package's draws; with ``streams=None``, :func:`seeded_streams`
-draws them with ``torch.Generator``s seeded from the run's seed.
+draws them with ``torch.Generator``s seeded from the run's seed. Every
+draw but the inits and the GAN's is keyed by a ``cohort.RoundKey``
+path, the ``fold_in`` tags from the run's root key ``PRNGKey(seed)``:
+the warm-up key ``(4,)``, round r's ``(3, r)``, the chaos key ``(5,)``.
 
 The ``tripleplay`` arm trains every eligible client's conditional GAN
 before the rounds: by default on the fleet engine (``fl.fleetgan``,
 all clients stacked; with the cohort engine the job is launched before
 the pools are staged and resolved into them), or with
 ``gan_engine="sequential"`` one ``Client.prepare_gan`` at a time, its
-oracle. Partial and async participation, other traces, chaos and
-``serve_store`` raise until their ``ROADMAP.md`` items (Queue A items 6
-and 7).
+oracle. Under chaos the clients drawn by
+``ChaosSchedule.gan_dropouts`` drop between the GAN's launch and its
+resolve: the fleet job discards their rows (``mark_dropped``) and the
+sequential GAN engine skips their ``prepare_gan``. ``serve_store`` raises
+until ``ROADMAP.md`` Queue A item 7.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import time
 from dataclasses import dataclass, field
@@ -73,12 +81,14 @@ class FLConfig:
     eval_every: int = 1
     engine: str = "cohort"        # "cohort" | "sequential"
     gan_engine: str = "fleet"     # "fleet" | "sequential" (the oracle)
-    participation: str = "full"   # "full" (ported) | "sync-partial" | "async"
-    clients_per_round: int = 0
-    staleness_beta: float = 0.5
-    async_concurrency: int = 0
-    trace: Any = None             # None | "uniform" (ported)
-    chaos: Any = None             # None (ported)
+    participation: str = "full"   # "full" | "sync-partial" | "async"
+    clients_per_round: int = 0    # K (sync-partial) / buffer M (async);
+                                  # 0 = all active clients
+    staleness_beta: float = 0.5   # async: w_i ∝ m_i (1+τ_i)^(-β)
+    async_concurrency: int = 0    # async: clients in flight; 0 = 2K
+    trace: Any = None             # None|"uniform"|"skewed"|"skewed-het"|
+                                  # "diurnal"|path.json|AvailabilityTrace
+    chaos: Any = None             # None | "light" | "heavy" | ChaosConfig
     # LRU bound on the run's program runtime (0 = unbounded); only used
     # when no runtime= is passed in
     runtime_cache_entries: int = 0
@@ -113,14 +123,21 @@ class History:
 @dataclass(frozen=True)
 class Streams:
     """The run's random draws: ``clip_init`` and ``trainable_init`` are
-    numpy trees (the backbone before pretraining, the global trainables),
-    ``batch_indices(rnd, lens, steps, batch) -> (C, steps, batch)`` draws
-    the batch indices of round ``rnd`` (-1: the warm-up round), and
-    ``gan(i)`` is the ``core.gan.GANStream`` of the i-th client (after
-    empty shards are dropped), which a GAN arm needs."""
+    numpy trees (the backbone before pretraining, the global trainables);
+    the keyed draws take the key's ``RoundKey.path`` first:
+    ``batch_indices(path, lens, steps, batch) -> (C, steps, batch)``,
+    ``choice(path, n, k, p) -> (k,)`` distinct positions drawn without
+    replacement with probabilities ``p``, and ``uniform(path, n)`` /
+    ``normal(path, n) -> (n,)`` float32 vectors; ``gan(i)`` is the
+    ``core.gan.GANStream`` of the i-th client (after empty shards are
+    dropped), which a GAN arm needs. A ``Streams`` is the ``draws`` of
+    the run's ``RoundKey``s."""
     clip_init: Any
     trainable_init: Any
     batch_indices: Callable
+    choice: Callable
+    uniform: Callable
+    normal: Callable
     gan: Callable = None
 
 
@@ -131,8 +148,8 @@ def _seed(*words: int) -> int:
 def seeded_streams(cfg: FLConfig, ccfg=None) -> Streams:
     """Standalone draws from ``torch.Generator``s: the CLIP init from seed
     1234 (as the JAX package's ``init_clip(PRNGKey(1234))``), the
-    trainables from (cfg.seed, 2), batch indices from
-    ``cohort.seeded_index_stream(cfg.seed)``, client i's GAN draws from
+    trainables from (cfg.seed, 2), the keyed draws from
+    ``cohort.SeededDraws(cfg.seed)``, client i's GAN draws from
     (cfg.seed, ``GAN_RNG_OFFSET`` + i)."""
     ccfg = ccfg or clip_lib.CLIPConfig()
     clip_init = clip_lib.init_clip(torch.Generator().manual_seed(1234),
@@ -140,9 +157,10 @@ def seeded_streams(cfg: FLConfig, ccfg=None) -> Streams:
     tr_init = client_lib.init_trainable(
         torch.Generator().manual_seed(_seed(cfg.seed, 2)), ccfg,
         STRATEGIES[cfg.strategy], device="cpu")
+    draws = cohort_lib.SeededDraws(cfg.seed)
     return Streams(convert.tree_to_numpy(clip_init),
-                   convert.tree_to_numpy(tr_init),
-                   cohort_lib.seeded_index_stream(cfg.seed),
+                   convert.tree_to_numpy(tr_init), draws.batch_indices,
+                   draws.choice, draws.uniform, draws.normal,
                    lambda i: gan_lib.SeededGANStream(
                        (cfg.seed, strategies_lib.GAN_RNG_OFFSET + i)))
 
@@ -299,14 +317,10 @@ def run_federated(cfg: FLConfig, *, runtime=None, serve_store=None,
         raise NotImplementedError(
             "serve_store: the port's AdapterStore has no "
             "refresh_from_global yet (ROADMAP.md Queue A item 7)")
-    if cfg.participation != "full":
-        if cfg.participation in ("sync-partial", "async"):
-            raise NotImplementedError(
-                f"participation={cfg.participation!r} (ROADMAP.md Queue A "
-                "item 6)")
+    if cfg.participation not in ("full", "sync-partial", "async"):
         raise ValueError(
             f"unknown participation policy {cfg.participation!r}")
-    sched_lib.resolve_chaos(cfg.chaos)        # None, or it raises
+    chaos_cfg = sched_lib.resolve_chaos(cfg.chaos)
     dev = resolve_device(device)
     streams = streams if streams is not None else seeded_streams(cfg)
     if strat.use_gan and streams.gan is None:
@@ -330,6 +344,21 @@ def run_federated(cfg: FLConfig, *, runtime=None, serve_store=None,
     trace = sched_lib.resolve_trace(cfg.trace, len(clients), seed=cfg.seed)
     for i, c in enumerate(clients):
         c.step_mult = int(trace.step_mult[i])
+    # one deterministic fault schedule a run, on its own key path,
+    # shared by the scheduler and both executors
+    chaos_sched = gan_drop = None
+    if chaos_cfg is not None:
+        chaos_sched = sched_lib.ChaosSchedule(
+            chaos_cfg, cohort_lib.RoundKey(streams, (5,)), trace)
+        if strat.use_gan:
+            # clients lost between GAN launch and resolve: drawn once,
+            # whichever GAN engine runs
+            gan_drop = chaos_sched.gan_dropouts()
+            chaos_sched.ledger.gan_dropped += int(sum(
+                1 for i, c in enumerate(clients)
+                if gan_drop[i] and c.n >= strategies_lib.GAN_MIN_POOL))
+    gan_drop_pos = np.zeros((0,), np.int64) if gan_drop is None else \
+        np.where(gan_drop)[0]
 
     rt = runtime if runtime is not None else runtime_lib.ProgramRuntime(
         max_entries=cfg.runtime_cache_entries)
@@ -362,13 +391,15 @@ def run_federated(cfg: FLConfig, *, runtime=None, serve_store=None,
             gan_job = fleetgan.launch_gan_fleet(
                 clients, gan_streams, steps=cfg.gan_steps, runtime=rt,
                 device=dev)
+            gan_job.mark_dropped(gan_drop_pos)
             if cfg.engine != "cohort":
                 gan_rep = gan_job.resolve()
                 gan_job = None
         else:
             t0, n_el = time.time(), 0
-            for c, stream in zip(clients, gan_streams):
-                if c.n >= strategies_lib.GAN_MIN_POOL:
+            dropped = set(int(p) for p in gan_drop_pos)
+            for i, (c, stream) in enumerate(zip(clients, gan_streams)):
+                if c.n >= strategies_lib.GAN_MIN_POOL and i not in dropped:
                     c.prepare_gan(stream, steps=cfg.gan_steps, device=dev)
                     n_el += 1
             gan_meta = {"gan_engine": "sequential", "gan_eligible": n_el,
@@ -380,7 +411,10 @@ def run_federated(cfg: FLConfig, *, runtime=None, serve_store=None,
             frozen=frozen, ccfg=ccfg, class_emb=class_emb, clients=clients,
             cfg=cohort_lib.CohortConfig(
                 strategy=strat, local_steps=cfg.local_steps,
-                batch_size=cfg.batch_size, lr=cfg.lr),
+                batch_size=cfg.batch_size, lr=cfg.lr,
+                # chaos cut-step profiles are heterogeneous even on a
+                # homogeneous trace: build the masked programs
+                force_het=chaos_sched is not None),
             runtime=rt, gan_job=gan_job)
         executor = sched_lib.CohortExec(engine)
         if gan_job is not None:
@@ -421,13 +455,18 @@ def run_federated(cfg: FLConfig, *, runtime=None, serve_store=None,
         **gan_meta,
     })
 
+    # clamp K to the clients that survived partitioning (meta records
+    # the effective K); 'full' sees the raw value, so a contradictory
+    # clients_per_round still fails loudly
+    k_eff = cfg.clients_per_round
+    if cfg.participation != "full" and k_eff:
+        k_eff = min(k_eff, len(clients))
     sched = sched_lib.make_scheduler(
         cfg.participation, executor=executor, trace=trace,
-        local_steps=cfg.local_steps,
-        clients_per_round=cfg.clients_per_round,
+        local_steps=cfg.local_steps, clients_per_round=k_eff,
         staleness_beta=cfg.staleness_beta,
         concurrency=cfg.async_concurrency,
-        client_n=[c.n for c in clients], chaos=None)
+        client_n=[c.n for c in clients], chaos=chaos_sched)
     hist.meta.update({
         "participation": sched.name,
         "clients_per_round": sched.k,
@@ -438,7 +477,7 @@ def run_federated(cfg: FLConfig, *, runtime=None, serve_store=None,
 
     # run every program the policy dispatches once before the clock
     # starts, so round_time_s is steady-state
-    sched.warmup(global_tr, cohort_lib.RoundKey(streams.batch_indices, -1))
+    sched.warmup(global_tr, cohort_lib.RoundKey(streams, (4,)))
 
     def _compile_meta():
         _, gan_t = rt.subtotal("gan_")
@@ -486,7 +525,7 @@ def run_federated(cfg: FLConfig, *, runtime=None, serve_store=None,
         hist.tail_acc.append(tail)
 
     ev_pack = _eval_pack(eval_set, device=dev)
-    round_keys = [(r, cohort_lib.RoundKey(streams.batch_indices, r))
+    round_keys = [(r, cohort_lib.RoundKey(streams, (3, r)))
                   for r in range(cfg.rounds)]
     prepared = sched.prepare_rounds(round_keys) if pipelined else 0
 
@@ -543,4 +582,24 @@ def run_federated(cfg: FLConfig, *, runtime=None, serve_store=None,
     hist.meta["prepared_rounds"] = int(prepared)
     _compile_meta()
     hist.meta["n_cache_evictions"] = int(rt.n_evictions)
+    if chaos_sched is not None:
+        hist.meta["chaos"] = dataclasses.asdict(chaos_cfg)
+        hist.meta["fault_ledger"] = chaos_sched.ledger.as_dict()
+        # per-class fairness over the run: participation share against
+        # population share, mean staleness, mean client accuracy
+        tot = np.asarray(hist.class_counts, np.float64).sum(0)
+        report = []
+        for d in range(n_dc):
+            s_col = [s[d] for s, c in
+                     zip(hist.class_staleness, hist.class_counts) if c[d]]
+            a_col = [a[d] for a, c in
+                     zip(hist.class_acc, hist.class_counts) if c[d]]
+            report.append({
+                "device_class": d,
+                "population_share": float((dclass == d).mean()),
+                "participation_share": float(tot[d] / max(tot.sum(), 1.0)),
+                "mean_staleness": float(np.mean(s_col)) if s_col else 0.0,
+                "mean_client_acc": float(np.mean(a_col)) if a_col
+                else 0.0})
+        hist.meta["device_class_report"] = report
     return hist

@@ -577,7 +577,7 @@ def test_cuda_cohort_round_matches_sequential(cuda_device, arm):
         frozen=frozen, ccfg=ccfg, class_emb=class_emb, clients=clients,
         cfg=cohort_lib.CohortConfig(strategy=strat, local_steps=3,
                                     batch_size=8, lr=3e-3))
-    key = cohort_lib.RoundKey(streams.batch_indices, 0)
+    key = cohort_lib.RoundKey(streams, (3, 0))
     ops.reset_kernel_traces()
     new, m = engine.run_round(g0, key)
     assert ops.KERNEL_TRACES.get("flash_attention_cuda") == 3
@@ -664,3 +664,95 @@ def test_cuda_fleet_gan_matches_cpu(cuda_device):
                                        atol=2e-3, rtol=0)
         np.testing.assert_allclose(a.aug_images, b.aug_images, atol=5e-3,
                                    rtol=0)
+
+
+# the scheduler layer at tests/test_torch_sched_run.py's simulator size
+SCHED_SMALL = dict(FL_SMALL, n_clients=4, rounds=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm,policy", [
+    ("fedclip", dict(participation="sync-partial", clients_per_round=2,
+                     trace="skewed")),
+    ("fedclip", dict(participation="async", clients_per_round=1,
+                     async_concurrency=2, trace="diurnal", chaos="heavy")),
+    ("tripleplay", dict(participation="sync-partial", clients_per_round=3,
+                        trace="diurnal", chaos="heavy"))])
+def test_cuda_run_federated_sched_matches_cpu(cuda_device, arm, policy):
+    """``run_federated`` under a partial or async policy, a trace and
+    chaos, on the card against the CPU on the same streams: the draws'
+    columns (participation, staleness, virtual time, class counts,
+    bytes, fault ledger) equal, every commit's attention through the
+    kernel; the card against its own sequential engine at the oracle
+    tolerances (loss 1e-3 / 1e-4) on the first round."""
+    from repro_torch.fl import simulator as sim_lib
+    cfg = sim_lib.FLConfig(strategy=arm, **SCHED_SMALL, **policy)
+    streams = sim_lib.seeded_streams(cfg)
+    ops.reset_kernel_traces()
+    card = sim_lib.run_federated(cfg, device=cuda_device, streams=streams)
+    assert "flash_attention_ref" not in ops.KERNEL_TRACES
+    assert ops.KERNEL_TRACES.get("flash_attention_cuda", 0) >= \
+        cfg.rounds * cfg.local_steps
+    cpu = sim_lib.run_federated(cfg, device="cpu", streams=streams)
+    seq = sim_lib.run_federated(
+        sim_lib.FLConfig(strategy=arm, engine="sequential", **SCHED_SMALL,
+                         **policy), device=cuda_device, streams=streams)
+    for f in ("participation", "staleness", "vtime", "class_counts",
+              "uplink_bytes"):
+        assert getattr(card, f) == getattr(cpu, f) == getattr(seq, f), f
+    assert card.meta.get("fault_ledger") == cpu.meta.get("fault_ledger") \
+        == seq.meta.get("fault_ledger")
+    assert all(np.isfinite(v).all() for v in card.client_loss)
+    np.testing.assert_allclose(card.client_loss[0], seq.client_loss[0],
+                               atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_subset_round_at_k_eq_n_is_the_full_round(cuda_device):
+    """Sync-partial at K = N on a uniform trace is bitwise the full round
+    on the card (the same batches, the identity gather, the same
+    kernels); a bucketed K = 1 round's pad rows carry zero weight."""
+    from repro_torch import convert
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import clip as clip_lib
+    from repro_torch.data.synthetic import class_tokens, make_dataset
+    from repro_torch.fl import client as client_lib
+    from repro_torch.fl import cohort as cohort_lib
+    from repro_torch.fl import partition
+    from repro_torch.fl import sched as sched_lib
+    from repro_torch.fl import simulator as sim_lib
+    from repro_torch.fl.strategies import STRATEGIES
+    cfg = sim_lib.FLConfig(strategy="qlora_nogan", **FL_SMALL)
+    streams = sim_lib.seeded_streams(cfg)
+    strat, ccfg = STRATEGIES["qlora_nogan"], clip_lib.CLIPConfig()
+    frozen = convert.tree_from_numpy(streams.clip_init, cuda_device)
+    data = make_dataset("pacs", n_per_class=12, seed=0)
+    parts = partition.dirichlet_partition(data["labels"], 3, 0.5)
+    clients = [client_lib.Client(cid=i, images=data["images"][p],
+                                 labels=data["labels"][p], n_classes=7,
+                                 strategy=strat) for i, p in enumerate(parts)]
+    toks = torch.as_tensor(class_tokens(data["spec"], np.arange(7)),
+                           dtype=torch.long, device=cuda_device)
+    with torch.no_grad():
+        class_emb = clip_lib.text_embedding(frozen, ccfg, toks)
+    g0 = convert.tree_from_numpy(streams.trainable_init, cuda_device)
+    engine = cohort_lib.CohortEngine(
+        frozen=frozen, ccfg=ccfg, class_emb=class_emb, clients=clients,
+        cfg=cohort_lib.CohortConfig(strategy=strat, local_steps=3,
+                                    batch_size=8, lr=3e-3))
+    key = cohort_lib.RoundKey(streams, (3, 0))
+    full, mf = engine.run_round(g0, key)
+    part, mp = sched_lib.SyncPartialScheduler(
+        executor=sched_lib.CohortExec(engine),
+        trace=sched_lib.uniform_trace(3), local_steps=3,
+        clients_per_round=3).step(g0, 0, key)
+    for a, b in zip(tree_lib.leaves(full), tree_lib.leaves(part)):
+        assert torch.equal(a, b)
+    assert torch.equal(mf["loss"], mp["loss"])
+    one, m1 = engine.run_subset_round(g0, [1], key)
+    delta, _ = engine.run_wave(g0, [1], key)
+    ref = sched_lib.CohortExec(engine).commit_buffer(
+        g0, np.ones(1, np.float32), [cohort_lib.slice_client_delta(delta, 0)])
+    for a, b in zip(tree_lib.leaves(one), tree_lib.leaves(ref)):
+        assert torch.equal(a, b)
+    assert m1["loss"].shape == (1,)

@@ -8,6 +8,8 @@ payloads bitwise; single fp32 ops ≤ 1e-5; training (local steps, a whole
 round) at ``tests/test_fl.py``'s oracle tolerances: leaves atol 5e-4,
 loss atol 1e-3 / rtol 1e-4, accuracy 1e-5, bytes equal. Within the port
 the masked ``adam_scan`` cut at s is bitwise s steps."""
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +27,7 @@ from repro.fl import cohort as jcohort
 from repro.fl import partition as jpartition
 from repro.fl import server as jserver
 from repro.fl.strategies import STRATEGIES as JSTRATEGIES
+from _jax_sched_stream import JaxDraws
 from repro_torch import convert
 from repro_torch import tree as tree_lib
 from repro_torch.core import adapter as tadapter
@@ -420,11 +423,6 @@ def _setup(arm):
         "key": jax.random.PRNGKey(42)}
 
 
-def _jax_draw(key):
-    return lambda rnd, lens, steps, batch: jcohort.round_indices(
-        key, lens, steps, batch)
-
-
 @pytest.fixture(scope="module", params=ARMS)
 def fl(request):
     """One round of the JAX engine and its sequential oracle, and the
@@ -445,7 +443,7 @@ def fl(request):
         clients=s["clients_t"], cfg=tcohort.CohortConfig(
             strategy=s["strat_t"], local_steps=STEPS, batch_size=BATCH,
             lr=LR))
-    key_t = tcohort.RoundKey(_jax_draw(s["key"]), 0)
+    key_t = tcohort.RoundKey(JaxDraws(s["key"]))
     new_t, m_t = eng_t.run_round(s["global_t"], key_t)
     seq_t = [c.local_train(s["frozen_t"], s["global_t"], s["class_emb_t"],
                            CFG_T, steps=STEPS, batch_size=BATCH, lr=LR,
@@ -461,9 +459,12 @@ def fl(request):
 def test_round_indices_are_the_injected_draw(fl):
     got = tcohort.round_indices(fl["key_t"], fl["eng_t"].lens, STEPS, BATCH)
     np.testing.assert_array_equal(got, fl["idx"])
-    bad = tcohort.RoundKey(lambda *a: fl["idx"] + 10_000, 0)
+    bad = tcohort.RoundKey(SimpleNamespace(
+        batch_indices=lambda *a: fl["idx"] + 10_000))
     with pytest.raises(ValueError):
         tcohort.round_indices(bad, fl["eng_t"].lens, STEPS, BATCH)
+    with pytest.raises(ValueError, match="cannot serve a choice"):
+        bad.choice(3, 2, [0.5, 0.25, 0.25])
 
 
 def test_client_local_train_and_update_match_jax(fl):
@@ -587,10 +588,15 @@ def test_adapter_apply_stacked_is_per_client_apply(fl):
 
 
 def test_unported_engine_paths_raise(fl):
-    with pytest.raises(NotImplementedError):
-        fl["eng_t"].run_subset_round(fl["global_t"], [0, 1], fl["key_t"])
-    with pytest.raises(NotImplementedError):
-        fl["eng_t"].run_wave(fl["global_t"], [0], fl["key_t"])
+    """What the engine still refuses: a mesh (Queue A item 8) and the
+    int8 GAN gemms (Queue B item 9); and, as the JAX engine does, a
+    malformed subset or a step profile it was not staged for."""
+    for sel in ([0, 0], [3], []):
+        with pytest.raises(ValueError, match="invalid client subset"):
+            fl["eng_t"].run_subset_round(fl["global_t"], sel, fl["key_t"])
+    with pytest.raises(ValueError, match="staged homogeneous"):
+        fl["eng_t"].run_wave(fl["global_t"], [0, 1], fl["key_t"],
+                             n_steps=[STEPS, STEPS - 1])
     with pytest.raises(NotImplementedError):
         tcohort.CohortConfig(strategy=fl["strat_t"], local_steps=1,
                              batch_size=2, lr=1e-3, mesh=object())

@@ -23,8 +23,9 @@ The ``tripleplay`` arm (4 GAN steps), its GAN draws injected too
 engine's 2e-3, not bitwise, so the synthetic rows differ slightly), the
 ``gan_*`` counts equal. Within the port: pipelined == barrier bitwise,
 cohort == sequential at ``tests/test_fl.py``'s oracle tolerances, the
-fleet GAN engine == the sequential one within ``GAN_LOSS_TOL``,
-unported options raise."""
+fleet GAN engine == the sequential one within ``GAN_LOSS_TOL``, the
+scheduler options that once raised now run (a malformed value raises);
+the JAX draws come from ``tests/_jax_sched_stream.py``."""
 import dataclasses
 
 import numpy as np
@@ -33,13 +34,9 @@ import torch
 
 import jax
 
-from _jax_gan_stream import JaxGANStream
+from _jax_sched_stream import jax_streams, on_jax_backbone
 from repro.core import clip as jclip
-from repro.fl import client as jclient
-from repro.fl import cohort as jcohort
 from repro.fl import simulator as jsim
-from repro.fl.strategies import GAN_RNG_OFFSET
-from repro.fl.strategies import STRATEGIES as JSTRATEGIES
 from repro_torch import convert
 from repro_torch import tree as tree_lib
 from repro_torch.core import clip as tclip
@@ -68,26 +65,6 @@ EXACT_META = ("strategy", "dataset", "n_clients", "n_clients_active",
 GAN_META = ("gan_engine", "gan_eligible", "gan_synth", "gan_groups")
 
 
-def jax_streams(cfg):
-    """The JAX package's draws for ``cfg``, as port ``Streams``."""
-    rng = jax.random.PRNGKey(cfg.seed)
-    ccfg = jclip.CLIPConfig()
-
-    def draw(rnd, lens, steps, batch):
-        key = jax.random.fold_in(rng, 4) if rnd < 0 else \
-            jax.random.fold_in(jax.random.fold_in(rng, 3), rnd)
-        return jcohort.round_indices(key, lens, steps, batch)
-
-    return tsim.Streams(
-        clip_init=jax.tree.map(np.asarray, jclip.init_clip(
-            jax.random.PRNGKey(1234), ccfg)),
-        trainable_init=jax.tree.map(np.asarray, jclient.init_trainable(
-            jax.random.fold_in(rng, 2), ccfg, JSTRATEGIES[cfg.strategy])),
-        batch_indices=draw,
-        gan=lambda i: JaxGANStream(jax.random.fold_in(
-            rng, GAN_RNG_OFFSET + i)))
-
-
 def _run_port(arm, streams=None, **kw):
     cfg = tsim.FLConfig(strategy=arm, **{**SMALL, **kw})
     return tsim.run_federated(cfg, device="cpu", streams=streams)
@@ -105,23 +82,8 @@ def pair(request):
 
 def _on_jax_backbone(arm):
     """The JAX package's run and the port's on the JAX package's
-    pretrained backbone (placed in the port's cache under the key its
-    run looks up): what is left is the rounds themselves."""
-    jcfg = jsim.FLConfig(strategy=arm, **SMALL)
-    want = jsim.run_federated(jcfg)
-    streams = jax_streams(jcfg)
-    key = tsim.clip_cache_key("pacs", tclip.CLIPConfig(),
-                              init=streams.clip_init, device="cpu")
-    own = tsim._CLIP_CACHE.get(key)
-    tsim._CLIP_CACHE[key] = convert.tree_from_numpy(
-        jsim.pretrained_clip("pacs", jclip.CLIPConfig()), "cpu")
-    try:
-        got = _run_port(arm, streams)
-    finally:
-        if own is None:
-            del tsim._CLIP_CACHE[key]
-        else:
-            tsim._CLIP_CACHE[key] = own
+    pretrained backbone: what is left is the rounds themselves."""
+    want, got = on_jax_backbone(strategy=arm, **SMALL)
     return {"arm": arm, "want": want, "got": got}
 
 
@@ -297,13 +259,28 @@ def test_metrics_flush_every_counts_its_syncs():
 
 
 @pytest.mark.parametrize("change", [
-    {"strategy": "tripleplay", "chaos": "light"},
-    {"participation": "sync-partial"},
-    {"participation": "async"}, {"trace": "skewed"}, {"chaos": "light"}])
+    ({"strategy": "tripleplay", "chaos": "light"}, {"chaos": "lite"}),
+    ({"participation": "sync-partial", "clients_per_round": 2},
+     {"clients_per_round": -1}),
+    ({"participation": "async", "clients_per_round": 1},
+     {"async_concurrency": 1, "clients_per_round": 2}),
+    ({"trace": "skewed"}, {"trace": "zipf"}),
+    ({"chaos": "light"}, {"chaos": 0.1})])
 def test_unported_options_raise(change):
+    """The options that raised until the scheduler layer was ported (the
+    participation policies, traces and chaos) now run, and a malformed
+    value of each (the pair's second half) raises ``ValueError`` before
+    any round runs."""
+    change, bad = change
     cfg = tsim.FLConfig(**{**SMALL, "strategy": "fedclip", **change})
-    with pytest.raises(NotImplementedError):
-        tsim.run_federated(cfg, device="cpu")
+    h = tsim.run_federated(cfg, device="cpu")
+    assert len(h.client_loss) == len(h.vtime) == SMALL["rounds"]
+    assert h.meta["participation"] == {
+        "sync-partial": "sync-partial", "async": "async"}.get(
+            change.get("participation"), "full-sync")
+    assert ("fault_ledger" in h.meta) == ("chaos" in change)
+    with pytest.raises(ValueError):
+        tsim.run_federated(dataclasses.replace(cfg, **bad), device="cpu")
 
 
 def test_bad_options_and_serve_store_raise():
@@ -364,10 +341,16 @@ def test_seeded_streams_are_deterministic():
                                   tree_lib.flatten_with_path(y)):
             np.testing.assert_array_equal(l, m, err_msg=str(p))
     lens = np.asarray([5, 9, 3], np.int32)
-    i0 = a.batch_indices(0, lens, 3, 8)
-    np.testing.assert_array_equal(i0, b.batch_indices(0, lens, 3, 8))
+    i0 = a.batch_indices((3, 0), lens, 3, 8)
+    np.testing.assert_array_equal(i0, b.batch_indices((3, 0), lens, 3, 8))
     assert i0.shape == (3, 3, 8) and (i0.max(axis=(1, 2)) < lens).all()
-    assert not np.array_equal(i0, a.batch_indices(1, lens, 3, 8))
+    assert not np.array_equal(i0, a.batch_indices((3, 1), lens, 3, 8))
+    p = np.asarray([0.1, 0.2, 0.3, 0.4])
+    for kind, args in (("choice", (4, 2, p)), ("uniform", (5,)),
+                       ("normal", (5,))):
+        x = getattr(a, kind)((3, 0, 101), *args)
+        np.testing.assert_array_equal(x, getattr(b, kind)((3, 0, 101), *args))
+        assert not np.array_equal(x, getattr(a, kind)((3, 1, 101), *args))
     assert "lora" in convert.tree_from_numpy(a.trainable_init, "cpu")
     gcfg = tgan.GANConfig()
     for x, y in zip(a.gan(1).train(gcfg, 9, 2, 9), b.gan(1).train(gcfg, 9, 2,
