@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one NVIDIA H100: the serving
-plane, the federated QLoRA trainer on Yi-9B and on Falcon-Mamba-7B, and
-the paper's federated CLIP round (``run_federated``), its GAN included.
+plane, the federated QLoRA trainer on Yi-9B and on Falcon-Mamba-7B, the
+paper's federated CLIP round (``run_federated``), its GAN included, and
+the trainer-to-store handoff that feeds the serving plane.
 
     python3 chip_smoke.py
 
@@ -81,7 +82,30 @@ Phases (a failed phase raises and the script exits non-zero):
     sync-partial round at K = 3 (bucket 4, one pad row) and an async
     commit (buffer 2, concurrency 4), cohort against sequential, then
     each profiled with the peak device memory. Launch counts are zeroed
-    before each run of (a) and (b) and before (c), and read right after.
+    before each run of (a) and (b) and before (c), and read right after;
+11. the trainer-to-store handoff: (a) ``demo_plane(8, max_entries=6)``
+    at ``CLIPConfig()``, then ``run_federated`` (fedclip, sync-partial
+    K = 2, the paper preset's round settings, 3 rounds) pipelined and
+    barrier with a store over the plane's users (six resident, int8)
+    and without: the Histories equal, 16 refreshes, the refreshed rows
+    bitwise a cold store's fetch, both modes' backings bitwise equal; a
+    Zipf trace of 48 requests replayed against the refreshed store and
+    held to ``serve_sequential`` at the int8 bound (5e-2); (b) at CLIP
+    ViT-B/32 width on phase 9's clients, the backing from
+    ``personalized_trainables`` of a ``qlora_nogan`` wave, a store of 4
+    (evictions), ``refresh_from_global`` before and after one
+    ``FullSyncScheduler`` round (timed; its ``blockwise_quant``
+    launches), a replay held to the oracle (its ``quant_matmul``
+    launches; no plain route in either), the refresh again and the
+    replay profiled; (c) ``repro_torch.launch.serve.main(["--adapters",
+    "8", "--requests", "48"])``; (d) the synchronizing calls inside the
+    round loop of a fault-free sync-partial run, by site, beside
+    ``SYNC_TRACES`` (``scripts/torch_loop_syncs.py``): none outside a
+    counted wait. Launch counts are zeroed before each run and replay.
+    The GAN phase (before phase 8) also runs the six convolutions
+    through the int8 gemms against the fp32 gemm forms, timed, with the
+    block products bitwise an int64 product on the CPU, and the int8
+    fleet GAN at 10 steps card against CPU.
 Phase 2 also holds ``selective_scan`` and its backward kernel
 ``selective_scan_bwd`` at the trainer's shape and at edge shapes (the
 backward against the plain ``ops.selective_scan_bwd``, bitwise equal
@@ -113,6 +137,7 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import importlib.util
 import json
 import re
 import subprocess
@@ -211,6 +236,10 @@ FL_ARMS = ("fedclip", "qlora_nogan", "tripleplay")
 # the CPU: tests/test_fleetgan.py's bounds on the generator's leaves and
 # the synthesized images, at GAN_CHECK_STEPS
 GAN_BOUNDS = dict(gen_atol=2e-3, img_atol=5e-3)
+# the int8 GAN's images, card against CPU: the JAX package's int8 bound
+# (tests/test_kernels.py holds each int8 conv within 3e-2 of the fp32
+# one's largest value; images lie in [-1, 1]), see gan_int8_phase
+INT8_GAN_IMG_ATOL = 3e-2
 GAN_CHECK_STEPS = 10
 # the GAN's six convolutions at GANConfig() and its minibatch of 64:
 # (op, batch, input side, ci, co), discriminator then generator
@@ -1695,6 +1724,100 @@ def check_gan_convs(gen) -> list:
     return rows
 
 
+def check_gan_convs_int8(gen) -> list:
+    """The GAN's convolutions (``GAN_CONVS``, 5 clients) through the int8
+    gemms (``conv_impl="gemm_int8"``) against the fp32 gemm forms, TF32
+    off: output and gradients within the reference's int8 bound (3e-2 of
+    the largest value, ``tests/test_kernels.py``), each timed; the block
+    products of every int8 gemm on the card bitwise the int64 product of
+    the same codes on the CPU."""
+    clients = 5
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 must be off for the GAN's parity")
+    fns = {"conv": (gan_conv.conv4x4_s2_int8, gan_conv.conv4x4_s2),
+           "convT": (gan_conv.convT4x4_s2_int8, gan_conv.convT4x4_s2)}
+    products = []
+    block_products = gan_conv.block_products
+
+    def recorded(qx, qw):
+        p = block_products(qx, qw)
+        products.append((qx, qw, p))
+        return p
+
+    rows = []
+    for op, b, hw, ci, co in GAN_CONVS:
+        out_hw = hw // 2 if op == "conv" else hw * 2
+        x = torch.randn((clients, b, hw, hw, ci), generator=gen,
+                        device="cuda")
+        w = torch.randn((clients, 4, 4, ci, co), generator=gen,
+                        device="cuda") * 0.05
+        ct = torch.randn((clients, b, out_hw, out_hw, co), generator=gen,
+                         device="cuda")
+
+        def run(fn):
+            xt, wt = (t.detach().requires_grad_(True) for t in (x, w))
+            out = fn(xt, wt)
+            gx, gw = torch.autograd.grad(out, (xt, wt), ct)
+            return out.detach(), gx, gw
+
+        products.clear()
+        gan_conv.block_products = recorded
+        try:
+            got = run(fns[op][0])
+        finally:
+            gan_conv.block_products = block_products
+        want = run(fns[op][1])
+        torch.cuda.synchronize()
+        exact = all(torch.equal(p.cpu().long(), torch.matmul(
+            qx.cpu().transpose(-3, -2).long(),
+            qw.cpu().transpose(-3, -2).transpose(-1, -2).long()))
+            for qx, qw, p in products)
+        errs = [rel_err(g_, w_)[1] for g_, w_ in zip(got, want)]
+        row = {"case": f"int8 {op}_C{clients}x{b}x{hw}x{hw}x{ci}->{co}",
+               "rel_err_vs_fp32_out_dx_dw": [float(f"{e:.3g}") for e in errs],
+               "int8_gemms": len(products),
+               "block_products_exact": exact}
+        if not (exact and max(errs) < 3e-2 and all(
+                torch.isfinite(t).all() for t in got)):
+            raise AssertionError(f"GAN {row['case']}: {row}")
+        timed(row, "int8_ms", lambda: run(fns[op][0]))
+        timed(row, "gemm_ms", lambda: run(fns[op][1]))
+        report(row)
+        rows.append(row)
+    return rows
+
+
+def gan_int8_phase(device="cuda", *, check_steps=GAN_CHECK_STEPS,
+                   **settings) -> dict:
+    """The fleet GAN with ``conv_impl="gemm_int8"`` on phase 8's clients
+    at ``check_steps``, the card against the CPU, timed: labels bitwise,
+    the generator's leaves within ``GAN_BOUNDS``, the images within
+    ``INT8_GAN_IMG_ATOL``. The int8 gemms are bitwise on both devices
+    for equal inputs, but the fp32 reductions around them (the
+    discriminator's head, the losses) sum in another order on each, and
+    a code then moves by one step; over 10 steps that moved an image by
+    5.6e-3 on the card, past ``GAN_BOUNDS``' 5e-3 for the fp32 gemms."""
+    _, streams = gan_clients(**settings)
+    card, host = gan_clients(**settings)[0], gan_clients(**settings)[0]
+    _sync(device)
+    t0 = time.perf_counter()
+    rep = fleetgan.prepare_gan_fleet(card, streams, steps=check_steps,
+                                     conv_impl="gemm_int8", device=device)
+    _sync(device)
+    res = {"steps": check_steps, "card_s": time.perf_counter() - t0,
+           "n_synth": rep.n_synth}
+    t0 = time.perf_counter()
+    fleetgan.prepare_gan_fleet(host, streams, steps=check_steps,
+                               conv_impl="gemm_int8", device="cpu")
+    res["cpu_s"] = time.perf_counter() - t0
+    res["card_vs_cpu"] = d = gan_diffs(host, card)
+    d.pop("ok")
+    if not (d["gen_leaf_abs"] <= GAN_BOUNDS["gen_atol"] and
+            d["image_abs"] <= INT8_GAN_IMG_ATOL):
+        raise AssertionError(f"int8 GAN, card vs CPU: {res}")
+    return res
+
+
 def gan_phase(device="cuda", *, check_steps=GAN_CHECK_STEPS, steps=150,
               profile_steps=15, profile=True, **settings) -> dict:
     """The tripleplay arm's GAN prep on phase 8's clients at the
@@ -1774,6 +1897,10 @@ def gan_report() -> None:
     print("  the GAN's convolutions, lax (cuDNN) vs gemm (cuBLAS), "
           "forward + backward:", flush=True)
     check_gan_convs(torch.Generator(device="cuda").manual_seed(7))
+    print("  the GAN's convolutions through the int8 gemms (gemm_int8) vs "
+          "fp32 gemm, forward + backward:", flush=True)
+    check_gan_convs_int8(torch.Generator(device="cuda").manual_seed(8))
+    report({"gan_int8_fleet": "gemm_int8", **gan_int8_phase()})
     report({"gan_phase_s": time.perf_counter() - t0})
 
 
@@ -2436,6 +2563,316 @@ def vit_round_report() -> int:
     return res["launches"]["flash_attention"]
 
 
+# -- phase 11: the trainer-to-store handoff ----------------------------
+
+# a fault-free sync-partial run at the paper preset's round settings
+HANDOFF = dict(FL_PAPER, strategy="fedclip", participation="sync-partial",
+               clients_per_round=2)
+HANDOFF_USERS, HANDOFF_ENTRIES = 8, 6
+INT8_BOUND = 5e-2
+LOOP_SYNCS = Path(__file__).resolve().parent / "scripts" / \
+    "torch_loop_syncs.py"
+
+
+def same_history(a, b) -> bool:
+    """Two Histories equal in every field but the wall times and meta."""
+    return all(getattr(a, f.name) == getattr(b, f.name)
+               for f in dataclasses.fields(sim_lib.History)
+               if f.name not in ("round_time_s", "meta"))
+
+
+def slab_rows(store, uid) -> list:
+    """``uid``'s slab rows (fetched), payloads and scales apart."""
+    famk, slot = store.fetch(uid)
+    out = []
+    for l in tree_lib.leaves(serve_lib.take_rows(
+            store.family(famk)["slabs"],
+            torch.tensor([slot], device=store.device))):
+        out += [l.q, l.scales] if isinstance(l, qlib.QTensor) else [l]
+    return out
+
+
+def refetch_equal(store) -> bool:
+    """Every resident's slab rows bitwise a cold store's fetch of its
+    backing tree: a refresh is an evict-and-refetch."""
+    for uid in store.resident():
+        cold = serve_lib.AdapterStore({uid: store.backing[uid]},
+                                      max_entries=1,
+                                      quant_bits=store.quant_bits,
+                                      device=store.device)
+        if not all(torch.equal(a, b) for a, b in
+                   zip(slab_rows(store, uid), slab_rows(cold, uid))):
+            return False
+    return True
+
+
+def replay_vs_oracle(frozen, ccfg, class_emb, store, trace, images,
+                     device) -> dict:
+    """Replay ``trace`` through a ``ServeEngine`` over ``store`` (launch
+    counts zeroed just before, read right after) and hold the logits to
+    ``serve_sequential`` on the store's backing at the int8 bound."""
+    engine = serve_lib.ServeEngine(
+        frozen=frozen, ccfg=ccfg, class_emb=class_emb, store=store,
+        cfg=serve_lib.ServeConfig(max_batch=min(16, store.max_entries)))
+    ops.reset_launch_counts()
+    ops.reset_kernel_traces()
+    rec = serve_lib.replay(engine, trace, images)
+    launches, traces = ops.launch_counts(), dict(ops.KERNEL_TRACES)
+    reqs = [(int(u), im) for u, im in zip(trace.uid, images)]
+    oracle = serve_lib.serve_sequential(frozen, ccfg, class_emb,
+                                        store.backing, reqs, device=device)
+    err = float(np.max(np.abs(rec["logits"] - oracle)))
+    if not (np.isfinite(rec["logits"]).all() and err < INT8_BOUND):
+        raise AssertionError(f"replay after the refresh vs oracle: {err}")
+    return {"engine": engine, "rec": rec, "err_int8": err,
+            "launches": launches, "traces": traces}
+
+
+def kernels_ran(launches, traces, names) -> bool:
+    """Each kernel of ``names`` launched and no plain route taken."""
+    return all(launches[n] > 0 for n in names) and not any(
+        k.endswith("_ref") for k in traces)
+
+
+def handoff_phase(device="cuda", rounds=3, n_requests=48,
+                  **settings) -> dict:
+    """Phase 11 (a): ``demo_plane(8, max_entries=6)`` at ``CLIPConfig()``;
+    ``run_federated`` (fedclip, sync-partial K = 2, the paper preset's
+    round settings) in both loop modes with a store over the plane's
+    users (six resident, int8) and without one: the Histories equal,
+    ``serve_refreshes`` = (rounds - 1) x 8, the resident rows bitwise a
+    cold store's fetch, both modes' backings bitwise equal; then a Zipf
+    trace replayed against the refreshed store and held to
+    ``serve_sequential`` at the int8 bound."""
+    on_card = torch.device(device).type == "cuda"
+    plane = serve_lib.demo_plane(HANDOFF_USERS, max_entries=HANDOFF_ENTRIES,
+                                 device=device)
+    res, stores = {"runs": {}}, {}
+    for pipeline in ("pipelined", "barrier"):
+        cfg = sim_lib.FLConfig(pipeline=pipeline, rounds=rounds,
+                               **{**HANDOFF, **settings})
+        store = serve_lib.AdapterStore(
+            dict(plane["backing"]), max_entries=HANDOFF_ENTRIES,
+            quant_bits=8, device=device)
+        for uid in range(HANDOFF_ENTRIES):
+            store.fetch(uid)
+        bare = sim_lib.run_federated(cfg, device=device)
+        ops.reset_launch_counts()
+        ops.reset_kernel_traces()
+        _sync(device)
+        t0 = time.perf_counter()
+        h = sim_lib.run_federated(cfg, device=device, serve_store=store)
+        _sync(device)
+        run_s = time.perf_counter() - t0
+        launches, traces = ops.launch_counts(), dict(ops.KERNEL_TRACES)
+        row = {"run_s": run_s, "round_time_s": h.round_time_s,
+               "loop_wall_s": h.meta["loop_wall_s"],
+               "serve_refreshes": h.meta["serve_refreshes"],
+               "sync_counts": h.meta["sync_counts"],
+               "same_history_as_bare": same_history(h, bare),
+               "store": store.stats(),
+               "refresh_is_refetch": refetch_equal(store),
+               "launches": {k: launches[k] for k in SERVE_KERNELS}}
+        if not (row["same_history_as_bare"] and row["refresh_is_refetch"]
+                and row["serve_refreshes"] == (rounds - 1) * HANDOFF_USERS
+                and (not on_card or kernels_ran(
+                    launches, traces, ("blockwise_quant",
+                                       "flash_attention")))):
+            raise AssertionError(f"run_federated with a serve store, "
+                                 f"{pipeline}: {row} {traces}")
+        res["runs"][pipeline] = row
+        stores[pipeline] = store
+    for uid in range(HANDOFF_USERS):
+        for a, b in zip(tree_lib.leaves(stores["pipelined"].backing[uid]),
+                        tree_lib.leaves(stores["barrier"].backing[uid])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"user {uid}: the loop modes refreshed "
+                                     "the store differently")
+    trace = serve_lib.zipf_request_trace(HANDOFF_USERS, n_requests, seed=0,
+                                         rate=200.0, period=1.0,
+                                         amplitude=0.5)
+    images = serve_lib.request_images(plane, trace, seed=0)
+    rep = replay_vs_oracle(plane["frozen"], plane["ccfg"],
+                           plane["class_emb"], stores["pipelined"], trace,
+                           images, device)
+    # the serve head has no attention (at S = 1 Att(D) is V, exactly)
+    if on_card and not kernels_ran(rep["launches"], rep["traces"],
+                                   ("quant_matmul", "blockwise_quant")):
+        raise AssertionError(f"replay: {rep['launches']} {rep['traces']}")
+    res.update(err_int8=rep["err_int8"], replay_launches=rep["launches"],
+               flights=rep["rec"]["n_flights"],
+               replay_store=rep["rec"]["store"])
+    return res
+
+
+def vit_handoff_phase(device="cuda", ccfg=VIT_B32, *, steps=10, batch=32,
+                      n_clients=5, n_per_class=60, seed=0, max_entries=4,
+                      n_requests=48, profile=True) -> dict:
+    """Phase 11 (b): at ``ccfg``'s width (CLIP ViT-B/32) on phase 9's
+    clients, the backing is ``personalized_trainables`` of one
+    ``qlora_nogan`` wave (one family: ``refresh_from_global`` rebases
+    every user by one global tree); a store of ``max_entries`` (int8,
+    evictions) warmed by a replay; ``refresh_from_global`` before and
+    after one ``FullSyncScheduler`` round, timed (host and device) with
+    the launches it made; then a replay held to the oracle at the int8
+    bound, and on the card profiled."""
+    on_card = torch.device(device).type == "cuda"
+    strat = STRATEGIES["qlora_nogan"]
+    data = make_dataset("pacs", n_per_class=n_per_class, seed=seed)
+    repeat = ccfg.image_size // data["images"].shape[1]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    frozen = nf4_round_trip(clip_lib.init_clip(gen, ccfg, device=device))[0]
+    ce = class_embedding(frozen, ccfg, device)
+    clients = fl_clients(data, n_clients, 0.5, seed, strat, repeat)
+    g0 = client_lib.init_trainable(gen, ccfg, strat, device=device)
+    engine = cohort_lib.CohortEngine(
+        frozen=frozen, ccfg=ccfg, class_emb=ce, clients=clients,
+        cfg=cohort_lib.CohortConfig(strategy=strat, local_steps=steps,
+                                    batch_size=batch, lr=3e-3))
+    draws = cohort_lib.SeededDraws(seed)
+    _sync(device)
+    t0 = time.perf_counter()
+    backing = serve_lib.personalized_trainables(
+        engine, g0, cohort_lib.RoundKey(draws, (2,)))
+    _sync(device)
+    res = {"users": len(backing), "wave_s": time.perf_counter() - t0}
+    store = serve_lib.AdapterStore(dict(backing), max_entries=max_entries,
+                                   quant_bits=8, device=device)
+    trace = serve_lib.zipf_request_trace(len(backing), n_requests, seed=seed,
+                                         rate=200.0, period=1.0,
+                                         amplitude=0.5)
+    pool = data["images"][np.random.RandomState(seed).randint(
+        0, len(data["images"]), trace.n)]
+    images = np.repeat(np.repeat(pool, repeat, axis=1), repeat, axis=2)
+    warm = replay_vs_oracle(frozen, ccfg, ce, store, trace, images, device)
+    if store.refresh_from_global(g0) != 0:
+        raise AssertionError("the first refresh rewrote slots")
+    sched = sched_lib.FullSyncScheduler(
+        executor=sched_lib.CohortExec(engine),
+        trace=sched_lib.uniform_trace(len(clients)), local_steps=steps)
+    g1, _ = sched.step(g0, 0, cohort_lib.RoundKey(draws, (3, 0)))
+    _sync(device)
+    ops.reset_launch_counts()
+    ops.reset_kernel_traces()
+    t0 = time.perf_counter()
+    n_res = store.refresh_from_global(g1)
+    host_s = time.perf_counter() - t0
+    _sync(device)
+    res.update(refresh_host_s=host_s,
+               refresh_wall_s=time.perf_counter() - t0,
+               refreshed_resident=n_res,
+               refresh_launches=ops.launch_counts()["blockwise_quant"],
+               refresh_traces=dict(ops.KERNEL_TRACES),
+               refresh_is_refetch=refetch_equal(store),
+               warm_evictions=warm["rec"]["store"]["evictions"])
+    rep = replay_vs_oracle(frozen, ccfg, ce, store, trace, images, device)
+    res.update(err_int8=rep["err_int8"], replay_launches=rep["launches"],
+               flights=rep["rec"]["n_flights"],
+               replay_store=rep["rec"]["store"])
+    if not (n_res == len(store) == max_entries and res["refresh_is_refetch"]
+            and res["warm_evictions"] > 0 and (not on_card or (
+                kernels_ran({"blockwise_quant": res["refresh_launches"]},
+                            res["refresh_traces"], ("blockwise_quant",))
+                and kernels_ran(rep["launches"], rep["traces"],
+                                ("quant_matmul", "blockwise_quant"))))):
+        raise AssertionError(f"ViT-B/32 handoff: {res} {rep['traces']}")
+    if on_card and profile:
+        # the device's share of a refresh: the same refresh again under
+        # the profiler (the global has not moved since, so the backing
+        # stays as it is and the residents re-quantize to the same rows)
+        res["refresh_again"] = profile_run(
+            lambda: store.refresh_from_global(g1), ("blockwise_quant",))
+        res["profile"] = profile_replay(rep["engine"], trace, images)
+    return res
+
+
+def cli_phase(device="cuda", argv=("--adapters", "8", "--requests", "48")):
+    """Phase 11 (c): ``repro_torch.launch.serve.main`` (the ``--adapters``
+    mode) through its entry point; its replay's logits finite."""
+    from repro_torch.launch import serve as serve_cli
+    out = serve_cli.main(list(argv), device=device)
+    rec = out["rec"]
+    if not np.isfinite(rec["logits"]).all():
+        raise AssertionError("the --adapters replay gave non-finite logits")
+    return {"flights": rec["n_flights"], "lat_v_p50": rec["lat_v_p50"],
+            "lat_v_p99": rec["lat_v_p99"], "wall_s": rec["wall_s"],
+            "store": rec["store"]}
+
+
+def loop_syncs_phase(device="cuda", rounds=3) -> dict:
+    """Phase 11 (d): the synchronizing calls inside the round loop of a
+    fault-free sync-partial ``run_federated`` (pipelined, with a store
+    refreshed every round, and barrier) from
+    ``set_sync_debug_mode("warn")``, by site, beside ``SYNC_TRACES``
+    (``scripts/torch_loop_syncs.py``); none may lie outside a wait that
+    ``SYNC_TRACES`` charges."""
+    spec = importlib.util.spec_from_file_location("torch_loop_syncs",
+                                                  LOOP_SYNCS)
+    tls = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tls)
+    store = tls.demo_store(device)
+    res = {"pipelined": tls.measure(rounds=rounds, store=store,
+                                    device=device),
+           "barrier": tls.measure(rounds=rounds, pipeline="barrier",
+                                  device=device)}
+    for mode, r in res.items():
+        if r["uncounted"]:
+            raise AssertionError(f"{mode}: uncounted host waits in the "
+                                 f"round loop: {r['uncounted_sites']}")
+    if res["pipelined"]["sync_counts"] != {"metrics_flush": 1}:
+        raise AssertionError(f"pipelined ledger {res['pipelined']}")
+    return res
+
+
+def handoff_report() -> dict:
+    """Phase 11 on the card, reported. Returns its launches."""
+    print(f"trainer-to-store handoff (run_federated(serve_store=), "
+          f"personalized_trainables, demo_plane, --adapters), "
+          f"{card_line()}:", flush=True)
+    t_all = t0 = time.perf_counter()
+    a = handoff_phase()
+    # the phase's launches: the runs', the refresh's and the replays'
+    launches = collections.Counter()
+    for mode, row in a.pop("runs").items():
+        report({"handoff": mode, **row})
+        launches.update(row["launches"])
+    launches.update(a["replay_launches"])
+    report({"handoff_replay": "CLIPConfig()", **a})
+    report({"handoff_a_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    b = vit_handoff_phase()
+    prof = b.pop("profile", None)
+    again = b.pop("refresh_again", None)
+    report({"handoff_vit": "ViT-B/32", **b})
+    if again is not None:
+        report({"handoff_vit_refresh_profiled_" + k: v
+                for k, v in again.items() if k not in ("top_ms",
+                                                        "regions_ms")})
+        print(f"  ViT-B/32 refresh, top device time (ms): "
+              f"{again['top_ms'][:5]}", flush=True)
+    launches.update({"blockwise_quant": b["refresh_launches"]})
+    launches.update(b["replay_launches"])
+    if prof is not None:
+        report({"handoff_vit_replay_" + k: v for k, v in prof.items()
+                if k != "top_us"})
+        print(f"  ViT-B/32 replay after the refresh, top device time (us): "
+              f"{prof['top_us']}", flush=True)
+    report({"handoff_b_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    report({"handoff_cli": "--adapters 8 --requests 48", **cli_phase()})
+    report({"handoff_c_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    d = loop_syncs_phase()
+    for mode, r in d.items():
+        report({"loop_syncs": mode, **{k: v for k, v in r.items()
+                                       if k != "round_time_s"}})
+    report({"handoff_d_s": time.perf_counter() - t0,
+            "handoff_phase_s": time.perf_counter() - t_all,
+            "card": card_line()})
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -2510,6 +2947,7 @@ def main() -> int:
     fl_launches = fl_round_report()
     vit_launches = vit_round_report()
     sched_launches = sched_report()
+    handoff_launches = handoff_report()
 
     print(card_line(), flush=True)
     # flash_attention runs on every path: its launches over all of them
@@ -2517,9 +2955,17 @@ def main() -> int:
              "yi-9b": yi_launches["flash_attention"],
              "falcon-mamba-7b": mamba_launches["flash_attention"],
              "fl_round": fl_launches, "vit_round": vit_launches,
-             "sched": sched_launches}
+             "sched": sched_launches,
+             "handoff": handoff_launches["flash_attention"]}
     print(f"flash_attention launches by path: {flash}", flush=True)
+    # the serve kernels run on two paths: the replay (phase 3) and the
+    # trainer-fed store (phase 11)
+    serve_paths = {name: {"serve": serve_launches[name],
+                          "handoff": handoff_launches[name]}
+                   for name in ("quant_matmul", "blockwise_quant")}
+    print(f"serve kernel launches by path: {serve_paths}", flush=True)
     launches = {**serve_launches, **yi_launches,
+                **{name: sum(p.values()) for name, p in serve_paths.items()},
                 "flash_attention": sum(flash.values()),
                 "selective_scan": mamba_launches["selective_scan"],
                 "selective_scan_bwd": mamba_launches["selective_scan_bwd"]}

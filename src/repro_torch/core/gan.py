@@ -54,7 +54,8 @@ class GANConfig:
     d_dim: int = 32
     lr: float = 2e-4
     # "lax" (F.conv2d / F.conv_transpose2d) | "gemm" (kernels.gan_conv's
-    # phase-decomposed gemms) | "gemm_int8" (not ported)
+    # phase-decomposed gemms) | "gemm_int8" (the same gemms in int8
+    # quantized compute)
     conv_impl: str = "lax"
 
 
@@ -151,23 +152,25 @@ def init_gan(gen: torch.Generator, cfg: GANConfig, device=None):
     return {"gen": generator, "disc": disc}
 
 
-def _pick(impl, gemm, lax):
+def _pick(impl, gemm, lax, gemm_int8):
     if impl == "gemm":
         return gemm
     if impl == "lax":
         return lax
     if impl == "gemm_int8":
-        raise NotImplementedError(gan_conv.INT8_TODO)
+        return gemm_int8
     raise ValueError(f"unknown conv_impl {impl!r} "
                      "(expected lax | gemm | gemm_int8)")
 
 
 def _convT(x, w, impl="lax"):
-    return _pick(impl, gan_conv.convT4x4_s2, gan_conv.convT4x4_s2_lax)(x, w)
+    return _pick(impl, gan_conv.convT4x4_s2, gan_conv.convT4x4_s2_lax,
+                 gan_conv.convT4x4_s2_int8)(x, w)
 
 
 def _conv(x, w, impl="lax"):
-    return _pick(impl, gan_conv.conv4x4_s2, gan_conv.conv4x4_s2_lax)(x, w)
+    return _pick(impl, gan_conv.conv4x4_s2, gan_conv.conv4x4_s2_lax,
+                 gan_conv.conv4x4_s2_int8)(x, w)
 
 
 def _lookup(table, labels):

@@ -77,7 +77,8 @@ def adam_update(grads, state: AdamState, params, *, lr: float, b1=0.9,
         lambda v, g: b2 * v + (1 - b2) * torch.square(g.to(torch.float32)),
         state.nu, grads)
     stepf = step.to(torch.float32)
-    f32 = lambda c: torch.tensor(c, dtype=torch.float32, device=step.device)
+    # a device scalar made by a fill, not copied from the host
+    f32 = lambda c: torch.full((), c, dtype=torch.float32, device=step.device)
     mu_hat_scale = 1.0 / (1 - f32(b1) ** stepf)
     nu_hat_scale = 1.0 / (1 - f32(b2) ** stepf)
 

@@ -64,8 +64,10 @@ def _div(x: torch.Tensor, levels: float) -> torch.Tensor:
     """``x / levels``, IEEE-rounded on every device. PyTorch's CUDA
     division by a Python scalar multiplies by its reciprocal, which can
     land one ulp off; a 0-d tensor on x's device keeps the true division
-    that the JAX package and the CUDA kernel use."""
-    return x / x.new_tensor(levels)
+    that the JAX package and the CUDA kernel use. The divisor is made by a
+    fill on x's device: ``new_tensor`` would copy it from the host, which
+    waits for the card's stream."""
+    return x / x.new_full((), levels)
 
 
 def _blocked(x: torch.Tensor, block: int):

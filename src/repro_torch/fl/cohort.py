@@ -414,8 +414,7 @@ class CohortEngine:
 
         idx = self.runtime.run("sample_idx", build, (key, lens),
                                static_key=(steps, batch))
-        return torch.as_tensor(idx, dtype=torch.long,
-                               device=self.pool_labs.device)
+        return runtime_lib.upload(idx, self.pool_labs.device, torch.long)
 
     # -- uplink accounting --------------------------------------------
     def per_client_uplink_bytes(self, global_tr) -> int:
@@ -564,8 +563,8 @@ class CohortEngine:
         B = runtime_lib.bucket_width(K, self.n_clients)
         idx = self._sample_idx(key, self.lens[sel], self.max_steps)
         dev = self.pool_labs.device
-        pad = lambda a, fill: torch.as_tensor(
-            np.concatenate([a, np.full(B - K, fill, np.int64)]), device=dev)
+        pad = lambda a, fill: runtime_lib.upload(
+            np.concatenate([a, np.full(B - K, fill, np.int64)]), dev)
         return (sel, K, B, pad(sel, 0), pad(n_steps, 1),
                 runtime_lib.pad_leading(idx, B))
 
@@ -584,7 +583,7 @@ class CohortEngine:
         server.check_weights(weights, B)
         args = (global_tr, sel_d, steps_d, idx, self.pool_staged,
                 self.pool_labs,
-                torch.as_tensor(weights, device=self.pool_labs.device),
+                runtime_lib.upload(weights, self.pool_labs.device),
                 self.frozen, self.class_emb)
         new_tr, loss, acc = self.runtime.run(
             "subset_round", self._build_subset_round, args,

@@ -48,7 +48,6 @@ from repro_torch.core import gan as gan_lib
 from repro_torch.data.synthetic import stage_client_pools
 from repro_torch.fl import runtime as runtime_lib
 from repro_torch.fl import strategies as strategies_lib
-from repro_torch.kernels import gan_conv
 
 # module-level default so standalone callers share one ledger; the
 # simulator passes its per-run runtime instead
@@ -58,8 +57,8 @@ _DEFAULT_RUNTIME = runtime_lib.ProgramRuntime()
 @dataclass(frozen=True)
 class FleetGANConfig:
     """Fleet-engine execution knobs: ``conv_impl`` for every stacked GAN
-    program (``"gemm"``, the default, or ``"lax"``; ``"gemm_int8"`` is not
-    ported and raises); ``bucket_batches``
+    program (``"gemm"``, the default, ``"lax"`` or ``"gemm_int8"``);
+    ``bucket_batches``
     pads every client's minibatch to one bucket (one program), False
     trains each batch-size group through the exact ``gan.gan_scan``.
     ``mesh`` is not ported."""
@@ -232,8 +231,6 @@ def launch_gan_fleet(clients: Sequence, streams: Sequence, *, steps: int,
     t_launch = time.perf_counter()
     if fleet_cfg is not None:
         conv_impl = fleet_cfg.conv_impl
-    if conv_impl == "gemm_int8":
-        raise NotImplementedError(gan_conv.INT8_TODO)
     bucketed = fleet_cfg.bucket_batches if fleet_cfg is not None else True
     rt = runtime if runtime is not None else _DEFAULT_RUNTIME
     rep = FleetGANReport(n_clients=len(clients), n_eligible=0)

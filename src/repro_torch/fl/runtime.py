@@ -41,6 +41,20 @@ def reset_sync_traces() -> None:
     SYNC_TRACES.clear()
 
 
+def upload(a, device, dtype=None) -> torch.Tensor:
+    """A host array as a tensor on ``device`` without a host wait. On the
+    card the copy is staged through pinned memory and queued with
+    ``non_blocking=True``: a copy from pageable memory synchronizes the
+    stream. The caching host allocator records the copy's event on the
+    pinned block, so the block is not reused before the copy ends. On the
+    CPU it is ``torch.as_tensor``."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+    return torch.as_tensor(a, dtype=dtype).pin_memory().to(
+        dev, non_blocking=True)
+
+
 def _wait(tree) -> None:
     """Block until the device work behind ``tree``'s tensors is done."""
     devs = set()

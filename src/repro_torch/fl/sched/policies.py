@@ -122,7 +122,7 @@ class CohortExec:
         server.check_weights(w, len(deltas))          # on the host
         dev = self.engine.pool_labs.device
         return server.aggregate_stacked(
-            global_tr, torch.as_tensor(w, device=dev),
+            global_tr, runtime_lib.upload(w, dev),
             stack_client_deltas(deltas))
 
     def client_masses(self) -> np.ndarray:

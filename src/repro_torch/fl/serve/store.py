@@ -13,17 +13,25 @@ and ``max_entries`` are global. Evicted users re-quantize
 deterministically from the host backing on their next fetch, so eviction
 is a latency event, never a correctness one. Slab rows are written in
 place (the JAX package rebuilds the slab with ``.at[slot].set``).
+
+The trainer hands its output over in two ways: :func:`personalized_trainables`
+trains one wave of a built cohort engine and returns each user's tree,
+and :meth:`AdapterStore.refresh_from_global` rebases every backed user by
+the global model's movement between two calls (``run_federated`` calls
+it once a committed round), re-quantizing the resident slots.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 from typing import Any, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch import tree as tree_lib
 from repro_torch.core import quant as qlib
+from repro_torch.fl import cohort as cohort_lib
 from repro_torch.fl import runtime as runtime_lib
 from repro_torch.kernels import ops as kops
 
@@ -142,14 +150,23 @@ class AdapterStore:
         # uid -> (family key, slot); OrderedDict order IS the LRU order
         self._res: "OrderedDict[int, Tuple[Tuple, int]]" = OrderedDict()
         self._fams: Dict[Tuple, Dict[str, Any]] = {}
+        # the last global tree refresh_from_global saw: a copy, never the
+        # caller's tensors, which the caller may go on to change
+        self._base = None
+
+    def _on_device(self, tree):
+        return tree_lib.tree_map(
+            lambda l: runtime_lib.upload(l, self.device)
+            if isinstance(l, np.ndarray)
+            else torch.as_tensor(l, device=self.device), tree)
 
     def _quantized(self, tree):
-        return quantize_at_rest(
-            tree_lib.tree_map(
-                lambda l: torch.as_tensor(l, device=self.device), tree),
-            bits=self.quant_bits)
+        return quantize_at_rest(self._on_device(tree), bits=self.quant_bits)
 
     # -- residency -----------------------------------------------------
+    def __len__(self) -> int:
+        return len(self._res)
+
     def resident(self) -> Tuple[int, ...]:
         """Resident uids, least-recently-used first."""
         return tuple(self._res)
@@ -218,6 +235,31 @@ class AdapterStore:
         self.runtime.count(STORE_KIND, "refreshed_resident", n_res)
         return n_res
 
+    def refresh_from_global(self, new_global) -> int:
+        """Continuous trainer->store refresh: rebase every backed user by
+        the global model's movement since the last call, ``new_i = old_i +
+        (new_global - base)`` in fp32, keeping each user's personalization,
+        then :meth:`refresh`. ``new_global`` is copied at once, so a caller
+        that changes it afterwards leaves the snapshot as it was. The first
+        call only records the snapshot and returns 0. Backing trees held as
+        numpy move to the store's device on the first call, so no rebase
+        copies from the host; nothing here reads a device value, so on the
+        card the call queues its work and returns."""
+        snap = tree_lib.tree_map(lambda l: l.detach().clone(),
+                                 self._on_device(new_global))
+        base, self._base = self._base, snap
+        if not isinstance(self.backing, dict):
+            self.backing = dict(self.backing)
+        for uid, tree in self.backing.items():
+            self.backing[uid] = self._on_device(tree)
+        if base is None:
+            return 0
+        updates = {
+            uid: tree_lib.tree_map(lambda o, nw, b: o + (nw - b), tree, snap,
+                                   base)
+            for uid, tree in self.backing.items()}
+        return self.refresh(updates)
+
     # -- accounting ----------------------------------------------------
     def stats(self) -> Dict[str, int]:
         k = self.runtime.stats().get(STORE_KIND, {})
@@ -228,6 +270,11 @@ class AdapterStore:
                 "refreshed_resident": int(k.get("refreshed_resident", 0)),
                 "resident": len(self._res),
                 "families": len(self._fams)}
+
+    def hit_rate(self) -> float:
+        s = self.stats()
+        n = s["hits"] + s["misses"]
+        return s["hits"] / n if n else 0.0
 
     def bytes_at_rest(self) -> int:
         """Stored bytes of the occupied slots (packed QTensor payloads +
@@ -242,3 +289,22 @@ class AdapterStore:
                                        device=self.device)))
             total += per_fam[famk]
         return int(total)
+
+
+def personalized_trainables(engine, global_tr, key, *,
+                            uid_offset: int = 0) -> Dict[int, Any]:
+    """Train every client of a built :class:`~repro_torch.fl.cohort
+    .CohortEngine` one wave from ``global_tr`` (``run_wave``, batch
+    indices from ``key``, a ``cohort.RoundKey``) and return the
+    **personalized** per-user trees ``global + dequant(delta_i)`` in fp32:
+    the training->serving handoff. Uids are client positions plus
+    ``uid_offset``, so tenant families can share one backing map."""
+    sel = np.arange(engine.n_clients)
+    delta, _ = engine.run_wave(global_tr, sel, key)
+    out = {}
+    for i in range(engine.n_clients):
+        d = qlib.dequantize_tree(cohort_lib.slice_client_delta(delta, i),
+                                 torch.float32)
+        out[uid_offset + i] = tree_lib.tree_map(
+            lambda g, dd: (g + dd).to(torch.float32), global_tr, d)
+    return out

@@ -34,8 +34,13 @@ the pools are staged and resolved into them), or with
 oracle. Under chaos the clients drawn by
 ``ChaosSchedule.gan_dropouts`` drop between the GAN's launch and its
 resolve: the fleet job discards their rows (``mark_dropped``) and the
-sequential GAN engine skips their ``prepare_gan``. ``serve_store`` raises
-until ``ROADMAP.md`` Queue A item 7.
+sequential GAN engine skips their ``prepare_gan``.
+
+``serve_store`` (an ``fl.serve.AdapterStore``) is refreshed from the
+global trainables after every committed round
+(``AdapterStore.refresh_from_global``; the first call only records the
+snapshot). In pipelined mode the refresh queues its device work without
+a host wait, so it overlaps the next round.
 """
 from __future__ import annotations
 
@@ -313,10 +318,6 @@ def run_federated(cfg: FLConfig, *, runtime=None, serve_store=None,
         raise ValueError(f"unknown engine {cfg.engine!r}")
     if strat.use_gan and cfg.gan_engine not in ("fleet", "sequential"):
         raise ValueError(f"unknown gan_engine {cfg.gan_engine!r}")
-    if serve_store is not None:
-        raise NotImplementedError(
-            "serve_store: the port's AdapterStore has no "
-            "refresh_from_global yet (ROADMAP.md Queue A item 7)")
     if cfg.participation not in ("full", "sync-partial", "async"):
         raise ValueError(
             f"unknown participation policy {cfg.participation!r}")
@@ -555,6 +556,8 @@ def run_federated(cfg: FLConfig, *, runtime=None, serve_store=None,
         if pipelined:
             ev = _eval_dispatch(frozen, global_tr, ccfg, class_emb,
                                 ev_pack, rt) if do_eval else None
+            if serve_store is not None:
+                serve_store.refresh_from_global(global_tr)
             ring.append({"rnd": rnd, "m": m, "eval": ev,
                          "t": time.time() - t0})
             if cfg.metrics_flush_every and \
@@ -571,6 +574,8 @@ def run_federated(cfg: FLConfig, *, runtime=None, serve_store=None,
                 ev = _eval_dispatch(frozen, global_tr, ccfg, class_emb,
                                     ev_pack, rt)
                 _record_eval(rnd, ev.result())
+            if serve_store is not None:
+                serve_store.refresh_from_global(global_tr)
     _flush_ring()
     hist.meta["loop_wall_s"] = time.time() - t_loop
     hist.meta["sync_counts"] = {
@@ -580,6 +585,9 @@ def run_federated(cfg: FLConfig, *, runtime=None, serve_store=None,
     hist.meta["loop_syncs"] = int(loop_syncs)
     hist.meta["syncs_per_round"] = loop_syncs / max(cfg.rounds, 1)
     hist.meta["prepared_rounds"] = int(prepared)
+    if serve_store is not None:
+        hist.meta["serve_refreshes"] = int(
+            serve_store.stats().get("refreshes", 0))
     _compile_meta()
     hist.meta["n_cache_evictions"] = int(rt.n_evictions)
     if chaos_sched is not None:

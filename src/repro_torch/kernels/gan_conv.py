@@ -26,17 +26,25 @@ optional leading client axis, ``x (C, b, h, w, ci)`` with ``w (C, 4, 4,
 ci, co)``, contracted with ``torch.bmm``: the fleet engine trains C
 per-client GANs with one launch per gemm (the port has no ``vmap``).
 These products are plain PyTorch: the JAX package computes them outside
-any Pallas kernel. The int8 quantized-compute forms
-(``quant_gemm_int8`` and ``GANConfig.conv_impl="gemm_int8"``) are not
-ported: ``core.gan`` raises ``INT8_TODO`` for them.
+any Pallas kernel.
+
+The int8 quantized-compute forms (``GANConfig.conv_impl="gemm_int8"``)
+run the same gemm forms through :func:`quant_gemm_int8`: both operands
+blockwise-int8 along the contraction dim, exact int8 x int8 block
+products, fp32 accumulation of the scaled partials. CUDA has no int8
+``matmul``, so a block product is an fp32 product of the int8 codes:
+each term is at most 127² and a block of 64 sums to at most
+64·127² < 2²⁴, so every partial is an exact integer in fp32 (and under
+TF32, where the codes are exact too) in any summation order. Their
+gradients are straight-through, through the same quantized gemms over
+the true cotangents, as the reference's ``custom_vjp``s.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-INT8_TODO = ("the int8 quantized-compute GAN gemms (conv_impl='gemm_int8', "
-             "quant_gemm_int8) are not ported (ROADMAP.md Queue B item 9)")
+from repro_torch.core import quant as qlib
 
 # For output position i, a SAME-padded 4x4/stride-2 window covers input
 # rows 2i-1 .. 2i+2: tap a lives in phase (a+1) % 2 at offset -1/0/0/+1
@@ -90,9 +98,9 @@ def _interleave(g, co):
     return g.permute(0, 1, 2, 4, 3, 5, 6).reshape(C, b, 2 * H, 2 * W, co)
 
 
-def _convT_phase(x, w, co):
-    """convT as one gemm over shifted copies: the four output-phase
-    kernels concatenated on the output axis."""
+def _convT_phase(x, w, co, mm=_mm):
+    """convT as one gemm (``mm``) over shifted copies: the four
+    output-phase kernels concatenated on the output axis."""
     C, b, h, ww, ci = x.shape
     xs = torch.cat([_pad_hw(x, s, 1 - s, t, 1 - t)
                     for s in (0, 1) for t in (0, 1)], dim=-1)
@@ -100,16 +108,16 @@ def _convT_phase(x, w, co):
         torch.cat([w[:, 3 - (p + 2 * s), 3 - (q + 2 * t)]
                    for s in (0, 1) for t in (0, 1)], dim=1)
         for p in (0, 1) for q in (0, 1)], dim=2)          # (C, 4ci, 4co)
-    return _interleave(_mm(xs, wt).reshape(C, b, h + 1, ww + 1, 2, 2, co),
+    return _interleave(mm(xs, wt).reshape(C, b, h + 1, ww + 1, 2, 2, co),
                        co)
 
 
-def _convT_contrib(x, w, co):
+def _convT_contrib(x, w, co, mm=_mm):
     """convT through the contribution tensor ``x @ w (ci, 16co)`` (one
     gemm with a healthy contraction dim even when ``co`` is tiny),
     overlap-added into the output phases."""
     C, b, h, ww, ci = x.shape
-    contrib = _mm(x, w.permute(0, 3, 1, 2, 4).reshape(C, ci, 16 * co)) \
+    contrib = mm(x, w.permute(0, 3, 1, 2, 4).reshape(C, ci, 16 * co)) \
         .reshape(C, b, h, ww, 4, 4, co)
     phases = []
     for p in (0, 1):
@@ -125,12 +133,12 @@ def _convT_contrib(x, w, co):
     return _interleave(g, co)
 
 
-def _convT(x, w):
+def _convT(x, w, mm=_mm):
     """Raw convT forward on the client-axis layout (also the ``dx`` of
-    ``conv4x4_s2``)."""
+    ``conv4x4_s2``), its gemm through ``mm``."""
     h, ww, co = x.shape[2], x.shape[3], w.shape[-1]
     form = _convT_contrib if co < 8 else _convT_phase
-    return form(x, w, co)[:, :, 1:2 * h + 1, 1:2 * ww + 1]
+    return form(x, w, co, mm)[:, :, 1:2 * h + 1, 1:2 * ww + 1]
 
 
 def _im2col_T(g):
@@ -225,6 +233,122 @@ def convT4x4_s2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     False``) with NHWC/HWIO layouts."""
     x, w, single = _stack(x, w, "convT4x4_s2")
     out = _ConvT.apply(x, w)
+    return out[0] if single else out
+
+
+# -- int8 quantized compute (conv_impl="gemm_int8") ------------------
+INT8_BLOCK = 64
+
+
+def _q8_rows(x, blk):
+    """(..., M, K) -> int8 codes (..., M, G, blk) + fp32 absmax scales
+    (..., M, G), blockwise along the contraction dim (zero-padded to a
+    block multiple; pad columns quantize to exact zeros). The scale's
+    division is ``core.quant._div``'s, IEEE on every device."""
+    K = x.shape[-1]
+    Kp = -(-K // blk) * blk
+    if Kp != K:
+        x = F.pad(x, (0, Kp - K))
+    xg = x.reshape(*x.shape[:-1], Kp // blk, blk)
+    s = qlib._div(xg.abs().amax(dim=-1), 127.0)
+    safe = torch.where(s == 0, torch.ones_like(s), s)
+    q = torch.clamp(torch.round(xg / safe[..., None]), -127, 127)
+    return q.to(torch.int8), s
+
+
+def block_products(qx, qw):
+    """Every K-block's product of int8 codes, ``qx (..., M, G, b)`` by
+    ``qw (..., N, G, b)`` -> ``(..., G, M, N)`` fp32: one batched fp32
+    matmul whose sums are exact integers (see the module docstring)."""
+    a = qx.transpose(-3, -2).to(torch.float32)
+    b = qw.transpose(-3, -2).transpose(-1, -2).to(torch.float32)
+    return torch.matmul(a, b)
+
+
+def quant_gemm_int8(x: torch.Tensor, w: torch.Tensor,
+                    blk: int = INT8_BLOCK) -> torch.Tensor:
+    """Quantized-compute ``x (..., M, K) @ w (..., K, N) -> (..., M, N)``
+    fp32: both operands blockwise-int8 along K (per-row x per-column
+    absmax scales), exact block products, and the scaled partials
+    accumulated in fp32 over the blocks in ascending order, as the
+    reference's ``lax.scan`` does. Leading dims (a client axis) batch."""
+    K = x.shape[-1]
+    if w.shape[-2] != K or x.shape[:-2] != w.shape[:-2]:
+        raise ValueError(f"contraction mismatch: x {tuple(x.shape)} "
+                         f"w {tuple(w.shape)}")
+    b = min(blk, K)
+    qx, sx = _q8_rows(x.to(torch.float32), b)       # (.., M, G, b), (.., M, G)
+    qw, sw = _q8_rows(w.to(torch.float32).transpose(-1, -2), b)
+    part = block_products(qx, qw) * sx.transpose(-1, -2)[..., None] * \
+        sw.transpose(-1, -2)[..., None, :]          # (.., G, M, N)
+    acc = torch.zeros(part.shape[:-3] + part.shape[-2:], dtype=torch.float32,
+                      device=part.device)
+    for g in range(part.shape[-3]):
+        acc = acc + part[..., g, :, :]
+    return acc
+
+
+def _mm_q8(a, w):
+    """:func:`_mm` through :func:`quant_gemm_int8`."""
+    C, K = a.shape[0], a.shape[-1]
+    out = quant_gemm_int8(a.reshape(C, -1, K), w)
+    return out.reshape(*a.shape[:-1], w.shape[-1])
+
+
+class _ConvI8(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        C, ci, co = x.shape[0], x.shape[-1], w.shape[-1]
+        cols = _im2col(x)
+        ctx.save_for_backward(cols, w)
+        return _mm_q8(cols, w.reshape(C, 16 * ci, co)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        # straight-through: the conv's transposes through the same
+        # quantized gemms, over the true cotangent
+        cols, w = ctx.saved_tensors
+        C, ci, co = w.shape[0], w.shape[3], w.shape[4]
+        dx = _convT(g, _flip_T(w), mm=_mm_q8)
+        dw = quant_gemm_int8(cols.reshape(C, -1, 16 * ci).transpose(1, 2),
+                             g.reshape(C, -1, co).to(torch.float32))
+        return dx, dw.reshape(C, 4, 4, ci, co).to(w.dtype)
+
+
+class _ConvTI8(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _convT(x, w, mm=_mm_q8).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        C, ci, co = w.shape[0], w.shape[3], w.shape[4]
+        dx = _mm_q8(_im2col(g), _flip_T(w).reshape(C, 16 * co, ci))
+        dw = quant_gemm_int8(
+            x.reshape(C, -1, ci).transpose(1, 2).to(torch.float32),
+            _im2col_T(g).reshape(C, -1, 16 * co))
+        return dx.to(x.dtype), dw.reshape(C, ci, 4, 4, co).permute(
+            0, 2, 3, 1, 4).to(w.dtype)
+
+
+def conv4x4_s2_int8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`conv4x4_s2` with the patch-matrix gemm in int8 quantized
+    compute (fp32 accumulation); the same shapes and geometry."""
+    x, w, single = _stack(x, w, "conv4x4_s2_int8")
+    if x.shape[2] % 2 or x.shape[3] % 2:
+        raise ValueError(f"conv4x4_s2_int8 needs even spatial dims, got "
+                         f"{tuple(x.shape)}")
+    out = _ConvI8.apply(x, w)
+    return out[0] if single else out
+
+
+def convT4x4_s2_int8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`convT4x4_s2` with the phase/contribution gemm in int8
+    quantized compute (fp32 accumulation)."""
+    x, w, single = _stack(x, w, "convT4x4_s2_int8")
+    out = _ConvTI8.apply(x, w)
     return out[0] if single else out
 
 

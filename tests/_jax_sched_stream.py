@@ -116,9 +116,9 @@ def on_jax_backbone(runtime=None, **kw):
     return want, port_on_jax_backbone(jcfg, **kw)
 
 
-def port_on_jax_backbone(jcfg, **kw):
-    """The port's run of ``kw`` on the JAX draws of ``jcfg`` and the JAX
-    package's pretrained backbone."""
+def port_on_jax_backbone(jcfg, serve_store=None, **kw):
+    """The port's run of ``kw`` (with ``serve_store``) on the JAX draws of
+    ``jcfg`` and the JAX package's pretrained backbone."""
     streams = jax_streams(jcfg)
     key = tsim.clip_cache_key(jcfg.dataset, tclip.CLIPConfig(),
                               init=streams.clip_init, device="cpu")
@@ -127,7 +127,7 @@ def port_on_jax_backbone(jcfg, **kw):
         jsim.pretrained_clip(jcfg.dataset, jclip.CLIPConfig()), "cpu")
     try:
         return tsim.run_federated(tsim.FLConfig(**kw), device="cpu",
-                                  streams=streams)
+                                  streams=streams, serve_store=serve_store)
     finally:
         if own is None:
             del tsim._CLIP_CACHE[key]

@@ -756,3 +756,112 @@ def test_cuda_subset_round_at_k_eq_n_is_the_full_round(cuda_device):
     for a, b in zip(tree_lib.leaves(one), tree_lib.leaves(ref)):
         assert torch.equal(a, b)
     assert m1["loss"].shape == (1,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", ["pipelined", "barrier"])
+def test_cuda_round_loop_waits_only_where_sync_traces_counts(cuda_device,
+                                                             pipeline):
+    """A fault-free sync-partial ``run_federated`` with a serve store
+    refreshed every round, under ``set_sync_debug_mode("warn")``: every
+    synchronizing call inside the round loop lies in a wait that
+    ``SYNC_TRACES`` charges (``scripts/torch_loop_syncs.py`` classifies
+    them); pipelined, the only charged wait is the one metric flush. The
+    History is bitwise the run's without the store."""
+    import dataclasses
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+    import torch_loop_syncs
+    from repro_torch.fl import serve as serve_lib
+    from repro_torch.fl import simulator as sim_lib
+    cfg = sim_lib.FLConfig(strategy="fedclip", pipeline=pipeline,
+                           participation="sync-partial", clients_per_round=2,
+                           **SCHED_SMALL)
+    plane = serve_lib.demo_plane(4, max_entries=3, device=cuda_device)
+    store = serve_lib.AdapterStore(dict(plane["backing"]), max_entries=3,
+                                   quant_bits=8, device=cuda_device)
+    for uid in range(3):
+        store.fetch(uid)
+    bare = sim_lib.run_federated(cfg, device=cuda_device)
+    torch.cuda.synchronize()
+    with torch_loop_syncs.sync_warnings() as stacks:
+        h = sim_lib.run_federated(cfg, device=cuda_device, serve_store=store)
+    found = torch_loop_syncs.loop_sites(stacks, sim_lib)
+    assert found["uncounted"] == 0, found["uncounted_sites"]
+    assert h.meta["serve_refreshes"] == (cfg.rounds - 1) * 4
+    if pipeline == "pipelined":
+        assert h.meta["sync_counts"] == {"metrics_flush": 1}
+    for f in dataclasses.fields(sim_lib.History):
+        if f.name not in ("round_time_s", "meta"):
+            assert getattr(h, f.name) == getattr(bare, f.name), f.name
+
+
+@pytest.mark.cuda
+def test_cuda_refresh_rows_are_an_evict_and_refetch(cuda_device):
+    """On the card a refreshed resident's slab rows, re-quantized by the
+    ``blockwise_quant`` kernel, are bitwise a cold store's fetch of the
+    rebased tree; the rebase runs no plain quantizer."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import quant as qlib
+    from repro_torch.fl import serve as serve_lib
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    back = {u: {"adapter": {"wv": torch.randn(64, 64, generator=gen,
+                                              device="cuda"),
+                            "b2": torch.randn(64, generator=gen,
+                                              device="cuda")}}
+            for u in range(3)}
+    store = serve_lib.AdapterStore(dict(back), max_entries=2, quant_bits=8,
+                                   device=cuda_device)
+    store.fetch(0)
+    store.fetch(1)
+    g = {"adapter": {"wv": torch.zeros(64, 64, device="cuda"),
+                     "b2": torch.zeros(64, device="cuda")}}
+    assert store.refresh_from_global(g) == 0
+    ops.reset_kernel_traces()
+    g2 = tree_lib.tree_map(lambda l: l + 0.5, g)
+    assert store.refresh_from_global(g2) == 2
+    assert ops.KERNEL_TRACES.get("blockwise_quant_cuda") == 2
+    assert "blockwise_quant_ref" not in ops.KERNEL_TRACES
+
+    def rows(s, uid):
+        famk, slot = s.fetch(uid)
+        out = []
+        for l in tree_lib.leaves(serve_lib.take_rows(
+                s.family(famk)["slabs"],
+                torch.tensor([slot], device="cuda"))):
+            out += [l.q, l.scales] if isinstance(l, qlib.QTensor) else [l]
+        return out
+
+    for uid in (0, 1):
+        cold = serve_lib.AdapterStore({uid: store.backing[uid]},
+                                      max_entries=1, quant_bits=8,
+                                      device=cuda_device)
+        for a, b in zip(rows(store, uid), rows(cold, uid)):
+            assert torch.equal(a, b)
+        torch.testing.assert_close(store.backing[uid]["adapter"]["wv"],
+                                   back[uid]["adapter"]["wv"] + 0.5,
+                                   atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_gan_gemm_block_products_are_exact(cuda_device):
+    """The int8 GAN gemm's block products on the card (fp32 products of
+    int8 codes, TF32 off or on) are bitwise the int64 product on the
+    CPU, and the gemm on the card equals the CPU's within 1e-6."""
+    from repro_torch.kernels import gan_conv
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(5, 300, 257, generator=gen)
+    w = torch.randn(5, 257, 40, generator=gen)
+    qx, _ = gan_conv._q8_rows(x, 64)
+    qw, _ = gan_conv._q8_rows(w.transpose(-1, -2), 64)
+    want = torch.matmul(qx.transpose(-3, -2).long(),
+                        qw.transpose(-3, -2).transpose(-1, -2).long())
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        got = gan_conv.block_products(qx.cuda(), qw.cuda())
+        assert torch.equal(got.cpu().long(), want)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = gan_conv.quant_gemm_int8(x.cuda(), w.cuda()).cpu()
+    ref_out = gan_conv.quant_gemm_int8(x, w)
+    assert (out - ref_out).abs().max() <= 1e-6 * ref_out.abs().max()

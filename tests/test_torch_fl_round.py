@@ -8,6 +8,7 @@ payloads bitwise; single fp32 ops ≤ 1e-5; training (local steps, a whole
 round) at ``tests/test_fl.py``'s oracle tolerances: leaves atol 5e-4,
 loss atol 1e-3 / rtol 1e-4, accuracy 1e-5, bytes equal. Within the port
 the masked ``adam_scan`` cut at s is bitwise s steps."""
+import copy
 from types import SimpleNamespace
 
 import numpy as np
@@ -588,9 +589,10 @@ def test_adapter_apply_stacked_is_per_client_apply(fl):
 
 
 def test_unported_engine_paths_raise(fl):
-    """What the engine still refuses: a mesh (Queue A item 8) and the
-    int8 GAN gemms (Queue B item 9); and, as the JAX engine does, a
-    malformed subset or a step profile it was not staged for."""
+    """What the engine still refuses: a mesh (Queue A item 8); and, as the
+    JAX engine does, a malformed subset or a step profile it was not
+    staged for. The int8 GAN gemms (Queue B item 9) are ported: the fleet
+    trains with them."""
     for sel in ([0, 0], [3], []):
         with pytest.raises(ValueError, match="invalid client subset"):
             fl["eng_t"].run_subset_round(fl["global_t"], sel, fl["key_t"])
@@ -600,10 +602,13 @@ def test_unported_engine_paths_raise(fl):
     with pytest.raises(NotImplementedError):
         tcohort.CohortConfig(strategy=fl["strat_t"], local_steps=1,
                              batch_size=2, lr=1e-3, mesh=object())
-    # the GAN pieces the tripleplay arm does not run: a mesh, int8 gemms
+    # the GAN piece the tripleplay arm does not run: a mesh
     with pytest.raises(NotImplementedError, match="Queue A item 8"):
         fleetgan.FleetGANConfig(mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue B item 9"):
-        fleetgan.prepare_gan_fleet(
-            fl["clients_t"][:1], [tgan.SeededGANStream((0,))], steps=1,
-            conv_impl="gemm_int8", device="cpu")
+    # a copy: the fleet writes its results onto the client
+    client = copy.copy(fl["clients_t"][0])
+    rep = fleetgan.prepare_gan_fleet(
+        [client], [tgan.SeededGANStream((0,))], steps=1,
+        conv_impl="gemm_int8", device="cpu")
+    assert rep.n_clients == 1
+    assert all(np.isfinite(v) for v in rep.d_loss.values())

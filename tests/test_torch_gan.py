@@ -344,11 +344,20 @@ class _OutOfPool:
 
 
 def test_gemm_int8_is_refused():
+    """The int8 gemms are ported (Queue B item 9): ``gemm_int8`` generates
+    as the JAX package's does (eager, as its int8 tests run it; the int8
+    forms themselves are held in ``tests/test_torch_gan_int8.py``), and
+    an unknown ``conv_impl`` is still refused."""
     cfg = dataclasses.replace(SMALL, conv_impl="gemm_int8")
-    _, tp = _params()
-    with pytest.raises(NotImplementedError, match="Queue B item 9"):
-        tgan.generate(tp["gen"], cfg, torch.zeros(2, cfg.z_dim),
-                      torch.zeros(2, dtype=torch.long))
+    jp, tp = _params()
+    z = _np(7, 2, cfg.z_dim)
+    labs = np.asarray([0, 2], np.int32)
+    want = np.asarray(jgan.generate(jp["gen"], _jcfg(cfg), jnp.asarray(z),
+                                    jnp.asarray(labs)))
+    got = tgan.generate(tp["gen"], cfg, torch.tensor(z),
+                        torch.tensor(labs, dtype=torch.long))
+    assert got.shape == (2, 32, 32, 3)
+    assert _rel(got.numpy(), want) <= TOL
     with pytest.raises(ValueError, match="conv_impl"):
         tgan.generate(tp["gen"], dataclasses.replace(SMALL, conv_impl="fft"),
                       torch.zeros(2, cfg.z_dim),

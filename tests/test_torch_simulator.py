@@ -284,15 +284,23 @@ def test_unported_options_raise(change):
 
 
 def test_bad_options_and_serve_store_raise():
+    """Bad options raise; ``serve_store`` is ported (ROADMAP.md Queue A
+    item 7): the store is refreshed after every committed round but the
+    first (``tests/test_torch_serve_refresh.py`` holds it against the
+    JAX package's)."""
+    from repro_torch.fl.serve import AdapterStore
     for change in ({"participation": "everyone"}, {"engine": "vmap"},
                    {"pipeline": "eager"}):
         with pytest.raises(ValueError):
             tsim.run_federated(tsim.FLConfig(**{**SMALL, "strategy":
                                                 "fedclip", **change}),
                                device="cpu")
-    with pytest.raises(NotImplementedError):
-        tsim.run_federated(tsim.FLConfig(**SMALL, strategy="fedclip"),
-                           device="cpu", serve_store=object())
+    cfg = tsim.FLConfig(**SMALL, strategy="fedclip")
+    backing = {u: tsim.seeded_streams(dataclasses.replace(cfg, seed=u))
+               .trainable_init for u in range(2)}
+    store = AdapterStore(backing, max_entries=1, quant_bits=8, device="cpu")
+    h = tsim.run_federated(cfg, device="cpu", serve_store=store)
+    assert h.meta["serve_refreshes"] == (cfg.rounds - 1) * len(backing)
     with pytest.raises(ValueError, match="gan_engine"):
         tsim.run_federated(tsim.FLConfig(**{**SMALL, "strategy": "tripleplay",
                                             "gan_engine": "bogus"}),
