@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one NVIDIA H100: the serving
 plane, the federated QLoRA trainer on Yi-9B and on Falcon-Mamba-7B, the
-paper's federated CLIP round (``run_federated``), its GAN included, and
-the trainer-to-store handoff that feeds the serving plane.
+paper's federated CLIP round (``run_federated``), its GAN included, the
+trainer-to-store handoff that feeds the serving plane, and token serving
+(prefill and decode) on the two trainers' models.
 
     python3 chip_smoke.py
 
@@ -102,6 +103,26 @@ Phases (a failed phase raises and the script exits non-zero):
     round loop of a fault-free sync-partial run, by site, beside
     ``SYNC_TRACES`` (``scripts/torch_loop_syncs.py``): none outside a
     counted wait. Launch counts are zeroed before each run and replay.
+12. token serving and the train-side pieces: (a) ``repro_torch.launch.
+    serve.main`` in its token mode on Yi-9B at full width and depth, NF4
+    (4 streams, prompt 64, 32 tokens): every projection of the prefill
+    and of each decode step through ``lora_matmul``'s tensor-core kernel,
+    the prefill's attention through ``flash_attention``'s, no plain
+    route; prefill ms, decode ms a token and tokens a second; one decode
+    step profiled beside its bound (the bytes it must read), with
+    ``decode_attention``'s device ms; the decode loop run again under
+    ``set_sync_debug_mode("warn")``: no synchronizing call inside it;
+    (b) the same on Falcon-Mamba-7B (the prefill's 64 scans through
+    ``selective_scan``; a decode step's device time by region,
+    ``mamba.dequantize`` against the rest); (c) prefill of 4 x 64 and 8
+    decode steps on the card against the CPU on the same weights and
+    tokens: a 2-layer full-width Yi-9B and Falcon-Mamba (bf16, within
+    2e-2), and the reduced h2o-danube with an int8 KV cache, 32 steps,
+    its window of 64 wrapping (the prefill within 1e-4, the steps within
+    the JAX package's int8-KV bound, 5e-2); (d) the trainer's
+    ``--ckpt`` at its reduced config, 2 rounds then a resume to 3,
+    bitwise 3 straight rounds, and a ``grad_accum=4`` step against one
+    shot. Launch counts are zeroed before each run and read after.
     The GAN phase (before phase 8) also runs the six convolutions
     through the int8 gemms against the fp32 gemm forms, timed, with the
     block products bitwise an int64 product on the CPU, and the int8
@@ -111,7 +132,9 @@ Phase 2 also holds ``selective_scan`` and its backward kernel
 backward against the plain ``ops.selective_scan_bwd``, bitwise equal
 across two calls), and the op's gradient (both kernels) against autograd
 through the plain scan; phase 7 must show 128 forward and 64 backward
-scan kernels per local step. bf16 calls of ``flash_attention``,
+scan kernels per local step; phase 2 also holds ``lora_matmul`` at
+the decode step's shapes (M = 4 rows, the four Yi-9B (K, N) pairs, NF4,
+bf16). bf16 calls of ``flash_attention``,
 ``lora_matmul`` and ``quant_matmul_t`` (a bf16 cotangent) run their
 tensor-core kernels and fp32 calls their CUDA-core ones; each row prints
 the route it took, and the bf16 trainer must launch only the tensor-core
@@ -153,7 +176,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import convert  # noqa: E402
 from repro_torch import tree as tree_lib  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.core import clip as clip_lib  # noqa: E402
 from repro_torch.core import gan as gan_lib  # noqa: E402
 from repro_torch.core import optim  # noqa: E402
@@ -647,6 +670,46 @@ def check_lora_kernels(gen) -> tuple:
           "s(x@A)@B or g @ dequant(W_q)^T from the quantized payload "
           "(library_ms = null)", flush=True)
     return main["lora_matmul"], main["quant_matmul_t"]
+
+
+def check_lora_decode(gen) -> dict:
+    """``lora_matmul`` at the decode step's shapes: the four Yi-9B (K, N)
+    pairs at M = 4 rows (one token of 4 streams), NF4 block 64, bf16 x,
+    rank 16, against the plain version at the bf16 bound, with device,
+    call and plain ms beside the bound (bytes: the quantized W dominates
+    at M = 4). The tensor-core kernel computes a 256-row tile, so at
+    M = 4 it keeps 1/64 of the rows it computes. Returns the rows by
+    shape."""
+    rows = {}
+    for name, (K, N) in YI_LINEARS.items():
+        w = (torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5
+             ).to(torch.bfloat16)
+        qt = ref.blockwise_quant(w, bits=4, block=64, mode="nf4")
+        x = torch.randn((4, K), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        a = torch.randn((K, 16), generator=gen, device="cuda") / K ** 0.5
+        b = torch.randn((16, N), generator=gen, device="cuda") * 0.05
+        run = lambda: lm_kernel.lora_matmul(x, qt, a, b, scale=2.0)
+        plain = lambda: ref.lora_matmul(x, qt, a, b, scale=2.0)
+        got, route = routed(lm_kernel.lora_matmul, run)
+        abs_e, rel_e = rel_err(got, plain())
+        if route != "tensor cores" or not (
+                rel_e <= _tol(torch.bfloat16) and torch.isfinite(got).all()):
+            raise AssertionError(f"lora_matmul decode {name}: {route}, rel "
+                                 f"err {rel_e}")
+        Kq = qt.q.shape[-3] * qt.block
+        b_ms, b_by = bound(nbytes(x, a, b, qt.q, qt.scales, got),
+                           2.0 * 4 * (Kq * N + K * 16 + 16 * N),
+                           torch.bfloat16)
+        row = {"case": f"decode_{name}", "M": 4, "route": route,
+               "splits": lm_kernel.plan(4, K, N, qt.block).splits,
+               "max_abs_err": abs_e, "rel_err": rel_e, "bound_ms": b_ms,
+               "bound_by": b_by}
+        timed(row, "ms", run)
+        timed(row, "plain_ms", plain)
+        report({"lora_matmul": 1, **row})
+        rows[name] = row
+    return rows
 
 
 def qmt_split_sweep(gen, counts=(1, 2, 3, 4, 8, 16)) -> None:
@@ -2799,6 +2862,16 @@ def cli_phase(device="cuda", argv=("--adapters", "8", "--requests", "48")):
             "store": rec["store"]}
 
 
+def load_loop_syncs():
+    """``scripts/torch_loop_syncs.py`` as a module (its
+    ``sync_warnings``)."""
+    spec = importlib.util.spec_from_file_location("torch_loop_syncs",
+                                                  LOOP_SYNCS)
+    tls = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tls)
+    return tls
+
+
 def loop_syncs_phase(device="cuda", rounds=3) -> dict:
     """Phase 11 (d): the synchronizing calls inside the round loop of a
     fault-free sync-partial ``run_federated`` (pipelined, with a store
@@ -2806,10 +2879,7 @@ def loop_syncs_phase(device="cuda", rounds=3) -> dict:
     ``set_sync_debug_mode("warn")``, by site, beside ``SYNC_TRACES``
     (``scripts/torch_loop_syncs.py``); none may lie outside a wait that
     ``SYNC_TRACES`` charges."""
-    spec = importlib.util.spec_from_file_location("torch_loop_syncs",
-                                                  LOOP_SYNCS)
-    tls = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tls)
+    tls = load_loop_syncs()
     store = tls.demo_store(device)
     res = {"pipelined": tls.measure(rounds=rounds, store=store,
                                     device=device),
@@ -2873,6 +2943,303 @@ def handoff_report() -> dict:
     return launches
 
 
+# -- phase 12: token serving and the train-side pieces ------------------
+
+# the serving CLI's token mode as phase 12 drives it: 4 streams, a prompt
+# of 64, 32 tokens generated (the prefill's and 31 decode steps)
+SERVE_TOKENS = dict(batch=4, prompt=64, gen=32)
+# where phase 12 (d) writes its checkpoint: the gitignored build/
+PHASE12_DIR = Path(__file__).resolve().parent / "build" / "phase12"
+
+
+def serve_argv(arch: str) -> list:
+    t = SERVE_TOKENS
+    return ["--arch", arch, "--full-config", "--quant", "4", "--batch",
+            str(t["batch"]), "--prompt-len", str(t["prompt"]), "--gen",
+            str(t["gen"])]
+
+
+def decode_step_bound(frozen, tr, cache) -> tuple:
+    """(ms, "bytes") for one decode step: the layer weights, the head,
+    the trainables and the cache, each read once, over the card's
+    memory rate (the step's operations, 2 a weight a stream, are far
+    below the bf16 peak)."""
+    n = qlib.tree_bytes(frozen["layers"]) + nbytes(frozen["head"]) + \
+        qlib.tree_bytes(tr) + qlib.tree_bytes(cache)
+    return n / HBM_BYTES_S * 1e3, "bytes", n
+
+
+def check_token_routes(cfg, G, launches, tc, traces) -> None:
+    """The token mode's routes over a prefill and G - 1 decode steps: no
+    plain route; a dense model's 7 projections a layer a step through
+    ``lora_matmul``'s tensor-core kernel and the prefill's attention
+    through ``flash_attention``'s; an SSM's prefill scans through
+    ``selective_scan``; ``decode_attention`` (plain in both packages)
+    once a layer a decode step plus the adapter's once a step."""
+    L = cfg.n_layers
+    bad = [k for k in traces if k.endswith("_ref")]
+    if bad:
+        raise AssertionError(f"{cfg.name} serving took plain routes: {bad}")
+    want = {"decode_attention_plain": 1 + (G - 1) * (
+        (L if cfg.family == "dense" else 0) + 1)}
+    if cfg.family == "dense":
+        n = DENSE_LORA_LINEARS * L * G
+        want.update(lora_matmul_cuda_tc=n, flash_attention_cuda_tc=L)
+        ok = launches["lora_matmul"] == tc["lora_matmul"] == n and \
+            launches["flash_attention"] == L
+    else:
+        want.update(selective_scan_cuda=L)
+        ok = launches["selective_scan"] == L
+    if not ok or {k: traces.get(k, 0) for k in want} != want:
+        raise AssertionError(f"{cfg.name}: launches {launches}, tensor-core "
+                             f"{tc}, traces {traces}; want {want}")
+
+
+def token_serve_phase(arch: str, device="cuda") -> dict:
+    """Phase 12 (a) / (b): ``repro_torch.launch.serve.main`` in its token
+    mode on ``arch`` at full width and depth with an NF4 backbone
+    (``serve_argv``), the launch counts zeroed just before and read right
+    after. Yi-9B: every projection through ``lora_matmul``'s tensor-core
+    kernel (7 x 48 a step: the prefill's and each decode step's), the
+    prefill's 48 attentions through ``flash_attention``'s; Falcon-Mamba:
+    the prefill's 64 scans through ``selective_scan``. No plain route.
+    Then, from a fresh prefill: one decode step profiled (device busy,
+    idle share, top entries, device ms by region, ``decode_attention``'s
+    included), and the decode loop (``serve.decode_loop``) run again
+    under ``set_sync_debug_mode("warn")``: no synchronizing call may come
+    from inside it."""
+    from repro_torch.launch import serve as serve_cli
+    t = SERVE_TOKENS
+    B, P, G = t["batch"], t["prompt"], t["gen"]
+    cfg = get_config(arch)
+    L = cfg.n_layers
+    ops.reset_kernel_traces()
+    ops.reset_launch_counts()
+    out = serve_cli.main(serve_argv(arch), device=device)
+    launches = ops.launch_counts()
+    tc = ops.tc_launch_counts()
+    traces = dict(ops.KERNEL_TRACES)
+    toks = out["tokens"]
+    if toks.shape != (B, G) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"{arch}: tokens {toks.shape} out of range")
+    on_card = torch.device(device).type == "cuda"
+    if on_card:                 # a rehearsal on the CPU takes plain routes
+        check_token_routes(cfg, G, launches, tc, traces)
+    res = {"arch": arch, "layers": L, "tokens_row0": toks[0, :8].tolist(),
+           "prefill_ms": out["prefill_s"] * 1e3,
+           "prefill_tok_s": B * P / out["prefill_s"],
+           "decode_ms_per_token": out["decode_s"] / (G - 1) * 1e3,
+           "decode_tok_s": B * (G - 1) / out["decode_s"],
+           "launches": launches, "traces": traces}
+    model, params, prompt = out["model"], out["params"], out["prompt"]
+    frozen, tr = params["frozen"], params["trainable"]
+    del out
+
+    def fresh():
+        logits, cache = model.prefill(frozen, tr, {"tokens": prompt},
+                                      max_len=P + G)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        return cache, tok, torch.full((), P, dtype=torch.int32,
+                                      device=device)
+
+    _sync(device)
+    t0 = time.perf_counter()
+    cache, tok, pos = fresh()           # warm: the CLI's was the first call
+    _sync(device)
+    res["prefill_warm_ms"] = (time.perf_counter() - t0) * 1e3
+    res["bound_ms"], res["bound_by"], res["bound_bytes"] = \
+        decode_step_bound(frozen, tr, cache)
+    if not on_card:
+        return res
+    prof = profile_run(lambda: model.decode_step(frozen, tr, cache, tok, pos),
+                       ("lora_matmul",) if cfg.family == "dense" else
+                       ("selective_scan",))
+    res["profile"] = prof
+    res["decode_attention_ms"] = dict(prof["regions_ms"]).get(
+        "decode_attention", 0.0)
+    cache, tok, pos = fresh()
+    tls = load_loop_syncs()
+    torch.cuda.synchronize()
+    with tls.sync_warnings() as stacks:
+        serve_cli.decode_loop(model, frozen, tr, cache, tok, pos, G - 1,
+                              greedy=True)
+        torch.cuda.synchronize()
+    loop = [st for st in stacks if any(
+        f.name == "decode_loop" and f.filename.endswith("serve.py")
+        for f in st)]
+    res["syncs_in_decode_loop"] = len(loop)
+    res["syncs_outside_loop"] = len(stacks) - len(loop)
+    if loop:
+        where = collections.Counter(f"{Path(st[-1].filename).name}:"
+                                    f"{st[-1].lineno}" for st in loop)
+        raise AssertionError(f"{arch}: {len(loop)} synchronizing calls "
+                             f"inside the decode loop: {dict(where)}")
+    del model, params, frozen, tr, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def decode_check_phase(arch: str, *, n_layers=2, prompt=64, steps=8,
+                       seed=0, device="cuda", **replace) -> dict:
+    """Phase 12 (c): ``Model.prefill`` of 4 x ``prompt`` tokens and
+    ``steps`` decode steps on the card (through the kernels) and on the
+    CPU (the plain versions) on the same weights and the same tokens
+    (numpy from ``seed``; the decode steps fed the same tokens on both
+    sides): ``arch`` with an NF4 backbone at full width with ``n_layers``
+    layers, or at its reduced config (``n_layers=None``), with
+    ``replace``. The logits of every step agree within 2e-2 of the
+    largest in bf16 (the step checks' bound) and 1e-4 in fp32; with an
+    int8 KV cache the decode steps within 5e-2, the JAX package's bound
+    for int8 against fp KV (tests/test_perf_features.py): a K/V element
+    at a rounding boundary can take codes one step apart on the two
+    devices, which moves it by its row's scale, as much as the int8
+    rounding error itself."""
+    cfg = (get_config(arch).replace(n_layers=n_layers) if n_layers else
+           get_reduced(arch)).replace(**CLI_NF4, **replace)
+    model = build_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = model.init_params(gen, device=device)
+    frozen = params["frozen"]
+    tr = perturbed(params["trainable"], gen, device)
+    toks = np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (4, prompt + steps)).astype(np.int32)
+    tol = 2e-2 if cfg.dtype == "bfloat16" else 1e-4
+    step_tol = 5e-2 if cfg.kv_quant_bits == 8 else tol
+
+    def run(f, t, dev):
+        tk = torch.as_tensor(toks, device=dev)
+        logits, cache = model.prefill(f, t, {"tokens": tk[:, :prompt]},
+                                      max_len=prompt + steps)
+        out = [logits.float().cpu()]
+        for i in range(steps):
+            logits, cache = model.decode_step(
+                f, t, cache, tk[:, prompt + i:prompt + i + 1],
+                torch.full((), prompt + i, dtype=torch.int32, device=dev))
+            out.append(logits.float().cpu())
+        return out
+
+    ops.reset_kernel_traces()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = run(frozen, tr, device)
+    _sync(device)
+    card_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    traces = dict(ops.KERNEL_TRACES)
+    bad = [k for k in traces if k.endswith("_ref")]
+    if bad and torch.device(device).type == "cuda":
+        raise AssertionError(f"{arch} card decode took plain routes: {bad}")
+    t0 = time.perf_counter()
+    cpu = run(convert.tree_to(frozen, "cpu"), convert.tree_to(tr, "cpu"),
+              "cpu")
+    cpu_s = time.perf_counter() - t0
+    errs = [rel_err(a, b)[1] for a, b in zip(card, cpu)]
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+           "window": cfg.window, "kv_quant_bits": cfg.kv_quant_bits,
+           "steps": steps, "prefill_rel": errs[0],
+           "worst_step_rel": max(errs[1:]), "tol": tol,
+           "step_tol": step_tol, "card_s": card_s, "cpu_s": cpu_s,
+           "launches": launches}
+    if cfg.window and prompt + steps <= cfg.window:
+        raise AssertionError("the ring must wrap: prompt + steps > window")
+    if not (errs[0] <= tol and max(errs[1:]) <= step_tol):
+        raise AssertionError(f"decode card vs CPU: {res}, per step {errs}")
+    del params, frozen, tr
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def train_side_phase(device="cuda") -> dict:
+    """Phase 12 (d): the trainer's ``--ckpt`` at its reduced config on the
+    card, 2 rounds then a run to 3 that resumes, bitwise 3 straight
+    rounds; and one ``train_step`` with ``grad_accum=4`` against
+    ``grad_accum=1`` on the same 4 x 16 tokens (NF4 backbone), within
+    tests/test_perf_features.py's bounds (loss 1e-3, trainables 5e-3)."""
+    import shutil
+    args = ["--rounds", "2", "--clients", "2", "--local-steps", "2"]
+    shutil.rmtree(PHASE12_DIR, ignore_errors=True)
+    ck = str(PHASE12_DIR / "fl.npz")
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        train_lib.main(args + ["--ckpt", ck], device=device)
+        args[1] = "3"
+        resumed = train_lib.main(args + ["--ckpt", ck], device=device)
+        straight = train_lib.main(args, device=device)
+    launches = ops.launch_counts()
+    shutil.rmtree(PHASE12_DIR, ignore_errors=True)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_lib.leaves(resumed), tree_lib.leaves(straight)))
+    if not same:
+        raise AssertionError("the resumed trainer differs from the "
+                             "straight run")
+    cfg = get_reduced("yi-9b").replace(**CLI_NF4)
+    m1, m4 = build_model(cfg), build_model(cfg.replace(grad_accum=4))
+    params = m1.init_params(torch.Generator(device=device).manual_seed(0),
+                            device=device)
+    tr = perturbed(params["trainable"],
+                   torch.Generator(device=device).manual_seed(1), device)
+    toks = train_lib.synthetic_token_stream(
+        np.random.RandomState(0), cfg.vocab_size, 1, docs_per_client=4,
+        seq=16)[0]
+    batch = train_lib.make_batch(toks, device)
+    opt = optim.adam_init(tr)
+    ops.reset_launch_counts()
+    tr1, _, a = m1.train_step(params["frozen"], tr, opt, batch)
+    tr4, _, b = m4.train_step(params["frozen"], tr, opt, batch)
+    for k, v in ops.launch_counts().items():
+        launches[k] += v
+    loss_d = abs(float(a["loss"]) - float(b["loss"]))
+    leaf_d = max(float((x - y).abs().max()) for x, y in zip(
+        tree_lib.leaves(tr1), tree_lib.leaves(tr4)))
+    if not (loss_d < 1e-3 and leaf_d < 5e-3):
+        raise AssertionError(f"grad_accum=4 vs 1: loss {loss_d}, leaves "
+                             f"{leaf_d}")
+    return {"resume_bitwise": same, "grad_accum_loss_diff": loss_d,
+            "grad_accum_leaf_diff": leaf_d, "launches": launches}
+
+
+def token_serve_report() -> collections.Counter:
+    """Phase 12 on the card, reported. Returns its launches."""
+    print(f"token serving (launch/serve.py token mode, prefill + decode, "
+          f"ring KV / SSM caches) and the train-side pieces, "
+          f"{card_line()}:", flush=True)
+    launches = collections.Counter()
+    t_all = time.perf_counter()
+    for arch in ("yi-9b", "falcon-mamba-7b"):
+        t0 = time.perf_counter()
+        res = token_serve_phase(arch)
+        launches.update(res.pop("launches"))
+        prof = res.pop("profile")
+        report({"serve_tokens": arch, **res})
+        report({"decode_step_" + k: v for k, v in prof.items()
+                if k not in ("top_ms", "regions_ms")})
+        print("  decode step top device time (ms), each with its launching "
+              "ops (op, region, ms):", flush=True)
+        for n, ms, srcs in prof["top_ms"]:
+            print(f"    {ms} {n}: {srcs}", flush=True)
+        print(f"  decode step device time by region (ms): "
+              f"{prof['regions_ms']}", flush=True)
+        report({"serve_tokens_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    for arch, kw in (("yi-9b", dict(n_layers=2)),
+                     ("falcon-mamba-7b", dict(n_layers=2)),
+                     ("h2o-danube-3-4b", dict(n_layers=None, steps=32,
+                                              kv_quant_bits=8))):
+        res = decode_check_phase(arch, **kw)
+        launches.update(res.pop("launches"))
+        report({"decode_card_vs_cpu": arch, **res})
+    report({"decode_check_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    res = train_side_phase()
+    launches.update(res.pop("launches"))
+    report({"train_side": "--ckpt resume, grad_accum=4", **res,
+            "train_side_s": time.perf_counter() - t0})
+    report({"phase12_s": time.perf_counter() - t_all, "card": card_line()})
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -2889,6 +3256,7 @@ def main() -> int:
     main_rows["lora_matmul"], main_rows["quant_matmul_t"] = \
         check_lora_kernels(gen)
     qmt_split_sweep(gen)
+    check_lora_decode(gen)          # the decode step's shapes (phase 12)
     main_rows["selective_scan"], main_rows["selective_scan_bwd"] = \
         check_selective_scan(gen)
 
@@ -2948,6 +3316,7 @@ def main() -> int:
     vit_launches = vit_round_report()
     sched_launches = sched_report()
     handoff_launches = handoff_report()
+    tokens_launches = token_serve_report()
 
     print(card_line(), flush=True)
     # flash_attention runs on every path: its launches over all of them
@@ -2956,7 +3325,8 @@ def main() -> int:
              "falcon-mamba-7b": mamba_launches["flash_attention"],
              "fl_round": fl_launches, "vit_round": vit_launches,
              "sched": sched_launches,
-             "handoff": handoff_launches["flash_attention"]}
+             "handoff": handoff_launches["flash_attention"],
+             "tokens": tokens_launches["flash_attention"]}
     print(f"flash_attention launches by path: {flash}", flush=True)
     # the serve kernels run on two paths: the replay (phase 3) and the
     # trainer-fed store (phase 11)
@@ -2964,11 +3334,16 @@ def main() -> int:
                           "handoff": handoff_launches[name]}
                    for name in ("quant_matmul", "blockwise_quant")}
     print(f"serve kernel launches by path: {serve_paths}", flush=True)
+    # phase 12 runs lora_matmul, the scans and (its trainer) quant_matmul_t
+    print(f"phase 12 launches: {dict(tokens_launches)}", flush=True)
     launches = {**serve_launches, **yi_launches,
                 **{name: sum(p.values()) for name, p in serve_paths.items()},
                 "flash_attention": sum(flash.values()),
                 "selective_scan": mamba_launches["selective_scan"],
                 "selective_scan_bwd": mamba_launches["selective_scan_bwd"]}
+    for name in ("lora_matmul", "quant_matmul_t", "selective_scan",
+                 "selective_scan_bwd"):
+        launches[name] += tokens_launches[name]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],

@@ -27,15 +27,15 @@ _MODULES = {
 # arch -> (family, the ROADMAP slice that ports it)
 _UNPORTED = {
     "qwen3-moe-235b-a22b": ("moe", "the large-model zoo's other families "
-                            "(ROADMAP Queue A item 14)"),
+                            "(ROADMAP Queue A item 8.4)"),
     "kimi-k2-1t-a32b": ("moe", "the large-model zoo's other families "
-                        "(ROADMAP Queue A item 14)"),
+                        "(ROADMAP Queue A item 8.4)"),
     "recurrentgemma-2b": ("hybrid", "the large-model zoo's other families "
-                          "(ROADMAP Queue A item 14)"),
+                          "(ROADMAP Queue A item 8.4)"),
     "whisper-medium": ("encdec", "the large-model zoo's other families "
-                       "(ROADMAP Queue A item 14)"),
+                       "(ROADMAP Queue A item 8.4)"),
     "llava-next-34b": ("vlm", "the large-model zoo's other families "
-                       "(ROADMAP Queue A item 14)"),
+                       "(ROADMAP Queue A item 8.4)"),
 }
 
 ARCHS = tuple(k for k in (*_MODULES, *_UNPORTED) if k != "clip-b32")

@@ -58,9 +58,7 @@ def apply(params, x: torch.Tensor, *, n_heads: int = 8,
     q, k, v = proj(params["wq"]), proj(params["wk"]), proj(params["wv"])
     a = kops.flash_attention(q, k, v, causal=causal and S > 1)
     a = a.reshape(B, S, d)
-    x = x + a @ params["wo"].to(dt)
-    h = torch.relu(x @ params["w1"].to(dt) + params["b1"].to(dt))
-    return x + h @ params["w2"].to(dt) + params["b2"].to(dt)
+    return _ffn(params, x + a @ params["wo"].to(dt), dt)
 
 
 def apply_stacked(params, x: torch.Tensor, *, n_heads: int = 8,
@@ -86,3 +84,53 @@ def apply_stacked(params, x: torch.Tensor, *, n_heads: int = 8,
     h = torch.relu(mm(xf, params["w1"]) + params["b1"].to(dt)[:, None])
     out = xf + mm(h, params["w2"]) + params["b2"].to(dt)[:, None]
     return out.reshape(C, B, S, d)
+
+
+def _ffn(params, x, dt):
+    h = torch.relu(x @ params["w1"].to(dt) + params["b1"].to(dt))
+    return x + h @ params["w2"].to(dt) + params["b2"].to(dt)
+
+
+def prefill(params, x: torch.Tensor, window: int, *, n_heads: int = 8):
+    """Port of ``repro.core.adapter.prefill``: the adapter's output for
+    the LAST position plus a ring KV cache of ``window`` slots over the
+    final ``min(S, window)`` positions (empty slots when window > S), so
+    decoding stays windowed. x: (B, S, d) -> ((B, 1, d), cache)."""
+    from repro_torch.models import layers as mlayers
+    B, S, d = x.shape
+    dh = d // n_heads
+    dt = x.dtype
+    k = (x @ params["wk"].to(dt)).reshape(B, S, n_heads, dh)
+    v = (x @ params["wv"].to(dt)).reshape(B, S, n_heads, dh)
+    cache = mlayers.ring_from_full(k, v, window)
+    last = x[:, -1:]
+    q = (last @ params["wq"].to(dt)).reshape(B, 1, n_heads, dh)
+    a = kops.decode_attention(q, cache["k"], cache["v"],
+                              cache["slot_pos"][None]).reshape(B, 1, d)
+    y = last + a @ params["wo"].to(dt)
+    return _ffn(params, y, dt), cache
+
+
+def decode(params, x: torch.Tensor, cache, pos, *, n_heads: int = 8):
+    """Port of ``repro.core.adapter.decode``: one token x (B, 1, d) at
+    the absolute position ``pos`` (a 0-d integer tensor on x's device)
+    against the ring cache. Its k/v row and ``slot_pos`` entry are
+    written into slot ``pos % M`` in place with device ops; returns
+    ``(out, cache)``, the same dict."""
+    B, _, d = x.shape
+    dh = d // n_heads
+    dt = x.dtype
+
+    def proj(w):
+        return (x @ params[w].to(dt)).reshape(B, 1, n_heads, dh)
+
+    q = proj("wq")
+    slot = torch.remainder(pos, cache["k"].shape[1]).reshape(1).long()
+    for name in ("k", "v"):
+        cache[name].index_copy_(1, slot, proj("w" + name).to(
+            cache[name].dtype))
+    cache["slot_pos"].index_copy_(0, slot, pos.reshape(1).to(torch.int32))
+    a = kops.decode_attention(q, cache["k"].to(dt), cache["v"].to(dt),
+                              cache["slot_pos"][None]).reshape(B, 1, d)
+    y = x + a @ params["wo"].to(dt)
+    return _ffn(params, y, dt), cache

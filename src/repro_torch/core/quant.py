@@ -9,8 +9,8 @@ to the JAX package so payloads compare bitwise:
 Every op is plain fp32 PyTorch: ``absmax / 127.0`` is an IEEE division
 on every device (:func:`_div`) and ``torch.round`` rounds half to even
 like ``jnp.round``, so the payload and scales equal the JAX eager
-quantizer bit for bit. Double
-quantization is not ported yet.
+quantizer bit for bit, and so do the int8 codes of QLoRA's double
+quantization (:func:`double_quantize`).
 """
 from __future__ import annotations
 
@@ -221,6 +221,68 @@ def dequantize_tree(params, dtype=None):
     return tree_lib.tree_map(
         lambda l: dequantize(l, dtype) if isinstance(l, QTensor) else l,
         params)
+
+
+def _row_sum(g: torch.Tensor, window: int = 32) -> torch.Tensor:
+    """Row sums of g (R, n) in the order of XLA's CPU reduction, which
+    the JAX package's ``mean`` takes: while n > 32, windows of 32
+    consecutive elements (the last one zero-padded) are each summed in
+    order; then the <= 32 partials in order. For n <= 32 or a multiple
+    of 32 (``double_quantize``'s 256 included) this is XLA's order bit
+    for bit, so the means, the offsets and the int8 codes are the JAX
+    package's."""
+    while g.shape[1] > window:
+        g = torch.nn.functional.pad(g, (0, (-g.shape[1]) % window))
+        g = g.reshape(g.shape[0], -1, window)
+        acc = torch.zeros(g.shape[:2], dtype=g.dtype, device=g.device)
+        for i in range(window):
+            acc = acc + g[:, :, i]
+        g = acc
+    s = torch.zeros(g.shape[0], dtype=g.dtype, device=g.device)
+    for j in range(g.shape[1]):
+        s = s + g[:, j]
+    return s
+
+
+def double_quantize(qt: QTensor, *, block: int = 256) -> dict:
+    """QLoRA double quantization, port of
+    ``repro.core.quant.double_quantize``: the fp32 absmax scales are
+    themselves int8-quantized (mean-offset absmax over flat blocks of
+    ``block``), cutting the per-block overhead from 32 to about 8.25
+    bits. Returns a plain dict (a storage and communication
+    container)."""
+    flat = qt.scales.to(torch.float32).reshape(-1)
+    g = torch.nn.functional.pad(flat, (0, (-flat.numel()) % block)
+                                ).reshape(-1, block)
+    mean = (_row_sum(g) * (1.0 / block))[:, None]
+    c = g - mean
+    smax = _div(c.abs().amax(dim=1, keepdim=True).clamp_min(1e-12), 127.0)
+    q = torch.clamp(torch.round(c / smax), -127, 127).to(torch.int8)
+    return {"q": qt.q, "s_q": q, "s_scale": smax[:, 0],
+            "s_mean": mean[:, 0],
+            "meta": dict(bits=qt.bits, mode=qt.mode, block=qt.block,
+                         out_dtype=str(qt.out_dtype).replace("torch.", ""),
+                         orig_shape=tuple(qt.orig_shape),
+                         scales_shape=tuple(qt.scales.shape),
+                         dq_block=block)}
+
+
+def double_dequantize(dq: dict) -> QTensor:
+    m = dq["meta"]
+    flat = (dq["s_q"].to(torch.float32) * dq["s_scale"][:, None] +
+            dq["s_mean"][:, None]).reshape(-1)
+    n = int(np.prod(m["scales_shape"]))
+    return QTensor(q=dq["q"], scales=flat[:n].reshape(m["scales_shape"]),
+                   bits=m["bits"], mode=m["mode"], block=m["block"],
+                   out_dtype=getattr(torch, m["out_dtype"]),
+                   orig_shape=tuple(m["orig_shape"]))
+
+
+def double_quant_bytes(dq: dict) -> int:
+    b = dq["q"].numel() * dq["q"].element_size()
+    b += dq["s_q"].numel() + dq["s_scale"].numel() * 4 + \
+        dq["s_mean"].numel() * 4
+    return int(b)
 
 
 def tree_bytes(params) -> int:

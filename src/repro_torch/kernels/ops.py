@@ -150,6 +150,33 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     return _FlashAttention.apply(q, k, v, causal, window)
 
 
+def decode_attention(q, k_cache, v_cache, slot_pos):
+    """One query token (B, 1, H, D) against a ring KV cache (B, M, Hkv,
+    D), port of ``repro.kernels.ops.decode_attention`` on one device
+    (:func:`ref.decode_attention`). The JAX package computes it in plain
+    ``jnp``, not Pallas, so the plain PyTorch version is its port on
+    every device, traced as ``decode_attention_plain``; the profiler
+    range ``decode_attention`` names its device time."""
+    trace_count("decode_attention_plain")
+    with torch.profiler.record_function("decode_attention"):
+        return ref.decode_attention(q, k_cache, v_cache, slot_pos)
+
+
+def combine_decode_partials(parts, dtype=torch.float32):
+    """Merge ``ref.decode_attention_partial`` statistics ``(m, l, acc)``
+    of disjoint slices of the cache slots into the attention output
+    ``(B, 1, H, D)`` in ``dtype``: the log-sum-exp combine of
+    ``repro.kernels.ops.decode_attention`` (its ``pmax``/``psum`` over
+    the cache shards, ``ops.py:113-120``) as a plain function."""
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    corr = [torch.exp(mi - m) for mi, _, _ in parts]
+    lg = sum(li * c for (_, li, _), c in zip(parts, corr))
+    accg = sum(ai * c[..., None] for (_, _, ai), c in zip(parts, corr))
+    out = accg / lg.clamp_min(1e-30)[..., None]
+    B, Hkv, G, D = out.shape
+    return out.reshape(B, 1, Hkv * G, D).to(dtype)
+
+
 def quant_matmul(x, qt: qlib.QTensor):
     # qt.q.ndim == 3: a plain 2-D weight; 4: a stacked (per-user) one
     if _on_cuda(x, "quant_matmul"):

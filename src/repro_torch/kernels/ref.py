@@ -60,6 +60,57 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # ------------------------------------------------------------------
+# single-token attention against a ring KV cache (serving decode)
+# ------------------------------------------------------------------
+def _decode_scores(q, k_cache, slot_pos):
+    """The masked scores ``(B, Hkv, G, M)`` in fp32 of one query token
+    against the cache, query head h on kv head ``h // G``; empty slots
+    (``slot_pos < 0``) hold NEG_INF."""
+    B, _, H, D = q.shape
+    Hkv = k_cache.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Hkv, H // Hkv, D).to(torch.float32) * scale
+    s = torch.einsum("bkgd,bpkd->bkgp", qg, k_cache.to(torch.float32))
+    valid = (slot_pos >= 0)[:, None, None, :]
+    return torch.where(valid, s, NEG_INF), valid
+
+
+def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor,
+                             slot_pos: torch.Tensor) -> tuple:
+    """Flash-decoding statistics ``(m, l, acc)`` over a slice of the cache
+    slots, port of ``repro.kernels.ref.decode_attention_partial``: the
+    running max ``m (B, Hkv, G)``, the sum ``l`` of ``exp(s - m)`` over
+    the valid slots and ``acc (B, Hkv, G, D)``, their weighted sum of V,
+    all fp32. Shapes as in :func:`decode_attention`, with any slot count;
+    ``kernels.ops.combine_decode_partials`` merges slices."""
+    s, valid = _decode_scores(q, k_cache, slot_pos)
+    m = s.amax(-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    acc = torch.einsum("bkgp,bpkd->bkgd", p, v_cache.to(torch.float32))
+    return m, p.sum(-1), acc
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     slot_pos: torch.Tensor) -> torch.Tensor:
+    """One query token against a (ring-)cache, port of
+    ``repro.kernels.ref.decode_attention``.
+
+    q: (B, 1, H, D); caches: (B, M, Hkv, D) with H = G·Hkv (GQA);
+    slot_pos: (B or 1, M) int, the absolute position held in each slot,
+    -1 for an empty one. Keys are stored already position-encoded, so
+    only the empty slots are masked. The softmax is fp32; the output
+    (B, 1, H, D) has q's dtype. A row whose slots are all empty averages
+    V uniformly, as ``jax.nn.softmax`` over all NEG_INF does."""
+    B, _, H, D = q.shape
+    s, _ = _decode_scores(q, k_cache, slot_pos)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgp,bpkd->bkgd", p, v_cache.to(torch.float32))
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+# ------------------------------------------------------------------
 # fused dequant-matmul (QLoRA backbone / serve-head hot path)
 # ------------------------------------------------------------------
 def quant_matmul(x: torch.Tensor, qt: qlib.QTensor) -> torch.Tensor:

@@ -1,23 +1,40 @@
-"""Serving CLI, port of ``repro.launch.serve``.
+"""Serving CLI, port of ``repro.launch.serve``: prefill a prompt batch,
+then decode against the ring KV (or SSM state) cache; or, with
+``--adapters``, the personalized-adapter serving plane.
 
 Usage (on the card; ``main(argv, device="cpu")`` runs it on the CPU):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
+      --full-config --quant 4 --batch 4 --prompt-len 64 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --adapters 8 --requests 48
+
+The token mode builds ``--arch`` (the reduced config, or the full one
+with ``--full-config``; ``--quant 4`` an NF4 backbone at block 64) on
+seeded weights, draws the prompt from ``np.random.RandomState(0)`` as
+the JAX package does, prefills with room for ``P + G`` tokens and
+decodes G - 1 more, greedy or sampled from a ``torch.Generator`` seeded
+by ``--seed``. Inside the decode loop the position advances on the
+device and the tokens stay there until the loop ends, so the loop makes
+no host read. The dense and SSM families run; the vlm and encdec archs
+raise (ROADMAP Queue A item 8.4).
 
 ``--adapters N`` is the personalized-adapter serving plane
 (:mod:`repro_torch.fl.serve`): train N per-user adapter trees
 (``demo_plane``), replay a Zipf/diurnal request trace through the
 multi-tenant batched engine, and print virtual-latency percentiles and
-the cache and program ledgers. The token-decode mode (prefill, then
-decode against a ring KV cache) is not ported yet: it raises, naming
-``ROADMAP.md`` Queue A item 8.
+the cache and program ledgers.
 """
 from __future__ import annotations
 
 import argparse
+import time
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.fl.runtime import upload
+from repro_torch.models import build_model
 
 
 def select_token(logits: torch.Tensor, *, greedy: bool,
@@ -95,15 +112,83 @@ def run_adapter_mode(args, device=None) -> dict:
     return {"rec": rec, "plane": plane}
 
 
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def decode_loop(model, frozen, trainable, cache, tok, pos, steps: int, *,
+                greedy: bool, temperature: float = 1.0,
+                generator: torch.Generator = None) -> list:
+    """``steps`` decode steps from token ``tok`` (B, 1) at position
+    ``pos`` (a 0-d int32 tensor on the model's device), each choosing the
+    next token with :func:`select_token`. ``pos`` advances on the
+    device and the tokens stay there: the loop reads nothing back to the
+    host. Returns the chosen tokens, one (B, 1) tensor a step."""
+    out = []
+    for _ in range(steps):
+        logits, cache = model.decode_step(frozen, trainable, cache, tok, pos)
+        tok = select_token(logits, greedy=greedy, temperature=temperature,
+                           generator=generator)
+        out.append(tok)
+        pos = pos + 1
+    return out
+
+
+def run_token_mode(args, device) -> dict:
+    """The token-decode mode on ``device``: prints the JAX package's
+    lines and returns the tokens (B, G), the prefill and decode times in
+    seconds and what a caller needs to step the model again (``model``,
+    ``params``, ``prompt``)."""
+    cfg = (get_config if args.full_config else get_reduced)(args.arch)
+    if args.quant:
+        cfg = cfg.replace(quant_bits=args.quant, quant_mode="nf4",
+                          quant_block=64)
+    model = build_model(cfg)
+    params = model.init_params(
+        torch.Generator(device=device).manual_seed(0), device=device)
+    frozen, tr = params["frozen"], params["trainable"]
+
+    B, P, G = args.batch, args.prompt_len, args.gen
+    rng = np.random.RandomState(0)
+    prompt = upload(rng.randint(0, cfg.vocab_size, (B, P)), device,
+                    torch.int32)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    choose = dict(greedy=args.greedy, temperature=args.temperature,
+                  generator=gen)
+
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(frozen, tr, {"tokens": prompt},
+                                  max_len=P + G)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+    tok = select_token(logits, **choose)
+    pos = torch.full((), P, dtype=torch.int32, device=device)
+    t0 = time.perf_counter()
+    out = decode_loop(model, frozen, tr, cache, tok, pos, G - 1, **choose)
+    _sync(device)
+    t_decode = time.perf_counter() - t0
+    toks = torch.cat([tok, *out], 1).cpu().numpy()
+    mode = "greedy" if args.greedy else f"sample(T={args.temperature:g})"
+    print(f"arch={cfg.name} batch={B} prompt={P} gen={G} mode={mode}")
+    print(f"prefill: {t_prefill*1e3:.1f} ms "
+          f"({B*P/t_prefill:.0f} tok/s)")
+    print(f"decode : {t_decode*1e3:.1f} ms total, "
+          f"{B*(G-1)/max(t_decode,1e-9):.0f} tok/s")
+    print("sample token ids:", toks[0, :16].tolist(), flush=True)
+    return {"tokens": toks, "prefill_s": t_prefill, "decode_s": t_decode,
+            "model": model, "params": params, "prompt": prompt}
+
+
 def main(argv=None, device=None):
     """The serving CLI; ``device`` (the card unless given) is for callers
     that run it on the CPU."""
     args = build_parser().parse_args(argv)
-    if not args.adapters:
-        raise NotImplementedError(
-            "the token-decode mode (prefill and decode with ring caches) "
-            "is not ported yet: ROADMAP.md Queue A item 8, part 2")
-    return run_adapter_mode(args, resolve_device(device))
+    dev = resolve_device(device)
+    if args.adapters:
+        return run_adapter_mode(args, dev)
+    return run_token_mode(args, dev)
 
 
 if __name__ == "__main__":

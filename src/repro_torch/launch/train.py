@@ -11,10 +11,14 @@ Usage, on the card (the full Yi-9B fits one H100 with an NF4 backbone):
 and on the CPU at the reduced size, from Python:
   from repro_torch.launch.train import main
   main(["--arch", "yi-9b", "--rounds", "2"], device="cpu")
+``--ckpt PATH`` saves the FL server state (round, global trainables,
+client sizes; ``repro_torch.ckpt``) after every round and resumes from
+PATH when it exists, as the JAX package's trainer does.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -22,6 +26,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch import tree as tree_lib
+from repro_torch.ckpt import restore_fl_state, save_fl_state
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core import optim
 from repro_torch.core.quant import dequantize_tree, quantize_tree, tree_bytes
@@ -117,7 +122,8 @@ def parse_args(argv=None):
     ap.add_argument("--full-config", action="store_true",
                     help="use the full (non-reduced) architecture")
     ap.add_argument("--ckpt", default="",
-                    help="checkpoint path (not ported yet)")
+                    help="checkpoint path; saves the FL server state every "
+                         "round and resumes from it if present")
     return ap.parse_args(argv)
 
 
@@ -125,9 +131,6 @@ def main(argv=None, device=None):
     """The trainer's CLI; ``device`` (the card unless given) is for
     callers that run it on the CPU."""
     args = parse_args(argv)
-    if args.ckpt:
-        raise NotImplementedError("--ckpt: the checkpoint module (ckpt/) "
-                                  "is not ported yet")
     dev = resolve_device(device)
     cfg = (get_config if args.full_config else get_reduced)(args.arch)
     if args.quant:
@@ -146,8 +149,13 @@ def main(argv=None, device=None):
     rng = np.random.RandomState(0)
     data = synthetic_token_stream(rng, cfg.vocab_size, args.clients,
                                   seq=args.seq)
+    start_round = 0
+    if args.ckpt and os.path.exists(args.ckpt):
+        global_tr, _, start_round, _ = restore_fl_state(
+            args.ckpt, like_trainable=global_tr)
+        print(f"resumed from {args.ckpt} at round {start_round}")
     total_steps = total_samples = total_uplink = 0
-    for rnd in range(args.rounds):
+    for rnd in range(start_round, args.rounds):
         t0 = time.time()
         updates, losses, payload = [], [], 0
         rnd_steps = rnd_samples = 0
@@ -169,6 +177,10 @@ def main(argv=None, device=None):
         total_steps += rnd_steps
         total_samples += rnd_samples
         total_uplink += payload
+        if args.ckpt:
+            save_fl_state(args.ckpt, round_idx=rnd + 1,
+                          global_trainable=global_tr,
+                          client_sizes=[len(d) for d in data])
         epochs_covered = rnd_samples / max(1, sum(len(d) for d in data))
         print(f"round {rnd}: mean client loss={np.mean(losses):.4f} "
               f"uplink={payload/2**20:.2f}MiB "

@@ -1,12 +1,14 @@
-"""Transformer building blocks for training, port of
-``repro.models.layers``: RMS norm, RoPE, GQA attention (causal, sliding
-window) and the MLPs.
+"""Transformer building blocks, port of ``repro.models.layers``: RMS
+norm, RoPE, GQA attention (causal, sliding window) for train and
+prefill, the ring-buffer KV cache with its int8 quantizer, one-token
+``attention_decode``, and the MLPs.
 
 Weights may be QTensors (the quantized backbone, paper §III-C); every
 projection optionally carries a LoRA pair and then runs through the
-fused LoRA op. Weights are bias-free. The ring-buffer caches,
-``attention_decode`` and the int8 KV quantizer come with the zoo's
-serving slice.
+fused LoRA op. Weights are bias-free. The JAX package's cross-attention
+and no-RoPE options (``kv_x``, ``prefix``, ``use_rope``,
+``update_cache``) serve the encdec and vlm families and come with them
+(ROADMAP Queue A item 8.4).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lora as lora_lib
+from repro_torch.core.quant import _div
 from repro_torch.kernels import ops as kops
 
 
@@ -30,11 +33,13 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
 
 # ------------------------------------------------------------------ rope
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
-    """x: (B, S, H, D) with D even; positions: (S,). In fp32, cast back."""
+    """x: (B, S, H, D) with D even; positions: (S,) or a 0-d tensor (one
+    decode position). In fp32, cast back. theta is a fill on x's device:
+    a tensor made from the host would wait for the card's stream."""
     D = x.shape[-1]
     half = D // 2
-    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32,
-                                       device=x.device))
+    log_theta = torch.log(torch.full((), theta, dtype=torch.float32,
+                                     device=x.device))
     freq = torch.exp(-log_theta * torch.arange(
         half, dtype=torch.float32, device=x.device) / half)
     ang = positions.to(torch.float32).reshape(-1)[:, None] * freq
@@ -68,7 +73,8 @@ def init_attention(generator, cfg: ModelConfig, dtype, device):
 
 def attention(p, x, positions, cfg: ModelConfig, *, lora=None):
     """Full-sequence causal self-attention with RoPE and the config's
-    sliding window, if any (train)."""
+    sliding window, if any (train / prefill). Returns ``(out, (k, v))``
+    with the post-RoPE k and v (B, S, Hkv, D) that prefill caches."""
     B, S, _ = x.shape
     lo = lora or {}
     q = linear(x, p["wq"], lo.get("wq"), cfg=cfg)
@@ -80,8 +86,103 @@ def attention(p, x, positions, cfg: ModelConfig, *, lora=None):
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     out = kops.flash_attention(q, k, v, causal=True, window=cfg.window)
-    return linear(out.reshape(B, S, cfg.q_dim), p["wo"], lo.get("wo"),
-                  cfg=cfg)
+    y = linear(out.reshape(B, S, cfg.q_dim), p["wo"], lo.get("wo"),
+               cfg=cfg)
+    return y, (k, v)
+
+
+# ------------------------------------------------------------------ kv cache
+def ring_from_full(k, v, M: int, *, kv_quant: bool = False):
+    """Full prefill K/V (B, S, Hkv, D) as a ring cache of M slots, port
+    of ``repro.models.layers.ring_from_full``: slot s holds the largest
+    position p < S with p % M == s, i.e. ``p = s + floor((S-1-s)/M)·M``
+    (the last min(S, M) tokens), and ``slot_pos`` -1 when s >= S, so
+    decoding goes on at position S with ``slot = pos % M`` for full and
+    sliding-window caches alike. The numerator is negative when M > S,
+    hence the floor division."""
+    S = k.shape[1]
+    s = torch.arange(M, device=k.device)
+    p = s + torch.div(S - 1 - s, M, rounding_mode="floor") * M
+    out = {"slot_pos": torch.where(s < S, p, -1).to(torch.int32)}
+    if M != S:
+        idx = p.clamp(0, S - 1)
+        k, v = k.index_select(1, idx), v.index_select(1, idx)
+    out["k"], ks = quant_kv(k, kv_quant)
+    out["v"], vs = quant_kv(v, kv_quant)
+    if kv_quant:
+        out["k_scale"], out["v_scale"] = ks, vs
+    return out
+
+
+def quant_kv(x, enabled: bool):
+    """Per-(token, head) absmax int8 quantization of K/V rows: x (..., D)
+    -> (int8 payload, fp32 scale (..., 1)), or ``(x, None)`` when not
+    ``enabled``. The division by 127 is IEEE on every device
+    (``core.quant._div``), so the codes are the JAX package's eager
+    ones bit for bit."""
+    if not enabled:
+        return x, None
+    xf = x.to(torch.float32)
+    s = _div(xf.abs().amax(-1, keepdim=True).clamp_min(1e-12), 127.0)
+    return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
+
+
+def dequant_kv(x, scale, dtype):
+    if scale is None:
+        return x.to(dtype)
+    return (x.to(torch.float32) * scale).to(dtype)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                  device):
+    """An empty ring KV cache for one layer (``max_len`` = the window for
+    sliding-window attention); int8 rows and fp32 scales with
+    ``cfg.kv_quant_bits == 8``."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    kvd = torch.int8 if cfg.kv_quant_bits == 8 else dtype
+    c = {"k": torch.zeros(shape, dtype=kvd, device=device),
+         "v": torch.zeros(shape, dtype=kvd, device=device),
+         "slot_pos": torch.full((max_len,), -1, dtype=torch.int32,
+                                device=device)}
+    if cfg.kv_quant_bits == 8:
+        c["k_scale"] = torch.zeros((*shape[:3], 1), device=device)
+        c["v_scale"] = torch.zeros((*shape[:3], 1), device=device)
+    return c
+
+
+def attention_decode(p, x, pos, cache, cfg: ModelConfig, *, lora=None):
+    """One-token attention against a ring cache, port of
+    ``repro.models.layers.attention_decode``: x (B, 1, d); ``pos`` the
+    absolute position as a 0-d integer tensor on x's device. q and k are
+    rotated at ``pos`` (keys are stored rotated); the new k/v row (int8
+    with its scale when the cache holds ``k_scale``) goes to slot
+    ``pos % M``. The slot is computed and written with device ops
+    (``index_copy_`` into the cache's tensors, in place), so the step
+    reads nothing back to the host. Returns ``(out, cache)``, the same
+    dict, where the JAX function returns a new one."""
+    B = x.shape[0]
+    lo = lora or {}
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = linear(x, p["wq"], lo.get("wq"), cfg=cfg).reshape(B, 1, H, D)
+    k = linear(x, p["wk"], lo.get("wk"), cfg=cfg).reshape(B, 1, Hkv, D)
+    v = linear(x, p["wv"], lo.get("wv"), cfg=cfg).reshape(B, 1, Hkv, D)
+    q = rope(q, pos, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+    quant = cfg.kv_quant_bits == 8 and "k_scale" in cache
+    slot = torch.remainder(pos, cache["k"].shape[1]).reshape(1).long()
+    for name, val in (("k", k), ("v", v)):
+        vq, vs = quant_kv(val, quant)
+        cache[name].index_copy_(1, slot, vq.to(cache[name].dtype))
+        if quant:
+            cache[name + "_scale"].index_copy_(1, slot, vs)
+    cache["slot_pos"].index_copy_(0, slot, pos.reshape(1).to(torch.int32))
+    out = kops.decode_attention(
+        q, dequant_kv(cache["k"], cache.get("k_scale"), x.dtype),
+        dequant_kv(cache["v"], cache.get("v_scale"), x.dtype),
+        cache["slot_pos"][None])
+    y = linear(out.reshape(B, 1, cfg.q_dim), p["wo"], lo.get("wo"),
+               cfg=cfg)
+    return y, cache
 
 
 # ------------------------------------------------------------------ mlp

@@ -6,7 +6,11 @@ A ``Model`` exposes:
   forward(frozen, trainable, batch) -> logits, aux        (train shapes)
   loss_fn(...)    -> loss, parts
   grads(...)      -> (loss, parts), grads w.r.t. the trainables
-  train_step(...) -> one TriplePlay local client step (LoRA+adapter)
+  train_step(...) -> one TriplePlay local client step (LoRA+adapter),
+                     over ``cfg.grad_accum`` microbatches
+  prefill(frozen, trainable, batch, max_len) -> last logits, cache
+  decode_step(frozen, trainable, cache, tokens, pos) -> logits, cache
+  init_cache(batch, context_len, device) -> an empty cache
 
 The frozen backbone may be quantized (cfg.quant_bits in {0, 8, 4}, linear
 or NF4 blocks); only the LoRA pairs and the paper's attention adapter are
@@ -14,15 +18,25 @@ trained, as on a TriplePlay client. Trees keep the JAX package's layout:
 the layer weights are stacked with a leading layer axis (a quantized one
 as a stacked QTensor ``(L, G, B[/2], N)``) and the LoRA leaves likewise,
 so weights convert structurally (:mod:`repro_torch.convert`). The JAX
-``lax.scan`` over the stack is a Python loop over per-layer slices;
-``cfg.remat`` checkpoints each layer
+``lax.scan`` over the stack is a Python loop over per-layer slices in
+one of the JAX package's three modes, ``"train"``, ``"prefill"`` and
+``"decode"``. In training ``cfg.remat`` checkpoints each layer
 (``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``), as the
 JAX scan body is checkpointed. An SSM layer is ``x + mamba_block(
 rms_norm(x))`` (:mod:`repro_torch.models.ssm`); on one device the JAX
 package does not rematerialize it, so there the checkpoint changes
-memory only. The layer stack's constraint hooks for a device mesh are
-no-ops on one card and are not ported; prefill/decode and the other
-families come with later slices.
+memory only.
+
+The serving cache keeps the JAX package's tree, ``{"scan": {"kv": ring
+cache} or {"ssm": {"h", "conv"}}, stacked on a leading layer axis,
+"adapter": the adapter's ring cache}``, so it converts leaf for leaf. A
+decode step writes the new token's rows into those stacked buffers in
+place and returns the same dict; the step computes its slot from the
+0-d ``pos`` tensor on the device and reads nothing back to the host.
+``prefill`` and ``decode_step`` build no autograd graph. The layer
+stack's constraint hooks for a device mesh are no-ops on one card and
+are not ported; the hybrid, moe, encdec and vlm families come with
+ROADMAP Queue A item 8.4.
 """
 from __future__ import annotations
 
@@ -107,7 +121,7 @@ class Model:
                 f"{cfg.name}: the {cfg.family} family"
                 f"{'' if cfg.use_rope else ' without RoPE'} is not ported "
                 "yet (they come with the zoo's later slices; see ROADMAP "
-                "Queue A item 14)")
+                "Queue A item 8.4)")
         self.cfg = cfg
 
     # ---------------------------------------------------------- params
@@ -175,41 +189,75 @@ class Model:
         return {"frozen": frozen, "trainable": trainable}
 
     # ---------------------------------------------------------- forward
-    def _block(self, p, lo, positions, x):
+    def _block(self, p, lo, positions, x, mode="train", cache=None,
+               pos=None, cache_len=None):
+        """One layer in ``mode`` (``"train"``, ``"prefill"`` or
+        ``"decode"``). Returns ``(x, entry)``: the layer's cache entry
+        from a prefill, the cache views ``cache`` updated in place by a
+        decode, None in training."""
         cfg = self.cfg
+        entry = None
+        xin = L.rms_norm(x, p["ln1"])
         if cfg.family == "ssm":
-            h, _ = ssm_lib.mamba_block(p, L.rms_norm(x, p["ln1"]), cfg,
-                                       lora=lo)
-            return x + h
-        x = x + L.attention(p, L.rms_norm(x, p["ln1"]), positions, cfg,
-                            lora=lo)
-        return x + L.mlp(p, L.rms_norm(x, p["ln2"]), cfg, lora=lo)
+            if mode == "decode":
+                h, st = ssm_lib.mamba_decode(p, xin, cache["ssm"], cfg,
+                                             lora=lo)
+                cache["ssm"]["h"].copy_(st["h"])
+                cache["ssm"]["conv"].copy_(st["conv"])
+                entry = cache
+            else:
+                h, st = ssm_lib.mamba_block(p, xin, cfg, lora=lo)
+                entry = {"ssm": st} if mode == "prefill" else None
+            return x + h, entry
+        if mode == "decode":
+            h, _ = L.attention_decode(p, xin, pos, cache["kv"], cfg, lora=lo)
+            entry = cache
+        else:
+            h, (k, v) = L.attention(p, xin, positions, cfg, lora=lo)
+            if mode == "prefill":
+                entry = {"kv": L.ring_from_full(
+                    k, v, cache_len, kv_quant=cfg.kv_quant_bits == 8)}
+        x = x + h
+        return x + L.mlp(p, L.rms_norm(x, p["ln2"]), cfg, lora=lo), entry
 
-    def _stack(self, frozen, trainable, x, positions):
+    def _stack(self, frozen, trainable, x, positions, mode="train",
+               cache=None, pos=None, cache_len=None):
+        """The layer loop. Returns ``(x, cache)``: a prefill's entries
+        stacked on a leading layer axis, a decode's ``cache`` (updated in
+        place), None in training."""
         cfg = self.cfg
         # unbind once: the backward stacks each leaf's per-layer grads
         lora = {n: {f: torch.unbind(t, 0) for f, t in pair.items()}
                 for n, pair in trainable["lora"].items()}
+        entries = []
         for i in range(cfg.n_layers):
             p = _layer_slice(frozen["layers"], i)
             lo = {n: {f: ts[i] for f, ts in pair.items()}
                   for n, pair in lora.items()}
-            fn = functools.partial(self._block, p, lo, positions)
-            if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(fn, x, use_reentrant=False)
+            c = None if cache is None else _layer_slice(cache["scan"], i)
+            fn = functools.partial(self._block, p, lo, positions, mode=mode,
+                                   cache=c, pos=pos, cache_len=cache_len)
+            if mode == "train" and cfg.remat and torch.is_grad_enabled():
+                x, _ = checkpoint(fn, x, use_reentrant=False)
             else:
-                x = fn(x)
-        return x
+                x, entry = fn(x)
+                entries.append(entry)
+        if mode == "prefill":
+            return x, {"scan": tree_lib.tree_map(
+                lambda *ls: torch.stack(ls), entries[0], *entries[1:])}
+        return x, cache
+
+    def _embed(self, frozen, tokens):
+        return frozen["embed"][tokens.long()].to(getattr(torch,
+                                                         self.cfg.dtype))
 
     def forward(self, frozen, trainable, batch):
         """Training-shape forward. Returns (logits, aux); aux is the MoE
         balance loss, zero for the dense family."""
         cfg = self.cfg
-        dt = getattr(torch, cfg.dtype)
-        tokens = batch["tokens"]
-        x = frozen["embed"][tokens.long()].to(dt)
+        x = self._embed(frozen, batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)
-        x = self._stack(frozen, trainable, x, positions)
+        x, _ = self._stack(frozen, trainable, x, positions)
         x = L.rms_norm(x, frozen["final_norm"])
         x = adapter_lib.apply(trainable["adapter"], x,
                               n_heads=cfg.adapter_heads, causal=True)
@@ -238,16 +286,96 @@ class Model:
 
     def train_step(self, frozen, trainable, opt_state, batch, *, lr=1e-4):
         """One TriplePlay local client step: grads w.r.t. LoRA+adapter
-        only, then Adam with global-norm clipping at 1.0."""
-        if self.cfg.grad_accum > 1:
-            raise NotImplementedError(
-                "grad_accum > 1 (microbatch accumulation) is not ported yet")
-        (loss, parts), grads = self.grads(frozen, trainable, batch)
+        only, then Adam with global-norm clipping at 1.0. With
+        ``cfg.grad_accum`` A > 1 the batch is split into A microbatches
+        along its leading axis; their grads are accumulated as ``acc +
+        g / A`` in fp32 and the loss as ``loss / A``, as the JAX
+        package's scan does (its ``parts`` are then the mean loss and a
+        zero aux)."""
+        A = self.cfg.grad_accum
+        if A > 1:
+            grads = tree_lib.tree_map(
+                lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                      device=t.device), trainable)
+            loss = 0.0
+            for i in range(A):
+                mb = {k: v.reshape(A, v.shape[0] // A, *v.shape[1:])[i]
+                      for k, v in batch.items()}
+                (li, _), g = self.grads(frozen, trainable, mb)
+                grads = tree_lib.tree_map(
+                    lambda a, b: a + qlib._div(b, float(A)), grads, g)
+                loss = loss + qlib._div(li, float(A))
+            parts = {"ce": loss, "aux": torch.zeros_like(loss)}
+        else:
+            (loss, parts), grads = self.grads(frozen, trainable, batch)
         trainable, opt_state = optim.adam_update(
             grads, opt_state, trainable, lr=lr, grad_clip=1.0)
         metrics = {"loss": loss, **parts,
                    "grad_norm": optim.global_norm(grads)}
         return trainable, opt_state, metrics
+
+    # ---------------------------------------------------------- serving
+    def effective_cache_len(self, context_len: int) -> int:
+        if self.cfg.window:
+            return min(context_len, self.cfg.window)
+        return context_len
+
+    @torch.no_grad()
+    def prefill(self, frozen, trainable, batch, max_len: int | None = None):
+        """The prompt ``batch["tokens"]`` (B, S) through the stack.
+        Returns (last-token logits (B, V), cache). ``max_len`` sizes the
+        cache (default: the prompt length); pass the serving context
+        length so that later ``decode_step`` calls have room (a
+        sliding-window arch caps it at the window)."""
+        cfg = self.cfg
+        x = self._embed(frozen, batch["tokens"])
+        S = x.shape[1]
+        positions = torch.arange(S, device=x.device)
+        x, cache = self._stack(frozen, trainable, x, positions, "prefill",
+                               cache_len=self.effective_cache_len(
+                                   max_len or S))
+        x = L.rms_norm(x, frozen["final_norm"])
+        x, cache["adapter"] = adapter_lib.prefill(
+            trainable["adapter"], x, min(max_len or S, cfg.adapter_window),
+            n_heads=cfg.adapter_heads)
+        return (x @ frozen["head"].to(x.dtype))[:, 0], cache
+
+    @torch.no_grad()
+    def decode_step(self, frozen, trainable, cache, tokens, pos):
+        """tokens: (B, 1); pos: the tokens' absolute position, a 0-d
+        integer tensor on the model's device. Returns (logits (B, V),
+        cache), the cache updated in place."""
+        cfg = self.cfg
+        x = self._embed(frozen, tokens)
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+        x, cache = self._stack(frozen, trainable, x, None, "decode",
+                               cache=cache, pos=pos)
+        x = L.rms_norm(x, frozen["final_norm"])
+        x, _ = adapter_lib.decode(trainable["adapter"], x, cache["adapter"],
+                                  pos, n_heads=cfg.adapter_heads)
+        return (x @ frozen["head"].to(x.dtype))[:, 0], cache
+
+    def init_cache(self, batch: int, context_len: int, device=None):
+        """An empty cache (zeros, ``slot_pos`` -1) for ``batch`` streams
+        of up to ``context_len`` tokens, on the card unless ``device``."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        dt = getattr(torch, cfg.dtype)
+        if cfg.family == "ssm":
+            one = {"ssm": ssm_lib.mamba_cache_init(cfg, batch, dt, dev)}
+        else:
+            one = {"kv": L.init_kv_cache(
+                cfg, batch, self.effective_cache_len(context_len), dt, dev)}
+        Ma = min(context_len, cfg.adapter_window)
+        nh = cfg.adapter_heads
+        shape = (batch, Ma, nh, cfg.d_model // nh)
+        return {"scan": tree_lib.tree_map(
+                    lambda a: a.expand(cfg.n_layers, *a.shape).clone(), one),
+                "adapter": {"k": torch.zeros(shape, dtype=dt, device=dev),
+                            "v": torch.zeros(shape, dtype=dt, device=dev),
+                            "slot_pos": torch.full((Ma,), -1,
+                                                   dtype=torch.int32,
+                                                   device=dev)}}
 
 
 def build_model(cfg: ModelConfig) -> Model:

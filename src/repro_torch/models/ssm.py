@@ -11,11 +11,13 @@ kernel for a CUDA tensor, the plain time loop on the CPU, where the JAX
 package runs its chunked associative scan; the two agree within the
 JAX package's ref-vs-chunked bound. The dtype flow is the JAX package's:
 x1 and z in the model dtype, the x_proj output, dt and the scan in fp32.
+``mamba_block``'s ``{"h", "conv"}`` is the prefill's cache entry;
+``mamba_decode`` steps it one token at a time.
 
-Not ported here, with the slice that brings each (ROADMAP Queue A item
-14): a start state ``h0``, ``cfg.calibrate`` and the chunked scans
-(``chunked_linear_scan``, ``_chunked_ssm_scan``) come with prefill/decode
-and the hybrid family; so do ``mamba_decode`` and the decode caches.
+Not ported here: a start state ``h0`` (no caller in the JAX package
+passes one), ``cfg.calibrate`` and the chunked scans
+(``chunked_linear_scan``, ``_chunked_ssm_scan``) come with the dry run
+(ROADMAP Queue A item 8.5).
 """
 from __future__ import annotations
 
@@ -27,8 +29,8 @@ from repro_torch.core.quant import maybe_dequantize
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import _normal
 
-_LATER = ("is not ported yet; it comes with Mamba prefill/decode "
-          "(ROADMAP Queue A item 14)")
+_LATER = ("is not ported yet; it comes with the dry run "
+          "(ROADMAP Queue A item 8.5)")
 
 
 # ---------------------------------------------------------------- params
@@ -51,8 +53,15 @@ def init_mamba(generator, cfg: ModelConfig, dtype, device):
     }
 
 
-def mamba_cache_init(*args, **kwargs):
-    raise NotImplementedError("the Mamba decode cache " + _LATER)
+def mamba_cache_init(cfg: ModelConfig, batch: int, dtype, device):
+    """An empty decode cache: the state ``h`` (B, di, N) in fp32 and the
+    conv window's last K - 1 inputs ``conv`` (B, K - 1, di) in the model
+    dtype."""
+    di, N, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    return {"h": torch.zeros((batch, di, N), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros((batch, K - 1, di), dtype=dtype,
+                                device=device)}
 
 
 # ---------------------------------------------------------------- forward
@@ -119,5 +128,37 @@ def mamba_block(p, x: torch.Tensor, cfg: ModelConfig, *, lora=None,
     return _mamba_core(p, x, cfg, lora or {})
 
 
-def mamba_decode(*args, **kwargs):
-    raise NotImplementedError("mamba_decode " + _LATER)
+def mamba_decode(p, x: torch.Tensor, cache, cfg: ModelConfig, *,
+                 lora=None):
+    """One token, port of ``repro.models.ssm.mamba_decode``: x (B, 1, d)
+    -> (y (B, 1, d), {"h", "conv"}). Every quantized leaf of ``p`` is
+    dequantized first, as in the JAX package (range
+    ``mamba.dequantize``); the conv runs over ``cat(conv, x1)``, the
+    state steps ``h = exp(dt·A)·h + dt·x·B`` in fp32, and the returned
+    window is the input one shifted by the new token."""
+    with torch.profiler.record_function("mamba.dequantize"):
+        p = {k: maybe_dequantize(v) for k, v in p.items()}
+    dtype = x.dtype
+    lo = lora or {}
+    N, R = cfg.ssm_state, cfg.dt_rank
+    alpha, rank = cfg.lora_alpha, cfg.lora_rank
+    x0 = x[:, 0]
+    x1 = x0 @ p["in_proj_x"].to(dtype) + _lora_delta(
+        x0, lo.get("in_proj_x"), alpha, rank)
+    z = x0 @ p["in_proj_z"].to(dtype)
+    window = torch.cat([cache["conv"], x1[:, None, :].to(
+        cache["conv"].dtype)], 1)
+    xc = F.silu(torch.einsum("bkd,kd->bd", window.to(dtype),
+                             p["conv_w"].to(dtype)))
+    proj = (xc @ p["x_proj"].to(dtype)).to(torch.float32)
+    dt_r, Bm, Cm = torch.split(proj, [R, N, N], dim=-1)
+    dt = F.softplus(dt_r @ p["dt_proj"].to(torch.float32) + p["dt_bias"])
+    A = -torch.exp(p["a_log"])
+    xcf = xc.to(torch.float32)
+    h = torch.exp(dt[..., None] * A) * cache["h"] + \
+        (dt * xcf)[..., None] * Bm[:, None, :]
+    y = torch.einsum("ben,bn->be", h, Cm) + p["d_skip"] * xcf
+    y = y.to(dtype) * F.silu(z)
+    out = y @ p["out_proj"].to(dtype) + _lora_delta(
+        y, lo.get("out_proj"), alpha, rank)
+    return out[:, None, :], {"h": h, "conv": window[:, 1:, :]}

@@ -69,6 +69,11 @@ LORA_CASES = [  # (M, K, N, bits, mode, dtype, rank)
     (64, 512, 256, 8, "linear", BF16, 16),    # int8
     (64, 512, 256, 4, "linear", BF16, 16),    # int4
     (9, 128, 96, 4, "nf4", BF16, 20),         # r = 20 padded to 32, M < 128
+    # the decode step: 4 streams x 1 token through the Yi-9B projections
+    (4, 4096, 4096, 4, "nf4", BF16, 16),      # wq/wo
+    (4, 4096, 512, 4, "nf4", BF16, 16),       # wk/wv
+    (4, 4096, 11008, 4, "nf4", BF16, 16),     # wg/wu
+    (4, 11008, 4096, 4, "nf4", BF16, 16),     # wd
 ] + [(M, K, N, 4, "nf4", BF16, 16) for s, (M, K, N) in SPLIT_SHAPES.items()
      if s not in (3, 4, 32)]        # 3, 4, 32: wg/wu, wq/wo, wk/wv above
 QMM_CASES = [  # (T, M, K, N): T users of M rows; T = 0 a plain 2-D weight
@@ -865,3 +870,76 @@ def test_cuda_int8_gan_gemm_block_products_are_exact(cuda_device):
     out = gan_conv.quant_gemm_int8(x.cuda(), w.cuda()).cpu()
     ref_out = gan_conv.quant_gemm_int8(x, w)
     assert (out - ref_out).abs().max() <= 1e-6 * ref_out.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,empty", [(1, 0), (4, 30), (8, 95)])
+def test_cuda_decode_attention_matches_cpu(cuda_device, G, empty):
+    """``ops.decode_attention`` (plain PyTorch on both devices, as the
+    JAX package has it) on the card against the CPU at the Yi-9B decode
+    shape (4 streams, 4 KV heads, a ring of 96 slots, some empty) in
+    fp32 within 1e-5 and bf16 within the bf16 bound."""
+    Hkv, M, D = 4, 96, 128
+    q = torch.from_numpy(_np(40, 4, 1, G * Hkv, D))
+    k = torch.from_numpy(_np(41, 4, M, Hkv, D))
+    v = torch.from_numpy(_np(42, 4, M, Hkv, D))
+    sp = torch.arange(M, dtype=torch.int32)
+    sp[torch.randperm(M, generator=torch.Generator().manual_seed(0))[
+        :empty]] = -1
+    for dtype in (F32, BF16):
+        ins = [t.to(dtype) for t in (q, k, v)]
+        want = ops.decode_attention(*ins, sp[None])
+        got = ops.decode_attention(*[t.to(cuda_device) for t in ins],
+                                   sp[None].to(cuda_device))
+        assert got.dtype == dtype
+        _close(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["yi-9b", "h2o-danube-3-4b",
+                                  "falcon-mamba-7b"])
+def test_cuda_decode_loop_makes_no_host_wait(cuda_device, arch):
+    """The serving CLI's decode loop (``launch.serve.decode_loop``) at the
+    reduced config with an NF4 backbone (an int8 KV cache for
+    h2o-danube, its window wrapping) under
+    ``set_sync_debug_mode("warn")``: no synchronizing call inside the
+    loop; the LoRA projections through the kernel, no plain route.
+    (Card against CPU: chip_smoke.py phase 12 (c).)"""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+    import torch_loop_syncs
+    from repro_torch import convert
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    cfg = get_reduced(arch).replace(quant_bits=4, quant_mode="nf4",
+                                    quant_block=64)
+    if arch == "h2o-danube-3-4b":
+        cfg = cfg.replace(kv_quant_bits=8)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0),
+                               device="cpu")
+    toks = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 64))
+
+    f, t = (convert.tree_to(params[k], cuda_device)
+            for k in ("frozen", "trainable"))
+    prompt = torch.as_tensor(toks, dtype=torch.int32, device=cuda_device)
+    logits, cache = model.prefill(f, t, {"tokens": prompt}, max_len=80)
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    pos = torch.full((), 64, dtype=torch.int32, device=cuda_device)
+    torch.cuda.synchronize()
+    ops.reset_kernel_traces()
+    with torch_loop_syncs.sync_warnings() as stacks:
+        out = serve.decode_loop(model, f, t, cache, tok, pos, 16,
+                                greedy=True)
+        torch.cuda.synchronize()
+    in_loop = [st for st in stacks if any(fr.name == "decode_loop"
+                                          for fr in st)]
+    assert not in_loop, [f"{st[-1].filename}:{st[-1].lineno}"
+                         for st in in_loop]
+    assert not [k for k in ops.KERNEL_TRACES if k.endswith("_ref")]
+    if cfg.family == "dense":
+        assert ops.KERNEL_TRACES["lora_matmul_cuda"] == \
+            7 * cfg.n_layers * 16
+    assert len(out) == 16 and int(torch.cat(out, 1).max()) < cfg.vocab_size

@@ -174,18 +174,22 @@ def test_mamba_block_matches_jax(pair, S):
 
 
 def test_ssm_branches_off_the_training_path_raise(pair):
+    """A start state and the dry run's calibrated scan raise, naming the
+    queue item that brings them; the decode branch is ported (its
+    parity is tests/test_torch_decode.py's) and steps an empty cache."""
     _, tm, frozen, _ = pair
     p = jax.tree.map(lambda l: l[0], frozen["layers"])
     x = torch.zeros((1, 4, tm.cfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 8.5"):
         ssm.mamba_block(_to_port(p), x, tm.cfg,
                         h0=torch.zeros((1, tm.cfg.d_inner, 8)))
     with pytest.raises(NotImplementedError, match="calibrate"):
         ssm.mamba_block(_to_port(p), x, tm.cfg.replace(calibrate=True))
-    with pytest.raises(NotImplementedError, match="mamba_decode"):
-        ssm.mamba_decode(_to_port(p), x[:, :1], {}, tm.cfg)
-    with pytest.raises(NotImplementedError, match="cache"):
-        ssm.mamba_cache_init(tm.cfg, 1, torch.float32)
+    cache = ssm.mamba_cache_init(tm.cfg, 1, torch.float32, "cpu")
+    y, new = ssm.mamba_decode(_to_port(p), x[:, :1], cache, tm.cfg)
+    assert y.shape == (1, 1, tm.cfg.d_model)
+    assert new["h"].shape == (1, tm.cfg.d_inner, tm.cfg.ssm_state)
+    assert new["conv"].shape == (1, tm.cfg.ssm_conv - 1, tm.cfg.d_inner)
 
 
 # -- the model ---------------------------------------------------------

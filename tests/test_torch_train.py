@@ -14,6 +14,8 @@ well above Adam's eps at every step, and every element within the range
 of the local updates. FedAvg of the same quantized deltas agrees to
 fp32 rounding.
 The two-round loss decrease of tests/test_system.py holds on the port."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -190,11 +192,13 @@ def test_two_rounds_reduce_the_clients_loss():
     assert np.mean(losses[-2:]) < np.mean(losses[:2])
 
 
-def test_main_runs_on_the_cpu_and_refuses_ckpt(capsys):
-    with pytest.raises(NotImplementedError, match="ckpt"):
-        train.main(["--ckpt", "x.ckpt"], device="cpu")
+def test_main_runs_on_the_cpu_and_refuses_ckpt(capsys, tmp_path):
+    """The CLI runs on the CPU; ``--ckpt`` (no longer refused) saves the
+    server state after the round (resume: tests/test_torch_ckpt_pipeline.py)."""
+    ck = str(tmp_path / "x.ckpt")
     tr = train.main(["--rounds", "1", "--clients", "2", "--local-steps",
-                     "1", "--seq", "16"], device="cpu")
+                     "1", "--seq", "16", "--ckpt", ck], device="cpu")
     out = capsys.readouterr().out
     assert "arch=yi-9b-reduced family=dense" in out and "round 0:" in out
     assert isinstance(tr["lora"]["wq"]["a"], torch.Tensor)
+    assert os.path.exists(ck) and os.path.exists(ck + ".json")
