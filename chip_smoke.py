@@ -2,8 +2,10 @@
 """Drive the PyTorch port's paths once on one NVIDIA H100: the serving
 plane, the federated QLoRA trainer on Yi-9B and on Falcon-Mamba-7B, the
 paper's federated CLIP round (``run_federated``), its GAN included, the
-trainer-to-store handoff that feeds the serving plane, and token serving
-(prefill and decode) on the two trainers' models.
+trainer-to-store handoff that feeds the serving plane, token serving
+(prefill and decode) on the two trainers' models, and the zoo's other
+families (RecurrentGemma-2B, Qwen3-MoE, Whisper-medium, LLaVA-NeXT-34B)
+through training, prefill and decode.
 
     python3 chip_smoke.py
 
@@ -123,6 +125,33 @@ Phases (a failed phase raises and the script exits non-zero):
     ``--ckpt`` at its reduced config, 2 rounds then a resume to 3,
     bitwise 3 straight rounds, and a ``grad_accum=4`` step against one
     shot. Launch counts are zeroed before each run and read after.
+13. the zoo's hybrid, MoE, encdec and VLM families, NF4, seeded
+    weights: (a) RecurrentGemma-2B at full width and depth through
+    ``launch/serve.py``'s token mode (4 streams, prompt 64, 32 tokens),
+    a decode step profiled, then the trainer's rounds (1 x 2 clients x 2
+    local steps of 4 x 64 tokens) on the same weights, a step profiled
+    (``rglru.scan`` is ``chunked_linear_scan``'s region); (b) the same on
+    Qwen3-MoE-235B-A22B at full width, 8 of its 94 layers, with the share
+    of token-copies dropped at capacity factor 1.25 (regions
+    ``moe.dequantize`` and ``moe.experts``); (c) Whisper-medium's token
+    mode and 2 ``Model.train_step``s on frames (4, 1500, 1024); (d)
+    LLaVA-NeXT-34B's (60 layers) with 576 image patches before 64
+    tokens, the adapter's attention at D = 896; (e) bf16 full-width cuts
+    of (a) (3 layers), (c) (2 + 2 layers, 250 frames) and (d) (2 layers,
+    8 patches) card against CPU (logits, loss and the gradients' norm
+    within 2e-2; each gradient leaf and each trainable after one Adam
+    step within 2e-2 of an fp32 CPU witness on the same weights, or
+    within twice the CPU's bf16 distance to it), and the reduced fp32
+    configs of all five archs (forward, gradients, an Adam step, prefill
+    and 4 decode steps within 1e-4; the MoEs' expert ids and kept slots
+    equal). Phase 2 (f) holds ``flash_attention`` at the zoo's shapes
+    (the D = 896 adapter in both dtypes, Whisper's cross-attention to
+    1500 frames and its encoder, RecurrentGemma's MQA under its window),
+    and (g) ``quant_matmul`` and its dx (``quant_matmul_t``) at the
+    projections phase 13 runs without LoRA (RecurrentGemma's MLP at 256
+    and 4 rows, Whisper's encoder MLP at 6000, Kimi-K2's reduced dense
+    layer in fp32). Launch counts are zeroed before each run and read
+    after.
     The GAN phase (before phase 8) also runs the six convolutions
     through the int8 gemms against the fp32 gemm forms, timed, with the
     block products bitwise an int64 product on the CPU, and the int8
@@ -179,6 +208,7 @@ from repro_torch import tree as tree_lib  # noqa: E402
 from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.core import clip as clip_lib  # noqa: E402
 from repro_torch.core import gan as gan_lib  # noqa: E402
+from repro_torch.core import losses  # noqa: E402
 from repro_torch.core import optim  # noqa: E402
 from repro_torch.core import quant as qlib  # noqa: E402
 from repro_torch.data.synthetic import (SPECS, class_tokens,  # noqa: E402
@@ -238,12 +268,44 @@ SERVE_KERNELS = ("quant_matmul", "blockwise_quant", "flash_attention")
 # the kernels each trainer's main path launches
 TRAIN_KERNELS = {"yi-9b": ("lora_matmul", "quant_matmul_t", "flash_attention"),
                  "falcon-mamba-7b": ("selective_scan", "selective_scan_bwd",
-                                     "flash_attention")}
+                                     "flash_attention"),
+                 # the hybrid's MLP has no LoRA: quant_matmul forward,
+                 # quant_matmul_t for its input's gradient
+                 "recurrentgemma-2b": ("lora_matmul", "quant_matmul_t",
+                                       "flash_attention", "quant_matmul"),
+                 "qwen3-moe-235b-a22b": ("lora_matmul", "quant_matmul_t",
+                                         "flash_attention")}
 # the scan's trainer shape at Falcon-Mamba-7B width: (B, S, d_inner, N)
 MAMBA_SCAN = (4, 64, 8192, 16)
 # LoRA linears of a dense block (wq, wk, wv, wo, wg, wu, wd): one
 # quant_matmul_t launch each per local step
 DENSE_LORA_LINEARS = 7
+
+
+def qmt_per_step(cfg) -> int:
+    """``quant_matmul_t`` launches a local step: one for every frozen
+    quantized projection that a gradient passes, i.e. every LoRA linear
+    (``lora_matmul``'s backward) and every projection without LoRA
+    behind one (``ops.quant_matmul``'s): a dense or VLM block's LoRA
+    linears (7 with SwiGLU); an encdec decoder layer's 10 and an encoder
+    layer's 4 plus its MLP; a hybrid attention layer's 4 plus every
+    hybrid layer's MLP (the RG-LRU block's own projections are plain
+    products of decoded weights); a MoE layer's attention 4, plus 3 for
+    a shared expert and a first dense layer's MLP."""
+    from repro_torch.models.model import _lora_targets
+    L = cfg.n_layers
+    mlp = 3 if cfg.mlp == "swiglu" else 2
+    if cfg.family in ("dense", "vlm", "encdec"):
+        enc = (4 + mlp) * cfg.encoder_layers
+        return len(_lora_targets(cfg)) * L + enc
+    if cfg.family == "hybrid":
+        return 4 * cfg.layer_kinds().count("attn") + mlp * L
+    if cfg.family == "moe":
+        shared = (L - cfg.first_k_dense) if cfg.n_shared_experts else 0
+        return 4 * L + 3 * (cfg.first_k_dense + shared)
+    raise ValueError(cfg.family)
+
+
 # the federated round's attention: the adapter's Att(D) at S = Skv = 1,
 # 4 heads, fp32, no mask, as (B, D): D = d_model / 4 (16 at the JAX
 # package's CLIPConfig(), 192 at ViT-B/32), B = one client's batch (32,
@@ -1344,8 +1406,20 @@ def profile_run(run, kernels) -> dict:
                 regions.items(), key=lambda kv: -kv[1])[:12]]}
 
 
+def report_profile(what: str, prof: dict) -> None:
+    report({what + "_" + k: v for k, v in prof.items()
+            if k not in ("top_ms", "regions_ms")})
+    print(f"  {what} top device time (ms), each with its launching ops "
+          "(op, region, ms):", flush=True)
+    for n, ms, srcs in prof["top_ms"]:
+        print(f"    {ms} {n}: {srcs}", flush=True)
+    print(f"  {what} device time by region (ms): {prof['regions_ms']}",
+          flush=True)
+
+
 def train_phase(*, arch="yi-9b", rounds=2, clients=2, steps=2, batch=4,
-                seq=64, n_layers=None, seed=0, device="cuda") -> dict:
+                seq=64, n_layers=None, seed=0, device="cuda",
+                params=None) -> dict:
     """``repro_torch.launch.train``'s main path on ``arch`` (Yi-9B or
     Falcon-Mamba-7B): init, then ``rounds`` of ``clients`` x
     ``client_update`` and ``aggregate``. The launch counts are zeroed
@@ -1356,7 +1430,8 @@ def train_phase(*, arch="yi-9b", rounds=2, clients=2, steps=2, batch=4,
     plain version, and on Falcon-Mamba-7B every local step must trace
     two forward scan kernels per layer (the forward and its remat
     recompute) and one backward scan kernel. A rehearsal on the CPU passes ``device="cpu"``, a smaller
-    ``n_layers`` and gets no profile."""
+    ``n_layers`` and gets no profile. ``params`` (the same config's
+    ``init_params`` from ``seed``, say the token mode's) skips the init."""
     on_card = torch.device(device).type == "cuda"
     kernels = TRAIN_KERNELS[arch]
     cfg = get_config(arch).replace(**CLI_NF4)
@@ -1368,8 +1443,9 @@ def train_phase(*, arch="yi-9b", rounds=2, clients=2, steps=2, batch=4,
     # what earlier phases leave allocated counts in the peak below
     allocated_at_start = torch.cuda.memory_allocated() if on_card else None
     t0 = time.perf_counter()
-    params = model.init_params(
-        torch.Generator(device=device).manual_seed(seed), device=device)
+    if params is None:
+        params = model.init_params(
+            torch.Generator(device=device).manual_seed(seed), device=device)
     _sync(device)
     init_s = time.perf_counter() - t0
     frozen, tr = params["frozen"], params["trainable"]
@@ -1427,12 +1503,10 @@ def train_phase(*, arch="yi-9b", rounds=2, clients=2, steps=2, batch=4,
     res["tc_launches"] = tc
     if "quant_matmul_t" in kernels and cfg.dtype == "bfloat16":
         per_step = traces.get("quant_matmul_t_cuda_tc", 0) / n_steps
-        if "quant_matmul_t_cuda" in traces or \
-                per_step != DENSE_LORA_LINEARS * cfg.n_layers:
+        if "quant_matmul_t_cuda" in traces or per_step != qmt_per_step(cfg):
             raise AssertionError(
                 f"quant_matmul_t: {per_step} tensor-core launches per local "
-                f"step (want {DENSE_LORA_LINEARS * cfg.n_layers}), traces "
-                f"{traces}")
+                f"step (want {qmt_per_step(cfg)}), traces {traces}")
     if arch == "falcon-mamba-7b":
         # each layer: the forward, its remat recompute and the backward
         want = {"selective_scan_cuda": 2 * cfg.n_layers,
@@ -3212,14 +3286,7 @@ def token_serve_report() -> collections.Counter:
         launches.update(res.pop("launches"))
         prof = res.pop("profile")
         report({"serve_tokens": arch, **res})
-        report({"decode_step_" + k: v for k, v in prof.items()
-                if k not in ("top_ms", "regions_ms")})
-        print("  decode step top device time (ms), each with its launching "
-              "ops (op, region, ms):", flush=True)
-        for n, ms, srcs in prof["top_ms"]:
-            print(f"    {ms} {n}: {srcs}", flush=True)
-        print(f"  decode step device time by region (ms): "
-              f"{prof['regions_ms']}", flush=True)
+        report_profile("decode_step", prof)
         report({"serve_tokens_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
     for arch, kw in (("yi-9b", dict(n_layers=2)),
@@ -3238,6 +3305,596 @@ def token_serve_report() -> collections.Counter:
     report({"phase12_s": time.perf_counter() - t_all, "card": card_line()})
     torch.cuda.empty_cache()
     return launches
+
+
+# -- phase 13: the zoo's hybrid, MoE, encdec and VLM families ----------
+
+# the zoo's configurations at full width (phase 13): RecurrentGemma-2B
+# (arXiv:2402.19427), Qwen3-MoE-235B-A22B (hf:Qwen/Qwen3-30B-A3B config
+# shape), Whisper-medium (arXiv:2212.04356), LLaVA-NeXT-34B
+# (hf:llava-hf/llava-v1.6-mistral-7b-hf); Qwen3's depth is cut to fit one
+# card (NF4 is about 1.4 GB a layer)
+QWEN_LAYERS = 8
+ZOO_KERNELS = {
+    "recurrentgemma-2b": TRAIN_KERNELS["recurrentgemma-2b"],
+    "qwen3-moe-235b-a22b": TRAIN_KERNELS["qwen3-moe-235b-a22b"],
+    "whisper-medium": ("lora_matmul", "quant_matmul_t", "flash_attention",
+                       "quant_matmul"),
+    "llava-next-34b": ("lora_matmul", "quant_matmul_t", "flash_attention"),
+}
+# phase 2 (f): flash_attention at the zoo's shapes,
+# (name, B, S, Skv, H, Hkv, D, causal, window, dtype)
+FLASH_ZOO = [
+    ("llava_adapter_d896_bf16", 4, 640, 640, 8, 8, 896, True, None,
+     torch.bfloat16),
+    ("llava_adapter_d896_fp32", 4, 640, 640, 8, 8, 896, True, None,
+     torch.float32),
+    ("whisper_cross_skv1500", 4, 64, 1500, 16, 16, 64, False, None,
+     torch.bfloat16),
+    ("whisper_encoder", 4, 1500, 1500, 16, 16, 64, False, None,
+     torch.bfloat16),
+    ("rgemma_mqa_w2048", 4, 64, 64, 10, 1, 256, True, 2048, torch.bfloat16),
+]
+
+
+def check_flash_zoo(gen) -> list:
+    """Phase 2 (f): ``flash_attention`` at the zoo's shapes against its
+    plain version: the LLaVA-NeXT-34B adapter at D = 896 in both dtypes
+    (the single-stage tensor-core path and the BK = 16 CUDA-core path),
+    Whisper's cross-attention to 1500 frames and its encoder (neither
+    causal), RecurrentGemma's MQA (10 query heads a KV head) under its
+    2048 window. Each row: the errors, device / call / plain ms, every
+    SDPA backend (the fastest is ``library_ms``; the window of 2048
+    covers the whole 64-token sequence, so causal SDPA is the same
+    function) and the bound."""
+    rows = []
+    for name, B, S, Skv, H, Hkv, D, causal, window, dt in FLASH_ZOO:
+        q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
+        k = torch.randn((B, Skv, Hkv, D), generator=gen, device="cuda").to(dt)
+        v = torch.randn((B, Skv, Hkv, D), generator=gen, device="cuda").to(dt)
+        run = lambda: fa_kernel.flash_attention(q, k, v, causal=causal,
+                                                window=window)
+        got, route = routed(fa_kernel.flash_attention, run)
+        plain = lambda: ref.flash_attention(q, k, v, causal=causal,
+                                            window=window)
+        want = plain()
+        torch.cuda.synchronize()
+        abs_e, rel_e = rel_err(got, want)
+        tol = _tol(dt) if dt == torch.bfloat16 else 1e-5
+        if not (rel_e <= tol and torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention {name}: rel err {rel_e}")
+        want_route = "tensor cores" if dt == torch.bfloat16 else "cuda cores"
+        if route != want_route:
+            raise AssertionError(f"flash_attention {name}: took {route}")
+        pairs = _valid_pairs(S, Skv, causal, window)
+        b_ms, b_by = bound(nbytes(q, k, v, got), 4.0 * B * H * D * pairs, dt)
+        row = {"case": name, "route": route, "max_abs_err": abs_e,
+               "rel_err": rel_e, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None}
+        timed(row, "ms", run)
+        timed(row, "plain_ms", plain)
+        G = H // Hkv
+        qt_, kt_, vt_ = (t.transpose(1, 2).contiguous() for t in (
+            q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)))
+        if window is None or window >= S:
+            time_sdpa_backends(row, qt_, kt_, vt_, causal)
+        report({"flash_attention": 1, **row})
+        rows.append(row)
+        del q, k, v, got, want, qt_, kt_, vt_
+    torch.cuda.empty_cache()
+    return rows
+
+
+# phase 2 (g): quant_matmul and its dx at the zoo's projections without
+# LoRA (NF4 block 64), (name, M, K, N, dtype, with a backward)
+QMM_ZOO = [
+    ("rgemma_mlp_wg_wu", 256, 2560, 7680, torch.bfloat16, True),
+    ("rgemma_mlp_wd", 256, 7680, 2560, torch.bfloat16, True),
+    ("rgemma_decode_wg_wu", 4, 2560, 7680, torch.bfloat16, False),
+    ("rgemma_decode_wd", 4, 7680, 2560, torch.bfloat16, False),
+    ("whisper_enc_wu", 6000, 1024, 4096, torch.bfloat16, True),
+    ("whisper_enc_wd", 6000, 4096, 1024, torch.bfloat16, True),
+    ("kimi_reduced_dense_wg_wu", 32, 256, 512, torch.float32, True),
+    ("kimi_reduced_dense_wd", 32, 512, 256, torch.float32, True),
+]
+
+
+def check_quant_matmul_zoo(gen) -> list:
+    """Phase 2 (g): ``quant_matmul`` where phase 13 runs it, a frozen NF4
+    projection without LoRA: RecurrentGemma's MLP in a training step or a
+    prefill (4 x 64 rows) and in a decode step (4 rows), Whisper's encoder
+    MLP over 4 x 1500 frames, and Kimi-K2's reduced dense layer in fp32.
+    The forward (the kernel) is held against the plain version, and where
+    the path takes a gradient, ``ops.quant_matmul``'s dx (``_QuantMatmul``,
+    whose backward is the ``quant_matmul_t`` kernel) against autograd of
+    the plain version, both at ``check_quant_matmul``'s bounds (bf16
+    1.6e-2 of the largest magnitude, fp32 1e-5). Each kernel's row gives
+    device, call and plain ms and the bound; no single PyTorch call
+    computes either from the quantized payload (library_ms null)."""
+    dev, f32 = "cuda", torch.float32
+    rows = []
+    for name, M, K, N, dt, backward in QMM_ZOO:
+        w = (torch.randn((K, N), generator=gen, device=dev) / K ** 0.5
+             ).to(torch.bfloat16)
+        qt = ref.blockwise_quant(w, bits=4, block=64, mode="nf4")
+        x = torch.randn((M, K), generator=gen, device=dev).to(dt)
+        g = torch.randn((M, N), generator=gen, device=dev).to(dt)
+        Kq = qt.q.shape[-3] * qt.block
+        tol = 1e-5 if dt == f32 else 1.6e-2
+        fwd = lambda: qmm_kernel.quant_matmul(x, qt)
+        got, route = gemv_route(fwd)
+        want = ref.quant_matmul(x, qt)
+        torch.cuda.synchronize()
+        abs_e, rel_e = rel_err(got, want)
+        if not (rel_e <= tol and torch.isfinite(got).all()):
+            raise AssertionError(f"quant_matmul {name}: rel err {rel_e} > {tol}")
+        b_ms, b_by = bound(nbytes(x, qt.q, qt.scales, got),
+                           2.0 * M * Kq * N, dt)
+        row = {"case": name, "route": route, "max_abs_err": abs_e,
+               "rel_err": rel_e, "tol": tol, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": None}
+        timed(row, "ms", fwd)
+        timed(row, "plain_ms", lambda: ref.quant_matmul(x, qt))
+        report({"quant_matmul": 1, **row})
+        rows.append(row)
+        if not backward:
+            continue
+        ops.reset_kernel_traces()
+        dx = {}
+        for side, fn in (("kernel", ops.quant_matmul),
+                         ("plain", ref.quant_matmul)):
+            xr = x.detach().requires_grad_(True)
+            with torch.enable_grad():
+                dx[side], = torch.autograd.grad(fn(xr, qt), xr, g)
+        torch.cuda.synchronize()
+        tc = dt == torch.bfloat16
+        want_trace = "quant_matmul_t_cuda_tc" if tc else "quant_matmul_t_cuda"
+        if ops.KERNEL_TRACES.get(want_trace, 0) != 1:
+            raise AssertionError(f"quant_matmul {name}: the dx took "
+                                 f"{dict(ops.KERNEL_TRACES)}")
+        abs_e, rel_e = rel_err(dx["kernel"], dx["plain"])
+        if not (rel_e <= tol and torch.isfinite(dx["kernel"]).all()):
+            raise AssertionError(f"quant_matmul {name} dx: rel err {rel_e} "
+                                 f"> {tol}")
+        gk = g if tc else g.float()
+        run = lambda: lm_kernel.quant_matmul_t(gk, qt, out_dtype=f32)
+        dxw = run()
+        b_ms, b_by = bound(nbytes(gk, qt.q, qt.scales, dxw),
+                           2.0 * M * Kq * N, gk.dtype)
+        row = {"case": name + "_dx", "route": "tensor cores" if tc
+               else "cuda cores", "max_abs_err": abs_e, "rel_err": rel_e,
+               "tol": tol, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None}
+        timed(row, "ms", run)
+        timed(row, "plain_ms",
+              lambda: ref.quant_matmul_t(gk, qt, out_dtype=f32))
+        report({"quant_matmul_t": 1, **row})
+        rows.append(row)
+        del dx, dxw
+    torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def cut_depth(module, arch: str, n_layers):
+    """``module.get_config(arch)`` with its depth cut to ``n_layers``
+    (None: as it is), for a CLI that builds the full config itself."""
+    orig = module.get_config
+    if n_layers:
+        module.get_config = lambda a: orig(a).replace(n_layers=n_layers) \
+            if a == arch else orig(a)
+    try:
+        yield
+    finally:
+        module.get_config = orig
+
+
+@contextlib.contextmanager
+def moe_routes(record_ids: bool = False):
+    """Count the MoE's kept and dropped token-copies (device sums, read
+    at the end) and, with ``record_ids``, keep every call's expert ids
+    and slots, by wrapping ``models.moe``'s ``_route`` and
+    ``_slot_assignment`` (which ``_moe_local`` looks up at call time)."""
+    from repro_torch.models import moe as moe_lib
+    route, slots = moe_lib._route, moe_lib._slot_assignment
+    rec = {"kept": [], "copies": 0, "ids": [], "slots": []}
+
+    def rec_route(*a, **k):
+        out = route(*a, **k)
+        if record_ids:
+            rec["ids"].append(out[1].detach().clone())
+        return out
+
+    def rec_slots(ids_flat, E, C):
+        out = slots(ids_flat, E, C)
+        rec["kept"].append(out[3].sum())
+        rec["copies"] += out[3].numel()
+        if record_ids:
+            rec["slots"].append(torch.where(out[3], out[2], -1).clone())
+        return out
+
+    moe_lib._route, moe_lib._slot_assignment = rec_route, rec_slots
+    try:
+        yield rec
+    finally:
+        moe_lib._route, moe_lib._slot_assignment = route, slots
+
+
+def zoo_token_phase(arch: str, device="cuda", n_layers=None) -> dict:
+    """Phase 13, token mode: ``repro_torch.launch.serve.main`` on
+    ``arch`` at full width (depth cut to ``n_layers`` when given), NF4
+    (``serve_argv``), the launch counts zeroed just before and read right
+    after; no plain route, every kernel of the family's path launched,
+    the bf16 ones on tensor cores. Then from a fresh prefill one decode
+    step profiled (device busy, idle share, the top entries, device ms by
+    region) beside its bound. Returns the record and what the trainer
+    needs (the model and its weights)."""
+    from repro_torch.launch import serve as serve_cli
+    B, G = SERVE_TOKENS["batch"], SERVE_TOKENS["gen"]
+    ops.reset_kernel_traces()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with cut_depth(serve_cli, arch, n_layers), \
+            contextlib.redirect_stdout(sys.stderr):
+        out = serve_cli.main(serve_argv(arch), device=device)
+    wall = time.perf_counter() - t0
+    launches, tc = ops.launch_counts(), ops.tc_launch_counts()
+    traces = dict(ops.KERNEL_TRACES)
+    model = out["model"]
+    cfg = model.cfg
+    toks = out["tokens"]
+    if toks.shape != (B, G) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"{arch}: tokens {toks.shape} out of range")
+    on_card = torch.device(device).type == "cuda"
+    serve_kernels = ("lora_matmul", "flash_attention") + (
+        ("quant_matmul",) if cfg.family in ("hybrid", "encdec") else ())
+    if on_card:
+        bad = [k for k in traces if k.endswith("_ref")]
+        miss = [k for k in serve_kernels if launches[k] < 1]
+        not_tc = [k for k in ("lora_matmul", "flash_attention")
+                  if tc[k] != launches[k]]
+        if bad or miss or not_tc:
+            raise AssertionError(f"{arch} token mode: plain routes {bad}, "
+                                 f"no launch of {miss}, off the tensor "
+                                 f"cores {not_tc}; {launches} {traces}")
+    res = {"arch": arch, "layers": cfg.n_layers, "wall_s": wall,
+           "tokens_row0": toks[0, :8].tolist(),
+           "prefill_ms": out["prefill_s"] * 1e3,
+           "decode_ms_per_token": out["decode_s"] / (G - 1) * 1e3,
+           "decode_tok_s": B * (G - 1) / out["decode_s"],
+           "launches": launches, "traces": traces}
+    params = out["params"]
+    frozen, tr = params["frozen"], params["trainable"]
+    batch, max_len = out["batch"], out["max_len"]
+    pos = torch.full((), out["pos0"], dtype=torch.int32, device=device)
+    del out
+    logits, cache = model.prefill(frozen, tr, batch, max_len=max_len)
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    res["bound_ms"], res["bound_by"], res["bound_bytes"] = \
+        decode_step_bound(frozen, tr, cache)
+    if on_card:
+        prof = profile_run(
+            lambda: model.decode_step(frozen, tr, cache, tok, pos),
+            serve_kernels)
+        res["profile"] = prof
+    del cache, logits
+    return res, model, params
+
+
+def zoo_train_phase(arch: str, model, params, device="cuda") -> dict:
+    """Phase 13 (a) / (b): ``train_phase`` on the token mode's model and
+    weights, 1 round x 2 clients x 2 local steps of 4 x 64 tokens; for
+    the MoE the share of token-copies dropped at its capacity factor."""
+    with moe_routes() as rec:
+        res = train_phase(arch=arch, rounds=1, clients=2, steps=2,
+                          n_layers=model.cfg.n_layers, params=params,
+                          device=device)
+    if rec["copies"]:
+        res["moe_copies"] = rec["copies"]
+        res["moe_dropped_share"] = 1.0 - float(
+            torch.stack(rec["kept"]).sum()) / rec["copies"]
+    return res
+
+
+def zoo_batch(cfg, device, *, batch=4, seq=64, seed=0) -> dict:
+    """A training batch of ``batch`` x ``seq`` tokens (the trainer's
+    synthetic stream) with the family's inputs: Whisper's frames (B,
+    1500, d); LLaVA's image embeddings (B, 576, d) before the tokens,
+    the labels and mask spanning both (the patches masked out). Seeded
+    numpy, 0.02 x N(0, 1) as the serve CLI draws them."""
+    toks = train_lib.synthetic_token_stream(
+        np.random.RandomState(seed), cfg.vocab_size, 1,
+        docs_per_client=batch, seq=seq)[0]
+    b = train_lib.make_batch(toks, device)
+    rs = np.random.RandomState(seed + 1)
+    if cfg.family == "encdec":
+        b["frames"] = torch.as_tensor(
+            (rs.randn(batch, cfg.n_frames, cfg.d_model) * 0.02).astype(
+                np.float32), device=device)
+    if cfg.family == "vlm":
+        P = cfg.n_patches
+        b["image_embeds"] = torch.as_tensor(
+            (rs.randn(batch, P, cfg.d_model) * 0.02).astype(np.float32),
+            device=device)
+        pad = torch.zeros((batch, P), dtype=b["labels"].dtype, device=device)
+        b["labels"] = torch.cat([pad, b["labels"]], 1)
+        b["mask"] = torch.cat([pad.to(torch.float32), b["mask"]], 1)
+    return b
+
+
+def zoo_step_phase(arch: str, model, params, device="cuda",
+                   steps=2) -> dict:
+    """Phase 13 (c) / (d): ``Model.train_step`` on ``zoo_batch`` (4 x 64
+    tokens, Whisper's frames, LLaVA's 576 patches), ``steps`` Adam steps
+    from the token mode's weights, the launch counts zeroed just before
+    and read right after: finite losses, no plain route, every kernel of
+    the family's path launched, the bf16 ones on tensor cores and
+    ``quant_matmul_t`` ``qmt_per_step`` times a step."""
+    cfg = model.cfg
+    frozen, tr = params["frozen"], params["trainable"]
+    b = zoo_batch(cfg, device)
+    opt = optim.adam_init(tr)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_traces()
+    ops.reset_launch_counts()
+    losses, walls = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        tr, opt, m = model.train_step(frozen, tr, opt, b, lr=1e-3)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+    launches, tc = ops.launch_counts(), ops.tc_launch_counts()
+    traces = dict(ops.KERNEL_TRACES)
+    kernels = ZOO_KERNELS[arch]
+    want_qmt = qmt_per_step(cfg) * steps
+    bad = [k for k in traces if k.endswith("_ref")]
+    miss = [k for k in kernels if launches[k] < 1]
+    not_tc = [k for k in tc if k in kernels and tc[k] != launches[k]]
+    if not np.all(np.isfinite(losses)) or (on_card and (
+            bad or miss or not_tc or
+            traces.get("quant_matmul_t_cuda_tc", 0) != want_qmt)):
+        raise AssertionError(
+            f"{arch} train_step: losses {losses}, plain routes {bad}, no "
+            f"launch of {miss}, off the tensor cores {not_tc}, "
+            f"quant_matmul_t {traces.get('quant_matmul_t_cuda_tc')} (want "
+            f"{want_qmt}); {launches}")
+    return {"arch": arch, "layers": cfg.n_layers,
+            "rows": int(b["mask"].numel()), "losses": losses,
+            "s_per_step": walls, "launches": launches, "traces": traces,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()
+            if on_card else None}
+
+
+def _to_fp32(tree):
+    """``tree`` with every floating tensor in fp32 and every QTensor
+    decoding to fp32 (payloads unchanged): the same weights for an fp32
+    model."""
+    def f(leaf):
+        if isinstance(leaf, qlib.QTensor):
+            return dataclasses.replace(leaf, out_dtype=torch.float32)
+        return leaf.float() if leaf.is_floating_point() else leaf
+    return tree_lib.tree_map(f, tree)
+
+
+def zoo_cut_check(arch: str, n_layers: int, *, batch=4, seq=64, seed=0,
+                  device="cuda", **replace) -> dict:
+    """Phase 13 (e), full width: ``arch`` in bf16 with an NF4 backbone,
+    cut to ``n_layers`` (and ``replace``), on seeded weights (trainables
+    perturbed) and phase 4's 4 x 64 tokens, one forward and its backward
+    and one Adam step (lr 1e-3) on each of three sides: on the card
+    through the kernels, on the CPU through the plain versions, and on
+    the CPU in fp32 on the same weights (the witness). The card against
+    the CPU: the logits within 2e-2 of the largest, the loss within 1e-3
+    and the gradients' global norm within 2e-2 (phase 4's bounds). Each
+    gradient leaf and each trainable leaf after the step: its distance to
+    the fp32 witness in norm, ||x - x32|| / ||x32||, on the card within
+    2e-2 (phase 4's bound) or within twice the CPU's own bf16 distance,
+    whichever is larger; the two leaves behind the adapter's ReLU are
+    reported only, as phase 4 reports them. bf16 rounding of the
+    backbone's output moves a leaf away from fp32 on both devices alike
+    (the adapter's attention projections take their gradient through the
+    softmax's cancellation: 2-3% card against CPU), so the witness tells
+    it from a kernel's fault, which moves the card alone. Remat is off on
+    every side: it changes no number and saves the CPU a forward."""
+    cfg = get_config(arch).replace(n_layers=n_layers, remat=False,
+                                   **CLI_NF4, **replace)
+    model = build_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = model.init_params(gen, device=device)
+    frozen = params["frozen"]
+    tr = perturbed(params["trainable"], gen, device)
+    b = zoo_batch(cfg, device, batch=batch, seq=seq, seed=seed)
+    out = {}
+    for side, dev in (("card", device), ("cpu", "cpu"), ("fp32", "cpu")):
+        f, t = (frozen, tr) if side == "card" else (
+            convert.tree_to(frozen, "cpu"), convert.tree_to(tr, "cpu"))
+        m = model
+        if side == "fp32":
+            f, t = _to_fp32(f), _to_fp32(t)
+            m = build_model(cfg.replace(dtype="float32"))
+        bb = {k: v.to(dev) for k, v in b.items()}
+        ops.reset_kernel_traces()
+        t0 = time.perf_counter()
+        live = tree_lib.tree_map(lambda l: l.detach().requires_grad_(True), t)
+        with torch.enable_grad():
+            logits, aux = m.forward(f, live, bb)
+            loss = losses.cross_entropy(logits, bb["labels"], bb["mask"]) \
+                + 0.01 * aux
+            g = tree_lib.from_leaves(live, torch.autograd.grad(
+                loss, tree_lib.leaves(live)))
+        t2, _ = optim.adam_update(g, optim.adam_init(t), t, lr=1e-3,
+                                  grad_clip=1.0)
+        _sync(dev)
+        out[side] = dict(logits=logits.detach().float().cpu(),
+                         loss=float(loss.detach()), grads=g, tr=t2,
+                         s=time.perf_counter() - t0,
+                         traces=dict(ops.KERNEL_TRACES))
+        del live, logits
+    card, cpu, w32 = out["card"], out["cpu"], out["fp32"]
+    bad = [k for k in card["traces"] if k.endswith("_ref")]
+    if bad and torch.device(device).type == "cuda":
+        raise AssertionError(f"{arch} card step took plain routes: {bad}")
+    gn_card = float(optim.global_norm(card["grads"]))
+    gn_cpu = float(optim.global_norm(cpu["grads"]))
+    res = {"arch": arch, "layers": n_layers, "dtype": cfg.dtype,
+           "rows": int(b["mask"].numel()),
+           "logits_rel": rel_err(card["logits"], cpu["logits"])[1],
+           "loss_rel": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+           "grad_norm_rel": abs(gn_card - gn_cpu) / gn_cpu,
+           "logits_rel_fp32": {s: rel_err(out[s]["logits"], w32["logits"])[1]
+                               for s in ("card", "cpu")}}
+    failed = []
+    for what in ("grads", "tr"):
+        e_card = _leaf_norm_errs(card[what], w32[what])
+        e_cpu = _leaf_norm_errs(cpu[what], w32[what])
+        held = {k: (e_card[k], e_cpu[k], max(2e-2, 2 * e_cpu[k]))
+                for k in e_card if k not in RELU_GATED}
+        worst = max(held, key=lambda k: held[k][0] / held[k][2])
+        failed += [f"{what} {k} {v}" for k, v in held.items() if v[0] > v[2]]
+        res[f"{what}_worst_held_leaf"] = worst
+        res[f"{what}_worst_held_leaf_card_cpu_bound"] = held[worst]
+        res[f"{what}_relu_gated_card_cpu"] = {k: (e_card[k], e_cpu[k])
+                                              for k in RELU_GATED}
+        res[f"{what}_leaf_to_fp32_card_cpu"] = {
+            k: (round(e_card[k], 5), round(e_cpu[k], 5)) for k in e_card}
+    res.update(card_s=card["s"], cpu_s=cpu["s"], fp32_s=w32["s"])
+    if not (res["logits_rel"] <= 2e-2 and res["loss_rel"] <= 1e-3 and
+            res["grad_norm_rel"] <= 2e-2) or failed:
+        raise AssertionError(f"{arch} full-width cut card vs CPU: {failed} "
+                             f"{res}")
+    del params, frozen, tr, out
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def zoo_reduced_check(arch: str, *, prompt=12, steps=4, seed=0,
+                      device="cuda") -> dict:
+    """Phase 13 (e), reduced: ``arch``'s reduced fp32 config (TF32 off)
+    on seeded weights on the card and on the CPU: the forward's logits,
+    the grads and one Adam step's trainables, a prefill of ``prompt``
+    tokens and ``steps`` decode steps, all within 1e-4 of the largest
+    magnitude (a leaf in norm); for the MoE the expert ids and the kept
+    slots of every routing call equal."""
+    cfg = get_reduced(arch)
+    model = build_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = model.init_params(gen, device=device)
+    tr0 = perturbed(params["trainable"], gen, device)
+    b = zoo_batch(cfg, device, batch=2, seq=prompt + steps, seed=seed)
+    off = cfg.n_patches if cfg.family == "vlm" else 0
+    out = {}
+    for side, dev in (("card", device), ("cpu", "cpu")):
+        f, t = (params["frozen"], tr0) if side == "card" else (
+            convert.tree_to(params["frozen"], "cpu"),
+            convert.tree_to(tr0, "cpu"))
+        bb = {k: v.to(dev) for k, v in b.items()}
+        ops.reset_kernel_traces()
+        with moe_routes(record_ids=True) as rec:
+            with torch.no_grad():
+                logits, aux = model.forward(f, t, bb)
+            (loss, _), g = model.grads(f, t, bb)
+            t2, _ = optim.adam_update(g, optim.adam_init(t), t, lr=1e-3,
+                                      grad_clip=1.0)
+            pre = {k: v for k, v in bb.items()
+                   if k in ("image_embeds", "frames")}
+            pre["tokens"] = bb["tokens"][:, :prompt]
+            lg, cache = model.prefill(f, t, pre,
+                                      max_len=off + prompt + steps)
+            dec = [lg.cpu()]
+            for i in range(steps):
+                lg, cache = model.decode_step(
+                    f, t, cache, bb["tokens"][:, prompt + i:prompt + i + 1],
+                    torch.full((), off + prompt + i, dtype=torch.int32,
+                               device=dev))
+                dec.append(lg.cpu())
+        out[side] = dict(logits=logits.cpu(), loss=float(loss), grads=g,
+                         tr=t2, dec=dec, traces=dict(ops.KERNEL_TRACES),
+                         ids=[x.cpu() for x in rec["ids"]],
+                         slots=[x.cpu() for x in rec["slots"]])
+    card, cpu = out["card"], out["cpu"]
+    bad = [k for k in card["traces"] if k.endswith("_ref")]
+    if bad and torch.device(device).type == "cuda":
+        raise AssertionError(f"{arch} reduced card run took plain routes: "
+                             f"{bad}")
+    g_err = _leaf_norm_errs(card["grads"], cpu["grads"])
+    t_err = _leaf_norm_errs(card["tr"], cpu["tr"])
+    dec_err = [rel_err(a, c)[1] for a, c in zip(card["dec"], cpu["dec"])]
+    routes_equal = len(card["ids"]) == len(cpu["ids"]) and all(
+        torch.equal(a, c) for a, c in zip(card["ids"] + card["slots"],
+                                          cpu["ids"] + cpu["slots"]))
+    res = {"arch": cfg.name, "logits_rel":
+           rel_err(card["logits"], cpu["logits"])[1],
+           "loss_rel": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+           "worst_grad_norm_rel": max(g_err.values()),
+           "worst_trainable_norm_rel": max(t_err.values()),
+           "prefill_rel": dec_err[0], "worst_decode_rel": max(dec_err[1:]),
+           "routing_calls": len(card["ids"]), "routes_equal": routes_equal}
+    if not (max(res["logits_rel"], res["loss_rel"], res["prefill_rel"],
+                res["worst_decode_rel"], res["worst_grad_norm_rel"],
+                res["worst_trainable_norm_rel"]) <= 1e-4 and routes_equal):
+        raise AssertionError(f"{arch} reduced card vs CPU: {res}")
+    return res
+
+
+def zoo_report() -> collections.Counter:
+    """Phase 13 on the card, reported. Returns its launches."""
+    print(f"the zoo's hybrid, MoE, encdec and VLM families, {card_line()}:",
+          flush=True)
+    launches = collections.Counter()
+    t_all = time.perf_counter()
+    for arch, cut in (("recurrentgemma-2b", None),
+                      ("qwen3-moe-235b-a22b", QWEN_LAYERS),
+                      ("whisper-medium", None), ("llava-next-34b", None)):
+        t0 = time.perf_counter()
+        full = get_config(arch).n_layers
+        if cut:
+            print(f"  reduced: n_layers {full}->{cut} (NF4 ≈ 1.4 GB a "
+                  "layer)", flush=True)
+        res, model, params = zoo_token_phase(arch, n_layers=cut)
+        launches.update(res.pop("launches"))
+        prof = res.pop("profile")
+        report({"zoo_tokens": arch, **res})
+        report_profile("decode_step", prof)
+        if arch in TRAIN_KERNELS:
+            tres = zoo_train_phase(arch, model, params)
+            launches.update(tres.pop("launches"))
+            tprof = tres.pop("profile")
+            for r in tres.pop("rounds"):
+                report(r)
+            report({"zoo_trainer": arch, **tres})
+            report_profile("train_step", tprof)
+        else:
+            sres = zoo_step_phase(arch, model, params)
+            launches.update(sres.pop("launches"))
+            report({"zoo_train_step": arch, **sres})
+        del model, params
+        torch.cuda.empty_cache()
+        report({"zoo_arch_s": time.perf_counter() - t0, "arch": arch})
+    zoo_checks()
+    report({"phase13_s": time.perf_counter() - t_all, "card": card_line()})
+    torch.cuda.empty_cache()
+    return launches
+
+
+def zoo_checks() -> None:
+    """Phase 13 (e) on the card, reported: the full-width bf16 cuts and
+    the reduced fp32 configs against the CPU."""
+    t0 = time.perf_counter()
+    for arch, n in (("recurrentgemma-2b", 3), ("whisper-medium", 2),
+                    ("llava-next-34b", 2)):
+        replace = {"n_patches": 8} if arch == "llava-next-34b" else {}
+        if arch == "whisper-medium":
+            replace = {"encoder_layers": 2, "n_frames": 250}
+        print(f"  card vs CPU cut: {arch} {n} layers {replace}", flush=True)
+        report({"zoo_cut_card_vs_cpu": arch,
+                **zoo_cut_check(arch, n, **replace)})
+    for arch in ("recurrentgemma-2b", "qwen3-moe-235b-a22b",
+                 "kimi-k2-1t-a32b", "whisper-medium", "llava-next-34b"):
+        report({"zoo_reduced_card_vs_cpu": arch, **zoo_reduced_check(arch)})
+    report({"zoo_checks_s": time.perf_counter() - t0})
 
 
 def main() -> int:
@@ -3259,6 +3916,8 @@ def main() -> int:
     check_lora_decode(gen)          # the decode step's shapes (phase 12)
     main_rows["selective_scan"], main_rows["selective_scan_bwd"] = \
         check_selective_scan(gen)
+    check_flash_zoo(gen)            # the zoo's shapes (phase 13)
+    check_quant_matmul_zoo(gen)     # the zoo's projections without LoRA
 
     print("serve plane at CLIP ViT-B/32 width:", flush=True)
     t0 = time.perf_counter()
@@ -3317,6 +3976,7 @@ def main() -> int:
     sched_launches = sched_report()
     handoff_launches = handoff_report()
     tokens_launches = token_serve_report()
+    zoo_launches = zoo_report()
 
     print(card_line(), flush=True)
     # flash_attention runs on every path: its launches over all of them
@@ -3326,7 +3986,8 @@ def main() -> int:
              "fl_round": fl_launches, "vit_round": vit_launches,
              "sched": sched_launches,
              "handoff": handoff_launches["flash_attention"],
-             "tokens": tokens_launches["flash_attention"]}
+             "tokens": tokens_launches["flash_attention"],
+             "zoo": zoo_launches["flash_attention"]}
     print(f"flash_attention launches by path: {flash}", flush=True)
     # the serve kernels run on two paths: the replay (phase 3) and the
     # trainer-fed store (phase 11)
@@ -3336,6 +3997,9 @@ def main() -> int:
     print(f"serve kernel launches by path: {serve_paths}", flush=True)
     # phase 12 runs lora_matmul, the scans and (its trainer) quant_matmul_t
     print(f"phase 12 launches: {dict(tokens_launches)}", flush=True)
+    # phase 13 runs lora_matmul, quant_matmul_t and (the hybrid's and the
+    # encoder's MLPs) quant_matmul
+    print(f"phase 13 launches: {dict(zoo_launches)}", flush=True)
     launches = {**serve_launches, **yi_launches,
                 **{name: sum(p.values()) for name, p in serve_paths.items()},
                 "flash_attention": sum(flash.values()),
@@ -3344,6 +4008,9 @@ def main() -> int:
     for name in ("lora_matmul", "quant_matmul_t", "selective_scan",
                  "selective_scan_bwd"):
         launches[name] += tokens_launches[name]
+    for name in ("lora_matmul", "quant_matmul_t", "quant_matmul",
+                 "blockwise_quant", "selective_scan", "selective_scan_bwd"):
+        launches[name] += zoo_launches[name]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],

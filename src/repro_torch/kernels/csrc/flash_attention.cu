@@ -8,7 +8,7 @@
 // kp < Skv, plus qp >= kp when causal, plus qp - kp < window; tiles wholly
 // outside the causal/window band are skipped, which is exact since a
 // masked key adds nothing. A row with no valid key gives 0, as the TPU
-// kernel's max(l, 1e-30) does. Any D <= 512. Two instantiations, chosen
+// kernel's max(l, 1e-30) does. Any D <= 1024. Two instantiations, chosen
 // by dtype in the wrapper (kernels/flash_attention.py), never as a
 // fallback of one another.
 //
@@ -41,6 +41,12 @@
 //    multiple of 16 with zeros, which is exact. D % 8 != 0 takes plain
 //    element loads into the same tiles. Shared memory is 147 KB at
 //    D = 512 (cudaFuncSetAttribute once), 20 KB at D = 128.
+//  - Above D = 512 (the adapter's 896 at LLaVA-NeXT-34B width) the two
+//    K stages no longer fit the card's 227 KB a block (243 KB at
+//    D = 896): flash_tc_kernel<1> stages one K and one V tile, loaded
+//    after the previous tile is consumed and waited for, so the load
+//    no longer overlaps the math: 207 KB at D = 1024. The D <= 512
+//    path is flash_tc_kernel<2>, unchanged.
 //
 // fp32: flash_kernel, fp32 CUDA cores, the first design, kept so fp32
 // callers (the serve oracle at D = 192) meet 1e-5; tensor cores at fp32
@@ -48,14 +54,16 @@
 // D=192): the launch. Grid (B*H, ceil(S/16)); 4 warps per block, each
 // warp owns 4 of the block's 16 query rows and keeps their running max
 // m, sum l and output accumulator in fp32 registers: DPL = 8 dims per
-// lane for D <= 256 and 16 for D <= 512, two instantiations so the
-// short-D path keeps its registers. The block loops over 32-key tiles of
-// K and V staged in shared memory (K rows padded to D+1 floats, so lane
-// j reading key j is conflict-free): lane j scores key j, the warp
+// lane for D <= 256, 16 for D <= 512 and 32 for D <= 1024, so the
+// short-D paths keep their registers. The block loops over BK-key tiles
+// of K and V staged in shared memory (K rows padded to D+1 floats, so
+// lane j reading key j is conflict-free): lane j scores key j, the warp
 // reduces max and sum with shuffles, and p_j is broadcast by shuffle
 // into the P.V update (over the keys that exist only; rows past S are
-// skipped whole). At D = 512 the block's Q, K and V tiles take 164 KB of
-// shared memory (cudaFuncSetAttribute once per instantiation).
+// skipped whole). BK = 32 (one key a lane) up to D = 512, where the
+// block's Q, K and V tiles take 164 KB of shared memory; above it
+// BK = 16 (lanes 16-31 score no key) so that they fit: 192 KB at
+// D = 1024 (cudaFuncSetAttribute once per instantiation).
 //
 // The gradient is not a kernel yet: the port's autograd.Function
 // (kernels/ops.py) recomputes P in PyTorch.
@@ -71,7 +79,8 @@ constexpr int NWARP = 4;
 constexpr int BQ = 16;                  // query rows per block
 constexpr int RPW = BQ / NWARP;         // rows per warp
 constexpr int BK = 32;                  // keys per tile (one per lane)
-constexpr int MAXD = 512;
+constexpr int MAXD = 1024;
+constexpr int MAXD_FAST = 512;          // the largest D of the BK = 32 path
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -87,21 +96,21 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-size_t smem_bytes(int D) {
-  return sizeof(float) * ((size_t)BQ * D + (size_t)BK * (D + 1) + (size_t)BK * D);
+size_t smem_bytes(int D, int bk) {
+  return sizeof(float) * ((size_t)BQ * D + (size_t)bk * (D + 1) + (size_t)bk * D);
 }
 
 // q (B, S, H, D); k, v (B, Skv, Hkv, D) -> o (B, S, H, D)
-// DPL: output dims per lane, so D <= 32 * DPL
-template <int DPL>
+// DPL: output dims per lane, so D <= 32 * DPL; BKT keys a tile (<= 32)
+template <int DPL, int BKT>
 __global__ void __launch_bounds__(NWARP * 32)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o, int S, int Skv,
              int H, int Hkv, int D, float scale, int causal, int window) {
   extern __shared__ float smem[];
   float* qs = smem;                      // BQ x D
-  float* ks = qs + BQ * D;               // BK x (D + 1)
-  float* vs = ks + BK * (D + 1);         // BK x D
+  float* ks = qs + BQ * D;               // BKT x (D + 1)
+  float* vs = ks + BKT * (D + 1);        // BKT x D
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int hk = h / (H / Hkv);
   const int q0 = blockIdx.y * BQ;
@@ -126,11 +135,11 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // starts window-1 before its first row
   const int q_last = min(q0 + BQ, S) - 1;
   const int k_end = causal ? min(Skv, q_last + 1) : Skv;
-  const int k_begin = window > 0 ? (max(0, q0 - window + 1) / BK) * BK : 0;
+  const int k_begin = window > 0 ? (max(0, q0 - window + 1) / BKT) * BKT : 0;
 
-  for (int kt = k_begin; kt < k_end; kt += BK) {
+  for (int kt = k_begin; kt < k_end; kt += BKT) {
     __syncthreads();   // the previous tile is consumed
-    for (int i = threadIdx.x; i < BK * D; i += blockDim.x) {
+    for (int i = threadIdx.x; i < BKT * D; i += blockDim.x) {
       const int j = i / D, d = i - j * D, kp = kt + j;
       const size_t off = (((size_t)b * Skv + kp) * Hkv + hk) * D + d;
       ks[j * (D + 1) + d] = kp < Skv ? k[off] : 0.f;
@@ -138,8 +147,9 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
     const int kp = kt + lane;
-    const int nk = min(BK, Skv - kt);    // keys of this tile that exist
-    const float* krow = ks + lane * (D + 1);
+    const bool scores = lane < BKT;      // lanes past the tile score none
+    const int nk = min(BKT, Skv - kt);   // keys of this tile that exist
+    const float* krow = ks + (scores ? lane : 0) * (D + 1);
 #pragma unroll
     for (int rr = 0; rr < RPW; ++rr) {
       const int qr = warp * RPW + rr, qp = q0 + qr;
@@ -147,16 +157,18 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float* qrow = qs + qr * D;
       // four partial sums break the FMA dependency chain over D
       float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-      int d = 0;
-      for (; d + 4 <= D; d += 4) {
-        s0 = fmaf(qrow[d], krow[d], s0);
-        s1 = fmaf(qrow[d + 1], krow[d + 1], s1);
-        s2 = fmaf(qrow[d + 2], krow[d + 2], s2);
-        s3 = fmaf(qrow[d + 3], krow[d + 3], s3);
+      if (scores) {
+        int d = 0;
+        for (; d + 4 <= D; d += 4) {
+          s0 = fmaf(qrow[d], krow[d], s0);
+          s1 = fmaf(qrow[d + 1], krow[d + 1], s1);
+          s2 = fmaf(qrow[d + 2], krow[d + 2], s2);
+          s3 = fmaf(qrow[d + 3], krow[d + 3], s3);
+        }
+        for (; d < D; ++d) s0 = fmaf(qrow[d], krow[d], s0);
       }
-      for (; d < D; ++d) s0 = fmaf(qrow[d], krow[d], s0);
       float sc = (s0 + s1) + (s2 + s3);
-      bool valid = kp < Skv;
+      bool valid = scores && kp < Skv;
       if (causal) valid = valid && qp >= kp;
       if (window > 0) valid = valid && (qp - kp) < window;
       sc = valid ? sc : NEG_INF;
@@ -193,22 +205,22 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DPL>
+template <int DPL, int BKT>
 cudaError_t launch_dpl(const void* q, const void* k, const void* v, void* o,
                        int B, int S, int Skv, int H, int Hkv, int D,
                        float scale, int causal, int window,
                        cudaStream_t stream) {
-  const size_t bytes = smem_bytes(D);
+  const size_t bytes = smem_bytes(D, BKT);
   static bool attr_set = false;   // the 32 * DPL bound: one setting is enough
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<DPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes(32 * DPL));
+        flash_kernel<DPL, BKT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes(32 * DPL, BKT));
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  flash_kernel<DPL><<<grid, NWARP * 32, bytes, stream>>>(
+  flash_kernel<DPL, BKT><<<grid, NWARP * 32, bytes, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, S, Skv,
       H, Hkv, D, scale, causal, window);
   return cudaGetLastError();
@@ -219,10 +231,13 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        float scale, int causal, int window,
                        cudaStream_t stream) {
   if (D <= 256)
-    return launch_dpl<8>(q, k, v, o, B, S, Skv, H, Hkv, D, scale, causal,
-                         window, stream);
-  return launch_dpl<16>(q, k, v, o, B, S, Skv, H, Hkv, D, scale, causal,
-                        window, stream);
+    return launch_dpl<8, BK>(q, k, v, o, B, S, Skv, H, Hkv, D, scale,
+                             causal, window, stream);
+  if (D <= MAXD_FAST)
+    return launch_dpl<16, BK>(q, k, v, o, B, S, Skv, H, Hkv, D, scale,
+                              causal, window, stream);
+  return launch_dpl<32, 16>(q, k, v, o, B, S, Skv, H, Hkv, D, scale,
+                            causal, window, stream);
 }
 
 // ---- bf16: tensor cores ------------------------------------------------
@@ -244,8 +259,8 @@ struct Args {
   bool vec;                             // 16-byte cp.async (D % 8 == 0)
 };
 
-size_t smem_bytes(int Dp) {             // Q, two K and two V tiles, bf16
-  return 2 * ((size_t)(BQT + 2 * BKV) * (Dp + 8) + 2 * (size_t)BKV * LDV);
+size_t smem_bytes(int Dp, int kst) {    // Q, kst K and kst V tiles, bf16
+  return 2 * ((size_t)(BQT + kst * BKV) * (Dp + 8) + kst * (size_t)BKV * LDV);
 }
 
 // Rows [0, rows) x columns [0, cols) of a tile whose row i starts at
@@ -270,12 +285,15 @@ __device__ __forceinline__ void stage(__nv_bfloat16* dst, int ld,
   }
 }
 
+// KST K/V stages: 2 (the next tile loads during this one's math) or 1
+// (each tile loads after the last is consumed; for D > 512)
+template <int KST>
 __global__ void __launch_bounds__(NWT * 32) flash_tc_kernel(const Args p) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const int ld = p.Dp + 8;
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + BQT * ld;    // [2][BKV][ld]
-  __nv_bfloat16* vs = ks + 2 * BKV * ld;  // [2][BKV][LDV]
+  __nv_bfloat16* ks = qs + BQT * ld;    // [KST][BKV][ld]
+  __nv_bfloat16* vs = ks + KST * BKV * ld;  // [KST][BKV][LDV]
   const int sl = blockIdx.x % p.nsl, bh = blockIdx.x / p.nsl;
   const int b = bh / p.H, h = bh % p.H, hk = h / (p.H / p.Hkv);
   const int d0 = sl * DV, dvp = min(DV, p.Dp - d0);
@@ -314,7 +332,16 @@ __global__ void __launch_bounds__(NWT * 32) flash_tc_kernel(const Args p) {
   }
   for (int t = 0; t < ntile; ++t) {
     const int kt = k_begin + t * BKV;
-    if (t + 1 < ntile) {                // the next tile loads meanwhile
+    if (KST == 1) {                     // tile t loads now (tile 0: above)
+      if (t > 0) {
+        stage(ks, ld, kbase + (size_t)kt * kstride, kstride, BKV,
+              p.Skv - kt, p.Dp, p.D, p.vec);
+        stage(vs, LDV, vbase + (size_t)kt * kstride + d0, kstride, BKV,
+              p.Skv - kt, dvp, p.D - d0, p.vec);
+        tc::cp_commit();
+      }
+      tc::cp_wait<0>();
+    } else if (t + 1 < ntile) {         // the next tile loads meanwhile
       const int kn = kt + BKV, sn = (t + 1) & 1;
       stage(ks + sn * BKV * ld, ld, kbase + (size_t)kn * kstride, kstride,
             BKV, p.Skv - kn, p.Dp, p.D, p.vec);
@@ -330,8 +357,9 @@ __global__ void __launch_bounds__(NWT * 32) flash_tc_kernel(const Args p) {
         wq0 < p.S && !(p.causal && kt > min(wq0 + 15, p.S - 1)) &&
         !(p.window > 0 && kt + BKV - 1 < wq0 - p.window + 1);
     if (active) {                       // warp-uniform
-      const __nv_bfloat16* kst = ks + (t & 1) * BKV * ld;
-      const __nv_bfloat16* vst = vs + (t & 1) * BKV * LDV;
+      const int st = KST == 1 ? 0 : (t & 1);
+      const __nv_bfloat16* kst = ks + st * BKV * ld;
+      const __nv_bfloat16* vst = vs + st * BKV * LDV;
       float sc[BKV / 8][4];
 #pragma unroll
       for (int n = 0; n < BKV / 8; ++n)
@@ -434,6 +462,21 @@ __global__ void __launch_bounds__(NWT * 32) flash_tc_kernel(const Args p) {
   }
 }
 
+template <int KST>
+cudaError_t launch_tc(const Args& p, int B, int S, cudaStream_t stream) {
+  static bool attr_set = false;         // sized for the largest D once
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_tc_kernel<KST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes(KST == 2 ? MAXD_FAST : MAXD, KST));
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const dim3 grid(B * p.H * p.nsl, (S + BQT - 1) / BQT);
+  flash_tc_kernel<KST><<<grid, NWT * 32, smem_bytes(p.Dp, KST), stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace ft
 
 }  // namespace
@@ -460,14 +503,6 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
   if (B < 1 || S < 1 || Skv < 1 || H < 1 || Hkv < 1 || H % Hkv || D < 1 ||
       D > MAXD || S > 65535 * ft::BQT)
     return (int)cudaErrorInvalidValue;
-  static bool attr_set = false;         // sized for D = 512 once
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ft::flash_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)ft::smem_bytes(MAXD));
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
   ft::Args p;
   p.q = (const __nv_bfloat16*)q;
   p.k = (const __nv_bfloat16*)k;
@@ -479,8 +514,7 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
   p.causal = causal; p.window = window;
   p.scale_log2 = scale * 1.4426950408889634f;
   p.vec = D % 8 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
-  const dim3 grid(B * H * p.nsl, (S + ft::BQT - 1) / ft::BQT);
-  ft::flash_tc_kernel<<<grid, ft::NWT * 32, ft::smem_bytes(p.Dp),
-                        (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  if (p.Dp <= MAXD_FAST)
+    return (int)ft::launch_tc<2>(p, B, S, (cudaStream_t)stream);
+  return (int)ft::launch_tc<1>(p, B, S, (cudaStream_t)stream);
 }

@@ -3,8 +3,11 @@
 ``flash_attention(q, k, v)`` runs blocked online-softmax attention on
 the card (source: ``csrc/flash_attention.cu``) with the Pallas kernel's
 layout and masks: q ``(B, S, H, D)``, k/v ``(B, Skv, Hkv, D)``, GQA
-through ``h // (H / Hkv)``, causal, sliding ``window``. Any D up to 512
-(the adapter's D is 192 at CLIP ViT-B/32 width and 512 at Yi-9B width).
+through ``h // (H / Hkv)``, causal, sliding ``window``, and a key
+length ``Skv`` of its own (cross-attention). Any D up to 1024 (the
+adapter's D is 192 at CLIP ViT-B/32 width, 512 at Yi-9B width and 896 at
+LLaVA-NeXT-34B width); above 512 both instantiations take a path of
+their own with fewer keys staged at a time (``csrc/flash_attention.cu``).
 The plain version is :func:`repro_torch.kernels.ref.flash_attention`; the
 gradient is ``kernels.ops.flash_attention``'s ``autograd.Function``.
 Two instantiations, chosen here by dtype and counted: bf16 runs the
@@ -22,7 +25,7 @@ import torch
 
 from repro_torch.kernels import build
 
-MAX_D = 512
+MAX_D = 1024
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,

@@ -177,15 +177,57 @@ def combine_decode_partials(parts, dtype=torch.float32):
     return out.reshape(B, 1, Hkv * G, D).to(dtype)
 
 
+def _dx_through_w(g, qt: qlib.QTensor, K: int) -> torch.Tensor:
+    """``g @ dequant(W)ᵀ`` for a frozen W's dx on the card, as (M, K)
+    fp32: the ``quant_matmul_t`` kernel with fp32 out, sliced ``[:, :K]``
+    (the payload covers K padded to the block). A bf16 g goes to its
+    tensor-core kernel as it is (its fp32 copy holds the same values, so
+    the products and their fp32 sum are the same), any other g as fp32
+    to the CUDA-core kernel."""
+    tc = lm_kernel.uses_tensor_cores(g)
+    trace_count("quant_matmul_t_cuda_tc" if tc else "quant_matmul_t_cuda")
+    g2 = g.reshape(-1, g.shape[-1])
+    return lm_kernel.quant_matmul_t(g2 if tc else g2.to(torch.float32), qt,
+                                    out_dtype=torch.float32)[:, :K]
+
+
+class _QuantMatmul(torch.autograd.Function):
+    """``x @ dequant(W)`` on the card with a gradient for x: the forward
+    is the ``quant_matmul`` kernel, the backward's ``g @ dequant(W)ᵀ``
+    the ``quant_matmul_t`` kernel (``_dx_through_w``), as in
+    ``_QLoraMatmul``. W is frozen
+    and gets no gradient; nothing but W's QTensor is kept for the
+    backward. The JAX package differentiates the plain version, whose
+    dx is the same product."""
+
+    @staticmethod
+    def forward(ctx, x, qt):
+        ctx.qt, ctx.shape, ctx.dtype = qt, x.shape, x.dtype
+        return qmm_kernel.quant_matmul(x, qt)
+
+    @staticmethod
+    def backward(ctx, g):
+        dx = _dx_through_w(g, ctx.qt, ctx.shape[-1])
+        return dx.reshape(ctx.shape).to(ctx.dtype), None
+
+
 def quant_matmul(x, qt: qlib.QTensor):
+    """``x @ dequant(qt)``. On the card the ``quant_matmul`` kernel; with
+    a gradient wanted for x (a frozen quantized projection without LoRA
+    inside a trained model: the hybrid's and the encoder's MLPs, the
+    MoE's dense layers and shared experts) through ``_QuantMatmul``,
+    whose backward is the ``quant_matmul_t`` kernel. On the CPU the
+    plain version, differentiated by autograd."""
     # qt.q.ndim == 3: a plain 2-D weight; 4: a stacked (per-user) one
     if _on_cuda(x, "quant_matmul"):
-        if torch.is_grad_enabled() and x.requires_grad:
-            raise NotImplementedError(
-                "quant_matmul kernel has no backward: a gradient through a "
-                "quantized weight without LoRA takes lora_matmul")
         trace_count("quant_matmul_cuda" if qt.q.ndim == 3
                     else "quant_matmul_cuda_stacked")
+        if torch.is_grad_enabled() and x.requires_grad:
+            if qt.q.ndim != 3:
+                raise NotImplementedError(
+                    "quant_matmul: a gradient through a stacked QTensor "
+                    "has no kernel")
+            return _QuantMatmul.apply(x, qt)
         return qmm_kernel.quant_matmul(x, qt)
     trace_count("quant_matmul_ref")
     return ref.quant_matmul(x, qt)
@@ -197,11 +239,8 @@ class _QLoraMatmul(torch.autograd.Function):
     QTensor W (frozen: the payload gets no gradient).
 
     On the card the forward is the fused kernel and the backward's dx
-    through Wᵀ is the ``quant_matmul_t`` kernel (fp32 out), sliced
-    ``[:, :K]``; a bf16 cotangent goes to its tensor-core kernel as it
-    is (its fp32 copy holds the same values, so the products and their
-    fp32 sum are the same), an fp32 one to the CUDA-core kernel; only
-    x, A and B are saved, never a dequantized W (an fp32 W per layer
+    through Wᵀ is the ``quant_matmul_t`` kernel (``_dx_through_w``);
+    only x, A and B are saved, never a dequantized W (an fp32 W per layer
     would be 33 GB at Yi-9B and undo QLoRA). On the CPU it follows the
     JAX package's plain branch: the forward dequantizes W to fp32 and
     saves it for the backward's Wᵀ gemm. dA, dB and ``scale·gB Aᵀ`` are
@@ -233,12 +272,7 @@ class _QLoraMatmul(torch.autograd.Function):
         if wd:
             dxw = g2 @ wd[0].t()                          # (M, K) exactly
         else:
-            tc = lm_kernel.uses_tensor_cores(g)
-            trace_count("quant_matmul_t_cuda_tc" if tc
-                        else "quant_matmul_t_cuda")
-            gk = g.reshape(-1, g.shape[-1]) if tc else g2
-            dxw = lm_kernel.quant_matmul_t(
-                gk, ctx.qt, out_dtype=torch.float32)[:, :K]
+            dxw = _dx_through_w(g, ctx.qt, K)
         dx = (dxw + scale * gb @ af.t()).reshape(x.shape).to(x.dtype)
         da = (scale * (x2.t() @ gb)).to(a.dtype)
         db = (scale * ((x2 @ af).t() @ g2)).to(b.dtype)

@@ -12,10 +12,12 @@ with ``--full-config``; ``--quant 4`` an NF4 backbone at block 64) on
 seeded weights, draws the prompt from ``np.random.RandomState(0)`` as
 the JAX package does, prefills with room for ``P + G`` tokens and
 decodes G - 1 more, greedy or sampled from a ``torch.Generator`` seeded
-by ``--seed``. Inside the decode loop the position advances on the
-device and the tokens stay there until the loop ends, so the loop makes
-no host read. The dense and SSM families run; the vlm and encdec archs
-raise (ROADMAP Queue A item 8.4).
+by ``--seed``. A vlm arch's image embeddings (its ``n_patches`` before
+the prompt, which the cache and the positions count) and an encdec
+arch's audio frames are drawn from the same ``RandomState(0)`` after the
+prompt, in the JAX package's order. Inside the decode loop the position
+advances on the device and the tokens stay there until the loop ends,
+so the loop makes no host read. Every family of the zoo runs.
 
 ``--adapters N`` is the personalized-adapter serving plane
 (:mod:`repro_torch.fl.serve`): train N per-user adapter trees
@@ -139,7 +141,8 @@ def run_token_mode(args, device) -> dict:
     """The token-decode mode on ``device``: prints the JAX package's
     lines and returns the tokens (B, G), the prefill and decode times in
     seconds and what a caller needs to step the model again (``model``,
-    ``params``, ``prompt``)."""
+    ``params``, ``prompt``, the prefill's ``batch`` and ``max_len``, the
+    first decode position ``pos0``)."""
     cfg = (get_config if args.full_config else get_reduced)(args.arch)
     if args.quant:
         cfg = cfg.replace(quant_bits=args.quant, quant_mode="nf4",
@@ -150,21 +153,30 @@ def run_token_mode(args, device) -> dict:
     frozen, tr = params["frozen"], params["trainable"]
 
     B, P, G = args.batch, args.prompt_len, args.gen
+    n_img = cfg.n_patches if cfg.family == "vlm" else 0
     rng = np.random.RandomState(0)
     prompt = upload(rng.randint(0, cfg.vocab_size, (B, P)), device,
                     torch.int32)
+    batch = {"tokens": prompt}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = upload(
+            (rng.randn(B, cfg.n_patches, cfg.d_model) * 0.02).astype(
+                np.float32), device, torch.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = upload(
+            (rng.randn(B, cfg.n_frames, cfg.d_model) * 0.02).astype(
+                np.float32), device, torch.float32)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     choose = dict(greedy=args.greedy, temperature=args.temperature,
                   generator=gen)
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(frozen, tr, {"tokens": prompt},
-                                  max_len=P + G)
+    logits, cache = model.prefill(frozen, tr, batch, max_len=n_img + P + G)
     _sync(device)
     t_prefill = time.perf_counter() - t0
     tok = select_token(logits, **choose)
-    pos = torch.full((), P, dtype=torch.int32, device=device)
+    pos = torch.full((), n_img + P, dtype=torch.int32, device=device)
     t0 = time.perf_counter()
     out = decode_loop(model, frozen, tr, cache, tok, pos, G - 1, **choose)
     _sync(device)
@@ -178,7 +190,8 @@ def run_token_mode(args, device) -> dict:
           f"{B*(G-1)/max(t_decode,1e-9):.0f} tok/s")
     print("sample token ids:", toks[0, :16].tolist(), flush=True)
     return {"tokens": toks, "prefill_s": t_prefill, "decode_s": t_decode,
-            "model": model, "params": params, "prompt": prompt}
+            "model": model, "params": params, "prompt": prompt,
+            "batch": batch, "max_len": n_img + P + G, "pos0": n_img + P}
 
 
 def main(argv=None, device=None):

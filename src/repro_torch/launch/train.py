@@ -11,6 +11,9 @@ Usage, on the card (the full Yi-9B fits one H100 with an NF4 backbone):
 and on the CPU at the reduced size, from Python:
   from repro_torch.launch.train import main
   main(["--arch", "yi-9b", "--rounds", "2"], device="cpu")
+Every arch of the zoo trains as in the JAX package: the client's batch
+is text only, so a vlm arch trains its text decoder and an encdec arch
+(whisper-medium) fails for want of ``frames``, in both packages.
 ``--ckpt PATH`` saves the FL server state (round, global trainables,
 client sizes; ``repro_torch.ckpt``) after every round and resumes from
 PATH when it exists, as the JAX package's trainer does.

@@ -5,10 +5,11 @@ prefill, the ring-buffer KV cache with its int8 quantizer, one-token
 
 Weights may be QTensors (the quantized backbone, paper §III-C); every
 projection optionally carries a LoRA pair and then runs through the
-fused LoRA op. Weights are bias-free. The JAX package's cross-attention
-and no-RoPE options (``kv_x``, ``prefix``, ``use_rope``,
-``update_cache``) serve the encdec and vlm families and come with them
-(ROADMAP Queue A item 8.4).
+fused LoRA op. Weights are bias-free. Cross-attention (the encdec
+decoder's ``c``-prefixed weights against the encoder's output ``kv_x``,
+not causal, no RoPE), the learned-position families' ``use_rope=False``
+and a decode step that reads a fixed cache (``update_cache=False``, the
+cross-attention's encoder K/V) follow the JAX package's options.
 """
 from __future__ import annotations
 
@@ -63,30 +64,47 @@ def _normal(generator, shape, fan_in, dtype, device):
 
 
 # ------------------------------------------------------------------ attention
-def init_attention(generator, cfg: ModelConfig, dtype, device):
+def init_attention(generator, cfg: ModelConfig, dtype, device, *,
+                   cross: bool = False):
+    """wq, wk, wv, wo (``cwq`` ... for the cross-attention)."""
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
-    return {"wq": _normal(generator, (d, qd), d, dtype, device),
-            "wk": _normal(generator, (d, kvd), d, dtype, device),
-            "wv": _normal(generator, (d, kvd), d, dtype, device),
-            "wo": _normal(generator, (qd, d), qd, dtype, device)}
+    pre = "c" if cross else ""
+    return {pre + "wq": _normal(generator, (d, qd), d, dtype, device),
+            pre + "wk": _normal(generator, (d, kvd), d, dtype, device),
+            pre + "wv": _normal(generator, (d, kvd), d, dtype, device),
+            pre + "wo": _normal(generator, (qd, d), qd, dtype, device)}
 
 
-def attention(p, x, positions, cfg: ModelConfig, *, lora=None):
-    """Full-sequence causal self-attention with RoPE and the config's
-    sliding window, if any (train / prefill). Returns ``(out, (k, v))``
-    with the post-RoPE k and v (B, S, Hkv, D) that prefill caches."""
+def attention(p, x, positions, cfg: ModelConfig, *, lora=None, causal=True,
+              window=None, kv_x=None, use_rope=True, prefix=""):
+    """Full-sequence attention (train / prefill), port of
+    ``repro.models.layers.attention``: self-attention over x, or
+    cross-attention from x to ``kv_x`` (B, Skv, d) when given, with the
+    weights and LoRA pairs named ``prefix + "wq"`` and so on. RoPE at
+    ``positions`` applies to self-attention with ``use_rope``. Returns
+    ``(out, (k, v))`` with the k and v (B, Skv, Hkv, D) that prefill
+    caches (rotated when RoPE applies)."""
     B, S, _ = x.shape
     lo = lora or {}
-    q = linear(x, p["wq"], lo.get("wq"), cfg=cfg)
-    k = linear(x, p["wk"], lo.get("wk"), cfg=cfg)
-    v = linear(x, p["wv"], lo.get("wv"), cfg=cfg)
+    g = lambda n: lo.get(prefix + n)
+    src = x if kv_x is None else kv_x
+    Skv = src.shape[1]
+    q = linear(x, p[prefix + "wq"], g("wq"), cfg=cfg)
+    k = linear(src, p[prefix + "wk"], g("wk"), cfg=cfg)
+    v = linear(src, p[prefix + "wv"], g("wv"), cfg=cfg)
     q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    out = kops.flash_attention(q, k, v, causal=True, window=cfg.window)
-    y = linear(out.reshape(B, S, cfg.q_dim), p["wo"], lo.get("wo"),
+    k = k.reshape(B, Skv, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(B, Skv, cfg.n_kv_heads, cfg.head_dim)
+    if use_rope and kv_x is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    if cfg.calibrate:
+        raise NotImplementedError(
+            "cfg.calibrate (the dry run's single-tile attention) is not "
+            "ported yet; it comes with the dry run (ROADMAP Queue A item "
+            "8.5)")
+    out = kops.flash_attention(q, k, v, causal=causal, window=window)
+    y = linear(out.reshape(B, S, cfg.q_dim), p[prefix + "wo"], g("wo"),
                cfg=cfg)
     return y, (k, v)
 
@@ -150,37 +168,48 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     return c
 
 
-def attention_decode(p, x, pos, cache, cfg: ModelConfig, *, lora=None):
+def attention_decode(p, x, pos, cache, cfg: ModelConfig, *, lora=None,
+                     use_rope=True, prefix="", update_cache=True):
     """One-token attention against a ring cache, port of
     ``repro.models.layers.attention_decode``: x (B, 1, d); ``pos`` the
-    absolute position as a 0-d integer tensor on x's device. q and k are
-    rotated at ``pos`` (keys are stored rotated); the new k/v row (int8
-    with its scale when the cache holds ``k_scale``) goes to slot
-    ``pos % M``. The slot is computed and written with device ops
-    (``index_copy_`` into the cache's tensors, in place), so the step
-    reads nothing back to the host. Returns ``(out, cache)``, the same
-    dict, where the JAX function returns a new one."""
+    absolute position as a 0-d integer tensor on x's device. With
+    ``use_rope`` q and k are rotated at ``pos`` (keys are stored
+    rotated). With ``update_cache`` the new k/v row (int8 with its scale
+    when the cache holds ``k_scale``) goes to slot ``pos % M``, computed
+    and written with device ops (``index_copy_`` into the cache's
+    tensors, in place), so the step reads nothing back to the host;
+    without it (the cross-attention's fixed encoder K/V) the cache is
+    only read. Weights and LoRA pairs are named ``prefix + "wq"`` and so
+    on. Returns ``(out, cache)``, the same dict, where the JAX function
+    returns a new one."""
     B = x.shape[0]
     lo = lora or {}
+    g = lambda n: lo.get(prefix + n)
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = linear(x, p["wq"], lo.get("wq"), cfg=cfg).reshape(B, 1, H, D)
-    k = linear(x, p["wk"], lo.get("wk"), cfg=cfg).reshape(B, 1, Hkv, D)
-    v = linear(x, p["wv"], lo.get("wv"), cfg=cfg).reshape(B, 1, Hkv, D)
-    q = rope(q, pos, cfg.rope_theta)
-    k = rope(k, pos, cfg.rope_theta)
-    quant = cfg.kv_quant_bits == 8 and "k_scale" in cache
-    slot = torch.remainder(pos, cache["k"].shape[1]).reshape(1).long()
-    for name, val in (("k", k), ("v", v)):
-        vq, vs = quant_kv(val, quant)
-        cache[name].index_copy_(1, slot, vq.to(cache[name].dtype))
-        if quant:
-            cache[name + "_scale"].index_copy_(1, slot, vs)
-    cache["slot_pos"].index_copy_(0, slot, pos.reshape(1).to(torch.int32))
+    q = linear(x, p[prefix + "wq"], g("wq"), cfg=cfg).reshape(B, 1, H, D)
+    if use_rope:
+        q = rope(q, pos, cfg.rope_theta)
+    if update_cache:
+        k = linear(x, p[prefix + "wk"], g("wk"), cfg=cfg).reshape(
+            B, 1, Hkv, D)
+        v = linear(x, p[prefix + "wv"], g("wv"), cfg=cfg).reshape(
+            B, 1, Hkv, D)
+        if use_rope:
+            k = rope(k, pos, cfg.rope_theta)
+        quant = cfg.kv_quant_bits == 8 and "k_scale" in cache
+        slot = torch.remainder(pos, cache["k"].shape[1]).reshape(1).long()
+        for name, val in (("k", k), ("v", v)):
+            vq, vs = quant_kv(val, quant)
+            cache[name].index_copy_(1, slot, vq.to(cache[name].dtype))
+            if quant:
+                cache[name + "_scale"].index_copy_(1, slot, vs)
+        cache["slot_pos"].index_copy_(0, slot,
+                                      pos.reshape(1).to(torch.int32))
     out = kops.decode_attention(
         q, dequant_kv(cache["k"], cache.get("k_scale"), x.dtype),
         dequant_kv(cache["v"], cache.get("v_scale"), x.dtype),
         cache["slot_pos"][None])
-    y = linear(out.reshape(B, 1, cfg.q_dim), p["wo"], lo.get("wo"),
+    y = linear(out.reshape(B, 1, cfg.q_dim), p[prefix + "wo"], g("wo"),
                cfg=cfg)
     return y, cache
 
@@ -194,9 +223,11 @@ def init_mlp(generator, d: int, ff: int, kind: str, dtype, device):
     return p
 
 
-def mlp(p, x, cfg: ModelConfig, *, lora=None):
+def mlp(p, x, cfg: ModelConfig, *, lora=None, kind=None):
+    """The config's MLP, or ``kind`` ("swiglu" | "gelu") when given (the
+    MoE family's dense layers and shared experts are SwiGLU)."""
     lo = lora or {}
-    if cfg.mlp == "swiglu":
+    if (kind or cfg.mlp) == "swiglu":
         h = F.silu(linear(x, p["wg"], lo.get("wg"), cfg=cfg)) * \
             linear(x, p["wu"], lo.get("wu"), cfg=cfg)
     else:   # jax.nn.gelu's default is the tanh approximation

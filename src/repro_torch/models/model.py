@@ -1,10 +1,14 @@
-"""The model facade for the dense decoder and Mamba-1 SSM families, port
-of ``repro.models.model``.
+"""The model facade for every assigned architecture family, port of
+``repro.models.model``: the dense decoders, the Mamba-1 SSM, the
+RG-LRU/attention hybrid, the token-choice MoE (with unrolled
+``first_k_dense`` layers and shared experts), the encoder-decoder with
+cross-attention and learned positions, and the VLM with image
+embeddings prepended to the tokens.
 
 A ``Model`` exposes:
   init_params(generator, device) -> {"frozen", "trainable": {"lora", "adapter"}}
   forward(frozen, trainable, batch) -> logits, aux        (train shapes)
-  loss_fn(...)    -> loss, parts
+  loss_fn(...)    -> loss, parts          (ce + 0.01 · the MoE aux loss)
   grads(...)      -> (loss, parts), grads w.r.t. the trainables
   train_step(...) -> one TriplePlay local client step (LoRA+adapter),
                      over ``cfg.grad_accum`` microbatches
@@ -12,34 +16,49 @@ A ``Model`` exposes:
   decode_step(frozen, trainable, cache, tokens, pos) -> logits, cache
   init_cache(batch, context_len, device) -> an empty cache
 
-The frozen backbone may be quantized (cfg.quant_bits in {0, 8, 4}, linear
-or NF4 blocks); only the LoRA pairs and the paper's attention adapter are
-trained, as on a TriplePlay client. Trees keep the JAX package's layout:
-the layer weights are stacked with a leading layer axis (a quantized one
-as a stacked QTensor ``(L, G, B[/2], N)``) and the LoRA leaves likewise,
-so weights convert structurally (:mod:`repro_torch.convert`). The JAX
-``lax.scan`` over the stack is a Python loop over per-layer slices in
-one of the JAX package's three modes, ``"train"``, ``"prefill"`` and
-``"decode"``. In training ``cfg.remat`` checkpoints each layer
-(``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``), as the
-JAX scan body is checkpointed. An SSM layer is ``x + mamba_block(
-rms_norm(x))`` (:mod:`repro_torch.models.ssm`); on one device the JAX
-package does not rematerialize it, so there the checkpoint changes
-memory only.
+A batch holds ``tokens`` (and ``labels``/``mask`` to train), plus
+``frames`` (B, n_frames, d) for the encdec family and optionally
+``image_embeds`` (B, P, d) for the vlm family, whose labels and mask
+then span the P patches and the tokens.
 
-The serving cache keeps the JAX package's tree, ``{"scan": {"kv": ring
-cache} or {"ssm": {"h", "conv"}}, stacked on a leading layer axis,
-"adapter": the adapter's ring cache}``, so it converts leaf for leaf. A
-decode step writes the new token's rows into those stacked buffers in
-place and returns the same dict; the step computes its slot from the
-0-d ``pos`` tensor on the device and reads nothing back to the host.
-``prefill`` and ``decode_step`` build no autograd graph. The layer
-stack's constraint hooks for a device mesh are no-ops on one card and
-are not ported; the hybrid, moe, encdec and vlm families come with
-ROADMAP Queue A item 8.4.
+The frozen backbone may be quantized (cfg.quant_bits in {0, 8, 4}, linear
+or NF4 blocks); only the LoRA pairs and the paper's attention adapter
+are trained, as on a TriplePlay client. Trees keep the JAX package's layout
+(``layers`` stacked with a leading layer axis, a quantized leaf as a
+stacked QTensor ``(L, [E,] G, B[/2], N)``; ``dense_layers`` and
+``dense_lora`` lists; ``enc_layers``/``enc_lora`` stacked), so weights
+convert structurally (:mod:`repro_torch.convert`). The JAX ``lax.scan``
+over the stack is a Python loop over per-layer slices in one of the JAX
+package's three modes, ``"train"``, ``"prefill"`` and ``"decode"``, and
+the hybrid pattern's ``lax.cond`` a Python branch on
+``cfg.layer_kinds()``. In training ``cfg.remat`` checkpoints each layer
+(``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``), as
+the JAX scan body is checkpointed, and each encoder layer; a hybrid
+layer checkpoints its attention and its MLP, not its RG-LRU block, as
+the JAX package does on one device. The SSM and RG-LRU blocks are
+:mod:`repro_torch.models.ssm` and :mod:`repro_torch.models.rglru`, the
+experts :mod:`repro_torch.models.moe`.
+
+The serving cache keeps the JAX package's tree, ``{"scan": per-layer
+entries stacked on a leading layer axis, ["dense": the same for the
+first_k_dense layers,] "adapter": the adapter's ring cache}``; an entry
+is ``{"kv": ring cache}``, ``{"ssm": {"h", "conv"}}``, the hybrid's
+``{"kv", "lru": {"h", "conv"}}`` (an attention layer's ``lru`` and an
+RG-LRU layer's ``kv`` are the JAX package's zero dummies) or the
+encdec's ``{"kv", "ckv": the encoder's K/V, slot_pos 0..n_frames-1}``,
+so it converts leaf for leaf. A decode step writes the new token's rows
+into those stacked buffers in place and returns the same dict; the step
+computes its slot from the 0-d ``pos`` tensor on the device and reads
+nothing back to the host; a layer's dummy entry is never written, so it
+keeps the zeros the JAX step writes there. ``prefill`` and
+``decode_step`` build no autograd graph. The layer stack's constraint
+hooks for a device mesh are no-ops on one card; the mesh, the MoE's
+expert-parallel path and the dry run's ``unroll_layers``/``calibrate``
+come with ROADMAP Queue A item 8.5.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Dict
 
@@ -48,13 +67,19 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch import tree as tree_lib
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.core import adapter as adapter_lib
 from repro_torch.core import lora as lora_lib
 from repro_torch.core import losses, optim
 from repro_torch.core import quant as qlib
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
+
+# largest fp32 slice quantized at once: the NF4 search holds 16 floats
+# an element
+_QUANT_SLICE = 1 << 24
 
 
 def split(generator: torch.Generator, n: int, device) -> list:
@@ -68,32 +93,81 @@ def split(generator: torch.Generator, n: int, device) -> list:
 
 def _lora_targets(cfg: ModelConfig) -> Dict[str, tuple]:
     d, qd, kvd, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
-    if cfg.family == "ssm":
-        return dict(in_proj_x=(d, cfg.d_inner), out_proj=(cfg.d_inner, d))
-    t = dict(wq=(d, qd), wk=(d, kvd), wv=(d, kvd), wo=(qd, d),
-             wu=(d, ff), wd=(ff, d))
-    if cfg.mlp == "swiglu":
-        t["wg"] = (d, ff)
+    fam = cfg.family
+    t: Dict[str, tuple] = {}
+    if fam != "ssm":
+        t.update(wq=(d, qd), wk=(d, kvd), wv=(d, kvd), wo=(qd, d))
+    if fam in ("dense", "vlm", "encdec"):
+        t.update(wu=(d, ff), wd=(ff, d))
+        if cfg.mlp == "swiglu":
+            t["wg"] = (d, ff)
+    if fam == "encdec":
+        t.update(cwq=(d, qd), cwk=(d, kvd), cwv=(d, kvd), cwo=(qd, d))
+    if fam == "ssm":
+        t.update(in_proj_x=(d, cfg.d_inner), out_proj=(cfg.d_inner, d))
+    if fam == "hybrid":
+        w = cfg.lru_width or d
+        t.update(wx=(d, w), wy=(d, w), out_proj=(w, d))
     return t
 
 
-def _init_layer(cfg: ModelConfig, generator, dtype, device):
-    """One backbone layer, drawn from its own generator."""
+def _enc_lora_targets(cfg: ModelConfig) -> Dict[str, tuple]:
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    return dict(wq=(d, qd), wk=(d, kvd), wv=(d, kvd), wo=(qd, d))
+
+
+def _init_lora(cfg: ModelConfig, targets, generator, device, lead=()):
+    tdt = getattr(torch, cfg.trainable_dtype)
+    return {n: lora_lib.init_pair(g, k, nn, cfg.lora_rank, dtype=tdt,
+                                  lead=lead)
+            for (n, (k, nn)), g in zip(sorted(targets.items()),
+                                       split(generator, len(targets),
+                                             device))}
+
+
+def _init_layer(cfg: ModelConfig, generator, dtype, device, *,
+                dense_ff: int = 0, encoder: bool = False):
+    """One backbone layer of the arch family (an MLP layer of width
+    ``dense_ff`` for the MoE's first_k_dense layers, an encoder layer
+    with ``encoder``), drawn from its own generator."""
+    fam = cfg.family
     d = cfg.d_model
     p: Dict[str, Any] = {"ln1": torch.zeros((d,), device=device)}
-    if cfg.family == "ssm":
+    if fam == "ssm":
         p.update(ssm_lib.init_mamba(generator, cfg, dtype, device))
         return p
     p["ln2"] = torch.zeros((d,), device=device)
     p.update(L.init_attention(generator, cfg, dtype, device))
-    p.update(L.init_mlp(generator, d, cfg.d_ff, cfg.mlp, dtype, device))
+    if encoder:
+        p.update(L.init_mlp(generator, d, cfg.d_ff, cfg.mlp, dtype, device))
+        return p
+    if fam == "encdec":
+        p["lnc"] = torch.zeros((d,), device=device)
+        p.update(L.init_attention(generator, cfg, dtype, device, cross=True))
+        p.update(L.init_mlp(generator, d, cfg.d_ff, cfg.mlp, dtype, device))
+        return p
+    if fam == "hybrid":
+        p.update(rglru_lib.init_rglru(generator, cfg, dtype, device))
+        p.update(L.init_mlp(generator, d, cfg.d_ff, cfg.mlp, dtype, device))
+        return p
+    if fam == "moe" and not dense_ff:
+        p["moe"] = moe_lib.init_experts(generator, cfg, dtype, device)
+        if cfg.n_shared_experts:
+            p["shared"] = L.init_mlp(generator, d,
+                                     cfg.d_ff * cfg.n_shared_experts,
+                                     "swiglu", dtype, device)
+        return p
+    kind = "swiglu" if fam == "moe" else cfg.mlp
+    p.update(L.init_mlp(generator, d, dense_ff or cfg.d_ff, kind, dtype,
+                        device))
     return p
 
 
-def _quant_plan(cfg: ModelConfig, name: str, shape, dtype):
+def _quant_plan(cfg: ModelConfig, path: str, shape, dtype):
     """``(bits, mode, block)`` with which ``quantize_tree`` would quantize
-    the stacked leaf ``name`` of this shape, or None to keep it."""
-    if not cfg.quant_bits or not qlib._quantizable(name, shape, dtype, 4096):
+    the stacked leaf at ``path`` (its keys joined by "/") of this shape,
+    or None to keep it."""
+    if not cfg.quant_bits or not qlib._quantizable(path, shape, dtype, 4096):
         return None
     b = qlib._pick_block(shape[-2], cfg.quant_block)
     if b % 2:
@@ -101,9 +175,28 @@ def _quant_plan(cfg: ModelConfig, name: str, shape, dtype):
     return cfg.quant_bits, cfg.quant_mode, b
 
 
+def _quantize_into(q, scales, w, *, bits, mode, block):
+    """``quantize(w)`` written into the payload ``q`` and ``scales`` a
+    slice at a time: one matrix of a leading stack, then at most
+    ``_QUANT_SLICE`` elements of its columns. Blocks run along K inside
+    each column, so the result is ``quantize(w)``'s bit for bit."""
+    if w.ndim > 2:
+        for j in range(w.shape[0]):
+            _quantize_into(q[j], scales[j], w[j], bits=bits, mode=mode,
+                           block=block)
+        return
+    K, N = w.shape
+    step = max(1, _QUANT_SLICE // K)
+    for c0 in range(0, N, step):
+        qt = qlib.quantize(w[:, c0:c0 + step], bits=bits, block=block,
+                           mode=mode)
+        q[..., c0:c0 + step] = qt.q
+        scales[..., c0:c0 + step] = qt.scales
+
+
 def _layer_slice(tree, i: int):
-    """Layer ``i`` of a stacked tree; a stacked QTensor gives the 3-D
-    QTensor of that layer (views of its payload and scales)."""
+    """Layer ``i`` of a stacked tree; a stacked QTensor gives the QTensor
+    of that layer (views of its payload and scales)."""
     def one(leaf):
         if isinstance(leaf, qlib.QTensor):
             return qlib.QTensor(q=leaf.q[i], scales=leaf.scales[i],
@@ -114,53 +207,59 @@ def _layer_slice(tree, i: int):
     return tree_lib.tree_map(one, tree)
 
 
+def _remat(fn, on: bool):
+    return functools.partial(checkpoint, fn, use_reentrant=False) if on \
+        else fn
+
+
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in ("dense", "ssm") or not cfg.use_rope:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family"
-                f"{'' if cfg.use_rope else ' without RoPE'} is not ported "
-                "yet (they come with the zoo's later slices; see ROADMAP "
-                "Queue A item 8.4)")
         self.cfg = cfg
+        self.n_scanned = cfg.n_layers - cfg.first_k_dense
+        self.kinds = cfg.layer_kinds()[cfg.first_k_dense:]
 
     # ---------------------------------------------------------- params
-    def _init_layers(self, generator, dtype, device):
-        """The stacked layer tree, drawn one layer at a time. With
-        ``cfg.quant_bits`` each matrix is quantized as soon as it is drawn
-        and written into preallocated stacked payloads, so no dense stack
-        (and no full-stack NF4 search) is ever held: the result equals
-        ``quantize_tree`` of the dense stack bit for bit, since blocks run
-        along K inside each layer."""
+    def _init_layers(self, generator, dtype, device, n: int, **kw):
+        """The stacked tree of ``n`` layers, drawn one layer at a time.
+        With ``cfg.quant_bits`` each matrix is quantized as soon as it is
+        drawn and written into preallocated stacked payloads, so no dense
+        stack (and no whole-matrix NF4 search) is ever held: the result
+        equals ``quantize_tree`` of the dense stack bit for bit, since
+        blocks run along K inside each matrix."""
         cfg = self.cfg
-        Lyr = cfg.n_layers
-        out: Dict[str, Any] = {}
-        for i, g in enumerate(split(generator, Lyr, device)):
-            layer = _init_layer(cfg, g, dtype, device)
-            for name, w in layer.items():
-                shape = (Lyr, *w.shape)
-                plan = _quant_plan(cfg, name, shape, w.dtype)
+        out: Dict[tuple, Any] = {}
+        for i, g in enumerate(split(generator, n, device)):
+            layer = _init_layer(cfg, g, dtype, device, **kw)
+            for path, w in tree_lib.flatten_with_path(layer):
+                shape = (n, *w.shape)
+                plan = _quant_plan(cfg, tree_lib.path_str(path), shape,
+                                   w.dtype)
                 if plan is None:
-                    if name not in out:
-                        out[name] = torch.empty(shape, dtype=w.dtype,
+                    if path not in out:
+                        out[path] = torch.empty(shape, dtype=w.dtype,
                                                 device=device)
-                    out[name][i] = w
+                    out[path][i] = w
                     continue
                 bits, mode, block = plan
-                qt = qlib.quantize(w, bits=bits, block=block, mode=mode)
-                if name not in out:
-                    out[name] = qlib.QTensor(
-                        q=torch.empty((Lyr, *qt.q.shape), dtype=qt.q.dtype,
-                                      device=device),
-                        scales=torch.empty((Lyr, *qt.scales.shape),
-                                           dtype=qt.scales.dtype,
-                                           device=device),
-                        bits=bits, mode=mode, block=qt.block,
-                        out_dtype=w.dtype, orig_shape=shape)
-                out[name].q[i] = qt.q
-                out[name].scales[i] = qt.scales
+                spec = qlib.qtensor_specs(shape, w.dtype, bits=bits,
+                                          block=block, mode=mode)
+                if path not in out:
+                    out[path] = dataclasses.replace(
+                        spec, q=torch.empty(spec.q.shape, dtype=spec.q.dtype,
+                                            device=device),
+                        scales=torch.empty(spec.scales.shape,
+                                           dtype=torch.float32,
+                                           device=device))
+                _quantize_into(out[path].q[i], out[path].scales[i], w,
+                               bits=bits, mode=mode, block=block)
             del layer
-        return out
+        tree: Dict[str, Any] = {}
+        for path, leaf in out.items():
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = leaf
+        return tree
 
     def init_params(self, generator: torch.Generator, device=None):
         cfg = self.cfg
@@ -175,31 +274,72 @@ class Model:
             "head": L._normal(g_head, (d, V), d, dt, dev),
             "final_norm": torch.zeros((d,), device=dev),
         }
-        frozen["layers"] = self._init_layers(g_lay, dt, dev)
+        frozen["layers"] = self._init_layers(g_lay, dt, dev, self.n_scanned)
         trainable = {
-            "lora": {n: lora_lib.init_pair(g, k, nn, cfg.lora_rank,
-                                           dtype=tdt, lead=(cfg.n_layers,))
-                     for (n, (k, nn)), g in zip(
-                         sorted(_lora_targets(cfg).items()),
-                         split(g_lora, len(_lora_targets(cfg)), dev))},
+            "lora": _init_lora(cfg, _lora_targets(cfg), g_lora, dev,
+                               lead=(self.n_scanned,)),
             "adapter": adapter_lib.init(g_ad, d, n_heads=cfg.adapter_heads,
                                         d_ff=cfg.adapter_d_ff, dtype=tdt,
                                         device=dev),
         }
+        if cfg.use_rope and not cfg.first_k_dense and not cfg.encoder_layers:
+            return {"frozen": frozen, "trainable": trainable}
+        g_pos, g_dense, g_enc, g_dlora, g_elora = split(generator, 5, dev)
+        if not cfg.use_rope:
+            frozen["pos_embed"] = (torch.randn(
+                (cfg.max_pos, d), generator=g_pos, device=dev) * 0.02).to(dt)
+        if cfg.first_k_dense:
+            frozen["dense_layers"] = [
+                _layer_slice(self._init_layers(g, dt, dev, 1,
+                                               dense_ff=cfg.dense_d_ff), 0)
+                for g in split(g_dense, cfg.first_k_dense, dev)]
+            trainable["dense_lora"] = [
+                _init_lora(cfg, _lora_targets(cfg), g, dev)
+                for g in split(g_dlora, cfg.first_k_dense, dev)]
+        if cfg.encoder_layers:
+            g_el, g_ep = split(g_enc, 2, dev)
+            frozen["enc_layers"] = self._init_layers(
+                g_el, dt, dev, cfg.encoder_layers, encoder=True)
+            frozen["enc_pos"] = (torch.randn(
+                (cfg.n_frames, d), generator=g_ep, device=dev) * 0.02).to(dt)
+            frozen["enc_final_norm"] = torch.zeros((d,), device=dev)
+            trainable["enc_lora"] = _init_lora(
+                cfg, _enc_lora_targets(cfg), g_elora, dev,
+                lead=(cfg.encoder_layers,))
         return {"frozen": frozen, "trainable": trainable}
 
-    # ---------------------------------------------------------- forward
-    def _block(self, p, lo, positions, x, mode="train", cache=None,
-               pos=None, cache_len=None):
-        """One layer in ``mode`` (``"train"``, ``"prefill"`` or
-        ``"decode"``). Returns ``(x, entry)``: the layer's cache entry
-        from a prefill, the cache views ``cache`` updated in place by a
-        decode, None in training."""
+    # ---------------------------------------------------------- blocks
+    def _block(self, p, lo, positions, enc_out, x, mode="train", cache=None,
+               pos=None, cache_len=None, kind=ATTN):
+        """One layer of kind ``kind`` in ``mode`` (``"train"``,
+        ``"prefill"`` or ``"decode"``). Returns ``(x, entry, aux)``: the
+        layer's cache entry from a prefill, the cache views ``cache``
+        updated in place by a decode, None in training; aux is the MoE
+        layer's balance loss, else None."""
         cfg = self.cfg
-        entry = None
-        xin = L.rms_norm(x, p["ln1"])
-        if cfg.family == "ssm":
-            if mode == "decode":
+        fam = cfg.family
+        decode = mode == "decode"
+        remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
+        B = x.shape[0]
+        dt = x.dtype
+
+        def attn_part(x):
+            xin = L.rms_norm(x, p["ln1"])
+            if decode:
+                h, kv = L.attention_decode(p, xin, pos, cache["kv"], cfg,
+                                           lora=lo, use_rope=cfg.use_rope)
+            else:
+                h, (k, v) = L.attention(p, xin, positions, cfg, lora=lo,
+                                        causal=True, window=cfg.window,
+                                        use_rope=cfg.use_rope)
+                kv = L.ring_from_full(
+                    k, v, cache_len, kv_quant=cfg.kv_quant_bits == 8) \
+                    if mode == "prefill" else None
+            return x + h, kv
+
+        if fam == "ssm":
+            xin = L.rms_norm(x, p["ln1"])
+            if decode:
                 h, st = ssm_lib.mamba_decode(p, xin, cache["ssm"], cfg,
                                              lora=lo)
                 cache["ssm"]["h"].copy_(st["h"])
@@ -208,61 +348,161 @@ class Model:
             else:
                 h, st = ssm_lib.mamba_block(p, xin, cfg, lora=lo)
                 entry = {"ssm": st} if mode == "prefill" else None
-            return x + h, entry
-        if mode == "decode":
-            h, _ = L.attention_decode(p, xin, pos, cache["kv"], cfg, lora=lo)
-            entry = cache
-        else:
-            h, (k, v) = L.attention(p, xin, positions, cfg, lora=lo)
-            if mode == "prefill":
-                entry = {"kv": L.ring_from_full(
-                    k, v, cache_len, kv_quant=cfg.kv_quant_bits == 8)}
-        x = x + h
-        return x + L.mlp(p, L.rms_norm(x, p["ln2"]), cfg, lora=lo), entry
+            return x + h, entry, None
 
-    def _stack(self, frozen, trainable, x, positions, mode="train",
-               cache=None, pos=None, cache_len=None):
-        """The layer loop. Returns ``(x, cache)``: a prefill's entries
-        stacked on a leading layer axis, a decode's ``cache`` (updated in
-        place), None in training."""
+        if fam == "hybrid":
+            entry = cache if decode else None
+            if kind == ATTN:
+                x, kv = _remat(attn_part, remat)(x)
+                if mode == "prefill":
+                    entry = {"kv": kv, "lru": rglru_lib.rglru_cache_init(
+                        cfg, B, dt, x.device)}
+            else:
+                xin = L.rms_norm(x, p["ln1"])
+                if decode:
+                    h, st = rglru_lib.rglru_decode(p, xin, cache["lru"], cfg,
+                                                   lora=lo)
+                    cache["lru"]["h"].copy_(st["h"])
+                    cache["lru"]["conv"].copy_(st["conv"])
+                else:
+                    h, st = rglru_lib.rglru_block(p, xin, cfg, lora=lo)
+                    if mode == "prefill":
+                        entry = {"kv": L.init_kv_cache(
+                            cfg, B, cache_len, dt, x.device), "lru": st}
+                x = x + h
+            mlp_fn = lambda h: L.mlp(p, L.rms_norm(h, p["ln2"]), cfg, lora=lo)
+            return x + _remat(mlp_fn, remat)(x), entry, None
+
+        # the attention families: dense / moe / vlm / encdec
+        x, kv = attn_part(x)
+        entry = cache if decode else ({"kv": kv} if mode == "prefill"
+                                      else None)
+        if fam == "encdec":
+            xin = L.rms_norm(x, p["lnc"])
+            if decode:
+                h, _ = L.attention_decode(p, xin, pos, cache["ckv"], cfg,
+                                          lora=lo, prefix="c", use_rope=False,
+                                          update_cache=False)
+            else:
+                h, (ck, cv) = L.attention(p, xin, positions, cfg, lora=lo,
+                                          prefix="c", causal=False,
+                                          kv_x=enc_out, use_rope=False)
+                if mode == "prefill":
+                    entry["ckv"] = {"k": ck, "v": cv, "slot_pos": torch.arange(
+                        ck.shape[1], dtype=torch.int32, device=x.device)}
+            x = x + h
+        aux = None
+        if fam == "moe" and "moe" in p:
+            xin = L.rms_norm(x, p["ln2"])
+            y, aux = moe_lib.moe_ffn(p["moe"], xin, cfg)
+            if cfg.n_shared_experts:
+                y = y + L.mlp(p["shared"], xin, cfg, kind="swiglu")
+            x = x + y
+        else:
+            x = x + L.mlp(p, L.rms_norm(x, p["ln2"]), cfg, lora=lo,
+                          kind="swiglu" if fam == "moe" else cfg.mlp)
+        return x, entry, aux
+
+    def _stack(self, frozen, trainable, x, positions, enc_out=None,
+               mode="train", cache=None, pos=None, cache_len=None):
+        """The layer loop: the first_k_dense layers unrolled, then the
+        stack. Returns ``(x, aux, cache)``: aux summed over the stack's
+        MoE layers; a prefill's entries stacked on a leading layer axis,
+        a decode's ``cache`` (updated in place), None in training."""
         cfg = self.cfg
+        aux = torch.zeros((), device=x.device)
+        kw = dict(mode=mode, pos=pos, cache_len=cache_len)
+        dense = []
+        for i in range(cfg.first_k_dense):
+            c = None if cache is None else _layer_slice(cache["dense"], i)
+            x, entry, _ = self._block(frozen["dense_layers"][i],
+                                      trainable["dense_lora"][i], positions,
+                                      enc_out, x, cache=c, **kw)
+            dense.append(entry)
         # unbind once: the backward stacks each leaf's per-layer grads
         lora = {n: {f: torch.unbind(t, 0) for f, t in pair.items()}
                 for n, pair in trainable["lora"].items()}
+        remat = mode == "train" and cfg.remat and torch.is_grad_enabled() \
+            and cfg.family != "hybrid"
         entries = []
-        for i in range(cfg.n_layers):
+        for i in range(self.n_scanned):
             p = _layer_slice(frozen["layers"], i)
             lo = {n: {f: ts[i] for f, ts in pair.items()}
                   for n, pair in lora.items()}
             c = None if cache is None else _layer_slice(cache["scan"], i)
-            fn = functools.partial(self._block, p, lo, positions, mode=mode,
-                                   cache=c, pos=pos, cache_len=cache_len)
-            if mode == "train" and cfg.remat and torch.is_grad_enabled():
-                x, _ = checkpoint(fn, x, use_reentrant=False)
-            else:
-                x, entry = fn(x)
-                entries.append(entry)
+            fn = functools.partial(self._block, p, lo, positions, enc_out,
+                                   cache=c, kind=self.kinds[i], **kw)
+            x, entry, a = _remat(fn, remat)(x)
+            if a is not None:
+                aux = aux + a
+            entries.append(entry)
         if mode == "prefill":
-            return x, {"scan": tree_lib.tree_map(
-                lambda *ls: torch.stack(ls), entries[0], *entries[1:])}
-        return x, cache
+            stack = lambda es: tree_lib.tree_map(
+                lambda *ls: torch.stack(ls), es[0], *es[1:])
+            cache = {"scan": stack(entries)}
+            if dense:
+                cache["dense"] = stack(dense)
+        return x, aux, cache
+
+    def _encode(self, frozen, trainable, frames):
+        """The encdec family's encoder over ``frames`` (B, n_frames, d):
+        learned positions, bidirectional attention without RoPE, the
+        MLP, a final norm."""
+        cfg = self.cfg
+        x = frames.to(getattr(torch, cfg.dtype)) + frozen["enc_pos"][None]
+        positions = torch.arange(x.shape[1], device=x.device)
+        lora = {n: {f: torch.unbind(t, 0) for f, t in pair.items()}
+                for n, pair in trainable["enc_lora"].items()}
+        remat = cfg.remat and torch.is_grad_enabled()
+
+        def body(p, lo, x):
+            h, _ = L.attention(p, L.rms_norm(x, p["ln1"]), positions, cfg,
+                               lora=lo, causal=False, use_rope=False)
+            x = x + h
+            return x + L.mlp(p, L.rms_norm(x, p["ln2"]), cfg, lora=lo)
+
+        for i in range(cfg.encoder_layers):
+            p = _layer_slice(frozen["enc_layers"], i)
+            lo = {n: {f: ts[i] for f, ts in pair.items()}
+                  for n, pair in lora.items()}
+            x = _remat(functools.partial(body, p, lo), remat)(x)
+        return L.rms_norm(x, frozen["enc_final_norm"])
 
     def _embed(self, frozen, tokens):
         return frozen["embed"][tokens.long()].to(getattr(torch,
                                                          self.cfg.dtype))
 
-    def forward(self, frozen, trainable, batch):
-        """Training-shape forward. Returns (logits, aux); aux is the MoE
-        balance loss, zero for the dense family."""
+    def _embed_inputs(self, frozen, batch):
+        """The tokens' embeddings, after the image embeddings (vlm), plus
+        the learned positions when the config has no RoPE; and the
+        positions 0..S-1."""
         cfg = self.cfg
         x = self._embed(frozen, batch["tokens"])
+        if cfg.family == "vlm" and "image_embeds" in batch:
+            x = torch.cat([batch["image_embeds"].to(x.dtype), x], 1)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, _ = self._stack(frozen, trainable, x, positions)
+        if not cfg.use_rope:
+            x = x + frozen["pos_embed"][positions.clamp(
+                max=cfg.max_pos - 1)][None]
+        return x, positions
+
+    def _encoder_out(self, frozen, trainable, batch):
+        if self.cfg.family != "encdec":
+            return None
+        return self._encode(frozen, trainable, batch["frames"])
+
+    def forward(self, frozen, trainable, batch):
+        """Training-shape forward. Returns (logits, aux); aux is the MoE
+        balance loss summed over the stack's layers, zero for the other
+        families."""
+        cfg = self.cfg
+        enc_out = self._encoder_out(frozen, trainable, batch)
+        x, positions = self._embed_inputs(frozen, batch)
+        x, aux, _ = self._stack(frozen, trainable, x, positions, enc_out)
         x = L.rms_norm(x, frozen["final_norm"])
         x = adapter_lib.apply(trainable["adapter"], x,
                               n_heads=cfg.adapter_heads, causal=True)
-        logits = x @ frozen["head"].to(x.dtype)
-        return logits, torch.zeros((), device=x.device)
+        return x @ frozen["head"].to(x.dtype), aux
 
     # ---------------------------------------------------------- training
     def loss_fn(self, frozen, trainable, batch):
@@ -322,18 +562,20 @@ class Model:
 
     @torch.no_grad()
     def prefill(self, frozen, trainable, batch, max_len: int | None = None):
-        """The prompt ``batch["tokens"]`` (B, S) through the stack.
-        Returns (last-token logits (B, V), cache). ``max_len`` sizes the
-        cache (default: the prompt length); pass the serving context
-        length so that later ``decode_step`` calls have room (a
-        sliding-window arch caps it at the window)."""
+        """The prompt ``batch["tokens"]`` (B, S), after its
+        ``image_embeds`` (vlm) and against its ``frames`` (encdec),
+        through the stack. Returns (last-token logits (B, V), cache).
+        ``max_len`` sizes the cache (default: the prompt's length,
+        patches included); pass the serving context length so that later
+        ``decode_step`` calls have room (a sliding-window arch caps it at
+        the window)."""
         cfg = self.cfg
-        x = self._embed(frozen, batch["tokens"])
+        enc_out = self._encoder_out(frozen, trainable, batch)
+        x, positions = self._embed_inputs(frozen, batch)
         S = x.shape[1]
-        positions = torch.arange(S, device=x.device)
-        x, cache = self._stack(frozen, trainable, x, positions, "prefill",
-                               cache_len=self.effective_cache_len(
-                                   max_len or S))
+        x, _, cache = self._stack(frozen, trainable, x, positions, enc_out,
+                                  "prefill", cache_len=self.effective_cache_len(
+                                      max_len or S))
         x = L.rms_norm(x, frozen["final_norm"])
         x, cache["adapter"] = adapter_lib.prefill(
             trainable["adapter"], x, min(max_len or S, cfg.adapter_window),
@@ -342,14 +584,17 @@ class Model:
 
     @torch.no_grad()
     def decode_step(self, frozen, trainable, cache, tokens, pos):
-        """tokens: (B, 1); pos: the tokens' absolute position, a 0-d
-        integer tensor on the model's device. Returns (logits (B, V),
-        cache), the cache updated in place."""
+        """tokens: (B, 1); pos: the tokens' absolute position (patches
+        included), a 0-d integer tensor on the model's device. Returns
+        (logits (B, V), cache), the cache updated in place."""
         cfg = self.cfg
         x = self._embed(frozen, tokens)
         pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
-        x, cache = self._stack(frozen, trainable, x, None, "decode",
-                               cache=cache, pos=pos)
+        if not cfg.use_rope:
+            x = x + frozen["pos_embed"][pos.clamp(max=cfg.max_pos - 1)
+                                        .long()][None, None]
+        x, _, cache = self._stack(frozen, trainable, x, None, None,
+                                  "decode", cache=cache, pos=pos)
         x = L.rms_norm(x, frozen["final_norm"])
         x, _ = adapter_lib.decode(trainable["adapter"], x, cache["adapter"],
                                   pos, n_heads=cfg.adapter_heads)
@@ -366,16 +611,25 @@ class Model:
         else:
             one = {"kv": L.init_kv_cache(
                 cfg, batch, self.effective_cache_len(context_len), dt, dev)}
+            if cfg.family == "hybrid":
+                one["lru"] = rglru_lib.rglru_cache_init(cfg, batch, dt, dev)
+            if cfg.family == "encdec":
+                one["ckv"] = L.init_kv_cache(cfg, batch, cfg.n_frames, dt,
+                                             dev)
+        stack = lambda n: tree_lib.tree_map(
+            lambda a: a.expand(n, *a.shape).clone(), one)
+        out = {"scan": stack(self.n_scanned)}
+        if cfg.first_k_dense:
+            out["dense"] = stack(cfg.first_k_dense)
         Ma = min(context_len, cfg.adapter_window)
         nh = cfg.adapter_heads
         shape = (batch, Ma, nh, cfg.d_model // nh)
-        return {"scan": tree_lib.tree_map(
-                    lambda a: a.expand(cfg.n_layers, *a.shape).clone(), one),
-                "adapter": {"k": torch.zeros(shape, dtype=dt, device=dev),
-                            "v": torch.zeros(shape, dtype=dt, device=dev),
-                            "slot_pos": torch.full((Ma,), -1,
-                                                   dtype=torch.int32,
-                                                   device=dev)}}
+        out["adapter"] = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                          "v": torch.zeros(shape, dtype=dt, device=dev),
+                          "slot_pos": torch.full((Ma,), -1,
+                                                 dtype=torch.int32,
+                                                 device=dev)}
+        return out
 
 
 def build_model(cfg: ModelConfig) -> Model:

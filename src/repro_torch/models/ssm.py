@@ -14,10 +14,16 @@ x1 and z in the model dtype, the x_proj output, dt and the scan in fp32.
 ``mamba_block``'s ``{"h", "conv"}`` is the prefill's cache entry;
 ``mamba_decode`` steps it one token at a time.
 
-Not ported here: a start state ``h0`` (no caller in the JAX package
-passes one), ``cfg.calibrate`` and the chunked scans
-(``chunked_linear_scan``, ``_chunked_ssm_scan``) come with the dry run
-(ROADMAP Queue A item 8.5).
+``chunked_linear_scan`` is the elementwise recurrence ``h_t = a_t
+h_{t-1} + b_t`` that the RG-LRU block runs (:mod:`repro_torch.models.
+rglru`): plain PyTorch on every device, as it is plain ``jnp`` in the
+JAX package (the ``selective_scan`` kernel computes the Mamba
+recurrence, with a state dimension and a C readout, not this one).
+
+Not ported here: a start state ``h0`` for ``mamba_block`` (no caller in
+the JAX package passes one), ``cfg.calibrate`` and the Mamba block's
+chunked scan ``_chunked_ssm_scan`` come with the dry run (ROADMAP Queue
+A item 8.5).
 """
 from __future__ import annotations
 
@@ -31,6 +37,53 @@ from repro_torch.models.layers import _normal
 
 _LATER = ("is not ported yet; it comes with the dry run "
           "(ROADMAP Queue A item 8.5)")
+
+
+# ---------------------------------------------------------------- scan util
+def _comb(left, right):
+    """(a2, b2)∘(a1, b1) = (a1·a2, a2·b1 + b2): the recurrence's step
+    composition, associative."""
+    a1, b1 = left
+    a2, b2 = right
+    return a1 * a2, a2 * b1 + b2
+
+
+def _associative_scan(a, b):
+    """Inclusive scan of ``_comb`` along axis 1 by doubling (Hillis-
+    Steele): after the step of offset o every position holds the
+    composition of the up to 2o steps ending at it."""
+    n, o = a.shape[1], 1
+    while o < n:
+        a2, b2 = _comb((a[:, :-o], b[:, :-o]), (a[:, o:], b[:, o:]))
+        a = torch.cat([a[:, :o], a2], 1)
+        b = torch.cat([b[:, :o], b2], 1)
+        o *= 2
+    return a, b
+
+
+def chunked_linear_scan(a, b, h0, chunk: int):
+    """Elementwise linear recurrence h_t = a_t·h_{t-1} + b_t, port of
+    ``repro.models.ssm.chunked_linear_scan``: a, b (B, S, ...), h0
+    (B, ...). Within a chunk an associative scan, across chunks a
+    sequential carry; S is padded to a multiple of the chunk with
+    identity steps (a = 1, b = 0), sliced off after. Returns (h_all
+    (B, S, ...), h_last)."""
+    B, S = a.shape[0], a.shape[1]
+    chunk = min(chunk, S)
+    Sp = -(-S // chunk) * chunk
+    if Sp != S:
+        pad = [0, 0] * (a.ndim - 2) + [0, Sp - S]
+        a = F.pad(a, pad, value=1.0)
+        b = F.pad(b, pad)
+    h, outs = h0, []
+    for c in range(Sp // chunk):
+        a_cum, b_scan = _associative_scan(a[:, c * chunk:(c + 1) * chunk],
+                                          b[:, c * chunk:(c + 1) * chunk])
+        h_full = b_scan + a_cum * h[:, None]
+        outs.append(h_full)
+        h = h_full[:, -1]
+    h_all = torch.cat(outs, 1)[:, :S]
+    return h_all, h_all[:, -1]
 
 
 # ---------------------------------------------------------------- params

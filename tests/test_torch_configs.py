@@ -1,10 +1,13 @@
 """The port's config registry (repro_torch.configs) and its other dense
 decoders against the JAX package, on the CPU.
 
-Every config the port carries (the dense decoders and the Mamba-1
-falcon-mamba-7b) equals the JAX package's field for field, reduced and
-full; an arch of a family that is not ported raises
-NotImplementedError naming the slice that brings it. The sliding-window
+Every config of the JAX package equals the port's field for field,
+reduced and full, and ``ARCHS`` is the JAX package's. Each zoo family
+(hybrid, moe with and without dense layers, encdec, vlm) builds the JAX
+package's ``init_params`` tree at its reduced NF4 config: the same leaf
+paths, shapes and dtypes, the same QTensor fields; what is still to
+port (the dry run's ``calibrate``) raises, naming ROADMAP Queue A item
+8.5. The sliding-window
 (h2o-danube-3-4b, window 64 under a 80-token sequence) and GELU
 (starcoder2-15b) decoders give the JAX package's logits and loss on the
 same weights, in fp32, within 1e-4 times the largest logit."""
@@ -25,7 +28,10 @@ from repro_torch.models import build_model
 torch.set_num_threads(1)
 DENSE = ("yi-9b", "h2o-danube-3-4b", "codeqwen1.5-7b", "starcoder2-15b",
          "clip-b32")
-PORTED = DENSE + ("falcon-mamba-7b",)
+ZOO = ("recurrentgemma-2b", "qwen3-moe-235b-a22b", "kimi-k2-1t-a32b",
+       "whisper-medium", "llava-next-34b")
+PORTED = DENSE + ("falcon-mamba-7b",) + ZOO
+NF4 = dict(quant_bits=4, quant_mode="nf4", quant_block=64)
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -37,14 +43,57 @@ def test_dense_configs_equal_the_jax_package(arch):
     assert get(arch).layer_kinds() == jget(arch).layer_kinds()
 
 
-@pytest.mark.parametrize("arch", sorted(set(jconfigs.ARCHS) - set(PORTED)))
+def test_archs_are_the_jax_packages():
+    assert configs.ARCHS == jconfigs.ARCHS
+
+
+def _leaves(tree):
+    from repro.core import quant as jq
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda l: isinstance(l, jq.QTensor))
+    return {tuple(getattr(k, "key", getattr(k, "idx", None)) for k in path):
+            leaf for path, leaf in flat}
+
+
+@pytest.mark.parametrize("arch", ZOO)
 def test_unported_families_raise_naming_their_slice(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get_config(arch)
-    # the model refuses such a family too, given its config data
-    cfg = configs.ModelConfig(**dataclasses.asdict(jconfigs.get_reduced(arch)))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(cfg)
+    """The family's reduced NF4 ``init_params`` tree is the JAX
+    package's leaf for leaf (paths, shapes, dtypes, QTensor fields), and
+    the part still to port, the dry run's ``calibrate``, raises naming
+    its slice (ROADMAP Queue A item 8.5)."""
+    from repro.core import quant as jq
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import quant as qlib
+    jcfg = jconfigs.get_reduced(arch).replace(**NF4)
+    want = _leaves(jax.eval_shape(j_build(jcfg).init_params,
+                                  jax.random.PRNGKey(0)))
+    model = build_model(configs.get_reduced(arch).replace(**NF4))
+    got = dict(tree_lib.flatten_with_path(
+        model.init_params(torch.Generator().manual_seed(0), device="cpu")))
+    assert sorted(got) == sorted(want)
+    dt = lambda d: str(d).replace("torch.", "")
+    for path, w in want.items():
+        g = got[path]
+        if isinstance(w, jq.QTensor):
+            assert isinstance(g, qlib.QTensor), path
+            assert (g.bits, g.mode, g.block, tuple(g.orig_shape),
+                    dt(g.out_dtype)) == (w.bits, w.mode, w.block,
+                                         tuple(w.orig_shape),
+                                         str(np.dtype(w.out_dtype))), path
+            for f in ("q", "scales"):
+                gt, wt = getattr(g, f), getattr(w, f)
+                assert tuple(gt.shape) == wt.shape, (path, f)
+                assert dt(gt.dtype) == str(wt.dtype), (path, f)
+        else:
+            assert tuple(g.shape) == w.shape, path
+            assert dt(g.dtype) == str(w.dtype), path
+    cal = build_model(configs.get_reduced(arch).replace(calibrate=True))
+    params = cal.init_params(torch.Generator().manual_seed(0), device="cpu")
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+    if jcfg.family == "encdec":
+        batch["frames"] = torch.zeros((1, jcfg.n_frames, jcfg.d_model))
+    with pytest.raises(NotImplementedError, match="item 8.5"):
+        cal.forward(params["frozen"], params["trainable"], batch)
 
 
 @pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "starcoder2-15b"])

@@ -49,6 +49,26 @@ FLASH_CASES = [  # (B, S, H, Hkv, D, causal, window, dtype)
     (2, 40, 4, 2, 512, False, None, BF16),  # GQA with D = 512
     (1, 1, 4, 4, 192, False, None, BF16),   # S = 1, three D slices
 ]
+# the zoo's attention shapes, with a key length of their own:
+# (B, S, Skv, H, Hkv, D, causal, window, dtype)
+FLASH_KV_CASES = [
+    # the adapter at LLaVA-NeXT-34B width: 576 patches + 64 tokens, D = 896
+    (4, 640, 640, 8, 8, 896, True, None, F32),
+    (4, 640, 640, 8, 8, 896, True, None, BF16),
+    (2, 40, 40, 4, 2, 1024, True, 8, F32),     # D = 1024, GQA, a window
+    (2, 40, 40, 4, 2, 1024, True, 8, BF16),
+    (1, 33, 33, 2, 2, 600, False, None, BF16),  # D > 512, D % 16 != 0
+    (1, 33, 33, 2, 2, 532, True, None, BF16),   # D > 512, D % 8 != 0
+    (1, 33, 33, 2, 2, 777, False, None, F32),
+    # Whisper-medium: the decoder's cross-attention to 1500 frames (not a
+    # multiple of the key tile) and the encoder, both not causal
+    (4, 64, 1500, 16, 16, 64, False, None, BF16),
+    (4, 64, 1500, 16, 16, 64, False, None, F32),
+    (4, 1500, 1500, 16, 16, 64, False, None, BF16),
+    # RecurrentGemma-2B: MQA, 10 query heads a KV head, D = 256, window
+    (4, 64, 64, 10, 1, 256, True, 2048, BF16),
+    (4, 64, 64, 10, 1, 256, True, 2048, F32),
+]
 # (M, K, N) at which lora_matmul.plan returns each split count (NF4,
 # block 64; tests/test_torch_lora_plan.py pins them on the CPU)
 SPLIT_SHAPES = {1: (512, 512, 4096), 2: (64, 1024, 8192),
@@ -142,6 +162,33 @@ def test_cuda_quant_matmul_matches_plain(cuda_device, T, M, K, N, bits,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("M,K,N", [(37, 200, 96), (256, 512, 384)])
+def test_cuda_quant_matmul_grad_matches_plain(cuda_device, M, K, N, dtype):
+    """``ops.quant_matmul`` with a gradient wanted for x (a frozen NF4
+    projection without LoRA): the ``quant_matmul`` kernel forward and the
+    ``quant_matmul_t`` kernel's dx (tensor cores for a bf16 g), against
+    autograd of the plain version; odd K = 200 takes the padded payload."""
+    w = torch.from_numpy(_np(33, K, N) / np.sqrt(K)).to(cuda_device)
+    qt = ref.blockwise_quant(w.to(BF16), bits=4, block=64, mode="nf4")
+    x = torch.from_numpy(_np(34, M, K)).to(cuda_device, dtype)
+    g = torch.from_numpy(_np(35, M, N)).to(cuda_device, dtype)
+    ops.reset_kernel_traces()
+    out = {}
+    for side, fn in (("kernel", ops.quant_matmul), ("plain", ref.quant_matmul)):
+        xr = x.detach().requires_grad_(True)
+        y = fn(xr, qt)
+        out[side] = (y.detach(), *torch.autograd.grad(y, xr, g))
+    route = "quant_matmul_t_cuda_tc" if dtype == BF16 else "quant_matmul_t_cuda"
+    traces = dict(ops.KERNEL_TRACES)
+    assert traces.get(route) == 1 and traces.get("quant_matmul_cuda") == 1, \
+        traces
+    for got, want in zip(out["kernel"], out["plain"]):
+        assert got.dtype == dtype and got.shape == want.shape
+        _close(got, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("cols", [64, 128, 256])
 @pytest.mark.parametrize("cluster", [1, 2, 3, 4, 6, 12])
 def test_cuda_quant_matmul_gemv_every_plan(cuda_device, cols, cluster):
@@ -192,6 +239,42 @@ def test_cuda_flash_attention_matches_plain(cuda_device, B, S, H, Hkv, D,
     assert fa_kernel.flash_attention.tc_launches - before == \
         int(dtype == BF16)
     _close(got, ref.flash_attention(q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Skv,H,Hkv,D,causal,window,dtype",
+                         FLASH_KV_CASES)
+def test_cuda_flash_attention_zoo_shapes_match_plain(
+        cuda_device, B, S, Skv, H, Hkv, D, causal, window, dtype):
+    q = torch.from_numpy(_np(26, B, S, H, D)).to(cuda_device, dtype)
+    k, v = (torch.from_numpy(_np(s, B, Skv, Hkv, D)).to(cuda_device, dtype)
+            for s in (27, 28))
+    before = fa_kernel.flash_attention.tc_launches
+    got = fa_kernel.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa_kernel.flash_attention.tc_launches - before == \
+        int(dtype == BF16)
+    _close(got, ref.flash_attention(q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("M,K,N", [(37, 200, 33), (256, 2560, 768)])
+def test_cuda_quant_matmul_gradient_matches_autograd_of_plain(
+        cuda_device, M, K, N, dtype):
+    """``ops.quant_matmul`` with a gradient wanted for x (a frozen NF4
+    projection without LoRA in a trained model): the ``quant_matmul``
+    kernel forward, ``quant_matmul_t`` backward, against autograd
+    through the plain version."""
+    qt, x, _, _ = _lora_inputs(cuda_device, M, K, N, 4, "nf4", dtype, 4)
+    ct = torch.from_numpy(_np(34, M, N)).to(cuda_device, dtype)
+    got, want = [], []
+    for fn, out in ((ops.quant_matmul, got), (ref.quant_matmul, want)):
+        xs = x.clone().requires_grad_(True)
+        y = fn(xs, qt)
+        (y.float() * ct.float()).sum().backward()
+        out.extend([y.detach(), xs.grad])
+    for g, w in zip(got, want):
+        _close(g, w)
 
 
 def _close(got, want):
@@ -272,8 +355,8 @@ def test_cuda_bf16_routes_are_traced_and_refusals_raise(cuda_device):
     with pytest.raises(NotImplementedError, match="block 8"):
         lm_kernel.lora_matmul(x[:, :64].contiguous(), w8, a[:64], b[:, :32],
                               scale=2.0)
-    qd = torch.from_numpy(_np(26, 1, 4, 2, 520)).to(cuda_device, BF16)
-    with pytest.raises(NotImplementedError, match="D=520"):
+    qd = torch.from_numpy(_np(26, 1, 4, 2, 1032)).to(cuda_device, BF16)
+    with pytest.raises(NotImplementedError, match="D=1032"):
         fa_kernel.flash_attention(qd, qd, qd)
     torch.cuda.synchronize()
     assert ops.launch_counts()["lora_matmul"] == 1

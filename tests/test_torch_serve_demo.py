@@ -270,9 +270,14 @@ def test_adapter_mode_prints_the_reference_lines():
     assert ledger(got) == ledger(want)
 
 
-def test_token_mode_raises_naming_the_queue_item():
-    """The token mode runs the dense and SSM families
-    (tests/test_torch_serve_tokens.py); an arch of the families still to
-    port raises, naming the queue item that brings them."""
-    with pytest.raises(NotImplementedError, match="Queue A item 8.4"):
-        tlaunch.main(["--arch", "recurrentgemma-2b"], device="cpu")
+def test_token_mode_raises_naming_the_queue_item(monkeypatch):
+    """The token mode runs every family; here the RG-LRU hybrid
+    (recurrentgemma-2b reduced) on the JAX package's weights decodes the
+    JAX CLI's token ids and prints its lines (the other families:
+    tests/test_torch_serve_tokens.py)."""
+    from test_torch_serve_tokens import ARGV, _jax_run, _port_run
+    argv = ["--arch", "recurrentgemma-2b"] + ARGV
+    want_lines, want = _jax_run(argv, monkeypatch)
+    got_lines, out = _port_run(argv, monkeypatch)
+    np.testing.assert_array_equal(out["tokens"], want)
+    assert got_lines[0] == want_lines[0] and got_lines[3] == want_lines[3]

@@ -1,15 +1,15 @@
 """The port's serving CLI in its token mode (``launch.serve.main``
 without ``--adapters``: prefill, then greedy decode against the ring KV
 or SSM state cache) against the JAX package's ``repro.launch.serve.main``
-on the CPU, at the reduced configs of the dense and SSM families.
+on the CPU, at the reduced configs of the dense, SSM, encdec and vlm
+families.
 
 Both CLIs draw the prompt from ``np.random.RandomState(0)``; the port's
 model is given the JAX package's ``init_params(PRNGKey(0))`` converted
 through ``repro_torch.convert`` (its own init draws from a
 ``torch.Generator``). Held: every decoded token id of every row equal
 (the JAX ones recorded at its ``select_token``), the printed header and
-sample-id lines equal, and the timing lines in the JAX package's form.
-The families of ROADMAP Queue A item 8.4 raise, naming it."""
+sample-id lines equal, and the timing lines in the JAX package's form."""
 import contextlib
 import io
 import sys
@@ -104,6 +104,18 @@ def test_token_mode_samples_from_a_seeded_generator():
 
 
 @pytest.mark.parametrize("arch", ["whisper-medium", "llava-next-34b"])
-def test_token_mode_refuses_the_families_of_item_8_4(arch):
-    with pytest.raises(NotImplementedError, match="Queue A item 8.4"):
-        tlaunch.main(["--arch", arch], device="cpu")
+def test_token_mode_refuses_the_families_of_item_8_4(arch, monkeypatch):
+    """The encdec and vlm archs, which the token mode runs: their frames
+    and image embeddings drawn after the prompt from the same
+    ``RandomState(0)``, the vlm's positions after its patches; every
+    decoded id and the printed lines are the JAX CLI's."""
+    argv = ["--arch", arch] + ARGV
+    want_lines, want = _jax_run(argv, monkeypatch)
+    got_lines, out = _port_run(argv, monkeypatch)
+    np.testing.assert_array_equal(out["tokens"], want)
+    assert got_lines[0] == want_lines[0] and got_lines[3] == want_lines[3]
+    cfg = j_reduced(arch)
+    extra = "image_embeds" if cfg.family == "vlm" else "frames"
+    n = cfg.n_patches if cfg.family == "vlm" else cfg.n_frames
+    assert out["batch"][extra].shape == (2, n, cfg.d_model)
+    assert out["pos0"] == 16 + (cfg.n_patches if cfg.family == "vlm" else 0)
