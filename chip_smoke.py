@@ -3,9 +3,10 @@
 plane, the federated QLoRA trainer on Yi-9B and on Falcon-Mamba-7B, the
 paper's federated CLIP round (``run_federated``), its GAN included, the
 trainer-to-store handoff that feeds the serving plane, token serving
-(prefill and decode) on the two trainers' models, and the zoo's other
+(prefill and decode) on the two trainers' models, the zoo's other
 families (RecurrentGemma-2B, Qwen3-MoE, Whisper-medium, LLaVA-NeXT-34B)
-through training, prefill and decode.
+through training, prefill and decode, and the mesh runtime's explicit
+bodies (Kimi-K2 at full width through the expert-parallel body).
 
     python3 chip_smoke.py
 
@@ -152,6 +153,25 @@ Phases (a failed phase raises and the script exits non-zero):
     and 4 rows, Whisper's encoder MLP at 6000, Kimi-K2's reduced dense
     layer in fp32). Launch counts are zeroed before each run and read
     after.
+14. the mesh and the expert-parallel runtime (``models/runtime.py``,
+    ``launch/mesh.py``): (a) the NCCL world of one rank, its ``(pod=1,
+    data=1, model=1)`` Runtime and each collective on the world group;
+    (b) Kimi-K2 at full width (1 dense + 2 MoE layers) through
+    ``launch/serve.py``'s token mode under the Runtime (4 streams, prompt
+    64, 8 tokens: the expert-parallel body's per-expert loop, every
+    expert product through ``quant_matmul``), a decode step profiled by
+    region (``moe.dispatch``, ``moe.experts``, ``moe.combine``) beside
+    its bound, one ``train_step`` on 4 x 64 tokens with its peak memory,
+    and one Falcon-Mamba-7B block through its channel-parallel body
+    against the local path; (c) inside phase 13, Qwen3-MoE's 8 layers
+    under the Runtime and without it (routes equal, logits, loss and
+    gradients within phase 13's bf16 bounds; the same with the int8
+    dispatch); (d) ``run_federated(mesh=)`` (``qlora_nogan``, 1 round)
+    and a ViT-B/32-width cohort round with ``CohortConfig(mesh=)``
+    against the unsharded engine; (e) the fleet GAN with
+    ``FleetGANConfig(mesh=)``, 10 steps, bitwise the unsharded fleet;
+    (f) each kernel the bodies launched at the rank bodies' shapes
+    against its plain version.
     The GAN phase (before phase 8) also runs the six convolutions
     through the int8 gemms against the fp32 gemm forms, timed, with the
     block products bitwise an int64 product on the CPU, and the int8
@@ -3858,6 +3878,9 @@ def zoo_report() -> collections.Counter:
         prof = res.pop("profile")
         report({"zoo_tokens": arch, **res})
         report_profile("decode_step", prof)
+        if arch == "qwen3-moe-235b-a22b":
+            # phase 14 (c) on these weights: no second 128-expert init
+            _QWEN14[0] = qwen_runtime_check(model, params, mesh_runtime())
         if arch in TRAIN_KERNELS:
             tres = zoo_train_phase(arch, model, params)
             launches.update(tres.pop("launches"))
@@ -3895,6 +3918,566 @@ def zoo_checks() -> None:
                  "kimi-k2-1t-a32b", "whisper-medium", "llava-next-34b"):
         report({"zoo_reduced_card_vs_cpu": arch, **zoo_reduced_check(arch)})
     report({"zoo_checks_s": time.perf_counter() - t0})
+
+
+# -- phase 14: the mesh and the expert-parallel runtime ----------------
+
+# Kimi-K2 (hf:moonshotai/Kimi-K2-Instruct config shape: d_model 7168, 64
+# heads x 128, 8 KV heads, 384 experts at d_ff 2048, top 8 + 1 shared,
+# one dense first layer at 18432, vocab 163840) at full width through
+# the Runtime's expert-parallel body on a mesh of one rank, depth cut to
+# the dense layer and two MoE layers (NF4 experts about 9.5 GB a MoE
+# layer); the token mode's 4 streams, a prompt of 64, 8 tokens
+KIMI = "kimi-k2-1t-a32b"
+KIMI_LAYERS = 3
+KIMI_TOKENS = dict(batch=4, prompt=64, gen=8)
+# the kernels the Runtime's bodies launch at full width: the attention's
+# LoRA projections, the head-split attention, the frozen NF4 expert, dense
+# and shared-expert products; the train step adds their dx
+KIMI_KERNELS = ("lora_matmul", "flash_attention", "quant_matmul")
+_RT: list = [None]
+_QWEN14: list = [None]      # phase 14 (c), run inside phase 13
+
+
+def mesh_runtime(device="cuda"):
+    """Phase 14 (a): the process group of one rank (NCCL on the card,
+    ``launch.mesh.init_world``) and its ``(pod=1, data=1, model=1)``
+    Runtime, made once."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import runtime as rt_lib
+    if _RT[0] is None:
+        mesh_lib.init_world(device)
+        _RT[0] = rt_lib.Runtime(mesh_lib.make_debug_mesh((1, 1, 1)),
+                                ("pod", "data"), "model")
+    return _RT[0]
+
+
+def nccl_check(rt) -> dict:
+    """Phase 14 (a): the world's backend, size and mesh, and each
+    collective the bodies use issued on the world group (the bodies skip
+    collectives over one rank), fp32, bf16 and int8."""
+    import torch.distributed as dist
+    dev = torch.device("cuda" if dist.get_backend() == "nccl" else "cpu")
+    for dt in (torch.float32, torch.bfloat16, torch.int8):
+        x = (torch.arange(4096, device=dev) % 113).to(dt)
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x)
+        ok = torch.equal(out, x)
+        dist.all_gather_into_tensor(out, x)
+        ok &= torch.equal(out, x)
+        y = x.clone()
+        dist.all_reduce(y)
+        ok &= torch.equal(y, x)
+        dist.reduce_scatter_tensor(out, x)
+        ok &= torch.equal(out, x)
+        if not ok:
+            raise AssertionError(f"a collective over the world moved {dt}")
+    return {"backend": dist.get_backend(), "world_size":
+            dist.get_world_size(), "mesh": dict(rt.mesh.shape),
+            "dp_axes": rt.dp_axes, "tp_axis": rt.tp_axis}
+
+
+def _linear_ops(cfg, rows: int) -> float:
+    """2 x rows x K x N over a MoE model's projections outside the
+    experts: each layer's attention, the dense layers' MLP, the shared
+    experts, the head."""
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    attn = d * qd * 2 + d * kvd * 2
+    dense = 3 * d * cfg.dense_d_ff * cfg.first_k_dense
+    shared = 3 * d * cfg.d_ff * cfg.n_shared_experts * \
+        (cfg.n_layers - cfg.first_k_dense)
+    return 2.0 * rows * (attn * cfg.n_layers + dense + shared +
+                         d * cfg.vocab_size)
+
+
+def _expert_ops(cfg, tokens: int) -> float:
+    """2 x rows x K x N of the expert products the capacity buffers hold:
+    every expert runs ``C = ceil(T k cf / E)`` rows (a mesh of one)."""
+    C = max(1, -(-int(tokens * cfg.experts_per_token * cfg.capacity_factor)
+                 // cfg.n_experts))
+    return 2.0 * cfg.n_experts * C * 3 * cfg.d_model * cfg.d_ff * \
+        (cfg.n_layers - cfg.first_k_dense)
+
+
+def kimi_phase(rt, device="cuda", n_layers=KIMI_LAYERS) -> dict:
+    """Phase 14 (b): Kimi-K2 at full width through ``launch/serve.py``'s
+    token mode under the Runtime (the launch counts and ``DIST_TRACES``
+    zeroed just before, read just after), a decode step profiled beside
+    its bound, then one ``train_step`` on 4 x 64 tokens: the peak memory
+    of each, the routes (no plain route, every kernel of the path
+    launched) and the bodies taken (the expert-parallel body at prefill
+    and in every decode step)."""
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import runtime as rt_lib
+    t = KIMI_TOKENS
+    argv = ["--arch", KIMI, "--full-config", "--quant", "4", "--batch",
+            str(t["batch"]), "--prompt-len", str(t["prompt"]), "--gen",
+            str(t["gen"])]
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_traces()
+    ops.reset_launch_counts()
+    rt_lib.reset_dist_traces()
+    t0 = time.perf_counter()
+    with cut_depth(serve_cli, KIMI, n_layers), rt_lib.runtime(rt), \
+            contextlib.redirect_stdout(sys.stderr):
+        out = serve_cli.main(argv, device=device)
+    wall = time.perf_counter() - t0
+    launches, tc = ops.launch_counts(), ops.tc_launch_counts()
+    traces, dist_tr = dict(ops.KERNEL_TRACES), dict(rt_lib.DIST_TRACES)
+    model, params = out["model"], out["params"]
+    cfg = model.cfg
+    G, n_moe = t["gen"], cfg.n_layers - cfg.first_k_dense
+    toks = out["tokens"]
+    bad = [k for k in traces if k.endswith("_ref")]
+    miss = [k for k in KIMI_KERNELS if launches[k] < 1]
+    want_dist = {"moe_ffn_dist_seq": n_moe,
+                 "moe_ffn_dist_decode": n_moe * (G - 1)}
+    if toks.shape != (t["batch"], G) or toks.max() >= cfg.vocab_size or \
+            any(dist_tr.get(k) != v for k, v in want_dist.items()) or \
+            (on_card and (bad or miss)):
+        raise AssertionError(f"Kimi-K2 token mode: plain routes {bad}, no "
+                             f"launch of {miss}, bodies {dist_tr}; "
+                             f"{launches}")
+    res = {"arch": KIMI, "layers": cfg.n_layers, "wall_s": wall,
+           "tokens_row0": toks[0].tolist(),
+           "prefill_ms": out["prefill_s"] * 1e3,
+           "decode_ms_per_token": out["decode_s"] / (G - 1) * 1e3,
+           "decode_tok_s": t["batch"] * (G - 1) / out["decode_s"],
+           "launches": launches, "tc_launches": tc, "dist_traces": dist_tr,
+           "serve_max_memory_allocated": torch.cuda.max_memory_allocated()
+           if on_card else None}
+    frozen, tr = params["frozen"], params["trainable"]
+    batch, max_len = out["batch"], out["max_len"]
+    del out
+    with rt_lib.runtime(rt):
+        logits, cache = model.prefill(frozen, tr, batch, max_len=max_len)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        pos = torch.full((), t["prompt"], dtype=torch.int32, device=device)
+        n_bytes = qlib.tree_bytes(frozen) - nbytes(frozen["embed"]) + \
+            qlib.tree_bytes(tr) + qlib.tree_bytes(cache)
+        res["decode_bound_ms"] = n_bytes / HBM_BYTES_S * 1e3
+        res["decode_bound_by"] = "bytes"
+        if on_card:
+            res["profile"] = profile_run(
+                lambda: model.decode_step(frozen, tr, cache, tok, pos),
+                KIMI_KERNELS)
+    del cache, logits
+    # one train step on 4 x 64 tokens (it fits at 3 layers: about 25 GB
+    # of weights, the per-expert products saving no decoded W)
+    b = zoo_batch(cfg, device)
+    rows = int(b["mask"].numel())
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_traces()
+    ops.reset_launch_counts()
+    rt_lib.reset_dist_traces()
+    t0 = time.perf_counter()
+    with rt_lib.runtime(rt):
+        _, _, m = model.train_step(frozen, tr, optim.adam_init(tr), b,
+                                   lr=1e-3)
+        loss = float(m["loss"])
+    res["train_step_s"] = time.perf_counter() - t0
+    tl, ttr = ops.launch_counts(), dict(ops.KERNEL_TRACES)
+    if not np.isfinite(loss) or (on_card and (
+            [k for k in ttr if k.endswith("_ref")] or
+            [k for k in KIMI_KERNELS + ("quant_matmul_t",) if tl[k] < 1])):
+        raise AssertionError(f"Kimi-K2 train_step: loss {loss}, {tl} {ttr}")
+    ops_step = 3.0 * (_linear_ops(cfg, rows) + _expert_ops(cfg, rows))
+    b_ms, b_by = bound(qlib.tree_bytes(frozen) + qlib.tree_bytes(tr) * 4,
+                       ops_step, torch.bfloat16)
+    res.update(train_layers=cfg.n_layers, train_rows=rows, train_loss=loss,
+               train_launches=tl, train_dist_traces=dict(rt_lib.DIST_TRACES),
+               train_bound_ms=b_ms, train_bound_by=b_by,
+               train_max_memory_allocated=torch.cuda.max_memory_allocated()
+               if on_card else None)
+    del params, frozen, tr, model
+    if on_card:
+        torch.cuda.empty_cache()
+    return res
+
+
+def qwen_runtime_check(model, params, rt, device="cuda", prompt=64) -> dict:
+    """Phase 14 (c), on phase 13's Qwen3-MoE (8 layers, full width, its
+    weights): a prefill and a decode step and the gradients of a 4 x 64
+    token step, under the Runtime and without it, first in fp32 on the
+    same weights (the NF4 payloads decoding to fp32, TF32 off): the
+    expert ids and kept slots of every routing call equal, the logits
+    within 1e-4 of the largest, the loss within 1e-5, every gradient leaf
+    in norm within 1e-4. Then in bf16 as phase 13 runs it, where the
+    body's per-expert ``quant_matmul`` kernel rounds differently from the
+    local path's decode and ``bmm``: the first MoE layer's routes equal
+    (the same input), the later layers' distances reported (a token whose
+    top-8 sits at a near tie flips, and at capacity 1.25 a flip moves
+    other tokens' slots); and under ``moe_dispatch_bits=8`` (the int8
+    all-to-all's quantize and decode, on the wire even over one rank's
+    identity exchange) the distance to the unquantized dispatch. The
+    dropped share is the local path's."""
+    from repro_torch.models import runtime as rt_lib
+    cfg = model.cfg
+    b = zoo_batch(cfg, device)
+    pre = {"tokens": b["tokens"][:, :prompt - 1]}
+    nxt = b["tokens"][:, prompt - 1:prompt]
+    pos = torch.full((), prompt - 1, dtype=torch.int32, device=device)
+    cfg32 = cfg.replace(dtype="float32")
+    f32, t32 = _to_fp32(params["frozen"]), _to_fp32(params["trainable"])
+    runs = (("fp32_local", None, build_model(cfg32), f32, t32),
+            ("fp32_dist", rt, build_model(cfg32), f32, t32),
+            ("local", None, model, params["frozen"], params["trainable"]),
+            ("dist", rt, model, params["frozen"], params["trainable"]),
+            ("dist_q8", rt, build_model(cfg.replace(moe_dispatch_bits=8)),
+             params["frozen"], params["trainable"]))
+    out = {}
+    for side, r, m, frozen, tr in runs:
+        with moe_routes(record_ids=True) as rec, rt_lib.runtime(r):
+            t0 = time.perf_counter()
+            lg, cache = m.prefill(frozen, tr, pre, max_len=prompt + 4)
+            lg2, _ = m.decode_step(frozen, tr, cache, nxt, pos)
+            (loss, _), g = m.grads(frozen, tr, b)
+            _sync(device)
+            out[side] = dict(logits=torch.cat([lg, lg2]).float().cpu(),
+                             loss=float(loss),
+                             grads=convert.tree_to(g, "cpu"),
+                             ids=[x.cpu() for x in rec["ids"]],
+                             slots=[x.cpu() for x in rec["slots"]],
+                             kept=float(torch.stack(rec["kept"]).sum()),
+                             copies=rec["copies"],
+                             s=time.perf_counter() - t0)
+        del cache, g
+    del f32, t32
+    L = cfg.n_layers
+    res = {"arch": cfg.name, "layers": L,
+           "dropped_share": 1.0 - out["local"]["kept"] /
+           out["local"]["copies"]}
+    for side, ref_side in (("fp32_dist", "fp32_local"), ("dist", "local"),
+                           ("dist_q8", "local")):
+        o, w = out[side], out[ref_side]
+        errs = _leaf_norm_errs(o["grads"], w["grads"])
+        same = lambda i: torch.equal(o["ids"][i], w["ids"][i]) and \
+            torch.equal(o["slots"][i], w["slots"][i])
+        res[side] = {
+            "routes_equal": len(o["ids"]) == len(w["ids"]) and all(
+                same(i) for i in range(len(w["ids"]))),
+            # the first MoE layer of the prefill, the decode step and the
+            # step's forward: the same input on both sides
+            "first_layer_routes_equal": all(same(i) for i in (0, L, 2 * L)),
+            "logits_rel": rel_err(o["logits"], w["logits"])[1],
+            "loss_rel": abs(o["loss"] - w["loss"]) / abs(w["loss"]),
+            "worst_grad_leaf_norm_rel": max(errs.values()),
+            "s": o["s"], "s_without": w["s"]}
+    d32, d = res["fp32_dist"], res["dist"]
+    if not (d32["routes_equal"] and d32["logits_rel"] <= 1e-4 and
+            d32["loss_rel"] <= 1e-5 and
+            d32["worst_grad_leaf_norm_rel"] <= 1e-4 and
+            d["first_layer_routes_equal"]):
+        raise AssertionError(f"Qwen3-MoE under the Runtime: {res}")
+    return res
+
+
+def vit_mesh_round(rt, device="cuda", *, steps=10, batch=32, n_clients=5,
+                   n_per_class=60, seed=0) -> dict:
+    """Phase 14 (d), ViT-B/32 width: one ``qlora_nogan`` round of phase
+    9's clients (seeded weights, the NF4 round trip) through
+    ``CohortEngine`` with ``CohortConfig(mesh=)`` and without, on the
+    same draws: every trainable leaf within 1e-5 of its largest
+    magnitude, losses within 1e-4, uplink bytes equal."""
+    strat = STRATEGIES["qlora_nogan"]
+    data = make_dataset("pacs", n_per_class=n_per_class, seed=seed)
+    repeat = VIT_B32.image_size // data["images"].shape[1]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    frozen = nf4_round_trip(clip_lib.init_clip(gen, VIT_B32,
+                                               device=device))[0]
+    ce = class_embedding(frozen, VIT_B32, device)
+    g0 = client_lib.init_trainable(gen, VIT_B32, strat, device=device)
+    key = cohort_lib.RoundKey(cohort_lib.SeededDraws(seed), (3, 0))
+    res = {}
+    for name, mesh in (("local", None), ("mesh", rt.mesh)):
+        eng = cohort_lib.CohortEngine(
+            frozen=frozen, ccfg=VIT_B32, class_emb=ce,
+            clients=fl_clients(data, n_clients, 0.5, seed, strat, repeat),
+            cfg=cohort_lib.CohortConfig(strategy=strat, local_steps=steps,
+                                        batch_size=batch, lr=3e-3,
+                                        mesh=mesh))
+        t0 = time.perf_counter()
+        tr, m = eng.run_round(g0, key)
+        _sync(device)
+        res[name] = (tr, m, time.perf_counter() - t0)
+        del eng
+    (t0_, m0, s0), (t1, m1, s1) = res["local"], res["mesh"]
+    leaf = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(tree_lib.leaves(t1), tree_lib.leaves(t0_)))
+    out = {"worst_leaf_rel": leaf,
+           "loss_max_abs": float((m1["loss"] - m0["loss"]).abs().max()),
+           "uplink_bytes": (m1["uplink_bytes"], m0["uplink_bytes"]),
+           "round_s_mesh": s1, "round_s_local": s0}
+    if not (leaf <= 1e-5 and out["loss_max_abs"] <= 1e-4 and
+            m1["uplink_bytes"] == m0["uplink_bytes"]):
+        raise AssertionError(f"ViT-B/32 mesh round: {out}")
+    return out
+
+
+def cohort_mesh_phase(rt, device="cuda") -> dict:
+    """Phase 14 (d): ``run_federated`` (``qlora_nogan``, the paper
+    preset's round settings at its ``CLIPConfig()``, 1 round) with
+    ``mesh=`` (``CohortConfig.mesh``) and without: the History's losses
+    and accuracies within 1e-5 relative, its uplink bytes equal; then
+    :func:`vit_mesh_round` at ViT-B/32 width."""
+    cfg = sim_lib.FLConfig(strategy="qlora_nogan", rounds=1, **FL_PAPER)
+    h = {}
+    for name, mesh in (("local", None), ("mesh", rt.mesh)):
+        t0 = time.perf_counter()
+        h[name] = (sim_lib.run_federated(cfg, device=device, mesh=mesh),
+                   time.perf_counter() - t0)
+    (a, sa), (b, sb) = h["mesh"], h["local"]
+    num = lambda x: np.asarray(x, np.float64)
+    rel = max(float(np.abs(num(getattr(a, f)) - num(getattr(b, f))).max()
+                    / max(np.abs(num(getattr(b, f))).max(), 1e-30))
+              for f in ("server_acc", "server_loss", "client_loss",
+                        "client_acc"))
+    res = {"run_federated_rel": rel, "uplink_bytes": (a.uplink_bytes,
+                                                      b.uplink_bytes),
+           "run_s_mesh": sa, "run_s_local": sb}
+    if not (rel <= 1e-5 and a.uplink_bytes == b.uplink_bytes):
+        raise AssertionError(f"run_federated with a mesh: {res}")
+    res["vit_b32"] = vit_mesh_round(rt, device)
+    return res
+
+
+def fleet_mesh_phase(rt, device="cuda", steps=GAN_CHECK_STEPS) -> dict:
+    """Phase 14 (e): the fleet GAN of phase 8's tripleplay clients with
+    ``FleetGANConfig(mesh=)``, ``steps`` steps, against the unsharded
+    fleet on the same streams: every eligible client's trained leaves,
+    its synthesized images and labels bitwise equal."""
+    out = {}
+    for name, mesh in (("local", None), ("mesh", rt.mesh)):
+        clients, streams = gan_clients()
+        t0 = time.perf_counter()
+        rep = fleetgan.prepare_gan_fleet(
+            clients, streams, steps=steps,
+            fleet_cfg=fleetgan.FleetGANConfig(mesh=mesh), device=device)
+        out[name] = (clients, rep, time.perf_counter() - t0)
+    (ca, ra, sa), (cb, rb, sb) = out["mesh"], out["local"]
+    same = ra.n_eligible == rb.n_eligible and ra.n_synth == rb.n_synth
+    for x, y in zip(ca, cb):
+        if (x.gan_params is None) != (y.gan_params is None):
+            same = False
+        elif x.gan_params is not None:
+            same &= all(torch.equal(p, q) for p, q in zip(
+                tree_lib.leaves(x.gan_params), tree_lib.leaves(y.gan_params)))
+            same &= np.array_equal(x.aug_images, y.aug_images) and \
+                np.array_equal(x.aug_labels, y.aug_labels)
+    res = {"bitwise": bool(same), "eligible": ra.n_eligible,
+           "synth": ra.n_synth, "prep_s_mesh": sa, "prep_s_local": sb}
+    if not same:
+        raise AssertionError(f"fleet GAN with a mesh: {res}")
+    return res
+
+
+def mamba_body_phase(rt, device="cuda", seq=64, batch=4) -> dict:
+    """Phase 14 (b'): one Falcon-Mamba-7B block at full width (d_inner
+    8192, NF4) through its channel-parallel body under the Runtime and
+    through the local path, a forward and a backward on 4 x 64 tokens:
+    the output and the input's gradient within 2e-2 of the largest
+    (bf16), the ``selective_scan`` kernel and its backward launched in
+    the body, the body traced as ``mamba_block_dist``."""
+    from repro_torch.models import runtime as rt_lib
+    from repro_torch.models import ssm
+    cfg = get_config("falcon-mamba-7b").replace(**CLI_NF4)
+    model = build_model(cfg.replace(n_layers=1))
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = model.init_params(gen, device=device)
+    p = {k: v[0] if not isinstance(v, qlib.QTensor) else dataclasses.replace(
+        v, q=v.q[0], scales=v.scales[0], orig_shape=tuple(v.orig_shape[1:]))
+        for k, v in params["frozen"]["layers"].items()}
+    x = (torch.randn((batch, seq, cfg.d_model), generator=gen,
+                     device=device) * 0.1).to(torch.bfloat16)
+    out = {}
+    for side, r in (("local", None), ("dist", rt)):
+        ops.reset_launch_counts()
+        rt_lib.reset_dist_traces()
+        xr = x.clone().requires_grad_(True)
+        with rt_lib.runtime(r):
+            y, _ = ssm.mamba_block(p, xr, cfg)
+            dx, = torch.autograd.grad(y.float().square().sum(), xr)
+        _sync(device)
+        out[side] = (y.detach().float(), dx.float(), ops.launch_counts(),
+                     dict(rt_lib.DIST_TRACES))
+    (y1, d1, l1, t1), (y0, d0, _, _) = out["dist"], out["local"]
+    res = {"y_rel": rel_err(y1, y0)[1], "dx_rel": rel_err(d1, d0)[1],
+           "launches": l1, "dist_traces": t1}
+    on_card = torch.device(device).type == "cuda"
+    if not (res["y_rel"] <= 2e-2 and res["dx_rel"] <= 2e-2 and
+            t1 == {"mamba_block_dist": 1}) or (on_card and (
+                l1["selective_scan"] < 1 or l1["selective_scan_bwd"] < 1)):
+        raise AssertionError(f"Falcon-Mamba block under the Runtime: {res}")
+    del params, p
+    return res
+
+
+# phase 14 (f): the kernels at the shapes the rank bodies give them,
+# (name, kernel, M, K, N, dtype, with a dx) for the expert products
+KIMI_EXPERT_MM = [
+    ("kimi_expert_wg_wu_prefill", 7, 7168, 2048, True),
+    ("kimi_expert_wd_prefill", 7, 2048, 7168, True),
+    ("kimi_expert_wg_wu_decode", 1, 7168, 2048, False),
+    ("kimi_expert_wd_decode", 1, 2048, 7168, False),
+]
+
+
+def check_phase14_kernels(gen) -> list:
+    """Phase 14 (f): each kernel the bodies launched, at the shapes the
+    rank bodies give it, against its plain version: ``quant_matmul`` at
+    a Kimi-K2 expert (NF4, bf16; 7 capacity rows at 4 x 64 tokens, the
+    GEMV's 1 row in a decode step) and its dx (``quant_matmul_t``),
+    ``lora_matmul`` at Kimi-K2's wq (7168 x 8192, 256 rows and 4),
+    ``flash_attention`` at the head-split body's (4, 64, 64, 128) with
+    the KV heads expanded per query head, ``selective_scan`` at the
+    Mamba body's (4, 64, 8192, 16). bf16 within 1.6e-2 (quant_matmul) or
+    2e-2 of the largest magnitude, fp32 1e-5."""
+    dev, bf = "cuda", torch.bfloat16
+    rows = []
+    for name, M, K, N, backward in KIMI_EXPERT_MM:
+        w = (torch.randn((K, N), generator=gen, device=dev) / K ** 0.5
+             ).to(bf)
+        qt = ref.blockwise_quant(w, bits=4, block=64, mode="nf4")
+        x = torch.randn((M, K), generator=gen, device=dev).to(bf)
+        fwd = lambda: qmm_kernel.quant_matmul(x, qt)
+        got, route = gemv_route(fwd)
+        want = ref.quant_matmul(x, qt)
+        abs_e, rel_e = rel_err(got, want)
+        if not (rel_e <= 1.6e-2 and torch.isfinite(got).all()):
+            raise AssertionError(f"quant_matmul {name}: rel err {rel_e}")
+        b_ms, b_by = bound(nbytes(x, qt.q, qt.scales, got), 2.0 * M * K * N,
+                           bf)
+        row = {"kernel": "quant_matmul", "case": name, "route": route,
+               "max_abs_err": abs_e, "rel_err": rel_e, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": None}
+        timed(row, "ms", fwd)
+        timed(row, "plain_ms", lambda: ref.quant_matmul(x, qt))
+        report({"phase14_kernel": 1, **row})
+        rows.append(row)
+        if not backward:
+            continue
+        gq = torch.randn((M, N), generator=gen, device=dev).to(bf)
+        run = lambda: lm_kernel.quant_matmul_t(gq, qt, out_dtype=torch.float32)
+        got = run()
+        want = ref.quant_matmul_t(gq, qt, out_dtype=torch.float32)
+        abs_e, rel_e = rel_err(got, want)
+        if not rel_e <= 1.6e-2:
+            raise AssertionError(f"quant_matmul_t {name}: rel err {rel_e}")
+        b_ms, b_by = bound(nbytes(gq, qt.q, qt.scales, got),
+                           2.0 * M * K * N, bf)
+        row = {"kernel": "quant_matmul_t", "case": name + "_dx",
+               "route": "tensor cores", "max_abs_err": abs_e,
+               "rel_err": rel_e, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None}
+        timed(row, "ms", run)
+        timed(row, "plain_ms", lambda: ref.quant_matmul_t(
+            gq, qt, out_dtype=torch.float32))
+        report({"phase14_kernel": 1, **row})
+        rows.append(row)
+    # Kimi-K2's wq with its rank-16 LoRA pair
+    for M in (256, 4):
+        K, N, r = 7168, 8192, 16
+        w = (torch.randn((K, N), generator=gen, device=dev) / K ** 0.5
+             ).to(bf)
+        qt = ref.blockwise_quant(w, bits=4, block=64, mode="nf4")
+        x = torch.randn((M, K), generator=gen, device=dev).to(bf)
+        a = torch.randn((K, r), generator=gen, device=dev) * 0.01
+        bb = torch.randn((r, N), generator=gen, device=dev) * 0.01
+        run = lambda: lm_kernel.lora_matmul(x, qt, a, bb, scale=2.0)
+        got = run()
+        plain = lambda: ref.lora_matmul(x, qt, a, bb, scale=2.0)
+        want = plain()
+        abs_e, rel_e = rel_err(got.float(), want.float())
+        if not rel_e <= _tol(bf):
+            raise AssertionError(f"lora_matmul kimi wq M={M}: {rel_e}")
+        b_ms, b_by = bound(nbytes(x, qt.q, qt.scales, a, bb, got),
+                           2.0 * M * K * N, bf)
+        row = {"kernel": "lora_matmul", "case": f"kimi_wq_M{M}",
+               "route": "tensor cores", "max_abs_err": abs_e,
+               "rel_err": rel_e, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None}
+        timed(row, "ms", run)
+        timed(row, "plain_ms", plain)
+        report({"phase14_kernel": 1, **row})
+        rows.append(row)
+    # the head-split body's attention: Kimi-K2's 64 heads of 128, each
+    # with its KV head gathered (64 KV heads after the expansion)
+    B, S, H, D = 4, 64, 64, 128
+    q = torch.randn((B, S, H, D), generator=gen, device=dev).to(bf)
+    kv = torch.randn((B, S, 8, D), generator=gen, device=dev).to(bf)
+    ids = torch.arange(H, device=dev) // 8
+    k, v = kv.index_select(2, ids), kv.flip(1).index_select(2, ids)
+    run = lambda: fa_kernel.flash_attention(q, k, v, causal=True)
+    got, route = routed(fa_kernel.flash_attention, run)
+    plain = lambda: ref.flash_attention(q, k, v, causal=True)
+    abs_e, rel_e = rel_err(got, plain())
+    if not rel_e <= _tol(bf):
+        raise AssertionError(f"flash_attention kimi body: {rel_e}")
+    b_ms, b_by = bound(nbytes(q, k, v, got),
+                       4.0 * B * H * D * _valid_pairs(S, S, True, None), bf)
+    row = {"kernel": "flash_attention", "case": "kimi_body_4x64x64x128",
+           "route": route, "max_abs_err": abs_e, "rel_err": rel_e,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    timed(row, "ms", run)
+    timed(row, "plain_ms", plain)
+    time_sdpa_backends(row, *(t.transpose(1, 2).contiguous()
+                              for t in (q, k, v)), True)
+    report({"phase14_kernel": 1, **row})
+    rows.append(row)
+    # the Mamba body's scan: d_inner / m channels at m = 1
+    dt, xs, Bm, Cm, A = _scan_inputs(gen, 4, 64, 8192, 16)
+    run = lambda: ss_kernel.selective_scan(dt, xs, Bm, Cm, A)
+    got = run()
+    plain = lambda: ref.selective_scan(dt, xs, Bm, Cm, A)
+    want = plain()
+    abs_e, rel_e = rel_err(got[0], want[0])
+    if not rel_e <= 1e-5:
+        raise AssertionError(f"selective_scan mamba body: {rel_e}")
+    b_ms, b_by = bound(nbytes(dt, xs, Bm, Cm, A, *got), 0.0, torch.float32)
+    row = {"kernel": "selective_scan", "case": "mamba_body_4x64x8192x16",
+           "route": "cuda cores", "max_abs_err": abs_e, "rel_err": rel_e,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    timed(row, "ms", run)
+    timed(row, "plain_ms", plain)
+    report({"phase14_kernel": 1, **row})
+    rows.append(row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def runtime_report(qwen_res=None) -> collections.Counter:
+    """Phase 14 on the card, reported. Returns its launches (the main
+    paths' only: (b) and the Mamba body)."""
+    print(f"the mesh and the expert-parallel runtime, {card_line()}:",
+          flush=True)
+    t_all = time.perf_counter()
+    rt = mesh_runtime()
+    report({"phase14_world": 1, **nccl_check(rt)})
+    launches = collections.Counter()
+    full = get_config(KIMI).n_layers
+    print(f"  reduced: n_layers {full}->{KIMI_LAYERS} (1 dense + 2 MoE; NF4 "
+          "experts ≈ 9.5 GB a MoE layer)", flush=True)
+    kres = kimi_phase(rt)
+    launches.update(kres.pop("launches"))
+    launches.update(kres["train_launches"])
+    prof = kres.pop("profile")
+    report({"phase14_kimi": KIMI, **kres})
+    report_profile("kimi_decode_step", prof)
+    mres = mamba_body_phase(rt)
+    launches.update(mres.pop("launches"))
+    report({"phase14_mamba_body": 1, **mres})
+    if qwen_res is not None:
+        report({"phase14_qwen3": 1, **qwen_res})
+    report({"phase14_cohort_mesh": 1, **cohort_mesh_phase(rt)})
+    report({"phase14_fleet_mesh": 1, **fleet_mesh_phase(rt)})
+    gen = torch.Generator(device="cuda").manual_seed(1414)
+    check_phase14_kernels(gen)
+    report({"phase14_s": time.perf_counter() - t_all, "card": card_line()})
+    return launches
 
 
 def main() -> int:
@@ -3977,6 +4560,7 @@ def main() -> int:
     handoff_launches = handoff_report()
     tokens_launches = token_serve_report()
     zoo_launches = zoo_report()
+    rt_launches = runtime_report(_QWEN14[0])
 
     print(card_line(), flush=True)
     # flash_attention runs on every path: its launches over all of them
@@ -4000,6 +4584,9 @@ def main() -> int:
     # phase 13 runs lora_matmul, quant_matmul_t and (the hybrid's and the
     # encoder's MLPs) quant_matmul
     print(f"phase 13 launches: {dict(zoo_launches)}", flush=True)
+    # phase 14 runs the bodies' kernels: lora_matmul, flash_attention,
+    # quant_matmul and its dx, the scans in the Mamba body
+    print(f"phase 14 launches: {dict(rt_launches)}", flush=True)
     launches = {**serve_launches, **yi_launches,
                 **{name: sum(p.values()) for name, p in serve_paths.items()},
                 "flash_attention": sum(flash.values()),
@@ -4010,7 +4597,8 @@ def main() -> int:
         launches[name] += tokens_launches[name]
     for name in ("lora_matmul", "quant_matmul_t", "quant_matmul",
                  "blockwise_quant", "selective_scan", "selective_scan_bwd"):
-        launches[name] += zoo_launches[name]
+        launches[name] += zoo_launches[name] + rt_launches[name]
+    launches["flash_attention"] += rt_launches["flash_attention"]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
@@ -4018,6 +4606,9 @@ def main() -> int:
          "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
         for name, row in main_rows.items()]}), flush=True)
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

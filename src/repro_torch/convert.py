@@ -9,7 +9,8 @@ bf16 ``out_dtype`` included — so a test can hand over a JAX tree (a
 ``Model.init_params`` tree too) as it is. bf16 arrays cross bit for bit
 (their 16-bit patterns are reinterpreted). :func:`tree_to_numpy` is the
 inverse, except that bf16 tensors come back as float32 arrays (numpy has
-no bf16 of its own).
+no bf16 of its own). :func:`rank_tree_from_numpy` carries a JAX tree into
+one rank's shard of a Runtime's mesh, by ``launch.shardings``' rules.
 """
 from __future__ import annotations
 
@@ -90,3 +91,13 @@ def tree_to(tree, device):
                                        scales=leaf.scales.to(dev))
         return leaf.to(dev)
     return tree_lib.tree_map(move, tree)
+
+
+def rank_tree_from_numpy(tree, cfg, rt, device=None):
+    """This rank's shard of a JAX model tree on ``device``: the leaves
+    cross on the CPU, ``launch.shardings.rank_params`` cuts the rank's
+    block of each leaf the rules shard for an explicit body (the MoE
+    experts), and only the blocks move to the device."""
+    from repro_torch.launch.shardings import rank_params
+    dev = resolve_device(device)
+    return tree_to(rank_params(cfg, tree_from_numpy(tree, "cpu"), rt), dev)

@@ -39,8 +39,19 @@ bucketed width (``runtime.bucket_width``; pad rows train on client 0's
 pool at index 0 and carry zero aggregation weight), with batch indices
 drawn at the true K before any padding. Heterogeneous step counts (a
 trace's multipliers, or chaos cuts with ``CohortConfig.force_het``) mask
-the tail of the fixed-length scan per client (``optim.step_mask``). A
-mesh raises: ``ROADMAP.md`` Queue A item 8.
+the tail of the fixed-length scan per client (``optim.step_mask``).
+
+With ``CohortConfig.mesh`` (a :class:`repro_torch.launch.mesh.Mesh`; one
+process a rank) the cohort axis is split over the mesh's data-parallel
+ranks: each rank stages and trains its contiguous rows of the cohort
+(``mesh.cohort_rows``), FedAvg runs hierarchically
+(``server.aggregate_tree(mesh=)``: each rank reduces its own rows, one
+all-reduce of the shards' partials), and the metrics are all-gathered.
+Subset and wave widths bucket to shard multiples; a rank's rows of a
+selection are fetched from their owners by a reduce-scatter of the
+owner-filled rows (exact: every other rank adds zeros), and a wave's
+deltas are all-gathered for the scheduler. The batch indices stay
+host-side draws at the true width, so a round is mesh-invariant.
 """
 from __future__ import annotations
 
@@ -61,6 +72,8 @@ from repro_torch.fl import runtime as runtime_lib
 from repro_torch.fl import server
 from repro_torch.fl import strategies as strategies_lib
 from repro_torch.fl.strategies import Strategy
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import runtime as rt_lib
 
 
 @dataclass(frozen=True)
@@ -75,11 +88,6 @@ class CohortConfig:
     # client's trace multiplier is 1: chaos cuts step counts per client
     force_het: bool = False
 
-    def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "a mesh-sharded cohort is not ported (one card; "
-                "ROADMAP.md Queue A item 8)")
 
 
 @dataclass(frozen=True)
@@ -329,6 +337,11 @@ class CohortEngine:
                 f"clients {empty} have empty pools; federated rounds "
                 "(sequential or cohort) need every participant to hold "
                 "data — drop them from the cohort")
+        if gan_job is not None and cfg.mesh is not None:
+            # the pending-job overlap scatters into the staged rows of
+            # every client; a sharded engine resolves the job first
+            gan_job.resolve()
+            gan_job = None
         if gan_job is not None:
             # the job's rebalancing labels are known at launch, so the
             # pool layout is final now: stage the raw rows and zero rows
@@ -357,14 +370,27 @@ class CohortEngine:
         self.max_steps = cfg.local_steps * int(self.step_mult.max())
         self._het = bool(self.step_mult.max() > 1 or cfg.force_het)
 
+        # the cohort's data-parallel shards: this rank stages and trains
+        # its contiguous rows ``_own`` of the cohort
+        self.mesh = cfg.mesh
+        if cfg.mesh is not None:
+            self.shards = mesh_lib.cohort_axis_size(cfg.mesh)
+            if self.n_clients % self.shards:
+                raise ValueError(
+                    f"cohort of {self.n_clients} clients not divisible by "
+                    f"the mesh's {self.shards} data-parallel shards")
+            self._own = mesh_lib.cohort_rows(cfg.mesh, self.n_clients)
+        else:
+            self.shards, self._own = 1, slice(0, self.n_clients)
         dev = class_emb.device
         self.pool_staged = stage_encoded_pools(
-            frozen, ccfg, use_lora=cfg.strategy.use_lora, imgs=imgs,
-            runtime=self.runtime)
-        self.pool_labs = torch.as_tensor(labs, dtype=torch.long, device=dev)
+            frozen, ccfg, use_lora=cfg.strategy.use_lora,
+            imgs=imgs[self._own], runtime=self.runtime)
+        self.pool_labs = torch.as_tensor(labs[self._own], dtype=torch.long,
+                                         device=dev)
         self.lens = np.asarray(lens, np.int32)
-        self.weights = torch.as_tensor(weights, dtype=torch.float32,
-                                       device=dev)
+        self.weights = torch.as_tensor(weights[self._own],
+                                       dtype=torch.float32, device=dev)
         self.frozen = frozen
         self.class_emb = class_emb
         self.ccfg = ccfg
@@ -483,6 +509,58 @@ class CohortEngine:
             loss, acc = ls[last, cols], accs[last, cols]
         return comm_quantize_stacked(delta, self.cfg.strategy), loss, acc
 
+    def _aggregate(self, global_tr, weights, delta):
+        """In-program FedAvg: flat (``aggregate_stacked``, the K = N
+        identity depends on it) on one shard, hierarchical on a mesh of
+        several (``aggregate_tree``: each rank reduces its own rows, only
+        the shards' partials cross the ranks)."""
+        if self.shards > 1:
+            return server.aggregate_tree(global_tr, weights, delta,
+                                         mesh=self.mesh)
+        return server.aggregate_stacked(global_tr, weights, delta)
+
+    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of a cohort-axis tensor, in cohort order."""
+        if self.shards == 1:
+            return t
+        return rt_lib.all_gather_raw(t.contiguous(),
+                                     mesh_lib.dp_axes(self.mesh), self.mesh)
+
+    def _gather_delta(self, delta):
+        """A stacked delta tree of every rank's rows (a wave's, for the
+        scheduler's buffer)."""
+        if self.shards == 1:
+            return delta
+
+        def f(l):
+            if isinstance(l, quant.QTensor):
+                q, sc = self._gather_rows(l.q), self._gather_rows(l.scales)
+                return quant.QTensor(
+                    q=q, scales=sc, bits=l.bits, mode=l.mode, block=l.block,
+                    out_dtype=l.out_dtype,
+                    orig_shape=(q.shape[0], *l.orig_shape[1:]))
+            return self._gather_rows(l)
+        return tree_lib.tree_map(f, delta)
+
+    @torch.no_grad()
+    def _fetch_rows(self, sel: np.ndarray):
+        """This rank's rows of a B-wide selection ``sel`` (client
+        positions) of the staged pools and labels, from the ranks that own
+        them: each rank fills the rows it owns (zeros elsewhere) and a
+        reduce-scatter over the dp ranks hands every rank its block."""
+        dp = mesh_lib.dp_axes(self.mesh)
+        start, stop = self._own.start, self._own.stop
+        mine = np.where((sel >= start) & (sel < stop))[0]
+        dev = self.pool_staged.device
+        src = torch.as_tensor(sel[mine] - start, device=dev)
+        at = torch.as_tensor(mine, device=dev)
+        out = []
+        for pool in (self.pool_staged, self.pool_labs):
+            buf = pool.new_zeros((len(sel), *pool.shape[1:]))
+            buf[at] = pool[src]
+            out.append(rt_lib.psum_scatter_raw(buf, dp, self.mesh))
+        return out
+
     def _build_round(self):
         def round_fn(global_tr, idx, pool_staged, pool_labs, weights,
                      frozen, class_emb):
@@ -490,8 +568,7 @@ class CohortEngine:
             delta, loss, acc = self._train_cohort(
                 global_tr, pool_staged, pool_labs, rows, idx, None, frozen,
                 class_emb)
-            return server.aggregate_stacked(global_tr, weights, delta), \
-                loss, acc
+            return self._aggregate(global_tr, weights, delta), loss, acc
 
         return round_fn
 
@@ -506,8 +583,7 @@ class CohortEngine:
             delta, loss, acc = self._train_cohort(
                 global_tr, pool_staged, pool_labs, sel, idx,
                 n_steps if het else None, frozen, class_emb)
-            return server.aggregate_stacked(global_tr, weights, delta), \
-                loss, acc
+            return self._aggregate(global_tr, weights, delta), loss, acc
 
         return round_fn
 
@@ -528,11 +604,13 @@ class CohortEngine:
     def _subset_inputs(self, sel, key: RoundKey, n_steps=None):
         """Canonicalize a selection (sorted: a subset is a set, so K = N
         is the identity) and its step counts, draw its batch indices at
-        the true width K, and pad the three cohort-axis inputs to the
-        width bucket B: pad rows gather client 0's pool at index 0 and
-        run one step (the drawn rows are untouched, so the sample stream
-        is exactly the unbucketed one). Returns (sel, K, B, device sel,
-        device n_steps, device idx)."""
+        the true width K, and pad the cohort-axis inputs to the width
+        bucket B (a shard multiple on a mesh): pad rows gather client 0's
+        pool at index 0 and run one step (the drawn rows are untouched,
+        so the sample stream is exactly the unbucketed one). On a mesh
+        each input is this rank's rows of the bucket, its pools fetched
+        from their owners. Returns (sel, K, B, pools, labels, device rows
+        into them, device n_steps, device idx)."""
         sel = np.asarray(sel, np.int64)
         order = np.argsort(sel, kind="stable")
         sel = sel[order]
@@ -560,13 +638,27 @@ class CohortEngine:
                     f"heterogeneous step counts {n_steps}; set "
                     "Client.step_mult before building the engine")
         K = len(sel)
-        B = runtime_lib.bucket_width(K, self.n_clients)
-        idx = self._sample_idx(key, self.lens[sel], self.max_steps)
+        B = runtime_lib.bucket_width(K, self.n_clients, shards=self.shards)
+        idx = runtime_lib.pad_leading(
+            self._sample_idx(key, self.lens[sel], self.max_steps), B)
         dev = self.pool_labs.device
-        pad = lambda a, fill: runtime_lib.upload(
-            np.concatenate([a, np.full(B - K, fill, np.int64)]), dev)
-        return (sel, K, B, pad(sel, 0), pad(n_steps, 1),
-                runtime_lib.pad_leading(idx, B))
+        sel_p = np.concatenate([sel, np.zeros(B - K, np.int64)])
+        steps_p = np.concatenate([n_steps, np.ones(B - K, np.int64)])
+        if self.mesh is None:
+            return (sel, K, B, self.pool_staged, self.pool_labs,
+                    runtime_lib.upload(sel_p, dev),
+                    runtime_lib.upload(steps_p, dev), idx)
+        r = mesh_lib.cohort_rows(self.mesh, B)
+        staged, labs = self._fetch_rows(sel_p)
+        return (sel, K, B, staged, labs,
+                torch.arange(staged.shape[0], device=dev),
+                runtime_lib.upload(steps_p[r], dev), idx[r])
+
+    def _rank_weights(self, weights: np.ndarray) -> torch.Tensor:
+        w = weights if self.mesh is None else \
+            weights[mesh_lib.cohort_rows(self.mesh, len(weights))]
+        return runtime_lib.upload(np.ascontiguousarray(w),
+                                  self.pool_labs.device)
 
     def run_subset_round(self, global_tr, sel, key: RoundKey, n_steps=None):
         """Sync-partial round over client positions ``sel`` (a set):
@@ -576,18 +668,17 @@ class CohortEngine:
         (aligned with ``sel``). Returns (new global trainables, metrics:
         loss/acc sliced to the true K on the device, uplink bytes K x the
         per-client payload, the sorted ``sel``)."""
-        sel, K, B, sel_d, steps_d, idx = self._subset_inputs(sel, key,
-                                                             n_steps)
+        sel, K, B, staged, labs, rows, steps_d, idx = self._subset_inputs(
+            sel, key, n_steps)
         weights = np.zeros(B, np.float32)
         weights[:K] = self.client_n[sel] / self.client_n[sel].sum()
         server.check_weights(weights, B)
-        args = (global_tr, sel_d, steps_d, idx, self.pool_staged,
-                self.pool_labs,
-                runtime_lib.upload(weights, self.pool_labs.device),
-                self.frozen, self.class_emb)
+        args = (global_tr, rows, steps_d, idx, staged, labs,
+                self._rank_weights(weights), self.frozen, self.class_emb)
         new_tr, loss, acc = self.runtime.run(
             "subset_round", self._build_subset_round, args,
             static_key=self._static_key)
+        loss, acc = self._gather_rows(loss), self._gather_rows(acc)
         return new_tr, {"loss": loss[:K], "acc": acc[:K],
                         "uplink_bytes": K * self.per_client_uplink_bytes(
                             global_tr), "sel": sel}
@@ -597,16 +688,18 @@ class CohortEngine:
         committing: returns (stacked quantized delta tree, metrics). The
         true clients occupy rows [0, K) of the width bucket (slice them
         with :func:`slice_client_delta`); pad rows are never committed."""
-        sel, K, B, sel_d, steps_d, idx = self._subset_inputs(sel, key,
-                                                             n_steps)
-        args = (global_tr, sel_d, steps_d, idx, self.pool_staged,
-                self.pool_labs, self.frozen, self.class_emb)
+        sel, K, B, staged, labs, rows, steps_d, idx = self._subset_inputs(
+            sel, key, n_steps)
+        args = (global_tr, rows, steps_d, idx, staged, labs, self.frozen,
+                self.class_emb)
         delta, loss, acc = self.runtime.run(
             "wave_round", self._build_wave, args,
             static_key=self._static_key)
-        return delta, {"loss": loss[:K], "acc": acc[:K],
-                       "uplink_bytes": K * self.per_client_uplink_bytes(
-                           global_tr), "sel": sel}
+        loss, acc = self._gather_rows(loss), self._gather_rows(acc)
+        return self._gather_delta(delta), {
+            "loss": loss[:K], "acc": acc[:K],
+            "uplink_bytes": K * self.per_client_uplink_bytes(global_tr),
+            "sel": sel}
 
     def run_round(self, global_tr, key: RoundKey):
         """Advance one full-cohort federated round. Returns
@@ -621,9 +714,10 @@ class CohortEngine:
                 "masked scan honors the heterogeneous step counts")
         uplink = self.uplink_bytes(global_tr)
         idx = self._sample_idx(key, self.lens, self.cfg.local_steps)
-        args = (global_tr, idx, self.pool_staged, self.pool_labs,
+        args = (global_tr, idx[self._own], self.pool_staged, self.pool_labs,
                 self.weights, self.frozen, self.class_emb)
         new_tr, loss, acc = self.runtime.run(
             "full_round", self._build_round, args,
             static_key=self._static_key)
+        loss, acc = self._gather_rows(loss), self._gather_rows(acc)
         return new_tr, {"loss": loss, "acc": acc, "uplink_bytes": uplink}

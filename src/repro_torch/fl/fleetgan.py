@@ -30,8 +30,18 @@ returns a :class:`FleetGANJob` whose rebalancing labels (``need``) are
 known at once, so the cohort engine can lay out its pools; only
 ``job.resolve()`` waits (one sync, counted in ``SYNC_TRACES`` as
 ``gan_resolve``) and writes the results onto the clients.
-:func:`prepare_gan_fleet` is the blocking composition. A mesh raises
-(``ROADMAP.md`` Queue A item 8).
+:func:`prepare_gan_fleet` is the blocking composition.
+
+With ``FleetGANConfig.mesh`` (one process a rank) the stacked cohort is
+split over the mesh's data-parallel ranks: its width pads up to a shard
+multiple with rider rows that ride exactly like ineligible clients
+(client 0's init, zero draws, all-False ``active``, never written back),
+each rank trains and samples its contiguous rows, and the trained params,
+losses and images are all-gathered. Every draw comes from the clients'
+streams at their true shapes before the pad, so the result is the
+unsharded fleet's bit for bit when every shard holds two rows or more
+(on the CPU a batched product of a single matrix takes MKL's
+single-matrix path, which sums in another order).
 """
 from __future__ import annotations
 
@@ -48,6 +58,8 @@ from repro_torch.core import gan as gan_lib
 from repro_torch.data.synthetic import stage_client_pools
 from repro_torch.fl import runtime as runtime_lib
 from repro_torch.fl import strategies as strategies_lib
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import runtime as rt_lib
 
 # module-level default so standalone callers share one ledger; the
 # simulator passes its per-run runtime instead
@@ -61,16 +73,11 @@ class FleetGANConfig:
     ``bucket_batches``
     pads every client's minibatch to one bucket (one program), False
     trains each batch-size group through the exact ``gan.gan_scan``.
-    ``mesh`` is not ported."""
+    ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`) splits the stacked
+    cohort over its data-parallel ranks; it needs ``bucket_batches``."""
     conv_impl: str = "gemm"
     bucket_batches: bool = True
     mesh: Any = None
-
-    def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "a mesh-sharded fleet-GAN is not ported (one card; "
-                "ROADMAP.md Queue A item 8)")
 
 
 def default_runtime() -> runtime_lib.ProgramRuntime:
@@ -232,6 +239,12 @@ def launch_gan_fleet(clients: Sequence, streams: Sequence, *, steps: int,
     if fleet_cfg is not None:
         conv_impl = fleet_cfg.conv_impl
     bucketed = fleet_cfg.bucket_batches if fleet_cfg is not None else True
+    mesh = fleet_cfg.mesh if fleet_cfg is not None else None
+    if mesh is not None and not bucketed:
+        raise ValueError(
+            "mesh-sharded fleet-GAN requires bucket_batches=True — the "
+            "per-group exact path scatters trained groups back by row")
+    shards = mesh_lib.cohort_axis_size(mesh) if mesh is not None else 1
     rt = runtime if runtime is not None else _DEFAULT_RUNTIME
     rep = FleetGANReport(n_clients=len(clients), n_eligible=0)
     job = FleetGANJob(report=rep, need={}, _clients=clients, _runtime=rt,
@@ -268,12 +281,23 @@ def launch_gan_fleet(clients: Sequence, streams: Sequence, *, steps: int,
     B = int(n_b[np.asarray(eligible)].max())
     pool_i, pool_l, lens = stage_client_pools(
         [(c.images, c.labels) for c in clients])
-    pool_i = _upload(pool_i, dev)
-    pool_l = _upload(pool_l.astype(np.int64), dev)
-
     # every client's init (ineligible riders too: they ride masked)
     inits = [s.init(cfg) for s in streams]
-    stacked = tree_lib.tree_map(lambda *ls: np.stack(ls), inits[0],
+    # a mesh pads the cohort to a shard multiple: the pad rows ride like
+    # ineligible clients (client 0's init, zero draws, masked steps) and
+    # each rank takes its contiguous rows ``own``
+    Cp = runtime_lib.shard_multiple(C, shards)
+    own = mesh_lib.cohort_rows(mesh, Cp) if mesh is not None else \
+        slice(0, C)
+    if Cp > C:
+        inits += [inits[0]] * (Cp - C)
+        pool_i = np.concatenate([pool_i, np.zeros(
+            (Cp - C, *pool_i.shape[1:]), pool_i.dtype)])
+        pool_l = np.concatenate([pool_l, np.zeros(
+            (Cp - C, *pool_l.shape[1:]), pool_l.dtype)])
+    pool_i = _upload(pool_i[own], dev)
+    pool_l = _upload(pool_l[own].astype(np.int64), dev)
+    stacked = tree_lib.tree_map(lambda *ls: np.stack(ls)[own], inits[0],
                                 *inits[1:])
     params, opt = rt.run("gan_init", lambda: _init_build(dev), (stacked,),
                          static_key=(cfg, str(dev)))
@@ -285,20 +309,27 @@ def launch_gan_fleet(clients: Sequence, streams: Sequence, *, steps: int,
     if bucketed:
         # draws at each client's true batch, padded to the bucket;
         # ineligible riders' draws stay zero (their steps are masked)
-        idx = np.zeros((C, steps, B), np.int64)
-        z = np.zeros((C, steps, B, cfg.z_dim), np.float32)
+        idx = np.zeros((Cp, steps, B), np.int64)
+        z = np.zeros((Cp, steps, B, cfg.z_dim), np.float32)
         z2 = np.zeros_like(z)
         for i, c in enumerate(clients):
             if eligible[i]:
                 b = int(n_b[i])
                 idx[i, :, :b], z[i, :, :b], z2[i, :, :b] = \
                     gan_lib.train_draws(streams[i], cfg, c.n, steps, b)
-        active = np.repeat(np.asarray(eligible)[:, None], steps, axis=1)
-        targs = (params, opt, pool_i, pool_l, _upload(idx, dev),
-                 _upload(z, dev), _upload(z2, dev), _upload(n_b, dev),
-                 _upload(active, dev))
+        active = np.repeat(np.asarray(list(eligible) + [False] * (Cp - C))
+                           [:, None], steps, axis=1)
+        n_bp = np.concatenate([n_b, np.full(Cp - C, B, np.int64)])
+        targs = (params, opt, pool_i, pool_l, _upload(idx[own], dev),
+                 _upload(z[own], dev), _upload(z2[own], dev),
+                 _upload(n_bp[own], dev), _upload(active[own], dev))
         params, _, ms = rt.run("gan_train", lambda: _train_build(cfg), targs,
                                static_key=(cfg,))
+        if mesh is not None:
+            gather = lambda l: rt_lib.all_gather_raw(
+                l.contiguous(), mesh_lib.dp_axes(mesh), mesh)
+            params = tree_lib.tree_map(gather, params)
+            ms = tree_lib.tree_map(gather, ms)
         rep.groups.append((B, C))
     else:
         # each batch-size group through the exact gan_scan; ineligible
@@ -336,12 +367,29 @@ def launch_gan_fleet(clients: Sequence, streams: Sequence, *, steps: int,
         lab_pad = np.zeros((len(synth), M), np.int64)
         for r, (_, nd, zs) in enumerate(synth):
             z_pad[r, :len(nd)], lab_pad[r, :len(nd)] = zs, nd
-        rows = _upload(np.asarray([i for i, _, _ in synth], np.int64), dev)
+        src = np.asarray([i for i, _, _ in synth], np.int64)
+        # a mesh pads the synthesis rows to a shard multiple at the end
+        # (client 0's generator on zero noise and labels, never delivered)
+        Sp = runtime_lib.shard_multiple(len(synth), shards)
+        if Sp > len(synth):
+            extra = Sp - len(synth)
+            z_pad = np.concatenate([z_pad, np.zeros(
+                (extra, *z_pad.shape[1:]), np.float32)])
+            lab_pad = np.concatenate([lab_pad, np.zeros(
+                (extra, M), np.int64)])
+            src = np.concatenate([src, np.full(extra, src[0])])
+        part = mesh_lib.cohort_rows(mesh, Sp) if mesh is not None else \
+            slice(0, Sp)
+        rows = _upload(src[part], dev)
         gens = tree_lib.tree_map(lambda l: l[rows], params["gen"])
-        job._synth_out = rt.dispatch(
+        out = rt.dispatch(
             "gan_synth", lambda: _synth_build(cfg),
-            (gens, _upload(z_pad, dev), _upload(lab_pad, dev)),
+            (gens, _upload(z_pad[part], dev), _upload(lab_pad[part], dev)),
             static_key=(cfg,)).out
+        if mesh is not None:
+            out = rt_lib.all_gather_raw(out.contiguous(),
+                                        mesh_lib.dp_axes(mesh), mesh)
+        job._synth_out = out
         job._synth = [(i, nd, row) for row, (i, nd, _) in enumerate(synth)]
     job._launch_wall_s = time.perf_counter() - t_launch
     return job

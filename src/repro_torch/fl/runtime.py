@@ -76,15 +76,32 @@ def pow2_ceil(n: int) -> int:
     return 1 << (int(n) - 1).bit_length()
 
 
-def bucket_width(k: int, n: int, *,
-                 min_bucket: int = MIN_COHORT_BUCKET) -> int:
+def shard_multiple(n: int, shards: int) -> int:
+    """Smallest multiple of ``shards`` >= n."""
+    if shards < 1:
+        raise ValueError(f"shard_multiple needs shards >= 1, got {shards}")
+    return -(-int(n) // int(shards)) * int(shards)
+
+
+def bucket_width(k: int, n: int, *, min_bucket: int = MIN_COHORT_BUCKET,
+                 shards: int = 1) -> int:
     """Bucket for a selection of ``k`` out of ``n``: the next power of two
-    (floored at ``min_bucket``), clamped to ``n``; ``k == n`` never pads."""
+    (floored at ``min_bucket``), clamped to ``n``; ``k == n`` never pads.
+    ``shards`` rounds the width up to a shard multiple (still clamped to
+    ``n``, which a sharded population divides) so every data-parallel
+    rank holds the same number of rows; the extra rows are pad rows."""
     if not 1 <= k <= n:
         raise ValueError(f"selection width {k} out of range for {n}")
+    if shards > 1 and n % shards:
+        raise ValueError(
+            f"population {n} not divisible by {shards} mesh shards — "
+            "the staged cohort axis cannot shard evenly")
     if k >= n:
         return n
-    return min(n, max(min_bucket, pow2_ceil(k)))
+    b = min(n, max(min_bucket, pow2_ceil(k)))
+    if shards > 1:
+        b = min(n, shard_multiple(b, shards))
+    return b
 
 
 def bucket_rows(n: int, cap: int) -> int:

@@ -121,9 +121,16 @@ class CohortExec:
         w = np.asarray(weights, np.float32)
         server.check_weights(w, len(deltas))          # on the host
         dev = self.engine.pool_labs.device
+        stacked = stack_client_deltas(deltas)
+        if getattr(self.engine, "shards", 1) > 1:
+            # a mesh-sharded engine commits hierarchically, as its rounds
+            # aggregate (the buffer's size need not divide the shard
+            # count: aggregate_tree zero-pads)
+            return server.aggregate_tree(
+                global_tr, runtime_lib.upload(w, dev), stacked,
+                n_shards=self.engine.shards)
         return server.aggregate_stacked(
-            global_tr, runtime_lib.upload(w, dev),
-            stack_client_deltas(deltas))
+            global_tr, runtime_lib.upload(w, dev), stacked)
 
     def client_masses(self) -> np.ndarray:
         """Per-client sample counts over the full population (the m_i of

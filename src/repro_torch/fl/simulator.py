@@ -307,10 +307,14 @@ def _server_eval(frozen, trainable, ccfg, class_emb, eval_set,
 
 
 def run_federated(cfg: FLConfig, *, runtime=None, serve_store=None,
-                  device=None, streams: Streams = None) -> History:
+                  device=None, streams: Streams = None,
+                  mesh=None) -> History:
     """Run the federated simulation on ``device`` (the card unless the
     caller asks for the CPU) with the draws of ``streams`` (default
-    :func:`seeded_streams`)."""
+    :func:`seeded_streams`). ``mesh`` (a ``launch.mesh.Mesh``, every rank
+    running this call) splits the cohort engine's and the fleet GAN's
+    cohort axis over its data-parallel ranks (``CohortConfig.mesh``,
+    ``FleetGANConfig.mesh``); the History is the unsharded run's."""
     strat = STRATEGIES[cfg.strategy]
     if cfg.pipeline not in ("pipelined", "barrier"):
         raise ValueError(f"unknown pipeline mode {cfg.pipeline!r}")
@@ -391,7 +395,8 @@ def run_federated(cfg: FLConfig, *, runtime=None, serve_store=None,
             # stages its pools, then resolves the job into them
             gan_job = fleetgan.launch_gan_fleet(
                 clients, gan_streams, steps=cfg.gan_steps, runtime=rt,
-                device=dev)
+                device=dev, fleet_cfg=None if mesh is None else
+                fleetgan.FleetGANConfig(mesh=mesh))
             gan_job.mark_dropped(gan_drop_pos)
             if cfg.engine != "cohort":
                 gan_rep = gan_job.resolve()
@@ -412,7 +417,7 @@ def run_federated(cfg: FLConfig, *, runtime=None, serve_store=None,
             frozen=frozen, ccfg=ccfg, class_emb=class_emb, clients=clients,
             cfg=cohort_lib.CohortConfig(
                 strategy=strat, local_steps=cfg.local_steps,
-                batch_size=cfg.batch_size, lr=cfg.lr,
+                batch_size=cfg.batch_size, lr=cfg.lr, mesh=mesh,
                 # chaos cut-step profiles are heterogeneous even on a
                 # homogeneous trace: build the masked programs
                 force_het=chaos_sched is not None),

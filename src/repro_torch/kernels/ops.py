@@ -24,6 +24,11 @@ a backward kernel on the card (``selective_scan_bwd_cuda``) and the plain
 reverse recurrence on the CPU (``selective_scan_bwd_ref``). The JAX
 package differentiates the plain versions of both; it has no backward
 kernel for either.
+
+Under a :class:`~repro_torch.models.runtime.Runtime`, ``flash_attention``
+and ``decode_attention`` run the JAX package's explicit splits (the
+query heads over the model axis; the cache slots over it, merged by the
+log-sum-exp combine), the kernel on each rank's slice.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from repro_torch.kernels import lora_matmul as lm_kernel
 from repro_torch.kernels import quant_matmul as qmm_kernel
 from repro_torch.kernels import ref
 from repro_torch.kernels import selective_scan as ss_kernel
+from repro_torch.models import runtime as rt_lib
 
 KERNEL_TRACES: Dict[str, int] = {}
 
@@ -147,19 +153,78 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal=True, window=None):
-    return _FlashAttention.apply(q, k, v, causal, window)
+    """Masked GQA attention of q (B, S, H, D) over k, v (B, Skv, Hkv, D).
+    Under a Runtime the JAX package's explicit split: the batch over the
+    dp axes (when it divides), the query heads padded to a multiple of
+    the model axis and split over it, each rank's heads with their KV
+    heads gathered (``kv = clamp(head, H - 1) // (H / Hkv)``), the kernel
+    on the rank's slice, the heads re-assembled and the padding cut."""
+    rt = rt_lib.get_runtime()
+    if rt is None:
+        return _FlashAttention.apply(q, k, v, causal, window)
+    rt_lib.dist_trace("flash_attention_dist")
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    m, dp = rt.tp_size, rt.dp_axes
+    if B % rt.dp_size:
+        dp = ()
+    dp = dp or None
+    G = H // Hkv
+    Hp = -(-H // m) * m
+    if Hp != H:
+        q = torch.nn.functional.pad(q, (0, 0, 0, Hp - H))
+    Hl = Hp // m
+    q_l = rt_lib.shard_in(q, rt_lib.P(dp, None, rt.tp_axis, None), rt)
+    k_l = rt_lib.shard_in(k, rt_lib.P(dp, None, None, None), rt)
+    v_l = rt_lib.shard_in(v, rt_lib.P(dp, None, None, None), rt)
+    gids = rt.index(rt.tp_axis) * Hl + torch.arange(Hl, device=q.device)
+    kv_ids = gids.clamp(0, H - 1) // G
+    out = _FlashAttention.apply(q_l, k_l.index_select(2, kv_ids),
+                                v_l.index_select(2, kv_ids), causal, window)
+    out = rt_lib.shard_out(out, rt_lib.P(dp, None, rt.tp_axis, None), rt)
+    return out[:, :, :H]
 
 
 def decode_attention(q, k_cache, v_cache, slot_pos):
     """One query token (B, 1, H, D) against a ring KV cache (B, M, Hkv,
-    D), port of ``repro.kernels.ops.decode_attention`` on one device
+    D), port of ``repro.kernels.ops.decode_attention``
     (:func:`ref.decode_attention`). The JAX package computes it in plain
     ``jnp``, not Pallas, so the plain PyTorch version is its port on
     every device, traced as ``decode_attention_plain``; the profiler
-    range ``decode_attention`` names its device time."""
+    range ``decode_attention`` names its device time. Under a Runtime
+    whose model axis divides the M slots, the split-KV body: each rank's
+    slots give ``ref.decode_attention_partial``'s (max, sum, acc), merged
+    by the log-sum-exp combine with a max and two sums over the model
+    axis (the batch over the dp axes when it divides)."""
+    rt = rt_lib.get_runtime()
+    M = k_cache.shape[1]
+    if rt is None or M % rt.tp_size:
+        if rt is not None:
+            rt_lib.dist_trace("decode_attention_fallback")
+        trace_count("decode_attention_plain")
+        with torch.profiler.record_function("decode_attention"):
+            return ref.decode_attention(q, k_cache, v_cache, slot_pos)
+    rt_lib.dist_trace("decode_attention_dist")
     trace_count("decode_attention_plain")
+    B, _, H, D = q.shape
+    tp, dp = rt.tp_axis, rt.dp_axes
+    if B % rt.dp_size:
+        dp = ()
+    dp = dp or None
     with torch.profiler.record_function("decode_attention"):
-        return ref.decode_attention(q, k_cache, v_cache, slot_pos)
+        q_l = rt_lib.shard_in(q, rt_lib.P(dp, None, None, None), rt)
+        kv = rt_lib.P(dp, tp, None, None)
+        mi, li, acci = ref.decode_attention_partial(
+            q_l, rt_lib.shard_in(k_cache, kv, rt),
+            rt_lib.shard_in(v_cache, kv, rt),
+            rt_lib.shard_in(slot_pos, rt_lib.P(None, tp), rt))
+        mg = rt_lib.pmax(mi, tp, rt)
+        corr = torch.exp(mi - mg)
+        lg = rt_lib.psum(li * corr, tp, rt)
+        accg = rt_lib.psum(acci * corr[..., None], tp, rt)
+        out = accg / lg.clamp_min(1e-30)[..., None]
+        out = out.reshape(q_l.shape[0], 1, H, D).to(q_l.dtype)
+        return rt_lib.shard_out(out, rt_lib.P(dp, None, None, None), rt)
 
 
 def combine_decode_partials(parts, dtype=torch.float32):

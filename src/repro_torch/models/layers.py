@@ -102,7 +102,7 @@ def attention(p, x, positions, cfg: ModelConfig, *, lora=None, causal=True,
         raise NotImplementedError(
             "cfg.calibrate (the dry run's single-tile attention) is not "
             "ported yet; it comes with the dry run (ROADMAP Queue A item "
-            "8.5)")
+            "8.6)")
     out = kops.flash_attention(q, k, v, causal=causal, window=window)
     y = linear(out.reshape(B, S, cfg.q_dim), p[prefix + "wo"], g("wo"),
                cfg=cfg)

@@ -51,10 +51,20 @@ into those stacked buffers in place and returns the same dict; the step
 computes its slot from the 0-d ``pos`` tensor on the device and reads
 nothing back to the host; a layer's dummy entry is never written, so it
 keeps the zeros the JAX step writes there. ``prefill`` and
-``decode_step`` build no autograd graph. The layer stack's constraint
-hooks for a device mesh are no-ops on one card; the mesh, the MoE's
-expert-parallel path and the dry run's ``unroll_layers``/``calibrate``
-come with ROADMAP Queue A item 8.5.
+``decode_step`` build no autograd graph.
+
+Under a :class:`~repro_torch.models.runtime.Runtime` (a mesh over
+``torch.distributed``, one process a rank) the same methods run the
+JAX package's explicit bodies: the MoE's expert-parallel all-to-all,
+the attention's head split, the split-KV decode, the Mamba and RG-LRU
+blocks' channel split. Every rank holds the dense weights whole and
+computes the rest of the program on the global tensors, so the loss,
+the logits and the gradients come out the same on every rank (GSPMD's
+partition of the dense layers is a layout not reproduced: ROADMAP). The
+layer stack's sharding constraints are identities; an SSM layer
+checkpoints inside its body under a Runtime, as the JAX package's does,
+instead of as a whole. The dry run's ``unroll_layers`` and
+``calibrate`` are not ported yet (ROADMAP Queue A item 8.6).
 """
 from __future__ import annotations
 
@@ -75,6 +85,7 @@ from repro_torch.core import quant as qlib
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import runtime as rt_lib
 from repro_torch.models import ssm as ssm_lib
 
 # largest fp32 slice quantized at once: the NF4 search holds 16 floats
@@ -151,7 +162,8 @@ def _init_layer(cfg: ModelConfig, generator, dtype, device, *,
         p.update(L.init_mlp(generator, d, cfg.d_ff, cfg.mlp, dtype, device))
         return p
     if fam == "moe" and not dense_ff:
-        p["moe"] = moe_lib.init_experts(generator, cfg, dtype, device)
+        p["moe"] = moe_lib.init_experts(generator, cfg, dtype, device,
+                                        lazy=True)
         if cfg.n_shared_experts:
             p["shared"] = L.init_mlp(generator, d,
                                      cfg.d_ff * cfg.n_shared_experts,
@@ -207,6 +219,18 @@ def _layer_slice(tree, i: int):
     return tree_lib.tree_map(one, tree)
 
 
+def _dp(cfg):
+    rt = rt_lib.get_runtime()
+    return rt.dp_axes if rt else ("data",)
+
+
+def _seq_axis(cfg, S):
+    rt = rt_lib.get_runtime()
+    if rt is None or not cfg.seq_shard or S <= 1 or S % rt.tp_size:
+        return None
+    return rt.tp_axis
+
+
 def _remat(fn, on: bool):
     return functools.partial(checkpoint, fn, use_reentrant=False) if on \
         else fn
@@ -220,12 +244,14 @@ class Model:
 
     # ---------------------------------------------------------- params
     def _init_layers(self, generator, dtype, device, n: int, **kw):
-        """The stacked tree of ``n`` layers, drawn one layer at a time.
-        With ``cfg.quant_bits`` each matrix is quantized as soon as it is
-        drawn and written into preallocated stacked payloads, so no dense
-        stack (and no whole-matrix NF4 search) is ever held: the result
-        equals ``quantize_tree`` of the dense stack bit for bit, since
-        blocks run along K inside each matrix."""
+        """The stacked tree of ``n`` layers, drawn one layer at a time
+        (a MoE layer's experts one expert at a time, after the layer's
+        other leaves: ``moe.LazyExperts``). With ``cfg.quant_bits`` each
+        matrix is quantized as soon as it is drawn and written into
+        preallocated stacked payloads, so no dense stack (and no
+        whole-matrix NF4 search) is ever held: the result equals
+        ``quantize_tree`` of the dense stack bit for bit, since blocks run
+        along K inside each matrix."""
         cfg = self.cfg
         out: Dict[tuple, Any] = {}
         for i, g in enumerate(split(generator, n, device)):
@@ -238,7 +264,11 @@ class Model:
                     if path not in out:
                         out[path] = torch.empty(shape, dtype=w.dtype,
                                                 device=device)
-                    out[path][i] = w
+                    if isinstance(w, moe_lib.LazyExperts):
+                        for j in range(w.shape[0]):
+                            out[path][i, j] = w[j]
+                    else:
+                        out[path][i] = w
                     continue
                 bits, mode, block = plan
                 spec = qlib.qtensor_specs(shape, w.dtype, bits=bits,
@@ -412,6 +442,7 @@ class Model:
         cfg = self.cfg
         aux = torch.zeros((), device=x.device)
         kw = dict(mode=mode, pos=pos, cache_len=cache_len)
+        dp, seq_ax = _dp(cfg), _seq_axis(cfg, x.shape[1])
         dense = []
         for i in range(cfg.first_k_dense):
             c = None if cache is None else _layer_slice(cache["dense"], i)
@@ -419,11 +450,16 @@ class Model:
                                       trainable["dense_lora"][i], positions,
                                       enc_out, x, cache=c, **kw)
             dense.append(entry)
+            x = rt_lib.constrain(x, dp, seq_ax, None)
         # unbind once: the backward stacks each leaf's per-layer grads
         lora = {n: {f: torch.unbind(t, 0) for f, t in pair.items()}
                 for n, pair in trainable["lora"].items()}
+        # a hybrid layer checkpoints its parts, an SSM layer under a
+        # Runtime inside its body
+        inner = cfg.family == "hybrid" or (
+            cfg.family == "ssm" and rt_lib.get_runtime() is not None)
         remat = mode == "train" and cfg.remat and torch.is_grad_enabled() \
-            and cfg.family != "hybrid"
+            and not inner
         entries = []
         for i in range(self.n_scanned):
             p = _layer_slice(frozen["layers"], i)
@@ -433,6 +469,7 @@ class Model:
             fn = functools.partial(self._block, p, lo, positions, enc_out,
                                    cache=c, kind=self.kinds[i], **kw)
             x, entry, a = _remat(fn, remat)(x)
+            x = rt_lib.constrain(x, dp, seq_ax, None)
             if a is not None:
                 aux = aux + a
             entries.append(entry)
@@ -502,7 +539,9 @@ class Model:
         x = L.rms_norm(x, frozen["final_norm"])
         x = adapter_lib.apply(trainable["adapter"], x,
                               n_heads=cfg.adapter_heads, causal=True)
-        return x @ frozen["head"].to(x.dtype), aux
+        logits = x @ frozen["head"].to(x.dtype)
+        return rt_lib.constrain(logits, _dp(cfg),
+                                _seq_axis(cfg, logits.shape[1]), None), aux
 
     # ---------------------------------------------------------- training
     def loss_fn(self, frozen, trainable, batch):

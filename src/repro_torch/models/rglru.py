@@ -16,18 +16,27 @@ ranges name the weights' decode (``rglru.dequantize``) and the scan
 A hybrid layer's dict holds the attention and MLP weights beside the
 block's; only the block's quantized leaves are decoded (the JAX package
 decodes the whole dict and XLA drops the unused decodes under ``jit``),
-which gives the same numbers. The sharded path (``shard_map`` over the
-LRU width) and ``cfg.calibrate`` come with the mesh and the dry run
-(ROADMAP Queue A item 8.5).
+which gives the same numbers. Under a Runtime whose model axis divides
+the LRU width and the 16 gate blocks (and whose dp axes divide the
+batch), ``rglru_block`` runs the JAX package's width-parallel body on
+each rank: its w / m channels and 16 / m gate blocks, the output
+projection's partial summed over ``model`` (reduce-scattered back to
+sequence shards with ``cfg.seq_shard``), checkpointed inside the body.
+``cfg.calibrate`` (the dry run's single-chunk scan) is not ported yet:
+ROADMAP Queue A item 8.6.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import maybe_dequantize
+from repro_torch.models import runtime as rt_lib
 from repro_torch.models.layers import _normal
+from repro_torch.models.runtime import P
 from repro_torch.models.ssm import _causal_conv, _lora_delta, \
     chunked_linear_scan
 
@@ -51,6 +60,15 @@ def init_rglru(generator, cfg: ModelConfig, dtype, device):
         "lam": torch.full((w,), 2.0, dtype=torch.float32, device=device),
         "out_proj": n(generator, (w, d), w, dtype, device),
     }
+
+
+def rglru_partition_specs(cfg: ModelConfig, tp_axis="model", lead=()):
+    nl = (None,) * len(lead)
+    return {"wx": P(*nl, None, tp_axis), "wy": P(*nl, None, tp_axis),
+            "conv_w": P(*nl, None, tp_axis),
+            "w_rg": P(*nl, tp_axis, None, None),
+            "w_ig": P(*nl, tp_axis, None, None),
+            "lam": P(*nl, tp_axis), "out_proj": P(*nl, tp_axis, None)}
 
 
 def rglru_cache_init(cfg: ModelConfig, batch: int, dtype, device):
@@ -84,24 +102,31 @@ def _gates(p, xc):
     return a, b
 
 
-def _out(p, y, lo, cfg):
+def _out(p, y, lo, cfg, sl=None):
     out = y @ p["out_proj"].to(y.dtype)
-    if lo.get("out_proj") is not None:
-        out = out + _lora_delta(y, lo["out_proj"], cfg.lora_alpha,
-                                cfg.lora_rank)
+    pair = lo.get("out_proj")
+    if pair is not None:
+        a = pair["a"] if sl is None else pair["a"].narrow(0, *sl)
+        h = y.to(a.dtype) @ a
+        out = out + ((h @ pair["b"]) * (cfg.lora_alpha / cfg.lora_rank)
+                     ).to(y.dtype)
     return out
 
 
-def _rglru_core(p, x, cfg: ModelConfig, h0, lo):
-    """x: (B, S, d) -> (out, cache) with dense block weights ``p``."""
+def _rglru_core(p, x, cfg: ModelConfig, h0, lo, *, shard=None):
+    """x: (B, S, d) -> (out, cache) with dense block weights ``p``; with
+    ``shard=(r, m)`` the weights are rank r's w / m channels and the output
+    is a partial sum over the model axis."""
     B, S, _ = x.shape
     dtype = x.dtype
     alpha, rank = cfg.lora_alpha, cfg.lora_rank
     w = p["wx"].shape[-1]
+    sl = None if shard is None else (shard[0] * w, w)
     gate = F.gelu(x @ p["wy"].to(dtype) +
-                  _lora_delta(x, lo.get("wy"), alpha, rank),
+                  _lora_delta(x, lo.get("wy"), alpha, rank, sl),
                   approximate="tanh")
-    val = x @ p["wx"].to(dtype) + _lora_delta(x, lo.get("wx"), alpha, rank)
+    val = x @ p["wx"].to(dtype) + _lora_delta(x, lo.get("wx"), alpha, rank,
+                                              sl)
     xc = _causal_conv(p["conv_w"], val, dtype)
     a, b = _gates(p, xc)
     if h0 is None:
@@ -112,7 +137,7 @@ def _rglru_core(p, x, cfg: ModelConfig, h0, lo):
     K = cfg.ssm_conv
     tail = val[:, -(K - 1):, :] if S >= K - 1 else \
         F.pad(val, (0, 0, K - 1 - S, 0))
-    return _out(p, y, lo, cfg), {"h": h_last, "conv": tail}
+    return _out(p, y, lo, cfg, sl), {"h": h_last, "conv": tail}
 
 
 def _block_params(p):
@@ -122,13 +147,66 @@ def _block_params(p):
     return out
 
 
+def _rglru_dist(p, x, cfg: ModelConfig, lo, h0, rt):
+    """The width-parallel body on each rank (``shard_map`` over the LRU
+    width), as ``models.ssm._mamba_dist``: the rank's channels and gate
+    blocks, the output's partial summed over ``model`` (reduce-scattered
+    to sequence shards with ``cfg.seq_shard``), checkpointed inside."""
+    B, S, _ = x.shape
+    m, tp, dp = rt.tp_size, rt.tp_axis, rt.dp_axes
+    pspec = rglru_partition_specs(cfg, tp)
+    seq_out = tp if (cfg.seq_shard and S % m == 0 and S > 1) else None
+    names = sorted(pspec)
+    lo = {k: v for k, v in lo.items() if k in ("wx", "wy", "out_proj")}
+    lo_names = sorted(lo)
+    x_l = rt_lib.shard_in(x, P(dp, seq_out, None), rt)
+    p_l = [rt_lib.shard_in(p[k], pspec[k], rt) for k in names]
+    lo_l = [rt_lib.shard_in(lo[k][f], P(), rt) for k in lo_names
+            for f in ("a", "b")]
+    h0_l = None if h0 is None else rt_lib.shard_in(h0, P(dp, tp), rt)
+    r = rt.index(tp)
+
+    def body(x_l, h0_l, *flat):
+        pl = dict(zip(names, flat[:len(names)]))
+        ll = {k: {"a": flat[len(names) + 2 * i],
+                  "b": flat[len(names) + 2 * i + 1]}
+              for i, k in enumerate(lo_names)}
+        if seq_out:
+            x_l = rt_lib.all_gather(x_l, tp, rt, dim=1)
+        out, cache = _rglru_core(pl, x_l, cfg, h0_l, ll, shard=(r, m))
+        if seq_out:
+            out = rt_lib.psum_scatter(out, tp, rt, dim=1)
+        else:
+            out = rt_lib.psum(out, tp, rt)
+        return out, cache["h"], cache["conv"]
+
+    args = (x_l, h0_l, *p_l, *lo_l)
+    if torch.is_grad_enabled():
+        out, h, conv = checkpoint(body, *args, use_reentrant=False)
+    else:
+        out, h, conv = body(*args)
+    return (rt_lib.shard_out(out, P(dp, seq_out, None), rt),
+            {"h": rt_lib.shard_out(h, P(dp, tp), rt),
+             "conv": rt_lib.shard_out(conv, P(dp, None, tp), rt)})
+
+
 def rglru_block(p, x, cfg: ModelConfig, *, lora=None, h0=None):
     """x: (B, S, d) -> (y (B, S, d), cache {"h": h_last, "conv": tail})."""
     if cfg.calibrate:
         raise NotImplementedError(
             "cfg.calibrate (the dry run's single-chunk scan) is not ported "
-            "yet; it comes with the dry run (ROADMAP Queue A item 8.5)")
-    return _rglru_core(_block_params(p), x, cfg, h0, lora or {})
+            "yet; it comes with the dry run (ROADMAP Queue A item 8.6)")
+    p, lo = _block_params(p), lora or {}
+    rt = rt_lib.get_runtime()
+    if rt is None:
+        return _rglru_core(p, x, cfg, h0, lo)
+    w = cfg.lru_width or cfg.d_model
+    if w % rt.tp_size or GATE_BLOCKS % rt.tp_size or \
+            x.shape[0] % rt.dp_size:
+        rt_lib.dist_trace("rglru_block_fallback")
+        return _rglru_core(p, x, cfg, h0, lo)
+    rt_lib.dist_trace("rglru_block_dist")
+    return _rglru_dist(p, x, cfg, lo, h0, rt)
 
 
 def rglru_decode(p, x, cache, cfg: ModelConfig, *, lora=None):

@@ -20,23 +20,34 @@ rglru`): plain PyTorch on every device, as it is plain ``jnp`` in the
 JAX package (the ``selective_scan`` kernel computes the Mamba
 recurrence, with a state dimension and a C readout, not this one).
 
-Not ported here: a start state ``h0`` for ``mamba_block`` (no caller in
-the JAX package passes one), ``cfg.calibrate`` and the Mamba block's
-chunked scan ``_chunked_ssm_scan`` come with the dry run (ROADMAP Queue
-A item 8.5).
+A start state ``h0`` runs the recurrence from it in plain PyTorch
+(``_scan_from``), as the JAX package takes its chunked scan, not the
+kernel, when h0 is given. Under a Runtime whose model axis divides
+d_inner (and whose dp axes divide the batch), ``mamba_block`` runs the
+JAX package's channel-parallel body on each rank: its d_inner / m
+channels of every projection, ``x_proj``'s partial summed over
+``model``, the ``selective_scan`` kernel on the rank's channels, the
+output projection's partial summed (or reduce-scattered back to
+sequence shards with ``cfg.seq_shard``), checkpointed inside the body.
+``cfg.calibrate`` (the dry run's single-chunk scan, ``_chunked_ssm_scan``)
+is not ported yet: ROADMAP Queue A item 8.6.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import maybe_dequantize
 from repro_torch.kernels import ops as kops
+from repro_torch.models import runtime as rt_lib
 from repro_torch.models.layers import _normal
+from repro_torch.models.runtime import P
 
 _LATER = ("is not ported yet; it comes with the dry run "
-          "(ROADMAP Queue A item 8.5)")
+          "(ROADMAP Queue A item 8.6)")
 
 
 # ---------------------------------------------------------------- scan util
@@ -106,6 +117,21 @@ def init_mamba(generator, cfg: ModelConfig, dtype, device):
     }
 
 
+def mamba_partition_specs(cfg: ModelConfig, tp_axis="model", lead=()):
+    """Per-leaf specs: the d_inner dim over the tp axis. Shared by the
+    sharding rules and the block's body (they must agree)."""
+    nl = (None,) * len(lead)
+    return {"in_proj_x": P(*nl, None, tp_axis),
+            "in_proj_z": P(*nl, None, tp_axis),
+            "conv_w": P(*nl, None, tp_axis),
+            "x_proj": P(*nl, tp_axis, None),
+            "dt_proj": P(*nl, None, tp_axis),
+            "dt_bias": P(*nl, tp_axis),
+            "a_log": P(*nl, tp_axis, None),
+            "d_skip": P(*nl, tp_axis),
+            "out_proj": P(*nl, tp_axis, None)}
+
+
 def mamba_cache_init(cfg: ModelConfig, batch: int, dtype, device):
     """An empty decode cache: the state ``h`` (B, di, N) in fp32 and the
     conv window's last K - 1 inputs ``conv`` (B, K - 1, di) in the model
@@ -128,57 +154,137 @@ def _causal_conv(conv_w: torch.Tensor, x1: torch.Tensor, dtype):
     return F.conv1d(xp, w, groups=di).transpose(1, 2)
 
 
-def _lora_delta(x: torch.Tensor, pair, alpha: float, rank: int):
+def _lora_delta(x: torch.Tensor, pair, alpha: float, rank: int, sl=None):
     """``(alpha/r)·(x@A)@B`` with ``h`` in the trainable dtype, cast to
-    x's dtype."""
+    x's dtype; ``sl = (start, width)`` takes B's columns of a channel
+    shard."""
     if pair is None:
         return 0.0
     h = x.to(pair["a"].dtype) @ pair["a"]
-    return ((h @ pair["b"]) * (alpha / rank)).to(x.dtype)
+    b = pair["b"] if sl is None else pair["b"].narrow(1, *sl)
+    return ((h @ b) * (alpha / rank)).to(x.dtype)
 
 
-def _mamba_core(p, x: torch.Tensor, cfg: ModelConfig, lo):
-    """x: (B, S, d) -> (out, cache) with dense layer weights ``p``."""
+def _scan_from(dt, x, Bm, Cm, A, h0):
+    """The selective scan from a start state ``h0`` (B, di, N), in plain
+    PyTorch (fp32): the step ``h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t``,
+    ``y_t = h_t · C_t``. Returns (y (B, S, di), h_last)."""
+    h, ys = h0.to(torch.float32), []
+    for t in range(dt.shape[1]):
+        h = torch.exp(dt[:, t, :, None] * A) * h + \
+            (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cm[:, t]))
+    return torch.stack(ys, 1), h
+
+
+def _mamba_core(p, x: torch.Tensor, cfg: ModelConfig, lo, h0=None, *,
+                shard=None, rt=None):
+    """x: (B, S, d) -> (out, cache) with dense layer weights ``p``. With
+    ``shard=(r, m)`` the weights are rank r's d_inner / m channels and the
+    output is a partial sum over the model axis (the caller reduces)."""
     S = x.shape[1]
     dtype = x.dtype
     N, R, K = cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
     alpha, rank = cfg.lora_alpha, cfg.lora_rank
+    di_l = p["in_proj_x"].shape[-1]
+    sl = None if shard is None else (shard[0] * di_l, di_l)
 
     x1 = x @ p["in_proj_x"].to(dtype) + _lora_delta(
-        x, lo.get("in_proj_x"), alpha, rank)
+        x, lo.get("in_proj_x"), alpha, rank, sl)
     z = x @ p["in_proj_z"].to(dtype)
     xc = F.silu(_causal_conv(p["conv_w"], x1, dtype))
 
     proj = (xc @ p["x_proj"].to(dtype)).to(torch.float32)
+    if shard is not None:
+        proj = rt_lib.psum(proj, rt.tp_axis, rt)
     dt_r, Bm, Cm = torch.split(proj, [R, N, N], dim=-1)
     dt = F.softplus(dt_r @ p["dt_proj"].to(torch.float32) + p["dt_bias"])
     A = -torch.exp(p["a_log"])
     xcf = xc.to(torch.float32)
     with torch.profiler.record_function("mamba.scan"):
-        y, h_last = kops.selective_scan(dt, xcf, Bm, Cm, A)
+        if h0 is None:
+            y, h_last = kops.selective_scan(dt, xcf, Bm, Cm, A)
+        else:
+            y, h_last = _scan_from(dt, xcf, Bm, Cm, A, h0)
     y = y + p["d_skip"] * xcf
     y = y.to(dtype) * F.silu(z)
-    out = y @ p["out_proj"].to(dtype) + _lora_delta(
-        y, lo.get("out_proj"), alpha, rank)
+    out = y @ p["out_proj"].to(dtype)
+    pair = lo.get("out_proj")
+    if pair is not None:
+        a = pair["a"] if sl is None else pair["a"].narrow(0, *sl)
+        h = y.to(a.dtype) @ a
+        out = out + ((h @ pair["b"]) * (alpha / rank)).to(dtype)
     tail = x1[:, -(K - 1):, :] if S >= K - 1 else \
         F.pad(x1, (0, 0, K - 1 - S, 0))
     return out, {"h": h_last, "conv": tail}
 
 
+def _mamba_dist(p, x, cfg: ModelConfig, lo, h0, rt):
+    """The channel-parallel body on each rank (``shard_map`` over
+    d_inner): the rank's channels of the dequantized weights, the
+    sequence all-gathered in and the output reduce-scattered back when
+    ``cfg.seq_shard`` splits it, else the output summed over ``model``;
+    checkpointed inside, so the backward recomputes the body from its
+    sharded inputs."""
+    B, S, _ = x.shape
+    m, tp, dp = rt.tp_size, rt.tp_axis, rt.dp_axes
+    pspec = mamba_partition_specs(cfg, tp)
+    seq_out = tp if (cfg.seq_shard and S % m == 0 and S > 1) else None
+    names = sorted(pspec)
+    lo = {k: v for k, v in lo.items() if k in ("in_proj_x", "out_proj")}
+    lo_names = sorted(lo)
+    x_l = rt_lib.shard_in(x, P(dp, seq_out, None), rt)
+    p_l = [rt_lib.shard_in(p[k], pspec[k], rt) for k in names]
+    lo_l = [rt_lib.shard_in(lo[k][f], P(), rt) for k in lo_names
+            for f in ("a", "b")]
+    h0_l = None if h0 is None else rt_lib.shard_in(h0, P(dp, tp, None), rt)
+    r = rt.index(tp)
+
+    def body(x_l, h0_l, *flat):
+        pl = dict(zip(names, flat[:len(names)]))
+        ll = {k: {"a": flat[len(names) + 2 * i],
+                  "b": flat[len(names) + 2 * i + 1]}
+              for i, k in enumerate(lo_names)}
+        if seq_out:
+            x_l = rt_lib.all_gather(x_l, tp, rt, dim=1)
+        out, cache = _mamba_core(pl, x_l, cfg, ll, h0_l, shard=(r, m), rt=rt)
+        if seq_out:
+            out = rt_lib.psum_scatter(out, tp, rt, dim=1)
+        else:
+            out = rt_lib.psum(out, tp, rt)
+        return out, cache["h"], cache["conv"]
+
+    args = (x_l, h0_l, *p_l, *lo_l)
+    if torch.is_grad_enabled():
+        out, h, conv = checkpoint(body, *args, use_reentrant=False)
+    else:
+        out, h, conv = body(*args)
+    return (rt_lib.shard_out(out, P(dp, seq_out, None), rt),
+            {"h": rt_lib.shard_out(h, P(dp, tp, None), rt),
+             "conv": rt_lib.shard_out(conv, P(dp, None, tp), rt)})
+
+
 def mamba_block(p, x: torch.Tensor, cfg: ModelConfig, *, lora=None,
                 h0=None):
-    """x: (B, S, d) -> (y (B, S, d), cache {"h": h_last, "conv": tail}).
+    """x: (B, S, d) -> (y (B, S, d), cache {"h": h_last, "conv": tail}),
+    from the start state ``h0`` (B, d_inner, N) when given, else zeros.
     The quantized leaves of ``p`` are dequantized to their output dtype
     first (QLoRA keeps them NF4 at rest). Profiler ranges name the
     decode (``mamba.dequantize``) and the scan (``mamba.scan``)."""
-    if h0 is not None:
-        raise NotImplementedError("a start state h0 " + _LATER)
     if cfg.calibrate:
         raise NotImplementedError(
             "cfg.calibrate (the dry run's chunked scan) " + _LATER)
     with torch.profiler.record_function("mamba.dequantize"):
         p = {k: maybe_dequantize(v) for k, v in p.items()}
-    return _mamba_core(p, x, cfg, lora or {})
+    lo = lora or {}
+    rt = rt_lib.get_runtime()
+    if rt is None:
+        return _mamba_core(p, x, cfg, lo, h0)
+    if cfg.d_inner % rt.tp_size or x.shape[0] % rt.dp_size:
+        rt_lib.dist_trace("mamba_block_fallback")
+        return _mamba_core(p, x, cfg, lo, h0)
+    rt_lib.dist_trace("mamba_block_dist")
+    return _mamba_dist(p, x, cfg, lo, h0, rt)
 
 
 def mamba_decode(p, x: torch.Tensor, cache, cfg: ModelConfig, *,

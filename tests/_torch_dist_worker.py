@@ -1,0 +1,340 @@
+"""Spawned gloo worlds for the port's distributed CPU tests (a helper
+module, not collected).
+
+``spawn(case, world, inputs)`` starts ``world`` processes, one a rank,
+rendezvousing over a ``FileStore`` in a fresh temporary directory (no
+port), each with one thread; every rank runs ``CASES[case](inputs)``
+and saves what it returns. The parent waits at most ``timeout``
+seconds: a hung collective fails the test instead of hanging the run.
+Returns the ranks' results in rank order. The ranks import torch and
+``repro_torch`` only; the tests compute their JAX references in the
+parent and pass tensors in ``inputs``.
+"""
+from __future__ import annotations
+
+import hashlib
+import os
+import sys
+import tempfile
+import time
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "src")
+
+
+def _rank_main(rank, world, tmp, case):
+    torch.set_num_threads(1)
+    if SRC not in sys.path:
+        sys.path.insert(0, SRC)
+    out = os.path.join(tmp, f"rank{rank}.pt")
+    try:
+        dist.init_process_group(
+            "gloo", init_method="file://" + os.path.join(tmp, "store"),
+            rank=rank, world_size=world)
+        inputs = torch.load(os.path.join(tmp, "inputs.pt"),
+                            weights_only=False)
+        res = CASES[case](inputs)
+        torch.save(res, out)
+    except BaseException:
+        torch.save({"error": traceback.format_exc()}, out)
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn(case: str, world: int, inputs=None, timeout: float = 300.0):
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(inputs or {}, os.path.join(tmp, "inputs.pt"))
+        ctx = mp.start_processes(_rank_main, args=(world, tmp, case),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.time() + timeout
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.time() > deadline:
+                    raise TimeoutError(f"{case}: world of {world} did not "
+                                       f"finish in {timeout} s")
+        except mp.ProcessRaisedException:
+            pass
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        res = []
+        for r in range(world):
+            path = os.path.join(tmp, f"rank{r}.pt")
+            if not os.path.exists(path):
+                raise RuntimeError(f"{case}: rank {r} wrote no result")
+            res.append(torch.load(path, weights_only=False))
+    errs = [r["error"] for r in res if isinstance(r, dict) and "error" in r]
+    if errs:
+        raise RuntimeError(f"{case} failed on a rank:\n{errs[0]}")
+    return res
+
+
+# -- cases ----------------------------------------------------------------
+def _rt():
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import runtime as rt_lib
+    mesh = make_debug_mesh((2, 2, 2), ("pod", "data", "model"))
+    return rt_lib.Runtime(mesh=mesh, dp_axes=("pod", "data"),
+                          tp_axis="model")
+
+
+def _grads(fn, args):
+    """``fn(*args)``'s output and the gradient of ``sum(out**2)`` w.r.t.
+    every tensor in ``args`` (``args``' leaves made to require grad)."""
+    args = [a.detach().requires_grad_(True) for a in args]
+    with torch.enable_grad():
+        out = fn(*args)
+        y = out[0] if isinstance(out, tuple) else out
+        gs = torch.autograd.grad((y * y).sum(), args)
+    return out, [g.detach() for g in gs]
+
+
+def _local_and_dist(rt, fn, args):
+    from repro_torch.models import runtime as rt_lib
+    local = _grads(fn, args)
+    with rt_lib.runtime(rt):
+        dist_ = _grads(fn, args)
+    return local, dist_
+
+
+def _detach(x):
+    if isinstance(x, dict):
+        return {k: _detach(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_detach(v) for v in x)
+    return x.detach() if isinstance(x, torch.Tensor) else x
+
+
+def model_bodies(inp):
+    """Every Runtime body on the (2, 2, 2) mesh against the port's local
+    path in the same process; the outputs come back for the parent to
+    hold against the JAX package's local paths."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.kernels import ops
+    from repro_torch.launch import shardings
+    from repro_torch.models import moe, rglru, ssm
+    from repro_torch.models import runtime as rt_lib
+    from repro_torch.models import build_model
+    from repro_torch.core import optim
+    rt = _rt()
+    out = {}
+    rt_lib.reset_dist_traces()
+
+    # the MoE: sequence-sharded, decode, NF4 experts, pre-cut shards, int8
+    cfg, p, x = inp["moe_cfg"], inp["moe_p"], inp["moe_x"]
+    f = lambda x_: moe.moe_ffn(p, x_, cfg)
+    (yl, gl), (yd, gd) = _local_and_dist(rt, f, [x])
+    out["moe_local"], out["moe_dist"] = _detach(yl[0]), _detach(yd[0])
+    out["moe_aux"] = _detach(yd[1])
+    out["moe_dx_local"], out["moe_dx_dist"] = gl[0], gd[0]
+    with rt_lib.runtime(rt):
+        with torch.no_grad():
+            out["moe_decode"] = moe.moe_ffn(p, x[:, :1], cfg)[0]
+            cut = shardings.rank_params(cfg, {"moe": {
+                k: (v[None] if k != "router" else v) for k, v in p.items()}},
+                rt)["moe"]
+            cut = {k: (v[0] if k != "router" else v) for k, v in cut.items()}
+            out["moe_precut"] = moe.moe_ffn(cut, x, cfg)[0]
+            out["moe_cut_shapes"] = {k: tuple(v.shape) for k, v in
+                                     cut.items()}
+            q8 = cfg.replace(moe_dispatch_bits=8)
+            out["moe_q8"] = moe.moe_ffn(p, x, q8)[0]
+            out["moe_q8_decode"] = moe.moe_ffn(p, x[:, :1], q8)[0]
+            pq = inp["moe_pq"]
+            out["moe_nf4_dist"] = moe.moe_ffn(pq, x, cfg)[0]
+        _, gq8 = _grads(lambda x_: moe.moe_ffn(p, x_, q8), [x])
+        out["moe_q8_dx"] = gq8[0]
+    with torch.no_grad():
+        out["moe_nf4_local"] = moe.moe_ffn(inp["moe_pq"], x, cfg)[0]
+    # the send buffer's int8 codes, as the body quantizes them
+    codes = moe._q8_rows(inp["q8_rows"])
+    out["q8_codes"] = (codes[0], codes[1])
+
+    # attention: GQA (6 heads, 3 KV) and MQA with padded heads (5, 1)
+    for name in ("fa_gqa", "fa_mqa"):
+        q, k, v = inp[name]
+        fn = lambda q_, k_, v_: ops.flash_attention(q_, k_, v_, causal=True,
+                                                    window=8)
+        (ol, gl), (od, gd) = _local_and_dist(rt, fn, [q, k, v])
+        out[name] = (_detach(od), gl, gd)
+
+    # split-KV decode attention, and a slot count the model axis does
+    # not divide (the local fallback)
+    with rt_lib.runtime(rt), torch.no_grad():
+        out["dec_attn"] = ops.decode_attention(*inp["dec_attn"])
+        out["dec_attn_odd"] = ops.decode_attention(*inp["dec_attn_odd"])
+
+    # the recurrent blocks, with and without sequence sharding
+    for name, block in (("mamba", ssm.mamba_block),
+                        ("rglru", rglru.rglru_block)):
+        cfg_b, p_b, lo_b, x_b = inp[name]
+        for seq in (True, False):
+            c = cfg_b.replace(seq_shard=seq)
+            lo_leaves = tree_lib.leaves(lo_b)
+
+            def fn(x_, *ls, c=c):
+                lo_ = tree_lib.from_leaves(lo_b, list(ls))
+                return block(p_b, x_, c, lora=lo_)
+            (ol, gl), (od, gd) = _local_and_dist(rt, fn, [x_b, *lo_leaves])
+            out[f"{name}_{seq}"] = (_detach(od), gl, gd)
+        with rt_lib.runtime(rt), torch.no_grad():
+            out[f"{name}_fallback"] = block(p_b, x_b[:2], cfg_b, lora=lo_b)
+    h0 = inp["mamba_h0"]
+    cfg_b, p_b, lo_b, x_b = inp["mamba"]
+    with torch.no_grad():
+        out["mamba_h0_local"] = ssm.mamba_block(p_b, x_b, cfg_b, lora=lo_b,
+                                                h0=h0)
+        with rt_lib.runtime(rt):
+            out["mamba_h0_dist"] = ssm.mamba_block(p_b, x_b, cfg_b,
+                                                   lora=lo_b, h0=h0)
+
+    # the dense model: a decode step and a full train step
+    ycfg, fz, tr, cache, tok, pos = inp["yi_decode"]
+    model = build_model(ycfg)
+    with rt_lib.runtime(rt):
+        out["yi_decode"] = model.decode_step(fz, tr, cache, tok, pos)[0]
+    ycfg, fz, tr, batch = inp["yi_train"]
+    model = build_model(ycfg)
+    (ll, pl), gl = model.grads(fz, tr, batch)
+    with rt_lib.runtime(rt):
+        (ld, pd), gd = model.grads(fz, tr, batch)
+        t2, _, m = model.train_step(fz, tr, optim.adam_init(tr), batch,
+                                    lr=1e-3)
+    t2l, _, ml = model.train_step(fz, tr, optim.adam_init(tr), batch,
+                                  lr=1e-3)
+    out["yi_train"] = dict(loss=(ll, ld), grads=(gl, gd), after=(t2l, t2),
+                           metrics=(ml, m))
+    out["dist_traces"] = dict(rt_lib.DIST_TRACES)
+    return out
+
+
+def _draws_digest():
+    """A digest of every host-side draw the engines consume."""
+    from repro_torch.core import gan as gan_lib
+    from repro_torch.fl import cohort as cohort_lib
+    from repro_torch.fl.sched.policies import SyncPartialScheduler
+    from repro_torch.fl.sched.traces import resolve_trace
+    h = hashlib.sha256()
+    d = cohort_lib.SeededDraws(5)
+    sched = SyncPartialScheduler(
+        executor=object(), trace=resolve_trace("skewed-het", 16, seed=0),
+        local_steps=2, clients_per_round=5)
+    c = sched.select(0, cohort_lib.RoundKey(d, (3, 0)))
+    h.update(np.asarray(c.sel).tobytes())
+    h.update(np.asarray(c.n_steps).tobytes())
+    idx = cohort_lib.round_indices(cohort_lib.RoundKey(d, (3, 1)),
+                                   [7, 9, 13, 21, 5], 4, 8)
+    h.update(idx.tobytes())
+    cfg = gan_lib.GANConfig(n_classes=7)
+    for i in range(3):
+        s = gan_lib.SeededGANStream((0, 1000 + i))
+        for leaf in _flat(s.init(cfg)):
+            h.update(leaf)
+        for a in gan_lib.train_draws(s, cfg, 17, 6, 8):
+            h.update(np.asarray(a).tobytes())
+        h.update(np.asarray(gan_lib.synth_draws(s, cfg, 5)).tobytes())
+    return h.hexdigest()
+
+
+def _flat(tree):
+    from repro_torch import tree as tree_lib
+    return [np.asarray(l).tobytes() for l in tree_lib.leaves(tree)]
+
+
+def draws(inp):
+    return {"world": dist.get_world_size(), "digest": _draws_digest()}
+
+
+class FixedDraws:
+    """Batch indices drawn ahead (by the JAX package, in the parent),
+    served by their key path."""
+
+    def __init__(self, by_path):
+        self.by_path = by_path
+
+    def batch_indices(self, path, lens, steps, batch):
+        return self.by_path[tuple(path)]
+
+
+def _cohort_clients(spec):
+    from repro_torch.fl import client as client_lib
+    from repro_torch.fl.strategies import STRATEGIES
+    strat = STRATEGIES[spec["arm"]]
+    return strat, [client_lib.Client(
+        cid=i, images=im, labels=lb, n_classes=spec["n_classes"],
+        strategy=strat) for i, (im, lb) in enumerate(spec["data"])]
+
+
+def _gan_clients(spec):
+    from repro_torch.core import gan as gan_lib
+    from repro_torch.fl import client as client_lib
+    from repro_torch.fl.strategies import STRATEGIES
+    clients = [client_lib.Client(cid=i, images=im, labels=lb, n_classes=7,
+                                 strategy=STRATEGIES["tripleplay"])
+               for i, (im, lb) in enumerate(spec["data"])]
+    return clients, [gan_lib.SeededGANStream((0, 1000 + i))
+                     for i in range(len(clients))]
+
+
+def cohort_mesh(inp):
+    """The cohort engine's full and subset rounds on a data mesh of 4
+    shards (``(data=4, model=2)``: each shard replicated over ``model``)
+    and the fleet GAN on the same mesh, each beside the unsharded engine
+    in the same process; the host draws' digest."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.fl import cohort as cohort_lib
+    from repro_torch.fl import fleetgan
+    from repro_torch.fl import runtime as runtime_lib
+    from repro_torch.launch.mesh import Mesh
+    res = {"digest": _draws_digest(), "world": dist.get_world_size()}
+    spec = inp["cohort"]
+    draws = FixedDraws(spec["indices"])
+    mesh4 = Mesh((4, 2), ("data", "model"))
+    for name, mesh in (("local", None), ("mesh", mesh4)):
+        strat, clients = _cohort_clients(spec)
+        eng = cohort_lib.CohortEngine(
+            frozen=spec["frozen"], ccfg=spec["ccfg"],
+            class_emb=spec["class_emb"], clients=clients,
+            cfg=cohort_lib.CohortConfig(
+                strategy=strat, local_steps=spec["steps"], batch_size=8,
+                lr=3e-3, mesh=mesh))
+        out = {"shards": eng.shards, "rows": eng.pool_staged.shape[0]}
+        for label, sel, path in spec["rounds"]:
+            key = cohort_lib.RoundKey(draws, path)
+            if sel is None:
+                t, m = eng.run_round(spec["global"], key)
+            else:
+                t, m = eng.run_subset_round(spec["global"], sel, key)
+            out[label] = (_detach(t), _detach(m))
+        res[name] = out
+    # the fleet GAN on the 4 data shards (5 clients pad to 8: 3 rider
+    # rows, 2 rows a shard) beside the unsharded fleet
+    for name, mesh in (("fleet_local", None), ("fleet_mesh", mesh4)):
+        clients, streams = _gan_clients(inp["fleet"])
+        rep = fleetgan.prepare_gan_fleet(
+            clients, streams, steps=inp["fleet"]["steps"],
+            fleet_cfg=fleetgan.FleetGANConfig(mesh=mesh),
+            runtime=runtime_lib.ProgramRuntime(), device="cpu")
+        res[name] = dict(
+            n_eligible=rep.n_eligible, n_synth=rep.n_synth,
+            groups=list(rep.groups),
+            params=[None if c.gan_params is None else
+                    [l.clone() for l in tree_lib.leaves(c.gan_params)]
+                    for c in clients],
+            images=[c.aug_images for c in clients],
+            labels=[c.aug_labels for c in clients])
+    return res
+
+
+CASES = {"model_bodies": model_bodies, "draws": draws,
+         "cohort_mesh": cohort_mesh}

@@ -60,7 +60,7 @@ def test_unported_families_raise_naming_their_slice(arch):
     """The family's reduced NF4 ``init_params`` tree is the JAX
     package's leaf for leaf (paths, shapes, dtypes, QTensor fields), and
     the part still to port, the dry run's ``calibrate``, raises naming
-    its slice (ROADMAP Queue A item 8.5)."""
+    its slice (ROADMAP Queue A item 8.6)."""
     from repro.core import quant as jq
     from repro_torch import tree as tree_lib
     from repro_torch.core import quant as qlib
@@ -92,7 +92,7 @@ def test_unported_families_raise_naming_their_slice(arch):
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
     if jcfg.family == "encdec":
         batch["frames"] = torch.zeros((1, jcfg.n_frames, jcfg.d_model))
-    with pytest.raises(NotImplementedError, match="item 8.5"):
+    with pytest.raises(NotImplementedError, match="item 8.6"):
         cal.forward(params["frozen"], params["trainable"], batch)
 
 

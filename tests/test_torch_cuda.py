@@ -1026,3 +1026,123 @@ def test_cuda_decode_loop_makes_no_host_wait(cuda_device, arch):
         assert ops.KERNEL_TRACES["lora_matmul_cuda"] == \
             7 * cfg.n_layers * 16
     assert len(out) == 16 and int(torch.cat(out, 1).max()) < cfg.vocab_size
+
+
+# -- the mesh and the expert-parallel runtime on one card -----------------
+
+@pytest.fixture
+def nccl_world(cuda_device):
+    """The NCCL world of one rank (``launch.mesh.init_world``) and its
+    ``(pod=1, data=1, model=1)`` Runtime."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import runtime as rt_lib
+    mesh_lib.init_world(cuda_device)
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    mesh = mesh_lib.make_debug_mesh((1, 1, 1))
+    return rt_lib.Runtime(mesh, ("pod", "data"), "model")
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world_of_one_runs_every_collective(nccl_world):
+    """Each collective the bodies use, issued on the NCCL world group
+    directly (the bodies skip collectives over one rank): all-to-all,
+    all-gather, all-reduce, reduce-scatter, bf16, fp32 and int8."""
+    import torch.distributed as dist
+    for dt in (torch.float32, torch.bfloat16, torch.int8):
+        x = (torch.arange(12, device="cuda") % 7).to(dt)
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x)
+        assert torch.equal(out, x)
+        dist.all_gather_into_tensor(out, x)
+        assert torch.equal(out, x)
+        y = x.clone()
+        dist.all_reduce(y)
+        assert torch.equal(y, x)
+        dist.reduce_scatter_tensor(out, x)
+        assert torch.equal(out, x)
+    assert nccl_world.tp_size == nccl_world.dp_size == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_cuda_moe_under_the_runtime_matches_the_local_path(nccl_world,
+                                                           quant):
+    """Reduced Qwen3-MoE's layer through the expert-parallel body on the
+    card (the per-expert loop; NF4 experts through the ``quant_matmul``
+    kernel and its dx) against the local path: equal routes, output and
+    input gradient within 1e-5 (fp32, TF32 off); the body traced as
+    ``moe_ffn_dist_seq`` / ``moe_ffn_dist_decode``."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import quant as qlib
+    from repro_torch.models import moe
+    from repro_torch.models import runtime as rt_lib
+    cfg = get_reduced("qwen3-moe-235b-a22b")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    p = moe.init_experts(g, cfg, torch.float32, "cuda")
+    if quant:
+        p = {k: v if k == "router" else qlib.quantize(
+            v, bits=4, block=64, mode="nf4") for k, v in p.items()}
+    x = torch.randn((4, 8, cfg.d_model), generator=g, device="cuda") * 0.1
+    rt_lib.reset_dist_traces()
+    ops.reset_kernel_traces()
+    out = {}
+    for side, rt in (("local", None), ("dist", nccl_world)):
+        xr = x.clone().requires_grad_(True)
+        with rt_lib.runtime(rt):
+            y, aux = moe.moe_ffn(p, xr, cfg)
+            dx, = torch.autograd.grad((y * y).sum() + aux, xr)
+            yd, _ = moe.moe_ffn(p, x[:, :1], cfg)
+        out[side] = (y.detach(), aux.detach(), dx, yd)
+    for a, b in zip(out["dist"], out["local"]):
+        err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        assert err <= 1e-5, err
+    assert rt_lib.DIST_TRACES == {"moe_ffn_dist_seq": 1,
+                                  "moe_ffn_dist_decode": 1}
+    if quant:
+        assert ops.KERNEL_TRACES.get("quant_matmul_cuda", 0) > 0
+        assert not [k for k in ops.KERNEL_TRACES if k.endswith("_ref")]
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_of_one_cohort_round_matches_the_unsharded(nccl_world):
+    """A ``qlora_nogan`` cohort round with ``CohortConfig(mesh=)`` on the
+    mesh of one rank against the unsharded engine on the same weights
+    and draws: the trainables within 1e-5, losses within 1e-4, uplink
+    bytes equal (``chip_smoke.py`` phase 14 (d) runs it at ViT-B/32
+    width)."""
+    from repro_torch.core import clip as clip_lib
+    from repro_torch.data.synthetic import class_tokens, make_dataset
+    from repro_torch.fl import client as client_lib
+    from repro_torch.fl import cohort as cohort_lib
+    from repro_torch.fl import partition
+    from repro_torch.fl.strategies import STRATEGIES
+    strat = STRATEGIES["qlora_nogan"]
+    ccfg = clip_lib.CLIPConfig()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    frozen = clip_lib.init_clip(g, ccfg, device="cuda")
+    data = make_dataset("pacs", n_per_class=10, seed=0, longtail_gamma=2.0)
+    spec = data["spec"]
+    with torch.no_grad():
+        ce = clip_lib.text_embedding(frozen, ccfg, torch.as_tensor(
+            class_tokens(spec, np.arange(spec.n_classes)), device="cuda"))
+    parts = partition.dirichlet_partition(data["labels"], 4, 1.0, seed=0)
+    tr = client_lib.init_trainable(g, ccfg, strat, device="cuda")
+    key = cohort_lib.RoundKey(cohort_lib.SeededDraws(7), (3, 0))
+    res = {}
+    for name, mesh in (("local", None), ("mesh", nccl_world.mesh)):
+        clients = [client_lib.Client(
+            cid=i, images=data["images"][idx], labels=data["labels"][idx],
+            n_classes=spec.n_classes, strategy=strat)
+            for i, idx in enumerate(parts)]
+        eng = cohort_lib.CohortEngine(
+            frozen=frozen, ccfg=ccfg, class_emb=ce, clients=clients,
+            cfg=cohort_lib.CohortConfig(strategy=strat, local_steps=3,
+                                        batch_size=8, lr=3e-3, mesh=mesh))
+        res[name] = eng.run_round(tr, key)
+    (t0, m0), (t1, m1) = res["local"], res["mesh"]
+    from repro_torch import tree as tree_lib
+    for a, b in zip(tree_lib.leaves(t0), tree_lib.leaves(t1)):
+        assert float((a - b).abs().max()) <= 1e-5
+    assert float((m0["loss"] - m1["loss"]).abs().max()) <= 1e-4
+    assert m0["uplink_bytes"] == m1["uplink_bytes"]

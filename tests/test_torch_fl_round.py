@@ -589,22 +589,33 @@ def test_adapter_apply_stacked_is_per_client_apply(fl):
 
 
 def test_unported_engine_paths_raise(fl):
-    """What the engine still refuses: a mesh (Queue A item 8); and, as the
-    JAX engine does, a malformed subset or a step profile it was not
-    staged for. The int8 GAN gemms (Queue B item 9) are ported: the fleet
-    trains with them."""
+    """What the engine refuses, as the JAX engine does: a malformed
+    subset, a step profile it was not staged for, a cohort its mesh's
+    data-parallel shards do not divide, and a mesh-sharded fleet GAN
+    without bucketed batches. The mesh itself is ported (Queue A item
+    8.5; tests/test_torch_cohort_mesh.py), and so are the int8 GAN gemms
+    (Queue B item 9): the fleet trains with them."""
     for sel in ([0, 0], [3], []):
         with pytest.raises(ValueError, match="invalid client subset"):
             fl["eng_t"].run_subset_round(fl["global_t"], sel, fl["key_t"])
     with pytest.raises(ValueError, match="staged homogeneous"):
         fl["eng_t"].run_wave(fl["global_t"], [0, 1], fl["key_t"],
                              n_steps=[STEPS, STEPS - 1])
-    with pytest.raises(NotImplementedError):
-        tcohort.CohortConfig(strategy=fl["strat_t"], local_steps=1,
-                             batch_size=2, lr=1e-3, mesh=object())
-    # the GAN piece the tripleplay arm does not run: a mesh
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        fleetgan.FleetGANConfig(mesh=object())
+    # a mesh of 2 data-parallel shards (what the engine reads of a
+    # launch.mesh.Mesh) against the fixture's 3 clients
+    two = SimpleNamespace(axis_names=("data",), size=lambda axes: 2,
+                          index=lambda axes: 0)
+    with pytest.raises(ValueError, match="not divisible"):
+        tcohort.CohortEngine(
+            frozen=fl["eng_t"].frozen, ccfg=fl["eng_t"].ccfg,
+            class_emb=fl["eng_t"].class_emb, clients=fl["clients_t"],
+            cfg=tcohort.CohortConfig(strategy=fl["strat_t"], local_steps=1,
+                                     batch_size=2, lr=1e-3, mesh=two))
+    with pytest.raises(ValueError, match="bucket_batches"):
+        fleetgan.launch_gan_fleet(
+            [copy.copy(fl["clients_t"][0])], [tgan.SeededGANStream((0,))],
+            steps=1, fleet_cfg=fleetgan.FleetGANConfig(
+                mesh=two, bucket_batches=False), device="cpu")
     # a copy: the fleet writes its results onto the client
     client = copy.copy(fl["clients_t"][0])
     rep = fleetgan.prepare_gan_fleet(

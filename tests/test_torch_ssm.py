@@ -174,17 +174,28 @@ def test_mamba_block_matches_jax(pair, S):
 
 
 def test_ssm_branches_off_the_training_path_raise(pair):
-    """A start state and the dry run's calibrated scan raise, naming the
-    queue item that brings them; the decode branch is ported (its
-    parity is tests/test_torch_decode.py's) and steps an empty cache."""
-    _, tm, frozen, _ = pair
+    """The dry run's calibrated scan raises, naming the queue item that
+    brings it (ROADMAP Queue A item 8.6); a start state ``h0`` is ported
+    (the mesh's body passes one) and matches the JAX block from the same
+    state within its 1e-4 bound; the decode branch is ported (its parity
+    is tests/test_torch_decode.py's) and steps an empty cache."""
+    jm, tm, frozen, _ = pair
     p = jax.tree.map(lambda l: l[0], frozen["layers"])
     x = torch.zeros((1, 4, tm.cfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 8.5"):
-        ssm.mamba_block(_to_port(p), x, tm.cfg,
-                        h0=torch.zeros((1, tm.cfg.d_inner, 8)))
-    with pytest.raises(NotImplementedError, match="calibrate"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue A item 8.6"):
         ssm.mamba_block(_to_port(p), x, tm.cfg.replace(calibrate=True))
+    rs = np.random.RandomState(3)
+    xh = (rs.randn(2, 6, tm.cfg.d_model) * 0.5).astype(np.float32)
+    h0 = (rs.randn(2, tm.cfg.d_inner, tm.cfg.ssm_state) * 0.5).astype(
+        np.float32)
+    want, jc = jax.jit(lambda p_, x_, h_: jssm.mamba_block(
+        p_, x_, jm.cfg, h0=h_))(p, jnp.asarray(xh), jnp.asarray(h0))
+    got, gc = ssm.mamba_block(_to_port(p), torch.from_numpy(xh), tm.cfg,
+                              h0=torch.from_numpy(h0))
+    for g, w in ((got, want), (gc["h"], jc["h"])):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-4 * np.abs(w).max())
     cache = ssm.mamba_cache_init(tm.cfg, 1, torch.float32, "cpu")
     y, new = ssm.mamba_decode(_to_port(p), x[:, :1], cache, tm.cfg)
     assert y.shape == (1, 1, tm.cfg.d_model)
