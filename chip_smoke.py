@@ -136,7 +136,7 @@ Phases (a failed phase raises and the script exits non-zero):
     of token-copies dropped at capacity factor 1.25 (regions
     ``moe.dequantize`` and ``moe.experts``); (c) Whisper-medium's token
     mode and 2 ``Model.train_step``s on frames (4, 1500, 1024); (d)
-    LLaVA-NeXT-34B's (60 layers) with 576 image patches before 64
+    LLaVA-NeXT-34B's (30 of its 60 layers) with 576 image patches before 64
     tokens, the adapter's attention at D = 896; (e) bf16 full-width cuts
     of (a) (3 layers), (c) (2 + 2 layers, 250 frames) and (d) (2 layers,
     8 patches) card against CPU (logits, loss and the gradients' norm
@@ -172,6 +172,27 @@ Phases (a failed phase raises and the script exits non-zero):
     ``FleetGANConfig(mesh=)``, 10 steps, bitwise the unsharded fleet;
     (f) each kernel the bodies launched at the rank bodies' shapes
     against its plain version.
+15. the dry run and the autotuner: (a) ``cfg.calibrate`` with
+    ``unroll_layers`` at full width against the same config without, on
+    the same weights: Yi-9B NF4 at 1 and 2 layers on a 4 x 64 step
+    (bf16, phase 13's bounds), Falcon-Mamba-7B (the single-chunk scan
+    against the ``selective_scan`` kernels) and RecurrentGemma-2B (one
+    chunk of 512 against two of 256), fp32 within the JAX package's
+    chunked-vs-plain scan bound (1e-4), and inside phase 13 its
+    Qwen3-MoE under the Runtime of one in fp32, the batched expert
+    product against the per-expert loop (routes equal); launches of each
+    side; (b) ``launch/dryrun.py``'s account of phase 5's profiled Yi-9B
+    step, traced here on fake tensors: its ``argument_bytes`` equal to
+    the step's resident parameter, Adam and batch bytes, its peak beside
+    ``max_memory_allocated``, its FLOPs over the step's busy seconds as a
+    share of 989 TFLOP/s; (c) the production dry run's CLI (``yi-9b``
+    ``train_4k`` on the 16 x 16 fake world, ``--fed-agg`` on 2 x 16 x 16)
+    in processes of their own, beside (a)-(b); (d) ``kernels/autotune``'s
+    sweep of ``lora_matmul``'s split count at Yi-9B's four decode shapes,
+    each count's ms beside ``plan``'s pick, a second sweep a pure hit,
+    and the winner through the op within the bf16 bound. The autotune
+    cache is a fresh file of the run's own (``REPRO_TORCH_AUTOTUNE_
+    CACHE``), so no phase reads a stale winner.
     The GAN phase (before phase 8) also runs the six convolutions
     through the int8 gemms against the fp32 gemm forms, timed, with the
     block products bitwise an int64 product on the CPU, and the int8
@@ -211,9 +232,12 @@ import dataclasses
 import functools
 import importlib.util
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -242,12 +266,14 @@ from repro_torch.fl import simulator as sim_lib  # noqa: E402
 from repro_torch.fl.strategies import (GAN_MIN_POOL,  # noqa: E402
                                        GAN_RNG_OFFSET, STRATEGIES)
 from repro_torch.kernels import gan_conv  # noqa: E402
-from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import autotune, build, ops, ref  # noqa: E402
 from repro_torch.kernels import blockwise_quant as bq_kernel  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
 from repro_torch.kernels import lora_matmul as lm_kernel  # noqa: E402
 from repro_torch.kernels import quant_matmul as qmm_kernel  # noqa: E402
 from repro_torch.kernels import selective_scan as ss_kernel  # noqa: E402
+from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import train as train_lib  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 
@@ -1541,6 +1567,12 @@ def train_phase(*, arch="yi-9b", rounds=2, clients=2, steps=2, batch=4,
                 f"launches {launches} in {n_steps} local steps")
     idx = np.random.RandomState(seed).randint(0, len(data[0]), batch)
     res["profile"] = profile_step(model, frozen, tr, data[0][idx], kernels)
+    # what the profiled step holds: params, Adam state and its batch
+    res["step"] = {"cfg": cfg, "batch": batch, "seq": seq,
+                   "resident_bytes": qlib.tree_bytes(frozen) +
+                   qlib.tree_bytes(tr) + qlib.tree_bytes(
+                       tuple(optim.adam_init(tr))) + qlib.tree_bytes(
+                       train_lib.make_batch(data[0][idx], device))}
     return res
 
 
@@ -1591,9 +1623,17 @@ def trainer_report(arch: str) -> dict:
         print(f"    {ms} {n}: {srcs}", flush=True)
     print(f"  step device time by region (ms): {prof['regions_ms']}",
           flush=True)
+    _STEP5[arch] = {**tres["step"], "busy_s": prof["device_busy_s"],
+                    "wall_s": prof["wall_s"],
+                    "max_memory_allocated": tres["max_memory_allocated"]}
     del tres
     torch.cuda.empty_cache()
     return launches
+
+
+# phases 5 and 7's profiled step (config, shape, resident bytes, busy
+# time), for the dry run's account in phase 15 (b)
+_STEP5: dict = {}
 
 
 def check_flash_round(gen) -> dict:
@@ -3333,8 +3373,10 @@ def token_serve_report() -> collections.Counter:
 # (arXiv:2402.19427), Qwen3-MoE-235B-A22B (hf:Qwen/Qwen3-30B-A3B config
 # shape), Whisper-medium (arXiv:2212.04356), LLaVA-NeXT-34B
 # (hf:llava-hf/llava-v1.6-mistral-7b-hf); Qwen3's depth is cut to fit one
-# card (NF4 is about 1.4 GB a layer)
+# card (NF4 is about 1.4 GB a layer), LLaVA's to half (60 -> 30) to make
+# room in the script's time for phase 15
 QWEN_LAYERS = 8
+LLAVA_LAYERS = 30
 ZOO_KERNELS = {
     "recurrentgemma-2b": TRAIN_KERNELS["recurrentgemma-2b"],
     "qwen3-moe-235b-a22b": TRAIN_KERNELS["qwen3-moe-235b-a22b"],
@@ -3867,12 +3909,14 @@ def zoo_report() -> collections.Counter:
     t_all = time.perf_counter()
     for arch, cut in (("recurrentgemma-2b", None),
                       ("qwen3-moe-235b-a22b", QWEN_LAYERS),
-                      ("whisper-medium", None), ("llava-next-34b", None)):
+                      ("whisper-medium", None),
+                      ("llava-next-34b", LLAVA_LAYERS)):
         t0 = time.perf_counter()
         full = get_config(arch).n_layers
         if cut:
-            print(f"  reduced: n_layers {full}->{cut} (NF4 ≈ 1.4 GB a "
-                  "layer)", flush=True)
+            why = "NF4 ≈ 1.4 GB a layer" if arch == "qwen3-moe-235b-a22b" \
+                else "the script's time"
+            print(f"  reduced: n_layers {full}->{cut} ({why})", flush=True)
         res, model, params = zoo_token_phase(arch, n_layers=cut)
         launches.update(res.pop("launches"))
         prof = res.pop("profile")
@@ -3881,6 +3925,8 @@ def zoo_report() -> collections.Counter:
         if arch == "qwen3-moe-235b-a22b":
             # phase 14 (c) on these weights: no second 128-expert init
             _QWEN14[0] = qwen_runtime_check(model, params, mesh_runtime())
+            # phase 15 (a) on the same weights
+            _QWEN15[0] = qwen_calibrate_check(model, params, mesh_runtime())
         if arch in TRAIN_KERNELS:
             tres = zoo_train_phase(arch, model, params)
             launches.update(tres.pop("launches"))
@@ -3937,6 +3983,7 @@ KIMI_TOKENS = dict(batch=4, prompt=64, gen=8)
 KIMI_KERNELS = ("lora_matmul", "flash_attention", "quant_matmul")
 _RT: list = [None]
 _QWEN14: list = [None]      # phase 14 (c), run inside phase 13
+_QWEN15: list = [None]      # phase 15 (a)'s Qwen3-MoE, run inside phase 13
 
 
 def mesh_runtime(device="cuda"):
@@ -4480,11 +4527,338 @@ def runtime_report(qwen_res=None) -> collections.Counter:
     return launches
 
 
+# -- phase 15: the dry run's calibrated paths and account; the autotuner --
+
+# (arch, layers, model dtype, tokens a sequence, bound): Yi-9B at phase
+# 13's bf16 bounds; Falcon-Mamba-7B and RecurrentGemma-2B in fp32 at the
+# JAX package's chunked-vs-plain scan bound (1e-4, tests/test_kernels.py)
+CALIBRATED = (("yi-9b", 1, "bfloat16", 64, 2e-2),
+              ("yi-9b", 2, "bfloat16", 64, 2e-2),
+              ("falcon-mamba-7b", 2, "float32", 64, 1e-4),
+              # 512 tokens: two of the config's 256-step chunks
+              ("recurrentgemma-2b", 3, "float32", 512, 1e-4))
+H100_BF16_FLOPS = 989e12
+
+
+def calibrated_check(arch: str, n_layers: int, dtype: str, seq: int,
+                     tol: float, *, seed=0, device="cuda") -> dict:
+    """Phase 15 (a): one 4 x ``seq`` step at ``arch``'s full width with
+    ``n_layers`` layers (NF4 block 64, seeded weights, the trainables
+    perturbed) with ``calibrate`` and ``unroll_layers`` against the same
+    config without, on the same weights: the logits (no grad), the loss
+    and every gradient leaf. The logits and the gradients' norm within
+    ``tol`` of the plain side's (the logits relative to their largest
+    magnitude), the loss within ``tol`` (bf16: phase 13's 1e-3), every
+    gradient leaf in norm within phase 13's 2e-2 but the two behind the
+    adapter's ReLU (reported: a pre-activation within rounding of zero
+    flips the gate, as in phase 4); the worst leaf is reported. The
+    launches of each side by kernel (zeroed before each, read after):
+    the calibrated Mamba scan is plain PyTorch, so its side launches no
+    ``selective_scan``."""
+    cfg = get_config(arch).replace(n_layers=n_layers, dtype=dtype, **CLI_NF4)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = build_model(cfg).init_params(gen, device=device)
+    frozen, tr = params["frozen"], perturbed(params["trainable"], gen,
+                                             device)
+    b = zoo_batch(cfg, device, seq=seq, seed=seed)
+    out = {}
+    for side, c in (("plain", cfg),
+                    ("calibrated", cfg.replace(calibrate=True,
+                                               unroll_layers=True))):
+        m = build_model(c)
+        ops.reset_launch_counts()
+        ops.reset_kernel_traces()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, _ = m.forward(frozen, tr, b)
+        (loss, _), g = m.grads(frozen, tr, b)
+        _sync(device)
+        out[side] = dict(logits=logits.float(), loss=float(loss), grads=g,
+                         s=time.perf_counter() - t0,
+                         launches={k: n for k, n in ops.launch_counts().items()
+                                   if n},
+                         traces=dict(ops.KERNEL_TRACES))
+    c, p = out["calibrated"], out["plain"]
+    errs = _leaf_norm_errs(c["grads"], convert.tree_to(p["grads"], "cpu"))
+    gn_c = float(optim.global_norm(c["grads"]))
+    gn_p = float(optim.global_norm(p["grads"]))
+    res = {"arch": arch, "layers": n_layers, "dtype": dtype, "seq": seq,
+           "tol": tol, "logits_rel": rel_err(c["logits"], p["logits"])[1],
+           "loss_rel": abs(c["loss"] - p["loss"]) / abs(p["loss"]),
+           "grad_norm_rel": abs(gn_c - gn_p) / gn_p,
+           "worst_grad_leaf": max(errs, key=errs.get),
+           "worst_grad_leaf_norm_rel": max(errs.values()),
+           "relu_gated_norm_rel": {k: errs[k] for k in RELU_GATED},
+           "launches_plain": p["launches"],
+           "launches_calibrated": c["launches"],
+           "s_plain": p["s"], "s_calibrated": c["s"]}
+    loss_tol = 1e-3 if dtype == "bfloat16" else tol
+    held_errs = {k: v for k, v in errs.items() if k not in RELU_GATED}
+    held = max(held_errs.values())
+    res["worst_held_leaf"] = max(held_errs, key=held_errs.get)
+    res["worst_held_leaf_norm_rel"] = held
+    if on_card(device) and any(k.endswith("_ref") for k in c["traces"]):
+        raise AssertionError(f"calibrated {arch} took plain kernel routes: "
+                             f"{c['traces']}")
+    if not (res["logits_rel"] <= tol and res["loss_rel"] <= loss_tol and
+            res["grad_norm_rel"] <= tol and
+            held <= 2e-2):
+        raise AssertionError(f"calibrated vs plain {arch}: {res}")
+    del out, params, frozen, tr
+    return res
+
+
+def on_card(device) -> bool:
+    return torch.device(device).type == "cuda"
+
+
+def qwen_calibrate_check(model, params, rt, device="cuda") -> dict:
+    """Phase 15 (a) on phase 13's Qwen3-MoE (8 layers, full width, its
+    weights), in fp32 under the world-of-one Runtime: the expert-parallel
+    body's batched expert product (``calibrate``: the rank's 128 experts
+    decoded and multiplied at once) against its per-expert loop (the
+    ``quant_matmul`` kernel an expert), forward on a 4 x 64 batch: every
+    routing call's expert ids and kept slots equal, the logits within
+    1e-4 of the largest and the loss within 1e-5 (phase 14 (c)'s fp32
+    bounds). Launches by kernel of each side."""
+    from repro_torch.models import runtime as rt_lib
+    cfg32 = model.cfg.replace(dtype="float32")
+    f32, t32 = _to_fp32(params["frozen"]), _to_fp32(params["trainable"])
+    b = zoo_batch(cfg32, device)
+    out = {}
+    for side, c in (("loop", cfg32),
+                    ("batched", cfg32.replace(calibrate=True,
+                                              unroll_layers=True))):
+        m = build_model(c)
+        ops.reset_launch_counts()
+        with moe_routes(record_ids=True) as rec, rt_lib.runtime(rt), \
+                torch.no_grad():
+            t0 = time.perf_counter()
+            logits, aux = m.forward(f32, t32, b)
+            loss = losses.cross_entropy(logits, b["labels"], b["mask"])
+            _sync(device)
+            out[side] = dict(logits=logits.float(), loss=float(loss),
+                             ids=rec["ids"], slots=rec["slots"],
+                             s=time.perf_counter() - t0,
+                             launches={k: n for k, n in
+                                       ops.launch_counts().items() if n})
+        del logits
+    lo, ba = out["loop"], out["batched"]
+    same = len(lo["ids"]) == len(ba["ids"]) and all(
+        torch.equal(a, b_) for a, b_ in zip(lo["ids"], ba["ids"])) and all(
+        torch.equal(a, b_) for a, b_ in zip(lo["slots"], ba["slots"]))
+    res = {"arch": model.cfg.name, "layers": model.cfg.n_layers,
+           "routes_equal": same, "routing_calls": len(lo["ids"]),
+           "logits_rel": rel_err(ba["logits"], lo["logits"])[1],
+           "loss_rel": abs(ba["loss"] - lo["loss"]) / abs(lo["loss"]),
+           "launches_loop": lo["launches"], "launches_batched": ba["launches"],
+           "s_loop": lo["s"], "s_batched": ba["s"]}
+    del f32, t32, out
+    torch.cuda.empty_cache()
+    if not (same and res["logits_rel"] <= 1e-4 and res["loss_rel"] <= 1e-5):
+        raise AssertionError(f"Qwen3-MoE batched experts vs loop: {res}")
+    return res
+
+
+def dryrun_account_phase(arch: str = "yi-9b") -> dict:
+    """Phase 15 (b): the dry run's account of phase 5's profiled Yi-9B
+    step (the trainer's config, NF4 block 64, 4 x 64 tokens), traced in
+    this process on one device (``local``: fake CPU tensors, no mesh),
+    beside the card: the resident parameter, Adam and batch bytes of the
+    real step must equal the dry run's ``argument_bytes`` exactly; its
+    ``flops`` over the profiled step's device-busy seconds as a share of
+    the H100's bf16 peak; the dry run's peak (arguments, outputs and
+    temporaries) beside phase 5's ``max_memory_allocated`` (which also
+    holds the rounds' deltas and the profiler's step)."""
+    st = _STEP5[arch]
+    cfg = st["cfg"]
+    shape = InputShape("trainer", st["seq"], st["batch"], "train")
+    rec = dryrun.run_one(arch, shape, multi_pod=False, local=True,
+                         cfg_override=cfg, seq_shard=cfg.seq_shard,
+                         remat=cfg.remat, verbose=False)
+    res = {"arch": arch, "layers": cfg.n_layers,
+           "argument_bytes": rec["argument_bytes"],
+           "resident_bytes": st["resident_bytes"],
+           "output_bytes": rec["output_bytes"],
+           "temp_bytes": rec["temp_bytes"],
+           "peak_bytes": rec["argument_bytes"] + rec["output_bytes"] +
+           rec["temp_bytes"],
+           "max_memory_allocated": st["max_memory_allocated"],
+           "flops": rec["flops"], "flops_cal": rec["flops_cal"],
+           "bytes": rec["bytes"], "busy_s": st["busy_s"],
+           "wall_s": st["wall_s"],
+           "flops_per_busy_s": rec["flops"] / st["busy_s"],
+           "share_of_989_tflops": rec["flops"] / st["busy_s"]
+           / H100_BF16_FLOPS,
+           "trace_s": rec["trace_s"], "calibrate_s": rec["calibrate_s"],
+           "card": card_line()}
+    if res["argument_bytes"] != res["resident_bytes"]:
+        raise AssertionError(f"dry run argument_bytes {rec['argument_bytes']}"
+                             f" != the step's resident {st['resident_bytes']}")
+    return res
+
+
+DRYRUN_CLI = (("--arch", "yi-9b", "--shape", "train_4k", "--mesh", "single"),
+              ("--fed-agg", "--arch", "yi-9b", "--mesh", "multi"))
+
+
+def dryrun_cli_start() -> tuple:
+    """Phase 15 (c), started: the production dry run through its CLI,
+    each in a process of its own (a process has one default group, and
+    phase 14's NCCL world is up in this one), both at once and beside
+    (a)-(b): Yi-9B's train_4k step on the 16 x 16 fake world and the
+    federated aggregation on the 2 x 16 x 16 one."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    tmp = tempfile.mkdtemp(prefix="dryrun_")
+    runs = []
+    for i, argv in enumerate(DRYRUN_CLI):
+        out = os.path.join(tmp, f"{i}.jsonl")
+        runs.append((argv, out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+             "--out", out], env=env, cwd=str(root),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    return tmp, runs, time.perf_counter()
+
+
+def dryrun_cli_finish(started, timeout: float = 300.0) -> list:
+    """Phase 15 (c), waited for: both runs must exit 0; returns their
+    records and the wall seconds from the start."""
+    tmp, runs, t0 = started
+    recs = []
+    for argv, out, proc in runs:
+        text, _ = proc.communicate(timeout=timeout)
+        if proc.returncode != 0:
+            raise AssertionError(f"dryrun {' '.join(argv)} exited "
+                                 f"{proc.returncode}:\n{text[-3000:]}")
+        with open(out) as f:
+            recs += [(argv, json.loads(line)) for line in f]
+    return recs, time.perf_counter() - t0
+
+
+def dryrun_cli_stop(started) -> None:
+    """Kill what is left of phase 15 (c)'s processes; remove their
+    records."""
+    tmp, runs, _ = started
+    for _, _, proc in runs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def autotune_phase(gen, iters: int = 50) -> list:
+    """Phase 15 (d): ``autotune.sweep`` of ``lora_matmul``'s split count
+    at Yi-9B's four decode shapes (4 rows, NF4 block 64, bf16 x, rank
+    16), each candidate's ms (a synchronize around ``iters`` calls)
+    beside ``plan``'s pick; a second sweep of each must be a pure hit
+    (nothing timed, nothing charged), and a call through the op at the
+    winner (``ops._lora_kernel``, which looks the winner up) within the
+    bf16 bound of the plain version (phase 2's)."""
+    from repro_torch.fl import runtime as runtime_lib
+    rt = runtime_lib.ProgramRuntime()
+    rows = []
+    for name, (K, N) in YI_LINEARS.items():
+        w = (torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5
+             ).to(torch.bfloat16)
+        qt = ref.blockwise_quant(w, bits=4, block=64, mode="nf4")
+        x = torch.randn((4, K), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        a = torch.randn((K, 16), generator=gen, device="cuda") / K ** 0.5
+        b = torch.randn((16, N), generator=gen, device="cuda") * 0.05
+        build_fn = lambda s: lambda: lm_kernel._lora_matmul(x, qt, a, b,
+                                                           2.0, s)
+        cands = autotune.lora_candidates(4, K, N, qt.block)
+        r1 = autotune.sweep("lora_matmul", build_fn, 4, K, N, bits=4,
+                            mode="nf4", candidates=cands, runtime=rt,
+                            iters=iters)
+        charged = rt.compile_time_s
+        r2 = autotune.sweep("lora_matmul", build_fn, 4, K, N, bits=4,
+                            mode="nf4", candidates=cands, runtime=rt,
+                            iters=iters)
+        if not r1.swept or r2.swept or r2.best != r1.best or \
+                rt.compile_time_s != charged:
+            raise AssertionError(f"autotune {name}: second sweep not a pure "
+                                 f"hit ({r1}, {r2})")
+        got = ops._lora_kernel(x, qt, a, b, 2.0)
+        abs_e, rel_e = rel_err(got, ref.lora_matmul(x, qt, a, b, scale=2.0))
+        if not (rel_e <= _tol(torch.bfloat16) and torch.isfinite(got).all()):
+            raise AssertionError(f"autotune {name}: the winner's rel err "
+                                 f"{rel_e}")
+        pick = lm_kernel.plan(4, K, N, qt.block).splits
+        rows.append({"case": f"decode_{name}", "K": K, "N": N,
+                     "plan_splits": pick,
+                     "plan_ms": r1.timings[str(pick)] * 1e3,
+                     "best_splits": r1.best[0],
+                     "best_ms": r1.timings[str(r1.best[0])] * 1e3,
+                     "ms_by_splits": {k: round(v * 1e3, 5)
+                                      for k, v in r1.timings.items()},
+                     "sweep_s": r1.time_s, "second_sweep_swept": r2.swept,
+                     "max_abs_err": abs_e, "rel_err": rel_e})
+    rows.append({"charged": rt.stats(), "key": r1.key})
+    return rows
+
+
+def dryrun_report() -> collections.Counter:
+    """Phase 15 on the card, reported: (c) the production dry run's CLI
+    started in two processes, then (a) the calibrated paths (Qwen3-MoE's
+    ran inside phase 13), (b) the dry run's account of phase 5's step,
+    (d) the autotuner, and (c) waited for. Returns (a)'s launches (its
+    two sides, each zeroed before and read after)."""
+    print(f"the dry run and the autotuner, {card_line()}:", flush=True)
+    t_all = time.perf_counter()
+    cli = dryrun_cli_start()
+    try:
+        launches = collections.Counter()
+        for arch, n_layers, dtype, seq, tol in CALIBRATED:
+            res = calibrated_check(arch, n_layers, dtype, seq, tol)
+            launches.update(res["launches_plain"])
+            launches.update(res["launches_calibrated"])
+            report({"phase15_calibrated": arch, **res})
+            torch.cuda.empty_cache()
+        if _QWEN15[0] is not None:
+            q = _QWEN15[0]
+            launches.update(q["launches_loop"])
+            launches.update(q["launches_batched"])
+            report({"phase15_calibrated": "qwen3-moe-235b-a22b", **q})
+        report({"phase15_a_s": time.perf_counter() - t_all})
+        t0 = time.perf_counter()
+        report({"phase15_account": 1, **dryrun_account_phase()})
+        report({"phase15_b_s": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(1515)
+        for row in autotune_phase(gen):
+            report({"phase15_autotune": 1, **row})
+        report({"phase15_d_s": time.perf_counter() - t0})
+        recs, cli_s = dryrun_cli_finish(cli)
+        for argv, rec in recs:
+            print(f"  dryrun {' '.join(argv)}: {json.dumps(rec)}",
+                  flush=True)
+        report({"phase15_c_wall_s": cli_s,
+                "phase15_s": time.perf_counter() - t_all,
+                "card": card_line()})
+    finally:
+        dryrun_cli_stop(cli)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
               "card", file=sys.stderr)
         return 2
+    # a fresh autotune cache: no phase reads a stale winner
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(
+        tune_dir, "autotune.json")
+    autotune.clear()
+    try:
+        return _main()
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+
+
+def _main() -> int:
     setup()
     gen = torch.Generator(device="cuda").manual_seed(1234)
     print("kernels vs plain versions:", flush=True)
@@ -4561,6 +4935,7 @@ def main() -> int:
     tokens_launches = token_serve_report()
     zoo_launches = zoo_report()
     rt_launches = runtime_report(_QWEN14[0])
+    dry_launches = dryrun_report()
 
     print(card_line(), flush=True)
     # flash_attention runs on every path: its launches over all of them
@@ -4587,6 +4962,8 @@ def main() -> int:
     # phase 14 runs the bodies' kernels: lora_matmul, flash_attention,
     # quant_matmul and its dx, the scans in the Mamba body
     print(f"phase 14 launches: {dict(rt_launches)}", flush=True)
+    # phase 15 (a) runs the calibrated paths and their plain sides
+    print(f"phase 15 launches: {dict(dry_launches)}", flush=True)
     launches = {**serve_launches, **yi_launches,
                 **{name: sum(p.values()) for name, p in serve_paths.items()},
                 "flash_attention": sum(flash.values()),
@@ -4599,6 +4976,8 @@ def main() -> int:
                  "blockwise_quant", "selective_scan", "selective_scan_bwd"):
         launches[name] += zoo_launches[name] + rt_launches[name]
     launches["flash_attention"] += rt_launches["flash_attention"]
+    for name in main_rows:
+        launches[name] += dry_launches[name]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],

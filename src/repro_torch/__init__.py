@@ -26,3 +26,9 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "port's plain PyTorch path on the CPU")
     return torch.device("cuda")
+
+
+def spec(shape, dtype=torch.float32) -> torch.Tensor:
+    """A shape-only stand-in for a tensor (the JAX package's
+    ``ShapeDtypeStruct``): a ``meta`` tensor, sizes and dtype, no data."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")

@@ -11,7 +11,9 @@ and its Att(D) takes the flash-attention op's gradient.
 ``apply_stacked`` is the same function for a cohort of clients, each
 with its own adapter: the projections are batched matmuls and the
 attention folds the cohort into the batch (one flash-attention launch).
-``prefill`` and ``decode`` are not ported yet.
+``prefill`` and ``decode`` are the serving path over a ring KV cache;
+``specs`` and ``cache_specs`` give the dry run's shapes as ``meta``
+tensors.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import math
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, spec
 from repro_torch.kernels import ops as kops
 
 
@@ -41,6 +43,22 @@ def init(generator: torch.Generator, d: int, *, n_heads: int = 8,
         "w2": torch.zeros((d_ff, d), dtype=dtype, device=dev),
         "b2": torch.zeros((d,), dtype=dtype, device=dev),
     }
+
+
+def specs(d: int, *, d_ff: int = 0, dtype=torch.float32):
+    """:func:`init`'s leaves as ``meta`` tensors."""
+    d_ff = d_ff or d
+    f = lambda *sh: spec(sh, dtype)
+    return {"wq": f(d, d), "wk": f(d, d), "wv": f(d, d), "wo": f(d, d),
+            "w1": f(d, d_ff), "b1": f(d_ff), "w2": f(d_ff, d), "b2": f(d)}
+
+
+def cache_specs(d: int, batch: int, window: int, dtype, *,
+                n_heads: int = 8):
+    """The ring cache of :func:`prefill` as ``meta`` tensors."""
+    sh = (batch, window, n_heads, d // n_heads)
+    return {"k": spec(sh, dtype), "v": spec(sh, dtype),
+            "slot_pos": spec((window,), torch.int32)}
 
 
 def apply(params, x: torch.Tensor, *, n_heads: int = 8,

@@ -14,6 +14,7 @@ import math
 
 import torch
 
+from repro_torch import spec
 from repro_torch.core.quant import QTensor, maybe_dequantize
 from repro_torch.kernels import ops as kops
 
@@ -28,6 +29,13 @@ def init_pair(generator: torch.Generator, k: int, n: int, rank: int, *,
                     device=generator.device) * (1.0 / math.sqrt(k))
     return {"a": a.to(device=dev, dtype=dtype),
             "b": torch.zeros((*lead, rank, n), dtype=dtype, device=dev)}
+
+
+def pair_specs(k: int, n: int, rank: int, *, dtype=torch.float32, lead=()):
+    """The shapes of :func:`init_pair`'s pair as ``meta`` tensors (the
+    dry run's parameter trees)."""
+    return {"a": spec((*lead, k, rank), dtype),
+            "b": spec((*lead, rank, n), dtype)}
 
 
 def apply(x: torch.Tensor, lora, *, alpha: float, rank: int) -> torch.Tensor:

@@ -12,10 +12,12 @@ norm over all of its leaves, never the norm of the stacked tree.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch import spec
 from repro_torch import tree as tree_lib
 
 
@@ -23,6 +25,14 @@ class AdamState(NamedTuple):
     step: torch.Tensor      # 0-d int32
     mu: Any
     nu: Any
+
+
+def adam_specs(param_specs) -> AdamState:
+    """The AdamState of :func:`adam_init` as ``meta`` tensors (the dry
+    run's): a 0-d int32 step and fp32 moments shaped like the params."""
+    z = lambda s: spec(s.shape, torch.float32)
+    return AdamState(spec((), torch.int32), tree_lib.tree_map(z, param_specs),
+                     tree_lib.tree_map(z, param_specs))
 
 
 def adam_init(params, *, stacked: bool = False) -> AdamState:
@@ -89,6 +99,34 @@ def adam_update(grads, state: AdamState, params, *, lr: float, b1=0.9,
 
     new_params = tree_lib.tree_map(upd, params, mu, nu)
     return new_params, AdamState(step, mu, nu)
+
+
+def sgd_update(grads, params, *, lr: float):
+    """``p - lr·g`` in fp32, cast back to each param's dtype."""
+    return tree_lib.tree_map(
+        lambda p, g: (p.to(torch.float32) - lr * g.to(torch.float32)
+                      ).to(p.dtype), params, grads)
+
+
+def cosine_schedule(base_lr: float, warmup: int, total: int) -> Callable:
+    """``step -> lr``: linear warm-up over ``warmup`` steps, then a cosine
+    decay to 0 at ``total``. ``step`` is an int or a tensor (an fp32
+    tensor comes back for a tensor)."""
+    def sched(step):
+        if not isinstance(step, torch.Tensor):
+            step = float(step)
+            if step < warmup:
+                return base_lr * step / max(warmup, 1)
+            prog = min(max((step - warmup) / max(total - warmup, 1), 0.0),
+                       1.0)
+            return base_lr * 0.5 * (1 + math.cos(math.pi * prog))
+        step = step.to(torch.float32)
+        warm = base_lr * step / max(warmup, 1)
+        prog = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0,
+                           1.0)
+        cos = base_lr * 0.5 * (1 + torch.cos(math.pi * prog))
+        return torch.where(step < warmup, warm, cos)
+    return sched
 
 
 def value_and_grad(loss_fn: Callable, params):

@@ -19,7 +19,9 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
+from repro_torch import spec
 from repro_torch import tree as tree_lib
 
 # NF4 codebook (QLoRA, Dettmers et al. 2023) — quantiles of N(0,1), ±1 ends.
@@ -41,6 +43,15 @@ class QTensor:
     out_dtype: Any      # torch dtype
     orig_shape: tuple
 
+    @property
+    def shape(self):
+        """The logical (unquantized) shape, as the JAX QTensor's."""
+        return self.orig_shape
+
+    @property
+    def ndim(self):
+        return len(self.orig_shape)
+
     def nbytes_packed(self) -> int:
         return self.q.numel() * self.q.element_size() + \
             self.scales.numel() * self.scales.element_size()
@@ -52,11 +63,14 @@ _CODES: dict = {}
 def _code(device) -> torch.Tensor:
     """The NF4 codebook on ``device``, copied there once: a fresh copy
     per call is a blocking host-to-device transfer, which on the card
-    drains the stream before every dequantize."""
+    drains the stream before every dequantize. One made under a
+    ``FakeTensorMode`` (the dry run) holds no data and is not kept."""
     dev = torch.device(device)
     code = _CODES.get(dev)
     if code is None:
-        code = _CODES[dev] = torch.as_tensor(NF4_CODE, device=dev)
+        code = torch.as_tensor(NF4_CODE, device=dev)
+        if not isinstance(code, FakeTensor):
+            _CODES[dev] = code
     return code
 
 
@@ -192,12 +206,11 @@ def qtensor_specs(shape, dtype, *, bits: int, block: int = 128,
     if b % 2:
         bits, mode = 8, "linear"
     G = K // b
-    meta = torch.device("meta")
     if bits == 4:
-        q = torch.empty((*lead, G, b // 2, N), dtype=torch.uint8, device=meta)
+        q = spec((*lead, G, b // 2, N), torch.uint8)
     else:
-        q = torch.empty((*lead, G, b, N), dtype=torch.int8, device=meta)
-    scales = torch.empty((*lead, G, 1, N), dtype=torch.float32, device=meta)
+        q = spec((*lead, G, b, N), torch.int8)
+    scales = spec((*lead, G, 1, N))
     return QTensor(q=q, scales=scales, bits=bits, mode=mode, block=b,
                    out_dtype=dtype, orig_shape=tuple(shape))
 

@@ -203,6 +203,16 @@ class ProgramRuntime:
             self._progs.move_to_end(key)
         return fn
 
+    def charge(self, kind: str, seconds: float, n: int = 1) -> None:
+        """Charge ``seconds`` of build-class wall time (and ``n`` build
+        events) to ``kind`` directly: the kernel autotuner
+        (``kernels.autotune``) books its sweeps here, so tuning time
+        shows in ``stats()`` and ``compile_time_s`` beside build time."""
+        k = self._kinds.setdefault(
+            kind, {"n_compiles": 0, "compile_time_s": 0.0})
+        k["n_compiles"] += int(n)
+        k["compile_time_s"] += float(seconds)
+
     def dispatch(self, kind: str, build, args, *,
                  static_key: Tuple = ()) -> Handle:
         """Build-or-hit, then call without waiting on the device."""

@@ -25,6 +25,11 @@ reverse recurrence on the CPU (``selective_scan_bwd_ref``). The JAX
 package differentiates the plain versions of both; it has no backward
 kernel for either.
 
+Before it launches, ``lora_matmul``'s tensor-core kernel and
+``quant_matmul``'s GEMV (a 2-D weight) consult ``autotune.lookup`` for a
+tuned split count or plan, as the JAX ops consult it for their tiles;
+with an empty cache the kernels' own plans decide, as before.
+
 Under a :class:`~repro_torch.models.runtime.Runtime`, ``flash_attention``
 and ``decode_attention`` run the JAX package's explicit splits (the
 query heads over the model axis; the cache slots over it, merged by the
@@ -39,6 +44,7 @@ import math
 import torch
 
 from repro_torch.core import quant as qlib
+from repro_torch.kernels import autotune
 from repro_torch.kernels import blockwise_quant as bq_kernel
 from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import lora_matmul as lm_kernel
@@ -256,6 +262,33 @@ def _dx_through_w(g, qt: qlib.QTensor, K: int) -> torch.Tensor:
                                     out_dtype=torch.float32)[:, :K]
 
 
+def _qmm_kernel(x, qt: qlib.QTensor):
+    """The ``quant_matmul`` kernel, at the tuned GEMV plan when the
+    autotune cache holds one for this 2-D weight's shape."""
+    if qt.q.ndim == 3:
+        M, (G, _, N) = math.prod(x.shape[:-1]), qt.q.shape[-3:]
+        tuned = autotune.lookup("quant_matmul", M, x.shape[-1], N,
+                                bits=qt.bits, mode=qt.mode)
+        if tuned is not None and qmm_kernel.takes_gemv(M, N, qt.q):
+            return qmm_kernel._quant_matmul(
+                x, qt, autotune.gemv_plan(M, G, N, tuned))
+    return qmm_kernel.quant_matmul(x, qt)
+
+
+def _lora_kernel(x, qt: qlib.QTensor, a, b, scale: float):
+    """The ``lora_matmul`` kernel, at the tuned split count when the
+    autotune cache holds one for this shape (a bf16 x: the tensor-core
+    kernel, the only one that splits)."""
+    splits = None
+    if lm_kernel.uses_tensor_cores(x):
+        splits = autotune.lookup("lora_matmul", math.prod(x.shape[:-1]),
+                                 x.shape[-1], qt.q.shape[-1], bits=qt.bits,
+                                 mode=qt.mode)
+    if splits is None:
+        return lm_kernel.lora_matmul(x, qt, a, b, scale=scale)
+    return lm_kernel._lora_matmul(x, qt, a, b, scale, splits[0])
+
+
 class _QuantMatmul(torch.autograd.Function):
     """``x @ dequant(W)`` on the card with a gradient for x: the forward
     is the ``quant_matmul`` kernel, the backward's ``g @ dequant(W)ᵀ``
@@ -268,7 +301,7 @@ class _QuantMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, qt):
         ctx.qt, ctx.shape, ctx.dtype = qt, x.shape, x.dtype
-        return qmm_kernel.quant_matmul(x, qt)
+        return _qmm_kernel(x, qt)
 
     @staticmethod
     def backward(ctx, g):
@@ -293,7 +326,7 @@ def quant_matmul(x, qt: qlib.QTensor):
                     "quant_matmul: a gradient through a stacked QTensor "
                     "has no kernel")
             return _QuantMatmul.apply(x, qt)
-        return qmm_kernel.quant_matmul(x, qt)
+        return _qmm_kernel(x, qt)
     trace_count("quant_matmul_ref")
     return ref.quant_matmul(x, qt)
 
@@ -320,7 +353,7 @@ class _QLoraMatmul(torch.autograd.Function):
                         if lm_kernel.uses_tensor_cores(x)
                         else "lora_matmul_cuda")
             ctx.save_for_backward(x, a, b)
-            return lm_kernel.lora_matmul(x, qt, a, b, scale=scale)
+            return _lora_kernel(x, qt, a, b, scale)
         trace_count("lora_matmul_ref")
         wd = qlib.dequantize(qt, torch.float32)[:x.shape[-1]]
         ctx.save_for_backward(x, a, b, wd)
@@ -413,6 +446,45 @@ def selective_scan_bwd(dt, x, Bm, Cm, A, gy, gh_last, *, need_a=True):
             None if dA is None else dA.to(A.dtype))
 
 
+# The plain scans as operators: on real tensors each runs its plain
+# version; on fake tensors (the dry run, ``launch.dryrun``) only shapes
+# flow, one operator a call as on the card one kernel launch, where the
+# plain time loop would trace S steps.
+@torch.library.custom_op("repro_torch::selective_scan_plain",
+                         mutates_args=())
+def _scan_plain(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor,
+                Cm: torch.Tensor, A: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    return ref.selective_scan(dt, x, Bm, Cm, A)
+
+
+@_scan_plain.register_fake
+def _(dt, x, Bm, Cm, A):
+    B, S, di = x.shape
+    return (x.new_empty((B, S, di), dtype=torch.float32),
+            x.new_empty((B, di, A.shape[-1]), dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::selective_scan_bwd_plain",
+                         mutates_args=())
+def _scan_bwd_plain(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor,
+                    Cm: torch.Tensor, A: torch.Tensor, gy: torch.Tensor,
+                    gh_last: torch.Tensor, need_a: bool
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor, torch.Tensor]:
+    """:func:`selective_scan_bwd`; an unwanted dA comes back empty."""
+    *d, dA = selective_scan_bwd(dt, x, Bm, Cm, A, gy, gh_last,
+                                need_a=need_a)
+    return (*d, A.new_empty(0) if dA is None else dA)
+
+
+@_scan_bwd_plain.register_fake
+def _(dt, x, Bm, Cm, A, gy, gh_last, need_a):
+    return (torch.empty_like(dt), torch.empty_like(x), torch.empty_like(Bm),
+            torch.empty_like(Cm),
+            torch.empty_like(A) if need_a else A.new_empty(0))
+
+
 class _SelectiveScan(torch.autograd.Function):
     """The scan with its gradient: the kernels on the card, the plain
     versions on the CPU. An unused output's cotangent arrives as None
@@ -427,7 +499,7 @@ class _SelectiveScan(torch.autograd.Function):
             trace_count("selective_scan_cuda")
             return ss_kernel.selective_scan(dt, x, Bm, Cm, A)
         trace_count("selective_scan_ref")
-        return ref.selective_scan(dt, x, Bm, Cm, A)
+        return _scan_plain(dt, x, Bm, Cm, A)
 
     @staticmethod
     def backward(ctx, gy, gh_last):
@@ -443,8 +515,8 @@ class _SelectiveScan(torch.autograd.Function):
         if gh_last is None:
             gh_last = torch.zeros((x.shape[0], x.shape[2], A.shape[1]),
                                   dtype=torch.float32, device=x.device)
-        return selective_scan_bwd(dt, x, Bm, Cm, A, gy, gh_last,
-                                  need_a=need_a)
+        *d, dA = _scan_bwd_plain(dt, x, Bm, Cm, A, gy, gh_last, need_a)
+        return (*d, dA if need_a else None)
 
 
 def selective_scan(dt, x, Bm, Cm, A):

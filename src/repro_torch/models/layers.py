@@ -18,6 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spec
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lora as lora_lib
 from repro_torch.core.quant import _div
@@ -75,6 +76,17 @@ def init_attention(generator, cfg: ModelConfig, dtype, device, *,
             pre + "wo": _normal(generator, (qd, d), qd, dtype, device)}
 
 
+def attention_specs(cfg: ModelConfig, dtype, *, cross: bool = False,
+                    lead=()):
+    """:func:`init_attention`'s leaves (stacked on ``lead``) as ``meta``
+    tensors."""
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    f = lambda *sh: spec((*lead, *sh), dtype)
+    pre = "c" if cross else ""
+    return {pre + "wq": f(d, qd), pre + "wk": f(d, kvd),
+            pre + "wv": f(d, kvd), pre + "wo": f(qd, d)}
+
+
 def attention(p, x, positions, cfg: ModelConfig, *, lora=None, causal=True,
               window=None, kv_x=None, use_rope=True, prefix=""):
     """Full-sequence attention (train / prefill), port of
@@ -98,11 +110,9 @@ def attention(p, x, positions, cfg: ModelConfig, *, lora=None, causal=True,
     if use_rope and kv_x is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    if cfg.calibrate:
-        raise NotImplementedError(
-            "cfg.calibrate (the dry run's single-tile attention) is not "
-            "ported yet; it comes with the dry run (ROADMAP Queue A item "
-            "8.6)")
+    # cfg.calibrate asks for the JAX package's single-tile attention; the
+    # port's op is one kernel launch on the card and one unchunked
+    # product on the CPU either way, so the call is the same
     out = kops.flash_attention(q, k, v, causal=causal, window=window)
     y = linear(out.reshape(B, S, cfg.q_dim), p[prefix + "wo"], g("wo"),
                cfg=cfg)
@@ -151,13 +161,17 @@ def dequant_kv(x, scale, dtype):
     return (x.to(torch.float32) * scale).to(dtype)
 
 
+def _kv_dtype(cfg: ModelConfig, dtype):
+    return torch.int8 if cfg.kv_quant_bits == 8 else dtype
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                   device):
     """An empty ring KV cache for one layer (``max_len`` = the window for
     sliding-window attention); int8 rows and fp32 scales with
     ``cfg.kv_quant_bits == 8``."""
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    kvd = torch.int8 if cfg.kv_quant_bits == 8 else dtype
+    kvd = _kv_dtype(cfg, dtype)
     c = {"k": torch.zeros(shape, dtype=kvd, device=device),
          "v": torch.zeros(shape, dtype=kvd, device=device),
          "slot_pos": torch.full((max_len,), -1, dtype=torch.int32,
@@ -165,6 +179,20 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     if cfg.kv_quant_bits == 8:
         c["k_scale"] = torch.zeros((*shape[:3], 1), device=device)
         c["v_scale"] = torch.zeros((*shape[:3], 1), device=device)
+    return c
+
+
+def kv_cache_specs(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   lead=()):
+    """:func:`init_kv_cache`'s leaves (stacked on ``lead``) as ``meta``
+    tensors."""
+    shape = (*lead, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    c = {"k": spec(shape, _kv_dtype(cfg, dtype)),
+         "v": spec(shape, _kv_dtype(cfg, dtype)),
+         "slot_pos": spec((*lead, max_len), torch.int32)}
+    if cfg.kv_quant_bits == 8:
+        c["k_scale"] = spec((*shape[:-1], 1))
+        c["v_scale"] = spec((*shape[:-1], 1))
     return c
 
 
@@ -220,6 +248,16 @@ def init_mlp(generator, d: int, ff: int, kind: str, dtype, device):
          "wd": _normal(generator, (ff, d), ff, dtype, device)}
     if kind == "swiglu":
         p["wg"] = _normal(generator, (d, ff), d, dtype, device)
+    return p
+
+
+def mlp_specs(d: int, ff: int, kind: str, dtype, lead=()):
+    """:func:`init_mlp`'s leaves (stacked on ``lead``) as ``meta``
+    tensors."""
+    f = lambda *sh: spec((*lead, *sh), dtype)
+    p = {"wu": f(d, ff), "wd": f(ff, d)}
+    if kind == "swiglu":
+        p["wg"] = f(d, ff)
     return p
 
 

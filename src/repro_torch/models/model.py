@@ -15,6 +15,8 @@ A ``Model`` exposes:
   prefill(frozen, trainable, batch, max_len) -> last logits, cache
   decode_step(frozen, trainable, cache, tokens, pos) -> logits, cache
   init_cache(batch, context_len, device) -> an empty cache
+  param_specs(), cache_specs(batch, context_len), input_specs(shape)
+                  -> the same trees as ``meta`` tensors (the dry run)
 
 A batch holds ``tokens`` (and ``labels``/``mask`` to train), plus
 ``frames`` (B, n_frames, d) for the encdec family and optionally
@@ -63,8 +65,15 @@ the logits and the gradients come out the same on every rank (GSPMD's
 partition of the dense layers is a layout not reproduced: ROADMAP). The
 layer stack's sharding constraints are identities; an SSM layer
 checkpoints inside its body under a Runtime, as the JAX package's does,
-instead of as a whole. The dry run's ``unroll_layers`` and
-``calibrate`` are not ported yet (ROADMAP Queue A item 8.6).
+instead of as a whole.
+
+For the dry run (:mod:`repro_torch.launch.dryrun`) ``param_specs``,
+``cache_specs`` and ``input_specs`` give the trees' shapes as ``meta``
+tensors (the JAX package's ``ShapeDtypeStruct`` trees, leaf for leaf),
+and ``cfg.calibrate`` takes the single-chunk scans and the MoE body's
+batched experts. ``cfg.unroll_layers`` is accepted and changes
+nothing: the port's layer loop is a Python loop already, so every layer
+is traced and counted as the JAX package's unrolled stack is.
 """
 from __future__ import annotations
 
@@ -75,9 +84,9 @@ from typing import Any, Dict
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, spec
 from repro_torch import tree as tree_lib
-from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.configs.base import ATTN, InputShape, ModelConfig
 from repro_torch.core import adapter as adapter_lib
 from repro_torch.core import lora as lora_lib
 from repro_torch.core import losses, optim
@@ -172,6 +181,49 @@ def _init_layer(cfg: ModelConfig, generator, dtype, device, *,
     kind = "swiglu" if fam == "moe" else cfg.mlp
     p.update(L.init_mlp(generator, d, dense_ff or cfg.d_ff, kind, dtype,
                         device))
+    return p
+
+
+def _lora_specs(cfg: ModelConfig, targets, lead=()):
+    tdt = getattr(torch, cfg.trainable_dtype)
+    return {n: lora_lib.pair_specs(k, nn, cfg.lora_rank, dtype=tdt,
+                                   lead=lead)
+            for n, (k, nn) in sorted(targets.items())}
+
+
+def _layer_specs(cfg: ModelConfig, dtype, lead=(), *, dense_ff: int = 0,
+                 encoder: bool = False):
+    """:func:`_init_layer`'s leaves (stacked on ``lead``) as ``meta``
+    tensors."""
+    fam = cfg.family
+    d = cfg.d_model
+    f1 = spec((*lead, d))
+    p: Dict[str, Any] = {"ln1": f1}
+    if fam == "ssm":
+        p.update(ssm_lib.mamba_specs(cfg, dtype, lead))
+        return p
+    p.update(L.attention_specs(cfg, dtype, lead=lead))
+    p["ln2"] = f1
+    if encoder:
+        p.update(L.mlp_specs(d, cfg.d_ff, cfg.mlp, dtype, lead))
+        return p
+    if fam == "encdec":
+        p["lnc"] = f1
+        p.update(L.attention_specs(cfg, dtype, cross=True, lead=lead))
+        p.update(L.mlp_specs(d, cfg.d_ff, cfg.mlp, dtype, lead))
+        return p
+    if fam == "hybrid":
+        p.update(rglru_lib.rglru_specs(cfg, dtype, lead))
+        p.update(L.mlp_specs(d, cfg.d_ff, cfg.mlp, dtype, lead))
+        return p
+    if fam == "moe" and not dense_ff:
+        p["moe"] = moe_lib.expert_specs(cfg, dtype, lead)
+        if cfg.n_shared_experts:
+            p["shared"] = L.mlp_specs(d, cfg.d_ff * cfg.n_shared_experts,
+                                      "swiglu", dtype, lead)
+        return p
+    kind = "swiglu" if fam == "moe" else cfg.mlp
+    p.update(L.mlp_specs(d, dense_ff or cfg.d_ff, kind, dtype, lead))
     return p
 
 
@@ -336,6 +388,50 @@ class Model:
             trainable["enc_lora"] = _init_lora(
                 cfg, _enc_lora_targets(cfg), g_elora, dev,
                 lead=(cfg.encoder_layers,))
+        return {"frozen": frozen, "trainable": trainable}
+
+    def param_specs(self):
+        """:meth:`init_params`'s tree as ``meta`` tensors (a quantized
+        leaf a QTensor of ``meta`` payload and scales), the JAX
+        package's ``param_specs`` leaf for leaf: what the dry run traces
+        against, since it never draws weights."""
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        d, V = cfg.d_model, cfg.vocab_size
+        frozen: Dict[str, Any] = {"embed": spec((V, d), dt),
+                                  "head": spec((d, V), dt),
+                                  "final_norm": spec((d,))}
+        if not cfg.use_rope:
+            frozen["pos_embed"] = spec((cfg.max_pos, d), dt)
+        frozen["layers"] = _layer_specs(cfg, dt, lead=(self.n_scanned,))
+        if cfg.first_k_dense:
+            frozen["dense_layers"] = [
+                _layer_specs(cfg, dt, dense_ff=cfg.dense_d_ff)
+                for _ in range(cfg.first_k_dense)]
+        if cfg.encoder_layers:
+            frozen["enc_layers"] = _layer_specs(
+                cfg, dt, lead=(cfg.encoder_layers,), encoder=True)
+            frozen["enc_pos"] = spec((cfg.n_frames, d), dt)
+            frozen["enc_final_norm"] = spec((d,))
+        if cfg.quant_bits:
+            for key in ("layers", "dense_layers", "enc_layers"):
+                if key in frozen:
+                    frozen[key] = qlib.quantize_tree_specs(
+                        frozen[key], bits=cfg.quant_bits,
+                        block=cfg.quant_block, mode=cfg.quant_mode)
+        tdt = getattr(torch, cfg.trainable_dtype)
+        trainable: Dict[str, Any] = {
+            "lora": _lora_specs(cfg, _lora_targets(cfg),
+                                lead=(self.n_scanned,)),
+            "adapter": adapter_lib.specs(d, d_ff=cfg.adapter_d_ff,
+                                         dtype=tdt)}
+        if cfg.first_k_dense:
+            trainable["dense_lora"] = [
+                _lora_specs(cfg, _lora_targets(cfg))
+                for _ in range(cfg.first_k_dense)]
+        if cfg.encoder_layers:
+            trainable["enc_lora"] = _lora_specs(
+                cfg, _enc_lora_targets(cfg), lead=(cfg.encoder_layers,))
         return {"frozen": frozen, "trainable": trainable}
 
     # ---------------------------------------------------------- blocks
@@ -630,8 +726,10 @@ class Model:
         x = self._embed(frozen, tokens)
         pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
         if not cfg.use_rope:
-            x = x + frozen["pos_embed"][pos.clamp(max=cfg.max_pos - 1)
-                                        .long()][None, None]
+            # index_select with a 1-element index: indexing by the 0-d
+            # pos would read it back to the host
+            x = x + frozen["pos_embed"].index_select(
+                0, pos.clamp(max=cfg.max_pos - 1).reshape(1).long())[None]
         x, _, cache = self._stack(frozen, trainable, x, None, None,
                                   "decode", cache=cache, pos=pos)
         x = L.rms_norm(x, frozen["final_norm"])
@@ -668,6 +766,57 @@ class Model:
                           "slot_pos": torch.full((Ma,), -1,
                                                  dtype=torch.int32,
                                                  device=dev)}
+        return out
+
+
+    def _entry_specs(self, batch: int, M: int, dt):
+        """One layer's cache entry as ``meta`` tensors."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return {"ssm": ssm_lib.mamba_cache_specs(cfg, batch, dt)}
+        entry = {"kv": L.kv_cache_specs(cfg, batch, M, dt)}
+        if cfg.family == "hybrid":
+            entry["lru"] = rglru_lib.rglru_cache_specs(cfg, batch, dt)
+        if cfg.family == "encdec":
+            entry["ckv"] = L.kv_cache_specs(cfg, batch, cfg.n_frames, dt)
+        return entry
+
+    def cache_specs(self, batch: int, context_len: int):
+        """:meth:`init_cache`'s tree as ``meta`` tensors."""
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        one = self._entry_specs(batch, self.effective_cache_len(context_len),
+                                dt)
+        stack = lambda n: tree_lib.tree_map(
+            lambda s: spec((n, *s.shape), s.dtype), one)
+        out = {"scan": stack(self.n_scanned)}
+        if cfg.first_k_dense:
+            out["dense"] = stack(cfg.first_k_dense)
+        out["adapter"] = adapter_lib.cache_specs(
+            cfg.d_model, batch, min(context_len, cfg.adapter_window), dt,
+            n_heads=cfg.adapter_heads)
+        return out
+
+    def input_specs(self, shape: InputShape) -> Dict[str, Any]:
+        """Every input of one step at ``shape`` (an entry of
+        ``configs.INPUT_SHAPES``) as ``meta`` tensors: the train batch,
+        the prompt, or a decode step's token, position and cache."""
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        B, S = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+        if shape.kind == "decode":
+            return {"tokens": spec((B, 1), i32), "pos": spec((), i32),
+                    "cache": self.cache_specs(B, S)}
+        S_text = S - cfg.n_patches if cfg.family == "vlm" else S
+        out = {"tokens": spec((B, S_text), i32)}
+        if shape.kind == "train":
+            out["labels"] = spec((B, S), i32)
+            out["mask"] = spec((B, S))
+        if cfg.family == "vlm":
+            out["image_embeds"] = spec((B, cfg.n_patches, cfg.d_model), dt)
+        if cfg.family == "encdec":
+            out["frames"] = spec((B, cfg.n_frames, cfg.d_model), dt)
         return out
 
 

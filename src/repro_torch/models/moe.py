@@ -36,8 +36,11 @@ weights may be whole ``(E, ...)`` or this rank's block ``(E / m, ...,
 N / data)`` (``launch.shardings.rank_params``); a whole one is cut at
 the body's entry. Profiler ranges: ``moe.dispatch`` (routing, slots,
 the send buffer and its all-to-all), ``moe.experts`` and
-``moe.combine``. ``cfg.calibrate``'s batched expert einsum (the dry
-run's) is not ported yet: ROADMAP Queue A item 8.6.
+``moe.combine``. With ``cfg.calibrate`` (the dry run's cost
+calibration) the body runs its experts as one batched product over the
+rank's dequantized experts (each all-gathered whole over ``data``)
+instead of the per-expert loop, as the JAX package's calibrated body
+does. ``expert_specs`` gives the dry run's shapes as ``meta`` tensors.
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spec
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant as qlib
 from repro_torch.core.quant import QTensor, maybe_dequantize
@@ -88,6 +92,15 @@ def init_experts(generator, cfg: ModelConfig, dtype, device, *,
         p[name] = LazyExperts(generator, shape, fan, dtype, device) if lazy \
             else _normal(generator, shape, fan, dtype, device)
     return p
+
+
+def expert_specs(cfg: ModelConfig, dtype, lead=()):
+    """:func:`init_experts`' leaves (stacked on ``lead``) as ``meta``
+    tensors."""
+    E, d, ff = cfg.n_experts, cfg.d_model, cfg.d_ff
+    f = lambda *sh: spec((*lead, *sh), dtype)
+    return {"router": spec((*lead, d, E)), "wg": f(E, d, ff),
+            "wu": f(E, d, ff), "wd": f(E, ff, d)}
 
 
 def _route(router_w, x2d, cfg: ModelConfig):
@@ -280,12 +293,20 @@ def _moe_dist_body(x_loc, p, cfg: ModelConfig, rt, fsdp_axis: str):
         recv = _a2a_maybe_q8(send.reshape(m, E_l, C, d), rt, q8, dtype)
         toks = recv.transpose(0, 1).reshape(E_l, m * C, d)
     with torch.profiler.record_function("moe.experts"):
-        ys = []
-        for e in range(E_l):
-            w = [_gather_last(_expert(p[n], e), rt, fsdp_axis)
-                 for n in ("wg", "wu", "wd")]
-            ys.append(_expert_mlp(toks[e], *w, dtype))
-        y_experts = torch.stack(ys)                        # (E_l, m*C, d)
+        if cfg.calibrate:
+            # one batched product over the rank's experts, no loop
+            wg, wu, wd = (maybe_dequantize(
+                _gather_last(p[n], rt, fsdp_axis), dtype).to(dtype)
+                for n in ("wg", "wu", "wd"))
+            h = F.silu(torch.bmm(toks, wg)) * torch.bmm(toks, wu)
+            y_experts = torch.bmm(h, wd)
+        else:
+            ys = []
+            for e in range(E_l):
+                w = [_gather_last(_expert(p[n], e), rt, fsdp_axis)
+                     for n in ("wg", "wu", "wd")]
+                ys.append(_expert_mlp(toks[e], *w, dtype))
+            y_experts = torch.stack(ys)                    # (E_l, m*C, d)
     with torch.profiler.record_function("moe.combine"):
         y_back = y_experts.reshape(E_l, m, C, d).transpose(0, 1)
         y_home = _a2a_maybe_q8(y_back.contiguous(), rt, q8, dtype)
@@ -310,11 +331,6 @@ def moe_ffn(p, x, cfg: ModelConfig):
     if rt is None:
         y, aux = _moe_local(p, x.reshape(B * S, d), cfg)
         return y.reshape(B, S, d), aux
-    if cfg.calibrate:
-        raise NotImplementedError(
-            "cfg.calibrate (the dry run's batched expert einsum) is not "
-            "ported yet; it comes with the dry run (ROADMAP Queue A item "
-            "8.6)")
     m, dp, tp, fsdp = rt.tp_size, rt.dp_axes, rt.tp_axis, "data"
     n_last = {"wg": cfg.d_ff, "wu": cfg.d_ff, "wd": cfg.d_model}
     p = {"router": p["router"],

@@ -22,8 +22,10 @@ batch), ``rglru_block`` runs the JAX package's width-parallel body on
 each rank: its w / m channels and 16 / m gate blocks, the output
 projection's partial summed over ``model`` (reduce-scattered back to
 sequence shards with ``cfg.seq_shard``), checkpointed inside the body.
-``cfg.calibrate`` (the dry run's single-chunk scan) is not ported yet:
-ROADMAP Queue A item 8.6.
+With ``cfg.calibrate`` (the dry run's cost calibration) the recurrence
+is ``chunked_linear_scan`` in one chunk of the whole sequence, as in the
+JAX package. ``rglru_specs`` and ``rglru_cache_specs`` give the dry
+run's shapes as ``meta`` tensors.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import spec
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import maybe_dequantize
 from repro_torch.models import runtime as rt_lib
@@ -62,6 +65,18 @@ def init_rglru(generator, cfg: ModelConfig, dtype, device):
     }
 
 
+def rglru_specs(cfg: ModelConfig, dtype, lead=()):
+    """:func:`init_rglru`'s leaves (stacked on ``lead``) as ``meta``
+    tensors."""
+    d, w, K = cfg.d_model, cfg.lru_width or cfg.d_model, cfg.ssm_conv
+    gb = GATE_BLOCKS
+    wb = w // gb
+    f = lambda *sh, dt=dtype: spec((*lead, *sh), dt)
+    return {"wx": f(d, w), "wy": f(d, w), "conv_w": f(K, w),
+            "w_rg": f(gb, wb, wb), "w_ig": f(gb, wb, wb),
+            "lam": f(w, dt=torch.float32), "out_proj": f(w, d)}
+
+
 def rglru_partition_specs(cfg: ModelConfig, tp_axis="model", lead=()):
     nl = (None,) * len(lead)
     return {"wx": P(*nl, None, tp_axis), "wy": P(*nl, None, tp_axis),
@@ -80,6 +95,14 @@ def rglru_cache_init(cfg: ModelConfig, batch: int, dtype, device):
                              device=device),
             "conv": torch.zeros((batch, K - 1, w), dtype=dtype,
                                 device=device)}
+
+
+def rglru_cache_specs(cfg: ModelConfig, batch: int, dtype, lead=()):
+    """:func:`rglru_cache_init`'s leaves (stacked on ``lead``) as
+    ``meta`` tensors."""
+    w, K = cfg.lru_width or cfg.d_model, cfg.ssm_conv
+    return {"h": spec((*lead, batch, w)),
+            "conv": spec((*lead, batch, K - 1, w), dtype)}
 
 
 def _block_gate(wm, x32):
@@ -132,7 +155,8 @@ def _rglru_core(p, x, cfg: ModelConfig, h0, lo, *, shard=None):
     if h0 is None:
         h0 = torch.zeros((B, w), dtype=torch.float32, device=x.device)
     with torch.profiler.record_function("rglru.scan"):
-        h_all, h_last = chunked_linear_scan(a, b, h0, cfg.scan_chunk)
+        h_all, h_last = chunked_linear_scan(
+            a, b, h0, S if cfg.calibrate else cfg.scan_chunk)
     y = h_all.to(dtype) * gate
     K = cfg.ssm_conv
     tail = val[:, -(K - 1):, :] if S >= K - 1 else \
@@ -192,10 +216,6 @@ def _rglru_dist(p, x, cfg: ModelConfig, lo, h0, rt):
 
 def rglru_block(p, x, cfg: ModelConfig, *, lora=None, h0=None):
     """x: (B, S, d) -> (y (B, S, d), cache {"h": h_last, "conv": tail})."""
-    if cfg.calibrate:
-        raise NotImplementedError(
-            "cfg.calibrate (the dry run's single-chunk scan) is not ported "
-            "yet; it comes with the dry run (ROADMAP Queue A item 8.6)")
     p, lo = _block_params(p), lora or {}
     rt = rt_lib.get_runtime()
     if rt is None:

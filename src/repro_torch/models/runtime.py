@@ -33,6 +33,13 @@ mesh of ``(1, 1, 1)`` (one card) runs the bodies with no communication.
 ``DIST_TRACES`` counts which body each Runtime-aware call took: the
 distributed one (``<op>_dist``) or the JAX package's local fallback
 (``<op>_fallback``, e.g. a width the model axis does not divide).
+
+:func:`record_collectives` tallies every collective issued while it is
+active, by the JAX package's kind names (``all-reduce``,
+``all-gather``, ``reduce-scatter``, ``all-to-all``): the count, the
+output bytes on this rank and the group's size, the record the JAX dry
+run parses out of the partitioned HLO (``parse_collectives``). With no
+recorder active it costs one check a collective.
 """
 from __future__ import annotations
 
@@ -147,6 +154,45 @@ def constrain(x, *spec):
 
 
 # -- collectives ------------------------------------------------------------
+class CollectiveRecord:
+    """The collectives issued under :func:`record_collectives`: ``stats``
+    by kind, ``{"count", "bytes", "gsize"}`` (bytes of the outputs on
+    this rank, gsize the largest group), and ``calls``, one ``(kind,
+    axes, bytes, gsize)`` a call."""
+
+    def __init__(self):
+        self.stats: Dict[str, Dict[str, int]] = {}
+        self.calls: list = []
+
+    def add(self, kind: str, axes, out: torch.Tensor, gsize: int) -> None:
+        nbytes = out.numel() * out.element_size()
+        e = self.stats.setdefault(kind, {"count": 0, "bytes": 0,
+                                         "gsize": 0})
+        e["count"] += 1
+        e["bytes"] += nbytes
+        e["gsize"] = max(e["gsize"], gsize)
+        self.calls.append((kind, tuple(axes), nbytes, gsize))
+
+
+_RECORDERS: list = []
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """A :class:`CollectiveRecord` of every collective issued inside."""
+    rec = CollectiveRecord()
+    _RECORDERS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDERS.remove(rec)
+
+
+def _record(kind: str, axes, out: torch.Tensor, gsize: int) -> None:
+    for rec in _RECORDERS:
+        rec.add(kind, axes, out, gsize)
+
+
 def _reduce_scatter(out, x, group):
     fn = getattr(dist, "reduce_scatter_single", None) or \
         dist.reduce_scatter_tensor
@@ -167,6 +213,8 @@ def _gather_dim(x: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((n * xt.shape[0], *xt.shape[1:]))
     _all_gather(out, xt, mesh.group(axes))
+    if _RECORDERS:
+        _record("all-gather", axes, out, n)
     return out.movedim(0, dim)
 
 
@@ -179,6 +227,8 @@ def _scatter_dim(x: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((xt.shape[0] // n, *xt.shape[1:]))
     _reduce_scatter(out, xt, mesh.group(axes))
+    if _RECORDERS:
+        _record("reduce-scatter", axes, out, n)
     return out.movedim(0, dim)
 
 
@@ -198,6 +248,8 @@ def _sum_over(x: torch.Tensor, mesh, axes, op=None) -> torch.Tensor:
         return x
     x = x.clone()
     dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=mesh.group(axes))
+    if _RECORDERS:
+        _record("all-reduce", axes, x, mesh.size(axes))
     return x
 
 
@@ -323,6 +375,8 @@ def _a2a(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=mesh.group(axes))
+    if _RECORDERS:
+        _record("all-to-all", axes, out, mesh.size(axes))
     return out
 
 

@@ -29,8 +29,12 @@ channels of every projection, ``x_proj``'s partial summed over
 ``model``, the ``selective_scan`` kernel on the rank's channels, the
 output projection's partial summed (or reduce-scattered back to
 sequence shards with ``cfg.seq_shard``), checkpointed inside the body.
-``cfg.calibrate`` (the dry run's single-chunk scan, ``_chunked_ssm_scan``)
-is not ported yet: ROADMAP Queue A item 8.6.
+With ``cfg.calibrate`` (the dry run's cost calibration) the block runs
+``_chunked_ssm_scan`` in one chunk of the whole sequence in place of the
+kernel, as the JAX package takes its chunked scan then: plain PyTorch on
+every device, the recurrence's step products counted once each.
+``mamba_specs`` and ``mamba_cache_specs`` give the dry run's shapes as
+``meta`` tensors.
 """
 from __future__ import annotations
 
@@ -39,16 +43,13 @@ import torch.nn.functional as F
 
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import spec
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import maybe_dequantize
 from repro_torch.kernels import ops as kops
 from repro_torch.models import runtime as rt_lib
 from repro_torch.models.layers import _normal
 from repro_torch.models.runtime import P
-
-_LATER = ("is not ported yet; it comes with the dry run "
-          "(ROADMAP Queue A item 8.6)")
-
 
 # ---------------------------------------------------------------- scan util
 def _comb(left, right):
@@ -97,6 +98,34 @@ def chunked_linear_scan(a, b, h0, chunk: int):
     return h_all, h_all[:, -1]
 
 
+def _chunked_ssm_scan(dt, A, Bm, Cm, xc, h0, chunk: int):
+    """The selective scan chunk by chunk, port of
+    ``repro.models.ssm._chunked_ssm_scan``: within a chunk the associative
+    scan of ``(exp(dt A), dt x B)``, across chunks the carried state, and
+    ``y = (h·C).sum(N)`` per chunk, so the (B, chunk, di, N) states never
+    outgrow one chunk. dt, xc (B, S, di); A (di, N); Bm, Cm (B, S, N); h0
+    (B, di, N) fp32. S is padded to a multiple of the chunk with dt = 0
+    steps (a = 1, b = 0: the state holds), sliced off after. Returns (y
+    (B, S, di) fp32, h_last)."""
+    S = xc.shape[1]
+    chunk = min(chunk, S)
+    pad = -(-S // chunk) * chunk - S
+    if pad:
+        z = lambda t: F.pad(t, (0, 0, 0, pad))
+        dt, xc, Bm, Cm = z(dt), z(xc), z(Bm), z(Cm)
+    h, ys = h0, []
+    for c0 in range(0, S + pad, chunk):
+        sl = slice(c0, c0 + chunk)
+        dtc = dt[:, sl]
+        a = torch.exp(dtc[..., None] * A)                  # (B, L, di, N)
+        b = (dtc * xc[:, sl])[..., None] * Bm[:, sl, None, :]
+        a_cum, b_scan = _associative_scan(a, b)
+        h_full = b_scan + a_cum * h[:, None]
+        ys.append(torch.einsum("blen,bln->ble", h_full, Cm[:, sl]))
+        h = h_full[:, -1]
+    return torch.cat(ys, 1)[:, :S], h
+
+
 # ---------------------------------------------------------------- params
 def init_mamba(generator, cfg: ModelConfig, dtype, device):
     d, di, N, R, K = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank,
@@ -130,6 +159,28 @@ def mamba_partition_specs(cfg: ModelConfig, tp_axis="model", lead=()):
             "a_log": P(*nl, tp_axis, None),
             "d_skip": P(*nl, tp_axis),
             "out_proj": P(*nl, tp_axis, None)}
+
+
+def mamba_specs(cfg: ModelConfig, dtype, lead=()):
+    """:func:`init_mamba`'s leaves (stacked on ``lead``) as ``meta``
+    tensors."""
+    d, di, N, R, K = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank,
+                      cfg.ssm_conv)
+    f = lambda *sh, dt=dtype: spec((*lead, *sh), dt)
+    f32 = torch.float32
+    return {"in_proj_x": f(d, di), "in_proj_z": f(d, di),
+            "conv_w": f(K, di), "x_proj": f(di, R + 2 * N),
+            "dt_proj": f(R, di), "dt_bias": f(di, dt=f32),
+            "a_log": f(di, N, dt=f32), "d_skip": f(di, dt=f32),
+            "out_proj": f(di, d)}
+
+
+def mamba_cache_specs(cfg: ModelConfig, batch: int, dtype, lead=()):
+    """:func:`mamba_cache_init`'s leaves (stacked on ``lead``) as
+    ``meta`` tensors."""
+    di, N, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    return {"h": spec((*lead, batch, di, N)),
+            "conv": spec((*lead, batch, K - 1, di), dtype)}
 
 
 def mamba_cache_init(cfg: ModelConfig, batch: int, dtype, device):
@@ -202,7 +253,11 @@ def _mamba_core(p, x: torch.Tensor, cfg: ModelConfig, lo, h0=None, *,
     A = -torch.exp(p["a_log"])
     xcf = xc.to(torch.float32)
     with torch.profiler.record_function("mamba.scan"):
-        if h0 is None:
+        if cfg.calibrate:
+            if h0 is None:
+                h0 = xcf.new_zeros((x.shape[0], di_l, N))
+            y, h_last = _chunked_ssm_scan(dt, A, Bm, Cm, xcf, h0, S)
+        elif h0 is None:
             y, h_last = kops.selective_scan(dt, xcf, Bm, Cm, A)
         else:
             y, h_last = _scan_from(dt, xcf, Bm, Cm, A, h0)
@@ -271,9 +326,6 @@ def mamba_block(p, x: torch.Tensor, cfg: ModelConfig, *, lora=None,
     The quantized leaves of ``p`` are dequantized to their output dtype
     first (QLoRA keeps them NF4 at rest). Profiler ranges name the
     decode (``mamba.dequantize``) and the scan (``mamba.scan``)."""
-    if cfg.calibrate:
-        raise NotImplementedError(
-            "cfg.calibrate (the dry run's chunked scan) " + _LATER)
     with torch.profiler.record_function("mamba.dequantize"):
         p = {k: maybe_dequantize(v) for k, v in p.items()}
     lo = lora or {}

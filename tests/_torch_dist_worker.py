@@ -336,5 +336,94 @@ def cohort_mesh(inp):
     return res
 
 
+def moe_calibrate(inp):
+    """The MoE body on the (2, 2, 2) mesh with ``cfg.calibrate`` (one
+    batched product over the rank's experts) and without (the
+    per-expert loop): outputs, balance losses and dx, fp32 and NF4
+    experts."""
+    from repro_torch.models import moe
+    from repro_torch.models import runtime as rt_lib
+    rt = _rt()
+    cfg, x = inp["cfg"], inp["x"]
+    out = {}
+    for name in ("p", "pq"):
+        p = inp[name]
+        for cal in (False, True):
+            c = cfg.replace(calibrate=cal)
+            with rt_lib.runtime(rt):
+                (y, aux), (dx,) = _grads(lambda x_: moe.moe_ffn(p, x_, c),
+                                         [x])
+            out[(name, cal)] = (_detach(y), _detach(aux), dx)
+    return out
+
+
+def _counting_collectives():
+    """Wrap the ``torch.distributed`` collectives the Runtime calls so
+    each call appends ``(kind, output bytes, group size)``: a count made
+    apart from the Runtime's recorder."""
+    calls = []
+
+    def wrap(name, kind, out_arg):
+        fn = getattr(dist, name, None)
+        if fn is None:
+            return
+
+        def counted(*args, **kw):
+            res = fn(*args, **kw)
+            out = args[out_arg]
+            calls.append((kind, out.numel() * out.element_size(),
+                          dist.get_world_size(kw.get("group"))))
+            return res
+        setattr(dist, name, counted)
+
+    # the functions models.runtime resolves, one for each kind
+    gather = "all_gather_single" if hasattr(dist, "all_gather_single") \
+        else "all_gather_into_tensor"
+    scatter = "reduce_scatter_single" if hasattr(
+        dist, "reduce_scatter_single") else "reduce_scatter_tensor"
+    for name, kind in (("all_reduce", "all-reduce"),
+                       ("all_to_all_single", "all-to-all"),
+                       (gather, "all-gather"),
+                       (scatter, "reduce-scatter")):
+        wrap(name, kind, 0)
+    return calls
+
+
+def collectives(inp):
+    """The collective recorder against an independent count of the
+    ``torch.distributed`` calls, over the MoE body (sequence-sharded and
+    decode, int8 dispatch) and the attention head split, forward and
+    backward; then the federated aggregation's three schedules on this
+    rank's client's delta, each with its record."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import moe
+    from repro_torch.kernels import ops
+    from repro_torch.models import runtime as rt_lib
+    rt = _rt()
+    calls = _counting_collectives()
+    cfg, p, x = inp["moe_cfg"], inp["moe_p"], inp["moe_x"]
+    q, k, v = inp["fa"]
+    out = {}
+    with rt_lib.runtime(rt), rt_lib.record_collectives() as rec:
+        _grads(lambda x_: moe.moe_ffn(p, x_, cfg), [x])
+        _grads(lambda x_: moe.moe_ffn(p, x_, cfg.replace(
+            moe_dispatch_bits=8)), [x])
+        with torch.no_grad():
+            moe.moe_ffn(p, x[:, :1], cfg)
+        _grads(lambda q_, k_, v_: ops.flash_attention(q_, k_, v_,
+                                                      causal=True),
+               [q, k, v])
+    out["calls"], out["stats"] = list(calls), rec.stats
+    out["rec_calls"] = list(rec.calls)
+    deltas, w = inp["deltas"], inp["w"]
+    local = dryrun.client_block(deltas, rt.index(rt.dp_axes))
+    for name, fn in dryrun.SCHEDULES.items():
+        with torch.no_grad(), rt_lib.record_collectives() as r:
+            res = fn(local, w, rt)
+        out[name] = (res, r.stats, list(r.calls))
+    return out
+
+
 CASES = {"model_bodies": model_bodies, "draws": draws,
-         "cohort_mesh": cohort_mesh}
+         "cohort_mesh": cohort_mesh, "moe_calibrate": moe_calibrate,
+         "collectives": collectives}

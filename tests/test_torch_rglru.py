@@ -129,10 +129,16 @@ def test_trainer_runs_the_hybrid():
 
 
 def test_calibrate_still_refuses_naming_item_8_5():
-    """The dry run's calibrated scan still raises; item 8.5's runtime
-    half is ported, so it now names the dry run's slice, item 8.6."""
+    """The dry run's calibrated scan (it raised until the dry run's
+    slice, item 8.6, ported it): one chunk of the whole sequence gives
+    the chunked block's output and state within 1e-5 of the largest, on
+    a sequence of 80 > scan_chunk steps."""
     c = _case("fp32")
     tp = _layer_slice(c.tf["layers"], 0)
-    with pytest.raises(NotImplementedError, match="item 8.6"):
-        rglru.rglru_block(tp, torch.zeros(1, 4, c.cfg.d_model),
-                          c.cfg.replace(calibrate=True))
+    x = torch.randn((2, 80, c.cfg.d_model),
+                    generator=torch.Generator().manual_seed(2)) * 0.5
+    y, st = rglru.rglru_block(tp, x, c.cfg.replace(calibrate=True))
+    y0, st0 = rglru.rglru_block(tp, x, c.cfg)
+    assert c.cfg.scan_chunk < 80
+    for g, w in ((y, y0), (st["h"], st0["h"]), (st["conv"], st0["conv"])):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())

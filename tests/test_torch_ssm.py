@@ -174,17 +174,22 @@ def test_mamba_block_matches_jax(pair, S):
 
 
 def test_ssm_branches_off_the_training_path_raise(pair):
-    """The dry run's calibrated scan raises, naming the queue item that
-    brings it (ROADMAP Queue A item 8.6); a start state ``h0`` is ported
-    (the mesh's body passes one) and matches the JAX block from the same
-    state within its 1e-4 bound; the decode branch is ported (its parity
-    is tests/test_torch_decode.py's) and steps an empty cache."""
+    """The dry run's calibrated scan (it raised until ROADMAP Queue A
+    item 8.6 ported it) runs ``_chunked_ssm_scan`` in one chunk and
+    gives the plain scan's output and state within 1e-5; a start state
+    ``h0`` is ported (the mesh's body passes one) and matches the JAX
+    block from the same state within its 1e-4 bound; the decode branch
+    is ported (its parity is tests/test_torch_decode.py's) and steps an
+    empty cache."""
     jm, tm, frozen, _ = pair
     p = jax.tree.map(lambda l: l[0], frozen["layers"])
     x = torch.zeros((1, 4, tm.cfg.d_model))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A item 8.6"):
-        ssm.mamba_block(_to_port(p), x, tm.cfg.replace(calibrate=True))
+    xr = torch.randn((2, 40, tm.cfg.d_model),
+                     generator=torch.Generator().manual_seed(4)) * 0.5
+    got, gc = ssm.mamba_block(_to_port(p), xr, tm.cfg.replace(calibrate=True))
+    want, wc = ssm.mamba_block(_to_port(p), xr, tm.cfg)
+    for g, w in ((got, want), (gc["h"], wc["h"])):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
     rs = np.random.RandomState(3)
     xh = (rs.randn(2, 6, tm.cfg.d_model) * 0.5).astype(np.float32)
     h0 = (rs.randn(2, tm.cfg.d_inner, tm.cfg.ssm_state) * 0.5).astype(
