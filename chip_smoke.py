@@ -23,7 +23,7 @@ Phases (a failed phase raises and the script exits non-zero):
     the per-request ``serve_sequential`` oracle; then one flight at int4
     and one unquantized. The kernel launch counts are zeroed just before
     this phase and read right after it;
- 4. one ``train_step``'s gradients at full Yi-9B width with 2 layers
+ 4. one ``train_step``'s gradients at full Yi-9B width with 1 layer
     (NF4 backbone, seeded weights, 4 x 64 tokens) on the card with the
     kernels and on the CPU with the plain versions, on the same weights;
  5. the federated QLoRA trainer (``repro_torch.launch.train``) on Yi-9B
@@ -31,7 +31,7 @@ Phases (a failed phase raises and the script exits non-zero):
     clients x 2 local steps of 4 x 64 tokens, through ``client_update``
     and ``aggregate``; launch counts zeroed just before and read right
     after; then one step under the profiler;
- 6. phase 4 at full Falcon-Mamba-7B width with 2 layers;
+ 6. phase 4 at full Falcon-Mamba-7B width with 1 layer;
  7. phase 5 on Falcon-Mamba-7B at full width and depth (64 Mamba
     layers, every scan through the ``selective_scan`` kernel and its
     gradient through ``selective_scan_bwd``), with the peak device
@@ -40,38 +40,39 @@ Phases (a failed phase raises and the script exits non-zero):
     launched them;
  8. first the ``tripleplay`` arm's GAN alone (``GANConfig()``, the
     clients below): the fleet engine against the sequential
-    ``Client.prepare_gan`` loop and the card against the CPU at 10 GAN
+    ``Client.prepare_gan`` loop and the card against the CPU at 3 GAN
     steps (labels bitwise, generator leaves within 2e-3, images within
     5e-3), the fleet at 150 steps (every needed row delivered, finite
     losses; wall time, then profiled: device busy, idle share, ATen
     ops), and the GAN's convolutions through cuDNN against the gemm
     forms with TF32 off; then ``repro_torch.fl.simulator.run_federated``
     through its entry point at the JAX package's ``CLIPConfig()`` and
-    the paper preset's round settings (pacs, 5 clients, 10 local steps,
-    batch 32, 60 samples a class, lr 3e-3, 150 GAN steps): 3 cohort
-    rounds, pipelined, for ``fedclip``, ``qlora_nogan`` and
+    the paper preset's round settings (pacs, 5 clients, 5 local steps
+    (cut from 10), batch 32, 60 samples a class, lr 3e-3, 150 GAN
+    steps): 2 cohort rounds, pipelined, for ``fedclip``, ``qlora_nogan`` and
     ``tripleplay`` (fleet GAN), each run's launch counts zeroed just
     before it and read right after; its History printed and checked
     (finite, uplink bytes 5 x the per-client payload, the GAN meta), then
     one sequential round on the same streams and the first round's
     trainables, cohort against the sequential oracle, at
-    ``tests/test_fl.py``'s tolerances; for tripleplay also 3 rounds of
+    ``tests/test_fl.py``'s tolerances; for tripleplay also 2 rounds of
     the sequential engine after the sequential GAN engine;
  9. one full-participation round at CLIP ViT-B/32 width (seeded
     weights; the pacs images repeated 7 x along each spatial axis to
     224 x 224; tripleplay's fleet GAN trained on the 32 x 32 pools and
-    its rows repeated likewise), the three arms through
+    its rows repeated likewise, 30 GAN steps), 5 local steps of 32 (cut
+    from 10), the three arms through
     ``CohortEngine``, ``FullSyncScheduler`` and ``SequentialExec``,
     cohort against sequential; launch counts zeroed before the arms and
     read after them; each cohort round profiled, with the peak device
-    memory; then a 2-vision-layer cut of the round on the card against
-    the CPU on the same weights;
+    memory; then a 2-vision-layer cut of the round, 3 local steps deep,
+    on the card against the CPU on the same weights;
 10. the scheduler layer (``fl.sched``: partial and async participation,
     availability traces, chaos fault injection) through
     ``run_federated``: (a) Fig. 7's sweep (``benchmarks/fig7_scalability.py``)
-    at ``CLIPConfig()``: tripleplay (fleet GAN, 150 steps), 10 clients of
+    at ``CLIPConfig()``: tripleplay (fleet GAN, 30 steps), 10 clients of
     48 a class, skewed trace, K in {2, 5} under sync-partial and async,
-    3 commits each, cohort engine, pipelined, each run twice (the draws'
+    2 commits each, cohort engine, pipelined, each run twice (the draws'
     columns must repeat), every History checked (finite, participation
     K wide, staleness 0 / >= 0, virtual time non-decreasing, uplink K x
     the per-client payload); one commit of each policy cohort against
@@ -79,11 +80,12 @@ Phases (a failed phase raises and the script exits non-zero):
     trace bitwise the full round; (b) the reference's fault study
     (``benchmarks/fl_round_bench.py``: fedclip, 8 clients of 24 a class,
     diurnal trace, dropout 0.25, stragglers 0.5, uplink loss 0.1, K = 3,
-    6 rounds, both policies), then tripleplay under ``"heavy"``: each run
+    6 rounds, both policies), then tripleplay under ``"heavy"`` (fleet
+    GAN, 30 steps): each run
     twice and on the sequential engine, the same participation, virtual
     time, bytes and fault ledger (non-empty; GAN drops for tripleplay);
-    (c) ``qlora_nogan`` at ViT-B/32 width on phase 9's clients: a
-    sync-partial round at K = 3 (bucket 4, one pad row) and an async
+    (c) ``qlora_nogan`` at ViT-B/32 width on phase 9's clients, 5 local
+    steps: a sync-partial round at K = 3 (bucket 4, one pad row) and an async
     commit (buffer 2, concurrency 4), cohort against sequential, then
     each profiled with the peak device memory. Launch counts are zeroed
     before each run of (a) and (b) and before (c), and read right after;
@@ -96,7 +98,8 @@ Phases (a failed phase raises and the script exits non-zero):
     Zipf trace of 48 requests replayed against the refreshed store and
     held to ``serve_sequential`` at the int8 bound (5e-2); (b) at CLIP
     ViT-B/32 width on phase 9's clients, the backing from
-    ``personalized_trainables`` of a ``qlora_nogan`` wave, a store of 4
+    ``personalized_trainables`` of a ``qlora_nogan`` wave (5 local
+    steps), a store of 4
     (evictions), ``refresh_from_global`` before and after one
     ``FullSyncScheduler`` round (timed; its ``blockwise_quant``
     launches), a replay held to the oracle (its ``quant_matmul``
@@ -108,7 +111,7 @@ Phases (a failed phase raises and the script exits non-zero):
     counted wait. Launch counts are zeroed before each run and replay.
 12. token serving and the train-side pieces: (a) ``repro_torch.launch.
     serve.main`` in its token mode on Yi-9B at full width and depth, NF4
-    (4 streams, prompt 64, 32 tokens): every projection of the prefill
+    (4 streams, prompt 64, 16 tokens): every projection of the prefill
     and of each decode step through ``lora_matmul``'s tensor-core kernel,
     the prefill's attention through ``flash_attention``'s, no plain
     route; prefill ms, decode ms a token and tokens a second; one decode
@@ -119,7 +122,7 @@ Phases (a failed phase raises and the script exits non-zero):
     ``selective_scan``; a decode step's device time by region,
     ``mamba.dequantize`` against the rest); (c) prefill of 4 x 64 and 8
     decode steps on the card against the CPU on the same weights and
-    tokens: a 2-layer full-width Yi-9B and Falcon-Mamba (bf16, within
+    tokens: a 1-layer full-width Yi-9B and Falcon-Mamba (bf16, within
     2e-2), and the reduced h2o-danube with an int8 KV cache, 32 steps,
     its window of 64 wrapping (the prefill within 1e-4, the steps within
     the JAX package's int8-KV bound, 5e-2); (d) the trainer's
@@ -128,18 +131,18 @@ Phases (a failed phase raises and the script exits non-zero):
     shot. Launch counts are zeroed before each run and read after.
 13. the zoo's hybrid, MoE, encdec and VLM families, NF4, seeded
     weights: (a) RecurrentGemma-2B at full width and depth through
-    ``launch/serve.py``'s token mode (4 streams, prompt 64, 32 tokens),
+    ``launch/serve.py``'s token mode (4 streams, prompt 64, 16 tokens),
     a decode step profiled, then the trainer's rounds (1 x 2 clients x 2
     local steps of 4 x 64 tokens) on the same weights, a step profiled
     (``rglru.scan`` is ``chunked_linear_scan``'s region); (b) the same on
-    Qwen3-MoE-235B-A22B at full width, 8 of its 94 layers, with the share
+    Qwen3-MoE-235B-A22B at full width, 4 of its 94 layers, with the share
     of token-copies dropped at capacity factor 1.25 (regions
     ``moe.dequantize`` and ``moe.experts``); (c) Whisper-medium's token
     mode and 2 ``Model.train_step``s on frames (4, 1500, 1024); (d)
     LLaVA-NeXT-34B's (30 of its 60 layers) with 576 image patches before 64
     tokens, the adapter's attention at D = 896; (e) bf16 full-width cuts
-    of (a) (3 layers), (c) (2 + 2 layers, 250 frames) and (d) (2 layers,
-    8 patches) card against CPU (logits, loss and the gradients' norm
+    of (a) (3 layers), (c) (2 + 2 layers, 250 frames) and (d) (1 layer,
+    8 patches, 2 sequences) card against CPU (logits, loss and the gradients' norm
     within 2e-2; each gradient leaf and each trainable after one Adam
     step within 2e-2 of an fp32 CPU witness on the same weights, or
     within twice the CPU's bf16 distance to it), and the reduced fp32
@@ -163,13 +166,13 @@ Phases (a failed phase raises and the script exits non-zero):
     region (``moe.dispatch``, ``moe.experts``, ``moe.combine``) beside
     its bound, one ``train_step`` on 4 x 64 tokens with its peak memory,
     and one Falcon-Mamba-7B block through its channel-parallel body
-    against the local path; (c) inside phase 13, Qwen3-MoE's 8 layers
+    against the local path; (c) inside phase 13, Qwen3-MoE's 4 layers
     under the Runtime and without it (routes equal, logits, loss and
     gradients within phase 13's bf16 bounds; the same with the int8
     dispatch); (d) ``run_federated(mesh=)`` (``qlora_nogan``, 1 round)
     and a ViT-B/32-width cohort round with ``CohortConfig(mesh=)``
     against the unsharded engine; (e) the fleet GAN with
-    ``FleetGANConfig(mesh=)``, 10 steps, bitwise the unsharded fleet;
+    ``FleetGANConfig(mesh=)``, 3 steps, bitwise the unsharded fleet;
     (f) each kernel the bodies launched at the rank bodies' shapes
     against its plain version.
 15. the dry run and the autotuner: (a) ``cfg.calibrate`` with
@@ -196,7 +199,7 @@ Phases (a failed phase raises and the script exits non-zero):
     The GAN phase (before phase 8) also runs the six convolutions
     through the int8 gemms against the fp32 gemm forms, timed, with the
     block products bitwise an int64 product on the CPU, and the int8
-    fleet GAN at 10 steps card against CPU.
+    fleet GAN at 3 steps card against CPU.
 Phase 2 also holds ``selective_scan`` and its backward kernel
 ``selective_scan_bwd`` at the trainer's shape and at edge shapes (the
 backward against the plain ``ops.selective_scan_bwd``, bitwise equal
@@ -305,10 +308,13 @@ REPLACES = {
     "selective_scan": "src/repro/kernels/selective_scan.py:54",
     # the JAX package has no Pallas backward: its gradient is autodiff
     "selective_scan_bwd": "jax.vjp of src/repro/kernels/selective_scan.py:54",
+    # quant_matmul's tensor-core route (bf16 x past 4 rows), qmm_tc_kernel
+    "quant_matmul_tc": "src/repro/kernels/quant_matmul.py:66",
 }
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
            for name in REPLACES}
 SOURCES["quant_matmul_t"] = SOURCES["lora_matmul"]
+SOURCES["quant_matmul_tc"] = SOURCES["quant_matmul"]
 SOURCES["selective_scan_bwd"] = SOURCES["selective_scan"]
 SERVE_KERNELS = ("quant_matmul", "blockwise_quant", "flash_attention")
 # the kernels each trainer's main path launches
@@ -359,8 +365,9 @@ def qmt_per_step(cfg) -> int:
 FL_ATTENTION = [(32, 16), (160, 16), (128, 16), (32, 192), (160, 192),
                 (128, 192)]
 # the per-round settings of the paper preset (benchmarks/fl_common.py,
-# PRESET["paper"] and fl_config; batch 32 is FLConfig's default)
-FL_PAPER = dict(dataset="pacs", n_clients=5, local_steps=10, batch_size=32,
+# PRESET["paper"] and fl_config; batch 32 is FLConfig's default), the
+# local steps cut from 10 to 5 for the script's time
+FL_PAPER = dict(dataset="pacs", n_clients=5, local_steps=5, batch_size=32,
                 n_per_class=60, lr=3e-3)
 FL_ARMS = ("fedclip", "qlora_nogan", "tripleplay")
 # the tripleplay arm's GAN held to its sequential oracle and the card to
@@ -371,7 +378,7 @@ GAN_BOUNDS = dict(gen_atol=2e-3, img_atol=5e-3)
 # (tests/test_kernels.py holds each int8 conv within 3e-2 of the fp32
 # one's largest value; images lie in [-1, 1]), see gan_int8_phase
 INT8_GAN_IMG_ATOL = 3e-2
-GAN_CHECK_STEPS = 10
+GAN_CHECK_STEPS = 3
 # the GAN's six convolutions at GANConfig() and its minibatch of 64:
 # (op, batch, input side, ci, co), discriminator then generator
 GAN_CONVS = [("conv", 64, 32, 3, 32), ("conv", 64, 16, 32, 64),
@@ -387,17 +394,34 @@ UPDATE_REL, GATED_REL = 2e-2, 1e-1
 
 # -- measurement helpers -----------------------------------------------
 
-def timings(fn, iters: int = 50) -> tuple:
+class _profile(torch.profiler.profile):
+    """``torch.profiler.profile`` without the trace's distributed metadata:
+    with a process group up (phases 13-15) gathering it takes seconds a
+    session, and no trace is exported here."""
+
+    def _get_distributed_info(self):
+        return None
+
+
+def timings(fn, iters: int = 50, budget_s: float = 0.1) -> tuple:
     """(device ms, call ms) per call of ``fn()``. Device time is the sum
     of the card's kernel and copy activities that ``torch.profiler``
-    records over ``iters`` calls (what the kernels themselves take);
-    call time comes from CUDA events around ``iters`` back-to-back calls
-    and includes the host's dispatch, which bounds it at small shapes.
-    A profiler session that records no device activity is repeated, up
+    records over the timed calls (what the kernels themselves take);
+    call time comes from CUDA events around back-to-back calls and
+    includes the host's dispatch, which bounds it at small shapes.
+    Each loop makes ``iters`` calls, or as many as fit in ``budget_s``
+    by the three warm-up calls' wall time, at least 5 (a plain version
+    that dispatches thousands of small ops a call would otherwise spend
+    most of the script's time building the profiler's events). A
+    profiler session that records no device activity is repeated, up
     to three sessions; device time is None if none records any."""
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    per_call = (time.perf_counter() - w0) / 3
+    iters = max(5, min(iters, int(budget_s / max(per_call, 1e-9))))
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -408,7 +432,7 @@ def timings(fn, iters: int = 50) -> tuple:
     call_ms = t0.elapsed_time(t1) / iters
     dev_us = 0.0
     for _ in range(3):   # a profiler session now and then records nothing
-        with torch.profiler.profile(
+        with _profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -528,13 +552,23 @@ def setup() -> None:
 
 # -- phase 2: kernels against their plain versions ---------------------
 
-def gemv_route(run) -> tuple:
-    """``run()``'s result and the route its ``quant_matmul`` launch took,
-    read from the wrapper's own count of GEMV launches."""
-    before = qmm_kernel.quant_matmul.gemv_launches
+def qmm_route(run) -> tuple:
+    """``run()``'s result and the route its ``quant_matmul`` launch took
+    (``"gemv"``, ``"tc"`` or ``"tiled"``), read from the wrapper's own
+    counts of GEMV and tensor-core launches."""
+    fn = qmm_kernel.quant_matmul
+    before = (fn.gemv_launches, fn.tc_launches)
     out = run()
-    return out, ("gemv" if qmm_kernel.quant_matmul.gemv_launches > before
-                 else "tiled")
+    if fn.gemv_launches > before[0]:
+        return out, "gemv"
+    return out, "tc" if fn.tc_launches > before[1] else "tiled"
+
+
+def path_launches() -> dict:
+    """``ops.launch_counts()`` with the tc route's own count beside
+    ``quant_matmul``'s (``ops.reset_launch_counts`` zeroes both)."""
+    return {**ops.launch_counts(),
+            "quant_matmul_tc": qmm_kernel.quant_matmul.tc_launches}
 
 
 def gemv_plan_row(T, M, G, N, block) -> dict:
@@ -545,11 +579,25 @@ def gemv_plan_row(T, M, G, N, block) -> dict:
             "smem_B": qmm_kernel.gemv_smem_bytes(pl, M, G, block)}
 
 
-def check_quant_matmul(gen) -> dict:
+# the tc route's cases (phase 2 (a)): every training shape of PERF.md
+# rows 1b and 1c in NF4 and int8, bf16 x, block 64: (name, M, K, N)
+QMM_TC_SHAPES = [
+    ("rgemma_wg_wu", 256, 2560, 7680), ("rgemma_wd", 256, 7680, 2560),
+    ("whisper_enc_wu", 6000, 1024, 4096), ("whisper_enc_wd", 6000, 4096, 1024),
+    ("kimi_expert_wg_wu", 7, 7168, 2048), ("kimi_expert_wd", 7, 2048, 7168),
+]
+
+
+def check_quant_matmul(gen) -> tuple:
     """Every format and dtype at the serve replay's shape (4 users x 1
     row, 768x768, block 64; every replay launch has this shape), one and
-    eight users, one large shape and the odd-K / ragged-N edge; two calls
-    must be bitwise equal. Returns the replay-shape int8 record."""
+    eight users, one large shape and the odd-K / ragged-N edges; then the
+    tc route (bf16 x past 4 rows) at every training shape of PERF.md rows
+    1b and 1c in NF4 and int8. Two calls must be bitwise equal; bf16
+    within 1.6e-2 of the largest magnitude, fp32 1e-5. Each tc row also
+    times the fp32 route's ``qmm_kernel`` on the same bf16 inputs
+    (``tiled_ms``, forced: the wrapper never picks it for bf16). Returns
+    the replay-shape int8 record and the Kimi-K2 expert's NF4 tc record."""
     dev = "cuda"
     cases = [  # (name, T, M, K, N, bits, mode, dtype)
         ("serve_t4_int8", 4, 1, 768, 768, 8, "linear", torch.float32),
@@ -564,8 +612,11 @@ def check_quant_matmul(gen) -> dict:
         ("gemv_oddK_int4", 0, 2, 100, 64, 4, "linear", torch.float32),
         ("oddK_raggedN_int8", 0, 5, 100, 70, 8, "linear", torch.float32),
         ("oddK_raggedN_int4", 0, 5, 100, 70, 4, "linear", torch.float32),
-    ]
-    main = None
+        ("oddK_raggedN_nf4_bf16", 2, 37, 200, 70, 4, "nf4", torch.bfloat16),
+    ] + [(f"{name}_{tag}", 0, M, K, N, bits, mode, torch.bfloat16)
+         for name, M, K, N in QMM_TC_SHAPES
+         for tag, bits, mode in (("nf4", 4, "nf4"), ("int8", 8, "linear"))]
+    main = tc_main = None
     for name, T, M, K, N, bits, mode, dtype in cases:
         lead = (T,) if T else ()
         w = torch.randn((*lead, K, N), generator=gen, device=dev) / K ** 0.5
@@ -573,8 +624,9 @@ def check_quant_matmul(gen) -> dict:
             qt = ref.blockwise_quant(w, bits=bits, block=64, mode=mode)
         else:
             qt = qlib.quantize(w, bits=bits, block=64, mode=mode)
+        del w
         x = torch.randn((*lead, M, K), generator=gen, device=dev).to(dtype)
-        got, route = gemv_route(lambda: qmm_kernel.quant_matmul(x, qt))
+        got, route = qmm_route(lambda: qmm_kernel.quant_matmul(x, qt))
         again = qmm_kernel.quant_matmul(x, qt)
         want = ref.quant_matmul(x, qt)
         torch.cuda.synchronize()
@@ -584,6 +636,8 @@ def check_quant_matmul(gen) -> dict:
             raise AssertionError(f"quant_matmul {name}: rel err {rel_e} > {tol}")
         if not torch.equal(got, again):
             raise AssertionError(f"quant_matmul {name}: two calls differ")
+        if route != qmm_kernel.route(M, N, qt.q, dtype):
+            raise AssertionError(f"quant_matmul {name}: took {route}")
         G = qt.q.shape[-3]
         Kq = G * qt.block
         b_ms, b_by = bound(nbytes(x, qt.q, qt.scales, got),
@@ -595,10 +649,76 @@ def check_quant_matmul(gen) -> dict:
             row.update(gemv_plan_row(T, M, G, N, qt.block))
         timed(row, "ms", lambda: qmm_kernel.quant_matmul(x, qt))
         timed(row, "plain_ms", lambda: ref.quant_matmul(x, qt))
+        if route == "tc":
+            pl = qmm_kernel.plan_tc(max(T, 1), M, Kq, N, qt.block)
+            row.update(plan_bm=pl.bm, plan_splits=pl.splits,
+                       plan_blocks=pl.blocks)
+            timed(row, "tiled_ms", lambda: qmm_kernel._quant_matmul(
+                x, qt, None, force="tiled"))
         report({"quant_matmul": 1, **row})
         if name == "serve_t4_int8":
             main = row
-    return main
+        if name == "kimi_expert_wg_wu_nf4":
+            tc_main = row
+        del x, qt, got, again, want
+    torch.cuda.empty_cache()
+    return main, tc_main
+
+
+# the tc route's plan sweep: the rows it runs (M = 7, 256, 800, 6000),
+# NF4 block 64, bf16 x: (M, K, N)
+QMM_TC_SWEEP = [(7, 7168, 2048), (7, 2048, 7168), (256, 2560, 7680),
+                (256, 7680, 2560), (800, 768, 3072), (6000, 1024, 4096),
+                (6000, 4096, 1024)]
+
+
+def queued_ms(run, iters: int = 20) -> float:
+    """Device ms per call of ``run()``: CUDA events around ``iters``
+    calls queued behind a ~3 ms sleep kernel, so the host has enqueued
+    them all before the first runs and its dispatch does not show (the
+    launches' own gaps on the card do)."""
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(5_000_000)
+    t0.record()
+    for _ in range(iters):
+        run()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def qmm_tc_sweep(gen, iters: int = 20) -> None:
+    """The tc route's device time (``queued_ms``) under every row tile
+    and split count that ``plan_tc`` considers, at the rows it runs,
+    beside the plan's pick and its model's time: the data
+    ``TC_TILE_US`` / ``TC_BLOCKS_PER_SM`` are fitted to (refit them when
+    the kernel changes)."""
+    dev = "cuda"
+    for M, K, N in QMM_TC_SWEEP:
+        w = torch.randn((K, N), generator=gen, device=dev) / K ** 0.5
+        qt = qlib.quantize(w, bits=4, block=64, mode="nf4")
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        pick = qmm_kernel.plan_tc(1, M, K, N, 64)
+        times = {}
+        for pl in qmm_kernel.tc_plans(1, M, K, N, 64):
+            times[(pl.bm, pl.splits)] = queued_ms(
+                lambda: qmm_kernel._quant_matmul(x, qt, None, tc_plan=pl),
+                iters)
+        best = min(times, key=times.get)
+        report({"qmm_tc_sweep": f"{M}x{K}x{N}",
+                "plan": f"{pick.bm}/{pick.splits}",
+                "plan_ms": times[(pick.bm, pick.splits)],
+                "model_ms": qmm_kernel.tc_cost_us(1, M, K, N, 64, pick.bm,
+                                                  pick.splits) / 1e3,
+                "best": f"{best[0]}/{best[1]}", "best_ms": times[best]})
+        print("    ms by row tile/splits: " + " ".join(
+            f"{bm}/{s}={t:.4g}" for (bm, s), t in times.items()), flush=True)
+        del w, qt, x
+    torch.cuda.empty_cache()
 
 
 def check_blockwise_quant(gen) -> dict:
@@ -1138,7 +1258,7 @@ def profile_replay(engine, trace, images) -> dict:
     that take the most device time."""
     cuda = torch.autograd.DeviceType.CUDA
     torch.cuda.synchronize()
-    with torch.profiler.profile(
+    with _profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         rec = serve_lib.replay(engine, trace, images, collect_logits=False)
@@ -1158,23 +1278,28 @@ def profile_replay(engine, trace, images) -> dict:
 @contextlib.contextmanager
 def record_quant_matmul():
     """Count the ``quant_matmul`` kernel launches made inside the block
-    by (users T, rows a user M, route, the plan's CTAs; 0 for the tiled
-    route), read around each call of the op ``ops.quant_matmul``, which
-    the serve engine calls; the kernel wrapper and its counts are left
-    as they are."""
+    by (users T, rows a user M, route ``"gemv"`` / ``"tc"`` / ``"tiled"``,
+    the plan's CTAs (0 for the tiled route), x's dtype), read around each
+    call of the op ``ops.quant_matmul``, which the serve engine and the
+    models call; the kernel wrapper and its counts are left as they
+    are."""
     calls: collections.Counter = collections.Counter()
     op, wrapper = ops.quant_matmul, qmm_kernel.quant_matmul
 
     def recorded(x, qt):
-        before = (wrapper.launches, wrapper.gemv_launches)
-        y = op(x, qt)
-        if wrapper.launches > before[0]:
+        before = wrapper.launches
+        y, route = qmm_route(lambda: op(x, qt))
+        if wrapper.launches > before:
             T = qt.q.shape[0] if qt.q.ndim == 4 else 1
             M = x.numel() // (T * x.shape[-1])
-            gemv = wrapper.gemv_launches > before[1]
-            ctas = qmm_kernel.plan(T, M, qt.q.shape[-3],
-                                   qt.q.shape[-1]).ctas if gemv else 0
-            calls[(T, M, "gemv" if gemv else "tiled", ctas)] += 1
+            G, N = qt.q.shape[-3], qt.q.shape[-1]
+            ctas = 0
+            if route == "gemv":
+                ctas = qmm_kernel.plan(T, M, G, N).ctas
+            elif route == "tc":
+                ctas = qmm_kernel.plan_tc(T, M, G * qt.block, N,
+                                          qt.block).blocks
+            calls[(T, M, route, ctas, str(x.dtype).split(".")[-1])] += 1
         return y
 
     ops.quant_matmul = recorded
@@ -1396,7 +1521,7 @@ def profile_run(run, kernels) -> dict:
     cuda = torch.autograd.DeviceType.CUDA
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    with torch.profiler.profile(activities=[
+    with _profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1526,7 +1651,7 @@ def train_phase(*, arch="yi-9b", rounds=2, clients=2, steps=2, batch=4,
         res["rounds"].append({"round": rnd, "mean_loss": float(np.mean(losses)),
                               "uplink_bytes": uplink, "wall_s": wall,
                               "s_per_local_step": wall / (clients * steps)})
-    launches = ops.launch_counts()
+    launches = path_launches()
     traces = dict(ops.KERNEL_TRACES)
     res.update(launches=launches, traces=traces, steps=n_steps,
                max_memory_allocated=torch.cuda.max_memory_allocated()
@@ -1540,6 +1665,9 @@ def train_phase(*, arch="yi-9b", rounds=2, clients=2, steps=2, batch=4,
     for name in kernels:
         if launches[name] < 1:
             raise AssertionError(f"the trainer launched no {name} kernel")
+    if "quant_matmul" in kernels and launches["quant_matmul_tc"] < 1:
+        raise AssertionError("the bf16 trainer's quant_matmul took no tc "
+                             "launch")
     # the bf16 model's attention and LoRA linears take the tensor cores
     tc = ops.tc_launch_counts()
     for name in set(kernels) & set(tc):
@@ -1578,9 +1706,9 @@ def train_phase(*, arch="yi-9b", rounds=2, clients=2, steps=2, batch=4,
 
 def step_check_report(arch: str) -> None:
     """Phases 4 and 6: ``step_check_phase`` on the card, reported."""
-    print(f"full-width {arch} step (2 layers), card vs CPU:", flush=True)
+    print(f"full-width {arch} step (1 layer), card vs CPU:", flush=True)
     t0 = time.perf_counter()
-    for res in step_check_phase(arch=arch).values():
+    for res in step_check_phase(arch=arch, n_layers=1).values():
         report({k: v for k, v in res.items()
                 if k not in ("traces", "leaf_rel", "leaf_norm_rel")})
         for key, what in (("leaf_norm_rel", "|card-cpu|/|cpu|"),
@@ -2016,7 +2144,7 @@ def gan_int8_phase(device="cuda", *, check_steps=GAN_CHECK_STEPS,
 
 
 def gan_phase(device="cuda", *, check_steps=GAN_CHECK_STEPS, steps=150,
-              profile_steps=15, profile=True, **settings) -> dict:
+              profile_steps=5, profile=True, **settings) -> dict:
     """The tripleplay arm's GAN prep on phase 8's clients at the
     reference's ``GANConfig()``: the fleet engine against the sequential
     ``Client.prepare_gan`` loop at ``check_steps`` (labels bitwise, the
@@ -2078,7 +2206,7 @@ def gan_report() -> None:
     """The GAN phase on the card, reported; the convolutions' cuDNN form
     against the gemm form with it."""
     print("tripleplay GAN (GANConfig(), phase 8's 5 clients): fleet vs "
-          "sequential and card vs CPU at 10 steps, then 150 steps, then a "
+          "sequential and card vs CPU at 3 steps, then 150 steps, then a "
           "profiled window:", flush=True)
     t0 = time.perf_counter()
     res = gan_phase()
@@ -2101,7 +2229,7 @@ def gan_report() -> None:
     report({"gan_phase_s": time.perf_counter() - t0})
 
 
-def fl_round_phase(device="cuda", rounds=3, **settings) -> dict:
+def fl_round_phase(device="cuda", rounds=2, **settings) -> dict:
     """Phase 8: ``run_federated`` through its entry point, the three
     arms, at the paper preset's per-round settings (``FL_PAPER``,
     overridable for a rehearsal) and the JAX package's ``CLIPConfig()``:
@@ -2233,9 +2361,9 @@ def rebalanced_clients(data, n_clients, alpha, seed, strat, repeat, *,
     return big
 
 
-def vit_round_phase(device="cuda", ccfg=VIT_B32, *, steps=10, batch=32,
+def vit_round_phase(device="cuda", ccfg=VIT_B32, *, steps=5, batch=32,
                     n_clients=5, n_per_class=60, seed=0, cut_layers=2,
-                    gan_steps=150, profile=True) -> dict:
+                    cut_steps=3, gan_steps=30, profile=True) -> dict:
     """Phase 9: one full-participation round at ``ccfg``'s width (CLIP
     ViT-B/32), seeded weights, the three arms, through ``CohortEngine``,
     ``FullSyncScheduler`` and ``SequentialExec`` (``oracle_round``).
@@ -2245,8 +2373,9 @@ def vit_round_phase(device="cuda", ccfg=VIT_B32, *, steps=10, batch=32,
     (tripleplay: the fleet GAN's rows too, ``rebalanced_clients``).
     Launch counts are zeroed before the arms and read after them; on the
     card each arm's cohort round is then profiled, and a ``cut_layers``-
-    vision-layer cut of the same round runs on the card (kernel) and on
-    the CPU (plain path) on the same weights and indices."""
+    vision-layer cut of the round, ``cut_steps`` local steps deep, runs
+    on the card (kernel) and on the CPU (plain path) on the same weights
+    and indices."""
     on_card = torch.device(device).type == "cuda"
     data = make_dataset("pacs", n_per_class=n_per_class, seed=seed)
     repeat = ccfg.image_size // data["images"].shape[1]
@@ -2296,7 +2425,7 @@ def vit_round_phase(device="cuda", ccfg=VIT_B32, *, steps=10, batch=32,
                 lambda: a["engine"].run_round(a["global_tr"], key),
                 ("flash_attention",))
         row["cut"] = cut_check(a, ccfg, cut_layers, a["gen"], key,
-                               steps=steps, batch=batch, device=device)
+                               steps=cut_steps, batch=batch, device=device)
         res["arms"][arm] = row
     return res
 
@@ -2342,16 +2471,18 @@ def cut_check(a, ccfg, layers, gen, key, *, steps, batch, device) -> dict:
 
 # Fig. 7's scheduler sweep (benchmarks/fig7_scalability.py: N = 10, 48 a
 # class, skewed trace, K of N under both policies) at the paper preset's
-# round settings, 3 commits each (cut from 12)
+# round settings, 2 commits each (cut from 12), the GAN's prep cut from
+# 150 steps to 30 (phase 8 runs the 150)
 SCHED_SWEEP = dict(dataset="pacs", strategy="tripleplay", n_clients=10,
                    n_per_class=48, local_steps=10, batch_size=32, lr=3e-3,
-                   gan_steps=150, trace="skewed", rounds=3)
+                   gan_steps=30, trace="skewed", rounds=2)
 SCHED_KS = (2, 5)
 SCHED_POLICIES = ("sync-partial", "async")
-# the reference's fault study (benchmarks/fl_round_bench.py:661-682)
+# the reference's fault study (benchmarks/fl_round_bench.py:661-682);
+# tripleplay's GAN prep cut from 150 steps to 30 as in the sweep
 FAULT_STUDY = dict(dataset="pacs", n_clients=8, n_per_class=24,
                    local_steps=6, batch_size=32, lr=3e-3, trace="diurnal",
-                   clients_per_round=3, rounds=6)
+                   clients_per_round=3, rounds=6, gan_steps=30)
 FAULT_CHAOS = sched_lib.ChaosConfig(dropout_prob=0.25, straggler_sigma=0.5,
                                     uplink_loss_prob=0.1)
 
@@ -2557,7 +2688,7 @@ def fault_study_phase(device="cuda", **settings) -> dict:
     return out
 
 
-def vit_sched_phase(device="cuda", ccfg=VIT_B32, *, steps=10, batch=32,
+def vit_sched_phase(device="cuda", ccfg=VIT_B32, *, steps=5, batch=32,
                     n_clients=5, n_per_class=60, seed=0,
                     profile=True) -> dict:
     """Phase 10 (c): ``qlora_nogan`` at ``ccfg``'s width (CLIP ViT-B/32)
@@ -2697,7 +2828,7 @@ def fl_round_report() -> int:
     """Phase 8 on the card, reported. Returns its flash_attention
     launches."""
     print("federated round (run_federated), CLIPConfig(), paper preset's "
-          "round settings, 3 cohort rounds pipelined:", flush=True)
+          "round settings, 2 cohort rounds pipelined:", flush=True)
     t0 = time.perf_counter()
     res = fl_round_phase()
     n = 0
@@ -2735,7 +2866,7 @@ def vit_round_report() -> int:
     """Phase 9 on the card, reported. Returns its flash_attention
     launches."""
     print("federated round at CLIP ViT-B/32 width (seeded weights), "
-          "cohort vs sequential, then a 2-layer cut card vs CPU:",
+          "cohort vs sequential, then a 2-layer 3-step cut card vs CPU:",
           flush=True)
     t0 = time.perf_counter()
     res = vit_round_phase()
@@ -2902,7 +3033,7 @@ def handoff_phase(device="cuda", rounds=3, n_requests=48,
     return res
 
 
-def vit_handoff_phase(device="cuda", ccfg=VIT_B32, *, steps=10, batch=32,
+def vit_handoff_phase(device="cuda", ccfg=VIT_B32, *, steps=5, batch=32,
                       n_clients=5, n_per_class=60, seed=0, max_entries=4,
                       n_requests=48, profile=True) -> dict:
     """Phase 11 (b): at ``ccfg``'s width (CLIP ViT-B/32) on phase 9's
@@ -3080,8 +3211,8 @@ def handoff_report() -> dict:
 # -- phase 12: token serving and the train-side pieces ------------------
 
 # the serving CLI's token mode as phase 12 drives it: 4 streams, a prompt
-# of 64, 32 tokens generated (the prefill's and 31 decode steps)
-SERVE_TOKENS = dict(batch=4, prompt=64, gen=32)
+# of 64, 16 tokens generated (the prefill's and 15 decode steps)
+SERVE_TOKENS = dict(batch=4, prompt=64, gen=16)
 # where phase 12 (d) writes its checkpoint: the gitignored build/
 PHASE12_DIR = Path(__file__).resolve().parent / "build" / "phase12"
 
@@ -3349,8 +3480,8 @@ def token_serve_report() -> collections.Counter:
         report_profile("decode_step", prof)
         report({"serve_tokens_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    for arch, kw in (("yi-9b", dict(n_layers=2)),
-                     ("falcon-mamba-7b", dict(n_layers=2)),
+    for arch, kw in (("yi-9b", dict(n_layers=1)),
+                     ("falcon-mamba-7b", dict(n_layers=1)),
                      ("h2o-danube-3-4b", dict(n_layers=None, steps=32,
                                               kv_quant_bits=8))):
         res = decode_check_phase(arch, **kw)
@@ -3373,9 +3504,9 @@ def token_serve_report() -> collections.Counter:
 # (arXiv:2402.19427), Qwen3-MoE-235B-A22B (hf:Qwen/Qwen3-30B-A3B config
 # shape), Whisper-medium (arXiv:2212.04356), LLaVA-NeXT-34B
 # (hf:llava-hf/llava-v1.6-mistral-7b-hf); Qwen3's depth is cut to fit one
-# card (NF4 is about 1.4 GB a layer), LLaVA's to half (60 -> 30) to make
-# room in the script's time for phase 15
-QWEN_LAYERS = 8
+# card (NF4 is about 1.4 GB a layer) and the script's time, LLaVA's to
+# half (60 -> 30) to make room in the script's time for phase 15
+QWEN_LAYERS = 4
 LLAVA_LAYERS = 30
 ZOO_KERNELS = {
     "recurrentgemma-2b": TRAIN_KERNELS["recurrentgemma-2b"],
@@ -3484,7 +3615,7 @@ def check_quant_matmul_zoo(gen) -> list:
         Kq = qt.q.shape[-3] * qt.block
         tol = 1e-5 if dt == f32 else 1.6e-2
         fwd = lambda: qmm_kernel.quant_matmul(x, qt)
-        got, route = gemv_route(fwd)
+        got, route = qmm_route(fwd)
         want = ref.quant_matmul(x, qt)
         torch.cuda.synchronize()
         abs_e, rel_e = rel_err(got, want)
@@ -3600,7 +3731,7 @@ def zoo_token_phase(arch: str, device="cuda", n_layers=None) -> dict:
             contextlib.redirect_stdout(sys.stderr):
         out = serve_cli.main(serve_argv(arch), device=device)
     wall = time.perf_counter() - t0
-    launches, tc = ops.launch_counts(), ops.tc_launch_counts()
+    launches, tc = path_launches(), ops.tc_launch_counts()
     traces = dict(ops.KERNEL_TRACES)
     model = out["model"]
     cfg = model.cfg
@@ -3612,7 +3743,9 @@ def zoo_token_phase(arch: str, device="cuda", n_layers=None) -> dict:
         ("quant_matmul",) if cfg.family in ("hybrid", "encdec") else ())
     if on_card:
         bad = [k for k in traces if k.endswith("_ref")]
-        miss = [k for k in serve_kernels if launches[k] < 1]
+        miss = [k for k in serve_kernels + (
+            ("quant_matmul_tc",) if "quant_matmul" in serve_kernels else ())
+            if launches[k] < 1]
         not_tc = [k for k in ("lora_matmul", "flash_attention")
                   if tc[k] != launches[k]]
         if bad or miss or not_tc:
@@ -3691,7 +3824,9 @@ def zoo_step_phase(arch: str, model, params, device="cuda",
     from the token mode's weights, the launch counts zeroed just before
     and read right after: finite losses, no plain route, every kernel of
     the family's path launched, the bf16 ones on tensor cores and
-    ``quant_matmul_t`` ``qmt_per_step`` times a step."""
+    ``quant_matmul_t`` ``qmt_per_step`` times a step. On the card an
+    encoder-decoder's third step runs under the profiler (device busy,
+    idle share, top entries by region)."""
     cfg = model.cfg
     frozen, tr = params["frozen"], params["trainable"]
     b = zoo_batch(cfg, device)
@@ -3707,12 +3842,13 @@ def zoo_step_phase(arch: str, model, params, device="cuda",
         tr, opt, m = model.train_step(frozen, tr, opt, b, lr=1e-3)
         losses.append(float(m["loss"]))
         walls.append(time.perf_counter() - t0)
-    launches, tc = ops.launch_counts(), ops.tc_launch_counts()
+    launches, tc = path_launches(), ops.tc_launch_counts()
     traces = dict(ops.KERNEL_TRACES)
     kernels = ZOO_KERNELS[arch]
     want_qmt = qmt_per_step(cfg) * steps
     bad = [k for k in traces if k.endswith("_ref")]
-    miss = [k for k in kernels if launches[k] < 1]
+    miss = [k for k in kernels + (("quant_matmul_tc",) if "quant_matmul"
+                                  in kernels else ()) if launches[k] < 1]
     not_tc = [k for k in tc if k in kernels and tc[k] != launches[k]]
     if not np.all(np.isfinite(losses)) or (on_card and (
             bad or miss or not_tc or
@@ -3722,7 +3858,11 @@ def zoo_step_phase(arch: str, model, params, device="cuda",
             f"launch of {miss}, off the tensor cores {not_tc}, "
             f"quant_matmul_t {traces.get('quant_matmul_t_cuda_tc')} (want "
             f"{want_qmt}); {launches}")
-    return {"arch": arch, "layers": cfg.n_layers,
+    prof = None
+    if on_card and cfg.family == "encdec":   # one more step, profiled
+        prof = profile_run(lambda: model.train_step(frozen, tr, opt, b,
+                                                    lr=1e-3), kernels)
+    return {"arch": arch, "layers": cfg.n_layers, "profile": prof,
             "rows": int(b["mask"].numel()), "losses": losses,
             "s_per_step": walls, "launches": launches, "traces": traces,
             "max_memory_allocated": torch.cuda.max_memory_allocated()
@@ -3914,8 +4054,8 @@ def zoo_report() -> collections.Counter:
         t0 = time.perf_counter()
         full = get_config(arch).n_layers
         if cut:
-            why = "NF4 ≈ 1.4 GB a layer" if arch == "qwen3-moe-235b-a22b" \
-                else "the script's time"
+            why = "NF4 ≈ 1.4 GB a layer, the script's time" \
+                if arch == "qwen3-moe-235b-a22b" else "the script's time"
             print(f"  reduced: n_layers {full}->{cut} ({why})", flush=True)
         res, model, params = zoo_token_phase(arch, n_layers=cut)
         launches.update(res.pop("launches"))
@@ -3938,7 +4078,10 @@ def zoo_report() -> collections.Counter:
         else:
             sres = zoo_step_phase(arch, model, params)
             launches.update(sres.pop("launches"))
+            sprof = sres.pop("profile")
             report({"zoo_train_step": arch, **sres})
+            if sprof is not None:
+                report_profile("train_step", sprof)
         del model, params
         torch.cuda.empty_cache()
         report({"zoo_arch_s": time.perf_counter() - t0, "arch": arch})
@@ -3953,13 +4096,15 @@ def zoo_checks() -> None:
     the reduced fp32 configs against the CPU."""
     t0 = time.perf_counter()
     for arch, n in (("recurrentgemma-2b", 3), ("whisper-medium", 2),
-                    ("llava-next-34b", 2)):
+                    ("llava-next-34b", 1)):
         replace = {"n_patches": 8} if arch == "llava-next-34b" else {}
         if arch == "whisper-medium":
             replace = {"encoder_layers": 2, "n_frames": 250}
-        print(f"  card vs CPU cut: {arch} {n} layers {replace}", flush=True)
+        batch = 2 if arch == "llava-next-34b" else 4
+        print(f"  card vs CPU cut: {arch} {n} layers {replace} batch "
+              f"{batch}", flush=True)
         report({"zoo_cut_card_vs_cpu": arch,
-                **zoo_cut_check(arch, n, **replace)})
+                **zoo_cut_check(arch, n, batch=batch, **replace)})
     for arch in ("recurrentgemma-2b", "qwen3-moe-235b-a22b",
                  "kimi-k2-1t-a32b", "whisper-medium", "llava-next-34b"):
         report({"zoo_reduced_card_vs_cpu": arch, **zoo_reduced_check(arch)})
@@ -4071,14 +4216,15 @@ def kimi_phase(rt, device="cuda", n_layers=KIMI_LAYERS) -> dict:
             contextlib.redirect_stdout(sys.stderr):
         out = serve_cli.main(argv, device=device)
     wall = time.perf_counter() - t0
-    launches, tc = ops.launch_counts(), ops.tc_launch_counts()
+    launches, tc = path_launches(), ops.tc_launch_counts()
     traces, dist_tr = dict(ops.KERNEL_TRACES), dict(rt_lib.DIST_TRACES)
     model, params = out["model"], out["params"]
     cfg = model.cfg
     G, n_moe = t["gen"], cfg.n_layers - cfg.first_k_dense
     toks = out["tokens"]
     bad = [k for k in traces if k.endswith("_ref")]
-    miss = [k for k in KIMI_KERNELS if launches[k] < 1]
+    miss = [k for k in KIMI_KERNELS + ("quant_matmul_tc",)
+            if launches[k] < 1]
     want_dist = {"moe_ffn_dist_seq": n_moe,
                  "moe_ffn_dist_decode": n_moe * (G - 1)}
     if toks.shape != (t["batch"], G) or toks.max() >= cfg.vocab_size or \
@@ -4127,10 +4273,11 @@ def kimi_phase(rt, device="cuda", n_layers=KIMI_LAYERS) -> dict:
                                    lr=1e-3)
         loss = float(m["loss"])
     res["train_step_s"] = time.perf_counter() - t0
-    tl, ttr = ops.launch_counts(), dict(ops.KERNEL_TRACES)
+    tl, ttr = path_launches(), dict(ops.KERNEL_TRACES)
     if not np.isfinite(loss) or (on_card and (
             [k for k in ttr if k.endswith("_ref")] or
-            [k for k in KIMI_KERNELS + ("quant_matmul_t",) if tl[k] < 1])):
+            [k for k in KIMI_KERNELS + ("quant_matmul_t", "quant_matmul_tc")
+             if tl[k] < 1])):
         raise AssertionError(f"Kimi-K2 train_step: loss {loss}, {tl} {ttr}")
     ops_step = 3.0 * (_linear_ops(cfg, rows) + _expert_ops(cfg, rows))
     b_ms, b_by = bound(qlib.tree_bytes(frozen) + qlib.tree_bytes(tr) * 4,
@@ -4147,7 +4294,7 @@ def kimi_phase(rt, device="cuda", n_layers=KIMI_LAYERS) -> dict:
 
 
 def qwen_runtime_check(model, params, rt, device="cuda", prompt=64) -> dict:
-    """Phase 14 (c), on phase 13's Qwen3-MoE (8 layers, full width, its
+    """Phase 14 (c), on phase 13's Qwen3-MoE (4 layers, full width, its
     weights): a prefill and a decode step and the gradients of a 4 x 64
     token step, under the Runtime and without it, first in fp32 on the
     same weights (the NF4 payloads decoding to fp32, TF32 off): the
@@ -4349,7 +4496,7 @@ def mamba_body_phase(rt, device="cuda", seq=64, batch=4) -> dict:
             y, _ = ssm.mamba_block(p, xr, cfg)
             dx, = torch.autograd.grad(y.float().square().sum(), xr)
         _sync(device)
-        out[side] = (y.detach().float(), dx.float(), ops.launch_counts(),
+        out[side] = (y.detach().float(), dx.float(), path_launches(),
                      dict(rt_lib.DIST_TRACES))
     (y1, d1, l1, t1), (y0, d0, _, _) = out["dist"], out["local"]
     res = {"y_rel": rel_err(y1, y0)[1], "dx_rel": rel_err(d1, d0)[1],
@@ -4391,7 +4538,7 @@ def check_phase14_kernels(gen) -> list:
         qt = ref.blockwise_quant(w, bits=4, block=64, mode="nf4")
         x = torch.randn((M, K), generator=gen, device=dev).to(bf)
         fwd = lambda: qmm_kernel.quant_matmul(x, qt)
-        got, route = gemv_route(fwd)
+        got, route = qmm_route(fwd)
         want = ref.quant_matmul(x, qt)
         abs_e, rel_e = rel_err(got, want)
         if not (rel_e <= 1.6e-2 and torch.isfinite(got).all()):
@@ -4575,7 +4722,7 @@ def calibrated_check(arch: str, n_layers: int, dtype: str, seq: int,
         _sync(device)
         out[side] = dict(logits=logits.float(), loss=float(loss), grads=g,
                          s=time.perf_counter() - t0,
-                         launches={k: n for k, n in ops.launch_counts().items()
+                         launches={k: n for k, n in path_launches().items()
                                    if n},
                          traces=dict(ops.KERNEL_TRACES))
     c, p = out["calibrated"], out["plain"]
@@ -4613,7 +4760,7 @@ def on_card(device) -> bool:
 
 
 def qwen_calibrate_check(model, params, rt, device="cuda") -> dict:
-    """Phase 15 (a) on phase 13's Qwen3-MoE (8 layers, full width, its
+    """Phase 15 (a) on phase 13's Qwen3-MoE (4 layers, full width, its
     weights), in fp32 under the world-of-one Runtime: the expert-parallel
     body's batched expert product (``calibrate``: the rank's 128 experts
     decoded and multiplied at once) against its per-expert loop (the
@@ -4641,7 +4788,7 @@ def qwen_calibrate_check(model, params, rt, device="cuda") -> dict:
                              ids=rec["ids"], slots=rec["slots"],
                              s=time.perf_counter() - t0,
                              launches={k: n for k, n in
-                                       ops.launch_counts().items() if n})
+                                       path_launches().items() if n})
         del logits
     lo, ba = out["loop"], out["batched"]
     same = len(lo["ids"]) == len(ba["ids"]) and all(
@@ -4842,6 +4989,24 @@ def dryrun_report() -> collections.Counter:
     return launches
 
 
+def check_qmm_routes(phases: dict) -> None:
+    """Print each phase's ``quant_matmul`` launches (its paths and its
+    checks) by (users, rows, route, plan CTAs, dtype) and fail if a bf16
+    call past 4 rows took another route than "tc" or an fp32 one past 4
+    rows another than "tiled"."""
+    for phase, calls in phases.items():
+        print(f"  phase {phase} quant_matmul launches by (users T, rows M, "
+              "route, plan CTAs, dtype): " + " ".join(
+                  f"{k}={n}" for k, n in sorted(calls.items())), flush=True)
+        for (T, M, route, ctas, dtype), n in calls.items():
+            want = {"bfloat16": "tc", "float32": "tiled"}[dtype] \
+                if M > qmm_kernel.MAX_ROWS else None
+            if want is not None and route != want:
+                raise AssertionError(f"phase {phase}: {n} {dtype} "
+                                     f"quant_matmul calls at M={M} took "
+                                     f"{route}, not {want}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -4858,23 +5023,36 @@ def main() -> int:
         shutil.rmtree(tune_dir, ignore_errors=True)
 
 
+def clock(t_start: float, what: str) -> None:
+    """The script's wall time so far, printed after each phase: where its
+    time limit goes."""
+    print(f"clock: {time.perf_counter() - t_start:.1f} s after {what}",
+          flush=True)
+
+
 def _main() -> int:
+    t_start = time.perf_counter()
     setup()
+    clock(t_start, "the build")
     gen = torch.Generator(device="cuda").manual_seed(1234)
     print("kernels vs plain versions:", flush=True)
-    main_rows = {"quant_matmul": check_quant_matmul(gen),
-                 "blockwise_quant": check_blockwise_quant(gen)}
+    main_rows = {}
+    main_rows["quant_matmul"], main_rows["quant_matmul_tc"] = \
+        check_quant_matmul(gen)
+    main_rows["blockwise_quant"] = check_blockwise_quant(gen)
     check_flash_attention(gen)      # the serve shapes
     main_rows["flash_attention"] = check_flash_train(gen)
     check_flash_round(gen)          # the federated round's shapes
     main_rows["lora_matmul"], main_rows["quant_matmul_t"] = \
         check_lora_kernels(gen)
     qmt_split_sweep(gen)
+    qmm_tc_sweep(gen)
     check_lora_decode(gen)          # the decode step's shapes (phase 12)
     main_rows["selective_scan"], main_rows["selective_scan_bwd"] = \
         check_selective_scan(gen)
     check_flash_zoo(gen)            # the zoo's shapes (phase 13)
     check_quant_matmul_zoo(gen)     # the zoo's projections without LoRA
+    clock(t_start, "phase 2")
 
     print("serve plane at CLIP ViT-B/32 width:", flush=True)
     t0 = time.perf_counter()
@@ -4907,12 +5085,12 @@ def _main() -> int:
             raise AssertionError(f"the replay launched no {name} kernel")
     qmm_calls = res["qmm_calls"]
     print("  replay quant_matmul launches by (users T, rows M, route, plan "
-          "CTAs): " + " ".join(f"{k}={n}" for k, n in sorted(qmm_calls.items())),
+          "CTAs, dtype): " + " ".join(f"{k}={n}" for k, n in sorted(qmm_calls.items())),
           flush=True)
     if sum(qmm_calls.values()) != res["after_replay"]["quant_matmul"]:
         raise AssertionError("the replay's quant_matmul calls and launches "
                              "disagree")
-    for (T, M, route, ctas), n in qmm_calls.items():
+    for (T, M, route, ctas, _), n in qmm_calls.items():
         if route != "gemv" or ctas < qmm_kernel.SMS:
             raise AssertionError(f"{n} replay quant_matmul launches at T={T} "
                                  f"took the {route} route with {ctas} CTAs")
@@ -4922,20 +5100,38 @@ def _main() -> int:
     serve_launches = launches
     del res
     torch.cuda.empty_cache()
+    clock(t_start, "phase 3")
 
     step_check_report("yi-9b")
     yi_launches = trainer_report("yi-9b")
     step_check_report("falcon-mamba-7b")
     mamba_launches = trainer_report("falcon-mamba-7b")
+    clock(t_start, "phases 4-7")
     gan_report()
+    clock(t_start, "the GAN phase")
     fl_launches = fl_round_report()
+    clock(t_start, "phase 8")
     vit_launches = vit_round_report()
+    clock(t_start, "phase 9")
     sched_launches = sched_report()
+    clock(t_start, "phase 10")
     handoff_launches = handoff_report()
+    clock(t_start, "phase 11")
     tokens_launches = token_serve_report()
-    zoo_launches = zoo_report()
-    rt_launches = runtime_report(_QWEN14[0])
-    dry_launches = dryrun_report()
+    clock(t_start, "phase 12")
+    # phases 13-15 run quant_matmul at the trainers' rows: every call
+    # recorded by route and dtype (a bf16 call past 4 rows takes "tc")
+    qmm_phases = {}
+    with record_quant_matmul() as qmm_phases[13]:
+        zoo_launches = zoo_report()
+    clock(t_start, "phase 13")
+    with record_quant_matmul() as qmm_phases[14]:
+        rt_launches = runtime_report(_QWEN14[0])
+    clock(t_start, "phase 14")
+    with record_quant_matmul() as qmm_phases[15]:
+        dry_launches = dryrun_report()
+    clock(t_start, "phase 15")
+    check_qmm_routes(qmm_phases)
 
     print(card_line(), flush=True)
     # flash_attention runs on every path: its launches over all of them
@@ -4976,6 +5172,11 @@ def _main() -> int:
                  "blockwise_quant", "selective_scan", "selective_scan_bwd"):
         launches[name] += zoo_launches[name] + rt_launches[name]
     launches["flash_attention"] += rt_launches["flash_attention"]
+    # the tc route runs on phases 13-15's paths
+    launches["quant_matmul_tc"] = (zoo_launches["quant_matmul_tc"] +
+                                   rt_launches["quant_matmul_tc"])
+    if launches["quant_matmul_tc"] < 1:
+        raise AssertionError("phases 13-14 launched no tc quant_matmul")
     for name in main_rows:
         launches[name] += dry_launches[name]
     print(json.dumps({"kernels": [

@@ -61,6 +61,9 @@
 //    and casts to the output dtype: deterministic, no atomics.
 //  - Shared memory 140 KB (NF4/int4, r <= 16) to 160 KB (int8,
 //    r <= 32): one block of 16 warps per SM.
+//  - The staging of x, payload and scales (stage_xqs), the decoder
+//    (decode_words) and splitk_sum live in tc_tile.cuh, shared with
+//    quant_matmul.cu's qmm_tc_kernel.
 //
 // bf16 g: qmt_tc_kernel, tensor cores (quant_matmul_t_tc_launch), the
 // same design turned over. The trainer's cotangent is bf16 (the model's
@@ -106,8 +109,7 @@
 // Odd K: x and A are masked past the true K and W's pad rows are zero,
 // which contracts as the zero-padding of lora_matmul.py:75-84 does.
 // All accumulation is fp32. No route writes a dense W to device memory.
-#include "dequant.cuh"
-#include "mma.cuh"
+#include "tc_tile.cuh"
 
 namespace {
 
@@ -312,13 +314,15 @@ qmt_kernel(const float* __restrict__ g, const uint8_t* __restrict__ q,
 // ---- bf16 x: tensor cores ----------------------------------------------
 namespace lt {
 
-constexpr int BM = 256, BN = 128, BK = 32;
+using tt::BK;                        // the shared tile (tc_tile.cuh):
+using tt::BN;                        // 128 columns, 32-deep k-tiles,
+using tt::LDW;                       // padded strides, scale rows, the
+using tt::LDX;                       // smallest block
+using tt::MIN_BLOCK;
+using tt::SR;
+constexpr int BM = 256;
 constexpr int NS = 4;               // cp.async ring depth (tiles)
 constexpr int NT = 512;             // 16 warps: 4 (rows) x 4 (columns)
-constexpr int SR = 2;               // scale rows per tile (2 when block 16)
-constexpr int MIN_BLOCK = 16;       // block: a power of two >= 16
-constexpr int LDX = BK + 8;         // bf16 strides padded by 16 bytes:
-constexpr int LDW = BN + 8;         // ldmatrix rows hit distinct banks
 
 template <int FMT, int RP>
 struct Layout {
@@ -335,11 +339,9 @@ struct Layout {
   static constexpr int AB = WB + 4 * BK * LDW * 2;   // bf16 [2][2][BK][LDA]
   static constexpr int CODE = AB + 4 * BK * LDA * 2; // f32 [16]
   static constexpr int BYTES = CODE + 16 * 4;
-  // 16-byte chunks a tile stages: x, payload, one scale row, A
-  static constexpr int XCH = BM * BK / 8 / NT;       // per thread
-  static constexpr int QCH = QROWS * BN / 16;        // threads tid < QCH
+  // 16-byte chunks of A a tile stages (x, payload, scales: stage_xqs)
   static constexpr int ACH = BK * RP / 4;            // threads tid < ACH
-  static_assert(XCH * NT * 8 == BM * BK && QCH <= NT && ACH <= NT, "chunks");
+  static_assert(ACH <= NT, "chunks");
   static_assert(STAGE % 16 == 0 && WB % 16 == 0 && AB % 16 == 0, "align");
   // the epilogue's h [BM][RP + 1] and B rows [RP][BN] reuse the ring
   static_assert((BM * (RP + 1) + RP * BN) * 4 <= WB, "epilogue fits");
@@ -358,138 +360,25 @@ struct Args {
   bool x_vec, w_vec;                // 16-byte cp.async for x / payload+scales
 };
 
-// Stage k-tile [k0, k0 + BK) of the split ending at ke into one ring slot.
-// Payload row j of the (G, rows, N) layout is weight row j * RSTEP, so a
-// tile's payload is QROWS consecutive rows from k0 / RSTEP; the scale row
-// of weight row k is k >> bshift. Each thread copies a fixed, unrolled set
-// of 16-byte chunks. Zero fill past M, K, ke and N; K % 8 != 0 (x) or
-// N % 16 != 0 (payload, scales) take element copies instead.
+// Stage k-tile [k0, k0 + BK) of the split ending at ke into one ring slot:
+// x, the payload and the scale rows by tt::stage_xqs, then the tile's
+// rows of A (zero past K).
 template <int FMT, int RP>
 __device__ __forceinline__ void load_tile(const Args& p, uint8_t* st, int m0,
                                           int n0, int k0, int ke) {
   using L = Layout<FMT, RP>;
   const int tid = threadIdx.x;
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(st + L::X);
-  uint8_t* qs = st + L::Q;
-  float* ss = reinterpret_cast<float*>(st + L::S);
+  tt::stage_xqs<FMT, BM, NT>(
+      p.x, p.q, p.s, p.M, p.K, p.N, p.bshift, p.x_vec, p.w_vec,
+      reinterpret_cast<__nv_bfloat16*>(st + L::X), st + L::Q,
+      reinterpret_cast<float*>(st + L::S), m0, n0, k0, ke);
   float* as = reinterpret_cast<float*>(st + L::A);
   const int kx = min(p.K, ke);
-  if (p.x_vec) {                    // K % 8 == 0: a chunk is all in or out
-#pragma unroll
-    for (int e = 0; e < L::XCH; ++e) {
-      const int i = tid + e * NT, row = i >> 2, c = (i & 3) * 8;
-      const int m = m0 + row, k = k0 + c;
-      const bool ok = m < p.M && k < kx;
-      tc::cp_async16(xs + row * LDX + c, ok ? p.x + (size_t)m * p.K + k : p.x,
-                     ok);
-    }
-  } else {
-    for (int i = tid; i < BM * BK; i += NT) {
-      const int row = i / BK, c = i % BK, m = m0 + row, k = k0 + c;
-      xs[row * LDX + c] = (m < p.M && k < kx) ? p.x[(size_t)m * p.K + k]
-                                              : __float2bfloat16(0.f);
-    }
-  }
-  const int g0 = k0 >> p.bshift;
-  const int nsr = p.bshift >= 5 ? 1 : SR;           // block 16: two groups
-  if (p.w_vec) {                    // N % 16 == 0
-    if (tid < L::QCH) {
-      const int pr = tid >> 3, c = (tid & 7) * 16, n = n0 + c;
-      const bool ok = k0 + L::RSTEP * pr < ke && n < p.N;
-      tc::cp_async16(
-          qs + pr * BN + c,
-          ok ? p.q + (size_t)(k0 / L::RSTEP + pr) * p.N + n : p.q, ok);
-    }
-    if (tid < nsr * BN / 4) {
-      const int sr = tid >> 5, c = (tid & 31) * 4, n = n0 + c;
-      const bool ok = n < p.N && ((g0 + sr) << p.bshift) < ke;
-      tc::cp_async16(ss + sr * BN + c,
-                     ok ? p.s + (size_t)(g0 + sr) * p.N + n : p.s, ok);
-    }
-  } else {
-    for (int i = tid; i < L::QROWS * BN; i += NT) {
-      const int pr = i / BN, c = i % BN, n = n0 + c;
-      qs[i] = (k0 + L::RSTEP * pr < ke && n < p.N)
-                  ? p.q[(size_t)(k0 / L::RSTEP + pr) * p.N + n]
-                  : (uint8_t)0;
-    }
-    for (int i = tid; i < nsr * BN; i += NT) {
-      const int n = n0 + i % BN;
-      const bool ok = n < p.N && ((g0 + i / BN) << p.bshift) < ke;
-      tc::cp_async4(ss + i, ok ? p.s + (size_t)(g0 + i / BN) * p.N + n : p.s,
-                    ok);
-    }
-  }
   if (tid < L::ACH) {               // A rows are RP floats: 16-byte chunks
     const int k = k0 + tid / (RP / 4);
     const bool ok = k < kx;
     tc::cp_async16(as + tid * 4,
                    ok ? p.a + (size_t)k0 * RP + tid * 4 : p.a, ok);
-  }
-}
-
-template <int FMT>
-__device__ __forceinline__ float code4(int nib, const float* code) {
-  return FMT == FMT_NF4 ? code[nib] : (float)(nib - 8);
-}
-
-// Decode half `part` (0 or 1) of a staged quantized tile of ROWS weight
-// rows by COLS columns into bf16 hi [ROWS][LDW] and lo [ROWS][LDW]
-// parts at wb (w = code * scale in fp32, split_bf16). Staged as the
-// (G, rows, N) layout lies: payload [ROWS / RSTEP][COLS] bytes (byte row
-// j holds weight rows RSTEP j ..), scales [.][COLS] fp32, the scale row
-// of weight row k0 + row at ((k0 + row) >> bshift) - (k0 >> bshift).
-// Weight rows at or past ke decode to zero (their staged scale rows may
-// be stale). Each thread takes fixed 4-byte payload words: with one word
-// a thread per tile, the first half of the block decodes in part 0 and
-// the second in part 1; with more, each part takes half of them.
-// lora_tc_kernel decodes [32 K rows][128 N columns] tiles, qmt_tc_kernel
-// [128 Kq rows][32 N columns]: the same [weight row][column] orientation.
-template <int FMT, int ROWS, int COLS, int LDW>
-__device__ __forceinline__ void decode_words(const uint8_t* qs,
-                                             const float* ss,
-                                             __nv_bfloat16* wb,
-                                             const float* code, int k0,
-                                             int ke, int bshift, int part) {
-  constexpr int RSTEP = FMT == FMT_INT8 ? 1 : 2;   // weight rows a byte
-  constexpr int WPR = COLS / 4;                    // words a payload row
-  constexpr int PER = ROWS / RSTEP * WPR / NT;     // words a thread
-  constexpr int PP = PER >= 2 ? PER / 2 : 1;       // ... a part
-  static_assert(PER >= 1 && (PER == 1 || PER % 2 == 0), "words a thread");
-  const int tid = threadIdx.x;
-  const bool full = k0 + ROWS <= ke;
-  const bool mine = PER >= 2 || (tid >= NT / 2) == (part == 1);
-#pragma unroll
-  for (int e = 0; e < PP; ++e) {
-    if (!mine) break;
-    const int w = PER >= 2 ? tid + (part * PP + e) * NT : tid;
-    const int pr = (int)((unsigned)w / WPR);
-    const int c4 = (int)((unsigned)w % WPR) * 4;
-    const int row = RSTEP * pr;                      // first weight row
-    const uint32_t word = *reinterpret_cast<const uint32_t*>(qs + pr * COLS + c4);
-    const int sr = ((k0 + row) >> bshift) - (k0 >> bshift);
-    const float4 sc4 = *reinterpret_cast<const float4*>(ss + sr * COLS + c4);
-    const float sc[4] = {sc4.x, sc4.y, sc4.z, sc4.w};
-    const bool ok = full || k0 + row < ke;
-    float wv[RSTEP][4];                // rows row (hi nibble), row + 1
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int byte = (word >> (8 * j)) & 0xff;
-      if (FMT == FMT_INT8) {
-        wv[0][j] = ok ? (float)(int8_t)byte * sc[j] : 0.f;
-      } else {
-        wv[0][j] = ok ? code4<FMT>(byte >> 4, code) * sc[j] : 0.f;
-        wv[RSTEP - 1][j] = ok ? code4<FMT>(byte & 0xf, code) * sc[j] : 0.f;
-      }
-    }
-#pragma unroll
-    for (int rr = 0; rr < RSTEP; ++rr) {
-      uint2 h, l;
-      tc::split_bf16(wv[rr][0], wv[rr][1], h.x, l.x);
-      tc::split_bf16(wv[rr][2], wv[rr][3], h.y, l.y);
-      *reinterpret_cast<uint2*>(wb + (row + rr) * LDW + c4) = h;
-      *reinterpret_cast<uint2*>(wb + (ROWS + row + rr) * LDW + c4) = l;
-    }
   }
 }
 
@@ -504,9 +393,9 @@ __device__ __forceinline__ void decode_part(const Args& p, const uint8_t* st,
                                             int ke, int part) {
   using L = Layout<FMT, RP>;
   const int tid = threadIdx.x;
-  decode_words<FMT, BK, BN, LDW>(st + L::Q,
-                                 reinterpret_cast<const float*>(st + L::S),
-                                 wb, code, k0, ke, p.bshift, part);
+  tt::decode_words<FMT, BK, BN, LDW, NT, true>(
+      st + L::Q, reinterpret_cast<const float*>(st + L::S), wb, code, k0, ke,
+      p.bshift, part);
   static_assert(BK * RP / 2 <= NT, "one A pair per thread");
   if (part == 0 && tid < BK * RP / 2) {
     const float* as = reinterpret_cast<const float*>(st + L::A);
@@ -688,48 +577,6 @@ __global__ void __launch_bounds__(NT, 1) lora_tc_kernel(const Args p) {
     }
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* y, float4 v) {
-  *reinterpret_cast<uint2*>(y) =
-      make_uint2(tc::pack_bf16(v.x, v.y), tc::pack_bf16(v.z, v.w));
-}
-__device__ __forceinline__ void store4(float* y, float4 v) {
-  *reinterpret_cast<float4*>(y) = v;
-}
-
-// y = T(the sum over s of ws[s]), split 0 first: a fixed order
-template <typename T>
-__global__ void splitk_sum(const float* __restrict__ ws, T* __restrict__ y,
-                           long long mn, int splits) {
-  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
-  if (i >= mn) return;
-  if (mn % 4 == 0) {
-    float4 v = *reinterpret_cast<const float4*>(ws + i);
-    for (int s = 1; s < splits; ++s) {
-      const float4 u = *reinterpret_cast<const float4*>(ws + s * mn + i);
-      v.x += u.x;
-      v.y += u.y;
-      v.z += u.z;
-      v.w += u.w;
-    }
-    store4(y + i, v);
-    return;
-  }
-  for (long long j = i; j < i + 4 && j < mn; ++j) {
-    float v = ws[j];
-    for (int s = 1; s < splits; ++s) v += ws[s * mn + j];
-    store_f(y + j, v);
-  }
-}
-
-template <typename T>
-cudaError_t sum_splits(const float* ws, T* y, long long mn, int splits,
-                       cudaStream_t st) {
-  const int threads = 256;
-  const long long blocks = (mn + 4LL * threads - 1) / (4LL * threads);
-  splitk_sum<T><<<(unsigned)blocks, threads, 0, st>>>(ws, y, mn, splits);
-  return cudaGetLastError();
-}
-
 template <int FMT, int RP>
 cudaError_t launch(const Args& p, int splits, cudaStream_t st) {
   static bool attr_set = false;
@@ -864,7 +711,7 @@ __device__ __forceinline__ void decode(const Args& p, const uint8_t* st,
                                        __nv_bfloat16* wb, const float* code,
                                        int kb0, int part) {
   using L = Layout<FMT>;
-  lt::decode_words<FMT, BN, BK, LDW>(
+  tt::decode_words<FMT, BN, BK, LDW, NT, true>(
       st + L::Q, reinterpret_cast<const float*>(st + L::S), wb, code, kb0,
       p.Kq, p.bshift, part);
 }
@@ -1103,7 +950,7 @@ extern "C" int lora_matmul_tc_launch(const void* x, const void* q,
     case FMT_NF4: err = lt::launch_fmt<FMT_NF4>(p, splits, st); break;
   }
   if (err != cudaSuccess || splits == 1) return (int)err;
-  return (int)lt::sum_splits((const float*)ws, (__nv_bfloat16*)y,
+  return (int)tt::sum_splits((const float*)ws, (__nv_bfloat16*)y,
                              (long long)M * N, splits, st);
 }
 
@@ -1154,7 +1001,7 @@ extern "C" int quant_matmul_t_tc_launch(const void* g, const void* q,
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long long mn = (long long)M * Kq;
   return p.out_f32
-             ? (int)lt::sum_splits((const float*)ws, (float*)o, mn, splits, st)
-             : (int)lt::sum_splits((const float*)ws, (__nv_bfloat16*)o, mn,
+             ? (int)tt::sum_splits((const float*)ws, (float*)o, mn, splits, st)
+             : (int)tt::sum_splits((const float*)ws, (__nv_bfloat16*)o, mn,
                                    splits, st);
 }

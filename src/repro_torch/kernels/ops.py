@@ -13,7 +13,8 @@ tensor-core instantiation for bf16 and a CUDA-core one for fp32, chosen
 by dtype in the wrapper; their bf16 calls are traced as
 ``<op>_cuda_tc``, fp32 as ``<op>_cuda``, and the wrappers count the
 tensor-core launches in ``tc_launches``. ``quant_matmul`` counts its
-GEMV launches (the serve head's route) in ``gemv_launches``.
+GEMV launches (the serve head's route) in ``gemv_launches`` and its
+tensor-core launches (a bf16 x past the GEMV's rows) in ``tc_launches``.
 
 ``lora_matmul``, ``flash_attention`` and ``selective_scan`` are
 ``torch.autograd.Function``s: the first ports the custom VJP of
@@ -95,6 +96,7 @@ def reset_launch_counts() -> None:
     for fn in TC_KERNELS.values():
         fn.tc_launches = 0
     qmm_kernel.quant_matmul.gemv_launches = 0
+    qmm_kernel.quant_matmul.tc_launches = 0
 
 
 def _on_cuda(t: torch.Tensor, op: str) -> bool:

@@ -11,7 +11,8 @@ its backward kernel and the op's gradient 1e-5 times each output's
 largest magnitude (the JAX package's interpret-vs-plain bound), the
 backward kernel and ``quant_matmul`` bitwise equal across two calls. bf16 ``flash_attention`` and
 ``lora_matmul`` run their tensor-core kernels, fp32 their CUDA-core
-ones; so does ``quant_matmul_t`` by g's dtype, its bf16-g route held to
+ones; so does ``quant_matmul`` past the GEMV's 4 rows (bf16: the tc
+route) and ``quant_matmul_t`` by g's dtype, its bf16-g route held to
 1e-4 of the largest magnitude in fp32 output (W enters as two bf16
 parts, about 16 bits)."""
 import numpy as np
@@ -108,6 +109,13 @@ QMM_CASES = [  # (T, M, K, N): T users of M rows; T = 0 a plain 2-D weight
     (8, 4, 768, 768),
     (4, 3, 256, 100),      # N % 16 != 0: the GEMV's 4-byte code loads
 ]
+QMM_TC_CASES = [  # (T, M, K, N) of the tc route, cut from the trainers'
+    (0, 7, 1792, 512),     # Kimi-K2's expert rows, K split
+    (0, 256, 640, 1920),   # RecurrentGemma-2B's MLP rows
+    (2, 7, 640, 384),      # a stacked QTensor, T = 2
+    (2, 256, 200, 70),     # stacked, odd K (padded to 256), ragged N
+    (0, 37, 200, 33),      # odd K, N % 16 != 0: element copies
+]
 # (bits, block) of the quantizer: the store's 64 and the other blocks
 # it can pick; odd blocks only at int8 (int4 packs row pairs)
 BQ_BLOCKS = [(b, k) for b in (8, 4) for k in (2, 16, 64, 128)] + [(8, 5)]
@@ -141,8 +149,9 @@ def cuda_device():
 @pytest.mark.parametrize("T,M,K,N", QMM_CASES)
 def test_cuda_quant_matmul_matches_plain(cuda_device, T, M, K, N, bits,
                                          mode, dtype):
-    """Every format and dtype, through the GEMV (M <= 4, N % 4 == 0) or
-    the tiled kernel, counted by route; two calls bitwise equal."""
+    """Every format and dtype, through the GEMV (M <= 4, N % 4 == 0), the
+    tc kernel (bf16) or the tiled one (fp32), counted by route; two calls
+    bitwise equal."""
     lead = (T,) if T else ()
     # the serve widths' weights at 1/sqrt(K), so outputs are O(1) as the
     # head's are; the K = 100 edge cases keep their unit weights
@@ -151,12 +160,13 @@ def test_cuda_quant_matmul_matches_plain(cuda_device, T, M, K, N, bits,
     x = torch.from_numpy(_np(24, *lead, M, K)).to(cuda_device, dtype)
     qt = ref.blockwise_quant(w, bits=bits, block=64, mode=mode)
     fn = qmm_kernel.quant_matmul
-    before = (fn.launches, fn.gemv_launches)
+    before = (fn.launches, fn.gemv_launches, fn.tc_launches)
     got = fn(x, qt)
     again = fn(x, qt)
     gemv = M <= qmm_kernel.MAX_ROWS and N % 4 == 0
-    assert (fn.launches - before[0], fn.gemv_launches - before[1]) == \
-        (2, 2 * int(gemv))
+    tc = not gemv and dtype == BF16
+    assert (fn.launches - before[0], fn.gemv_launches - before[1],
+            fn.tc_launches - before[2]) == (2, 2 * int(gemv), 2 * int(tc))
     assert torch.equal(got, again)
     _close(got, ref.quant_matmul(x, qt))
 
@@ -186,6 +196,35 @@ def test_cuda_quant_matmul_grad_matches_plain(cuda_device, M, K, N, dtype):
     for got, want in zip(out["kernel"], out["plain"]):
         assert got.dtype == dtype and got.shape == want.shape
         _close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,mode", FORMATS)
+@pytest.mark.parametrize("T,M,K,N", QMM_TC_CASES)
+def test_cuda_quant_matmul_tc_route_matches_plain(cuda_device, T, M, K, N,
+                                                  bits, mode):
+    """The tc route (bf16 x past 4 rows: ``qmm_tc_kernel``, the row tile
+    and split that ``plan_tc`` picks) at reduced trainer shapes, a
+    stacked T = 2, odd K and ragged N, against the plain version; counted
+    as a tc launch, two calls bitwise equal, and the same within the
+    bound under every row tile and split count."""
+    lead = (T,) if T else ()
+    w = torch.from_numpy(_np(35, *lead, K, N) / np.sqrt(K)).to(cuda_device)
+    qt = ref.blockwise_quant(w, bits=bits, block=64, mode=mode)
+    x = torch.from_numpy(_np(36, *lead, M, K)).to(cuda_device, BF16)
+    fn = qmm_kernel.quant_matmul
+    before = (fn.launches, fn.tc_launches, fn.gemv_launches)
+    got = fn(x, qt)
+    again = fn(x, qt)
+    assert (fn.launches - before[0], fn.tc_launches - before[1],
+            fn.gemv_launches - before[2]) == (2, 2, 0)
+    assert got.dtype == BF16 and torch.equal(got, again)
+    want = ref.quant_matmul(x, qt)
+    _close(got, want)
+    Kq = qt.q.shape[-3] * qt.block
+    for pl in qmm_kernel.tc_plans(max(T, 1), M, Kq, N, 64):
+        if pl.splits <= 3:
+            _close(qmm_kernel._quant_matmul(x, qt, None, tc_plan=pl), want)
 
 
 @pytest.mark.cuda
