@@ -6,7 +6,9 @@ trainer-to-store handoff that feeds the serving plane, token serving
 (prefill and decode) on the two trainers' models, the zoo's other
 families (RecurrentGemma-2B, Qwen3-MoE, Whisper-medium, LLaVA-NeXT-34B)
 through training, prefill and decode, and the mesh runtime's explicit
-bodies (Kimi-K2 at full width through the expert-parallel body).
+bodies (Kimi-K2 at full width through the expert-parallel body), and
+one rank of the production layout (tensor-parallel linears,
+vocab-parallel embedding and head, the batch and cache cut).
 
     python3 chip_smoke.py
 
@@ -60,7 +62,7 @@ Phases (a failed phase raises and the script exits non-zero):
  9. one full-participation round at CLIP ViT-B/32 width (seeded
     weights; the pacs images repeated 7 x along each spatial axis to
     224 x 224; tripleplay's fleet GAN trained on the 32 x 32 pools and
-    its rows repeated likewise, 30 GAN steps), 5 local steps of 32 (cut
+    its rows repeated likewise, 30 GAN steps), 3 local steps of 32 (cut
     from 10), the three arms through
     ``CohortEngine``, ``FullSyncScheduler`` and ``SequentialExec``,
     cohort against sequential; launch counts zeroed before the arms and
@@ -84,7 +86,7 @@ Phases (a failed phase raises and the script exits non-zero):
     GAN, 30 steps): each run
     twice and on the sequential engine, the same participation, virtual
     time, bytes and fault ledger (non-empty; GAN drops for tripleplay);
-    (c) ``qlora_nogan`` at ViT-B/32 width on phase 9's clients, 5 local
+    (c) ``qlora_nogan`` at ViT-B/32 width on phase 9's clients, 3 local
     steps: a sync-partial round at K = 3 (bucket 4, one pad row) and an async
     commit (buffer 2, concurrency 4), cohort against sequential, then
     each profiled with the peak device memory. Launch counts are zeroed
@@ -120,10 +122,11 @@ Phases (a failed phase raises and the script exits non-zero):
     ``set_sync_debug_mode("warn")``: no synchronizing call inside it;
     (b) the same on Falcon-Mamba-7B (the prefill's 64 scans through
     ``selective_scan``; a decode step's device time by region,
-    ``mamba.dequantize`` against the rest); (c) prefill of 4 x 64 and 8
-    decode steps on the card against the CPU on the same weights and
-    tokens: a 1-layer full-width Yi-9B and Falcon-Mamba (bf16, within
-    2e-2), and the reduced h2o-danube with an int8 KV cache, 32 steps,
+    ``mamba.dequantize`` against the rest); (c) prefill and decode steps
+    on the card against the CPU on the same weights and tokens: a
+    1-layer full-width Yi-9B and Falcon-Mamba (4 x 32 tokens and 4
+    steps, bf16, within 2e-2), and the reduced h2o-danube with an int8
+    KV cache (4 x 64 tokens), 32 steps,
     its window of 64 wrapping (the prefill within 1e-4, the steps within
     the JAX package's int8-KV bound, 5e-2); (d) the trainer's
     ``--ckpt`` at its reduced config, 2 rounds then a resume to 3,
@@ -142,20 +145,20 @@ Phases (a failed phase raises and the script exits non-zero):
     LLaVA-NeXT-34B's (30 of its 60 layers) with 576 image patches before 64
     tokens, the adapter's attention at D = 896; (e) bf16 full-width cuts
     of (a) (3 layers), (c) (2 + 2 layers, 250 frames) and (d) (1 layer,
-    8 patches, 2 sequences) card against CPU (logits, loss and the gradients' norm
-    within 2e-2; each gradient leaf and each trainable after one Adam
-    step within 2e-2 of an fp32 CPU witness on the same weights, or
-    within twice the CPU's bf16 distance to it), and the reduced fp32
-    configs of all five archs (forward, gradients, an Adam step, prefill
-    and 4 decode steps within 1e-4; the MoEs' expert ids and kept slots
-    equal). Phase 2 (f) holds ``flash_attention`` at the zoo's shapes
-    (the D = 896 adapter in both dtypes, Whisper's cross-attention to
-    1500 frames and its encoder, RecurrentGemma's MQA under its window),
-    and (g) ``quant_matmul`` and its dx (``quant_matmul_t``) at the
-    projections phase 13 runs without LoRA (RecurrentGemma's MLP at 256
-    and 4 rows, Whisper's encoder MLP at 6000, Kimi-K2's reduced dense
-    layer in fp32). Launch counts are zeroed before each run and read
-    after.
+    8 patches), 2 sequences each, card against CPU (logits, loss and the
+    gradients' norm within 2e-2; each gradient leaf and each trainable
+    after one Adam step within 2e-2 of an fp32 CPU witness on the same
+    weights, or within twice the CPU's bf16 distance to it), and the
+    reduced fp32 configs of all five archs (forward, gradients, an Adam
+    step, prefill and 4 decode steps within 1e-4; the MoEs' expert ids
+    and kept slots equal). Phase 2 (f) holds ``flash_attention`` at the
+    zoo's shapes (the D = 896 adapter in both dtypes, Whisper's
+    cross-attention to 1500 frames and its encoder, RecurrentGemma's
+    MQA under its window), and (g) ``quant_matmul`` and its dx
+    (``quant_matmul_t``) at the projections phase 13 runs without LoRA
+    (RecurrentGemma's MLP at 256 and 4 rows, Whisper's encoder MLP at
+    6000, Kimi-K2's reduced dense layer in fp32). Launch counts are
+    zeroed before each run and read after.
 14. the mesh and the expert-parallel runtime (``models/runtime.py``,
     ``launch/mesh.py``): (a) the NCCL world of one rank, its ``(pod=1,
     data=1, model=1)`` Runtime and each collective on the world group;
@@ -196,6 +199,28 @@ Phases (a failed phase raises and the script exits non-zero):
     and the winner through the op within the bf16 bound. The autotune
     cache is a fresh file of the run's own (``REPRO_TORCH_AUTOTUNE_
     CACHE``), so no phase reads a stale winner.
+16. the production layout on a rank (every tree the rank's blocks):
+    (a) one Yi-9B layer at full width (NF4 block 64, LoRA rank 16, bf16
+    x of 4 x 64 tokens) cut by ``param_specs_tree`` for each of the 16
+    model ranks in turn (a stand-in mesh coordinate), every linear's
+    shard through ``lora_matmul`` and its dx through ``quant_matmul_t``
+    (``wq`` 256 x 4096 x 256, ``wk``/``wv`` whole at N 512, ``wo`` 256 x
+    256 x 4096, ``wg``/``wu`` N 688, ``wd`` 11008 x 256 stored split on
+    N), each shard against its plain version and the shards assembled
+    (N blocks concatenated, K partials summed) against the unsharded
+    call at phase 2's bounds, and ``flash_attention`` at a rank's 2
+    heads; each shape's device and call ms beside its bound and the 16
+    shards' summed time over the unsharded call's; (b) in a process of
+    its own, one rank of the 16 x 16 production mesh on a fake world
+    (its collectives move nothing: no value is checked): Yi-9B at full
+    width cut to 2 of 48 layers, NF4, the rank's blocks of the params,
+    of ``train_4k``'s batch (16 x 4096) and of ``decode_32k``'s cache (8
+    streams, 2048 slots); their resident bytes equal the dry run's
+    ``argument_bytes`` (and its rules') exactly; one ``train_step`` and
+    one ``decode_step`` profiled (device busy, idle share, top entries),
+    ``max_memory_allocated`` beside the dry run's peak, and the same
+    step unsharded on the first 4 rows of the rank's block beside the
+    rank's on them. (b)'s launches join the ``kernels`` record.
     The GAN phase (before phase 8) also runs the six convolutions
     through the int8 gemms against the fp32 gemm forms, timed, with the
     block products bitwise an int64 product on the CPU, and the int8
@@ -403,6 +428,17 @@ class _profile(torch.profiler.profile):
         return None
 
 
+def _device_events(fn, calls: int) -> list:
+    """The card's activities ``torch.profiler`` records over ``calls``
+    back-to-back calls of ``fn()``."""
+    with _profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def timings(fn, iters: int = 50, budget_s: float = 0.1) -> tuple:
     """(device ms, call ms) per call of ``fn()``. Device time is the sum
     of the card's kernel and copy activities that ``torch.profiler``
@@ -413,8 +449,12 @@ def timings(fn, iters: int = 50, budget_s: float = 0.1) -> tuple:
     by the three warm-up calls' wall time, at least 5 (a plain version
     that dispatches thousands of small ops a call would otherwise spend
     most of the script's time building the profiler's events). A
-    profiler session that records no device activity is repeated, up
-    to three sessions; device time is None if none records any."""
+    session now and then records nothing, or late in a long run only
+    some of the calls' activities (a sum at 1/2 to 1/50 of a lone
+    run's), so a session of the timed calls counts only if it records
+    exactly ``iters`` times the activities of a session of one call:
+    up to three tries of both, else device time is None (never a sum
+    the count shows short)."""
     torch.cuda.synchronize()
     w0 = time.perf_counter()
     for _ in range(3):
@@ -430,29 +470,26 @@ def timings(fn, iters: int = 50, budget_s: float = 0.1) -> tuple:
     t1.record()
     torch.cuda.synchronize()
     call_ms = t0.elapsed_time(t1) / iters
-    dev_us = 0.0
-    for _ in range(3):   # a profiler session now and then records nothing
-        with _profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
-        if dev_us > 0:
-            break
-    return (dev_us / 1e3 / iters if dev_us > 0 else None), call_ms
+    for _ in range(3):
+        one = len(_device_events(fn, 1))
+        ev = _device_events(fn, iters)
+        if one and len(ev) == one * iters:
+            dev_us = sum(e.time_range.elapsed_us() for e in ev)
+            return dev_us / 1e3 / iters, call_ms
+    return None, call_ms
 
 
 def timed(row: dict, key: str, fn) -> None:
     """Store ``fn``'s device time under ``key`` and its call time under
     ``key`` + "_call" (the device time falls back to the call time, and
-    says so, if the profiler saw no device activity)."""
+    says so, if the profiler's device activities were missing or
+    incomplete)."""
     dev, call = timings(fn)
     row[key] = dev if dev is not None else call
     row[key + "_call"] = call
     if dev is None:
-        row[key + "_source"] = "cuda events (profiler saw no device time)"
+        row[key + "_source"] = ("cuda events (the profiler's device "
+                                "activities missing or incomplete)")
 
 
 def bound(nbytes: float, nops: float, dtype) -> tuple:
@@ -2361,7 +2398,7 @@ def rebalanced_clients(data, n_clients, alpha, seed, strat, repeat, *,
     return big
 
 
-def vit_round_phase(device="cuda", ccfg=VIT_B32, *, steps=5, batch=32,
+def vit_round_phase(device="cuda", ccfg=VIT_B32, *, steps=3, batch=32,
                     n_clients=5, n_per_class=60, seed=0, cut_layers=2,
                     cut_steps=3, gan_steps=30, profile=True) -> dict:
     """Phase 9: one full-participation round at ``ccfg``'s width (CLIP
@@ -2688,7 +2725,7 @@ def fault_study_phase(device="cuda", **settings) -> dict:
     return out
 
 
-def vit_sched_phase(device="cuda", ccfg=VIT_B32, *, steps=5, batch=32,
+def vit_sched_phase(device="cuda", ccfg=VIT_B32, *, steps=3, batch=32,
                     n_clients=5, n_per_class=60, seed=0,
                     profile=True) -> dict:
     """Phase 10 (c): ``qlora_nogan`` at ``ccfg``'s width (CLIP ViT-B/32)
@@ -3480,8 +3517,11 @@ def token_serve_report() -> collections.Counter:
         report_profile("decode_step", prof)
         report({"serve_tokens_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    for arch, kw in (("yi-9b", dict(n_layers=1)),
-                     ("falcon-mamba-7b", dict(n_layers=1)),
+    # the 1-layer cuts at a prompt of 32 and 4 steps: their CPU sides
+    # are most of the phase's time on a slow host
+    for arch, kw in (("yi-9b", dict(n_layers=1, prompt=32, steps=4)),
+                     ("falcon-mamba-7b", dict(n_layers=1, prompt=32,
+                                              steps=4)),
                      ("h2o-danube-3-4b", dict(n_layers=None, steps=32,
                                               kv_quant_bits=8))):
         res = decode_check_phase(arch, **kw)
@@ -4100,7 +4140,8 @@ def zoo_checks() -> None:
         replace = {"n_patches": 8} if arch == "llava-next-34b" else {}
         if arch == "whisper-medium":
             replace = {"encoder_layers": 2, "n_frames": 250}
-        batch = 2 if arch == "llava-next-34b" else 4
+        # 2 sequences a cut: the CPU sides are most of the phase's time
+        batch = 2
         print(f"  card vs CPU cut: {arch} {n} layers {replace} batch "
               f"{batch}", flush=True)
         report({"zoo_cut_card_vs_cpu": arch,
@@ -4989,6 +5030,443 @@ def dryrun_report() -> collections.Counter:
     return launches
 
 
+# -- phase 16: the production layout on a rank ----------------------------
+
+# the production mesh's model axis (launch.mesh.make_production_mesh)
+PROD_MODEL = 16
+# phase 16 (a): one Yi-9B layer's linears at the rank's shard shapes, the
+# trainer's 4 x 64 bf16 tokens, LoRA rank 16 (scale 2, as alpha 32 / 16)
+SHARD_ROWS, SHARD_RANK, SHARD_SEQ = 256, 16, 64
+# phase 16 (b): Yi-9B at full width cut to 2 of its 48 layers; the
+# unsharded step beside the rank's runs on the first rows of its block
+# (the plain attention backward of 32 heads at 16 x 4096 needs ~140 GB)
+RANK_LAYERS, RANK_SIDE_ROWS = 2, 4
+
+
+class RankMesh:
+    """A stand-in for the production mesh at one rank's coordinates:
+    what ``shardings.local_shard`` and ``rank_params`` read of a mesh."""
+
+    def __init__(self, coords, shape=None):
+        self.shape = shape or {"data": 16, "model": PROD_MODEL}
+        self.coords = coords
+        self.axis_names = tuple(self.shape)
+
+    def size(self, axes):
+        return int(np.prod([self.shape[a] for a in axes]))
+
+    def index(self, axes):
+        i = 0
+        for a in axes:
+            i = i * self.shape[a] + self.coords[a]
+        return i
+
+
+def _shard_linears(cfg) -> dict:
+    d, qd, kvd, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    return {"wq": (d, qd), "wk": (d, kvd), "wv": (d, kvd), "wo": (qd, d),
+            "wg": (d, ff), "wu": (d, ff), "wd": (ff, d)}
+
+
+def shard_shapes_check(gen, cfg=None, device="cuda", m=PROD_MODEL,
+                       time_it=True) -> dict:
+    """Phase 16 (a): a Yi-9B layer (NF4 block 64) cut by
+    ``param_specs_tree`` for each of the ``m`` model ranks in turn (a
+    stand-in mesh coordinate), each rank's linears through the kernels,
+    forward (``lora_matmul``) and dx (``quant_matmul_t``) at the shapes
+    the production layout gives them; the shards assembled (N blocks
+    concatenated, K partials summed) and held against the unsharded
+    kernel call, each shard against its plain version, at phase 2's
+    bounds; and ``flash_attention`` at the rank's 2 heads. Returns the
+    rows by (kernel, linear) and the launches the checks made."""
+    from types import SimpleNamespace
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models.layers import _route
+    cfg = cfg or get_config("yi-9b").replace(**CLI_NF4)
+    bf16, f32 = torch.bfloat16, torch.float32
+    M, r, scale = SHARD_ROWS, SHARD_RANK, 2.0
+    ops.reset_launch_counts()
+    w = {n: ref.blockwise_quant((torch.randn(K, N, generator=gen,
+                                             device=device) / K ** 0.5
+                                 ).to(bf16), bits=4, block=64, mode="nf4")
+         for n, (K, N) in _shard_linears(cfg).items()}
+    specs = sh.param_specs_tree(cfg, w, SimpleNamespace(shape={"model": m}))
+    ranks = [sh.rank_params(cfg, w, SimpleNamespace(mesh=RankMesh(
+        {"data": 0, "model": j}, {"data": 1, "model": m})))
+        for j in range(m)]
+    rows, seen = {}, set()
+    for name, (K, N) in _shard_linears(cfg).items():
+        route = _route(sh.logical_spec(specs[name]))
+        x = torch.randn(M, K, generator=gen, device=device).to(bf16)
+        g = torch.randn(M, N, generator=gen, device=device).to(bf16)
+        a = torch.randn(K, r, generator=gen, device=device) / K ** 0.5
+        b = torch.randn(r, N, generator=gen, device=device) * 0.05
+
+        def shard(j):
+            """Rank j's operands: (x, W block, A, B, g) of its fwd and
+            dx, and the slices of the whole output they cover."""
+            W = ranks[j][name]
+            if route == "row":
+                Kl = W.q.shape[-3] * W.block
+                sl = slice(j * Kl, (j + 1) * Kl)
+                return x[:, sl].contiguous(), W, a[sl].contiguous(), b, g
+            Nl = W.q.shape[-1]
+            sl = slice(j * Nl, (j + 1) * Nl) if route == "col" else \
+                slice(None)
+            return x, W, a, b[:, sl].contiguous(), g[:, sl].contiguous()
+
+        whole_y = lm_kernel.lora_matmul(x, w[name], a, b, scale=scale)
+        whole_dx = lm_kernel.quant_matmul_t(g, w[name], out_dtype=f32)[:, :K]
+        ys, dxs = [], []
+        for j in range(m):
+            xj, W, aj, bj, gj = shard(j)
+            for kname, got, want, tol in (
+                    ("lora_matmul",
+                     lm_kernel.lora_matmul(xj, W, aj, bj, scale=scale),
+                     ref.lora_matmul(xj, W, aj, bj, scale=scale),
+                     _tol(bf16)),
+                    ("quant_matmul_t",
+                     lm_kernel.quant_matmul_t(gj, W, out_dtype=f32),
+                     ref.quant_matmul_t(gj, W, out_dtype=f32), 1e-4)):
+                _, rel_e = rel_err(got, want)
+                if not (rel_e <= tol and torch.isfinite(got).all()):
+                    raise AssertionError(f"phase 16 {kname} {name} rank {j}:"
+                                         f" rel err {rel_e} > {tol}")
+                (ys if kname == "lora_matmul" else dxs).append(got)
+        if route == "col":
+            y, dx = torch.cat(ys, -1), sum(d.float() for d in dxs)
+        elif route == "row":
+            y, dx = sum(t.float() for t in ys), torch.cat(dxs, -1)
+        else:
+            if not all(torch.equal(t, ys[0]) for t in ys):
+                raise AssertionError(f"phase 16 {name}: whole shards differ")
+            y, dx = ys[0], dxs[0]
+        for kname, got, want, tol in (("lora_matmul", y, whole_y,
+                                       _tol(bf16)),
+                                      ("quant_matmul_t", dx[:, :K],
+                                       whole_dx, 1e-4)):
+            abs_e, rel_e = rel_err(got, want)
+            if not (rel_e <= tol and torch.isfinite(got).all()):
+                raise AssertionError(f"phase 16 {kname} {name} assembled: "
+                                     f"rel err {rel_e} > {tol}")
+            shape = (route, tuple(shard(0)[1].q.shape))
+            if (kname, shape) in seen or not time_it:
+                continue
+            seen.add((kname, shape))
+            row = _shard_row(kname, name, route, shard, m, w[name], x, a, b,
+                             g, scale)
+            row.update(assembled_rel_err=rel_e, max_abs_err=abs_e, tol=tol)
+            rows[(kname, name)] = row
+    if time_it:
+        rows[("flash_attention", "2 heads")] = _shard_flash(gen, cfg, m,
+                                                            device)
+    return {"rows": rows, "launches": ops.launch_counts()}
+
+
+def _shard_row(kname, name, route, shard, m, W, x, a, b, g, scale) -> dict:
+    """One kernel at one linear's shard shape: rank 0's shard (device and
+    call ms, plain ms, bound), the m shards' summed device time and the
+    unsharded call's, and their ratio."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    xj, Wj, aj, bj, gj = shard(0)
+    Kq, N = Wj.q.shape[-3] * Wj.block, Wj.q.shape[-1]
+    if kname == "lora_matmul":
+        run = lambda j=0: lm_kernel.lora_matmul(*shard(j)[:4], scale=scale)
+        plain = lambda: ref.lora_matmul(xj, Wj, aj, bj, scale=scale)
+        whole = lambda: lm_kernel.lora_matmul(x, W, a, b, scale=scale)
+        M, r = xj.shape[0], aj.shape[-1]
+        nops = 2.0 * M * (Kq * N + xj.shape[-1] * r + r * N)
+        ins = (xj, aj, bj)
+        dims = (M, xj.shape[-1], N)
+    else:
+        run = lambda j=0: lm_kernel.quant_matmul_t(shard(j)[4], shard(j)[1],
+                                                   out_dtype=f32)
+        plain = lambda: ref.quant_matmul_t(gj, Wj, out_dtype=f32)
+        whole = lambda: lm_kernel.quant_matmul_t(g, W, out_dtype=f32)
+        nops = 2.0 * gj.shape[0] * Kq * N
+        ins = (gj,)
+        dims = (gj.shape[0], N, Kq)       # rows, contraction, output
+    out = run()
+    b_ms, b_by = bound(nbytes(*ins, Wj.q, Wj.scales, out), nops, bf16)
+    row = {"kernel": kname, "linear": name, "route": route,
+           "shape_MKN": dims, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None}
+    if kname == "lora_matmul":
+        row["splits"] = lm_kernel.plan(*dims, Wj.block).splits
+    else:
+        row["splits"] = lm_kernel.plan_t(dims[0], Kq, N).splits
+    timed(row, "ms", run)
+    timed(row, "plain_ms", plain)
+    timed(row, "shards_ms", lambda: [run(j) for j in range(m)])
+    timed(row, "unsharded_ms", whole)
+    row["shards_over_unsharded"] = row["shards_ms"] / row["unsharded_ms"]
+    return row
+
+
+def _shard_flash(gen, cfg, m, device) -> dict:
+    """``flash_attention`` at a rank's heads (H / m of Yi-9B's 32, each
+    with its KV head of the whole 4: the column-parallel ``wq`` beside a
+    replicated ``wk``/``wv``) against its plain version, each rank's in
+    turn assembled against the unsharded call."""
+    bf16 = torch.bfloat16
+    B, S, D = SHARD_ROWS // SHARD_SEQ, SHARD_SEQ, cfg.head_dim
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    Hl, G = H // m, H // Hkv
+    q = torch.randn(B, S, H, D, generator=gen, device=device).to(bf16)
+    k = torch.randn(B, S, Hkv, D, generator=gen, device=device).to(bf16)
+    v = torch.randn(B, S, Hkv, D, generator=gen, device=device).to(bf16)
+
+    def shard(j):
+        ids = torch.arange(j * Hl, (j + 1) * Hl, device=device) // G
+        return (q[:, :, j * Hl:(j + 1) * Hl].contiguous(),
+                k.index_select(2, ids).contiguous(),
+                v.index_select(2, ids).contiguous())
+
+    run = lambda j=0: fa_kernel.flash_attention(*shard(j), causal=True)
+    whole = fa_kernel.flash_attention(q, k, v, causal=True)
+    outs = []
+    for j in range(m):
+        got = run(j)
+        _, rel_e = rel_err(got, ref.flash_attention(*shard(j), causal=True))
+        if not rel_e <= _tol(bf16):
+            raise AssertionError(f"phase 16 flash_attention rank {j}: "
+                                 f"rel err {rel_e}")
+        outs.append(got)
+    abs_e, rel_e = rel_err(torch.cat(outs, 2), whole)
+    if not rel_e <= _tol(bf16):
+        raise AssertionError(f"phase 16 flash_attention assembled: {rel_e}")
+    qj, kj, vj = shard(0)
+    nops = 4.0 * B * Hl * D * _valid_pairs(S, S, True, None)
+    b_ms, b_by = bound(nbytes(qj, kj, vj, outs[0]), nops, bf16)
+    row = {"kernel": "flash_attention", "linear": f"{Hl} heads",
+           "route": "heads", "shape_BSHD": (B, S, Hl, D), "bound_ms": b_ms,
+           "bound_by": b_by, "assembled_rel_err": rel_e,
+           "max_abs_err": abs_e, "tol": _tol(bf16)}
+    timed(row, "ms", run)
+    timed(row, "plain_ms", lambda: ref.flash_attention(qj, kj, vj,
+                                                       causal=True))
+    time_sdpa_backends(row, *(t.transpose(1, 2).contiguous()
+                              for t in (qj, kj, vj)), True)
+    timed(row, "shards_ms", lambda: [run(j) for j in range(m)])
+    timed(row, "unsharded_ms", lambda: fa_kernel.flash_attention(
+        q, k, v, causal=True))
+    row["shards_over_unsharded"] = row["shards_ms"] / row["unsharded_ms"]
+    return row
+
+
+def rank_step_child(go_file: str = "",
+                    rows_side: int = RANK_SIDE_ROWS) -> None:
+    """Phase 16 (b), in a process of its own (a fake world of 256 owns
+    its process's default group; phases 13-14's NCCL world owns the
+    script's): one rank of the production 16 x 16 mesh, with the tensor
+    layout's Runtime, on the card. Yi-9B at full width (NF4 block 64)
+    cut to ``RANK_LAYERS`` layers; the rank's blocks of the params
+    (``rank_params``), of ``train_4k``'s batch (``rank_batch``: 16 x
+    4096) and of ``decode_32k``'s cache (``rank_cache``: 8 streams, 2048
+    slots). The fake world's collectives move nothing, so no value is
+    checked: the resident bytes must equal the dry run's
+    ``argument_bytes`` for the same config exactly (and those its
+    ``argument_bytes_rules``); the steps are profiled. The dry run's
+    traces (CPU only) come first; with ``go_file`` the card is touched
+    only once that file exists, so they overlap the parent's (a). Prints
+    one ``PHASE16B {...}`` line."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import dp_axes, make_production_mesh
+    from repro_torch.models import runtime as rt_lib
+    t_start = time.perf_counter()
+    dryrun.init_fake_world(256)
+    mesh = make_production_mesh()
+    rt = rt_lib.Runtime(mesh=mesh, dp_axes=dp_axes(mesh), tp_axis="model")
+    cfg = get_config("yi-9b").replace(n_layers=RANK_LAYERS, **CLI_NF4)
+    model = build_model(cfg)
+    recs = {name: dryrun.trace_step("yi-9b", name, multi_pod=False,
+                                    cfg_override=cfg)
+            for name in ("train_4k", "decode_32k")}
+    out = {"arch": "yi-9b", "layers": RANK_LAYERS, "mesh": "16x16",
+           "card": card_line(), "dryrun_s": time.perf_counter() - t_start}
+    while go_file and not os.path.exists(go_file):
+        if time.perf_counter() - t_start > 600:
+            raise TimeoutError("phase 16 (b): no go from the parent")
+        time.sleep(0.05)
+    t_go = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(1616)
+    whole = model.init_params(gen, device="cuda")
+    held = sh.rank_params(cfg, whole, rt)
+    fz, tr = held["frozen"], held["trainable"]
+    kernels = ("lora_matmul", "quant_matmul_t", "flash_attention")
+    tb = lambda t: sum(l.numel() * l.element_size()
+                       for l in dryrun._tensors(t))
+
+    def account(name, resident):
+        rec = recs[name]
+        res = {"resident_bytes": resident,
+               "argument_bytes": rec["argument_bytes"],
+               "argument_bytes_rules": rec["argument_bytes_rules"],
+               "dryrun_peak_bytes": rec["argument_bytes"] +
+               rec["output_bytes"] + rec["temp_bytes"]}
+        if not resident == rec["argument_bytes"] == \
+                rec["argument_bytes_rules"]:
+            raise AssertionError(f"phase 16 (b) {name}: {res}")
+        return res
+
+    # train_4k: the rank's 16 x 4096 block of the 256 x 4096 batch
+    shape = INPUT_SHAPES["train_4k"]
+    toks = torch.randint(0, cfg.vocab_size, (shape.global_batch,
+                                             shape.seq_len + 1),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    batch = sh.rank_batch(cfg, {
+        "tokens": toks[:, :-1], "labels": toks[:, 1:],
+        "mask": torch.ones(toks[:, 1:].shape, device="cuda")}, rt)
+    del toks
+    opt = optim.adam_init(tr)
+    out["train"] = train = account(
+        "train_4k", tb(held) + tb(batch) + tb(tuple(opt)))
+    train["rank_batch"] = tuple(batch["tokens"].shape)
+    side = {k: v[:rows_side] for k, v in batch.items()}
+
+    def step(frozen, trainable, b):
+        return lambda: model.train_step(frozen, trainable,
+                                        optim.adam_init(trainable), b,
+                                        lr=1e-3)
+    with rt_lib.runtime(rt):
+        step(fz, tr, side)()        # warm-up: the kernels' modules load
+    # the same step unsharded (no Runtime, the whole weights) on the
+    # first rows of the rank's block; then the whole weights are freed
+    step(whole["frozen"], whole["trainable"], side)()
+    unsharded = profile_run(step(whole["frozen"], whole["trainable"], side),
+                            kernels)
+    del whole
+    torch.cuda.empty_cache()
+    with rt_lib.runtime(rt):
+        side_prof = profile_run(step(fz, tr, side), kernels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rank_prof = profile_run(step(fz, tr, batch), kernels)
+        train["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["train_rank"], out["train_rank_side"] = rank_prof, side_prof
+    out["train_unsharded_side"] = unsharded
+    del batch, side, opt
+    torch.cuda.empty_cache()
+
+    # decode_32k: 128 streams of 32768 slots; the rank's 8 x 2048 block
+    shape = INPUT_SHAPES["decode_32k"]
+    cache = sh.rank_cache(cfg, model.init_cache(shape.global_batch,
+                                                shape.seq_len,
+                                                device="cuda"), rt)
+    torch.cuda.empty_cache()
+    tok = sh.rank_batch(cfg, {"tokens": torch.randint(
+        0, cfg.vocab_size, (shape.global_batch, 1), generator=gen,
+        device="cuda", dtype=torch.int32)}, rt)["tokens"]
+    pos = torch.tensor(shape.seq_len - 1, dtype=torch.int32, device="cuda")
+    out["decode"] = dec = account(
+        "decode_32k", tb(held) + tb(tok) + tb(pos) + tb(cache))
+    dec["rank_tokens"] = tuple(tok.shape)
+    dec["rank_kv"] = tuple(cache["scan"]["kv"]["k"].shape)
+    with rt_lib.runtime(rt):
+        run = lambda: model.decode_step(fz, tr, cache, tok, pos)
+        run()                                # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out["decode_rank"] = profile_run(run, kernels)
+        dec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["launches"] = {k: rank_prof["launches"][k] +
+                       out["decode_rank"]["launches"][k] for k in kernels}
+    out["card_s"] = time.perf_counter() - t_go
+    print("PHASE16B " + json.dumps(out, default=str), flush=True)
+
+
+def rank_step_start() -> tuple:
+    """Phase 16 (b), started: :func:`rank_step_child` in a process of its
+    own, its output in files (it may warn at length); its dry-run traces
+    run while the parent does (a)."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=f"{root / 'src'}{os.pathsep}{root}")
+    tmp = tempfile.mkdtemp(prefix="phase16_")
+    go = os.path.join(tmp, "go")
+    logs = [open(os.path.join(tmp, n), "w") for n in ("out", "err")]
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke as cs; "
+         f"cs.rank_step_child(go_file={go!r})"], env=env, cwd=str(root),
+        stdout=logs[0], stderr=logs[1], text=True)
+    return tmp, go, logs, proc, time.perf_counter()
+
+
+def rank_step_finish(started, timeout: float = 600.0) -> dict:
+    """Phase 16 (b): let the child at the card, wait for it (at most
+    ``timeout`` seconds after its start), stop it if it is still
+    running, and read its ``PHASE16B`` line."""
+    tmp, go, logs, proc, t0 = started
+    try:
+        Path(go).touch()
+        proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        for f in logs:
+            f.close()
+        text = Path(tmp, "out").read_text()
+        lines = [l for l in text.splitlines() if l.startswith("PHASE16B ")]
+        if proc.returncode != 0 or not lines:
+            raise RuntimeError("phase 16 (b) failed:\n" + text[-3000:] +
+                               Path(tmp, "err").read_text()[-6000:])
+        res = json.loads(lines[-1][len("PHASE16B "):])
+        res["child_s"] = time.perf_counter() - t0
+        return res
+    finally:
+        rank_step_stop(started)
+
+
+def rank_step_stop(started) -> None:
+    """Kill what is left of phase 16 (b)'s process; remove its files."""
+    tmp, _, logs, proc, _ = started
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    for f in logs:
+        f.close()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def rank_report() -> collections.Counter:
+    """Phase 16 on the card, reported: (b) started in its own process
+    (its dry-run traces on the CPU), (a) the shard shapes meanwhile,
+    then (b) let at the card and its records read. Returns (b)'s
+    launches (the rank's train and decode steps: the layout's main path,
+    zeroed before and read after each)."""
+    print(f"the production layout on a rank, {card_line()}:", flush=True)
+    t_all = time.perf_counter()
+    started = rank_step_start()
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(1616)
+        shards = shard_shapes_check(gen)
+    except BaseException:
+        rank_step_stop(started)
+        raise
+    for (kname, name), row in shards["rows"].items():
+        report({"phase16_shard": kname, **row})
+    report({"phase16_a_checks_launches": dict(shards["launches"]),
+            "phase16_a_s": time.perf_counter() - t_all})
+    del shards
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = rank_step_finish(started)
+    for part in ("train", "decode"):
+        report({"phase16_b": part, **res[part]})
+    for what in ("train_rank", "train_rank_side", "train_unsharded_side",
+                 "decode_rank"):
+        report_profile("phase16_" + what, res[what])
+    report({"phase16_b_launches": res["launches"],
+            "phase16_b_dryrun_s": res["dryrun_s"],
+            "phase16_b_card_s": res["card_s"],
+            "phase16_b_child_s": res["child_s"],
+            "phase16_b_wait_s": time.perf_counter() - t0,
+            "phase16_s": time.perf_counter() - t_all, "card": res["card"]})
+    for k in ("lora_matmul", "quant_matmul_t", "flash_attention"):
+        if res["launches"][k] < 1:
+            raise AssertionError(f"phase 16 (b): the rank's steps launched "
+                                 f"no {k} kernel")
+    return collections.Counter(res["launches"])
+
+
 def check_qmm_routes(phases: dict) -> None:
     """Print each phase's ``quant_matmul`` launches (its paths and its
     checks) by (users, rows, route, plan CTAs, dtype) and fail if a bf16
@@ -5132,6 +5610,8 @@ def _main() -> int:
         dry_launches = dryrun_report()
     clock(t_start, "phase 15")
     check_qmm_routes(qmm_phases)
+    rank_launches = rank_report()
+    clock(t_start, "phase 16")
 
     print(card_line(), flush=True)
     # flash_attention runs on every path: its launches over all of them
@@ -5160,6 +5640,9 @@ def _main() -> int:
     print(f"phase 14 launches: {dict(rt_launches)}", flush=True)
     # phase 15 (a) runs the calibrated paths and their plain sides
     print(f"phase 15 launches: {dict(dry_launches)}", flush=True)
+    # phase 16 (b) runs one rank's train and decode steps in the
+    # production layout: lora_matmul, quant_matmul_t, flash_attention
+    print(f"phase 16 launches: {dict(rank_launches)}", flush=True)
     launches = {**serve_launches, **yi_launches,
                 **{name: sum(p.values()) for name, p in serve_paths.items()},
                 "flash_attention": sum(flash.values()),
@@ -5171,7 +5654,10 @@ def _main() -> int:
     for name in ("lora_matmul", "quant_matmul_t", "quant_matmul",
                  "blockwise_quant", "selective_scan", "selective_scan_bwd"):
         launches[name] += zoo_launches[name] + rt_launches[name]
-    launches["flash_attention"] += rt_launches["flash_attention"]
+    launches["flash_attention"] += rt_launches["flash_attention"] + \
+        rank_launches["flash_attention"]
+    for name in ("lora_matmul", "quant_matmul_t"):
+        launches[name] += rank_launches[name]
     # the tc route runs on phases 13-15's paths
     launches["quant_matmul_tc"] = (zoo_launches["quant_matmul_tc"] +
                                    rt_launches["quant_matmul_tc"])

@@ -94,10 +94,11 @@ def tree_to(tree, device):
 
 
 def rank_tree_from_numpy(tree, cfg, rt, device=None):
-    """This rank's shard of a JAX model tree on ``device``: the leaves
-    cross on the CPU, ``launch.shardings.rank_params`` cuts the rank's
-    block of each leaf the rules shard for an explicit body (the MoE
-    experts), and only the blocks move to the device."""
+    """This rank's shard of a JAX model tree on ``device`` in the
+    production layout: the leaves cross on the CPU,
+    ``launch.shardings.rank_params`` cuts every leaf by the sharding
+    rules (each block owning its storage), and only the blocks move to
+    the device."""
     from repro_torch.launch.shardings import rank_params
     dev = resolve_device(device)
     return tree_to(rank_params(cfg, tree_from_numpy(tree, "cpu"), rt), dev)

@@ -113,7 +113,10 @@ def prefill(params, x: torch.Tensor, window: int, *, n_heads: int = 8):
     """Port of ``repro.core.adapter.prefill``: the adapter's output for
     the LAST position plus a ring KV cache of ``window`` slots over the
     final ``min(S, window)`` positions (empty slots when window > S), so
-    decoding stays windowed. x: (B, S, d) -> ((B, 1, d), cache)."""
+    decoding stays windowed. x: (B, S, d) -> ((B, 1, d), cache). The
+    cache is whole; under a Runtime the model holds the rank's block of
+    its slots (the split-KV attention here reads the whole ring on every
+    rank, whose combine is its own value)."""
     from repro_torch.models import layers as mlayers
     B, S, d = x.shape
     dh = d // n_heads
@@ -134,7 +137,10 @@ def decode(params, x: torch.Tensor, cache, pos, *, n_heads: int = 8):
     the absolute position ``pos`` (a 0-d integer tensor on x's device)
     against the ring cache. Its k/v row and ``slot_pos`` entry are
     written into slot ``pos % M`` in place with device ops; returns
-    ``(out, cache)``, the same dict."""
+    ``(out, cache)``, the same dict. Under a Runtime ``cache`` is the
+    rank's block of slots (``models.layers.ring_write``)."""
+    from repro_torch.models import layers as mlayers
+    from repro_torch.models import runtime as rt_lib
     B, _, d = x.shape
     dh = d // n_heads
     dt = x.dtype
@@ -143,11 +149,12 @@ def decode(params, x: torch.Tensor, cache, pos, *, n_heads: int = 8):
         return (x @ params[w].to(dt)).reshape(B, 1, n_heads, dh)
 
     q = proj("wq")
-    slot = torch.remainder(pos, cache["k"].shape[1]).reshape(1).long()
+    rt = rt_lib.get_runtime()
     for name in ("k", "v"):
-        cache[name].index_copy_(1, slot, proj("w" + name).to(
-            cache[name].dtype))
-    cache["slot_pos"].index_copy_(0, slot, pos.reshape(1).to(torch.int32))
+        mlayers.ring_write(cache[name], 1, pos, proj("w" + name).to(
+            cache[name].dtype), rt)
+    mlayers.ring_write(cache["slot_pos"], 0, pos,
+                       pos.reshape(1).to(torch.int32), rt)
     a = kops.decode_attention(q, cache["k"].to(dt), cache["v"].to(dt),
                               cache["slot_pos"][None]).reshape(B, 1, d)
     y = x + a @ params["wo"].to(dt)

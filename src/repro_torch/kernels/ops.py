@@ -34,7 +34,10 @@ with an empty cache the kernels' own plans decide, as before.
 Under a :class:`~repro_torch.models.runtime.Runtime`, ``flash_attention``
 and ``decode_attention`` run the JAX package's explicit splits (the
 query heads over the model axis; the cache slots over it, merged by the
-log-sum-exp combine), the kernel on each rank's slice.
+log-sum-exp combine), the kernel on each rank's slice. A rank's own
+heads (``heads_held``, the column-parallel projections) go to the
+kernel as they are, and ``decode_attention`` reads the block of the
+cache the rank holds.
 """
 from __future__ import annotations
 
@@ -160,15 +163,22 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def flash_attention(q, k, v, *, causal=True, window=None):
+def flash_attention(q, k, v, *, causal=True, window=None,
+                    heads_held=False):
     """Masked GQA attention of q (B, S, H, D) over k, v (B, Skv, Hkv, D).
     Under a Runtime the JAX package's explicit split: the batch over the
     dp axes (when it divides), the query heads padded to a multiple of
     the model axis and split over it, each rank's heads with their KV
     heads gathered (``kv = clamp(head, H - 1) // (H / Hkv)``), the kernel
-    on the rank's slice, the heads re-assembled and the padding cut."""
+    on the rank's slice, the heads re-assembled and the padding cut.
+    ``heads_held``: q, k and v are already this rank's heads and their
+    KV heads (the production layout's column-parallel projections), and
+    the kernel runs on them directly."""
     rt = rt_lib.get_runtime()
     if rt is None:
+        return _FlashAttention.apply(q, k, v, causal, window)
+    if heads_held:
+        rt_lib.dist_trace("flash_attention_heads_dist")
         return _FlashAttention.apply(q, k, v, causal, window)
     rt_lib.dist_trace("flash_attention_dist")
     B, S, H, D = q.shape
@@ -200,39 +210,27 @@ def decode_attention(q, k_cache, v_cache, slot_pos):
     ``jnp``, not Pallas, so the plain PyTorch version is its port on
     every device, traced as ``decode_attention_plain``; the profiler
     range ``decode_attention`` names its device time. Under a Runtime
-    whose model axis divides the M slots, the split-KV body: each rank's
-    slots give ``ref.decode_attention_partial``'s (max, sum, acc), merged
-    by the log-sum-exp combine with a max and two sums over the model
-    axis (the batch over the dp axes when it divides)."""
+    the split-KV body: the cache given is the rank's block (its slots
+    cut over the model axis, or whole where they do not divide: the
+    combine of m equal partials is their own value), whose
+    ``ref.decode_attention_partial`` (max, sum, acc) the ranks merge by
+    the log-sum-exp combine with a max and two sums over the model
+    axis."""
     rt = rt_lib.get_runtime()
-    M = k_cache.shape[1]
-    if rt is None or M % rt.tp_size:
-        if rt is not None:
-            rt_lib.dist_trace("decode_attention_fallback")
-        trace_count("decode_attention_plain")
-        with torch.profiler.record_function("decode_attention"):
-            return ref.decode_attention(q, k_cache, v_cache, slot_pos)
-    rt_lib.dist_trace("decode_attention_dist")
     trace_count("decode_attention_plain")
-    B, _, H, D = q.shape
-    tp, dp = rt.tp_axis, rt.dp_axes
-    if B % rt.dp_size:
-        dp = ()
-    dp = dp or None
     with torch.profiler.record_function("decode_attention"):
-        q_l = rt_lib.shard_in(q, rt_lib.P(dp, None, None, None), rt)
-        kv = rt_lib.P(dp, tp, None, None)
-        mi, li, acci = ref.decode_attention_partial(
-            q_l, rt_lib.shard_in(k_cache, kv, rt),
-            rt_lib.shard_in(v_cache, kv, rt),
-            rt_lib.shard_in(slot_pos, rt_lib.P(None, tp), rt))
+        if rt is None:
+            return ref.decode_attention(q, k_cache, v_cache, slot_pos)
+        rt_lib.dist_trace("decode_attention_dist")
+        mi, li, acci = ref.decode_attention_partial(q, k_cache, v_cache,
+                                                    slot_pos)
+        tp = rt.tp_axis
         mg = rt_lib.pmax(mi, tp, rt)
         corr = torch.exp(mi - mg)
         lg = rt_lib.psum(li * corr, tp, rt)
         accg = rt_lib.psum(acci * corr[..., None], tp, rt)
         out = accg / lg.clamp_min(1e-30)[..., None]
-        out = out.reshape(q_l.shape[0], 1, H, D).to(q_l.dtype)
-        return rt_lib.shard_out(out, rt_lib.P(dp, None, None, None), rt)
+        return out.reshape(q.shape).to(q.dtype)
 
 
 def combine_decode_partials(parts, dtype=torch.float32):

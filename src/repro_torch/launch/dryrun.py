@@ -13,23 +13,24 @@ The JAX dry run lowers against ``ShapeDtypeStruct`` stand-ins on 512
 placeholder devices and reads XLA's analyses. The port runs the same
 program as one rank of a *fake* world (:func:`init_fake_world`: a
 ``torch.distributed`` process group of 256 or 512 ranks whose
-collectives move nothing) with the production :class:`Runtime`, on
-fake CPU tensors (``FakeTensorMode``) made from the model's spec trees
-(``Model.param_specs``, ``input_specs``; never ``init_params``, which
-draws weights), cut to the rank's block by ``shardings.rank_params``.
+collectives move nothing) with the production :class:`Runtime` (the
+production layout), on fake CPU tensors (``FakeTensorMode``) made
+from the model's spec trees (``Model.param_specs``, ``input_specs``;
+never ``init_params``, which draws weights), cut to the rank's blocks
+by ``shardings.rank_params``, ``rank_batch`` and ``rank_cache``.
 Every op runs its plain PyTorch version on the fake tensors, as the JAX
 dry run lowers the plain ``jnp`` versions on CPU placeholder devices:
 sizes flow, no data does. The record (:func:`run_one`) keeps the JAX
 record's keys:
 
 - ``argument_bytes``: the rank's params, optimizer state, batch and
-  cache as the port holds them (dense layers whole on every rank, the
-  MoE experts cut: ``dense_layout`` is ``"replicated"``; the
-  tensor-parallel split of the dense linears is ROADMAP Queue A item
-  8.7). ``argument_bytes_rules``: the per-device bytes of the same
-  arguments under ``shardings.param_specs_tree`` / ``batch_specs_tree``
-  / ``cache_specs_tree`` on the production mesh (the optimizer state
-  replicated), which is what GSPMD gives the JAX package;
+  cache as the port holds them in the production layout (``shardings.
+  rank_params``, ``rank_batch``, ``rank_cache``: ``dense_layout`` is
+  ``"tensor"``). ``argument_bytes_rules``: the per-device bytes of the
+  same arguments under ``shardings.param_specs_tree`` /
+  ``batch_specs_tree`` / ``cache_specs_tree`` on the production mesh
+  (the optimizer state replicated), which is what GSPMD gives the JAX
+  package; the two are equal;
 - ``output_bytes``: the step's outputs made during the step;
   ``temp_bytes``: the peak of live storage made during the step, beyond
   the arguments and less the outputs (a tally of storages at dispatch,
@@ -272,6 +273,9 @@ def trace_step(arch: str, shape_name, *, multi_pod: bool,
         mesh = make_production_mesh(multi_pod=multi_pod)
         rt = rt_lib.Runtime(mesh=mesh, dp_axes=dp_axes(mesh),
                             tp_axis="model")
+        # the layout's spec trees are built from meta tensors: made here,
+        # outside the trace, they are not counted as the step's storage
+        model.held_specs(rt)
     opt_specs = optim.adam_specs(specs["trainable"]) \
         if shape.kind == "train" else None
     rules = None
@@ -295,10 +299,14 @@ def trace_step(arch: str, shape_name, *, multi_pod: bool,
     t0 = time.perf_counter()
     with FakeTensorMode(allow_non_fake_inputs=True):
         params = _fake(specs)
+        batch = _fake(batch_specs)
         if rt is not None:
             params = sh.rank_params(cfg, params, rt)
+            cache = batch.pop("cache", None)
+            batch = sh.rank_batch(cfg, batch, rt)
+            if cache is not None:
+                batch["cache"] = sh.rank_cache(cfg, cache, rt)
         frozen, tr = params["frozen"], params["trainable"]
-        batch = _fake(batch_specs)
         opt = None if opt_specs is None else optim.AdamState(
             *(_fake(x) for x in opt_specs))
         args = (params, batch, opt)
@@ -416,7 +424,8 @@ def run_one(arch: str, shape_name, *, multi_pod: bool,
         "collectives": t["collectives"],
         "params_total": cfg.param_count(),
         "params_active": cfg.param_count(active_only=True),
-        "routes": t["routes"], "dense_layout": "replicated",
+        "routes": t["routes"],
+        "dense_layout": "local" if local else "tensor",
         "trace_s": round(t["trace_s"], 2),
     }
     if calibrate:

@@ -13,17 +13,22 @@ a QTensor whose ``q`` and ``scales`` are specs of its storage. The rules
 work on real tensors and on shape-only ones (``meta`` tensors).
 
 :func:`local_shard` cuts a rank's block out of a whole tensor or
-QTensor by a spec, and :func:`rank_params` applies the rules to a model
-tree for a Runtime: the leaves the explicit bodies read as shards (the
-MoE experts) are cut, every other leaf stays whole, since the port
-computes the dense layers whole on every rank (GSPMD's partition of
-them is a layout not reproduced) and the recurrent blocks cut their
-channel slices at the body's entry, as ``shard_map``'s ``in_specs`` do.
+QTensor by a spec. Under a Runtime the port holds every tree as the
+rank's blocks (the production layout): :func:`rank_params`
+cuts every leaf by :func:`param_specs_tree`, :func:`rank_batch` by
+:func:`batch_specs_tree`, :func:`rank_cache` by :func:`cache_specs_tree`,
+each block contiguous and owning its storage, so the whole tree can be
+freed. :func:`hold_model_dims` cuts what a step makes on the rank (a
+prefill's cache entries) over the model axis only, its batch being the
+rank's block already; :func:`logical_spec` reads a QTensor leaf's spec
+as its logical tensor's.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
+
+import torch
 
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ModelConfig
@@ -259,13 +264,6 @@ def local_shard(leaf, spec, mesh):
     return _cut(leaf, spec, mesh)
 
 
-def _is_expert(path) -> bool:
-    keys = [str(k).lower() for k in path]
-    return any("moe" in k for k in keys) and \
-        next((k for k in reversed(keys) if not k.isdigit()), "") in \
-        ("wg", "wu", "wd")
-
-
 def _expert_leaf_spec(leaf):
     if isinstance(leaf, QTensor):
         return _qspec(leaf, _expert_spec(leaf.q.ndim),
@@ -273,18 +271,97 @@ def _expert_leaf_spec(leaf):
     return _expert_spec(leaf.ndim)
 
 
+def _own(t):
+    """``t`` contiguous and owning its storage (a block of a whole tensor
+    would keep the whole alive)."""
+    if t.is_contiguous() and t.untyped_storage().nbytes() == \
+            t.numel() * t.element_size():
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _cut_tree(tree, specs, mesh):
+    def one(leaf, spec):
+        if isinstance(leaf, QTensor):
+            if not any(spec_axes(e) for e in (*spec.q, *spec.scales)):
+                return leaf
+            b = local_shard(leaf, spec, mesh)
+            return dataclasses.replace(b, q=_own(b.q), scales=_own(b.scales))
+        if not any(spec_axes(e) for e in spec):
+            return leaf
+        return _own(_cut(leaf, spec, mesh))
+    specs_flat = tree_lib.leaves(specs)
+    leaves = tree_lib.leaves(tree)
+    return tree_lib.from_leaves(tree, [one(l, s) for l, s in
+                                       zip(leaves, specs_flat)])
+
+
 def rank_params(cfg: ModelConfig, params: Any, rt):
     """A model tree (``{"frozen", "trainable"}``, or any subtree) as this
-    rank of ``rt`` holds it: the stacked MoE experts ``(L, E, ...)`` cut by
-    :func:`param_specs_tree`'s rule for them (E over ``model``, the last
-    dim over ``data``), every other leaf whole."""
-    def own(leaf):
-        if isinstance(leaf, QTensor):
-            return dataclasses.replace(leaf, q=leaf.q.contiguous(),
-                                       scales=leaf.scales.contiguous())
-        return leaf.contiguous()
+    rank of ``rt`` holds it in the production layout: every leaf cut by
+    :func:`param_specs_tree` (a QTensor by its storage's specs, the
+    experts E over ``model`` and their last dim over ``data``), the
+    replicated ones kept as they are."""
+    return _cut_tree(params, param_specs_tree(cfg, params, rt.mesh),
+                     rt.mesh)
 
-    return tree_lib.map_with_path(
-        lambda path, leaf: own(local_shard(leaf, _expert_leaf_spec(leaf),
-                                           rt.mesh))
-        if _is_expert(path) else leaf, params)
+
+def rank_batch(cfg: ModelConfig, batch: Any, rt):
+    """The rank's block of an input batch by :func:`batch_specs_tree`
+    (the batch dim over the dp axes where it divides)."""
+    return _cut_tree(batch, batch_specs_tree(cfg, batch, rt.mesh,
+                                             rt.dp_axes), rt.mesh)
+
+
+def _written_ring(path) -> bool:
+    keys = [str(k) for k in path]
+    return keys[-1] in ("k", "v", "k_scale", "v_scale", "slot_pos") and \
+        "ckv" not in keys
+
+
+def _check_rings(cache, specs, m: int) -> None:
+    """A ring a decode step writes must split its slots over the model
+    axis: a held block does not say whether its slots were cut, so the
+    step takes them as cut (a ring it only reads, the encoder's ``ckv``,
+    is read right either way)."""
+    if m == 1:
+        return
+    for (path, leaf), spec in zip(tree_lib.flatten_with_path(cache),
+                                  tree_lib.leaves(specs)):
+        if _written_ring(path):
+            d = leaf.ndim - 1 if str(path[-1]) == "slot_pos" else \
+                (1 if "adapter" in [str(k) for k in path] else 2)
+            if spec[d] is None:
+                raise NotImplementedError(
+                    f"{tree_lib.path_str(path)}: a ring of {leaf.shape[d]} "
+                    f"slots the model axis ({m}) does not divide")
+
+
+def rank_cache(cfg: ModelConfig, cache: Any, rt):
+    """The rank's block of a decode cache by :func:`cache_specs_tree`
+    (the batch over the dp axes, the slots or channels over ``model``)."""
+    specs = cache_specs_tree(cfg, cache, rt.mesh, rt.dp_axes)
+    _check_rings(cache, specs, _mesh_size(rt.mesh, rt.tp_axis))
+    return _cut_tree(cache, specs, rt.mesh)
+
+
+def hold_model_dims(cfg: ModelConfig, cache: Any, rt):
+    """A cache tree the step made on this rank (its batch dim the rank's
+    block already) cut by :func:`cache_specs_tree`'s entries over the
+    model axis only: a prefill's entries as ``rank_cache`` would hold
+    them."""
+    specs = cache_specs_tree(cfg, cache, rt.mesh, ())
+    _check_rings(cache, specs, _mesh_size(rt.mesh, rt.tp_axis))
+    keep = lambda spec: P(*[e if rt.tp_axis in spec_axes(e) else None
+                            for e in spec])
+    return _cut_tree(cache, tree_lib.tree_map(keep, specs), rt.mesh)
+
+
+def logical_spec(spec) -> P:
+    """The spec of a leaf's logical (dequantized) tensor: a QTensor spec's
+    storage ``(…, G, B, N)`` read as ``(…, K, N)``, its group dim G
+    splitting K; a plain spec as it is."""
+    if isinstance(spec, QTensor):
+        q = tuple(spec.q)
+        return P(*q[:-3], q[-3], q[-1]) if len(q) >= 3 else P()
+    return spec

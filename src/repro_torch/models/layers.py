@@ -10,6 +10,22 @@ decoder's ``c``-prefixed weights against the encoder's output ``kv_x``,
 not causal, no RoPE), the learned-position families' ``use_rope=False``
 and a decode step that reads a fixed cache (``update_cache=False``, the
 cross-attention's encoder K/V) follow the JAX package's options.
+
+Under a Runtime (the production layout) the model passes ``specs``, the
+layer's leaves' logical specs by ``launch.shardings.param_specs_tree``
+(a QTensor's storage spec read as its weight's), and every projection runs on the
+rank's block (:func:`tp_linear`): ``wq`` column-parallel when the model
+axis divides the heads, else row-parallel (the contraction dim: q psum'd
+whole and the attention's padded head split takes it from there),
+``wk``/``wv`` column-parallel when it divides the KV heads, else whole,
+``wo`` row-parallel (or by its fallback), ``wg``/``wu``
+column-parallel and ``wd`` row-parallel; a QTensor whose contraction
+split fell back to N (``_lift_qtensor``: its quant groups do not divide
+the axis) gathers its split input and computes its N block. A decode
+step's cache is the rank's block (the slots over ``model``): the new
+row is written only on the rank that owns slot ``pos % M``
+(:func:`ring_write`) and the split-KV attention reads the block it
+holds.
 """
 from __future__ import annotations
 
@@ -23,6 +39,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lora as lora_lib
 from repro_torch.core.quant import _div
 from repro_torch.kernels import ops as kops
+from repro_torch.models import runtime as rt_lib
+from repro_torch.models.runtime import P, spec_axes
 
 
 # ------------------------------------------------------------------ norms
@@ -59,6 +77,38 @@ def linear(x, w, lo=None, *, cfg: ModelConfig):
                            rank=cfg.lora_rank)
 
 
+def _route(spec) -> str:
+    """``"col"``, ``"row"`` or ``"whole"``: how a held 2-D weight is cut,
+    read from its logical spec."""
+    ls = (None, None) + tuple(spec)
+    if spec_axes(ls[-1]):
+        return "col"
+    return "row" if spec_axes(ls[-2]) else "whole"
+
+
+def tp_linear(x, w, lo, spec, cfg: ModelConfig, rt, *, x_split=False,
+              gather=True):
+    """:func:`linear` on the rank's block ``w`` held by ``spec`` (its
+    logical spec) in the production layout: ``(y, split)``. ``x`` is
+    replicated over the model axis, or with ``x_split`` the rank's block of its last dim (a
+    column-parallel layer's output). A column block gives the rank's
+    output columns (``split``), or the whole output with ``gather``; a
+    row block the whole output, its partials summed; a whole weight the
+    whole output (a split input gathered first)."""
+    mm = lambda x_, w_, pair: linear(x_, w_, pair, cfg=cfg)
+    route = _route(spec)
+    if route == "col":
+        y = rt_lib.linear_col(x, w, lo, mm, rt, x_split=x_split,
+                              gather=gather)
+        return y, not gather
+    if route == "row":
+        return rt_lib.linear_row(x, w, lo, mm, rt, x_split=x_split), False
+    if x_split:
+        x = rt_lib.shard_out(x, P(*([None] * (x.ndim - 1)), rt.tp_axis),
+                             rt)
+    return mm(x, w, lo), False
+
+
 def _normal(generator, shape, fan_in, dtype, device):
     w = torch.randn(shape, generator=generator, device=generator.device)
     return (w * (1.0 / math.sqrt(fan_in))).to(device=device, dtype=dtype)
@@ -88,14 +138,20 @@ def attention_specs(cfg: ModelConfig, dtype, *, cross: bool = False,
 
 
 def attention(p, x, positions, cfg: ModelConfig, *, lora=None, causal=True,
-              window=None, kv_x=None, use_rope=True, prefix=""):
+              window=None, kv_x=None, use_rope=True, prefix="", specs=None):
     """Full-sequence attention (train / prefill), port of
     ``repro.models.layers.attention``: self-attention over x, or
     cross-attention from x to ``kv_x`` (B, Skv, d) when given, with the
     weights and LoRA pairs named ``prefix + "wq"`` and so on. RoPE at
     ``positions`` applies to self-attention with ``use_rope``. Returns
     ``(out, (k, v))`` with the k and v (B, Skv, Hkv, D) that prefill
-    caches (rotated when RoPE applies)."""
+    caches (rotated when RoPE applies). In the production layout
+    (``specs`` given) the rank's heads: k and v come back as the rank
+    holds them (its KV heads when ``wk`` is column-parallel)."""
+    if specs is not None:
+        return _attention_tp(p, x, positions, cfg, lora or {}, causal, window,
+                             kv_x, use_rope, prefix, specs,
+                             rt_lib.get_runtime())
     B, S, _ = x.shape
     lo = lora or {}
     g = lambda n: lo.get(prefix + n)
@@ -116,6 +172,44 @@ def attention(p, x, positions, cfg: ModelConfig, *, lora=None, causal=True,
     out = kops.flash_attention(q, k, v, causal=causal, window=window)
     y = linear(out.reshape(B, S, cfg.q_dim), p[prefix + "wo"], g("wo"),
                cfg=cfg)
+    return y, (k, v)
+
+
+def _attention_tp(p, x, positions, cfg, lo, causal, window, kv_x, use_rope,
+                  prefix, specs, rt):
+    B, S, _ = x.shape
+    H, Hkv, D, m = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, rt.tp_size
+    src = x if kv_x is None else kv_x
+    Skv = src.shape[1]
+
+    def proj(name, inp, **kw):
+        return tp_linear(inp, p[prefix + name], lo.get(prefix + name),
+                         specs[prefix + name], cfg, rt, **kw)
+
+    q, q_split = proj("wq", x, gather=False)
+    k, k_split = proj("wk", src, gather=False)
+    v, _ = proj("wv", src, gather=False)
+    Hl = H // m if q_split else H
+    q = q.reshape(B, S, Hl, D)
+    k = k.reshape(B, Skv, -1, D)
+    v = v.reshape(B, Skv, -1, D)
+    if use_rope and kv_x is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    if q_split:
+        kh, vh = k, v
+        if not k_split:
+            # the rank's q heads meet their KV heads of the whole k and v,
+            # whose gradients are the ranks' partials
+            ids = torch.div(rt.index(rt.tp_axis) * Hl + torch.arange(
+                Hl, device=q.device), H // Hkv, rounding_mode="floor")
+            kh = rt_lib.tp_copy(k, rt).index_select(2, ids)
+            vh = rt_lib.tp_copy(v, rt).index_select(2, ids)
+        out = kops.flash_attention(q, kh, vh, causal=causal, window=window,
+                                   heads_held=True)
+    else:
+        out = kops.flash_attention(q, k, v, causal=causal, window=window)
+    y, _ = proj("wo", out.reshape(B, S, Hl * D), x_split=q_split)
     return y, (k, v)
 
 
@@ -196,8 +290,25 @@ def kv_cache_specs(cfg: ModelConfig, batch: int, max_len: int, dtype,
     return c
 
 
+def ring_write(buf, dim: int, pos, val, rt) -> None:
+    """Write ``val`` (size 1 on ``dim``) into the ring ``buf`` at slot
+    ``pos % M``, in place with device ops. Under a Runtime ``rt``
+    ``buf`` is this rank's block of ``M / m`` slots (a written ring's
+    slots are always cut: ``shardings.rank_cache``): only the rank that
+    owns the slot writes, at its local index."""
+    M_l = buf.shape[dim]
+    m = 1 if rt is None else rt.tp_size
+    slot = torch.remainder(pos, M_l * m)
+    idx = torch.remainder(slot, M_l).reshape(1).long()
+    if m > 1:
+        mine = torch.div(slot, M_l, rounding_mode="floor") == \
+            rt.index(rt.tp_axis)
+        val = torch.where(mine, val, buf.index_select(dim, idx))
+    buf.index_copy_(dim, idx, val)
+
+
 def attention_decode(p, x, pos, cache, cfg: ModelConfig, *, lora=None,
-                     use_rope=True, prefix="", update_cache=True):
+                     use_rope=True, prefix="", update_cache=True, specs=None):
     """One-token attention against a ring cache, port of
     ``repro.models.layers.attention_decode``: x (B, 1, d); ``pos`` the
     absolute position as a 0-d integer tensor on x's device. With
@@ -209,37 +320,42 @@ def attention_decode(p, x, pos, cache, cfg: ModelConfig, *, lora=None,
     without it (the cross-attention's fixed encoder K/V) the cache is
     only read. Weights and LoRA pairs are named ``prefix + "wq"`` and so
     on. Returns ``(out, cache)``, the same dict, where the JAX function
-    returns a new one."""
+    returns a new one. In the production layout (``specs`` given) the
+    projections run on the rank's blocks, q, k and v gathered whole over
+    the heads, and ``cache`` is the rank's block of slots
+    (:func:`ring_write`)."""
     B = x.shape[0]
     lo = lora or {}
-    g = lambda n: lo.get(prefix + n)
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = linear(x, p[prefix + "wq"], g("wq"), cfg=cfg).reshape(B, 1, H, D)
+    rt = rt_lib.get_runtime()
+
+    def proj(inp, name):
+        n = prefix + name
+        if specs is None:
+            return linear(inp, p[n], lo.get(n), cfg=cfg)
+        return tp_linear(inp, p[n], lo.get(n), specs[n], cfg, rt)[0]
+
+    q = proj(x, "wq").reshape(B, 1, H, D)
     if use_rope:
         q = rope(q, pos, cfg.rope_theta)
     if update_cache:
-        k = linear(x, p[prefix + "wk"], g("wk"), cfg=cfg).reshape(
-            B, 1, Hkv, D)
-        v = linear(x, p[prefix + "wv"], g("wv"), cfg=cfg).reshape(
-            B, 1, Hkv, D)
+        k = proj(x, "wk").reshape(B, 1, Hkv, D)
+        v = proj(x, "wv").reshape(B, 1, Hkv, D)
         if use_rope:
             k = rope(k, pos, cfg.rope_theta)
         quant = cfg.kv_quant_bits == 8 and "k_scale" in cache
-        slot = torch.remainder(pos, cache["k"].shape[1]).reshape(1).long()
         for name, val in (("k", k), ("v", v)):
             vq, vs = quant_kv(val, quant)
-            cache[name].index_copy_(1, slot, vq.to(cache[name].dtype))
+            ring_write(cache[name], 1, pos, vq.to(cache[name].dtype), rt)
             if quant:
-                cache[name + "_scale"].index_copy_(1, slot, vs)
-        cache["slot_pos"].index_copy_(0, slot,
-                                      pos.reshape(1).to(torch.int32))
+                ring_write(cache[name + "_scale"], 1, pos, vs, rt)
+        ring_write(cache["slot_pos"], 0, pos, pos.reshape(1).to(torch.int32),
+                   rt)
     out = kops.decode_attention(
         q, dequant_kv(cache["k"], cache.get("k_scale"), x.dtype),
         dequant_kv(cache["v"], cache.get("v_scale"), x.dtype),
         cache["slot_pos"][None])
-    y = linear(out.reshape(B, 1, cfg.q_dim), p[prefix + "wo"], g("wo"),
-               cfg=cfg)
-    return y, cache
+    return proj(out.reshape(B, 1, cfg.q_dim), "wo"), cache
 
 
 # ------------------------------------------------------------------ mlp
@@ -261,10 +377,24 @@ def mlp_specs(d: int, ff: int, kind: str, dtype, lead=()):
     return p
 
 
-def mlp(p, x, cfg: ModelConfig, *, lora=None, kind=None):
+def mlp(p, x, cfg: ModelConfig, *, lora=None, kind=None, specs=None):
     """The config's MLP, or ``kind`` ("swiglu" | "gelu") when given (the
-    MoE family's dense layers and shared experts are SwiGLU)."""
+    MoE family's dense layers and shared experts are SwiGLU). In the
+    production layout (``specs`` given) ``wg``/``wu`` give the rank's
+    columns of h and ``wd`` sums them (or, stored split on N, gathers h
+    and its output)."""
     lo = lora or {}
+    if specs is not None:
+        rt = rt_lib.get_runtime()
+        lin = lambda inp, n, **kw: tp_linear(inp, p[n], lo.get(n), specs[n],
+                                             cfg, rt, **kw)
+        if (kind or cfg.mlp) == "swiglu":
+            gt, split = lin(x, "wg", gather=False)
+            h = F.silu(gt) * lin(x, "wu", gather=False)[0]
+        else:
+            up, split = lin(x, "wu", gather=False)
+            h = F.gelu(up, approximate="tanh")
+        return lin(h, "wd", x_split=split)[0]
     if (kind or cfg.mlp) == "swiglu":
         h = F.silu(linear(x, p["wg"], lo.get("wg"), cfg=cfg)) * \
             linear(x, p["wu"], lo.get("wu"), cfg=cfg)

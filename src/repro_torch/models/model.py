@@ -59,13 +59,22 @@ Under a :class:`~repro_torch.models.runtime.Runtime` (a mesh over
 ``torch.distributed``, one process a rank) the same methods run the
 JAX package's explicit bodies: the MoE's expert-parallel all-to-all,
 the attention's head split, the split-KV decode, the Mamba and RG-LRU
-blocks' channel split. Every rank holds the dense weights whole and
-computes the rest of the program on the global tensors, so the loss,
-the logits and the gradients come out the same on every rank (GSPMD's
-partition of the dense layers is a layout not reproduced: ROADMAP). The
-layer stack's sharding constraints are identities; an SSM layer
-checkpoints inside its body under a Runtime, as the JAX package's does,
-instead of as a whole.
+blocks' channel split, in the production layout: each rank holds its
+blocks of the parameters, the batch and a decode's cache
+(``launch.shardings.rank_params``, ``rank_batch``, ``rank_cache``), as
+GSPMD places the JAX package's: the dense linears
+run tensor-parallel on the rank's weight blocks (``layers.tp_linear``),
+the embedding and the head vocab-parallel (the loss's max, sum of
+exponentials and target logit reduced over ``model``, the logits never
+gathered whole), the learned positions gathered at use. The loss is the
+global mean, its sum and count reduced over the dp axes, and the
+trainables' gradients are summed over them, so every rank holds the
+JAX global program's loss, gradient and Adam update; ``prefill`` and
+``decode_step`` give the logits of the rank's batch rows, whole over
+the vocabulary, and the cache as the rank holds it. The layer
+stack's sharding constraints are identities; an SSM layer checkpoints
+inside its body under a Runtime, as the JAX package's does, instead of
+as a whole.
 
 For the dry run (:mod:`repro_torch.launch.dryrun`) ``param_specs``,
 ``cache_specs`` and ``input_specs`` give the trees' shapes as ``meta``
@@ -77,8 +86,10 @@ is traced and counted as the JAX package's unrolled stack is.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import types
 from typing import Any, Dict
 
 import torch
@@ -91,6 +102,7 @@ from repro_torch.core import adapter as adapter_lib
 from repro_torch.core import lora as lora_lib
 from repro_torch.core import losses, optim
 from repro_torch.core import quant as qlib
+from repro_torch.launch import shardings as sh
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
@@ -271,6 +283,29 @@ def _layer_slice(tree, i: int):
     return tree_lib.tree_map(one, tree)
 
 
+def _read_specs(tree, stacked: bool = True):
+    """A layer tree's specs as the layers read them: each leaf's logical
+    spec (``shardings.logical_spec``), a stacked tree's as one layer's
+    (the leading layer dim, never cut, dropped)."""
+    def one(spec):
+        ls = tuple(sh.logical_spec(spec))
+        return rt_lib.P(*(ls[1:] if stacked else ls))
+    return tree_lib.tree_map(one, tree)
+
+
+def _step_view():
+    """The view a step runs under a Runtime (``Runtime.step_view``), or
+    None."""
+    rt = rt_lib.get_runtime()
+    return None if rt is None else rt.step_view()
+
+
+def _within(view):
+    """The step view installed for a step, or (None) the Runtime as it is."""
+    return rt_lib.runtime(view) if view is not None else \
+        contextlib.nullcontext()
+
+
 def _dp(cfg):
     rt = rt_lib.get_runtime()
     return rt.dp_axes if rt else ("data",)
@@ -293,6 +328,30 @@ class Model:
         self.cfg = cfg
         self.n_scanned = cfg.n_layers - cfg.first_k_dense
         self.kinds = cfg.layer_kinds()[cfg.first_k_dense:]
+        self._held_specs: Dict[int, Any] = {}
+
+    def held_specs(self, rt) -> Dict[str, Any]:
+        """The production layout's specs on ``rt``'s model axis:
+        ``param_specs_tree`` of :meth:`param_specs` (``"params"``), and the
+        logical specs the layers read: one layer's of the stack, the dense
+        layers' and the encoder's (``"layer"``, ``"dense"``, ``"enc"``)."""
+        m = rt.tp_size
+        if m not in self._held_specs:
+            specs = sh.param_specs_tree(
+                self.cfg, self.param_specs(),
+                types.SimpleNamespace(shape={"model": m}))
+            fz = specs["frozen"]
+            self._held_specs[m] = {
+                "params": specs, "layer": _read_specs(fz["layers"]),
+                "dense": _read_specs(fz["dense_layers"], stacked=False)
+                if "dense_layers" in fz else None,
+                "enc": _read_specs(fz["enc_layers"])
+                if "enc_layers" in fz else None}
+        return self._held_specs[m]
+
+    def _specs(self, key: str):
+        rt = rt_lib.get_runtime()
+        return None if rt is None else self.held_specs(rt)[key]
 
     # ---------------------------------------------------------- params
     def _init_layers(self, generator, dtype, device, n: int, **kw):
@@ -436,7 +495,7 @@ class Model:
 
     # ---------------------------------------------------------- blocks
     def _block(self, p, lo, positions, enc_out, x, mode="train", cache=None,
-               pos=None, cache_len=None, kind=ATTN):
+               pos=None, cache_len=None, kind=ATTN, specs=None):
         """One layer of kind ``kind`` in ``mode`` (``"train"``,
         ``"prefill"`` or ``"decode"``). Returns ``(x, entry, aux)``: the
         layer's cache entry from a prefill, the cache views ``cache``
@@ -453,13 +512,15 @@ class Model:
             xin = L.rms_norm(x, p["ln1"])
             if decode:
                 h, kv = L.attention_decode(p, xin, pos, cache["kv"], cfg,
-                                           lora=lo, use_rope=cfg.use_rope)
+                                           lora=lo, use_rope=cfg.use_rope,
+                                           specs=specs)
             else:
                 h, (k, v) = L.attention(p, xin, positions, cfg, lora=lo,
                                         causal=True, window=cfg.window,
-                                        use_rope=cfg.use_rope)
+                                        use_rope=cfg.use_rope, specs=specs)
                 kv = L.ring_from_full(
-                    k, v, cache_len, kv_quant=cfg.kv_quant_bits == 8) \
+                    *self._whole_heads(k, v), cache_len,
+                    kv_quant=cfg.kv_quant_bits == 8) \
                     if mode == "prefill" else None
             return x + h, kv
 
@@ -467,12 +528,13 @@ class Model:
             xin = L.rms_norm(x, p["ln1"])
             if decode:
                 h, st = ssm_lib.mamba_decode(p, xin, cache["ssm"], cfg,
-                                             lora=lo)
+                                             lora=lo, specs=specs)
                 cache["ssm"]["h"].copy_(st["h"])
                 cache["ssm"]["conv"].copy_(st["conv"])
                 entry = cache
             else:
-                h, st = ssm_lib.mamba_block(p, xin, cfg, lora=lo)
+                h, st = ssm_lib.mamba_block(p, xin, cfg, lora=lo,
+                                            specs=specs)
                 entry = {"ssm": st} if mode == "prefill" else None
             return x + h, entry, None
 
@@ -487,16 +549,18 @@ class Model:
                 xin = L.rms_norm(x, p["ln1"])
                 if decode:
                     h, st = rglru_lib.rglru_decode(p, xin, cache["lru"], cfg,
-                                                   lora=lo)
+                                                   lora=lo, specs=specs)
                     cache["lru"]["h"].copy_(st["h"])
                     cache["lru"]["conv"].copy_(st["conv"])
                 else:
-                    h, st = rglru_lib.rglru_block(p, xin, cfg, lora=lo)
+                    h, st = rglru_lib.rglru_block(p, xin, cfg, lora=lo,
+                                                  specs=specs)
                     if mode == "prefill":
                         entry = {"kv": L.init_kv_cache(
                             cfg, B, cache_len, dt, x.device), "lru": st}
                 x = x + h
-            mlp_fn = lambda h: L.mlp(p, L.rms_norm(h, p["ln2"]), cfg, lora=lo)
+            mlp_fn = lambda h: L.mlp(p, L.rms_norm(h, p["ln2"]), cfg, lora=lo,
+                                     specs=specs)
             return x + _remat(mlp_fn, remat)(x), entry, None
 
         # the attention families: dense / moe / vlm / encdec
@@ -508,12 +572,14 @@ class Model:
             if decode:
                 h, _ = L.attention_decode(p, xin, pos, cache["ckv"], cfg,
                                           lora=lo, prefix="c", use_rope=False,
-                                          update_cache=False)
+                                          update_cache=False, specs=specs)
             else:
                 h, (ck, cv) = L.attention(p, xin, positions, cfg, lora=lo,
                                           prefix="c", causal=False,
-                                          kv_x=enc_out, use_rope=False)
+                                          kv_x=enc_out, use_rope=False,
+                                          specs=specs)
                 if mode == "prefill":
+                    ck, cv = self._whole_heads(ck, cv)
                     entry["ckv"] = {"k": ck, "v": cv, "slot_pos": torch.arange(
                         ck.shape[1], dtype=torch.int32, device=x.device)}
             x = x + h
@@ -522,12 +588,40 @@ class Model:
             xin = L.rms_norm(x, p["ln2"])
             y, aux = moe_lib.moe_ffn(p["moe"], xin, cfg)
             if cfg.n_shared_experts:
-                y = y + L.mlp(p["shared"], xin, cfg, kind="swiglu")
+                y = y + L.mlp(p["shared"], xin, cfg, kind="swiglu",
+                              specs=None if specs is None
+                              else specs["shared"])
             x = x + y
         else:
             x = x + L.mlp(p, L.rms_norm(x, p["ln2"]), cfg, lora=lo,
-                          kind="swiglu" if fam == "moe" else cfg.mlp)
+                          kind="swiglu" if fam == "moe" else cfg.mlp,
+                          specs=specs)
         return x, entry, aux
+
+    def _whole_heads(self, k, v):
+        """A prefill's k and v over all their heads: in the production
+        layout a column-parallel ``wk`` gives the rank its KV heads, and
+        the cache holds every head of its slots."""
+        rt = rt_lib.get_runtime()
+        if rt is None or k.shape[2] == self.cfg.n_kv_heads:
+            return k, v
+        g = lambda t: rt_lib.all_gather_raw(t.contiguous(), rt.tp_axis, rt,
+                                            dim=2)
+        return g(k), g(v)
+
+    def _hold(self, entry, stacked=True):
+        """A prefill's layer entry (or, not ``stacked``, the adapter's
+        ring) as the rank holds it under a Runtime: its slots or channels
+        cut over ``model``."""
+        rt = rt_lib.get_runtime()
+        if rt is None or entry is None:
+            return entry
+        if not stacked:
+            return sh.hold_model_dims(self.cfg, {"adapter": entry},
+                                      rt)["adapter"]
+        one = tree_lib.tree_map(lambda t: t[None], entry)
+        return tree_lib.tree_map(lambda t: t[0],
+                                 sh.hold_model_dims(self.cfg, one, rt))
 
     def _stack(self, frozen, trainable, x, positions, enc_out=None,
                mode="train", cache=None, pos=None, cache_len=None):
@@ -540,12 +634,15 @@ class Model:
         kw = dict(mode=mode, pos=pos, cache_len=cache_len)
         dp, seq_ax = _dp(cfg), _seq_axis(cfg, x.shape[1])
         dense = []
+        dense_specs, layer_specs = self._specs("dense"), self._specs("layer")
         for i in range(cfg.first_k_dense):
             c = None if cache is None else _layer_slice(cache["dense"], i)
             x, entry, _ = self._block(frozen["dense_layers"][i],
                                       trainable["dense_lora"][i], positions,
-                                      enc_out, x, cache=c, **kw)
-            dense.append(entry)
+                                      enc_out, x, cache=c,
+                                      specs=None if dense_specs is None
+                                      else dense_specs[i], **kw)
+            dense.append(self._hold(entry) if mode == "prefill" else entry)
             x = rt_lib.constrain(x, dp, seq_ax, None)
         # unbind once: the backward stacks each leaf's per-layer grads
         lora = {n: {f: torch.unbind(t, 0) for f, t in pair.items()}
@@ -563,12 +660,14 @@ class Model:
                   for n, pair in lora.items()}
             c = None if cache is None else _layer_slice(cache["scan"], i)
             fn = functools.partial(self._block, p, lo, positions, enc_out,
-                                   cache=c, kind=self.kinds[i], **kw)
+                                   cache=c, kind=self.kinds[i],
+                                   specs=layer_specs, **kw)
             x, entry, a = _remat(fn, remat)(x)
             x = rt_lib.constrain(x, dp, seq_ax, None)
             if a is not None:
                 aux = aux + a
-            entries.append(entry)
+            entries.append(self._hold(entry) if mode == "prefill"
+                           else entry)
         if mode == "prefill":
             stack = lambda es: tree_lib.tree_map(
                 lambda *ls: torch.stack(ls), es[0], *es[1:])
@@ -582,17 +681,21 @@ class Model:
         learned positions, bidirectional attention without RoPE, the
         MLP, a final norm."""
         cfg = self.cfg
-        x = frames.to(getattr(torch, cfg.dtype)) + frozen["enc_pos"][None]
+        x = frames.to(getattr(torch, cfg.dtype)) + self._gathered(
+            frozen, "enc_pos")[None]
         positions = torch.arange(x.shape[1], device=x.device)
         lora = {n: {f: torch.unbind(t, 0) for f, t in pair.items()}
                 for n, pair in trainable["enc_lora"].items()}
         remat = cfg.remat and torch.is_grad_enabled()
+        specs = self._specs("enc")
 
         def body(p, lo, x):
             h, _ = L.attention(p, L.rms_norm(x, p["ln1"]), positions, cfg,
-                               lora=lo, causal=False, use_rope=False)
+                               lora=lo, causal=False, use_rope=False,
+                               specs=specs)
             x = x + h
-            return x + L.mlp(p, L.rms_norm(x, p["ln2"]), cfg, lora=lo)
+            return x + L.mlp(p, L.rms_norm(x, p["ln2"]), cfg, lora=lo,
+                             specs=specs)
 
         for i in range(cfg.encoder_layers):
             p = _layer_slice(frozen["enc_layers"], i)
@@ -601,9 +704,36 @@ class Model:
             x = _remat(functools.partial(body, p, lo), remat)(x)
         return L.rms_norm(x, frozen["enc_final_norm"])
 
+    def _gathered(self, frozen, name, rows=None):
+        """A learned-position table (``pos_embed``, ``enc_pos``), or its
+        ``rows`` (an index tensor), whole over d: in the production layout
+        the rank's d block gathered at use."""
+        t = frozen[name] if rows is None else frozen[name].index_select(
+            0, rows)
+        rt = rt_lib.get_runtime()
+        if rt is None:
+            return t
+        return rt_lib.gather_at_use(
+            t, self.held_specs(rt)["params"]["frozen"][name], rt, name)
+
     def _embed(self, frozen, tokens):
-        return frozen["embed"][tokens.long()].to(getattr(torch,
-                                                         self.cfg.dtype))
+        dt = getattr(torch, self.cfg.dtype)
+        rt = rt_lib.get_runtime()
+        if rt is None:
+            return frozen["embed"][tokens.long()].to(dt)
+        spec = self.held_specs(rt)["params"]["frozen"]["embed"]
+        e = frozen["embed"]
+        if not rt_lib.spec_axes(spec[0]):
+            # whole, or the d-split fallback gathered at use
+            return rt_lib.gather_at_use(e[tokens.long()], rt_lib.P(
+                None, None, spec[1]), rt, "embed").to(dt)
+        # vocab-parallel: the rank's rows, zero outside, summed over model
+        rt_lib.dist_trace("embed_vocab_dist")
+        Vl = e.shape[0]
+        local = tokens.long() - rt.index(rt.tp_axis) * Vl
+        inside = (local >= 0) & (local < Vl)
+        rows = e[local.clamp(0, Vl - 1)] * inside[..., None].to(e.dtype)
+        return rt_lib.tp_reduce(rows, rt).to(dt)
 
     def _embed_inputs(self, frozen, batch):
         """The tokens' embeddings, after the image embeddings (vlm), plus
@@ -615,8 +745,8 @@ class Model:
             x = torch.cat([batch["image_embeds"].to(x.dtype), x], 1)
         positions = torch.arange(x.shape[1], device=x.device)
         if not cfg.use_rope:
-            x = x + frozen["pos_embed"][positions.clamp(
-                max=cfg.max_pos - 1)][None]
+            x = x + self._gathered(frozen, "pos_embed", positions.clamp(
+                max=cfg.max_pos - 1))[None]
         return x, positions
 
     def _encoder_out(self, frozen, trainable, batch):
@@ -624,10 +754,24 @@ class Model:
             return None
         return self._encode(frozen, trainable, batch["frames"])
 
-    def forward(self, frozen, trainable, batch):
-        """Training-shape forward. Returns (logits, aux); aux is the MoE
-        balance loss summed over the stack's layers, zero for the other
-        families."""
+    def _head(self, frozen, x):
+        """``(logits, vocab_split)``: in the production layout a
+        vocab-parallel head gives the rank's block of the vocabulary."""
+        rt = rt_lib.get_runtime()
+        if rt is None:
+            return x @ frozen["head"].to(x.dtype), False
+        spec = self.held_specs(rt)["params"]["frozen"]["head"]
+        return L.tp_linear(x, frozen["head"], None, sh.logical_spec(spec),
+                           self.cfg, rt, gather=False)
+
+    def _whole_vocab(self, logits, split: bool):
+        if not split:
+            return logits
+        rt = rt_lib.get_runtime()
+        return rt_lib.shard_out(logits, rt_lib.P(
+            *([None] * (logits.ndim - 1)), rt.tp_axis), rt)
+
+    def _forward(self, frozen, trainable, batch):
         cfg = self.cfg
         enc_out = self._encoder_out(frozen, trainable, batch)
         x, positions = self._embed_inputs(frozen, batch)
@@ -635,29 +779,161 @@ class Model:
         x = L.rms_norm(x, frozen["final_norm"])
         x = adapter_lib.apply(trainable["adapter"], x,
                               n_heads=cfg.adapter_heads, causal=True)
-        logits = x @ frozen["head"].to(x.dtype)
+        logits, split = self._head(frozen, x)
         return rt_lib.constrain(logits, _dp(cfg),
-                                _seq_axis(cfg, logits.shape[1]), None), aux
+                                _seq_axis(cfg, logits.shape[1]), None), \
+            split, aux
+
+    def forward(self, frozen, trainable, batch):
+        """Training-shape forward. Returns (logits, aux); aux is the MoE
+        balance loss summed over the stack's layers, zero for the other
+        families. In the production layout the logits of the rank's batch
+        rows, whole over the vocabulary, and the global aux."""
+        view = _step_view()
+        with _within(view):
+            logits, split, aux = self._forward(frozen, trainable, batch)
+            if view is not None:
+                logits = self._whole_vocab(logits, split)
+                aux = self._dp_mean(aux, view)
+        return logits, aux
 
     # ---------------------------------------------------------- training
+    @staticmethod
+    def _dp_mean(v, view):
+        """The mean over the dp axes of a per-block value, reduced with an
+        identity transpose: each block's share carries its own gradient."""
+        n = view.mesh.size(view.cut_axes)
+        return rt_lib.tp_reduce(v / n if n > 1 else v, view,
+                                axes=view.cut_axes)
+
+    @staticmethod
+    def _count(batch):
+        """The batch's count of loss tokens: its mask's sum, or its labels'
+        number, in fp32."""
+        mask = batch.get("mask")
+        if mask is None:
+            return torch.full((), float(batch["labels"].numel()),
+                              device=batch["labels"].device)
+        return torch.sum(mask.to(torch.float32))
+
+    def _share(self, frozen, trainable, batch, view, count, blocks):
+        """The rank's shares of the global loss in the production layout,
+        ``(ce, aux)``: its block's masked sum of the token losses over the
+        global ``count`` (the vocab-parallel log-sum-exp, its max, sum of
+        exponentials and target logit reduced over ``model``, when the
+        head is vocab-parallel) and its aux over the number of dp
+        ``blocks`` that hold the batch. Summed over dp they are the
+        global values, and each share's gradient is its block's part of
+        the global gradient."""
+        logits, split, aux = self._forward(frozen, trainable, batch)
+        lf = logits.to(torch.float32)
+        labels, mask = batch["labels"], batch.get("mask")
+        if split:
+            tp = view.tp_axis
+            mx = rt_lib.pmax(lf.amax(-1), tp, view)
+            se = rt_lib.tp_reduce(torch.exp(lf - mx[..., None]).sum(-1),
+                                  view)
+            lse = torch.log(se) + mx
+            Vl = lf.shape[-1]
+            local = labels.long() - view.index(tp) * Vl
+            inside = (local >= 0) & (local < Vl)
+            pick = torch.gather(lf, -1, local.clamp(0, Vl - 1)[..., None])
+            gold = rt_lib.tp_reduce(pick[..., 0] * inside.to(lf.dtype),
+                                    view)
+        else:
+            lse = torch.logsumexp(lf, dim=-1)
+            gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+        nll = lse - gold
+        num = nll.sum() if mask is None else torch.sum(
+            nll * mask.to(torch.float32))
+        return num / torch.clamp_min(count, 1.0), aux / blocks
+
     def loss_fn(self, frozen, trainable, batch):
-        logits, aux = self.forward(frozen, trainable, batch)
-        ce = losses.cross_entropy(logits, batch["labels"], batch.get("mask"))
+        view = _step_view()
+        if view is None:
+            logits, aux = self.forward(frozen, trainable, batch)
+            ce = losses.cross_entropy(logits, batch["labels"],
+                                      batch.get("mask"))
+            return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+        dp = view.cut_axes
+        with rt_lib.runtime(view):
+            ce, aux = self._share(
+                frozen, trainable, batch, view,
+                rt_lib.all_reduce_raw(self._count(batch), dp, view),
+                view.mesh.size(dp))
+            # summed over dp with an identity transpose: each rank's
+            # gradient stays its share's
+            ce = rt_lib.tp_reduce(ce, view, axes=dp)
+            aux = rt_lib.tp_reduce(aux, view, axes=dp)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     def grads(self, frozen, trainable, batch):
         """``((loss, parts), grads)`` w.r.t. every trainable leaf, as
-        ``jax.value_and_grad(loss_fn, has_aux=True)`` gives them."""
+        ``jax.value_and_grad(loss_fn, has_aux=True)`` gives them. In the
+        production layout each rank's gradient is its batch block's
+        share, summed over the dp axes here: the global gradient on every
+        rank."""
         tr = tree_lib.tree_map(lambda l: l.detach().requires_grad_(True),
                                trainable)
         flat = list(tree_lib.flatten_with_path(tr))
-        with torch.enable_grad():
+        view = _step_view()
+        # the backward's recomputed layers run under the forward's view
+        with torch.enable_grad(), _within(view):
             loss, parts = self.loss_fn(frozen, tr, batch)
             gs = torch.autograd.grad(loss, [l for _, l in flat])
+        if view is not None:
+            gs = [rt_lib.all_reduce_raw(g, view.cut_axes, view) for g in gs]
         by_path = {path: g for (path, _), g in zip(flat, gs)}
         grads = tree_lib.map_with_path(lambda path, _: by_path[path], tr)
         parts = {k: v.detach() for k, v in parts.items()}
         return (loss.detach(), parts), grads
+
+    def _accumulated(self, frozen, trainable, batch, view):
+        """``(loss, grads)`` of ``cfg.grad_accum`` microbatches in the
+        production layout. Microbatch i is the JAX package's: rows [i·B/A,
+        (i+1)·B/A) of the global batch of B = dp x the rank's rows; each
+        rank computes its shares of the microbatches its block meets,
+        over each microbatch's global count and number of blocks, and
+        accumulates ``acc + g / A`` in fp32; the loss and the gradients
+        are summed over dp once."""
+        A, dp = self.cfg.grad_accum, view.cut_axes
+        n = view.mesh.size(dp)
+        j = view.mesh.index(dp) if dp else 0
+        Bl = batch["labels"].shape[0]
+        if (n * Bl) % A:
+            raise ValueError(f"a batch of {n * Bl} rows does not split "
+                             f"into {A} microbatches")
+        Bm = n * Bl // A
+        pieces = [(max(i * Bm, j * Bl) - j * Bl,
+                   min((i + 1) * Bm, (j + 1) * Bl) - j * Bl)
+                  for i in range(A)]
+        dev = batch["labels"].device
+        mbs = [{k: v[a:b] for k, v in batch.items()} if b > a else None
+               for a, b in pieces]
+        counts = rt_lib.all_reduce_raw(torch.stack([
+            self._count(mb) if mb is not None else
+            torch.zeros((), device=dev) for mb in mbs]), dp, view)
+        blocks = rt_lib.all_reduce_raw(torch.tensor(
+            [float(mb is not None) for mb in mbs], device=dev), dp, view)
+        tr = tree_lib.tree_map(lambda l: l.detach().requires_grad_(True),
+                               trainable)
+        leaves = tree_lib.leaves(tr)
+        acc = [torch.zeros(l.shape, dtype=torch.float32, device=l.device)
+               for l in leaves]
+        loss = torch.zeros((), device=dev)
+        for i, mb in enumerate(mbs):
+            if mb is None:
+                continue
+            with torch.enable_grad(), _within(view):
+                ce, aux = self._share(frozen, tr, mb, view, counts[i],
+                                      blocks[i])
+                share = ce + 0.01 * aux
+                gs = torch.autograd.grad(share, leaves)
+            acc = [a + qlib._div(g, float(A)) for a, g in zip(acc, gs)]
+            loss = loss + qlib._div(share.detach(), float(A))
+        grads = tree_lib.from_leaves(tr, [
+            rt_lib.all_reduce_raw(a, dp, view) for a in acc])
+        return rt_lib.all_reduce_raw(loss, dp, view), grads
 
     def train_step(self, frozen, trainable, opt_state, batch, *, lr=1e-4):
         """One TriplePlay local client step: grads w.r.t. LoRA+adapter
@@ -666,9 +942,14 @@ class Model:
         along its leading axis; their grads are accumulated as ``acc +
         g / A`` in fp32 and the loss as ``loss / A``, as the JAX
         package's scan does (its ``parts`` are then the mean loss and a
-        zero aux)."""
+        zero aux). In the production layout the batch is the rank's
+        block and every rank takes the same global step."""
         A = self.cfg.grad_accum
-        if A > 1:
+        view = _step_view()
+        if A > 1 and view is not None:
+            loss, grads = self._accumulated(frozen, trainable, batch, view)
+            parts = {"ce": loss, "aux": torch.zeros_like(loss)}
+        elif A > 1:
             grads = tree_lib.tree_map(
                 lambda t: torch.zeros(t.shape, dtype=torch.float32,
                                       device=t.device), trainable)
@@ -703,7 +984,13 @@ class Model:
         ``max_len`` sizes the cache (default: the prompt's length,
         patches included); pass the serving context length so that later
         ``decode_step`` calls have room (a sliding-window arch caps it at
-        the window)."""
+        the window). In the production layout the logits of the rank's
+        batch rows, whole over the vocabulary, and the cache as the rank
+        holds it (``shardings.rank_cache``'s blocks)."""
+        with _within(_step_view()):
+            return self._prefill(frozen, trainable, batch, max_len)
+
+    def _prefill(self, frozen, trainable, batch, max_len):
         cfg = self.cfg
         enc_out = self._encoder_out(frozen, trainable, batch)
         x, positions = self._embed_inputs(frozen, batch)
@@ -712,30 +999,37 @@ class Model:
                                   "prefill", cache_len=self.effective_cache_len(
                                       max_len or S))
         x = L.rms_norm(x, frozen["final_norm"])
-        x, cache["adapter"] = adapter_lib.prefill(
+        x, ring = adapter_lib.prefill(
             trainable["adapter"], x, min(max_len or S, cfg.adapter_window),
             n_heads=cfg.adapter_heads)
-        return (x @ frozen["head"].to(x.dtype))[:, 0], cache
+        cache["adapter"] = self._hold(ring, stacked=False)
+        return self._whole_vocab(*self._head(frozen, x))[:, 0], cache
 
     @torch.no_grad()
     def decode_step(self, frozen, trainable, cache, tokens, pos):
         """tokens: (B, 1); pos: the tokens' absolute position (patches
         included), a 0-d integer tensor on the model's device. Returns
-        (logits (B, V), cache), the cache updated in place."""
+        (logits (B, V), cache), the cache updated in place. In the
+        production layout ``cache`` is the rank's block and the logits are
+        its batch rows', whole over the vocabulary."""
+        with _within(_step_view()):
+            return self._decode_step(frozen, trainable, cache, tokens, pos)
+
+    def _decode_step(self, frozen, trainable, cache, tokens, pos):
         cfg = self.cfg
         x = self._embed(frozen, tokens)
         pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
         if not cfg.use_rope:
             # index_select with a 1-element index: indexing by the 0-d
             # pos would read it back to the host
-            x = x + frozen["pos_embed"].index_select(
-                0, pos.clamp(max=cfg.max_pos - 1).reshape(1).long())[None]
+            x = x + self._gathered(frozen, "pos_embed", pos.clamp(
+                max=cfg.max_pos - 1).reshape(1).long())[None]
         x, _, cache = self._stack(frozen, trainable, x, None, None,
                                   "decode", cache=cache, pos=pos)
         x = L.rms_norm(x, frozen["final_norm"])
         x, _ = adapter_lib.decode(trainable["adapter"], x, cache["adapter"],
                                   pos, n_heads=cfg.adapter_heads)
-        return (x @ frozen["head"].to(x.dtype))[:, 0], cache
+        return self._whole_vocab(*self._head(frozen, x))[:, 0], cache
 
     def init_cache(self, batch: int, context_len: int, device=None):
         """An empty cache (zeros, ``slot_pos`` -1) for ``batch`` streams

@@ -33,14 +33,18 @@ the plain version, the JAX package's ``dequantize`` and product. Under
 a mesh of one rank this is a per-expert decode of the whole layer,
 which is what lets Kimi-K2 run at full width on one card. The expert
 weights may be whole ``(E, ...)`` or this rank's block ``(E / m, ...,
-N / data)`` (``launch.shardings.rank_params``); a whole one is cut at
-the body's entry. Profiler ranges: ``moe.dispatch`` (routing, slots,
-the send buffer and its all-to-all), ``moe.experts`` and
-``moe.combine``. With ``cfg.calibrate`` (the dry run's cost
-calibration) the body runs its experts as one batched product over the
-rank's dequantized experts (each all-gathered whole over ``data``)
-instead of the per-expert loop, as the JAX package's calibrated body
-does. ``expert_specs`` gives the dry run's shapes as ``meta`` tensors.
+N / data)`` (``launch.shardings.rank_params``, the production layout's
+holding); a whole one is cut at the body's entry. In the production
+layout the body runs under the step's view: the tokens are the rank's
+batch block already, and the balance loss is averaged over ``model``
+here and over the dp axes by the model's loss. Profiler ranges:
+``moe.dispatch`` (routing, slots, the send buffer and its all-to-all),
+``moe.experts`` and ``moe.combine``. With ``cfg.calibrate`` (the dry
+run's cost calibration) the body runs its experts as one batched
+product over the rank's dequantized experts (each all-gathered whole
+over ``data``) instead of the per-expert loop, as the JAX package's
+calibrated body does. ``expert_specs`` gives the dry run's shapes as
+``meta`` tensors.
 """
 from __future__ import annotations
 

@@ -25,7 +25,11 @@ sequence shards with ``cfg.seq_shard``), checkpointed inside the body.
 With ``cfg.calibrate`` (the dry run's cost calibration) the recurrence
 is ``chunked_linear_scan`` in one chunk of the whole sequence, as in the
 JAX package. ``rglru_specs`` and ``rglru_cache_specs`` give the dry
-run's shapes as ``meta`` tensors.
+run's shapes as ``meta`` tensors. In the production layout the block's
+leaves arrive as the rank's blocks (``shardings.rank_params``) and the
+body takes them as they are, and ``rglru_decode`` runs on the rank's
+channels of the weights and of the cache's ``h`` and ``conv``, as
+``models.ssm``'s Mamba block does.
 """
 from __future__ import annotations
 
@@ -41,7 +45,7 @@ from repro_torch.models import runtime as rt_lib
 from repro_torch.models.layers import _normal
 from repro_torch.models.runtime import P
 from repro_torch.models.ssm import _causal_conv, _lora_delta, \
-    chunked_linear_scan
+    body_weights, chunked_linear_scan
 
 _C = 8.0
 GATE_BLOCKS = 16  # block-diagonal gate heads (w % 16 == 0 for all configs)
@@ -171,11 +175,12 @@ def _block_params(p):
     return out
 
 
-def _rglru_dist(p, x, cfg: ModelConfig, lo, h0, rt):
+def _rglru_dist(p, x, cfg: ModelConfig, lo, h0, rt, held=False):
     """The width-parallel body on each rank (``shard_map`` over the LRU
     width), as ``models.ssm._mamba_dist``: the rank's channels and gate
     blocks, the output's partial summed over ``model`` (reduce-scattered
-    to sequence shards with ``cfg.seq_shard``), checkpointed inside."""
+    to sequence shards with ``cfg.seq_shard``), checkpointed inside.
+    ``held``: ``p`` is the rank's blocks already."""
     B, S, _ = x.shape
     m, tp, dp = rt.tp_size, rt.tp_axis, rt.dp_axes
     pspec = rglru_partition_specs(cfg, tp)
@@ -184,7 +189,8 @@ def _rglru_dist(p, x, cfg: ModelConfig, lo, h0, rt):
     lo = {k: v for k, v in lo.items() if k in ("wx", "wy", "out_proj")}
     lo_names = sorted(lo)
     x_l = rt_lib.shard_in(x, P(dp, seq_out, None), rt)
-    p_l = [rt_lib.shard_in(p[k], pspec[k], rt) for k in names]
+    p_l = [p[k] if held else rt_lib.shard_in(p[k], pspec[k], rt)
+           for k in names]
     lo_l = [rt_lib.shard_in(lo[k][f], P(), rt) for k in lo_names
             for f in ("a", "b")]
     h0_l = None if h0 is None else rt_lib.shard_in(h0, P(dp, tp), rt)
@@ -214,40 +220,76 @@ def _rglru_dist(p, x, cfg: ModelConfig, lo, h0, rt):
              "conv": rt_lib.shard_out(conv, P(dp, None, tp), rt)})
 
 
-def rglru_block(p, x, cfg: ModelConfig, *, lora=None, h0=None):
-    """x: (B, S, d) -> (y (B, S, d), cache {"h": h_last, "conv": tail})."""
+def _body_ok(cfg: ModelConfig, m: int) -> bool:
+    w = cfg.lru_width or cfg.d_model
+    return w % m == 0 and GATE_BLOCKS % m == 0
+
+
+def rglru_block(p, x, cfg: ModelConfig, *, lora=None, h0=None, specs=None):
+    """x: (B, S, d) -> (y (B, S, d), cache {"h": h_last, "conv": tail}).
+    ``specs``: the leaves' specs in the production layout, whose blocks
+    the body takes as they are (``ssm.body_weights``)."""
     p, lo = _block_params(p), lora or {}
     rt = rt_lib.get_runtime()
     if rt is None:
         return _rglru_core(p, x, cfg, h0, lo)
-    w = cfg.lru_width or cfg.d_model
-    if w % rt.tp_size or GATE_BLOCKS % rt.tp_size or \
-            x.shape[0] % rt.dp_size:
+    held = specs is not None
+    if not _body_ok(cfg, rt.tp_size) or x.shape[0] % rt.dp_size:
         rt_lib.dist_trace("rglru_block_fallback")
+        if held:
+            p = body_weights(p, specs, None, rt)
         return _rglru_core(p, x, cfg, h0, lo)
     rt_lib.dist_trace("rglru_block_dist")
-    return _rglru_dist(p, x, cfg, lo, h0, rt)
+    if held:
+        p = body_weights(p, specs, rglru_partition_specs(cfg, rt.tp_axis),
+                         rt)
+    return _rglru_dist(p, x, cfg, lo, h0, rt, held=held)
 
 
-def rglru_decode(p, x, cache, cfg: ModelConfig, *, lora=None):
+def rglru_decode(p, x, cache, cfg: ModelConfig, *, lora=None, specs=None):
     """One token, port of ``repro.models.rglru.rglru_decode``: x (B, 1,
     d) -> (y (B, 1, d), {"h", "conv"}); the conv runs over ``cat(conv,
-    val)`` and the state steps ``h = a·h + b`` in fp32."""
-    p = _block_params(p)
+    val)`` and the state steps ``h = a·h + b`` in fp32. In the
+    production layout (``specs`` given) the rank's channels and gate
+    blocks of the weights and of ``cache``, the output's partials summed
+    over ``model``."""
+    p, lo = _block_params(p), lora or {}
+    rt = rt_lib.get_runtime()
+    if rt is None or specs is None:
+        return _rglru_decode_core(p, x, cache, cfg, lo)
+    if not _body_ok(cfg, rt.tp_size):
+        if (cfg.lru_width or cfg.d_model) % rt.tp_size == 0:
+            raise NotImplementedError(
+                "rglru_decode: a cache cut over the model axis whose gate "
+                "blocks it does not divide")
+        rt_lib.dist_trace("rglru_decode_fallback")
+        return _rglru_decode_core(body_weights(p, specs, None, rt), x,
+                                  cache, cfg, lo)
+    rt_lib.dist_trace("rglru_decode_dist")
+    p = body_weights(p, specs, rglru_partition_specs(cfg, rt.tp_axis), rt)
+    out, st = _rglru_decode_core(p, x, cache, cfg, lo,
+                                 sl_rank=rt.index(rt.tp_axis))
+    return rt_lib.psum(out, rt.tp_axis, rt), st
+
+
+def _rglru_decode_core(p, x, cache, cfg: ModelConfig, lo, sl_rank=None):
+    """:func:`rglru_decode` on dense weights; with ``sl_rank`` the weights
+    are that rank's channels and the output a partial sum."""
     dtype = x.dtype
-    lo = lora or {}
     alpha, rank = cfg.lora_alpha, cfg.lora_rank
+    w = p["wx"].shape[-1]
+    sl = None if sl_rank is None else (sl_rank * w, w)
     x0 = x[:, 0]
     gate = F.gelu(x0 @ p["wy"].to(dtype) +
-                  _lora_delta(x0, lo.get("wy"), alpha, rank),
+                  _lora_delta(x0, lo.get("wy"), alpha, rank, sl),
                   approximate="tanh")
     val = x0 @ p["wx"].to(dtype) + _lora_delta(x0, lo.get("wx"), alpha,
-                                               rank)
+                                               rank, sl)
     window = torch.cat([cache["conv"],
                         val[:, None, :].to(cache["conv"].dtype)], 1)
     xc = torch.einsum("bkd,kd->bd", window.to(dtype), p["conv_w"].to(dtype))
     a, b = _gates(p, xc)
     h = a * cache["h"] + b
     y = h.to(dtype) * gate
-    return _out(p, y, lo, cfg)[:, None, :], {"h": h,
-                                            "conv": window[:, 1:, :]}
+    return _out(p, y, lo, cfg, sl)[:, None, :], {"h": h,
+                                                "conv": window[:, 1:, :]}

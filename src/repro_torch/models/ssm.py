@@ -35,6 +35,17 @@ kernel, as the JAX package takes its chunked scan then: plain PyTorch on
 every device, the recurrence's step products counted once each.
 ``mamba_specs`` and ``mamba_cache_specs`` give the dry run's shapes as
 ``meta`` tensors.
+
+Under a Runtime (the production layout: the layer's logical ``specs``
+given) the layer's leaves arrive as the rank's blocks
+(``shardings.rank_params`` cuts them by the same channel rule): the
+body takes them as they are (a block held by another spec, the N-split
+fallback of a quantized contraction split, is gathered and re-cut:
+``runtime.reblock``), and ``mamba_decode`` runs on the rank's
+channels of the weights and of the cache's ``h`` and ``conv``, the
+``x_proj`` and output partials summed over ``model``. Where the model
+axis does not divide d_inner the leaves are gathered whole and the
+local path runs.
 """
 from __future__ import annotations
 
@@ -274,13 +285,21 @@ def _mamba_core(p, x: torch.Tensor, cfg: ModelConfig, lo, h0=None, *,
     return out, {"h": h_last, "conv": tail}
 
 
-def _mamba_dist(p, x, cfg: ModelConfig, lo, h0, rt):
+def body_weights(p, specs, want, rt):
+    """A layer's dense leaves ``p`` (held by their logical ``specs`` in
+    the production layout) as the blocks of ``want`` (a body's specs),
+    or whole where ``want`` is None or lacks the leaf."""
+    return {k: rt_lib.reblock(v, specs[k], (want or {}).get(
+        k, P(*([None] * v.ndim))), rt, k) for k, v in p.items()}
+
+
+def _mamba_dist(p, x, cfg: ModelConfig, lo, h0, rt, held=False):
     """The channel-parallel body on each rank (``shard_map`` over
     d_inner): the rank's channels of the dequantized weights, the
     sequence all-gathered in and the output reduce-scattered back when
     ``cfg.seq_shard`` splits it, else the output summed over ``model``;
     checkpointed inside, so the backward recomputes the body from its
-    sharded inputs."""
+    sharded inputs. ``held``: ``p`` is the rank's blocks already."""
     B, S, _ = x.shape
     m, tp, dp = rt.tp_size, rt.tp_axis, rt.dp_axes
     pspec = mamba_partition_specs(cfg, tp)
@@ -289,7 +308,8 @@ def _mamba_dist(p, x, cfg: ModelConfig, lo, h0, rt):
     lo = {k: v for k, v in lo.items() if k in ("in_proj_x", "out_proj")}
     lo_names = sorted(lo)
     x_l = rt_lib.shard_in(x, P(dp, seq_out, None), rt)
-    p_l = [rt_lib.shard_in(p[k], pspec[k], rt) for k in names]
+    p_l = [p[k] if held else rt_lib.shard_in(p[k], pspec[k], rt)
+           for k in names]
     lo_l = [rt_lib.shard_in(lo[k][f], P(), rt) for k in lo_names
             for f in ("a", "b")]
     h0_l = None if h0 is None else rt_lib.shard_in(h0, P(dp, tp, None), rt)
@@ -320,48 +340,80 @@ def _mamba_dist(p, x, cfg: ModelConfig, lo, h0, rt):
 
 
 def mamba_block(p, x: torch.Tensor, cfg: ModelConfig, *, lora=None,
-                h0=None):
+                h0=None, specs=None):
     """x: (B, S, d) -> (y (B, S, d), cache {"h": h_last, "conv": tail}),
     from the start state ``h0`` (B, d_inner, N) when given, else zeros.
     The quantized leaves of ``p`` are dequantized to their output dtype
     first (QLoRA keeps them NF4 at rest). Profiler ranges name the
-    decode (``mamba.dequantize``) and the scan (``mamba.scan``)."""
+    decode (``mamba.dequantize``) and the scan (``mamba.scan``).
+    ``specs``: the leaves' specs in the production layout."""
     with torch.profiler.record_function("mamba.dequantize"):
         p = {k: maybe_dequantize(v) for k, v in p.items()}
     lo = lora or {}
     rt = rt_lib.get_runtime()
     if rt is None:
         return _mamba_core(p, x, cfg, lo, h0)
+    held = specs is not None
     if cfg.d_inner % rt.tp_size or x.shape[0] % rt.dp_size:
         rt_lib.dist_trace("mamba_block_fallback")
+        if held:
+            p = body_weights(p, specs, None, rt)
         return _mamba_core(p, x, cfg, lo, h0)
     rt_lib.dist_trace("mamba_block_dist")
-    return _mamba_dist(p, x, cfg, lo, h0, rt)
+    if held:
+        p = body_weights(p, specs, mamba_partition_specs(cfg, rt.tp_axis),
+                         rt)
+    return _mamba_dist(p, x, cfg, lo, h0, rt, held=held)
 
 
 def mamba_decode(p, x: torch.Tensor, cache, cfg: ModelConfig, *,
-                 lora=None):
+                 lora=None, specs=None):
     """One token, port of ``repro.models.ssm.mamba_decode``: x (B, 1, d)
     -> (y (B, 1, d), {"h", "conv"}). Every quantized leaf of ``p`` is
     dequantized first, as in the JAX package (range
     ``mamba.dequantize``); the conv runs over ``cat(conv, x1)``, the
     state steps ``h = exp(dt·A)·h + dt·x·B`` in fp32, and the returned
-    window is the input one shifted by the new token."""
+    window is the input one shifted by the new token. In the production
+    layout (``specs`` given) the rank's channels of the weights and of
+    ``cache``, whose states come back as the rank's block."""
     with torch.profiler.record_function("mamba.dequantize"):
         p = {k: maybe_dequantize(v) for k, v in p.items()}
-    dtype = x.dtype
     lo = lora or {}
+    rt = rt_lib.get_runtime()
+    if rt is None or specs is None:
+        return _mamba_decode_core(p, x, cache, cfg, lo)
+    if cfg.d_inner % rt.tp_size:
+        rt_lib.dist_trace("mamba_decode_fallback")
+        return _mamba_decode_core(body_weights(p, specs, None, rt), x,
+                                  cache, cfg, lo)
+    rt_lib.dist_trace("mamba_decode_dist")
+    p = body_weights(p, specs, mamba_partition_specs(cfg, rt.tp_axis), rt)
+    return _mamba_decode_core(p, x, cache, cfg, lo,
+                              shard=(rt.index(rt.tp_axis), rt.tp_size),
+                              rt=rt)
+
+
+def _mamba_decode_core(p, x, cache, cfg: ModelConfig, lo, *, shard=None,
+                       rt=None):
+    """:func:`mamba_decode` on dense weights; with ``shard=(r, m)`` rank
+    r's d_inner / m channels, the ``x_proj`` and output partials summed
+    over the model axis."""
+    dtype = x.dtype
     N, R = cfg.ssm_state, cfg.dt_rank
     alpha, rank = cfg.lora_alpha, cfg.lora_rank
+    di_l = p["in_proj_x"].shape[-1]
+    sl = None if shard is None else (shard[0] * di_l, di_l)
     x0 = x[:, 0]
     x1 = x0 @ p["in_proj_x"].to(dtype) + _lora_delta(
-        x0, lo.get("in_proj_x"), alpha, rank)
+        x0, lo.get("in_proj_x"), alpha, rank, sl)
     z = x0 @ p["in_proj_z"].to(dtype)
     window = torch.cat([cache["conv"], x1[:, None, :].to(
         cache["conv"].dtype)], 1)
     xc = F.silu(torch.einsum("bkd,kd->bd", window.to(dtype),
                              p["conv_w"].to(dtype)))
     proj = (xc @ p["x_proj"].to(dtype)).to(torch.float32)
+    if shard is not None:
+        proj = rt_lib.psum(proj, rt.tp_axis, rt)
     dt_r, Bm, Cm = torch.split(proj, [R, N, N], dim=-1)
     dt = F.softplus(dt_r @ p["dt_proj"].to(torch.float32) + p["dt_bias"])
     A = -torch.exp(p["a_log"])
@@ -370,6 +422,12 @@ def mamba_decode(p, x: torch.Tensor, cache, cfg: ModelConfig, *,
         (dt * xcf)[..., None] * Bm[:, None, :]
     y = torch.einsum("ben,bn->be", h, Cm) + p["d_skip"] * xcf
     y = y.to(dtype) * F.silu(z)
-    out = y @ p["out_proj"].to(dtype) + _lora_delta(
-        y, lo.get("out_proj"), alpha, rank)
+    out = y @ p["out_proj"].to(dtype)
+    pair = lo.get("out_proj")
+    if pair is not None:
+        a = pair["a"] if sl is None else pair["a"].narrow(0, *sl)
+        out = out + (((y.to(a.dtype) @ a) @ pair["b"]) *
+                     (alpha / rank)).to(dtype)
+    if shard is not None:
+        out = rt_lib.psum(out, rt.tp_axis, rt)
     return out[:, None, :], {"h": h, "conv": window[:, 1:, :]}

@@ -6,7 +6,9 @@ rendezvousing over a ``FileStore`` in a fresh temporary directory (no
 port), each with one thread; every rank runs ``CASES[case](inputs)``
 and saves what it returns. The parent waits at most ``timeout``
 seconds: a hung collective fails the test instead of hanging the run.
-Returns the ranks' results in rank order. The ranks import torch and
+Returns the ranks' results in rank order. ``start(...)`` is the same
+without the wait (``.wait()`` later), so the parent can compute its
+references while the ranks run. The ranks import torch and
 ``repro_torch`` only; the tests compute their JAX references in the
 parent and pass tensors in ``inputs``.
 """
@@ -49,34 +51,58 @@ def _rank_main(rank, world, tmp, case):
             dist.destroy_process_group()
 
 
-def spawn(case: str, world: int, inputs=None, timeout: float = 300.0):
-    with tempfile.TemporaryDirectory() as tmp:
-        torch.save(inputs or {}, os.path.join(tmp, "inputs.pt"))
-        ctx = mp.start_processes(_rank_main, args=(world, tmp, case),
-                                 nprocs=world, join=False,
-                                 start_method="spawn")
-        deadline = time.time() + timeout
+class _World:
+    """A started world: :meth:`wait` joins its ranks (at most ``timeout``
+    seconds after the start) and returns their results in rank order."""
+
+    def __init__(self, case: str, world: int, inputs, timeout: float):
+        self.case, self.world = case, world
+        self.tmp = tempfile.TemporaryDirectory()
+        torch.save(inputs or {}, os.path.join(self.tmp.name, "inputs.pt"))
+        self.ctx = mp.start_processes(_rank_main,
+                                      args=(world, self.tmp.name, case),
+                                      nprocs=world, join=False,
+                                      start_method="spawn")
+        self.deadline = time.time() + timeout
+        self.timeout = timeout
+
+    def wait(self):
+        case, world, tmp = self.case, self.world, self.tmp.name
         try:
-            while not ctx.join(timeout=1.0):
-                if time.time() > deadline:
+            while not self.ctx.join(timeout=1.0):
+                if time.time() > self.deadline:
                     raise TimeoutError(f"{case}: world of {world} did not "
-                                       f"finish in {timeout} s")
+                                       f"finish in {self.timeout} s")
         except mp.ProcessRaisedException:
             pass
         finally:
-            for p in ctx.processes:
+            for p in self.ctx.processes:
                 if p.is_alive():
                     p.kill()
-        res = []
-        for r in range(world):
-            path = os.path.join(tmp, f"rank{r}.pt")
-            if not os.path.exists(path):
-                raise RuntimeError(f"{case}: rank {r} wrote no result")
-            res.append(torch.load(path, weights_only=False))
-    errs = [r["error"] for r in res if isinstance(r, dict) and "error" in r]
-    if errs:
-        raise RuntimeError(f"{case} failed on a rank:\n{errs[0]}")
-    return res
+        try:
+            res = []
+            for r in range(world):
+                path = os.path.join(tmp, f"rank{r}.pt")
+                if not os.path.exists(path):
+                    raise RuntimeError(f"{case}: rank {r} wrote no result")
+                res.append(torch.load(path, weights_only=False))
+        finally:
+            self.tmp.cleanup()
+        errs = [r["error"] for r in res
+                if isinstance(r, dict) and "error" in r]
+        if errs:
+            raise RuntimeError(f"{case} failed on a rank:\n{errs[0]}")
+        return res
+
+
+def start(case: str, world: int, inputs=None, timeout: float = 300.0):
+    """:func:`spawn` without the wait: the ranks run while the caller
+    computes its references; ``.wait()`` gives their results."""
+    return _World(case, world, inputs, timeout)
+
+
+def spawn(case: str, world: int, inputs=None, timeout: float = 300.0):
+    return start(case, world, inputs, timeout).wait()
 
 
 # -- cases ----------------------------------------------------------------
@@ -168,10 +194,15 @@ def model_bodies(inp):
         (ol, gl), (od, gd) = _local_and_dist(rt, fn, [q, k, v])
         out[name] = (_detach(od), gl, gd)
 
-    # split-KV decode attention, and a slot count the model axis does
-    # not divide (the local fallback)
+    # split-KV decode attention on the rank's block of the slots, and on
+    # a slot count the model axis does not divide (held whole)
+    q, kc, vc, sp = inp["dec_attn"]
+    kv = rt_lib.P(None, "model", None, None)
     with rt_lib.runtime(rt), torch.no_grad():
-        out["dec_attn"] = ops.decode_attention(*inp["dec_attn"])
+        out["dec_attn"] = ops.decode_attention(
+            q, shardings.local_shard(kc, kv, rt.mesh),
+            shardings.local_shard(vc, kv, rt.mesh),
+            shardings.local_shard(sp, rt_lib.P(None, "model"), rt.mesh))
         out["dec_attn_odd"] = ops.decode_attention(*inp["dec_attn_odd"])
 
     # the recurrent blocks, with and without sequence sharding
@@ -198,22 +229,28 @@ def model_bodies(inp):
             out["mamba_h0_dist"] = ssm.mamba_block(p_b, x_b, cfg_b,
                                                    lora=lo_b, h0=h0)
 
-    # the dense model: a decode step and a full train step
+    # the dense model on the rank's blocks: a decode step (its batch rows'
+    # logits gathered over dp) and a full train step
     ycfg, fz, tr, cache, tok, pos = inp["yi_decode"]
     model = build_model(ycfg)
+    held = shardings.rank_params(ycfg, {"frozen": fz, "trainable": tr}, rt)
     with rt_lib.runtime(rt):
-        out["yi_decode"] = model.decode_step(fz, tr, cache, tok, pos)[0]
+        logits = model.decode_step(
+            held["frozen"], held["trainable"],
+            shardings.rank_cache(ycfg, cache, rt),
+            shardings.rank_batch(ycfg, {"tokens": tok}, rt)["tokens"],
+            pos)[0]
+    out["yi_decode"] = rt_lib.all_gather_raw(logits, rt.dp_axes, rt)
     ycfg, fz, tr, batch = inp["yi_train"]
     model = build_model(ycfg)
     (ll, pl), gl = model.grads(fz, tr, batch)
+    held = shardings.rank_params(ycfg, {"frozen": fz, "trainable": tr}, rt)
+    hb = shardings.rank_batch(ycfg, batch, rt)
     with rt_lib.runtime(rt):
-        (ld, pd), gd = model.grads(fz, tr, batch)
-        t2, _, m = model.train_step(fz, tr, optim.adam_init(tr), batch,
-                                    lr=1e-3)
-    t2l, _, ml = model.train_step(fz, tr, optim.adam_init(tr), batch,
-                                  lr=1e-3)
-    out["yi_train"] = dict(loss=(ll, ld), grads=(gl, gd), after=(t2l, t2),
-                           metrics=(ml, m))
+        (ld, pd), gd = model.grads(held["frozen"], held["trainable"], hb)
+        t2, _, _ = model.train_step(held["frozen"], held["trainable"],
+                                    optim.adam_init(tr), hb, lr=1e-3)
+    out["yi_train"] = dict(loss=(ll, ld), grads=(gl, gd), after=t2)
     out["dist_traces"] = dict(rt_lib.DIST_TRACES)
     return out
 
@@ -424,6 +461,92 @@ def collectives(inp):
     return out
 
 
+def _blocks_err(tree, whole, specs, mesh) -> float:
+    """The largest error of ``tree``'s leaves against ``whole``'s blocks by
+    ``specs``, relative to each block's largest magnitude (inf where a
+    shape, a dtype or a QTensor's fields differ): 0.0 when every leaf is
+    its block bit for bit."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.core.quant import QTensor
+    from repro_torch.launch import shardings
+    err = 0.0
+    for got, w, sp in zip(tree_lib.leaves(tree), tree_lib.leaves(whole),
+                          tree_lib.leaves(specs)):
+        want = shardings.local_shard(w, sp, mesh)
+        pairs = [(got, want)]
+        if isinstance(w, QTensor):
+            if tuple(got.orig_shape) != tuple(want.orig_shape):
+                return float("inf")
+            pairs = [(got.q, want.q), (got.scales, want.scales)]
+        for a, b in pairs:
+            if a.shape != b.shape or a.dtype != b.dtype:
+                return float("inf")
+            if not torch.equal(a, b):
+                a, b = a.double(), b.double()
+                err = max(err, float((a - b).abs().max()) /
+                          max(float(b.abs().max()), 1e-30))
+    return err
+
+
+def tensor_parallel(inp):
+    """The production layout on a gloo world (``inp["mesh"]``: shape and
+    axis names): for each case, the rank's blocks of the params, the
+    batch and the cache (``rank_params`` / ``rank_batch`` /
+    ``rank_cache``, checked against ``param_specs_tree`` /
+    ``batch_specs_tree`` / ``cache_specs_tree``), then ``grads`` and one
+    ``train_step``, a prefill and teacher-forced decode steps on them.
+    Returns each case's results and the ``DIST_TRACES``."""
+    from repro_torch.core import optim
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import Mesh, dp_axes
+    from repro_torch.models import build_model
+    from repro_torch.models import runtime as rt_lib
+    shape, axes = inp["mesh"]
+    mesh = Mesh(shape, axes)
+    dp = dp_axes(mesh)
+    rt = rt_lib.Runtime(mesh=mesh, dp_axes=dp, tp_axis="model")
+    out = {}
+    for case in inp["cases"]:
+        cfg, name = case["cfg"], case["name"]
+        model = build_model(cfg)
+        params = {"frozen": case["frozen"], "trainable": case["trainable"]}
+        rt_lib.reset_dist_traces()
+        held = sh.rank_params(cfg, params, rt)
+        batch = sh.rank_batch(cfg, case["batch"], rt)
+        res = {
+            "params_blocks": _blocks_err(
+                held, params, sh.param_specs_tree(cfg, params, mesh), mesh),
+            "batch_blocks": _blocks_err(
+                batch, case["batch"], sh.batch_specs_tree(
+                    cfg, case["batch"], mesh, dp), mesh)}
+        fz, tr = held["frozen"], held["trainable"]
+        with rt_lib.runtime(rt):
+            (loss, parts), grads = model.grads(fz, tr, batch)
+            after, _, metrics = model.train_step(
+                fz, tr, optim.adam_init(tr), batch, lr=1e-3)
+            pre = sh.rank_batch(cfg, case["prefill"], rt)
+            logits, cache = model.prefill(fz, tr, pre,
+                                          max_len=case["max_len"])
+            res["cache_blocks"] = _blocks_err(
+                cache, case["cache"], sh.cache_specs_tree(
+                    cfg, case["cache"], mesh, dp), mesh) if \
+                "cache" in case else None
+            if cfg.grad_accum > 1:
+                res["accum"] = _detach(model._accumulated(
+                    fz, tr, batch, rt.step_view()))
+            steps = [logits]
+            for tok, pos in case["decode"]:
+                tok = sh.rank_batch(cfg, {"tokens": tok}, rt)["tokens"]
+                steps.append(model.decode_step(fz, tr, cache, tok, pos)[0])
+        res.update(loss=loss, parts=parts, grads=_detach(grads),
+                   after=_detach(after), metrics=_detach(metrics),
+                   logits=[_detach(s) for s in steps],
+                   traces=dict(rt_lib.DIST_TRACES),
+                   dp_index=rt.index(dp) if dp else 0)
+        out[name] = res
+    return out
+
+
 CASES = {"model_bodies": model_bodies, "draws": draws,
          "cohort_mesh": cohort_mesh, "moe_calibrate": moe_calibrate,
-         "collectives": collectives}
+         "collectives": collectives, "tensor_parallel": tensor_parallel}

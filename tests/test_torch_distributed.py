@@ -15,20 +15,23 @@ are computed here, on the same numpy inputs, reduced fp32 configs:
   the dispatch's int8 codes and scales bitwise the eager JAX
   ``_q8_rows``, and the int8 all-to-all's output within the int8 bound;
 - ``flash_attention`` (GQA 6/3 and MQA with its 5 heads padded to 6,
-  window 8, causal), the split-KV ``decode_attention``, ``mamba_block``
-  (y and h, with and without sequence sharding, from zero and from a
-  start state) and ``rglru_block``, ``decode_step`` of reduced Yi-9B:
-  within 1e-5 of the largest magnitude;
+  window 8, causal), the split-KV ``decode_attention`` (on the rank's
+  block of the slots, and on a whole cache whose slots the model axis
+  does not divide), ``mamba_block`` (y and h, with and without sequence
+  sharding, from zero and from a start state) and ``rglru_block``,
+  ``decode_step`` of reduced Yi-9B on the rank's blocks
+  (``shardings.rank_params`` / ``rank_cache`` / ``rank_batch``, the
+  rows gathered over dp): within 1e-5 of the largest magnitude;
 - gradients through every body against the port's local autograd in the
   same rank, within 1e-5 of the largest magnitude (JAX's transposes:
   ``psum`` to ``psum``, the tiled all-gather to a reduce-scatter, the
   all-to-all to itself);
-- a full ``train_step`` of reduced Yi-9B: loss and gradients against the
-  port's local step and JAX's local step within 1e-5, identical on every
-  rank;
-- ``DIST_TRACES``: which body each call took, the local fallbacks where
-  the JAX package falls back (a batch the dp axes do not divide, a slot
-  count the model axis does not divide).
+- a full ``train_step`` of reduced Yi-9B on the rank's blocks: loss and
+  gradients against the port's local step and JAX's local step within
+  1e-5, identical on every rank;
+- ``DIST_TRACES``: which body each call took (the model's linears by
+  their tensor-parallel routes), the local fallbacks where the JAX
+  package falls back (a batch the dp axes do not divide).
 """
 import functools
 
@@ -50,6 +53,7 @@ from repro.models import ssm as jssm
 from repro_torch import convert
 from repro_torch import tree as tree_lib
 from repro_torch.configs import get_reduced
+from repro_torch.core import optim
 
 torch.set_num_threads(1)
 QWEN = "qwen3-moe-235b-a22b"
@@ -285,7 +289,8 @@ def test_decode_step_matches_jax(world):
 
 
 def test_train_step_matches_local_and_jax(world):
-    _, want, res = world
+    inp, want, res = world
+    tr = inp["yi_train"][2]
     wl, wg = want["yi_train"]
     flat_w = dict(tree_lib.flatten_with_path(
         jax.tree.map(np.asarray, wg)))
@@ -301,9 +306,15 @@ def test_train_step_matches_local_and_jax(world):
         for (path, a), b in zip(tree_lib.flatten_with_path(gd),
                                 tree_lib.leaves(gl)):
             _close(a, b.numpy())
-        t_local, t_dist = yt["after"]
-        for a, b in zip(tree_lib.leaves(t_dist), tree_lib.leaves(t_local)):
-            _close(a, b.numpy())
+        # the Adam update of the rank's gradient, held above against the
+        # local and the JAX gradients (the tensor-parallel partial sums
+        # round differently from the local products, and an element whose
+        # gradient is near zero moves by about lr on that rounding)
+        t_dist = yt["after"]
+        step, _ = optim.adam_update(gd, optim.adam_init(tr), tr, lr=1e-3,
+                                    grad_clip=1.0)
+        for a, b in zip(tree_lib.leaves(t_dist), tree_lib.leaves(step)):
+            _close(a, b.numpy(), 1e-6)
 
 
 def test_dist_traces_name_each_body_and_fallback(world):
@@ -312,7 +323,8 @@ def test_dist_traces_name_each_body_and_fallback(world):
         tr = r["dist_traces"]
         for name in ("moe_ffn_dist_seq", "moe_ffn_dist_decode",
                      "flash_attention_dist", "decode_attention_dist",
-                     "decode_attention_fallback", "mamba_block_dist",
+                     "flash_attention_heads_dist", "linear_col_dist",
+                     "linear_row_dist", "embed_vocab_dist", "mamba_block_dist",
                      "mamba_block_fallback", "rglru_block_dist",
                      "rglru_block_fallback"):
             assert tr.get(name, 0) >= 1, (name, tr)

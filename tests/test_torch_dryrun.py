@@ -7,8 +7,10 @@
   per-device bytes of the JAX package's ``param_specs_tree`` /
   ``batch_specs_tree`` / ``cache_specs_tree`` layout on a mesh
   stand-in (the optimizer state replicated), computed here from the JAX
-  spec trees; ``argument_bytes`` is what the port's rank holds; the
-  fed-agg CLI exits 0 and its records carry each schedule's bytes.
+  spec trees, and ``argument_bytes``, what the port's rank holds in the
+  production layout, equals it; so it does for every family's reduced
+  config at train, prefill and decode; the fed-agg CLI exits 0 and its
+  records carry each schedule's bytes.
 - In this process (no world: a one-device trace): at a reduced dense
   config of depth 4, ``calibrated_costs``' extrapolated flops and bytes
   equal the full-depth count exactly; a trace of an NF4 step leaves the
@@ -148,15 +150,9 @@ def test_record_keys_and_argument_bytes(kind):
     assert KEYS <= set(rec), KEYS - set(rec)
     S, B = SHAPES[kind]
     assert rec["argument_bytes_rules"] == _jax_rules_bytes(kind, S, B)
-    model = build_model(get_reduced("yi-9b"))
-    specs = model.param_specs()
-    batch = model.input_specs(InputShape(kind, S, B, kind))
-    want = qlib.tree_bytes(specs) + qlib.tree_bytes(batch)
-    if kind == "train":
-        want += qlib.tree_bytes(tuple(
-            dryrun.optim.adam_specs(specs["trainable"])))
-    assert rec["argument_bytes"] == want      # dense layers whole
-    assert rec["dense_layout"] == "replicated"
+    # the rank holds its blocks of every argument: what GSPMD gives
+    assert rec["argument_bytes"] == rec["argument_bytes_rules"]
+    assert rec["dense_layout"] == "tensor"
     assert rec["mesh"] == "16x16" and rec["n_devices"] == 256
     assert rec["flops"] > 0 and rec["bytes"] > 0
     assert rec["flops_cal"] == rec["flops"]   # 2 layers: reps 1 and 2
@@ -175,6 +171,56 @@ def test_record_keys_and_argument_bytes(kind):
     assert "all-gather" in rec["collectives"]
     for v in rec["collectives"].values():
         assert v["count"] > 0 and v["gsize"] in (16, 256)
+
+
+FAMILY_SCRIPT = r"""
+import json
+from repro_torch.configs import ARCHS, get_reduced
+from repro_torch.configs.base import InputShape
+from repro_torch.core import quant as qlib
+from repro_torch.launch import dryrun
+from repro_torch.models import build_model
+out = {}
+for arch in ARCHS:
+    cfg = get_reduced(arch)
+    if cfg.n_experts:
+        cfg = cfg.replace(n_experts=16)      # one expert a model rank
+    whole = qlib.tree_bytes(build_model(cfg).param_specs())
+    for kind in ("train", "prefill", "decode"):
+        rec = dryrun.trace_step(arch, InputShape(kind, 64, 32, kind),
+                                multi_pod=False, cfg_override=cfg)
+        out[arch + "/" + kind] = [rec["argument_bytes"],
+                                  rec["argument_bytes_rules"],
+                                  rec["temp_bytes"], whole]
+print("RECORDS " + json.dumps(out))
+"""
+
+
+@functools.lru_cache(maxsize=None)
+def _family_records():
+    env = dict(os.environ, PYTHONPATH=SRC)
+    res = subprocess.run([sys.executable, "-c", FAMILY_SCRIPT],
+                         capture_output=True, text=True, timeout=400,
+                         env=env)
+    assert res.returncode == 0, res.stderr[-3000:]
+    line = [l for l in res.stdout.splitlines() if l.startswith("RECORDS ")]
+    return json.loads(line[-1][len("RECORDS "):])
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", sorted(dryrun.ARCHS))
+def test_every_family_holds_its_rules_bytes(arch, kind):
+    """Each family's reduced config on the 16 x 16 fake world: the rank
+    holds exactly the bytes the sharding rules give a device (params,
+    Adam state, batch and cache; the MoE with 16 experts, one a model
+    rank). A decode step's temporaries stay below half the whole
+    model's bytes: the layout's spec trees, built from the whole model's
+    meta tensors, are not counted as the step's storage (they were, at
+    about the whole model's bytes)."""
+    got, rules, temp, whole = _family_records()[f"{arch}/{kind}"]
+    assert got == rules
+    if kind == "decode":
+        assert temp < whole // 2, (temp, whole)
 
 
 def test_fed_agg_records():

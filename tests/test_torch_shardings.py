@@ -148,32 +148,54 @@ class _Rank:
 
 
 def test_local_shard_and_rank_params_cut_the_experts_only():
+    """``rank_params`` cuts every leaf by ``param_specs_tree`` (the
+    experts over ``model`` and ``data``, the dense ``wq`` over ``model``,
+    its NF4 twin on its storage's N, the router whole), each block
+    contiguous and owning its storage, and the ranks' blocks reassemble
+    every whole leaf bitwise."""
     from repro_torch.core import quant as qlib
     w = torch.randn(3, 8, 128, 64)               # (L, E, K, N) experts
     qt = qlib.quantize(w, bits=4, block=64, mode="nf4")
-    dense = torch.randn(128, 64)
+    dense = torch.randn(3, 128, 64)
     tree = {"layers": {"moe": {"wg": qt, "router": torch.randn(3, 128, 8)},
-                       "wq": dense}}
+                       "wq": dense,
+                       "wo": qlib.quantize(torch.randn(3, 256, 128),
+                                           bits=4, block=64, mode="nf4")}}
+    cfg = t_config("qwen3-moe-235b-a22b")
     shape = {"data": 2, "model": 4}
-    pieces = []
+    specs = sh.param_specs_tree(cfg, tree, _Shape(4))
+    assert tuple(specs["layers"]["wq"]) == (None, None, "model")
+    assert tuple(specs["layers"]["wo"].q) == (None, "model", None, None)
+    cuts = {}
     for d in range(2):
         for m in range(4):
             rt = type("RT", (), {"mesh": _Rank(shape, {"data": d,
                                                         "model": m})})
-            cut = sh.rank_params(t_config("qwen3-moe-235b-a22b"), tree, rt)
+            cut = sh.rank_params(cfg, tree, rt)
             c = cut["layers"]["moe"]["wg"]
             assert c.q.shape == (3, 2, 2, 32, 32)    # G = 128 / 64
             assert c.orig_shape == (3, 2, 128, 32)
-            assert c.q.is_contiguous()
-            assert cut["layers"]["wq"] is dense          # whole
+            assert cut["layers"]["wq"].shape == (3, 128, 16)
+            assert cut["layers"]["wo"].q.shape == (3, 1, 32, 128)
+            assert cut["layers"]["wo"].orig_shape == (3, 64, 128)
             assert cut["layers"]["moe"]["router"] is \
                 tree["layers"]["moe"]["router"]
-            pieces.append((d, m, qlib.dequantize(c)))
+            for leaf in (c.q, c.scales, cut["layers"]["wq"],
+                         cut["layers"]["wo"].q):
+                assert leaf.is_contiguous()
+                assert leaf.untyped_storage().nbytes() == \
+                    leaf.numel() * leaf.element_size()
+            cuts[(d, m)] = cut
     full = qlib.dequantize(qt)
-    for d, m, piece in pieces:
+    for (d, m), cut in cuts.items():
         torch.testing.assert_close(
-            piece, full[:, 2 * m:2 * m + 2, :, 32 * d:32 * d + 32],
-            rtol=0, atol=0)
+            qlib.dequantize(cut["layers"]["moe"]["wg"]),
+            full[:, 2 * m:2 * m + 2, :, 32 * d:32 * d + 32], rtol=0, atol=0)
+    wq = torch.cat([cuts[(0, m)]["layers"]["wq"] for m in range(4)], -1)
+    assert torch.equal(wq, dense)
+    wo = torch.cat([qlib.dequantize(cuts[(1, m)]["layers"]["wo"])
+                    for m in range(4)], 1)
+    assert torch.equal(wo, qlib.dequantize(tree["layers"]["wo"]))
 
 
 def test_rank_tree_from_numpy_carries_jax_experts_into_a_rank_shard():
