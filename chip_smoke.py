@@ -114,8 +114,9 @@ Phases (a failed phase raises and the script exits non-zero):
 12. token serving and the train-side pieces: (a) ``repro_torch.launch.
     serve.main`` in its token mode on Yi-9B at full width and depth, NF4
     (4 streams, prompt 64, 16 tokens): every projection of the prefill
-    and of each decode step through ``lora_matmul``'s tensor-core kernel,
-    the prefill's attention through ``flash_attention``'s, no plain
+    through ``lora_matmul``'s tensor-core kernel and of each decode step
+    through its decode route (``lora_gemv``), the prefill's attention
+    through ``flash_attention``'s, no plain
     route; prefill ms, decode ms a token and tokens a second; one decode
     step profiled beside its bound (the bytes it must read), with
     ``decode_attention``'s device ms; the decode loop run again under
@@ -194,9 +195,11 @@ Phases (a failed phase raises and the script exits non-zero):
     share of 989 TFLOP/s; (c) the production dry run's CLI (``yi-9b``
     ``train_4k`` on the 16 x 16 fake world, ``--fed-agg`` on 2 x 16 x 16)
     in processes of their own, beside (a)-(b); (d) ``kernels/autotune``'s
-    sweep of ``lora_matmul``'s split count at Yi-9B's four decode shapes,
-    each count's ms beside ``plan``'s pick, a second sweep a pure hit,
-    and the winner through the op within the bf16 bound. The autotune
+    sweep of ``lora_matmul``'s decode-route plans (column tile, cluster)
+    at Yi-9B's four decode shapes, each plan's ms beside ``plan_gemv``'s
+    pick, a second sweep a pure hit, and the winner through the op on
+    the decode route (a tc split count cached for the shape does not move
+    it) within the bf16 bound. The autotune
     cache is a fresh file of the run's own (``REPRO_TORCH_AUTOTUNE_
     CACHE``), so no phase reads a stale winner.
 16. the production layout on a rank (every tree the rank's blocks):
@@ -230,13 +233,22 @@ Phase 2 also holds ``selective_scan`` and its backward kernel
 backward against the plain ``ops.selective_scan_bwd``, bitwise equal
 across two calls), and the op's gradient (both kernels) against autograd
 through the plain scan; phase 7 must show 128 forward and 64 backward
-scan kernels per local step; phase 2 also holds ``lora_matmul`` at
-the decode step's shapes (M = 4 rows, the four Yi-9B (K, N) pairs, NF4,
-bf16). bf16 calls of ``flash_attention``,
-``lora_matmul`` and ``quant_matmul_t`` (a bf16 cotangent) run their
-tensor-core kernels and fp32 calls their CUDA-core ones; each row prints
-the route it took, and the bf16 trainer must launch only the tensor-core
-kernels of the three.
+scan kernels per local step; phase 2 also holds ``lora_matmul``'s
+decode route (``lora_gemv``) at the decode steps' shapes (Yi-9B's four,
+LLaVA-NeXT-34B's four and Kimi-K2's wq, NF4, bf16) at 1, 4 and 8 rows
+with the tc route forced on the same inputs beside it (and at 16 rows,
+past the decode route), and at its edge shapes (int8, int4, fp32 x, odd
+K, N % 16 != 0), and ``flash_attention``'s D > 512 cluster route at D =
+544, 896 and 1024 with the single-stage route it replaces forced beside
+it. bf16 calls of ``flash_attention``,
+``lora_matmul`` (past its decode rows) and ``quant_matmul_t`` (a bf16
+cotangent) run their tensor-core kernels and fp32 calls their CUDA-core
+ones; each row prints the route it took, and the bf16 trainer must launch
+only the tensor-core kernels of the three. Phases 12-16 record every
+``lora_matmul`` and ``flash_attention`` call by the Model step it ran
+under and its route (``record_routes``): a decode step's ``lora_matmul``
+calls must take the decode route and a train step's the training rows'
+(``check_lora_routes``).
 ``quant_matmul`` is timed at the shape that every serve replay launch
 has (4 users x 1 row, 768 x 768, block 64), each row with the route it
 took (the cluster split-K GEMV or the tiled kernel), the GEMV's plan and
@@ -335,11 +347,17 @@ REPLACES = {
     "selective_scan_bwd": "jax.vjp of src/repro/kernels/selective_scan.py:54",
     # quant_matmul's tensor-core route (bf16 x past 4 rows), qmm_tc_kernel
     "quant_matmul_tc": "src/repro/kernels/quant_matmul.py:66",
+    # lora_matmul's decode route (decode rows, lora_gemv.cu) and
+    # flash_attention's D > 512 route (flash_tc_cluster_kernel)
+    "lora_matmul_gemv": "src/repro/kernels/lora_matmul.py:64",
+    "flash_attention_cluster": "src/repro/kernels/flash_attention.py:72",
 }
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
            for name in REPLACES}
 SOURCES["quant_matmul_t"] = SOURCES["lora_matmul"]
 SOURCES["quant_matmul_tc"] = SOURCES["quant_matmul"]
+SOURCES["lora_matmul_gemv"] = "src/repro_torch/kernels/csrc/lora_gemv.cu"
+SOURCES["flash_attention_cluster"] = SOURCES["flash_attention"]
 SOURCES["selective_scan_bwd"] = SOURCES["selective_scan"]
 SERVE_KERNELS = ("quant_matmul", "blockwise_quant", "flash_attention")
 # the kernels each trainer's main path launches
@@ -576,10 +594,23 @@ def setup() -> None:
           + " ".join(f"{k}={v:.1f}s" for k, v in took.items()), flush=True)
     for name, log in build.BUILD_LOG.items():
         print(f"  ptxas {name}: {ptxas_summary(log)}", flush=True)
-        if name in ("lora_matmul", "selective_scan", "quant_matmul",
-                    "blockwise_quant"):
-            print("    per kernel (registers, spill store bytes): " + " ".join(
-                f"{k}={v}" for k, v in ptxas_kernels(log).items()), flush=True)
+        print("    per kernel (registers, spill store bytes): " + " ".join(
+            f"{k}={v}" for k, v in ptxas_kernels(log).items()), flush=True)
+    # the decode route's registers by its row bound MR (lora_matmul's
+    # GEMV_CTAS_PER_SM: at most 65536 / (128 x registers) CTAs an SM)
+    regs: dict = {}
+    for chunk in build.BUILD_LOG.get("lora_gemv", "").split(
+            "Compiling entry function '")[1:]:
+        m = re.search(r"gemv_kernelI\w*?Li(\d)ELi(\d)ELi\d+E\w*?LoraGemvOut",
+                      chunk)
+        r = re.search(r"Used (\d+) registers", chunk)
+        if m and r:
+            mr = int(m.group(2))
+            regs[mr] = max(regs.get(mr, 0), int(r.group(1)))
+    if regs:
+        print("  lora_gemv's gemv_kernel registers by row bound: " + " ".join(
+            f"MR{mr}={n} ({65536 // (128 * n)} CTAs an SM)"
+            for mr, n in sorted(regs.items())), flush=True)
     print(f"  selective_scan blocks per SM (N = 16): forward "
           f"{ss_kernel.occupancy('fwd')} ({ss_kernel.FWD_LANES} lanes a "
           f"channel), backward {ss_kernel.occupancy('bwd')} (with dA "
@@ -602,10 +633,15 @@ def qmm_route(run) -> tuple:
 
 
 def path_launches() -> dict:
-    """``ops.launch_counts()`` with the tc route's own count beside
-    ``quant_matmul``'s (``ops.reset_launch_counts`` zeroes both)."""
+    """``ops.launch_counts()`` with the routes' own counts beside their
+    wrappers' (``ops.reset_launch_counts`` zeroes them all):
+    ``quant_matmul``'s tc route, ``lora_matmul``'s decode route and
+    ``flash_attention``'s D > 512 route."""
     return {**ops.launch_counts(),
-            "quant_matmul_tc": qmm_kernel.quant_matmul.tc_launches}
+            "quant_matmul_tc": qmm_kernel.quant_matmul.tc_launches,
+            "lora_matmul_gemv": lm_kernel.lora_matmul.gemv_launches,
+            "flash_attention_cluster":
+                ops.KERNELS["flash_attention"].cluster_launches}
 
 
 def gemv_plan_row(T, M, G, N, block) -> dict:
@@ -937,43 +973,132 @@ def check_lora_kernels(gen) -> tuple:
     return main["lora_matmul"], main["quant_matmul_t"]
 
 
+# phase 2 (c): lora_matmul at the decode steps' linears (K, N): Yi-9B's
+# four (phase 12), LLaVA-NeXT-34B's four (phase 13) and Kimi-K2's wq
+# (phase 14), NF4 block 64, bf16 x, rank 16
+LORA_DECODE = [*(("yi_" + n, K, N) for n, (K, N) in YI_LINEARS.items()),
+               ("llava_wq_wo", 7168, 7168), ("llava_wk_wv", 7168, 1024),
+               ("llava_wg_wu", 7168, 20480), ("llava_wd", 20480, 7168),
+               ("kimi_wq", 7168, 8192)]
+# rows a call for the crossover against the tc route (4: a decode step of
+# 4 streams; 8: phase 16's decode block; 16: past the decode route)
+LORA_CROSSOVER_ROWS = (1, 4, 8, 16)
+# the decode route's edge cases: (name, M, K, N, bits, mode, dtype, r)
+LORA_GEMV_EDGES = [
+    ("int8_f32", 4, 512, 256, 8, "linear", torch.float32, 16),
+    ("int4_f32_r20", 2, 512, 256, 4, "linear", torch.float32, 20),
+    ("nf4_f32_oddK", 4, 200, 36, 4, "nf4", torch.float32, 4),
+    ("int8_bf16_K201_M7", 7, 201, 48, 8, "linear", torch.bfloat16, 4),
+    ("nf4_bf16_M5_N100", 5, 300, 100, 4, "nf4", torch.bfloat16, 8),
+    ("nf4_f32_yi_wq_M8", 8, 4096, 4096, 4, "nf4", torch.float32, 16),
+]
+
+
 def check_lora_decode(gen) -> dict:
-    """``lora_matmul`` at the decode step's shapes: the four Yi-9B (K, N)
-    pairs at M = 4 rows (one token of 4 streams), NF4 block 64, bf16 x,
-    rank 16, against the plain version at the bf16 bound, with device,
-    call and plain ms beside the bound (bytes: the quantized W dominates
-    at M = 4). The tensor-core kernel computes a 256-row tile, so at
-    M = 4 it keeps 1/64 of the rows it computes. Returns the rows by
-    shape."""
+    """``lora_matmul`` at the decode steps' shapes (``LORA_DECODE``):
+    the decode route (``lora_gemv.cu``'s GEMV after the x@A launch) at each
+    row count of ``LORA_CROSSOVER_ROWS`` up to ``lm_kernel.MAX_ROWS``,
+    held against the plain version at the bf16 bound, two calls bitwise
+    equal, and the tc route forced on the same inputs (its A/B, also held
+    to the bound). At 4 rows: device ms of both beside the plain
+    version's and the bound (bytes: the quantized W dominates); at every
+    row count both routes' device ms queued behind a sleep (``queued_ms``),
+    the crossover ``MAX_ROWS`` is set at. Then the edge cases
+    (``LORA_GEMV_EDGES``: int8, int4, fp32 x at 1e-5, odd K, N % 16 != 0,
+    rank 20, M not a power of two). Returns the 4-row rows by shape."""
+    bf16 = torch.bfloat16
     rows = {}
-    for name, (K, N) in YI_LINEARS.items():
+    for name, K, N in LORA_DECODE:
         w = (torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5
-             ).to(torch.bfloat16)
+             ).to(bf16)
         qt = ref.blockwise_quant(w, bits=4, block=64, mode="nf4")
-        x = torch.randn((4, K), generator=gen, device="cuda").to(
-            torch.bfloat16)
+        del w
         a = torch.randn((K, 16), generator=gen, device="cuda") / K ** 0.5
         b = torch.randn((16, N), generator=gen, device="cuda") * 0.05
-        run = lambda: lm_kernel.lora_matmul(x, qt, a, b, scale=2.0)
-        plain = lambda: ref.lora_matmul(x, qt, a, b, scale=2.0)
-        got, route = routed(lm_kernel.lora_matmul, run)
-        abs_e, rel_e = rel_err(got, plain())
-        if route != "tensor cores" or not (
-                rel_e <= _tol(torch.bfloat16) and torch.isfinite(got).all()):
-            raise AssertionError(f"lora_matmul decode {name}: {route}, rel "
-                                 f"err {rel_e}")
         Kq = qt.q.shape[-3] * qt.block
-        b_ms, b_by = bound(nbytes(x, a, b, qt.q, qt.scales, got),
-                           2.0 * 4 * (Kq * N + K * 16 + 16 * N),
-                           torch.bfloat16)
-        row = {"case": f"decode_{name}", "M": 4, "route": route,
-               "splits": lm_kernel.plan(4, K, N, qt.block).splits,
-               "max_abs_err": abs_e, "rel_err": rel_e, "bound_ms": b_ms,
-               "bound_by": b_by}
-        timed(row, "ms", run)
-        timed(row, "plain_ms", plain)
-        report({"lora_matmul": 1, **row})
-        rows[name] = row
+        sweep = {"gemv": {}, "tc": {}}
+        for M in LORA_CROSSOVER_ROWS:
+            x = torch.randn((M, K), generator=gen, device="cuda").to(bf16)
+            run = lambda: lm_kernel.lora_matmul(x, qt, a, b, scale=2.0)
+            tc_run = lambda: lm_kernel._lora_matmul(x, qt, a, b, 2.0, None,
+                                                    force="tc")
+            plain = lambda: ref.lora_matmul(x, qt, a, b, scale=2.0)
+            want = plain()
+            route = lm_kernel.route(M, N, qt, bf16)
+            if route != ("gemv" if M <= lm_kernel.MAX_ROWS else "tc"):
+                raise AssertionError(f"lora_matmul decode {name} M={M}: "
+                                     f"route {route}")
+            before = lm_kernel.lora_matmul.gemv_launches
+            got = run()
+            again = run()
+            tc_got = tc_run()
+            torch.cuda.synchronize()
+            if lm_kernel.lora_matmul.gemv_launches - before != \
+                    2 * (route == "gemv"):
+                raise AssertionError(f"lora_matmul decode {name} M={M}: "
+                                     "the route's launches not counted")
+            abs_e, rel_e = rel_err(got, want)
+            tc_rel = rel_err(tc_got, want)[1]
+            if not (rel_e <= _tol(bf16) and tc_rel <= _tol(bf16) and
+                    torch.isfinite(got).all() and torch.equal(got, again)):
+                raise AssertionError(
+                    f"lora_matmul decode {name} M={M}: rel err {rel_e} "
+                    f"(tc {tc_rel}), bitwise {torch.equal(got, again)}")
+            if route == "gemv":
+                sweep["gemv"][M] = round(queued_ms(run), 5)
+            sweep["tc"][M] = round(queued_ms(tc_run), 5)
+            if M in (4, 8):
+                # every plan of the decode route: the data plan_gemv's
+                # rule is fitted to (refit it when the kernel changes)
+                G = qt.q.shape[-3]
+                pick = lm_kernel.plan_gemv(M, G, N, qt.block)
+                plans = {f"{c}x{k}": round(queued_ms(
+                    lambda pl=lm_kernel.gemv_plan_of(G, N, c, k):
+                    lm_kernel._lora_matmul(x, qt, a, b, 2.0, None,
+                                           gemv_plan=pl)), 5)
+                    for c, k in lm_kernel.gemv_plans(M, G, N, qt.block)}
+                best = min(plans, key=plans.get)
+                report({"lora_gemv_plans": name, "M": M,
+                        "plan": f"{pick.cols}x{pick.cluster}",
+                        "plan_ms": plans[f"{pick.cols}x{pick.cluster}"],
+                        "best": best, "best_ms": plans[best],
+                        "queued_ms_by_plan": plans})
+            if M != 4:
+                continue
+            pl = lm_kernel.plan_gemv(M, qt.q.shape[-3], N, qt.block)
+            b_ms, b_by = bound(nbytes(x, a, b, qt.q, qt.scales, got),
+                               2.0 * M * (Kq * N + K * 16 + 16 * N), bf16)
+            row = {"case": f"decode_{name}", "M": M, "route": route,
+                   "plan": f"{pl.cols}x{pl.cluster}", "ctas": pl.ctas,
+                   "max_abs_err": abs_e, "rel_err": rel_e,
+                   "tc_rel_err": tc_rel, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": None}
+            timed(row, "ms", run)
+            timed(row, "tc_ms", tc_run)
+            row["tc_splits"] = lm_kernel.plan(M, K, N, qt.block).splits
+            timed(row, "plain_ms", plain)
+            report({"lora_matmul": 1, **row})
+            rows[name] = row
+        report({"lora_crossover": name, "K": K, "N": N,
+                "gemv_queued_ms": sweep["gemv"],
+                "tc_queued_ms": sweep["tc"]})
+        del qt, a, b, x
+    for name, M, K, N, bits, mode, dt, r in LORA_GEMV_EDGES:
+        w = torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5
+        qt = ref.blockwise_quant(w, bits=bits, block=64, mode=mode)
+        x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+        a = torch.randn((K, r), generator=gen, device="cuda") / K ** 0.5
+        b = torch.randn((r, N), generator=gen, device="cuda") * 0.05
+        got = lm_kernel.lora_matmul(x, qt, a, b, scale=2.0)
+        abs_e, rel_e = rel_err(got, ref.lora_matmul(x, qt, a, b, scale=2.0))
+        tol = 1e-5 if dt == torch.float32 else _tol(dt)
+        if lm_kernel.route(M, N, qt, dt) != "gemv" or not (
+                rel_e <= tol and torch.isfinite(got).all()):
+            raise AssertionError(f"lora_matmul decode edge {name}: rel err "
+                                 f"{rel_e} > {tol}")
+        report({"lora_matmul_gemv_edge": name, "max_abs_err": abs_e,
+                "rel_err": rel_e, "tol": tol})
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1344,6 +1469,111 @@ def record_quant_matmul():
         yield calls
     finally:
         ops.quant_matmul = op
+
+
+# the Model method each kernel call runs under (record_routes)
+_STEP_KIND: list = []
+_STEP_METHODS = {"decode_step": "decode", "prefill": "prefill",
+                 "train_step": "train", "grads": "train"}
+
+
+@contextlib.contextmanager
+def record_routes():
+    """Count the ``lora_matmul`` and ``flash_attention`` kernel launches
+    made inside the block by (op, step, rows M for ``lora_matmul`` or
+    head dim D for ``flash_attention``, route, dtype): step is the Model
+    method the call ran under (``"decode"``, ``"prefill"``, ``"train"``
+    for ``train_step`` / ``grads``, ``"other"`` outside them), the route
+    is read from the wrapper's own counts (``"gemv"``, ``"tc"``,
+    ``"cuda"``; ``"tc_cluster"`` for D > 512). The ops' entries
+    (``ops._lora_kernel``, ``ops._FlashAttention``) are wrapped, and the
+    Model's step methods mark the step; the kernel wrappers and their
+    counts are left as they are."""
+    from repro_torch.models import model as model_lib
+    calls: collections.Counter = collections.Counter()
+    lora_op, flash_op = ops._lora_kernel, ops._FlashAttention
+    flash_fn = fa_kernel.flash_attention
+    methods = {n: getattr(model_lib.Model, n) for n in _STEP_METHODS}
+    step = lambda: _STEP_KIND[-1] if _STEP_KIND else "other"
+
+    def marked(name, fn):
+        @functools.wraps(fn)
+        def run(self, *args, **kw):
+            _STEP_KIND.append(_STEP_METHODS[name])
+            try:
+                return fn(self, *args, **kw)
+            finally:
+                _STEP_KIND.pop()
+        return run
+
+    def lora(x, qt, a, b, scale):
+        w = lm_kernel.lora_matmul
+        before = (w.gemv_launches, w.tc_launches)
+        y = lora_op(x, qt, a, b, scale)
+        route = "gemv" if w.gemv_launches > before[0] else \
+            "tc" if w.tc_launches > before[1] else "cuda"
+        calls[("lora_matmul", step(), x.numel() // x.shape[-1], route,
+               str(x.dtype).split(".")[-1])] += 1
+        return y
+
+    class flash:
+        @staticmethod
+        def apply(q, k, v, causal, window):
+            before = (flash_fn.launches, flash_fn.cluster_launches,
+                      flash_fn.tc_launches)
+            o = flash_op.apply(q, k, v, causal, window)
+            if flash_fn.launches > before[0]:
+                route = "tc_cluster" if flash_fn.cluster_launches > \
+                    before[1] else "tc" if flash_fn.tc_launches > \
+                    before[2] else "cuda"
+                calls[("flash_attention", step(), q.shape[-1], route,
+                       str(q.dtype).split(".")[-1])] += 1
+            return o
+
+    ops._lora_kernel, ops._FlashAttention = lora, flash
+    for n, fn in methods.items():
+        setattr(model_lib.Model, n, marked(n, fn))
+    try:
+        yield calls
+    finally:
+        ops._lora_kernel, ops._FlashAttention = lora_op, flash_op
+        for n, fn in methods.items():
+            setattr(model_lib.Model, n, fn)
+
+
+def check_lora_routes(phases: dict, decode_phases=(12, 13, 14, 16)) -> dict:
+    """Print each phase's ``lora_matmul`` and ``flash_attention`` launches
+    by (op, step, rows or D, route, dtype) and fail unless every
+    ``lora_matmul`` call of a decode step took the decode route
+    (``"gemv"``), every one of a train step the training rows' route
+    (``"tc"`` for bf16, ``"cuda"`` for fp32), and each of
+    ``decode_phases`` launched the decode route. Returns the launches of
+    the two routes this slice added, summed over the phases."""
+    total = collections.Counter()
+    for phase, calls in phases.items():
+        print(f"  phase {phase} lora_matmul / flash_attention launches by "
+              "(op, step, rows M or head dim D, route, dtype): " + " ".join(
+                  f"{'/'.join(map(str, k))}={n}"
+                  for k, n in sorted(calls.items())), flush=True)
+        for (op, step, rows, route, dtype), n in calls.items():
+            if op == "flash_attention":
+                total["flash_attention_cluster"] += n * (
+                    route == "tc_cluster")
+                continue
+            total["lora_matmul_gemv"] += n * (route == "gemv")
+            want = {"decode": "gemv",
+                    "train": "tc" if dtype == "bfloat16" else "cuda"
+                    }.get(step)
+            if want is not None and route != want:
+                raise AssertionError(f"phase {phase}: {n} lora_matmul calls "
+                                     f"of a {step} step at M={rows} "
+                                     f"({dtype}) took {route}, not {want}")
+        if phase in decode_phases and not any(
+                k[0] == "lora_matmul" and k[1] == "decode" and n
+                for k, n in calls.items()):
+            raise AssertionError(f"phase {phase}: no decode step's "
+                                 "lora_matmul call")
+    return total
 
 
 def serve_phase(device, cfg, *, n_users=16, n_requests=96, max_entries=12,
@@ -3273,11 +3503,13 @@ def decode_step_bound(frozen, tr, cache) -> tuple:
 
 def check_token_routes(cfg, G, launches, tc, traces) -> None:
     """The token mode's routes over a prefill and G - 1 decode steps: no
-    plain route; a dense model's 7 projections a layer a step through
-    ``lora_matmul``'s tensor-core kernel and the prefill's attention
-    through ``flash_attention``'s; an SSM's prefill scans through
-    ``selective_scan``; ``decode_attention`` (plain in both packages)
-    once a layer a decode step plus the adapter's once a step."""
+    plain route; a dense model's 7 projections a layer through
+    ``lora_matmul``, the prefill's (B x P rows) on its tensor-core kernel
+    and each decode step's (B rows) on its decode route, the prefill's
+    attention through ``flash_attention``'s tensor-core kernel; an SSM's
+    prefill scans through ``selective_scan``; ``decode_attention``
+    (plain in both packages) once a layer a decode step plus the
+    adapter's once a step."""
     L = cfg.n_layers
     bad = [k for k in traces if k.endswith("_ref")]
     if bad:
@@ -3285,9 +3517,11 @@ def check_token_routes(cfg, G, launches, tc, traces) -> None:
     want = {"decode_attention_plain": 1 + (G - 1) * (
         (L if cfg.family == "dense" else 0) + 1)}
     if cfg.family == "dense":
-        n = DENSE_LORA_LINEARS * L * G
-        want.update(lora_matmul_cuda_tc=n, flash_attention_cuda_tc=L)
-        ok = launches["lora_matmul"] == tc["lora_matmul"] == n and \
+        n = DENSE_LORA_LINEARS * L
+        want.update(lora_matmul_cuda_tc=n, lora_matmul_cuda_gemv=n * (G - 1),
+                    flash_attention_cuda_tc=L)
+        ok = launches["lora_matmul"] == n * G and tc["lora_matmul"] == n \
+            and launches["lora_matmul_gemv"] == n * (G - 1) and \
             launches["flash_attention"] == L
     else:
         want.update(selective_scan_cuda=L)
@@ -3301,9 +3535,10 @@ def token_serve_phase(arch: str, device="cuda") -> dict:
     """Phase 12 (a) / (b): ``repro_torch.launch.serve.main`` in its token
     mode on ``arch`` at full width and depth with an NF4 backbone
     (``serve_argv``), the launch counts zeroed just before and read right
-    after. Yi-9B: every projection through ``lora_matmul``'s tensor-core
-    kernel (7 x 48 a step: the prefill's and each decode step's), the
-    prefill's 48 attentions through ``flash_attention``'s; Falcon-Mamba:
+    after. Yi-9B: every projection through ``lora_matmul`` (7 x 48 a
+    step: the prefill's on its tensor-core kernel, each decode step's on
+    its decode route), the prefill's 48 attentions through
+    ``flash_attention``'s tensor-core kernel; Falcon-Mamba:
     the prefill's 64 scans through ``selective_scan``. No plain route.
     Then, from a fresh prefill: one decode step profiled (device busy,
     idle share, top entries, device ms by region, ``decode_attention``'s
@@ -3318,7 +3553,7 @@ def token_serve_phase(arch: str, device="cuda") -> dict:
     ops.reset_kernel_traces()
     ops.reset_launch_counts()
     out = serve_cli.main(serve_argv(arch), device=device)
-    launches = ops.launch_counts()
+    launches = path_launches()
     tc = ops.tc_launch_counts()
     traces = dict(ops.KERNEL_TRACES)
     toks = out["tokens"]
@@ -3570,50 +3805,92 @@ FLASH_ZOO = [
 ]
 
 
+# phase 2 (f): the D > 512 route's cases beyond the LLaVA adapter's,
+# (name, B, S, Skv, H, Hkv, D, causal, window, timed)
+FLASH_WIDE = [
+    ("d544_causal", 4, 640, 640, 8, 8, 544, True, None, True),
+    ("d1024_causal", 4, 640, 640, 8, 8, 1024, True, None, True),
+    ("d896_bidir", 4, 640, 640, 8, 8, 896, False, None, True),
+    ("d896_gqa4", 2, 256, 256, 8, 2, 896, True, None, False),
+    ("d896_window64", 2, 300, 300, 4, 4, 896, True, 64, False),
+    ("d600_ragged_s77", 2, 77, 77, 4, 4, 600, True, None, False),
+    ("d530_cross_skv70", 1, 50, 70, 2, 1, 530, False, None, False),
+]
+
+
 def check_flash_zoo(gen) -> list:
     """Phase 2 (f): ``flash_attention`` at the zoo's shapes against its
     plain version: the LLaVA-NeXT-34B adapter at D = 896 in both dtypes
-    (the single-stage tensor-core path and the BK = 16 CUDA-core path),
-    Whisper's cross-attention to 1500 frames and its encoder (neither
-    causal), RecurrentGemma's MQA (10 query heads a KV head) under its
-    2048 window. Each row: the errors, device / call / plain ms, every
-    SDPA backend (the fastest is ``library_ms``; the window of 2048
-    covers the whole 64-token sequence, so causal SDPA is the same
-    function) and the bound."""
+    (bf16 on the D > 512 cluster route, fp32 on the BK = 16 CUDA-core
+    path), Whisper's cross-attention to 1500 frames and its encoder
+    (neither causal), RecurrentGemma's MQA (10 query heads a KV head)
+    under its 2048 window; then the cluster route's other cases
+    (``FLASH_WIDE``: D = 544 and 1024, not causal, GQA, a window, a
+    ragged S with D % 16 != 0, D % 8 != 0 against a longer Skv). Each
+    row: the errors (the cluster route at the bf16 bound 1.6e-2, two
+    calls bitwise equal), device / call / plain ms, every SDPA backend
+    (the fastest is ``library_ms``; the window of 2048 covers the whole
+    64-token sequence, so causal SDPA is the same function) and the
+    bound; a cluster row also the time of the single-stage D > 512
+    instantiation it replaces (``single_ms``, forced, on the same
+    inputs)."""
     rows = []
-    for name, B, S, Skv, H, Hkv, D, causal, window, dt in FLASH_ZOO:
+    cases = [(*c, True) for c in FLASH_ZOO] + [
+        (n, B, S, Skv, H, Hkv, D, causal, window, torch.bfloat16, timed_)
+        for n, B, S, Skv, H, Hkv, D, causal, window, timed_ in FLASH_WIDE]
+    for name, B, S, Skv, H, Hkv, D, causal, window, dt, timed_ in cases:
         q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
         k = torch.randn((B, Skv, Hkv, D), generator=gen, device="cuda").to(dt)
         v = torch.randn((B, Skv, Hkv, D), generator=gen, device="cuda").to(dt)
         run = lambda: fa_kernel.flash_attention(q, k, v, causal=causal,
                                                 window=window)
+        before = fa_kernel.flash_attention.cluster_launches
         got, route = routed(fa_kernel.flash_attention, run)
+        cluster = fa_kernel.route(D, dt) == "tc_cluster"
+        if fa_kernel.flash_attention.cluster_launches - before != cluster:
+            raise AssertionError(f"flash_attention {name}: the cluster "
+                                 "route's launch not counted")
         plain = lambda: ref.flash_attention(q, k, v, causal=causal,
                                             window=window)
         want = plain()
         torch.cuda.synchronize()
         abs_e, rel_e = rel_err(got, want)
-        tol = _tol(dt) if dt == torch.bfloat16 else 1e-5
+        tol = 1.6e-2 if cluster else _tol(dt) if dt == torch.bfloat16 \
+            else 1e-5
         if not (rel_e <= tol and torch.isfinite(got).all()):
             raise AssertionError(f"flash_attention {name}: rel err {rel_e}")
+        if cluster and not torch.equal(got, run()):
+            raise AssertionError(f"flash_attention {name}: two calls differ")
         want_route = "tensor cores" if dt == torch.bfloat16 else "cuda cores"
         if route != want_route:
             raise AssertionError(f"flash_attention {name}: took {route}")
         pairs = _valid_pairs(S, Skv, causal, window)
         b_ms, b_by = bound(nbytes(q, k, v, got), 4.0 * B * H * D * pairs, dt)
-        row = {"case": name, "route": route, "max_abs_err": abs_e,
-               "rel_err": rel_e, "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": None}
-        timed(row, "ms", run)
-        timed(row, "plain_ms", plain)
-        G = H // Hkv
-        qt_, kt_, vt_ = (t.transpose(1, 2).contiguous() for t in (
-            q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)))
-        if window is None or window >= S:
-            time_sdpa_backends(row, qt_, kt_, vt_, causal)
+        row = {"case": name, "route": route + (" (cluster)" if cluster
+                                                else ""),
+               "max_abs_err": abs_e, "rel_err": rel_e, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": None}
+        if cluster:
+            single = fa_kernel._flash_attention(q, k, v, causal=causal,
+                                                window=window,
+                                                force="tc_single")
+            row["single_rel_err"] = rel_err(single, want)[1]
+        if timed_:
+            timed(row, "ms", run)
+            if cluster:
+                timed(row, "single_ms", lambda: fa_kernel._flash_attention(
+                    q, k, v, causal=causal, window=window,
+                    force="tc_single"))
+            timed(row, "plain_ms", plain)
+            G = H // Hkv
+            qt_, kt_, vt_ = (t.transpose(1, 2).contiguous() for t in (
+                q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)))
+            if window is None or window >= S:
+                time_sdpa_backends(row, qt_, kt_, vt_, causal)
+            del qt_, kt_, vt_
         report({"flash_attention": 1, **row})
         rows.append(row)
-        del q, k, v, got, want, qt_, kt_, vt_
+        del q, k, v, got, want
     torch.cuda.empty_cache()
     return rows
 
@@ -3758,7 +4035,8 @@ def zoo_token_phase(arch: str, device="cuda", n_layers=None) -> dict:
     ``arch`` at full width (depth cut to ``n_layers`` when given), NF4
     (``serve_argv``), the launch counts zeroed just before and read right
     after; no plain route, every kernel of the family's path launched,
-    the bf16 ones on tensor cores. Then from a fresh prefill one decode
+    the bf16 ones on tensor cores but the decode steps' ``lora_matmul``
+    calls, on its decode route. Then from a fresh prefill one decode
     step profiled (device busy, idle share, the top entries, device ms by
     region) beside its bound. Returns the record and what the trainer
     needs (the model and its weights)."""
@@ -3786,8 +4064,13 @@ def zoo_token_phase(arch: str, device="cuda", n_layers=None) -> dict:
         miss = [k for k in serve_kernels + (
             ("quant_matmul_tc",) if "quant_matmul" in serve_kernels else ())
             if launches[k] < 1]
+        # the prefill's projections on the tensor cores, the decode
+        # steps' on the decode route
         not_tc = [k for k in ("lora_matmul", "flash_attention")
-                  if tc[k] != launches[k]]
+                  if tc[k] + (launches["lora_matmul_gemv"]
+                              if k == "lora_matmul" else 0) != launches[k]]
+        if launches["lora_matmul_gemv"] < 1:
+            not_tc.append("lora_matmul_gemv (no decode-route launch)")
         if bad or miss or not_tc:
             raise AssertionError(f"{arch} token mode: plain routes {bad}, "
                                  f"no launch of {miss}, off the tensor "
@@ -4632,7 +4915,7 @@ def check_phase14_kernels(gen) -> list:
         b_ms, b_by = bound(nbytes(x, qt.q, qt.scales, a, bb, got),
                            2.0 * M * K * N, bf)
         row = {"kernel": "lora_matmul", "case": f"kimi_wq_M{M}",
-               "route": "tensor cores", "max_abs_err": abs_e,
+               "route": lm_kernel.route(M, N, qt, bf), "max_abs_err": abs_e,
                "rel_err": rel_e, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": None}
         timed(row, "ms", run)
@@ -4936,13 +5219,16 @@ def dryrun_cli_stop(started) -> None:
 
 
 def autotune_phase(gen, iters: int = 50) -> list:
-    """Phase 15 (d): ``autotune.sweep`` of ``lora_matmul``'s split count
+    """Phase 15 (d): ``autotune.sweep`` of the route ``lora_matmul`` runs
     at Yi-9B's four decode shapes (4 rows, NF4 block 64, bf16 x, rank
-    16), each candidate's ms (a synchronize around ``iters`` calls)
-    beside ``plan``'s pick; a second sweep of each must be a pure hit
-    (nothing timed, nothing charged), and a call through the op at the
-    winner (``ops._lora_kernel``, which looks the winner up) within the
-    bf16 bound of the plain version (phase 2's)."""
+    16): the decode route's ``(cols, cluster)`` plans
+    (``"lora_matmul_gemv"``), each candidate's ms (a synchronize around
+    ``iters`` calls) beside ``plan_gemv``'s pick; a second sweep of each
+    must be a pure hit (nothing timed, nothing charged), and a call
+    through the op (``ops._lora_kernel``, which looks the winner up)
+    must take the decode route at the winner, within the bf16 bound of
+    the plain version (phase 2's), even with a tc split count cached for
+    the same shape."""
     from repro_torch.fl import runtime as runtime_lib
     rt = runtime_lib.ProgramRuntime()
     rows = []
@@ -4954,33 +5240,44 @@ def autotune_phase(gen, iters: int = 50) -> list:
             torch.bfloat16)
         a = torch.randn((K, 16), generator=gen, device="cuda") / K ** 0.5
         b = torch.randn((16, N), generator=gen, device="cuda") * 0.05
-        build_fn = lambda s: lambda: lm_kernel._lora_matmul(x, qt, a, b,
-                                                           2.0, s)
-        cands = autotune.lora_candidates(4, K, N, qt.block)
-        r1 = autotune.sweep("lora_matmul", build_fn, 4, K, N, bits=4,
+        G = qt.q.shape[-3]
+        build_fn = lambda cols, c: lambda: lm_kernel._lora_matmul(
+            x, qt, a, b, 2.0, None,
+            gemv_plan=lm_kernel.gemv_plan_of(G, N, cols, c))
+        cands = autotune.lora_gemv_candidates(4, K, N, qt.block)
+        r1 = autotune.sweep("lora_matmul_gemv", build_fn, 4, K, N, bits=4,
                             mode="nf4", candidates=cands, runtime=rt,
                             iters=iters)
         charged = rt.compile_time_s
-        r2 = autotune.sweep("lora_matmul", build_fn, 4, K, N, bits=4,
+        r2 = autotune.sweep("lora_matmul_gemv", build_fn, 4, K, N, bits=4,
                             mode="nf4", candidates=cands, runtime=rt,
                             iters=iters)
         if not r1.swept or r2.swept or r2.best != r1.best or \
                 rt.compile_time_s != charged:
             raise AssertionError(f"autotune {name}: second sweep not a pure "
                                  f"hit ({r1}, {r2})")
+        # a tc split count cached for this shape does not move the call
+        autotune._CACHE[autotune.key_for("lora_matmul", 4, K, N, bits=4,
+                                         mode="nf4")] = (3,)
+        before = (lm_kernel.lora_matmul.gemv_launches,
+                  lm_kernel.lora_matmul.tc_launches)
         got = ops._lora_kernel(x, qt, a, b, 2.0)
+        if (lm_kernel.lora_matmul.gemv_launches - before[0],
+                lm_kernel.lora_matmul.tc_launches - before[1]) != (1, 0):
+            raise AssertionError(f"autotune {name}: the op left the decode "
+                                 "route")
         abs_e, rel_e = rel_err(got, ref.lora_matmul(x, qt, a, b, scale=2.0))
         if not (rel_e <= _tol(torch.bfloat16) and torch.isfinite(got).all()):
             raise AssertionError(f"autotune {name}: the winner's rel err "
                                  f"{rel_e}")
-        pick = lm_kernel.plan(4, K, N, qt.block).splits
+        pl = lm_kernel.plan_gemv(4, G, N, qt.block)
+        pick = f"{pl.cols}x{pl.cluster}"
         rows.append({"case": f"decode_{name}", "K": K, "N": N,
-                     "plan_splits": pick,
-                     "plan_ms": r1.timings[str(pick)] * 1e3,
-                     "best_splits": r1.best[0],
-                     "best_ms": r1.timings[str(r1.best[0])] * 1e3,
-                     "ms_by_splits": {k: round(v * 1e3, 5)
-                                      for k, v in r1.timings.items()},
+                     "plan": pick, "plan_ms": r1.timings[pick] * 1e3,
+                     "best": "x".join(map(str, r1.best)),
+                     "best_ms": min(r1.timings.values()) * 1e3,
+                     "ms_by_plan": {k: round(v * 1e3, 5)
+                                    for k, v in r1.timings.items()},
                      "sweep_s": r1.time_s, "second_sweep_swept": r2.swept,
                      "max_abs_err": abs_e, "rel_err": rel_e})
     rows.append({"charged": rt.stats(), "key": r1.key})
@@ -5290,6 +5587,8 @@ def rank_step_child(go_file: str = "",
             raise TimeoutError("phase 16 (b): no go from the parent")
         time.sleep(0.05)
     t_go = time.perf_counter()
+    recording = contextlib.ExitStack()
+    routes = recording.enter_context(record_routes())
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1616)
     whole = model.init_params(gen, device="cuda")
@@ -5373,6 +5672,8 @@ def rank_step_child(go_file: str = "",
         dec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     out["launches"] = {k: rank_prof["launches"][k] +
                        out["decode_rank"]["launches"][k] for k in kernels}
+    recording.close()
+    out["routes"] = [[list(k), n] for k, n in routes.items()]
     out["card_s"] = time.perf_counter() - t_go
     print("PHASE16B " + json.dumps(out, default=str), flush=True)
 
@@ -5464,7 +5765,14 @@ def rank_report() -> collections.Counter:
         if res["launches"][k] < 1:
             raise AssertionError(f"phase 16 (b): the rank's steps launched "
                                  f"no {k} kernel")
+    # (b)'s lora_matmul / flash_attention routes, for check_lora_routes
+    _RANK_ROUTES[0] = collections.Counter(
+        {tuple(k): n for k, n in res["routes"]})
     return collections.Counter(res["launches"])
+
+
+# phase 16 (b)'s routes, recorded in its process (rank_report)
+_RANK_ROUTES = [collections.Counter()]
 
 
 def check_qmm_routes(phases: dict) -> None:
@@ -5525,10 +5833,13 @@ def _main() -> int:
         check_lora_kernels(gen)
     qmt_split_sweep(gen)
     qmm_tc_sweep(gen)
-    check_lora_decode(gen)          # the decode step's shapes (phase 12)
+    decode_rows = check_lora_decode(gen)   # the decode steps' shapes
+    main_rows["lora_matmul_gemv"] = decode_rows["yi_wg_wu"]
     main_rows["selective_scan"], main_rows["selective_scan_bwd"] = \
         check_selective_scan(gen)
-    check_flash_zoo(gen)            # the zoo's shapes (phase 13)
+    main_rows["flash_attention_cluster"] = next(   # the zoo's shapes
+        r for r in check_flash_zoo(gen)
+        if r["case"] == "llava_adapter_d896_bf16")
     check_quant_matmul_zoo(gen)     # the zoo's projections without LoRA
     clock(t_start, "phase 2")
 
@@ -5595,22 +5906,33 @@ def _main() -> int:
     clock(t_start, "phase 10")
     handoff_launches = handoff_report()
     clock(t_start, "phase 11")
-    tokens_launches = token_serve_report()
+    # phases 12-16: every lora_matmul and flash_attention call recorded
+    # by the step it ran under and its route (a decode step's
+    # lora_matmul takes the decode route, a train step's the tensor
+    # cores); phases 13-15 run quant_matmul at the trainers' rows: every
+    # call recorded by route and dtype (a bf16 call past 4 rows takes
+    # "tc")
+    route_phases, qmm_phases = {}, {}
+    with record_routes() as route_phases[12]:
+        tokens_launches = token_serve_report()
     clock(t_start, "phase 12")
-    # phases 13-15 run quant_matmul at the trainers' rows: every call
-    # recorded by route and dtype (a bf16 call past 4 rows takes "tc")
-    qmm_phases = {}
-    with record_quant_matmul() as qmm_phases[13]:
+    with record_quant_matmul() as qmm_phases[13], \
+            record_routes() as route_phases[13]:
         zoo_launches = zoo_report()
     clock(t_start, "phase 13")
-    with record_quant_matmul() as qmm_phases[14]:
+    with record_quant_matmul() as qmm_phases[14], \
+            record_routes() as route_phases[14]:
         rt_launches = runtime_report(_QWEN14[0])
     clock(t_start, "phase 14")
-    with record_quant_matmul() as qmm_phases[15]:
+    with record_quant_matmul() as qmm_phases[15], \
+            record_routes() as route_phases[15]:
         dry_launches = dryrun_report()
     clock(t_start, "phase 15")
     check_qmm_routes(qmm_phases)
-    rank_launches = rank_report()
+    with record_routes() as route_phases[16]:
+        rank_launches = rank_report()
+    route_phases[16].update(_RANK_ROUTES[0])
+    new_routes = check_lora_routes(route_phases)
     clock(t_start, "phase 16")
 
     print(card_line(), flush=True)
@@ -5664,7 +5986,15 @@ def _main() -> int:
     if launches["quant_matmul_tc"] < 1:
         raise AssertionError("phases 13-14 launched no tc quant_matmul")
     for name in main_rows:
-        launches[name] += dry_launches[name]
+        launches[name] = launches.get(name, 0) + dry_launches[name]
+    # the two routes this slice added, counted in phases 12-16 (no other
+    # path runs them), apart from their wrappers' rows
+    for name, wrapper in (("lora_matmul_gemv", "lora_matmul"),
+                          ("flash_attention_cluster", "flash_attention")):
+        launches[name] = new_routes[name]
+        launches[wrapper] -= new_routes[name]
+        if launches[name] < 1:
+            raise AssertionError(f"phases 12-16 launched no {name}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],

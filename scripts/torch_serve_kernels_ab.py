@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the serving plane's two kernels of the PyTorch port,
 ``quant_matmul`` and ``blockwise_quant``, in two source trees on one
-card, in turns, at the shapes the serve replay launches.
+card, in turns, at the shapes the serve replay launches (and the GEMV at a Kimi-K2
+expert's decode row).
 
     python3 scripts/torch_serve_kernels_ab.py OTHER_TREE [--order ABBA]
         [--serve] [--memory]
@@ -22,7 +23,7 @@ host's time to issue one call), and prints one JSON line.
 its own defaults (the Zipf trace at CLIP ViT-B/32 width through an int8
 store, its oracle checks), its profiled replay taken twice, and reports
 each replay's wall and device busy seconds and the device ms of the two
-kernels in it (by kernel name: ``qmv_kernel``, ``qmm_kernel``,
+kernels in it (by kernel name: ``qmv_kernel`` or ``QmvOut``, ``qmm_kernel``,
 ``bq_kernel``).
 
 ``--memory``: one more turn per label, each in a fresh process: that
@@ -49,9 +50,15 @@ QMM_CASES = [
     ("serve_t4_int8", 4, 1, 768, 768, 8, "linear", "float32"),
     ("serve_t1_int8", 1, 1, 768, 768, 8, "linear", "float32"),
     ("serve_t8_int8", 8, 1, 768, 768, 8, "linear", "float32"),
+    # the same GEMV at a Kimi-K2 expert's one decode row (NF4, bf16 x)
+    ("kimi_expert_wg_wu", 1, 1, 7168, 2048, 4, "nf4", "bfloat16"),
+    ("kimi_expert_wd", 1, 1, 2048, 7168, 4, "nf4", "bfloat16"),
 ]
 BQ_CASES = [(768, 768, 8), (768, 768, 4)]     # the store's (K, N, bits)
-KERNEL_NAMES = ("qmv_kernel", "qmm_kernel", "bq_kernel")
+# a kernel by the names it has had: the GEMV is gemv_kernel with the
+# QmvOut epilogue since the decode route of lora_matmul shares it
+KERNEL_NAMES = {"qmv_kernel": ("qmv_kernel", "QmvOut"),
+                "qmm_kernel": ("qmm_kernel",), "bq_kernel": ("bq_kernel",)}
 
 
 def host_us(torch, fn, calls: int = 200, repeats: int = 15) -> tuple:
@@ -96,8 +103,8 @@ def replays_profiler(cs, torch):
                     continue
                 us = e.time_range.elapsed_us()
                 busy += us
-                for k in KERNEL_NAMES:
-                    if k in e.name:
+                for k, names in KERNEL_NAMES.items():
+                    if any(n in e.name for n in names):
                         kern[k][0] += us / 1e3
                         kern[k][1] += 1
             out.append({"wall_s": wall, "device_busy_s": busy / 1e6,

@@ -132,13 +132,15 @@ def prefill(params, x: torch.Tensor, window: int, *, n_heads: int = 8):
     return _ffn(params, y, dt), cache
 
 
-def decode(params, x: torch.Tensor, cache, pos, *, n_heads: int = 8):
+def decode(params, x: torch.Tensor, cache, pos, *, n_heads: int = 8,
+           slots_cut: bool = True):
     """Port of ``repro.core.adapter.decode``: one token x (B, 1, d) at
     the absolute position ``pos`` (a 0-d integer tensor on x's device)
     against the ring cache. Its k/v row and ``slot_pos`` entry are
     written into slot ``pos % M`` in place with device ops; returns
     ``(out, cache)``, the same dict. Under a Runtime ``cache`` is the
-    rank's block of slots (``models.layers.ring_write``)."""
+    rank's block of slots, or the whole ring where ``slots_cut`` is False
+    (``models.layers.ring_write``)."""
     from repro_torch.models import layers as mlayers
     from repro_torch.models import runtime as rt_lib
     B, _, d = x.shape
@@ -152,10 +154,11 @@ def decode(params, x: torch.Tensor, cache, pos, *, n_heads: int = 8):
     rt = rt_lib.get_runtime()
     for name in ("k", "v"):
         mlayers.ring_write(cache[name], 1, pos, proj("w" + name).to(
-            cache[name].dtype), rt)
+            cache[name].dtype), rt, slots_cut)
     mlayers.ring_write(cache["slot_pos"], 0, pos,
-                       pos.reshape(1).to(torch.int32), rt)
+                       pos.reshape(1).to(torch.int32), rt, slots_cut)
     a = kops.decode_attention(q, cache["k"].to(dt), cache["v"].to(dt),
-                              cache["slot_pos"][None]).reshape(B, 1, d)
+                              cache["slot_pos"][None],
+                              slots_cut=slots_cut).reshape(B, 1, d)
     y = x + a @ params["wo"].to(dt)
     return _ffn(params, y, dt), cache

@@ -7,6 +7,8 @@ fitted on the card unless a tuned winner is cached:
 
 - ``lora_matmul``: the tensor-core kernel's split-K count
   (``kernels.lora_matmul.plan``), a value ``(splits,)``;
+- ``lora_matmul_gemv``: the decode route's plan, ``(cols, cluster)``
+  (``kernels.lora_matmul.plan_gemv``);
 - ``quant_matmul``: the serve GEMV's plan, ``(cols, cluster)``: the
   column tile and the thread-block cluster size along K
   (``kernels.quant_matmul.plan``), for a 2-D weight.
@@ -193,6 +195,13 @@ def lora_candidates(M: int, K: int, N: int, block: int) -> tuple:
     nu = -(-Kq // unit)
     return tuple((s,) for s in lm.SPLITS if s == 1 or (
         nu >= s and (nu // s) * unit // lm.BK >= lm.MIN_TILES_PER_SPLIT))
+
+
+def lora_gemv_candidates(M: int, K: int, N: int, block: int) -> tuple:
+    """``lora_matmul``'s decode-route plans ``(cols, cluster)`` for M
+    rows, K and N that its GEMV takes (``lora_matmul.gemv_plans``)."""
+    from repro_torch.kernels import lora_matmul as lm
+    return tuple(lm.gemv_plans(M, -(-K // block), N, block))
 
 
 def gemv_candidates(M: int, G: int, N: int) -> tuple:

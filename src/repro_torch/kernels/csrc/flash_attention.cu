@@ -41,13 +41,60 @@
 //    multiple of 16 with zeros, which is exact. D % 8 != 0 takes plain
 //    element loads into the same tiles. Shared memory is 147 KB at
 //    D = 512 (cudaFuncSetAttribute once), 20 KB at D = 128.
-//  - Above D = 512 (the adapter's 896 at LLaVA-NeXT-34B width) the two
-//    K stages no longer fit the card's 227 KB a block (243 KB at
-//    D = 896): flash_tc_kernel<1> stages one K and one V tile, loaded
-//    after the previous tile is consumed and waited for, so the load
-//    no longer overlaps the math: 207 KB at D = 1024. The D <= 512
-//    path is flash_tc_kernel<2>, unchanged.
+//  - Above D = 512 (the adapter's 896 at LLaVA-NeXT-34B width):
+//    flash_tc_cluster_kernel, below. The earlier route for that width,
+//    flash_tc_kernel<1> (one K and one V stage, each tile loaded after
+//    the last is consumed: 207 KB at D = 1024), stays for the card's A/B
+//    only (route 1 of flash_attention_tc_launch); the wrapper never picks
+//    it.
 //
+// bf16, D > 512: flash_tc_cluster_kernel, tensor cores over a cluster.
+// Bound at the LLaVA adapter's (4, 640, 8, 896), causal: bytes (q, k, v
+// and o once, 147 MB: 0.044 ms at 3.35 TB/s; the work, 4 B H D S (S + 1)
+// / 2 = 23.5 GFLOP, is 0.024 ms at 989 TFLOP/s). The D <= 512
+// design ran 7 blocks a (b, h, q-tile), one a 128-wide slice of the
+// output, and each formed the whole Q K^T over all 896 dims for its
+// slice's P V: every block read all of K, and 6 of every 7 score tiles
+// repeated a sibling's (two thirds of the route's mma). Here:
+//  - The ceil(Dp / 128) <= 8 slice blocks of one (b, h, q-tile) form a
+//    thread-block cluster (clusters of nsl along the grid). Rank r
+//    stages only its slice of Q (once), of each K tile and of each V
+//    tile: Q, K and V are read once per q-tile.
+//  - For each key tile a rank forms the partial scores Q_r K_r^T over
+//    its 128 dims (mma.sync, fp32) and the cluster sums them in two
+//    rounds through distributed shared memory (map_shared_rank), a
+//    reduce-scatter then an all-gather: value f of every thread's
+//    16-value fragment belongs to rank f % nsl, which adds the ranks'
+//    partials of it in rank order; then every rank reads each value
+//    from its owner. So every rank holds the same S, bit for bit, with
+//    no atomics, and a rank reads 2 (nsl - 1) / nsl of a score tile
+//    remotely where an all-gather of the partials reads nsl - 1 tiles
+//    (a first version all-gathered: at nsl = 7 the exchange then moved
+//    more bytes than K and V, and the route ran slower than the one it
+//    replaces). The partials and sums sit at [value][thread], so a
+//    warp's 32 reads of one value are 32 consecutive words (a
+//    fragment-major layout costs 4-way bank conflicts on every remote
+//    read). One buffer each is enough: a rank rewrites its partials
+//    (its sums) only after every rank has passed the next cluster
+//    barrier, i.e. finished reading them. The score block of a (q-tile,
+//    key-tile) is formed once, in slices.
+//  - The softmax (running max and sum in fp32, exp2 of the scaled
+//    scores), the masks, and P V on the rank's slice with P as hi + lo
+//    (two mma passes) are the D <= 512 kernel's.
+//  - K and V tiles of the slice go through a 2-stage cp.async ring (the
+//    load of tile t + 1 is issued before tile t's math): Q 17 KB, the
+//    ring 35 KB, partials and sums 16 KB, 68 KB and 168 registers a
+//    thread, three blocks an SM. Three and four stages (86 and 103 KB,
+//    two blocks an SM) ran slower at the adapter's shape: the exchange's
+//    latency wants blocks in flight more than a deeper ring.
+//  - The grid walks (b, h) major and the q-tiles from the last, so the
+//    clusters in flight share a few heads' K and V in L2 and the longest
+//    causal rows start first.
+//  - Every rank of a cluster has the same q-tile, hence the same key
+//    tiles and the same warp-uniform skips, so the cluster barriers
+//    match; a final barrier keeps each rank's sums alive until the
+//    others have read them.
+
 // fp32: flash_kernel, fp32 CUDA cores, the first design, kept so fp32
 // callers (the serve oracle at D = 192) meet 1e-5; tensor cores at fp32
 // would need TF32. Bound at the serve oracle's shape (B=1, S=1, H=4,
@@ -67,11 +114,14 @@
 //
 // The gradient is not a kernel yet: the port's autograd.Function
 // (kernels/ops.py) recomputes P in PyTorch.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "mma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -83,6 +133,15 @@ constexpr int MAXD = 1024;
 constexpr int MAXD_FAST = 512;          // the largest D of the BK = 32 path
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
+
+// The cluster barrier in two halves (PTX barrier.cluster): arrive with
+// release semantics, then wait with acquire semantics.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -479,6 +538,261 @@ cudaError_t launch_tc(const Args& p, int B, int S, cudaStream_t stream) {
 
 }  // namespace ft
 
+// ---- bf16, D > 512: the slice blocks of a q-tile as a cluster -----------
+namespace fc {
+
+using ft::BKV;
+using ft::BQT;
+using ft::DV;
+using ft::LDV;
+using ft::NWT;
+constexpr int NS = 2;                   // K/V ring stages
+constexpr int NT = NWT * 32;            // threads a block
+constexpr int MIN_BLOCKS = 3;           // blocks an SM (registers <= 170)
+constexpr int PF = BKV / 8 * 4;         // score floats a lane: 16
+constexpr int MAX_CLUSTER = 8;          // ceil(1024 / 128)
+
+struct Layout {
+  static constexpr int Q = 0;                           // bf16 [BQT][LDV]
+  static constexpr int K = Q + BQT * LDV * 2;           // bf16 [NS][BKV][LDV]
+  static constexpr int V = K + NS * BKV * LDV * 2;      // bf16 [NS][BKV][LDV]
+  static constexpr int PART = V + NS * BKV * LDV * 2;   // f32 [PF][NT]
+  static constexpr int RED = PART + PF * NT * 4;        // f32 [PF][NT]
+  static constexpr int BYTES = RED + PF * NT * 4;
+  static_assert(K % 16 == 0 && V % 16 == 0 && PART % 16 == 0, "align");
+};
+
+// grid (nsl * q-tiles * B * H), clusters of (nsl, 1, 1): cluster c is
+// q-tile (q-tiles - 1 - c % q-tiles) of (b, h) = c / q-tiles, so the
+// clusters in flight share a few (b, h)'s K and V in L2 and the longest
+// causal rows start first.
+__global__ void __launch_bounds__(NT, MIN_BLOCKS) flash_tc_cluster_kernel(
+    const ft::Args p) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw + Layout::Q);
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw + Layout::K);
+  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem_raw + Layout::V);
+  float* part = reinterpret_cast<float*>(smem_raw + Layout::PART);
+  float* red = reinterpret_cast<float*>(smem_raw + Layout::RED);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int sl = (int)cluster.block_rank();  // = blockIdx.x % nsl
+  const int nqt = (p.S + BQT - 1) / BQT;
+  const int c = (int)(blockIdx.x / p.nsl);
+  const int bh = c / nqt;
+  const int b = bh / p.H, h = bh % p.H, hk = h / (p.H / p.Hkv);
+  const int d0 = sl * DV, dvp = min(DV, p.Dp - d0);
+  const int q0 = (nqt - 1 - c % nqt) * BQT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int wq0 = q0 + warp * 16;       // this warp's first query row
+
+  const int q_last = min(q0 + BQT, p.S) - 1;
+  const int k_end = p.causal ? min(p.Skv, q_last + 1) : p.Skv;
+  const int k_begin =
+      p.window > 0 ? (max(0, q0 - p.window + 1) / BKV) * BKV : 0;
+  const int ntile = k_end > k_begin ? (k_end - k_begin + BKV - 1) / BKV : 0;
+
+  const size_t qstride = (size_t)p.H * p.D, kstride = (size_t)p.Hkv * p.D;
+  const __nv_bfloat16* kbase =
+      p.k + ((size_t)b * p.Skv * p.Hkv + hk) * p.D + d0;
+  const __nv_bfloat16* vbase =
+      p.v + ((size_t)b * p.Skv * p.Hkv + hk) * p.D + d0;
+  auto stage_kv = [&](int slot, int kt) {
+    ft::stage(ks + slot * BKV * LDV, LDV, kbase + (size_t)kt * kstride,
+              kstride, BKV, p.Skv - kt, dvp, p.D - d0, p.vec);
+    ft::stage(vs + slot * BKV * LDV, LDV, vbase + (size_t)kt * kstride,
+              kstride, BKV, p.Skv - kt, dvp, p.D - d0, p.vec);
+  };
+
+  float o[DV / 8][4];
+#pragma unroll
+  for (int j = 0; j < DV / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  if (ntile > 0) {                      // Q's slice rides with tile 0
+    ft::stage(qs, LDV, p.q + (((size_t)b * p.S + q0) * p.H + h) * p.D + d0,
+              qstride, BQT, p.S - q0, dvp, p.D - d0, p.vec);
+  }
+#pragma unroll
+  for (int u = 0; u < NS - 1; ++u) {
+    if (u < ntile) stage_kv(u, k_begin + u * BKV);
+    tc::cp_commit();                    // one group a tile, empty or not
+  }
+  for (int t = 0; t < ntile; ++t) {
+    const int kt = k_begin + t * BKV;
+    tc::cp_wait<NS - 2>();              // tile t (and Q) have landed
+    __syncthreads();                    // tile t - 1 consumed by every warp
+    if (t + NS - 1 < ntile) stage_kv((t + NS - 1) % NS, kt + (NS - 1) * BKV);
+    tc::cp_commit();
+    const bool active =
+        wq0 < p.S && !(p.causal && kt > min(wq0 + 15, p.S - 1)) &&
+        !(p.window > 0 && kt + BKV - 1 < wq0 - p.window + 1);
+    const __nv_bfloat16* kst = ks + (t % NS) * BKV * LDV;
+    const __nv_bfloat16* vst = vs + (t % NS) * BKV * LDV;
+    float sc[BKV / 8][4];
+    if (active) {                       // warp-uniform
+#pragma unroll
+      for (int n = 0; n < BKV / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+      for (int d = 0; d < dvp; d += 16) {  // this slice's Q_r K_r^T
+        uint32_t qa[4];
+        tc::frag_a(qa, qs, LDV, warp * 16, d, lane);
+#pragma unroll
+        for (int jj = 0; jj < BKV / 16; ++jj) {
+          uint32_t kb[4];
+          tc::frag_b_nk(kb, kst, LDV, jj * 16, d, lane);
+          tc::mma_bf16(sc[2 * jj], qa, kb[0], kb[1]);
+          tc::mma_bf16(sc[2 * jj + 1], qa, kb[2], kb[3]);
+        }
+      }
+      // value f of every thread's fragment at part[f][tid]: a warp's
+      // accesses of one f are 32 consecutive words (no bank conflict)
+#pragma unroll
+      for (int f = 0; f < PF; ++f) part[f * NT + tid] = sc[f / 4][f % 4];
+    }
+    cluster_arrive();                   // every rank's partials are out
+    cluster_wait();
+    if (active) {
+      // reduce: rank r owns values f = r, r + nsl, ...: the ranks'
+      // partials of f added in rank order into red[f]
+      for (int f = sl; f < PF; f += p.nsl) {
+        float v[MAX_CLUSTER];
+#pragma unroll
+        for (int r = 0; r < MAX_CLUSTER; ++r)
+          if (r < p.nsl) v[r] = *cluster.map_shared_rank(part + f * NT + tid, r);
+        float acc = 0.f;
+#pragma unroll
+        for (int r = 0; r < MAX_CLUSTER; ++r)
+          if (r < p.nsl) acc += v[r];
+        red[f * NT + tid] = acc;
+      }
+    }
+    cluster_arrive();                   // every sum is in its owner
+    cluster_wait();
+    if (active) {
+      // gather: S, bit for bit the same in every rank
+#pragma unroll
+      for (int f = 0; f < PF; ++f)
+        sc[f / 4][f % 4] = *cluster.map_shared_rank(red + f * NT + tid,
+                                                    f % p.nsl);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {  // rows g and g + 8 of the warp
+        const int qp = wq0 + g + 8 * hh;
+        float mx = NEG_INF;
+#pragma unroll
+        for (int n = 0; n < BKV / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kp = kt + n * 8 + c2 + e;
+            bool valid = kp < p.Skv;
+            if (p.causal) valid = valid && qp >= kp;
+            if (p.window > 0) valid = valid && (qp - kp) < p.window;
+            const float v = valid ? sc[n][2 * hh + e] * p.scale_log2 : NEG_INF;
+            sc[n][2 * hh + e] = v;
+            mx = fmaxf(mx, v);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+        const float m_new = fmaxf(m[hh], mx);
+        const float corr = exp2f(m[hh] - m_new);
+        float rs = 0.f;
+#pragma unroll
+        for (int n = 0; n < BKV / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float v = sc[n][2 * hh + e];
+            const float pv = v > NEG_INF ? exp2f(v - m_new) : 0.f;
+            sc[n][2 * hh + e] = pv;
+            rs += pv;
+          }
+        l[hh] = l[hh] * corr + rs;      // this lane's share of the row
+#pragma unroll
+        for (int j = 0; j < DV / 8; ++j) {
+          o[j][2 * hh] *= corr;
+          o[j][2 * hh + 1] *= corr;
+        }
+        m[hh] = m_new;
+      }
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {   // O += P V, P as hi + lo
+        uint32_t ph[4], pl[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          tc::split_bf16(sc[2 * kk + e / 2][2 * (e % 2)],
+                         sc[2 * kk + e / 2][2 * (e % 2) + 1], ph[e], pl[e]);
+#pragma unroll
+        for (int dj = 0; dj < DV / 16; ++dj) {
+          if (dj * 16 >= dvp) break;
+          uint32_t vb[4];
+          tc::frag_b_kn(vb, vst, LDV, kk * 16, dj * 16, lane);
+          tc::mma_bf16(o[2 * dj], ph, vb[0], vb[1]);
+          tc::mma_bf16(o[2 * dj], pl, vb[0], vb[1]);
+          tc::mma_bf16(o[2 * dj + 1], ph, vb[2], vb[3]);
+          tc::mma_bf16(o[2 * dj + 1], pl, vb[2], vb[3]);
+        }
+      }
+    }
+  }
+  tc::cp_wait<0>();                     // no copy outlives the block
+  if (ntile > 0) {                      // the others have read our sums
+    cluster_arrive();
+    cluster_wait();
+  }
+
+  const bool pairs = (p.D & 1) == 0;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float lt = l[hh];
+    lt += __shfl_xor_sync(FULL, lt, 1);
+    lt += __shfl_xor_sync(FULL, lt, 2);
+    const float inv = 1.f / fmaxf(lt, 1e-30f);
+    const int qp = wq0 + g + 8 * hh;
+    if (qp >= p.S) continue;
+    __nv_bfloat16* orow = p.o + (((size_t)b * p.S + qp) * p.H + h) * p.D;
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j) {
+      const int d = d0 + j * 8 + c2;
+      if (j * 8 >= dvp) break;
+      const float v0 = o[j][2 * hh] * inv, v1 = o[j][2 * hh + 1] * inv;
+      if (pairs && d + 1 < p.D) {
+        *reinterpret_cast<uint32_t*>(orow + d) = tc::pack_bf16(v0, v1);
+      } else {
+        if (d < p.D) orow[d] = __float2bfloat16(v0);
+        if (d + 1 < p.D) orow[d + 1] = __float2bfloat16(v1);
+      }
+    }
+  }
+}
+
+cudaError_t launch(const ft::Args& p, int B, int S, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_tc_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Layout::BYTES);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.nsl * ((S + BQT - 1) / BQT) * B * p.H);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = Layout::BYTES;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.nsl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, flash_tc_cluster_kernel, p);
+}
+
+}  // namespace fc
+
 }  // namespace
 
 // fp32 q/k/v/o: the CUDA-core kernel. window <= 0: no sliding window.
@@ -494,14 +808,19 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                   causal, window, (cudaStream_t)stream);
 }
 
-// bf16 q/k/v/o: the tensor-core kernel. window <= 0: no sliding window.
+// bf16 q/k/v/o: the tensor-core kernels. window <= 0: no sliding window.
+// route 0: flash_tc_kernel<2> up to D = 512, flash_tc_cluster_kernel
+// above; route 1: flash_tc_kernel<1> (the earlier single-stage D > 512
+// path, kept for the card's A/B against the cluster route, never
+// chosen).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
                                          const void* v, void* o, int B,
                                          int S, int Skv, int H, int Hkv,
                                          int D, float scale, int causal,
-                                         int window, void* stream) {
+                                         int window, int route,
+                                         void* stream) {
   if (B < 1 || S < 1 || Skv < 1 || H < 1 || Hkv < 1 || H % Hkv || D < 1 ||
-      D > MAXD || S > 65535 * ft::BQT)
+      D > MAXD || S > 65535 * ft::BQT || route < 0 || route > 1)
     return (int)cudaErrorInvalidValue;
   ft::Args p;
   p.q = (const __nv_bfloat16*)q;
@@ -514,7 +833,11 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
   p.causal = causal; p.window = window;
   p.scale_log2 = scale * 1.4426950408889634f;
   p.vec = D % 8 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
-  if (p.Dp <= MAXD_FAST)
-    return (int)ft::launch_tc<2>(p, B, S, (cudaStream_t)stream);
-  return (int)ft::launch_tc<1>(p, B, S, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (route == 1) return (int)ft::launch_tc<1>(p, B, S, st);
+  if (p.Dp <= MAXD_FAST) return (int)ft::launch_tc<2>(p, B, S, st);
+  if (p.nsl > fc::MAX_CLUSTER ||
+      (long long)p.nsl * ((S + ft::BQT - 1) / ft::BQT) * B * H > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  return (int)fc::launch(p, B, S, st);
 }

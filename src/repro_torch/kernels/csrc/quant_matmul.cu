@@ -18,7 +18,8 @@
 // the wrapper (kernels/quant_matmul.py) and counted there; none stands
 // in for another:
 //  - GEMV (M <= 4 rows per user, N % 4 == 0, 4-byte aligned payload);
-//    see qmv_kernel. K is split across the CTAs of a thread-block
+//    gemv.cuh's gemv_kernel with the QmvOut epilogue ("qmv" below). K is
+//    split across the CTAs of a thread-block
 //    cluster: each CTA takes whole quant groups [g0, g1) of one column
 //    tile of one user, so a launch of a few users still spreads over
 //    the SMs (the plan, chosen in kernels/quant_matmul.py:plan, comes in
@@ -43,7 +44,9 @@
 //    latencies (launch, loads, staging, barriers), each of about a
 //    microsecond, so the design keeps that chain short: the first code
 //    loads go out before the staging, the staging's loads all go out
-//    before its stores, and the cluster meets at one barrier.
+//    before its stores, and the cluster meets at one barrier. The kernel
+//    lives in gemv.cuh, shared with lora_gemv.cu's decode route of the
+//    fused LoRA linear, which gives it another epilogue.
 //  - tc (bf16 x, any other shape); see qmm_tc_kernel. Tensor cores:
 //    mma.sync.m16n8k16 on bf16 operands with fp32 accumulators, fed by
 //    ldmatrix (mma.cuh), lora_matmul.cu's lora_tc_kernel without its
@@ -83,8 +86,7 @@
 // decode is dequant.cuh's, shared with lora_matmul.cu, and NF4 codes map
 // through the 16-entry codebook in shared memory. A weight is code x
 // scale in fp32, the product the plain version computes.
-#include <cooperative_groups.h>
-
+#include "gemv.cuh"
 #include "tc_tile.cuh"
 
 namespace cg = cooperative_groups;
@@ -165,229 +167,29 @@ qmm_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
 
 // ---- GEMV path: MR <= 4 rows per user (the serve head's shape) --------
 //
-// Launch: grid (tiles * csize, T), clusters of (csize, 1, 1), GV_THREADS
-// threads; CTA rank r of a cluster owns groups [r G / csize, (r+1) G /
-// csize) of column tile blockIdx.x / csize. Thread (rl, tc) owns columns
-// [16 tc, 16 tc + 16) of the tile and the CTA's code rows rl, rl + lanes,
-// rl + 2 lanes, ... (lanes = GV_THREADS / (cols / 16)).
-constexpr int GV_THREADS = 128;     // 4 warps
-constexpr int GV_CPT = 16;          // columns a thread: one 16-byte load
-constexpr int GV_LMAX = 8;          // code rows a thread has in flight
-constexpr int GV_CLUSTER_MAX = 12;  // the largest cluster run on the H100
+// gemv.cuh's gemv_kernel with QmvOut as the leader's epilogue: the ranks'
+// slots added in rank order into y (user t = blockIdx.y: x (T, MR, Kq),
+// q (T, G, rows, N), s (T, G, 1, N), y (T, MR, N)).
+using gv::GV_CLUSTER_MAX;
+using gv::GV_CPT;
+using gv::GV_LMAX;
+using gv::GV_THREADS;
 
-constexpr int GV_STAGE = 4;         // staging loads a thread has in flight
-
-// shared memory (floats) of one GEMV CTA: the ranks' partials (written
-// into the leader's), the row lanes' partials, x's K slice, its scales
-__host__ __device__ constexpr int gv_smem_floats(int MR, int cols, int csize,
-                                                 int kxp, int gmax) {
-  return csize * MR * cols + GV_THREADS * MR * GV_CPT + MR * kxp + gmax * cols;
-}
-
-// The cluster barrier in two halves (PTX barrier.cluster): arrive, then
-// wait for every thread of every CTA of the cluster to have arrived.
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// 16 code bytes of one row from column n on: one 16-byte load, or 4-byte
-// loads where the row is not 16-byte aligned or ends within the chunk
-// (left columns remain; N % 4 == 0, so a word is all in or all out).
-__device__ __forceinline__ uint4 load_codes(const uint8_t* p, int left,
-                                            int vec16) {
-  if (vec16 && left >= GV_CPT) return __ldg(reinterpret_cast<const uint4*>(p));
-  const unsigned int* w = reinterpret_cast<const unsigned int*>(p);
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (left > 0) v.x = __ldg(w);
-  if (left > 4) v.y = __ldg(w + 1);
-  if (left > 8) v.z = __ldg(w + 2);
-  if (left > 12) v.w = __ldg(w + 3);
-  return v;
-}
-
-template <typename T, int FMT, int MR>
-__global__ void __launch_bounds__(GV_THREADS)
-qmv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
-           const float* __restrict__ s, T* __restrict__ y, int Kq, int N,
-           int block, int rows, int cols, int csize, int vec16) {
-  extern __shared__ float4 gv_dyn[];
-  // lanes index the codebook divergently: constant memory would
-  // serialise that, shared memory serves 16 distinct words at once
-  __shared__ float code[16];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int tile = blockIdx.x / csize;
-  const int t = blockIdx.y;
-  const int G = Kq / block;
-  const int g0 = rank * G / csize;
-  const int ng = (rank + 1) * G / csize - g0;
-  const int gmax = (G + csize - 1) / csize;
-  const int tpc = cols / GV_CPT;                 // threads across the tile
-  const int lanes = GV_THREADS / tpc;            // row lanes
-  const int tc = threadIdx.x % tpc, rl = threadIdx.x / tpc;
-  const int n0 = tile * cols;
-  const int kn = ng * block;                     // x's K slice
-  const int kxp = (gmax * block + 3) & ~3;
-  const int per = MR * cols;                     // outputs of the tile
-  float* slots = reinterpret_cast<float*>(gv_dyn); // csize * per (leader)
-  float* part = slots + csize * per;             // lanes * per
-  float* xs = part + GV_THREADS * MR * GV_CPT;   // MR * kxp
-  float* ss = xs + MR * kxp;                     // gmax * cols
-  cluster_arrive_relaxed();          // this rank has started
-
-  // the first LMAX code rows' loads go out before the staging below, so
-  // their latency overlaps that of x and the scales
-  const int R = ng * rows;                       // the CTA's code rows
-  const int step = GV_LMAX * lanes;
-  const int nt = n0 + tc * GV_CPT;
-  const int left = N - nt;
-  const uint8_t* qt = q + ((size_t)t * G + g0) * rows * N + nt;
-  uint4 w[GV_LMAX];
-#pragma unroll
-  for (int u = 0; u < GV_LMAX; ++u) {
-    const int i = rl + u * lanes;
-    w[u] = i < R && left > 0 ? load_codes(qt + (size_t)i * N, left, vec16)
-                             : make_uint4(0u, 0u, 0u, 0u);
-  }
-
-  // x's K slice and the slice's scales, the scales chunk-major within a
-  // group, [c4][tc][4], so a thread's 16 scales are 4 float4s and a
-  // quarter warp reads 128 contiguous bytes. Every load of a round goes
-  // out before its stores: one latency a round, one round at the serve
-  // shape.
-  dq::load_codebook(code);
-  const T* xt = x + (size_t)t * MR * Kq + (size_t)g0 * block;
-  const float* st = s + ((size_t)t * G + g0) * N + n0;
-  const int nx = MR * kn, nsc = ng * cols;
-  for (int i0 = threadIdx.x; i0 < max(nx, nsc); i0 += GV_STAGE * GV_THREADS) {
-    float xv[GV_STAGE], sv[GV_STAGE];
-#pragma unroll
-    for (int j = 0; j < GV_STAGE; ++j) {
-      const int i = i0 + j * GV_THREADS;
-      const int m = i / kn, gl = i / cols;
-      xv[j] = i < nx ? load_f(xt + (size_t)m * Kq + (i - m * kn)) : 0.f;
-      sv[j] = i < nsc && n0 + i - gl * cols < N
-                  ? st[(size_t)gl * N + (i - gl * cols)] : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < GV_STAGE; ++j) {
-      const int i = i0 + j * GV_THREADS;
-      const int m = i / kn, gl = i / cols, col = i - gl * cols;
-      if (i < nx) xs[m * kxp + (i - m * kn)] = xv[j];
-      if (i < nsc)
-        ss[gl * cols + (((col % GV_CPT) >> 2) * tpc + col / GV_CPT) * 4 +
-           (col & 3)] = sv[j];
-    }
-  }
-  __syncthreads();
-
-  float acc[MR][GV_CPT];
-#pragma unroll
-  for (int m = 0; m < MR; ++m)
-#pragma unroll
-    for (int c = 0; c < GV_CPT; ++c) acc[m][c] = 0.f;
-
-  if (left > 0) {
-    int cur = -1;
-    float sc[GV_CPT];
-    for (int i0 = rl; i0 < R; i0 += step) {
-      if (i0 != rl) {
-#pragma unroll
-        for (int u = 0; u < GV_LMAX; ++u) {
-          const int i = i0 + u * lanes;
-          w[u] = i < R ? load_codes(qt + (size_t)i * N, left, vec16)
-                       : make_uint4(0u, 0u, 0u, 0u);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < GV_LMAX; ++u) {
-        const int i = i0 + u * lanes;
-        if (i >= R) break;
-        const int gl = i / rows;
-        if (gl != cur) {
-          cur = gl;
-          const float4* sp = reinterpret_cast<const float4*>(ss + gl * cols) + tc;
-#pragma unroll
-          for (int c4 = 0; c4 < 4; ++c4) {
-            const float4 v = sp[c4 * tpc];
-            sc[4 * c4] = v.x; sc[4 * c4 + 1] = v.y;
-            sc[4 * c4 + 2] = v.z; sc[4 * c4 + 3] = v.w;
-          }
-        }
-        const uint32_t word[4] = {w[u].x, w[u].y, w[u].z, w[u].w};
-        if (FMT == FMT_INT8) {                   // row i is K row i
-          float xv[MR];
-#pragma unroll
-          for (int m = 0; m < MR; ++m) xv[m] = xs[m * kxp + i];
-#pragma unroll
-          for (int c = 0; c < GV_CPT; ++c) {
-            const float wt = dq::code8(word[c >> 2], c & 3) * sc[c];
-#pragma unroll
-            for (int m = 0; m < MR; ++m) acc[m][c] = fmaf(xv[m], wt, acc[m][c]);
-          }
-        } else {                                 // rows 2i and 2i + 1
-          float xh[MR], xl[MR];
-#pragma unroll
-          for (int m = 0; m < MR; ++m) {
-            const float2 v = *reinterpret_cast<const float2*>(xs + m * kxp + 2 * i);
-            xh[m] = v.x;
-            xl[m] = v.y;
-          }
-#pragma unroll
-          for (int c = 0; c < GV_CPT; ++c) {
-            float whi, wlo;
-            dq::pair4<FMT>(word[c >> 2], c & 3, sc[c], code, &whi, &wlo);
-#pragma unroll
-            for (int m = 0; m < MR; ++m) {
-              acc[m][c] = fmaf(xh[m], whi, acc[m][c]);
-              acc[m][c] = fmaf(xl[m], wlo, acc[m][c]);
-            }
-          }
-        }
-      }
-    }
-  }
-
-  // row lanes' partials, [lane][m][c4][tc][4]: the same order as red
-#pragma unroll
-  for (int m = 0; m < MR; ++m)
-#pragma unroll
-    for (int c4 = 0; c4 < 4; ++c4)
-      *reinterpret_cast<float4*>(part + rl * per + ((m * 4 + c4) * tpc + tc) * 4) =
-          make_float4(acc[m][4 * c4], acc[m][4 * c4 + 1], acc[m][4 * c4 + 2],
-                      acc[m][4 * c4 + 3]);
-  __syncthreads();
-  // the CTA's partial, its row lanes summed in order, goes straight into
-  // slot `rank` of the leader's shared memory (once every rank has
-  // started: the first cluster barrier phase, arrived at on entry)
-  cluster_wait();
-  float* dst = cluster.map_shared_rank(slots, 0) + rank * per;
-  for (int o = threadIdx.x; o < per; o += GV_THREADS) {
-    float v = 0.f;
-#pragma unroll 8
-    for (int r = 0; r < lanes; ++r) v += part[r * per + o];
-    dst[o] = v;
-  }
-  cluster_arrive();                  // release: the slots are written
-  cluster_wait();
-  if (rank == 0) {                   // the leader adds the ranks in order
+template <typename T, int MR>
+struct QmvOut {
+  static constexpr bool kReuse = false;
+  T* y;
+  __device__ __forceinline__ void operator()(const float* slots, float*,
+                                             int per, int csize, int cols,
+                                             int n0, int t, int N) const {
     for (int o = threadIdx.x; o < per; o += GV_THREADS) {
-      float v = 0.f;
-#pragma unroll 4
-      for (int r = 0; r < csize; ++r) v += slots[r * per + o];
-      const int m = o / cols, rem = o - m * cols;
-      const int c4 = rem / (4 * tpc), tcc = (rem >> 2) % tpc;
-      const int n = n0 + tcc * GV_CPT + c4 * 4 + (rem & 3);
+      const float v = gv::leader_sum(slots, per, csize, o);
+      int m, n;
+      gv::out_at(o, cols, n0, &m, &n);
       if (n < N) store_f(y + ((size_t)t * MR + m) * N + n, v);
     }
   }
-}
+};
 
 template <typename T, int FMT, int MR>
 cudaError_t launch_gemv(const void* x, const void* q, const void* s, void* y,
@@ -395,9 +197,10 @@ cudaError_t launch_gemv(const void* x, const void* q, const void* s, void* y,
                         int csize, cudaStream_t stream) {
   const int G = Kq / block;
   const int gmax = (G + csize - 1) / csize;
-  const int kxp = (gmax * block + 3) & ~3;
-  const size_t smem = sizeof(float) * gv_smem_floats(MR, cols, csize, kxp, gmax);
-  auto* kern = qmv_kernel<T, FMT, MR>;
+  const size_t smem = sizeof(float) * gv::gv_smem_floats(
+      MR, cols, csize, gv::gv_kxp(gmax, block), gmax,
+      QmvOut<T, MR>::kReuse || MR > 4);
+  auto* kern = gv::gemv_kernel<T, FMT, MR, GV_LMAX, QmvOut<T, MR>>;
   // attributes set once per instance: the cluster beyond 8 CTAs, and
   // dynamic shared memory beyond the default 48 KB
   static bool wide = false;
@@ -428,8 +231,8 @@ cudaError_t launch_gemv(const void* x, const void* q, const void* s, void* y,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kern, (const T*)x, (const uint8_t*)q,
-                            (const float*)s, (T*)y, Kq, N, block, rows, cols,
-                            csize, vec16);
+                            (const float*)s, QmvOut<T, MR>{(T*)y}, Kq, N,
+                            block, rows, cols, csize, vec16);
 }
 
 // cols > 0: the GEMV with the plan's column tile and cluster size; the
@@ -712,8 +515,9 @@ extern "C" int quant_matmul_gemv_smem(int M, int Kq, int block, int cols,
                                       int csize) {
   const int G = Kq / block;
   const int gmax = (G + csize - 1) / csize;
-  const int kxp = (gmax * block + 3) & ~3;
-  return (int)sizeof(float) * gv_smem_floats(M, cols, csize, kxp, gmax);
+  return (int)sizeof(float) *
+         gv::gv_smem_floats(M, cols, csize, gv::gv_kxp(gmax, block), gmax,
+                            M > 4);
 }
 
 // bf16 x, y: the tensor-core kernel with a row tile of bm (16, 64 or 256)

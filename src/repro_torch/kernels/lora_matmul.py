@@ -11,25 +11,36 @@ neither writes the dequantized weight. Their plain versions are
 those for tensors on the CPU and puts both kernels behind the op's
 ``autograd.Function``.
 
-Each has two instantiations, chosen here by the activation's dtype and
-counted: a bf16 ``x`` or ``g`` runs the tensor-core kernel
-(``lora_matmul_tc_launch`` with the split-K that :func:`plan` picks,
-``quant_matmul_t_tc_launch`` with the split over N that :func:`plan_t`
-picks; ``tc_launches`` counts them), fp32 the CUDA-core one, which keeps
-fp32 callers at 1e-5. Neither stands in for the other: an input the
-chosen kernel refuses raises.
+``lora_matmul`` has three routes, chosen here by :func:`route` and
+counted:
+- ``"gemv"``: at most ``MAX_ROWS`` rows (a decode step's tokens), bf16
+  or fp32 x (``csrc/lora_gemv.cu``: h = x@A in one small launch, then
+  the serve GEMV's cluster split-K over the quantized W with s·h@B added
+  by each column tile's leader; :func:`plan_gemv`;
+  ``lora_matmul.gemv_launches``);
+- ``"tc"``: any other bf16 call (``lora_matmul_tc_launch`` with the
+  split-K that :func:`plan` picks; ``lora_matmul.tc_launches``);
+- ``"cuda"``: any other fp32 call (the CUDA-core kernel, which keeps
+  fp32 callers at 1e-5).
+``quant_matmul_t`` has two, by g's dtype: bf16 the tensor-core kernel
+(``quant_matmul_t_tc_launch`` with the split over N that :func:`plan_t`
+picks; ``tc_launches``), fp32 the CUDA-core one. No route stands in for
+another: an input the chosen kernel refuses raises, and the tc route runs
+at decode rows only when a caller forces it (the card's A/B).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import torch
 
 from repro_torch.core.quant import QTensor
 from repro_torch.kernels import build
-from repro_torch.kernels.quant_matmul import check_qtensor
+from repro_torch.kernels.quant_matmul import (GemvPlan, check_qtensor,
+                                              group_ranges)
 
 MAX_RANK = 32
 _P = ctypes.c_void_p
@@ -40,6 +51,8 @@ _TC_ARGS = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
             ctypes.c_float, _I, _I, _P)
 _T_ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 _T_TC_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)
+_GEMV_ARGS = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+              _I, _I, _I, ctypes.c_float, _P)
 
 # The tensor-core kernel's tile (csrc/lora_matmul.cu, namespace lt) and
 # the cost model behind plan(), fitted to the kernel's times on an NVIDIA
@@ -143,8 +156,141 @@ def split_ranges(Kq: int, unit: int, splits: int) -> tuple:
 
 def uses_tensor_cores(x: torch.Tensor) -> bool:
     """Whether a call with ``x``'s (or ``g``'s) dtype takes the
-    tensor-core kernel."""
+    tensor-core kernel past the GEMV's rows."""
     return x.dtype == torch.bfloat16
+
+
+# The decode route (csrc/lora_gemv.cu, the GEMV of csrc/gemv.cuh): 128
+# threads a CTA, 16 columns a thread, K split over a cluster of at most
+# GEMV_CLUSTER_MAX CTAs (the portable size), at most GEMV_MAX_CTAS a
+# launch; rows up to the kernel's template bound (1, 2, 4, 8); x@A in
+# chunks of H_CHUNK rows of K (at most H_CHUNKS_MAX). plan_gemv's rule
+# comes from the GEMV's device times under every plan at the decode
+# steps' linears (Yi-9B, LLaVA-NeXT-34B, Kimi-K2's wq; 4 and 8 rows; an
+# NVIDIA H100 80GB HBM3 at 700 W; chip_smoke.check_lora_decode prints
+# them, PERF.md): the faster plans ran in one wave of CTAs, the SM
+# holding GEMV_CTAS_PER_SM of them (registers: chip_smoke.setup prints
+# them by row bound; 3 is the 4-row instance's, taken for fewer rows too)
+# or as many as its shared memory
+# (GEMV_SMEM_SM, 1 KB a block reserved) holds; where no plan of
+# 128-column tiles fits one wave, the fewest waves times groups a CTA
+# streams. MAX_ROWS is the crossover against the tc route measured on
+# the card (PERF.md).
+MAX_ROWS = 8
+GEMV_ROW_BOUNDS = (1, 2, 4, 8)
+GEMV_THREADS = 128
+GEMV_COLS_PER_THREAD = 16
+GEMV_TILE_COLS = (64, 128)
+GEMV_CLUSTER_MAX = 8
+GEMV_MAX_CTAS = 6 * SMS
+GEMV_SMEM_MAX = 232448          # the card's dynamic shared memory a block
+GEMV_SMEM_SM = 233472           # ... an SM
+GEMV_CTAS_PER_SM = {1: 3, 2: 3, 4: 3, 8: 2}   # by registers, per row bound
+H_ROWS, H_LANES, H_COLS, H_CHUNK, H_CHUNKS_MAX = 8, 8, 32, 256, 128
+H_STAGE_MAX = 49152          # x's chunk in the x@A launch's shared memory
+
+
+def gemv_row_bound(M: int) -> int:
+    """The kernel's template bound on the rows (its MR) for M rows."""
+    return next(mr for mr in GEMV_ROW_BOUNDS if M <= mr)
+
+
+def h_chunks(K: int) -> int:
+    """The chunks of K that the x@A launch sums (``h_chunks``)."""
+    return min(-(-K // H_CHUNK), H_CHUNKS_MAX)
+
+
+def gemv_smem_bytes(M: int, G: int, block: int, cols: int,
+                    cluster: int) -> int:
+    """Dynamic shared memory of one GEMV CTA (``lora_gemv_smem``): the
+    ranks' slots, x's K slice with its scales (the row lanes' partials
+    reuse their buffer) and h."""
+    mr = gemv_row_bound(M)
+    gmax = -(-G // cluster)
+    kxp = (gmax * block + 3) & ~3
+    work = max(GEMV_THREADS * mr * GEMV_COLS_PER_THREAD,
+               mr * kxp + gmax * cols)
+    return 4 * (cluster * mr * cols + work + H_ROWS * H_COLS)
+
+
+def gemv_plans(M: int, G: int, N: int, block: int) -> list:
+    """Every ``(cols, cluster)`` the GEMV takes for M rows, G quant groups
+    of ``block`` and N columns: each column tile, each cluster size up to
+    ``GEMV_CLUSTER_MAX`` and G (rank r of c owns groups [r G / c, (r + 1)
+    G / c)), a launch within ``GEMV_MAX_CTAS`` unless one CTA a tile,
+    whose shared memory fits (none where the x@A launch's chunk of x
+    would not)."""
+    K = G * block
+    if 4 * M * -(-K // h_chunks(K)) > H_STAGE_MAX:
+        return []
+    out = []
+    for cols in GEMV_TILE_COLS:
+        tiles = -(-N // cols)
+        for c in range(1, min(G, GEMV_CLUSTER_MAX) + 1):
+            if c > 1 and tiles * c > GEMV_MAX_CTAS:
+                continue
+            if gemv_smem_bytes(M, G, block, cols, c) <= GEMV_SMEM_MAX:
+                out.append((cols, c))
+    return out
+
+
+def gemv_waves(M: int, G: int, N: int, block: int, cols: int,
+               cluster: int) -> int:
+    """The waves of CTAs a GEMV launch takes: its CTAs over the SMs'
+    CTAs (``GEMV_CTAS_PER_SM`` by registers, fewer where shared memory
+    holds fewer)."""
+    smem = gemv_smem_bytes(M, G, block, cols, cluster) + 1024
+    per_sm = min(GEMV_CTAS_PER_SM[gemv_row_bound(M)], GEMV_SMEM_SM // smem)
+    return -(-(-(-N // cols) * cluster) // (SMS * per_sm))
+
+
+@functools.lru_cache(maxsize=None)
+def plan_gemv(M: int, G: int, N: int, block: int):
+    """The GEMV's column tile and cluster (a ``quant_matmul.GemvPlan`` of
+    one user) for M rows: of :func:`gemv_plans` with 128-column tiles (64
+    for N <= 64), the largest cluster whose launch takes one wave
+    (:func:`gemv_waves`), else the fewest waves times quant groups a CTA
+    streams (ties to fewer CTAs); where the launch has fewer CTAs than
+    the card has SMs, the plan with the most CTAs in one wave (the
+    64-column tiles of a narrow N). None where no plan fits."""
+    plans = gemv_plans(M, G, N, block)
+    if not plans:
+        return None
+    ctas = lambda pc: -(-N // pc[0]) * pc[1]
+    waves = lambda pc: gemv_waves(M, G, N, block, *pc)
+    cols = GEMV_TILE_COLS[0] if N <= GEMV_TILE_COLS[0] else \
+        GEMV_TILE_COLS[1]
+    mine = [pc for pc in plans if pc[0] == cols]
+    one = [pc for pc in mine if waves(pc) == 1]
+    if one:
+        pick = max(one, key=lambda pc: pc[1])
+    elif mine:
+        pick = min(mine, key=lambda pc: (waves(pc) * -(-G // pc[1]),
+                                         ctas(pc)))
+    else:
+        pick = None
+    if pick is None or ctas(pick) < SMS:
+        pick = max((pc for pc in plans if waves(pc) == 1),
+                   key=lambda pc: (ctas(pc), pc[0], pc[1]), default=pick)
+    return gemv_plan_of(G, N, *pick)
+
+
+def gemv_plan_of(G: int, N: int, cols: int, cluster: int):
+    """The ``quant_matmul.GemvPlan`` of one user for ``(cols, cluster)``."""
+    return GemvPlan(users=1, cols=cols, tiles=-(-N // cols),
+                    cluster=cluster, groups=group_ranges(G, cluster))
+
+
+def route(M: int, N: int, qt: QTensor, dtype: torch.dtype) -> str:
+    """The kernel a call with M rows of ``dtype`` against ``qt`` runs:
+    ``"gemv"`` at most ``MAX_ROWS`` rows with N % 4 == 0, a 4-byte aligned
+    payload and a plan that fits; else ``"tc"`` for bf16, ``"cuda"`` for
+    fp32."""
+    G = qt.q.shape[-3]
+    if M <= MAX_ROWS and N % 4 == 0 and qt.q.data_ptr() % 4 == 0 and \
+            plan_gemv(M, G, N, qt.block) is not None:
+        return "gemv"
+    return "tc" if dtype == torch.bfloat16 else "cuda"
 
 
 def _check_tc_block(qt: QTensor, op: str) -> None:
@@ -169,9 +315,12 @@ def lora_matmul(x: torch.Tensor, qt: QTensor, a: torch.Tensor,
     return _lora_matmul(x, qt, a, b, scale, None)
 
 
-def _lora_matmul(x, qt, a, b, scale, splits):
-    """:func:`lora_matmul` with the split count of a bf16 call forced to
-    ``splits`` (None: :func:`plan`'s), for the checks of each count."""
+def _lora_matmul(x, qt, a, b, scale, splits, *, force=None,
+                 gemv_plan=None):
+    """:func:`lora_matmul` with the tc route's split count forced to
+    ``splits`` or the GEMV's plan to ``gemv_plan`` (None: :func:`plan`'s,
+    :func:`plan_gemv`'s), for the checks and times of each; ``force="tc"``
+    runs the tensor-core kernel at the GEMV's rows too (the card's A/B)."""
     fmt, G, rows, N = check_qtensor(x, qt, "lora_matmul", ndims=(3,))
     K = x.shape[-1]
     Kq = G * qt.block
@@ -189,9 +338,33 @@ def _lora_matmul(x, qt, a, b, scale, splits):
     lead = x.shape[:-1]
     x2 = x.reshape(-1, K).contiguous()
     M = x2.shape[0]
+    how = route(M, N, qt, x.dtype)
+    if force is not None:
+        if force != "tc" or not uses_tensor_cores(x):
+            raise ValueError(f"lora_matmul: only the tc route can be forced, "
+                             f"and only for a bf16 x, not {force!r}")
+        how = force
+    if (splits is not None and how != "tc") or (
+            gemv_plan is not None and how != "gemv"):
+        raise ValueError(f"lora_matmul: M={M}, N={N} takes the {how} route")
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if uses_tensor_cores(x):
+    if how == "gemv":
+        pl = gemv_plan or plan_gemv(M, G, N, qt.block)
+        # the kernel's rows (its row bound) and the payload's pad rows of
+        # K: zero
+        mr = gemv_row_bound(M)
+        if Kq != K or mr != M:
+            x2 = torch.nn.functional.pad(x2, (0, Kq - K, 0, mr - M))
+        hpart = torch.empty(h_chunks(K) * M * r, dtype=torch.float32,
+                            device=x.device)
+        fn = build.function("lora_gemv", "lora_gemv_launch", _GEMV_ARGS)
+        rc = fn(x2.data_ptr(), qt.q.data_ptr(), qt.scales.data_ptr(),
+                a32.data_ptr(), b32.data_ptr(), y.data_ptr(),
+                hpart.data_ptr(), M, K, Kq, N, r, qt.block, rows, fmt,
+                int(x.dtype == torch.bfloat16), pl.cols, pl.cluster,
+                float(scale), stream)
+    elif how == "tc":
         _check_tc_block(qt, "lora_matmul")
         rp = 16 if r <= 16 else 32      # A's rows padded to 16-byte chunks
         if r != rp or a32.data_ptr() % 16:
@@ -213,7 +386,8 @@ def _lora_matmul(x, qt, a, b, scale, splits):
                 qt.block, rows, fmt, float(scale), stream)
     build.check(rc, "lora_matmul")
     lora_matmul.launches += 1
-    lora_matmul.tc_launches += int(uses_tensor_cores(x))
+    lora_matmul.tc_launches += int(how == "tc")
+    lora_matmul.gemv_launches += int(how == "gemv")
     return y.reshape(*lead, N)
 
 
@@ -268,5 +442,6 @@ def _quant_matmul_t(g, qt, out_dtype, splits):
 
 lora_matmul.launches = 0
 lora_matmul.tc_launches = 0
+lora_matmul.gemv_launches = 0
 quant_matmul_t.launches = 0
 quant_matmul_t.tc_launches = 0

@@ -12,9 +12,13 @@ call), and every kernel wrapper keeps its own integer ``launches``.
 tensor-core instantiation for bf16 and a CUDA-core one for fp32, chosen
 by dtype in the wrapper; their bf16 calls are traced as
 ``<op>_cuda_tc``, fp32 as ``<op>_cuda``, and the wrappers count the
-tensor-core launches in ``tc_launches``. ``quant_matmul`` counts its
-GEMV launches (the serve head's route) in ``gemv_launches`` and its
-tensor-core launches (a bf16 x past the GEMV's rows) in ``tc_launches``.
+tensor-core launches in ``tc_launches``. ``quant_matmul`` and
+``lora_matmul`` count their GEMV launches (the serve head's and the
+decode step's rows, either dtype; ``lora_matmul`` traces them as
+``lora_matmul_cuda_gemv``) in ``gemv_launches``; ``quant_matmul`` its
+tensor-core launches (a bf16 x past the GEMV's rows) in
+``tc_launches``. ``flash_attention`` counts its D > 512 bf16 route (a
+thread-block cluster over D) in ``cluster_launches``.
 
 ``lora_matmul``, ``flash_attention`` and ``selective_scan`` are
 ``torch.autograd.Function``s: the first ports the custom VJP of
@@ -26,10 +30,11 @@ reverse recurrence on the CPU (``selective_scan_bwd_ref``). The JAX
 package differentiates the plain versions of both; it has no backward
 kernel for either.
 
-Before it launches, ``lora_matmul``'s tensor-core kernel and
-``quant_matmul``'s GEMV (a 2-D weight) consult ``autotune.lookup`` for a
-tuned split count or plan, as the JAX ops consult it for their tiles;
-with an empty cache the kernels' own plans decide, as before.
+Before it launches, ``lora_matmul`` (its GEMV plan or its tensor-core
+split count, whichever route runs) and ``quant_matmul``'s GEMV (a 2-D
+weight) consult ``autotune.lookup`` for a tuned plan, as the JAX ops
+consult it for their tiles; with an empty cache the kernels' own plans
+decide, as before.
 
 Under a :class:`~repro_torch.models.runtime.Runtime`, ``flash_attention``
 and ``decode_attention`` run the JAX package's explicit splits (the
@@ -37,7 +42,7 @@ query heads over the model axis; the cache slots over it, merged by the
 log-sum-exp combine), the kernel on each rank's slice. A rank's own
 heads (``heads_held``, the column-parallel projections) go to the
 kernel as they are, and ``decode_attention`` reads the block of the
-cache the rank holds.
+cache the rank holds (a ring the model axis does not divide whole).
 """
 from __future__ import annotations
 
@@ -100,6 +105,8 @@ def reset_launch_counts() -> None:
         fn.tc_launches = 0
     qmm_kernel.quant_matmul.gemv_launches = 0
     qmm_kernel.quant_matmul.tc_launches = 0
+    lm_kernel.lora_matmul.gemv_launches = 0
+    fa_kernel.flash_attention.cluster_launches = 0
 
 
 def _on_cuda(t: torch.Tensor, op: str) -> bool:
@@ -203,23 +210,29 @@ def flash_attention(q, k, v, *, causal=True, window=None,
     return out[:, :, :H]
 
 
-def decode_attention(q, k_cache, v_cache, slot_pos):
+def decode_attention(q, k_cache, v_cache, slot_pos, *, slots_cut=True):
     """One query token (B, 1, H, D) against a ring KV cache (B, M, Hkv,
     D), port of ``repro.kernels.ops.decode_attention``
     (:func:`ref.decode_attention`). The JAX package computes it in plain
     ``jnp``, not Pallas, so the plain PyTorch version is its port on
     every device, traced as ``decode_attention_plain``; the profiler
     range ``decode_attention`` names its device time. Under a Runtime
-    the split-KV body: the cache given is the rank's block (its slots
-    cut over the model axis, or whole where they do not divide: the
-    combine of m equal partials is their own value), whose
+    the split-KV body: the cache given is the rank's block of the slots
+    (``slots_cut``: the cache's spec cut them over the model axis), whose
     ``ref.decode_attention_partial`` (max, sum, acc) the ranks merge by
-    the log-sum-exp combine with a max and two sums over the model
-    axis."""
+    the log-sum-exp combine with a max and two sums over the model axis
+    (a whole ring given as cut, as a prefill's ring before it is held:
+    the combine of m equal partials is its own value). A ring the model
+    axis does not divide is held whole (``slots_cut`` False) and read
+    whole with no combine, the JAX package's replicated path, traced
+    ``decode_attention_whole``."""
     rt = rt_lib.get_runtime()
     trace_count("decode_attention_plain")
     with torch.profiler.record_function("decode_attention"):
         if rt is None:
+            return ref.decode_attention(q, k_cache, v_cache, slot_pos)
+        if not slots_cut:
+            rt_lib.dist_trace("decode_attention_whole")
             return ref.decode_attention(q, k_cache, v_cache, slot_pos)
         rt_lib.dist_trace("decode_attention_dist")
         mi, li, acci = ref.decode_attention_partial(q, k_cache, v_cache,
@@ -276,17 +289,27 @@ def _qmm_kernel(x, qt: qlib.QTensor):
 
 
 def _lora_kernel(x, qt: qlib.QTensor, a, b, scale: float):
-    """The ``lora_matmul`` kernel, at the tuned split count when the
-    autotune cache holds one for this shape (a bf16 x: the tensor-core
-    kernel, the only one that splits)."""
-    splits = None
-    if lm_kernel.uses_tensor_cores(x):
-        splits = autotune.lookup("lora_matmul", math.prod(x.shape[:-1]),
-                                 x.shape[-1], qt.q.shape[-1], bits=qt.bits,
+    """The ``lora_matmul`` kernel on the route :func:`lm_kernel.route`
+    picks, at the autotune cache's winner for that route and shape when
+    it holds one: the GEMV's ``(cols, cluster)`` at decode rows
+    (``"lora_matmul_gemv"``), the tensor-core kernel's split count past
+    them (``"lora_matmul"``). A winner of the other route is not read,
+    so no cached entry moves a call off its route."""
+    M, K, N = math.prod(x.shape[:-1]), x.shape[-1], qt.q.shape[-1]
+    how = lm_kernel.route(M, N, qt, x.dtype)
+    if how == "gemv":
+        tuned = autotune.lookup("lora_matmul_gemv", M, K, N, bits=qt.bits,
+                                mode=qt.mode)
+        if tuned is not None:
+            return lm_kernel._lora_matmul(
+                x, qt, a, b, scale, None, gemv_plan=lm_kernel.gemv_plan_of(
+                    qt.q.shape[-3], N, *tuned))
+    elif how == "tc":
+        splits = autotune.lookup("lora_matmul", M, K, N, bits=qt.bits,
                                  mode=qt.mode)
-    if splits is None:
-        return lm_kernel.lora_matmul(x, qt, a, b, scale=scale)
-    return lm_kernel._lora_matmul(x, qt, a, b, scale, splits[0])
+        if splits is not None:
+            return lm_kernel._lora_matmul(x, qt, a, b, scale, splits[0])
+    return lm_kernel.lora_matmul(x, qt, a, b, scale=scale)
 
 
 class _QuantMatmul(torch.autograd.Function):
@@ -349,9 +372,11 @@ class _QLoraMatmul(torch.autograd.Function):
     def forward(ctx, x, a, b, qt, scale):
         ctx.qt, ctx.scale = qt, scale
         if _on_cuda(x, "lora_matmul"):
-            trace_count("lora_matmul_cuda_tc"
-                        if lm_kernel.uses_tensor_cores(x)
-                        else "lora_matmul_cuda")
+            how = lm_kernel.route(math.prod(x.shape[:-1]),
+                                  qt.q.shape[-1], qt, x.dtype)
+            trace_count({"gemv": "lora_matmul_cuda_gemv",
+                         "tc": "lora_matmul_cuda_tc"}.get(
+                             how, "lora_matmul_cuda"))
             ctx.save_for_backward(x, a, b)
             return _lora_kernel(x, qt, a, b, scale)
         trace_count("lora_matmul_ref")

@@ -9,7 +9,8 @@ takes it for tensors on the CPU.
 
 Three routes, chosen here by :func:`route` and counted:
 - ``"gemv"``: at most ``MAX_ROWS`` rows per user, N % 4 == 0 and a
-  4-byte aligned payload (``qmv_kernel``: K split across a thread-block
+  4-byte aligned payload (``gemv_kernel`` of ``csrc/gemv.cuh`` with the
+  ``QmvOut`` epilogue: K split across a thread-block
   cluster by :func:`plan`, the partials summed through distributed
   shared memory in rank order; ``quant_matmul.gemv_launches``);
 - ``"tc"``: any other bf16 call (``qmm_tc_kernel``: bf16 tensor cores,
@@ -37,7 +38,7 @@ _ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)
 _TC_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)
 _FMT = {(8, "linear"): 0, (4, "linear"): 1, (4, "nf4"): 2}
 
-# The GEMV's constants (csrc/quant_matmul.cu, GV_*): 128 threads a CTA,
+# The GEMV's constants (csrc/gemv.cuh, GV_*): 128 threads a CTA,
 # 16 columns a thread (one 16-byte load of a code row), at most 12 CTAs
 # a cluster (the largest size run on the card; more than 8 is a
 # non-portable size). The plan's rule comes from the kernel's times
@@ -61,7 +62,7 @@ class GemvPlan:
     """How the GEMV covers one call: ``tiles`` column tiles of ``cols``
     columns for each of ``users`` users, each tile a cluster of
     ``cluster`` CTAs, rank r owning quant groups ``groups[r] = (g0,
-    g1)``, as ``qmv_kernel`` computes them (``r G / c``)."""
+    g1)``, as ``gemv_kernel`` computes them (``r G / c``)."""
     users: int
     cols: int
     tiles: int

@@ -21,7 +21,10 @@ each block contiguous and owning its storage, so the whole tree can be
 freed. :func:`hold_model_dims` cuts what a step makes on the rank (a
 prefill's cache entries) over the model axis only, its batch being the
 rank's block already; :func:`logical_spec` reads a QTensor leaf's spec
-as its logical tensor's.
+as its logical tensor's. A held cache is a :class:`HeldCache`: its
+blocks, and for each ring whether its slots were cut (a ring the model
+axis does not divide is held whole, as GSPMD holds it), which a decode
+step reads to write and attend the ring.
 """
 from __future__ import annotations
 
@@ -313,36 +316,48 @@ def rank_batch(cfg: ModelConfig, batch: Any, rt):
                                              rt.dp_axes), rt.mesh)
 
 
-def _written_ring(path) -> bool:
-    keys = [str(k) for k in path]
-    return keys[-1] in ("k", "v", "k_scale", "v_scale", "slot_pos") and \
-        "ckv" not in keys
+class HeldCache(dict):
+    """A decode cache as this rank holds it (:func:`rank_cache`, or a
+    prefill under a Runtime): the tree of its blocks, and ``slots_cut``,
+    for each ring of the tree (``"kv"``, ``"ckv"``, ``"adapter"``),
+    whether :func:`cache_specs_tree` cut its slots over the model axis.
+    A ring the model axis does not divide is held whole on every rank,
+    as GSPMD holds it; its held block alone would not say so (``M / m``
+    slots of a cut ring and ``M`` of a whole one can have one shape)."""
+
+    def __init__(self, tree, slots_cut):
+        super().__init__(tree)
+        self.slots_cut = dict(slots_cut)
 
 
-def _check_rings(cache, specs, m: int) -> None:
-    """A ring a decode step writes must split its slots over the model
-    axis: a held block does not say whether its slots were cut, so the
-    step takes them as cut (a ring it only reads, the encoder's ``ckv``,
-    is read right either way)."""
-    if m == 1:
-        return
-    for (path, leaf), spec in zip(tree_lib.flatten_with_path(cache),
-                                  tree_lib.leaves(specs)):
-        if _written_ring(path):
-            d = leaf.ndim - 1 if str(path[-1]) == "slot_pos" else \
-                (1 if "adapter" in [str(k) for k in path] else 2)
-            if spec[d] is None:
-                raise NotImplementedError(
-                    f"{tree_lib.path_str(path)}: a ring of {leaf.shape[d]} "
-                    f"slots the model axis ({m}) does not divide")
+def ring_cuts(specs) -> dict:
+    """For each ring of a cache spec tree (its ``slot_pos`` leaves: the
+    adapter's, the layers' ``kv`` and the encoder's ``ckv``), whether its
+    slots are cut over ``model``."""
+    out = {}
+    for path, spec in tree_lib.flatten_with_path(specs):
+        keys = [str(k) for k in path]
+        if keys[-1] == "slot_pos":
+            ring = "adapter" if "adapter" in keys else keys[-2]
+            out[ring] = spec[len(spec) - 1] is not None
+    return out
+
+
+def held_cache(cfg: ModelConfig, tree: Any, whole_specs: Any, rt):
+    """``tree``, a cache already in this rank's blocks, as a
+    :class:`HeldCache` whose rings are cut as :func:`cache_specs_tree`
+    cuts the whole cache ``whole_specs`` (its leaves or ``meta``
+    specs)."""
+    return HeldCache(tree, ring_cuts(cache_specs_tree(
+        cfg, whole_specs, rt.mesh, ())))
 
 
 def rank_cache(cfg: ModelConfig, cache: Any, rt):
     """The rank's block of a decode cache by :func:`cache_specs_tree`
-    (the batch over the dp axes, the slots or channels over ``model``)."""
+    (the batch over the dp axes, the slots or channels over ``model``
+    where they divide), as a :class:`HeldCache`."""
     specs = cache_specs_tree(cfg, cache, rt.mesh, rt.dp_axes)
-    _check_rings(cache, specs, _mesh_size(rt.mesh, rt.tp_axis))
-    return _cut_tree(cache, specs, rt.mesh)
+    return HeldCache(_cut_tree(cache, specs, rt.mesh), ring_cuts(specs))
 
 
 def hold_model_dims(cfg: ModelConfig, cache: Any, rt):
@@ -351,7 +366,6 @@ def hold_model_dims(cfg: ModelConfig, cache: Any, rt):
     model axis only: a prefill's entries as ``rank_cache`` would hold
     them."""
     specs = cache_specs_tree(cfg, cache, rt.mesh, ())
-    _check_rings(cache, specs, _mesh_size(rt.mesh, rt.tp_axis))
     keep = lambda spec: P(*[e if rt.tp_axis in spec_axes(e) else None
                             for e in spec])
     return _cut_tree(cache, tree_lib.tree_map(keep, specs), rt.mesh)

@@ -22,10 +22,11 @@ whole and the attention's padded head split takes it from there),
 column-parallel and ``wd`` row-parallel; a QTensor whose contraction
 split fell back to N (``_lift_qtensor``: its quant groups do not divide
 the axis) gathers its split input and computes its N block. A decode
-step's cache is the rank's block (the slots over ``model``): the new
-row is written only on the rank that owns slot ``pos % M``
-(:func:`ring_write`) and the split-KV attention reads the block it
-holds.
+step's cache is the rank's block (the slots over ``model`` where the
+axis divides them): the new row is written only on the rank that owns
+slot ``pos % M`` (:func:`ring_write`) and the split-KV attention reads
+the block it holds; a ring the axis does not divide is held whole,
+written and read whole on every rank.
 """
 from __future__ import annotations
 
@@ -290,14 +291,17 @@ def kv_cache_specs(cfg: ModelConfig, batch: int, max_len: int, dtype,
     return c
 
 
-def ring_write(buf, dim: int, pos, val, rt) -> None:
+def ring_write(buf, dim: int, pos, val, rt, cut: bool = True) -> None:
     """Write ``val`` (size 1 on ``dim``) into the ring ``buf`` at slot
-    ``pos % M``, in place with device ops. Under a Runtime ``rt``
-    ``buf`` is this rank's block of ``M / m`` slots (a written ring's
-    slots are always cut: ``shardings.rank_cache``): only the rank that
-    owns the slot writes, at its local index."""
+    ``pos % M``, in place with device ops. Under a Runtime ``rt`` with
+    ``cut`` (the ring's slots split over the model axis: the held
+    cache's ``slots_cut``, ``shardings.HeldCache``) ``buf`` is this
+    rank's block of ``M / m`` slots and only the rank that owns the slot
+    writes, at its local index; a ring held whole (``cut`` False: the
+    model axis does not divide its slots) is written at ``pos % M`` on
+    every rank, as the JAX package's replicated cache is."""
     M_l = buf.shape[dim]
-    m = 1 if rt is None else rt.tp_size
+    m = 1 if rt is None or not cut else rt.tp_size
     slot = torch.remainder(pos, M_l * m)
     idx = torch.remainder(slot, M_l).reshape(1).long()
     if m > 1:
@@ -308,7 +312,8 @@ def ring_write(buf, dim: int, pos, val, rt) -> None:
 
 
 def attention_decode(p, x, pos, cache, cfg: ModelConfig, *, lora=None,
-                     use_rope=True, prefix="", update_cache=True, specs=None):
+                     use_rope=True, prefix="", update_cache=True, specs=None,
+                     slots_cut=True):
     """One-token attention against a ring cache, port of
     ``repro.models.layers.attention_decode``: x (B, 1, d); ``pos`` the
     absolute position as a 0-d integer tensor on x's device. With
@@ -322,8 +327,8 @@ def attention_decode(p, x, pos, cache, cfg: ModelConfig, *, lora=None,
     on. Returns ``(out, cache)``, the same dict, where the JAX function
     returns a new one. In the production layout (``specs`` given) the
     projections run on the rank's blocks, q, k and v gathered whole over
-    the heads, and ``cache`` is the rank's block of slots
-    (:func:`ring_write`)."""
+    the heads, and ``cache`` is the rank's block of slots, or the whole
+    ring where ``slots_cut`` is False (:func:`ring_write`)."""
     B = x.shape[0]
     lo = lora or {}
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -346,15 +351,16 @@ def attention_decode(p, x, pos, cache, cfg: ModelConfig, *, lora=None,
         quant = cfg.kv_quant_bits == 8 and "k_scale" in cache
         for name, val in (("k", k), ("v", v)):
             vq, vs = quant_kv(val, quant)
-            ring_write(cache[name], 1, pos, vq.to(cache[name].dtype), rt)
+            ring_write(cache[name], 1, pos, vq.to(cache[name].dtype), rt,
+                       slots_cut)
             if quant:
-                ring_write(cache[name + "_scale"], 1, pos, vs, rt)
+                ring_write(cache[name + "_scale"], 1, pos, vs, rt, slots_cut)
         ring_write(cache["slot_pos"], 0, pos, pos.reshape(1).to(torch.int32),
-                   rt)
+                   rt, slots_cut)
     out = kops.decode_attention(
         q, dequant_kv(cache["k"], cache.get("k_scale"), x.dtype),
         dequant_kv(cache["v"], cache.get("v_scale"), x.dtype),
-        cache["slot_pos"][None])
+        cache["slot_pos"][None], slots_cut=slots_cut)
     return proj(out.reshape(B, 1, cfg.q_dim), "wo"), cache
 
 

@@ -71,7 +71,9 @@ global mean, its sum and count reduced over the dp axes, and the
 trainables' gradients are summed over them, so every rank holds the
 JAX global program's loss, gradient and Adam update; ``prefill`` and
 ``decode_step`` give the logits of the rank's batch rows, whole over
-the vocabulary, and the cache as the rank holds it. The layer
+the vocabulary, and the cache as the rank holds it (a
+``shardings.HeldCache``: its rings' slots cut over ``model`` where the
+axis divides them, else whole; a decode step reads which from it). The layer
 stack's sharding constraints are identities; an SSM layer checkpoints
 inside its body under a Runtime, as the JAX package's does, instead of
 as a whole.
@@ -495,13 +497,16 @@ class Model:
 
     # ---------------------------------------------------------- blocks
     def _block(self, p, lo, positions, enc_out, x, mode="train", cache=None,
-               pos=None, cache_len=None, kind=ATTN, specs=None):
+               pos=None, cache_len=None, kind=ATTN, specs=None, rings=None):
         """One layer of kind ``kind`` in ``mode`` (``"train"``,
         ``"prefill"`` or ``"decode"``). Returns ``(x, entry, aux)``: the
         layer's cache entry from a prefill, the cache views ``cache``
         updated in place by a decode, None in training; aux is the MoE
-        layer's balance loss, else None."""
+        layer's balance loss, else None. ``rings``: a decode's
+        ``HeldCache.slots_cut`` (None: every ring cut, as without a
+        Runtime it does not matter)."""
         cfg = self.cfg
+        rings = rings or {}
         fam = cfg.family
         decode = mode == "decode"
         remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
@@ -513,7 +518,8 @@ class Model:
             if decode:
                 h, kv = L.attention_decode(p, xin, pos, cache["kv"], cfg,
                                            lora=lo, use_rope=cfg.use_rope,
-                                           specs=specs)
+                                           specs=specs,
+                                           slots_cut=rings.get("kv", True))
             else:
                 h, (k, v) = L.attention(p, xin, positions, cfg, lora=lo,
                                         causal=True, window=cfg.window,
@@ -572,7 +578,8 @@ class Model:
             if decode:
                 h, _ = L.attention_decode(p, xin, pos, cache["ckv"], cfg,
                                           lora=lo, prefix="c", use_rope=False,
-                                          update_cache=False, specs=specs)
+                                          update_cache=False, specs=specs,
+                                          slots_cut=rings.get("ckv", True))
             else:
                 h, (ck, cv) = L.attention(p, xin, positions, cfg, lora=lo,
                                           prefix="c", causal=False,
@@ -624,14 +631,15 @@ class Model:
                                  sh.hold_model_dims(self.cfg, one, rt))
 
     def _stack(self, frozen, trainable, x, positions, enc_out=None,
-               mode="train", cache=None, pos=None, cache_len=None):
+               mode="train", cache=None, pos=None, cache_len=None,
+               rings=None):
         """The layer loop: the first_k_dense layers unrolled, then the
         stack. Returns ``(x, aux, cache)``: aux summed over the stack's
         MoE layers; a prefill's entries stacked on a leading layer axis,
         a decode's ``cache`` (updated in place), None in training."""
         cfg = self.cfg
         aux = torch.zeros((), device=x.device)
-        kw = dict(mode=mode, pos=pos, cache_len=cache_len)
+        kw = dict(mode=mode, pos=pos, cache_len=cache_len, rings=rings)
         dp, seq_ax = _dp(cfg), _seq_axis(cfg, x.shape[1])
         dense = []
         dense_specs, layer_specs = self._specs("dense"), self._specs("layer")
@@ -1003,6 +1011,10 @@ class Model:
             trainable["adapter"], x, min(max_len or S, cfg.adapter_window),
             n_heads=cfg.adapter_heads)
         cache["adapter"] = self._hold(ring, stacked=False)
+        rt = rt_lib.get_runtime()
+        if rt is not None:
+            cache = sh.held_cache(cfg, cache, self.cache_specs(
+                x.shape[0], max_len or S), rt)
         return self._whole_vocab(*self._head(frozen, x))[:, 0], cache
 
     @torch.no_grad()
@@ -1015,8 +1027,26 @@ class Model:
         with _within(_step_view()):
             return self._decode_step(frozen, trainable, cache, tokens, pos)
 
+    @staticmethod
+    def _rings(cache):
+        """Whether each ring of a decode's cache has its slots cut over
+        the model axis (``shardings.HeldCache.slots_cut``); None without
+        a Runtime or with a model axis of one, where a whole ring and a
+        cut one are the same."""
+        rt = rt_lib.get_runtime()
+        if rt is None or rt.tp_size == 1:
+            return None
+        if not isinstance(cache, sh.HeldCache):
+            raise ValueError(
+                "decode_step under a Runtime takes the cache as the rank "
+                "holds it (shardings.rank_cache, or a prefill under the "
+                "Runtime): a held block alone does not say whether its "
+                "slots were cut")
+        return cache.slots_cut
+
     def _decode_step(self, frozen, trainable, cache, tokens, pos):
         cfg = self.cfg
+        rings = self._rings(cache)
         x = self._embed(frozen, tokens)
         pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
         if not cfg.use_rope:
@@ -1025,10 +1055,12 @@ class Model:
             x = x + self._gathered(frozen, "pos_embed", pos.clamp(
                 max=cfg.max_pos - 1).reshape(1).long())[None]
         x, _, cache = self._stack(frozen, trainable, x, None, None,
-                                  "decode", cache=cache, pos=pos)
+                                  "decode", cache=cache, pos=pos, rings=rings)
         x = L.rms_norm(x, frozen["final_norm"])
-        x, _ = adapter_lib.decode(trainable["adapter"], x, cache["adapter"],
-                                  pos, n_heads=cfg.adapter_heads)
+        x, _ = adapter_lib.decode(
+            trainable["adapter"], x, cache["adapter"], pos,
+            n_heads=cfg.adapter_heads,
+            slots_cut=(rings or {}).get("adapter", True))
         return self._whole_vocab(*self._head(frozen, x))[:, 0], cache
 
     def init_cache(self, batch: int, context_len: int, device=None):

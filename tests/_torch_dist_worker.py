@@ -521,9 +521,12 @@ def tensor_parallel(inp):
                     cfg, case["batch"], mesh, dp), mesh)}
         fz, tr = held["frozen"], held["trainable"]
         with rt_lib.runtime(rt):
-            (loss, parts), grads = model.grads(fz, tr, batch)
-            after, _, metrics = model.train_step(
-                fz, tr, optim.adam_init(tr), batch, lr=1e-3)
+            if not case.get("decode_only"):
+                (loss, parts), grads = model.grads(fz, tr, batch)
+                after, _, metrics = model.train_step(
+                    fz, tr, optim.adam_init(tr), batch, lr=1e-3)
+                res.update(loss=loss, parts=parts, grads=_detach(grads),
+                           after=_detach(after), metrics=_detach(metrics))
             pre = sh.rank_batch(cfg, case["prefill"], rt)
             logits, cache = model.prefill(fz, tr, pre,
                                           max_len=case["max_len"])
@@ -535,12 +538,25 @@ def tensor_parallel(inp):
                 res["accum"] = _detach(model._accumulated(
                     fz, tr, batch, rt.step_view()))
             steps = [logits]
-            for tok, pos in case["decode"]:
-                tok = sh.rank_batch(cfg, {"tokens": tok}, rt)["tokens"]
+            toks = [(sh.rank_batch(cfg, {"tokens": tok}, rt)["tokens"], pos)
+                    for tok, pos in case["decode"]]
+            res["slots_cut"] = dict(cache.slots_cut)
+            for tok, pos in toks:
                 steps.append(model.decode_step(fz, tr, cache, tok, pos)[0])
-        res.update(loss=loss, parts=parts, grads=_detach(grads),
-                   after=_detach(after), metrics=_detach(metrics),
-                   logits=[_detach(s) for s in steps],
+            if case.get("decode_only"):
+                # the same steps from the rank's block of the JAX cache
+                held_c = sh.rank_cache(cfg, case["cache"], rt)
+                res["rank_cache_slots_cut"] = dict(held_c.slots_cut)
+                res["kv_slots"] = (held_c["scan"]["kv"]["k"].shape[2],
+                                   held_c["adapter"]["k"].shape[1])
+                before = dict(rt_lib.DIST_TRACES)
+                res["logits_rank_cache"] = [_detach(model.decode_step(
+                    fz, tr, held_c, tok, pos)[0]) for tok, pos in toks]
+                res["decode_traces"] = {
+                    k: n - before.get(k, 0)
+                    for k, n in rt_lib.DIST_TRACES.items()
+                    if n > before.get(k, 0)}
+        res.update(logits=[_detach(s) for s in steps],
                    traces=dict(rt_lib.DIST_TRACES),
                    dp_index=rt.index(dp) if dp else 0)
         out[name] = res

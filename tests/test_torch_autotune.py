@@ -119,21 +119,24 @@ def test_empty_cache_takes_the_plans(cache, monkeypatch):
     monkeypatch.setattr(qmm_kernel, "takes_gemv", lambda M, N, q: True)
     g = torch.Generator().manual_seed(1)
     x = torch.randn((4, 256), generator=g).to(torch.bfloat16)
+    # lora_matmul's split count is its tensor-core kernel's, past the
+    # decode route's rows
+    xl = torch.randn((16, 256), generator=g).to(torch.bfloat16)
     qt = qlib.quantize(torch.randn((256, 128), generator=g), bits=4,
                        block=64, mode="nf4")
     a, b = torch.zeros((256, 4)), torch.zeros((4, 128))
-    ops._lora_kernel(x, qt, a, b, 2.0)
+    ops._lora_kernel(xl, qt, a, b, 2.0)
     ops._qmm_kernel(x, qt)
     assert seen == ["plan", "gemv plan"]
-    autotune._CACHE[autotune.key_for("lora_matmul", 4, 256, 128, bits=4,
+    autotune._CACHE[autotune.key_for("lora_matmul", 16, 256, 128, bits=4,
                                      mode="nf4")] = (2,)
     autotune._CACHE[autotune.key_for("quant_matmul", 4, 256, 128, bits=4,
                                      mode="nf4")] = (64, 2)
-    ops._lora_kernel(x, qt, a, b, 2.0)
+    ops._lora_kernel(xl, qt, a, b, 2.0)
     ops._qmm_kernel(x, qt)
     assert seen[2:] == [("tuned", 2), ("gemv", 64, 2)]
     # fp32 x takes the CUDA-core kernel, which does not split
-    ops._lora_kernel(x.float(), qt, a, b, 2.0)
+    ops._lora_kernel(xl.float(), qt, a, b, 2.0)
     assert seen[4] == "plan"
 
 
@@ -165,7 +168,7 @@ def hopper():
 @pytest.mark.cuda
 def test_tuned_split_on_the_card(cache, hopper):
     g = torch.Generator(device="cuda").manual_seed(3)
-    M, K, N, r = 4, 4096, 4096, 16
+    M, K, N, r = 16, 4096, 4096, 16        # past the decode route's rows
     x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
     qt = qlib.quantize(torch.randn((K, N), generator=g, device="cuda")
                        * 0.02, bits=4, block=64, mode="nf4")

@@ -14,7 +14,10 @@ backward kernel and ``quant_matmul`` bitwise equal across two calls. bf16 ``flas
 ones; so does ``quant_matmul`` past the GEMV's 4 rows (bf16: the tc
 route) and ``quant_matmul_t`` by g's dtype, its bf16-g route held to
 1e-4 of the largest magnitude in fp32 output (W enters as two bf16
-parts, about 16 bits)."""
+parts, about 16 bits). ``lora_matmul`` at decode rows (up to
+``MAX_ROWS``) runs its decode route in either dtype, and bf16
+``flash_attention`` above D = 512 its cluster route, each bitwise equal
+across two calls."""
 import numpy as np
 import pytest
 import torch
@@ -90,7 +93,8 @@ LORA_CASES = [  # (M, K, N, bits, mode, dtype, rank)
     (64, 512, 256, 8, "linear", BF16, 16),    # int8
     (64, 512, 256, 4, "linear", BF16, 16),    # int4
     (9, 128, 96, 4, "nf4", BF16, 20),         # r = 20 padded to 32, M < 128
-    # the decode step: 4 streams x 1 token through the Yi-9B projections
+    # the decode step: 4 streams x 1 token through the Yi-9B projections,
+    # on the decode route
     (4, 4096, 4096, 4, "nf4", BF16, 16),      # wq/wo
     (4, 4096, 512, 4, "nf4", BF16, 16),       # wk/wv
     (4, 4096, 11008, 4, "nf4", BF16, 16),     # wg/wu
@@ -338,9 +342,14 @@ def _lora_inputs(dev, M, K, N, bits, mode, dtype, r):
 def test_cuda_lora_matmul_matches_plain(cuda_device, M, K, N, bits, mode,
                                         dtype, r):
     qt, x, a, b = _lora_inputs(cuda_device, M, K, N, bits, mode, dtype, r)
-    before = lm_kernel.lora_matmul.tc_launches
+    route = lm_kernel.route(M, N, qt, dtype)
+    assert route == ("gemv" if M <= lm_kernel.MAX_ROWS else
+                     "tc" if dtype == BF16 else "cuda")
+    w = lm_kernel.lora_matmul
+    before = (w.tc_launches, w.gemv_launches)
     got = lm_kernel.lora_matmul(x, qt, a, b, scale=2.0)
-    assert lm_kernel.lora_matmul.tc_launches - before == int(dtype == BF16)
+    assert (w.tc_launches - before[0], w.gemv_launches - before[1]) == \
+        (int(route == "tc"), int(route == "gemv"))
     _close(got, ref.lora_matmul(x, qt, a, b, scale=2.0))
 
 
@@ -434,6 +443,74 @@ def _qmt_inputs(dev, M, K, N, bits, mode, block=64):
     qt = ref.blockwise_quant(w, bits=bits, block=block, mode=mode)
     g = torch.from_numpy(_np(48, M, N)).to(dev).to(BF16)
     return qt, g
+
+
+LORA_GEMV_CASES = [  # (M, K, N, bits, mode, dtype, rank): decode rows
+    (1, 4096, 4096, 4, "nf4", BF16, 16),
+    (8, 11008, 4096, 4, "nf4", BF16, 16),    # phase 16's 8 rows
+    (3, 7168, 1024, 4, "nf4", BF16, 16),     # LLaVA wk/wv, 64-column tiles
+    (5, 200, 36, 4, "nf4", F32, 4),          # odd K, N % 16 != 0
+    (2, 512, 256, 8, "linear", F32, 20),     # int8, rank 20
+    (7, 201, 48, 4, "linear", BF16, 4),      # int4, K % 8 != 0
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,bits,mode,dtype,r", LORA_GEMV_CASES)
+def test_cuda_lora_matmul_decode_route_matches_plain(cuda_device, M, K, N,
+                                                     bits, mode, dtype, r):
+    """The decode route against the plain version (fp32 at 1e-5, bf16 at
+    its bound), two calls bitwise equal, counted in ``gemv_launches``;
+    the tc route forced on the same bf16 rows (the card's A/B) within
+    the bound too."""
+    qt, x, a, b = _lora_inputs(cuda_device, M, K, N, bits, mode, dtype, r)
+    assert lm_kernel.route(M, N, qt, dtype) == "gemv"
+    before = lm_kernel.lora_matmul.gemv_launches
+    got = lm_kernel.lora_matmul(x, qt, a, b, scale=2.0)
+    again = lm_kernel.lora_matmul(x, qt, a, b, scale=2.0)
+    assert lm_kernel.lora_matmul.gemv_launches - before == 2
+    assert torch.equal(got, again)
+    want = ref.lora_matmul(x, qt, a, b, scale=2.0)
+    _close(got, want)
+    if dtype == BF16:
+        _close(lm_kernel._lora_matmul(x, qt, a, b, 2.0, None, force="tc"),
+               want)
+
+
+FLASH_CLUSTER_CASES = [  # (B, S, Skv, H, Hkv, D, causal, window)
+    (2, 200, 200, 4, 4, 896, True, None),    # the LLaVA adapter's D
+    (1, 130, 130, 2, 1, 1024, False, None),  # eight slices, MQA
+    (2, 77, 77, 4, 2, 600, True, 20),        # GQA, window, D % 16 != 0
+    (1, 50, 70, 2, 2, 530, False, None),     # Skv > S, D % 8 != 0
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Skv,H,Hkv,D,causal,window",
+                         FLASH_CLUSTER_CASES)
+def test_cuda_flash_attention_cluster_route_matches_plain(
+        cuda_device, B, S, Skv, H, Hkv, D, causal, window):
+    """bf16 above D = 512: the cluster route (``cluster_launches``)
+    within 1.6e-2 of the plain version's largest magnitude, two calls
+    bitwise equal; the single-stage instantiation only when forced."""
+    q = torch.from_numpy(_np(26, B, S, H, D)).to(cuda_device, BF16)
+    k, v = (torch.from_numpy(_np(s, B, Skv, Hkv, D)).to(cuda_device, BF16)
+            for s in (27, 28))
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    before = fa_kernel.flash_attention.cluster_launches
+    got = fa_kernel.flash_attention(q, k, v, causal=causal, window=window)
+    again = fa_kernel.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa_kernel.flash_attention.cluster_launches - before == 2
+    assert torch.equal(got, again)
+    tol = 1.6e-2 * want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    single = fa_kernel._flash_attention(q, k, v, causal=causal,
+                                        window=window, force="tc_single")
+    assert fa_kernel.flash_attention.cluster_launches - before == 2
+    assert (single.float() - want.float()).abs().max().item() <= tol
+    with pytest.raises(ValueError, match="forced"):
+        fa_kernel._flash_attention(q.float(), k.float(), v.float(),
+                                   force="tc_single")
 
 
 def _close_qmt(got, want):
@@ -1062,7 +1139,8 @@ def test_cuda_decode_loop_makes_no_host_wait(cuda_device, arch):
                          for st in in_loop]
     assert not [k for k in ops.KERNEL_TRACES if k.endswith("_ref")]
     if cfg.family == "dense":
-        assert ops.KERNEL_TRACES["lora_matmul_cuda"] == \
+        # 2 streams a step: the decode route
+        assert ops.KERNEL_TRACES["lora_matmul_cuda_gemv"] == \
             7 * cfg.n_layers * 16
     assert len(out) == 16 and int(torch.cat(out, 1).max()) < cfg.vocab_size
 

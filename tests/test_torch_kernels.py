@@ -223,7 +223,8 @@ def test_ops_refuse_unported_kernel_paths(monkeypatch):
     xg = x.clone().requires_grad_(True)
     ops.lora_matmul(xg, qt, a, b, scale=1.0).sum().backward()
     assert calls == ["lora_matmul", "quant_matmul_t"]
-    assert ops.KERNEL_TRACES == {"lora_matmul_cuda": 1,
+    # two rows: the decode route, either dtype
+    assert ops.KERNEL_TRACES == {"lora_matmul_cuda_gemv": 1,
                                  "quant_matmul_t_cuda": 1}
     np.testing.assert_allclose(
         xg.grad.numpy(), (ref.quant_matmul_t(torch.ones(2, 32), qt)
@@ -238,7 +239,7 @@ def test_ops_refuse_unported_kernel_paths(monkeypatch):
     assert calls == ["lora_matmul", "quant_matmul_t"]
     assert cotangents == [(torch.float32, torch.float32),
                           (torch.bfloat16, torch.float32)]
-    assert ops.KERNEL_TRACES == {"lora_matmul_cuda_tc": 1,
+    assert ops.KERNEL_TRACES == {"lora_matmul_cuda_gemv": 1,
                                  "quant_matmul_t_cuda_tc": 1}
     np.testing.assert_allclose(
         xb.grad.float().numpy(),

@@ -126,8 +126,9 @@ def test_split_k_emulation_matches_the_jax_reference(bits, mode, M, K, N,
 def test_card_routes_are_traced_by_dtype(monkeypatch, dtype, lora_key,
                                          flash_key):
     """On the card (``_on_cuda`` forced, the kernels stood in for by their
-    plain versions) bf16 calls trace the tensor-core keys and fp32 calls
-    the CUDA-core ones; both reach the same kernel wrapper."""
+    plain versions) bf16 calls past the decode route's rows trace the
+    tensor-core keys and fp32 calls the CUDA-core ones; both reach the
+    same kernel wrapper."""
     calls = []
     monkeypatch.setattr(ops, "_on_cuda", lambda t, op: True)
     monkeypatch.setattr(
@@ -138,7 +139,7 @@ def test_card_routes_are_traced_by_dtype(monkeypatch, dtype, lora_key,
         ops.fa_kernel, "flash_attention",
         lambda q, k, v, causal, window: calls.append("flash_attention") or
         ref.flash_attention(q, k, v, causal=causal, window=window))
-    x = torch.from_numpy(_np(21, 2, 64)).to(dtype)
+    x = torch.from_numpy(_np(21, lm.MAX_ROWS + 1, 64)).to(dtype)
     qt = ref.blockwise_quant(torch.from_numpy(_np(22, 64, 32)), bits=4,
                              block=64, mode="nf4")
     a, b = torch.from_numpy(_np(23, 64, 4)), torch.from_numpy(_np(24, 4, 32))

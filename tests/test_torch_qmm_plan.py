@@ -238,6 +238,12 @@ def test_quantizer_tile_takes_every_block_up_to_its_limit(bits):
 
 def test_emulations_use_the_kernels_constants():
     src, c = _consts("quant_matmul")
+    # the GEMV's CTA lives in csrc/gemv.cuh, shared with lora_gemv.cu
+    hdr = (CSRC / "gemv.cuh").read_text()
+    assert '#include "gemv.cuh"' in src
+    src += hdr
+    c.update({k: int(v) for k, v in
+              re.findall(r"constexpr int (\w+) = (\d+);", hdr)})
     assert c["GV_THREADS"] == qmm.THREADS
     assert c["GV_CPT"] == qmm.COLS_PER_THREAD
     assert c["GV_CLUSTER_MAX"] == qmm.CLUSTER_MAX

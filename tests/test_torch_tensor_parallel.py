@@ -17,7 +17,12 @@ fallbacks (6 heads the model axis does not divide: ``wq`` row-split;
 one KV head: ``wk``/``wv`` whole; a vocabulary of 250: the embedding
 split on d and gathered, the head row-split; d_ff 320), in fp32 and
 with an NF4 backbone, whose ``wd`` has 5 quant groups and is stored
-split on N (its input gathered, its N block computed).
+split on N (its input gathered, its N block computed), and reduced Yi-9B
+decoding from a cache of 18 slots, which the model axis (4) does not
+divide: both its rings (the layers' KV and the adapter's) are held whole
+on every rank, written at ``pos % 18`` and read whole (this case runs
+only the prefill and the decode, from the prefill's held cache and from
+``rank_cache`` of the JAX package's).
 
 Against the JAX package on the same numpy inputs (fp32, within 1e-5 of
 the largest magnitude): the loss, every gradient, the prefill's and
@@ -69,9 +74,13 @@ WORLDS = {
     "2x4": (((2, 4), ("data", "model")), {
         "fm": ("falcon-mamba-7b", dict(grad_accum=4)),
         "fallback": ("yi-9b", FALLBACK),
-        "fallback_nf4": ("yi-9b", {**FALLBACK, **NF4})}),
+        "fallback_nf4": ("yi-9b", {**FALLBACK, **NF4}),
+        "ring": ("yi-9b", {})}),
 }
+# cases that run only the prefill and the decode, at their own cache size
+DECODE_ONLY = {"ring": 18}
 CASES = [(w, c) for w, (_, cs) in WORLDS.items() for c in cs]
+TRAIN_CASES = [(w, c) for w, c in CASES if c not in DECODE_ONLY]
 # held against the JAX package's distributed program on the world's mesh
 JAX_DISTRIBUTED = ("moe",)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -159,26 +168,30 @@ def _jax_case(name, arch, replace):
     pj = {k: v[:, :P] if k == "tokens" else v for k, v in jb.items()
           if k in ("tokens", "frames")}
     toks = [jb["tokens"][:, P + i:P + i + 1] for i in range(STEPS)]
-    _, jc = c.prefill(c.frozen, c.tr, pj, max_len=MAX_LEN)
+    max_len = DECODE_ONLY.get(name, MAX_LEN)
+    _, jc = c.prefill(c.frozen, c.tr, pj, max_len=max_len)
     inp = dict(name=name, cfg=c.cfg, frozen=c.tf, trainable=c.ttr, batch=tb,
                prefill={k: torch.from_numpy(np.array(v))
                         for k, v in pj.items()},
-               max_len=MAX_LEN, cache=to_port(jc),
+               max_len=max_len, cache=to_port(jc),
+               decode_only=name in DECODE_ONLY,
                decode=[(torch.from_numpy(np.array(t)),
                         torch.tensor(P + i, dtype=torch.int32))
                        for i, t in enumerate(toks)])
 
     def want():
-        (jloss, jparts), jgrads = c.grad_fn(c.tr, c.frozen, jb)
-        jl, jc = c.prefill(c.frozen, c.tr, pj, max_len=MAX_LEN)
+        jl, jc = c.prefill(c.frozen, c.tr, pj, max_len=max_len)
         logits = [np.asarray(jl)]
         for i, tok in enumerate(toks):
             jl, jc = c.decode(c.frozen, c.tr, jc, tok,
                               jnp.asarray(P + i, jnp.int32))
             logits.append(np.asarray(jl))
-        res = dict(loss=float(jloss), ce=float(jparts["ce"]),
-                   grads=_flat(jgrads), trainable=c.ttr, logits=logits,
-                   family=c.cfg.family)
+        res = dict(logits=logits, family=c.cfg.family)
+        if name in DECODE_ONLY:
+            return res
+        (jloss, jparts), jgrads = c.grad_fn(c.tr, c.frozen, jb)
+        res.update(loss=float(jloss), ce=float(jparts["ce"]),
+                   grads=_flat(jgrads), trainable=c.ttr)
         A = c.cfg.grad_accum
         if A > 1:
             # the JAX package's accumulation: its train_step's loss and
@@ -235,7 +248,7 @@ def _leaf(t):
     return t.detach().numpy()
 
 
-@pytest.mark.parametrize("world,name", CASES)
+@pytest.mark.parametrize("world,name", TRAIN_CASES)
 def test_train_step_is_the_jax_global_step_on_every_rank(world, name):
     wants, res = _world(world)
     want = wants[name]
@@ -338,7 +351,8 @@ def test_dist_traces_name_each_route(world):
                        "embed_vocab_dist"),
                 "fallback": ("embed_gather", "flash_attention_dist",
                              "linear_row_dist", "linear_col_dist"),
-                "fallback_nf4": ("linear_nsplit_dist", "embed_gather")},
+                "fallback_nf4": ("linear_nsplit_dist", "embed_gather"),
+                "ring": ("decode_attention_whole",)},
     }[world]
     for r in res:
         for name, routes in want.items():
@@ -348,3 +362,27 @@ def test_dist_traces_name_each_route(world):
     if world == "2x4":
         # the fp32 fallback's wd is row-split, its NF4 twin's stored on N
         assert "linear_nsplit_dist" not in res[0]["fallback"]["traces"]
+
+
+def test_a_ring_the_model_axis_does_not_divide_is_held_whole():
+    """Reduced Yi-9B on (data=2, model=4) with a cache of 18 slots: the
+    prefill's held cache and ``rank_cache`` of the JAX package's cache
+    both hold the KV and adapter rings whole (``slots_cut`` False), and
+    the decode steps from the latter give the JAX package's logits of the
+    rank's rows within 1e-5; each step reads the rings with no combine
+    over ``model`` (``decode_attention_whole``, never ``_dist``)."""
+    wants, res = _world("2x4")
+    for r in res:
+        got = r["ring"]
+        assert got["slots_cut"] == {"kv": False, "adapter": False}
+        assert got["rank_cache_slots_cut"] == {"kv": False, "adapter": False}
+        assert got["kv_slots"] == (DECODE_ONLY["ring"],) * 2
+        # each decode step reads its two rings whole (2 layers + adapter)
+        assert got["decode_traces"].get("decode_attention_whole") == \
+            3 * STEPS
+        assert "decode_attention_dist" not in got["decode_traces"]
+        i = got["dp_index"]
+        for step, (g, w) in enumerate(zip(got["logits_rank_cache"],
+                                          wants["ring"]["logits"][1:])):
+            rows = w[i * g.shape[0]:(i + 1) * g.shape[0]]
+            assert _rel(_leaf(g), rows) <= 1e-5, step
