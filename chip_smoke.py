@@ -242,13 +242,24 @@ K, N % 16 != 0), and ``flash_attention``'s D > 512 cluster route at D =
 544, 896 and 1024 with the single-stage route it replaces forced beside
 it. bf16 calls of ``flash_attention``,
 ``lora_matmul`` (past its decode rows) and ``quant_matmul_t`` (a bf16
-cotangent) run their tensor-core kernels and fp32 calls their CUDA-core
-ones; each row prints the route it took, and the bf16 trainer must launch
-only the tensor-core kernels of the three. Phases 12-16 record every
-``lora_matmul`` and ``flash_attention`` call by the Model step it ran
-under and its route (``record_routes``): a decode step's ``lora_matmul``
-calls must take the decode route and a train step's the training rows'
-(``check_lora_routes``).
+cotangent) run their tensor-core kernels; fp32 calls of the last two
+their CUDA-core ones, and fp32 ``flash_attention`` its row route
+(``"cuda_rows"``, up to ``ROWS_MAX_S`` query rows) or its 3xTF32
+tensor-core route (``"cuda_tf32x3"``); each row prints the route it took,
+and the bf16 trainer must launch only the tensor-core kernels of the
+three. Phase 2 (b') holds the fp32 attention at the fp32 step check's
+shapes, both fp32 routes forced at S = 1-32 (the crossover that sets
+``ROWS_MAX_S``), and every fp32 row the first fp32 design's time on the
+same inputs beside it (``v1_ms``, forced); (f) runs ``FLASH_WIDE`` in
+fp32 too. Phases 3-16 record every ``lora_matmul``, ``flash_attention``
+and fp32 GEMM call by the Model step it ran under and its route
+(``record_routes``), printed by phase with the fp32 launches by route:
+in phases 12-16 a decode step's ``lora_matmul`` calls must take the
+decode route and a train step's the training rows' (``check_lora_routes``);
+the ``kernels`` record's ``flash_attention`` rows count each route's
+launches over phases 3-16; the fp32 GEMM kernels (``lora_kernel``,
+``qmt_kernel``, ``qmm_kernel``) are timed after phase 16 at the shapes
+the paths launched them most (``time_fp32_gemms``).
 ``quant_matmul`` is timed at the shape that every serve replay launch
 has (4 users x 1 row, 768 x 768, block 64), each row with the route it
 took (the cluster split-K GEMV or the tiled kernel), the GEMV's plan and
@@ -256,10 +267,9 @@ two calls held bitwise equal, and phase 3 counts the replay's
 ``quant_matmul`` launches by users, route and planned CTAs, and requires
 the GEMV for every one. ``flash_attention`` is also held at the
 federated round's fp32 shapes (S = Skv = 1, 4 heads, D = 16 and 192,
-batches of 32, 128 and 160 rows) with its gradient at (160, 1, 4, 192);
-phases 8, 9 and 10 require at least a launch a local step and no plain
-attention, and its ``launches`` in the ``kernels`` record sum every
-path's.
+batches of 32, 128 and 160 rows), each on the row route, with its
+gradient at (160, 1, 4, 192); phases 8, 9 and 10 require at least a
+row-route launch a local step and no plain attention.
 The last two lines are the ``kernels`` record and the device record.
 It needs one card, imports nothing of JAX, and runs nothing on the CPU
 in place of a kernel.
@@ -318,9 +328,13 @@ from repro_torch.launch import train as train_lib  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 
 # H100 SXM data-sheet rates (dense): HBM bytes/s and the peak operation
-# rate for the operands' type (fp32 outside the tensor cores, bf16)
+# rate for the operands' type (fp32 outside the tensor cores, bf16, TF32)
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_OPS_S = {torch.float32: 67e12, torch.bfloat16: 989e12, "tf32": 494.7e12}
+# the fp32 attention's tensor-core route does 3 TF32 products a product
+# (3xTF32): its operations bound is the lesser of fp32 at 67 TFLOP/s and
+# 3 x the operations at TF32's peak
+TF32X3 = "tf32x3"
 
 # CLIP ViT-B/32 (arXiv:2103.00020): 224/32 -> 50 tokens, width 768,
 # 12 layers, 12 heads, d_ff 3072, vocab 49408, context 77, embed 512
@@ -351,6 +365,10 @@ REPLACES = {
     # flash_attention's D > 512 route (flash_tc_cluster_kernel)
     "lora_matmul_gemv": "src/repro/kernels/lora_matmul.py:64",
     "flash_attention_cluster": "src/repro/kernels/flash_attention.py:72",
+    # flash_attention's fp32 routes: S <= ROWS_MAX_S (flash_rows_kernel)
+    # and past it (flash_tf32x3_kernel)
+    "flash_attention_rows": "src/repro/kernels/flash_attention.py:72",
+    "flash_attention_tf32x3": "src/repro/kernels/flash_attention.py:72",
 }
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
            for name in REPLACES}
@@ -358,6 +376,8 @@ SOURCES["quant_matmul_t"] = SOURCES["lora_matmul"]
 SOURCES["quant_matmul_tc"] = SOURCES["quant_matmul"]
 SOURCES["lora_matmul_gemv"] = "src/repro_torch/kernels/csrc/lora_gemv.cu"
 SOURCES["flash_attention_cluster"] = SOURCES["flash_attention"]
+SOURCES["flash_attention_rows"] = SOURCES["flash_attention"]
+SOURCES["flash_attention_tf32x3"] = SOURCES["flash_attention"]
 SOURCES["selective_scan_bwd"] = SOURCES["selective_scan"]
 SERVE_KERNELS = ("quant_matmul", "blockwise_quant", "flash_attention")
 # the kernels each trainer's main path launches
@@ -512,9 +532,14 @@ def timed(row: dict, key: str, fn) -> None:
 
 def bound(nbytes: float, nops: float, dtype) -> tuple:
     """(least time in ms, what bounds it): bytes over HBM rate vs
-    operations over the peak rate for the operands' type."""
+    operations over the peak rate for the operands' type (``TF32X3``: the
+    lesser of fp32's and three times the operations at TF32's)."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = nops / PEAK_OPS_S[dtype] * 1e3
+    if dtype == TF32X3:
+        t_ops = min(nops / PEAK_OPS_S[torch.float32],
+                    3 * nops / PEAK_OPS_S["tf32"]) * 1e3
+    else:
+        t_ops = nops / PEAK_OPS_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -534,6 +559,28 @@ def routed(wrapper, run) -> tuple:
     out = run()
     return out, ("tensor cores" if wrapper.tc_launches > before
                  else "cuda cores")
+
+
+def flash_routed(run) -> tuple:
+    """``run()``'s result and the ``flash_attention`` route its launch
+    took, read from the wrapper's own counts of each route
+    (``fa_kernel.route_counts``): ``"tc"``, ``"tc_cluster"``,
+    ``"cuda_rows"`` or ``"cuda_tf32x3"``."""
+    before = fa_kernel.route_counts()
+    out = run()
+    after = fa_kernel.route_counts()
+    grew = [r for r in after if after[r] > before[r]]
+    if len(grew) != 1:
+        raise AssertionError(f"flash_attention: routes counted {grew}")
+    return out, grew[0]
+
+
+def flash_bound(q, k, v, out, pairs: int, route: str) -> tuple:
+    """A ``flash_attention`` call's bound: q, k, v and the output once,
+    4 B H D per valid (query, key) pair at the route's rate."""
+    B, _, H, D = q.shape
+    rate = TF32X3 if route == "cuda_tf32x3" else q.dtype
+    return bound(nbytes(q, k, v, out), 4.0 * B * H * D * pairs, rate)
 
 
 def report(row: dict) -> None:
@@ -569,8 +616,14 @@ def ptxas_kernels(log: str) -> dict:
     out: dict = {}
     for chunk in log.split("Compiling entry function '")[1:]:
         mangled = chunk.split("'", 1)[0]
-        m = re.search(r"\d([a-z_]+_(?:kernel|sum))", mangled)
-        name = m.group(1) if m else mangled[:40]
+        # the first length-prefixed identifier that names a kernel (a
+        # length's digits may follow a name's own: try each suffix)
+        name = next((t for t in (
+            mangled[m.end():m.end() + int(m.group()[j:])]
+            for m in re.finditer(r"\d+", mangled)
+            for j in range(len(m.group())))
+            if re.fullmatch(r"[a-z][a-z0-9_]*_(?:kernel|sum)", t)),
+            mangled[:40])
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores", chunk)
         r0, s0 = out.get(name, (0, 0))
@@ -616,6 +669,10 @@ def setup() -> None:
           f"channel), backward {ss_kernel.occupancy('bwd')} (with dA "
           f"{ss_kernel.occupancy('bwd', need_a=True)}; one thread a "
           f"channel)", flush=True)
+    print(f"  flash_attention fp32 blocks per SM: cuda_rows "
+          f"{fa_kernel.f32_occupancy('cuda_rows')} (8 warps, D = 1024), "
+          f"cuda_tf32x3 {fa_kernel.f32_occupancy('cuda_tf32x3')} (4 warps, "
+          f"{fa_kernel.TF32X3_SMEM_BYTES} B of shared memory)", flush=True)
 
 
 # -- phase 2: kernels against their plain versions ---------------------
@@ -636,12 +693,14 @@ def path_launches() -> dict:
     """``ops.launch_counts()`` with the routes' own counts beside their
     wrappers' (``ops.reset_launch_counts`` zeroes them all):
     ``quant_matmul``'s tc route, ``lora_matmul``'s decode route and
-    ``flash_attention``'s D > 512 route."""
+    ``flash_attention``'s D > 512 route and its two fp32 routes."""
+    fa = ops.KERNELS["flash_attention"]
     return {**ops.launch_counts(),
             "quant_matmul_tc": qmm_kernel.quant_matmul.tc_launches,
             "lora_matmul_gemv": lm_kernel.lora_matmul.gemv_launches,
-            "flash_attention_cluster":
-                ops.KERNELS["flash_attention"].cluster_launches}
+            "flash_attention_cluster": fa.cluster_launches,
+            "flash_attention_rows": fa.rows_launches,
+            "flash_attention_tf32x3": fa.tf32_launches}
 
 
 def gemv_plan_row(T, M, G, N, block) -> dict:
@@ -843,7 +902,9 @@ def check_flash_attention(gen) -> dict:
     """The serve oracle's (1, 1, 4, 192) and a (2, 300, 8, 64) GQA
     (Hkv=2) causal window-64 case, plus bf16 runs (the tensor-core
     kernel): long S, D % 8 != 0 (element loads) and a ragged S = 50
-    with a window."""
+    with a window. Each fp32 row takes its route (``fa_kernel.route``),
+    two calls bitwise equal, with the first fp32 design's time on the
+    same inputs beside it (``v1_ms``, forced)."""
     cases = [  # (name, B, S, H, Hkv, D, causal, window, dtype)
         ("serve_1x1x4x192", 1, 1, 4, 4, 192, False, None, torch.float32),
         ("gqa_causal_w64", 2, 300, 8, 2, 64, True, 64, torch.float32),
@@ -859,24 +920,30 @@ def check_flash_attention(gen) -> dict:
         v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dtype)
         run = lambda: fa_kernel.flash_attention(q, k, v, causal=causal,
                                                 window=window)
-        got, route = routed(fa_kernel.flash_attention, run)
+        got, route = flash_routed(run)
         want = ref.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         abs_e, rel_e = rel_err(got, want)
         tol = 1e-5 if dtype == torch.float32 else 1.6e-2
         if not (rel_e <= tol and torch.isfinite(got).all()):
             raise AssertionError(f"flash_attention {name}: rel err {rel_e} > {tol}")
+        if route != fa_kernel.route(S, D, dtype):
+            raise AssertionError(f"flash_attention {name}: took {route}")
+        if dtype == torch.float32 and not torch.equal(got, run()):
+            raise AssertionError(f"flash_attention {name}: two calls differ")
         # the one PyTorch call computing the same function, timed only
         G = H // Hkv
         qt_, kt_, vt_ = (t.transpose(1, 2).contiguous() for t in (
             q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)))
-        b_ms, b_by = bound(nbytes(q, k, v, got),
-                           4.0 * B * H * D * _valid_pairs(S, S, causal, window),
-                           dtype)
+        b_ms, b_by = flash_bound(q, k, v, got,
+                                 _valid_pairs(S, S, causal, window), route)
         row = {"case": name, "route": route, "max_abs_err": abs_e,
                "rel_err": rel_e, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": None}
         timed(row, "ms", run)
+        if dtype == torch.float32:
+            timed(row, "v1_ms", lambda: fa_kernel._flash_attention(
+                q, k, v, causal=causal, window=window, force="cuda_v1"))
         timed(row, "plain_ms", lambda: ref.flash_attention(
             q, k, v, causal=causal, window=window))
         if window is None:   # SDPA has no sliding window
@@ -1186,13 +1253,13 @@ def check_flash_train(gen) -> dict:
         v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dt)
         do = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
         run = lambda: fa_kernel.flash_attention(q, k, v, causal=True)
-        got, route = routed(fa_kernel.flash_attention, run)
+        got, route = flash_routed(run)
         want = ref.flash_attention(q, k, v, causal=True)
         torch.cuda.synchronize()
         abs_e, rel_e = rel_err(got, want)
         if not (rel_e <= _tol(dt) and torch.isfinite(got).all()):
             raise AssertionError(f"flash_attention {name}: rel err {rel_e}")
-        if route != "tensor cores":
+        if route != "tc":
             raise AssertionError(f"flash_attention {name}: bf16 took {route}")
         pairs = _valid_pairs(S, S, True, None)
         b_ms, b_by = bound(nbytes(q, k, v, got), 4.0 * B * H * D * pairs, dt)
@@ -1231,6 +1298,86 @@ def check_flash_train(gen) -> dict:
         report({"flash_attention_bwd (PyTorch ops)": 1, **brow})
         if name == "adapter_d512":
             main = row
+    return main
+
+
+# phase 2 (b'): the fp32 step check's attention shapes (phase 4's fp32
+# side: Yi-9B's backbone and adapter), causal: (name, B, S, H, Hkv, D)
+FLASH_FP32_STEP = [("backbone_gqa_d128_fp32", 4, 64, 32, 4, 128),
+                   ("adapter_d512_fp32", 4, 64, 8, 8, 512)]
+# the crossover of the fp32 routes, both forced: (name, B, H, D) at S =
+# Skv in FLASH_FP32_SWEEP_S (causal past S = 1, as the adapter runs)
+FLASH_FP32_SWEEP = [("round_vit_b32", 160, 4, 192), ("llava_adapter", 4, 8,
+                                                      896)]
+FLASH_FP32_SWEEP_S = (1, 4, 8, 16, 32)
+
+
+def check_flash_fp32(gen) -> dict:
+    """``flash_attention``'s fp32 routes beyond the serve and round
+    shapes: (a) the fp32 step check's two shapes (``FLASH_FP32_STEP``,
+    route ``"cuda_tf32x3"``) against the plain version at 1e-5, two calls
+    bitwise equal, timed beside the first design (``v1_ms``, forced), the
+    plain version and every SDPA backend; (b) both routes forced at S =
+    1-32 (``FLASH_FP32_SWEEP``): each route's device ms and the largest
+    S up to which the row route is ahead at every S of the sweep, beside
+    ``ROWS_MAX_S``. Returns the
+    adapter's row (the tf32x3 route's kernel record)."""
+    main = None
+    for name, B, S, H, Hkv, D in FLASH_FP32_STEP:
+        q = torch.randn((B, S, H, D), generator=gen, device="cuda")
+        k = torch.randn((B, S, Hkv, D), generator=gen, device="cuda")
+        v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda")
+        run = lambda: fa_kernel.flash_attention(q, k, v, causal=True)
+        got, route = flash_routed(run)
+        want = ref.flash_attention(q, k, v, causal=True)
+        abs_e, rel_e = rel_err(got, want)
+        if not (rel_e <= 1e-5 and torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention {name}: rel err {rel_e}")
+        if route != "cuda_tf32x3" or not torch.equal(got, run()):
+            raise AssertionError(f"flash_attention {name}: took {route} or "
+                                 "two calls differ")
+        b_ms, b_by = flash_bound(q, k, v, got, _valid_pairs(S, S, True, None),
+                                 route)
+        row = {"case": name, "route": route, "max_abs_err": abs_e,
+               "rel_err": rel_e, "bound_ms": b_ms, "bound_by": b_by}
+        timed(row, "ms", run)
+        timed(row, "v1_ms", lambda: fa_kernel._flash_attention(
+            q, k, v, causal=True, force="cuda_v1"))
+        timed(row, "plain_ms", lambda: ref.flash_attention(q, k, v,
+                                                           causal=True))
+        G = H // Hkv
+        time_sdpa_backends(row, *(t.transpose(1, 2).contiguous() for t in (
+            q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2))), True)
+        report({"flash_attention": 1, **row})
+        if name.startswith("adapter"):
+            main = row
+    for name, B, H, D in FLASH_FP32_SWEEP:
+        times, ahead, prev = {}, 0, 0
+        for S in FLASH_FP32_SWEEP_S:
+            q, k, v = (torch.randn((B, S, H, D), generator=gen,
+                                   device="cuda") for _ in range(3))
+            causal = S > 1
+            want = ref.flash_attention(q, k, v, causal=causal)
+            for how in ("cuda_rows", "cuda_tf32x3"):
+                run = functools.partial(fa_kernel._flash_attention, q, k, v,
+                                        causal=causal, force=how)
+                if rel_err(run(), want)[1] > 1e-5:
+                    raise AssertionError(f"flash_attention sweep {name} S={S}"
+                                         f" {how}: beyond 1e-5")
+                t: dict = {}
+                timed(t, "ms", run)
+                times[(S, how)] = t["ms"]
+            if times[(S, "cuda_rows")] <= times[(S, "cuda_tf32x3")] and \
+                    ahead == prev:
+                ahead = S
+            prev = S
+        report({"flash_fp32_crossover": name, "B": B, "H": H, "D": D,
+                "rows_ms": {S: f"{times[(S, 'cuda_rows')]:.4g}"
+                            for S in FLASH_FP32_SWEEP_S},
+                "tf32x3_ms": {S: f"{times[(S, 'cuda_tf32x3')]:.4g}"
+                              for S in FLASH_FP32_SWEEP_S},
+                "rows_ahead_up_to_S": ahead,
+                "ROWS_MAX_S": fa_kernel.ROWS_MAX_S})
     return main
 
 
@@ -1479,22 +1626,30 @@ _STEP_METHODS = {"decode_step": "decode", "prefill": "prefill",
 
 @contextlib.contextmanager
 def record_routes():
-    """Count the ``lora_matmul`` and ``flash_attention`` kernel launches
-    made inside the block by (op, step, rows M for ``lora_matmul`` or
-    head dim D for ``flash_attention``, route, dtype): step is the Model
-    method the call ran under (``"decode"``, ``"prefill"``, ``"train"``
-    for ``train_step`` / ``grads``, ``"other"`` outside them), the route
-    is read from the wrapper's own counts (``"gemv"``, ``"tc"``,
-    ``"cuda"``; ``"tc_cluster"`` for D > 512). The ops' entries
-    (``ops._lora_kernel``, ``ops._FlashAttention``) are wrapped, and the
-    Model's step methods mark the step; the kernel wrappers and their
-    counts are left as they are."""
+    """Count the ``lora_matmul``, ``flash_attention`` and fp32 GEMM
+    kernel launches made inside the block by (op, step, rows M for
+    ``lora_matmul``, head dim D for ``flash_attention``, the shape for
+    an fp32 GEMM, route, dtype): step is the Model method the call ran
+    under (``"decode"``, ``"prefill"``, ``"train"`` for ``train_step`` /
+    ``grads``, ``"other"`` outside them), the route is read from the
+    wrappers' own counts (``"gemv"``, ``"tc"``, ``"cuda"``;
+    ``flash_attention``'s ``"tc"``, ``"tc_cluster"``, ``"cuda_rows"``,
+    ``"cuda_tf32x3"``). The fp32 GEMMs are recorded under their CUDA-core
+    kernels' names with their shapes (M, K, N, LoRA rank or 0, bits,
+    mode, block): ``lora_matmul``'s training rows (``"lora_kernel"``),
+    the dx of a quantized weight (``"qmt_kernel"``, K the padded Kq) and
+    ``quant_matmul``'s tiled route (``"qmm_kernel"``). The ops' entries (``ops._lora_kernel``,
+    ``ops._FlashAttention``, ``ops._dx_through_w``, ``ops._qmm_kernel``)
+    are wrapped, and the Model's step methods mark the step; the kernel
+    wrappers and their counts are left as they are."""
     from repro_torch.models import model as model_lib
     calls: collections.Counter = collections.Counter()
     lora_op, flash_op = ops._lora_kernel, ops._FlashAttention
+    dx_op, qmm_op = ops._dx_through_w, ops._qmm_kernel
     flash_fn = fa_kernel.flash_attention
     methods = {n: getattr(model_lib.Model, n) for n in _STEP_METHODS}
     step = lambda: _STEP_KIND[-1] if _STEP_KIND else "other"
+    dtype_of = lambda t: str(t.dtype).split(".")[-1]
 
     def marked(name, fn):
         @functools.wraps(fn)
@@ -1508,63 +1663,111 @@ def record_routes():
 
     def lora(x, qt, a, b, scale):
         w = lm_kernel.lora_matmul
-        before = (w.gemv_launches, w.tc_launches)
+        before = (w.launches, w.gemv_launches, w.tc_launches)
         y = lora_op(x, qt, a, b, scale)
-        route = "gemv" if w.gemv_launches > before[0] else \
-            "tc" if w.tc_launches > before[1] else "cuda"
-        calls[("lora_matmul", step(), x.numel() // x.shape[-1], route,
-               str(x.dtype).split(".")[-1])] += 1
+        route = "gemv" if w.gemv_launches > before[1] else \
+            "tc" if w.tc_launches > before[2] else "cuda"
+        M = x.numel() // x.shape[-1]
+        if route == "cuda" and w.launches > before[0]:
+            calls[("lora_kernel", step(), (M, x.shape[-1], qt.q.shape[-1],
+                                           a.shape[-1], qt.bits, qt.mode,
+                                           qt.block),
+                   route, dtype_of(x))] += 1
+        else:
+            calls[("lora_matmul", step(), M, route, dtype_of(x))] += 1
+        return y
+
+    def dx_through_w(g, qt, K):
+        w = lm_kernel.quant_matmul_t
+        before = (w.launches, w.tc_launches)
+        dx = dx_op(g, qt, K)
+        if w.launches > before[0] and w.tc_launches == before[1]:
+            calls[("qmt_kernel", step(), (g.numel() // g.shape[-1],
+                                          qt.q.shape[-3] * qt.block,
+                                          g.shape[-1], 0, qt.bits, qt.mode,
+                                          qt.block),
+                   "cuda", "float32")] += 1
+        return dx
+
+    def qmm(x, qt):
+        w = qmm_kernel.quant_matmul
+        before = w.launches
+        y, route = qmm_route(lambda: qmm_op(x, qt))
+        if w.launches > before and route == "tiled":
+            calls[("qmm_kernel", step(), (x.numel() // x.shape[-1],
+                                          x.shape[-1], qt.q.shape[-1], 0,
+                                          qt.bits, qt.mode, qt.block),
+                   route, dtype_of(x))] += 1
         return y
 
     class flash:
         @staticmethod
         def apply(q, k, v, causal, window):
-            before = (flash_fn.launches, flash_fn.cluster_launches,
-                      flash_fn.tc_launches)
+            before = flash_fn.launches
+            counts = fa_kernel.route_counts()
             o = flash_op.apply(q, k, v, causal, window)
-            if flash_fn.launches > before[0]:
-                route = "tc_cluster" if flash_fn.cluster_launches > \
-                    before[1] else "tc" if flash_fn.tc_launches > \
-                    before[2] else "cuda"
+            if flash_fn.launches > before:
+                after = fa_kernel.route_counts()
+                route = next(r for r in after if after[r] > counts[r])
                 calls[("flash_attention", step(), q.shape[-1], route,
-                       str(q.dtype).split(".")[-1])] += 1
+                       dtype_of(q))] += 1
             return o
 
     ops._lora_kernel, ops._FlashAttention = lora, flash
+    ops._dx_through_w, ops._qmm_kernel = dx_through_w, qmm
     for n, fn in methods.items():
         setattr(model_lib.Model, n, marked(n, fn))
     try:
         yield calls
     finally:
         ops._lora_kernel, ops._FlashAttention = lora_op, flash_op
+        ops._dx_through_w, ops._qmm_kernel = dx_op, qmm_op
         for n, fn in methods.items():
             setattr(model_lib.Model, n, fn)
 
 
-def check_lora_routes(phases: dict, decode_phases=(12, 13, 14, 16)) -> dict:
-    """Print each phase's ``lora_matmul`` and ``flash_attention`` launches
-    by (op, step, rows or D, route, dtype) and fail unless every
-    ``lora_matmul`` call of a decode step took the decode route
-    (``"gemv"``), every one of a train step the training rows' route
+# the fp32 kernels record_routes counts by shape
+FP32_GEMMS = ("lora_kernel", "qmt_kernel", "qmm_kernel")
+
+
+def check_lora_routes(phases: dict, decode_phases=(12, 13, 14, 16),
+                      lora_phases=(12, 13, 14, 15, 16)) -> dict:
+    """Print each phase's ``lora_matmul``, ``flash_attention`` and fp32
+    GEMM launches by (op, step, rows, D or shape, route, dtype), then the
+    fp32 launches by route and phase; fail unless, in ``lora_phases``,
+    every ``lora_matmul`` call of a decode step took the decode route
+    (``"gemv"``) and every one of a train step the training rows' route
     (``"tc"`` for bf16, ``"cuda"`` for fp32), and each of
     ``decode_phases`` launched the decode route. Returns the launches of
-    the two routes this slice added, summed over the phases."""
+    each route of ``flash_attention`` and of ``lora_matmul``'s decode
+    route, summed over the phases, and the fp32 GEMMs' launches by
+    (kernel, shape) and phase under ``"fp32_gemms"``."""
     total = collections.Counter()
+    gemms: dict = collections.defaultdict(collections.Counter)
+    fp32 = {}
     for phase, calls in phases.items():
-        print(f"  phase {phase} lora_matmul / flash_attention launches by "
-              "(op, step, rows M or head dim D, route, dtype): " + " ".join(
+        print(f"  phase {phase} lora_matmul / flash_attention / fp32 GEMM "
+              "launches by (op, step, rows M, head dim D or shape, route, "
+              "dtype): " + " ".join(
                   f"{'/'.join(map(str, k))}={n}"
-                  for k, n in sorted(calls.items())), flush=True)
+                  for k, n in sorted(calls.items(), key=str)), flush=True)
+        fp32[phase] = collections.Counter()
         for (op, step, rows, route, dtype), n in calls.items():
+            if dtype == "float32":
+                fp32[phase][f"{op}/{route}"] += n
             if op == "flash_attention":
-                total["flash_attention_cluster"] += n * (
-                    route == "tc_cluster")
+                total["flash_attention_" + route] += n
                 continue
+            if op in FP32_GEMMS:
+                gemms[(op, rows)][phase] += n
+                if op != "lora_kernel":
+                    continue
+                route = "cuda"
             total["lora_matmul_gemv"] += n * (route == "gemv")
             want = {"decode": "gemv",
                     "train": "tc" if dtype == "bfloat16" else "cuda"
                     }.get(step)
-            if want is not None and route != want:
+            if phase in lora_phases and want is not None and route != want:
                 raise AssertionError(f"phase {phase}: {n} lora_matmul calls "
                                      f"of a {step} step at M={rows} "
                                      f"({dtype}) took {route}, not {want}")
@@ -1573,6 +1776,10 @@ def check_lora_routes(phases: dict, decode_phases=(12, 13, 14, 16)) -> dict:
                 for k, n in calls.items()):
             raise AssertionError(f"phase {phase}: no decode step's "
                                  "lora_matmul call")
+    print("  fp32 launches by phase and (op or kernel / route): " + "; ".join(
+        f"{ph}: " + " ".join(f"{k}={n}" for k, n in sorted(c.items()))
+        for ph, c in fp32.items() if c), flush=True)
+    total["fp32_gemms"] = dict(gemms)
     return total
 
 
@@ -2034,27 +2241,34 @@ _STEP5: dict = {}
 def check_flash_round(gen) -> dict:
     """``flash_attention`` at the federated round's shapes (``FL_ATTENTION``:
     fp32, S = Skv = 1, 4 heads, no mask) against the plain version at
-    1e-5, with times, bounds and every SDPA backend; then the op's
-    gradient at the cohort's ViT-B/32 shape (160, 1, 4, 192) against
-    autograd through the plain version. Returns the rows by (B, D)."""
+    1e-5, each on the row route (``"cuda_rows"``), two calls bitwise
+    equal, with times (the first fp32 design's beside, ``v1_ms``),
+    bounds and every SDPA backend; then the op's gradient at the cohort's
+    ViT-B/32 shape (160, 1, 4, 192) against autograd through the plain
+    version. Returns the rows by (B, D)."""
     rows = {}
     for B, D in FL_ATTENTION:
         q, k, v = (torch.randn((B, 1, 4, D), generator=gen, device="cuda")
                    for _ in range(3))
         run = lambda: fa_kernel.flash_attention(q, k, v, causal=False)
-        got, route = routed(fa_kernel.flash_attention, run)
+        got, route = flash_routed(run)
         want = ref.flash_attention(q, k, v, causal=False)
         torch.cuda.synchronize()
         abs_e, rel_e = rel_err(got, want)
         if not (rel_e <= 1e-5 and torch.isfinite(got).all()):
             raise AssertionError(f"flash_attention round ({B},1,4,{D}): rel "
                                  f"err {rel_e} > 1e-5")
-        b_ms, b_by = bound(nbytes(q, k, v, got), 4.0 * B * 4 * D,
-                           torch.float32)
+        if route != "cuda_rows" or not torch.equal(got, run()):
+            raise AssertionError(f"flash_attention round ({B},1,4,{D}): took"
+                                 f" {route}, not cuda_rows, or two calls "
+                                 "differ")
+        b_ms, b_by = flash_bound(q, k, v, got, 1, route)
         row = {"case": f"round_{B}x1x4x{D}", "route": route,
                "max_abs_err": abs_e, "rel_err": rel_e, "bound_ms": b_ms,
                "bound_by": b_by, "library_ms": None}
         timed(row, "ms", run)
+        timed(row, "v1_ms", lambda: fa_kernel._flash_attention(
+            q, k, v, causal=False, force="cuda_v1"))
         timed(row, "plain_ms", lambda: ref.flash_attention(q, k, v,
                                                            causal=False))
         time_sdpa_backends(row, *(t.transpose(1, 2).contiguous()
@@ -2594,7 +2808,7 @@ def fl_round_phase(device="cuda", rounds=2, **settings) -> dict:
                                  f"{seq_vs}")
         if on_card:
             want = rounds * cfg.local_steps
-            if traces.get("flash_attention_cuda", 0) < want or \
+            if traces.get("flash_attention_cuda_rows", 0) < want or \
                     launches["flash_attention"] < want or \
                     "flash_attention_ref" in traces:
                 raise AssertionError(
@@ -2679,7 +2893,7 @@ def vit_round_phase(device="cuda", ccfg=VIT_B32, *, steps=3, batch=32,
            if on_card else None}
     want = len(FL_ARMS) * steps
     if on_card and (launches["flash_attention"] < want or
-                    traces.get("flash_attention_cuda", 0) < want or
+                    traces.get("flash_attention_cuda_rows", 0) < want or
                     "flash_attention_ref" in traces):
         raise AssertionError(f"ViT-B/32 round: flash_attention launches "
                              f"{launches} traces {traces}")
@@ -2782,7 +2996,7 @@ def sched_run(cfg, device, streams) -> dict:
     if torch.device(device).type == "cuda" and cfg.engine == "cohort":
         want = cfg.rounds * cfg.local_steps
         if launches["flash_attention"] < want or \
-                traces.get("flash_attention_cuda", 0) < want or \
+                traces.get("flash_attention_cuda_rows", 0) < want or \
                 "flash_attention_ref" in traces:
             raise AssertionError(
                 f"{cfg.strategy} {cfg.participation}: flash_attention "
@@ -3008,7 +3222,7 @@ def vit_sched_phase(device="cuda", ccfg=VIT_B32, *, steps=3, batch=32,
     # programs: sync a bucket-4 round; async a wave of 4, one of 2 in 4
     want = 3 * steps
     if on_card and (res["launches"]["flash_attention"] < want or
-                    res["traces"].get("flash_attention_cuda", 0) < want or
+                    res["traces"].get("flash_attention_cuda_rows", 0) < want or
                     "flash_attention_ref" in res["traces"]):
         raise AssertionError(f"ViT-B/32 scheduler: flash_attention "
                              f"launches {res['launches']} traces "
@@ -3821,22 +4035,26 @@ FLASH_WIDE = [
 def check_flash_zoo(gen) -> list:
     """Phase 2 (f): ``flash_attention`` at the zoo's shapes against its
     plain version: the LLaVA-NeXT-34B adapter at D = 896 in both dtypes
-    (bf16 on the D > 512 cluster route, fp32 on the BK = 16 CUDA-core
-    path), Whisper's cross-attention to 1500 frames and its encoder
-    (neither causal), RecurrentGemma's MQA (10 query heads a KV head)
-    under its 2048 window; then the cluster route's other cases
-    (``FLASH_WIDE``: D = 544 and 1024, not causal, GQA, a window, a
-    ragged S with D % 16 != 0, D % 8 != 0 against a longer Skv). Each
-    row: the errors (the cluster route at the bf16 bound 1.6e-2, two
-    calls bitwise equal), device / call / plain ms, every SDPA backend
-    (the fastest is ``library_ms``; the window of 2048 covers the whole
-    64-token sequence, so causal SDPA is the same function) and the
-    bound; a cluster row also the time of the single-stage D > 512
-    instantiation it replaces (``single_ms``, forced, on the same
-    inputs)."""
+    (bf16 on the D > 512 cluster route, fp32 on the 3xTF32 route),
+    Whisper's cross-attention to 1500 frames and its encoder (neither
+    causal), RecurrentGemma's MQA (10 query heads a KV head) under its
+    2048 window; then the cluster route's other cases (``FLASH_WIDE``:
+    D = 544 and 1024, not causal, GQA, a window, a ragged S with D % 16
+    != 0, D % 8 != 0 against a longer Skv), and the same cases in fp32,
+    untimed, on the 3xTF32 route. Each row: its route
+    (``fa_kernel.route``), the errors (the cluster route at the bf16
+    bound 1.6e-2, fp32 at 1e-5; both two calls bitwise equal), device /
+    call / plain ms, every SDPA backend (the fastest is ``library_ms``;
+    the window of 2048 covers the whole 64-token sequence, so causal
+    SDPA is the same function) and the bound; a cluster row also the time
+    of the single-stage D > 512 instantiation it replaces (``single_ms``,
+    forced), an fp32 row the first fp32 design's (``v1_ms``, forced), on
+    the same inputs."""
     rows = []
     cases = [(*c, True) for c in FLASH_ZOO] + [
-        (n, B, S, Skv, H, Hkv, D, causal, window, torch.bfloat16, timed_)
+        (n + sfx, B, S, Skv, H, Hkv, D, causal, window, dt,
+         timed_ and dt == torch.bfloat16)
+        for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_fp32"))
         for n, B, S, Skv, H, Hkv, D, causal, window, timed_ in FLASH_WIDE]
     for name, B, S, Skv, H, Hkv, D, causal, window, dt, timed_ in cases:
         q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
@@ -3844,32 +4062,25 @@ def check_flash_zoo(gen) -> list:
         v = torch.randn((B, Skv, Hkv, D), generator=gen, device="cuda").to(dt)
         run = lambda: fa_kernel.flash_attention(q, k, v, causal=causal,
                                                 window=window)
-        before = fa_kernel.flash_attention.cluster_launches
-        got, route = routed(fa_kernel.flash_attention, run)
-        cluster = fa_kernel.route(D, dt) == "tc_cluster"
-        if fa_kernel.flash_attention.cluster_launches - before != cluster:
-            raise AssertionError(f"flash_attention {name}: the cluster "
-                                 "route's launch not counted")
+        got, route = flash_routed(run)
+        if route != fa_kernel.route(S, D, dt):
+            raise AssertionError(f"flash_attention {name}: took {route}")
+        cluster = route == "tc_cluster"
         plain = lambda: ref.flash_attention(q, k, v, causal=causal,
                                             window=window)
         want = plain()
         torch.cuda.synchronize()
         abs_e, rel_e = rel_err(got, want)
-        tol = 1.6e-2 if cluster else _tol(dt) if dt == torch.bfloat16 \
-            else 1e-5
+        tol = 1.6e-2 if cluster else _tol(dt)
         if not (rel_e <= tol and torch.isfinite(got).all()):
             raise AssertionError(f"flash_attention {name}: rel err {rel_e}")
-        if cluster and not torch.equal(got, run()):
+        if (cluster or dt == torch.float32) and not torch.equal(got, run()):
             raise AssertionError(f"flash_attention {name}: two calls differ")
-        want_route = "tensor cores" if dt == torch.bfloat16 else "cuda cores"
-        if route != want_route:
-            raise AssertionError(f"flash_attention {name}: took {route}")
-        pairs = _valid_pairs(S, Skv, causal, window)
-        b_ms, b_by = bound(nbytes(q, k, v, got), 4.0 * B * H * D * pairs, dt)
-        row = {"case": name, "route": route + (" (cluster)" if cluster
-                                                else ""),
-               "max_abs_err": abs_e, "rel_err": rel_e, "bound_ms": b_ms,
-               "bound_by": b_by, "library_ms": None}
+        b_ms, b_by = flash_bound(q, k, v, got,
+                                 _valid_pairs(S, Skv, causal, window), route)
+        row = {"case": name, "route": route, "max_abs_err": abs_e,
+               "rel_err": rel_e, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None}
         if cluster:
             single = fa_kernel._flash_attention(q, k, v, causal=causal,
                                                 window=window,
@@ -3881,6 +4092,9 @@ def check_flash_zoo(gen) -> list:
                 timed(row, "single_ms", lambda: fa_kernel._flash_attention(
                     q, k, v, causal=causal, window=window,
                     force="tc_single"))
+            if dt == torch.float32:
+                timed(row, "v1_ms", lambda: fa_kernel._flash_attention(
+                    q, k, v, causal=causal, window=window, force="cuda_v1"))
             timed(row, "plain_ms", plain)
             G = H // Hkv
             qt_, kt_, vt_ = (t.transpose(1, 2).contiguous() for t in (
@@ -4930,7 +5144,7 @@ def check_phase14_kernels(gen) -> list:
     ids = torch.arange(H, device=dev) // 8
     k, v = kv.index_select(2, ids), kv.flip(1).index_select(2, ids)
     run = lambda: fa_kernel.flash_attention(q, k, v, causal=True)
-    got, route = routed(fa_kernel.flash_attention, run)
+    got, route = flash_routed(run)
     plain = lambda: ref.flash_attention(q, k, v, causal=True)
     abs_e, rel_e = rel_err(got, plain())
     if not rel_e <= _tol(bf):
@@ -5765,9 +5979,11 @@ def rank_report() -> collections.Counter:
         if res["launches"][k] < 1:
             raise AssertionError(f"phase 16 (b): the rank's steps launched "
                                  f"no {k} kernel")
-    # (b)'s lora_matmul / flash_attention routes, for check_lora_routes
+    # (b)'s lora_matmul / flash_attention / fp32 GEMM routes, for
+    # check_lora_routes (a GEMM's shape comes back from JSON as a list)
     _RANK_ROUTES[0] = collections.Counter(
-        {tuple(k): n for k, n in res["routes"]})
+        {tuple(tuple(x) if isinstance(x, list) else x for x in k): n
+         for k, n in res["routes"]})
     return collections.Counter(res["launches"])
 
 
@@ -5791,6 +6007,61 @@ def check_qmm_routes(phases: dict) -> None:
                 raise AssertionError(f"phase {phase}: {n} {dtype} "
                                      f"quant_matmul calls at M={M} took "
                                      f"{route}, not {want}")
+
+
+def time_fp32_gemms(gen, gemms: dict, top: int = 2) -> list:
+    """The fp32 GEMM kernels (``lora_kernel``, ``qmt_kernel``,
+    ``qmm_kernel``) at the shapes the paths ran them (``gemms``: launches
+    by (kernel, shape) and phase, from ``check_lora_routes``): each
+    kernel's ``top`` shapes by the work their launches did (launches x 2
+    M K N), a seeded weight quantized as recorded, the kernel's device ms
+    and its plain version's beside the bound (fp32 operations at 67
+    TFLOP/s or the bytes), and the launches by phase. Returns the
+    rows."""
+    f32 = torch.float32
+    rows = []
+    for kernel in FP32_GEMMS:
+        ranked = sorted(((sum(by.values()), shape, by)
+                         for (op, shape), by in gemms.items()
+                         if op == kernel),
+                        key=lambda t: -t[0] * t[1][0] * t[1][1] * t[1][2]
+                        )[:top]
+        for n, (M, K, N, r, bits, mode, block), by in ranked:
+            w = torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5
+            qt = ref.blockwise_quant(w, bits=bits, block=block, mode=mode)
+            Kq = qt.q.shape[-3] * qt.block
+            rnd = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+            if kernel == "lora_kernel":
+                x, a, b = rnd(M, K), rnd(K, r) / K ** 0.5, rnd(r, N) * 0.05
+                run = lambda: lm_kernel.lora_matmul(x, qt, a, b, scale=2.0)
+                plain = lambda: ref.lora_matmul(x, qt, a, b, scale=2.0)
+                ins, nops = (x, a, b), 2.0 * M * (Kq * N + K * r + r * N)
+            elif kernel == "qmt_kernel":
+                g = rnd(M, N)
+                run = lambda: lm_kernel.quant_matmul_t(g, qt, out_dtype=f32)
+                plain = lambda: ref.quant_matmul_t(g, qt, out_dtype=f32)
+                ins, nops = (g,), 2.0 * M * Kq * N
+            else:
+                x = rnd(M, K)
+                run = lambda: qmm_kernel.quant_matmul(x, qt)
+                plain = lambda: ref.quant_matmul(x, qt)
+                ins, nops = (x,), 2.0 * M * Kq * N
+            got = run()
+            abs_e, rel_e = rel_err(got, plain())
+            if not rel_e <= 1e-5:
+                raise AssertionError(f"{kernel} {M}x{K}x{N}: rel err {rel_e}")
+            b_ms, b_by = bound(nbytes(*ins, qt.q, qt.scales, got), nops, f32)
+            row = {"fp32_gemm": kernel, "M": M, "K": K, "N": N, "rank": r,
+                   "quant": f"{mode}{bits}/{block}", "rel_err": rel_e,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "launches": {str(ph): c for ph, c in by.items()}}
+            timed(row, "ms", run)
+            timed(row, "plain_ms", plain)
+            report(row)
+            rows.append(row)
+            del got
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
@@ -5828,7 +6099,9 @@ def _main() -> int:
     main_rows["blockwise_quant"] = check_blockwise_quant(gen)
     check_flash_attention(gen)      # the serve shapes
     main_rows["flash_attention"] = check_flash_train(gen)
-    check_flash_round(gen)          # the federated round's shapes
+    round_rows = check_flash_round(gen)   # the federated round's shapes
+    main_rows["flash_attention_rows"] = round_rows[(160, 192)]
+    main_rows["flash_attention_tf32x3"] = check_flash_fp32(gen)
     main_rows["lora_matmul"], main_rows["quant_matmul_t"] = \
         check_lora_kernels(gen)
     qmt_split_sweep(gen)
@@ -5845,7 +6118,11 @@ def _main() -> int:
 
     print("serve plane at CLIP ViT-B/32 width:", flush=True)
     t0 = time.perf_counter()
-    res = serve_phase("cuda", VIT_B32)
+    # phases 3-16: every lora_matmul, flash_attention and fp32 GEMM call
+    # recorded by the step it ran under and its route (record_routes)
+    route_phases, qmm_phases = {}, {}
+    with record_routes() as route_phases[3]:
+        res = serve_phase("cuda", VIT_B32)
     rec = res["rec"]
     launches = res["launches"]
     report({"requests": rec["n_requests"], "flights": rec["n_flights"],
@@ -5891,28 +6168,34 @@ def _main() -> int:
     torch.cuda.empty_cache()
     clock(t_start, "phase 3")
 
-    step_check_report("yi-9b")
-    yi_launches = trainer_report("yi-9b")
-    step_check_report("falcon-mamba-7b")
-    mamba_launches = trainer_report("falcon-mamba-7b")
+    with record_routes() as route_phases[4]:
+        step_check_report("yi-9b")
+    with record_routes() as route_phases[5]:
+        yi_launches = trainer_report("yi-9b")
+    with record_routes() as route_phases[6]:
+        step_check_report("falcon-mamba-7b")
+    with record_routes() as route_phases[7]:
+        mamba_launches = trainer_report("falcon-mamba-7b")
     clock(t_start, "phases 4-7")
-    gan_report()
+    with record_routes() as route_phases["gan"]:
+        gan_report()
     clock(t_start, "the GAN phase")
-    fl_launches = fl_round_report()
+    with record_routes() as route_phases[8]:
+        fl_launches = fl_round_report()
     clock(t_start, "phase 8")
-    vit_launches = vit_round_report()
+    with record_routes() as route_phases[9]:
+        vit_launches = vit_round_report()
     clock(t_start, "phase 9")
-    sched_launches = sched_report()
+    with record_routes() as route_phases[10]:
+        sched_launches = sched_report()
     clock(t_start, "phase 10")
-    handoff_launches = handoff_report()
+    with record_routes() as route_phases[11]:
+        handoff_launches = handoff_report()
     clock(t_start, "phase 11")
-    # phases 12-16: every lora_matmul and flash_attention call recorded
-    # by the step it ran under and its route (a decode step's
-    # lora_matmul takes the decode route, a train step's the tensor
-    # cores); phases 13-15 run quant_matmul at the trainers' rows: every
-    # call recorded by route and dtype (a bf16 call past 4 rows takes
-    # "tc")
-    route_phases, qmm_phases = {}, {}
+    # phases 12-16: a decode step's lora_matmul takes the decode route, a
+    # train step's the tensor cores (check_lora_routes); phases 13-15 run
+    # quant_matmul at the trainers' rows: every call recorded by route and
+    # dtype (a bf16 call past 4 rows takes "tc")
     with record_routes() as route_phases[12]:
         tokens_launches = token_serve_report()
     clock(t_start, "phase 12")
@@ -5934,6 +6217,8 @@ def _main() -> int:
     route_phases[16].update(_RANK_ROUTES[0])
     new_routes = check_lora_routes(route_phases)
     clock(t_start, "phase 16")
+    fp32_rows = time_fp32_gemms(gen, new_routes["fp32_gemms"])
+    clock(t_start, "the fp32 GEMMs' rows")
 
     print(card_line(), flush=True)
     # flash_attention runs on every path: its launches over all of them
@@ -5987,14 +6272,23 @@ def _main() -> int:
         raise AssertionError("phases 13-14 launched no tc quant_matmul")
     for name in main_rows:
         launches[name] = launches.get(name, 0) + dry_launches[name]
-    # the two routes this slice added, counted in phases 12-16 (no other
-    # path runs them), apart from their wrappers' rows
-    for name, wrapper in (("lora_matmul_gemv", "lora_matmul"),
-                          ("flash_attention_cluster", "flash_attention")):
-        launches[name] = new_routes[name]
-        launches[wrapper] -= new_routes[name]
+    # lora_matmul's decode route, counted in phases 12-16 (no other path
+    # runs it), apart from its wrapper's row
+    launches["lora_matmul_gemv"] = new_routes["lora_matmul_gemv"]
+    launches["lora_matmul"] -= new_routes["lora_matmul_gemv"]
+    # flash_attention by route over phases 3-16 (record_routes): the bf16
+    # tensor cores up to D = 512 and above, the two fp32 routes
+    for name, route in (("flash_attention", "tc"),
+                        ("flash_attention_cluster", "tc_cluster"),
+                        ("flash_attention_rows", "cuda_rows"),
+                        ("flash_attention_tf32x3", "cuda_tf32x3")):
+        launches[name] = new_routes["flash_attention_" + route]
+    for name in ("lora_matmul_gemv", "flash_attention",
+                 "flash_attention_cluster", "flash_attention_rows",
+                 "flash_attention_tf32x3"):
         if launches[name] < 1:
-            raise AssertionError(f"phases 12-16 launched no {name}")
+            raise AssertionError(f"phases 3-16 launched no {name}")
+    print(f"fp32 GEMM rows: {len(fp32_rows)}", flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],

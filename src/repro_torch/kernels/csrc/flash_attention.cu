@@ -8,9 +8,9 @@
 // kp < Skv, plus qp >= kp when causal, plus qp - kp < window; tiles wholly
 // outside the causal/window band are skipped, which is exact since a
 // masked key adds nothing. A row with no valid key gives 0, as the TPU
-// kernel's max(l, 1e-30) does. Any D <= 1024. Two instantiations, chosen
-// by dtype in the wrapper (kernels/flash_attention.py), never as a
-// fallback of one another.
+// kernel's max(l, 1e-30) does. Any D <= 1024. Four routes, chosen in the
+// wrapper (kernels/flash_attention.py, route) by dtype, then by D for bf16
+// and by S for fp32, never as a fallback of one another.
 //
 // bf16: flash_tc_kernel, tensor cores (flash_attention_tc_launch).
 // Bound on the H100 at the trainer's shapes (S = 64): bytes (q, k, v, o
@@ -95,22 +95,75 @@
 //    match; a final barrier keeps each rank's sums alive until the
 //    others have read them.
 
-// fp32: flash_kernel, fp32 CUDA cores, the first design, kept so fp32
-// callers (the serve oracle at D = 192) meet 1e-5; tensor cores at fp32
-// would need TF32. Bound at the serve oracle's shape (B=1, S=1, H=4,
-// D=192): the launch. Grid (B*H, ceil(S/16)); 4 warps per block, each
-// warp owns 4 of the block's 16 query rows and keeps their running max
-// m, sum l and output accumulator in fp32 registers: DPL = 8 dims per
-// lane for D <= 256, 16 for D <= 512 and 32 for D <= 1024, so the
-// short-D paths keep their registers. The block loops over BK-key tiles
-// of K and V staged in shared memory (K rows padded to D+1 floats, so
-// lane j reading key j is conflict-free): lane j scores key j, the warp
-// reduces max and sum with shuffles, and p_j is broadcast by shuffle
-// into the P.V update (over the keys that exist only; rows past S are
-// skipped whole). BK = 32 (one key a lane) up to D = 512, where the
-// block's Q, K and V tiles take 164 KB of shared memory; above it
-// BK = 16 (lanes 16-31 score no key) so that they fit: 192 KB at
-// D = 1024 (cudaFuncSetAttribute once per instantiation).
+// fp32, short S (the FL round's and the serve oracle's S = 1):
+// flash_rows_kernel, one warp a query row (flash_attention_f32_launch,
+// route 0; the wrapper's "cuda_rows"). Bound at the cohort's (160, 1, 4,
+// 192): bytes (q, k, v, o once, 1.97 MB: 0.59 us at 3.35 TB/s); the work
+// is one key a row, so the launch and the latency of one dependent chain
+// of loads decide the time. The first design's block of 16 query rows
+// left 15 empty at S = 1 and staged a 16 x D Q tile and two 32-key K/V
+// tiles through shared memory (61 KB at D = 192, scalar loops dividing by
+// D, two barriers) to score one key. Here:
+//  - a block packs 8 (b, s, h) rows, one a warp: (160, 1, 4, 192) is 80
+//    blocks; no shared memory and no block barrier;
+//  - a warp reads q's row and then its keys' K and V rows straight from
+//    device memory, lane l holding dims 128 i + 4 l .. + 3 of chunk i
+//    (float4 loads when D % 4 == 0 and the rows are 16-byte aligned,
+//    element loads otherwise); query heads that share a KV head meet in L2;
+//  - ROW_KEYS keys at a time: each lane's partial dot product (one fma
+//    chain over its dims, chunk by chunk) is summed by a xor butterfly, so
+//    every lane holds the same score; the running max m and sum l are
+//    warp-uniform scalars (expf of the q-scaled scores, as the Pallas
+//    kernel's exp), and the output stays in registers, 4 ceil(D / 128) a
+//    lane.
+//
+// fp32, the rest, any D <= 1024: flash_tf32x3_kernel (route 1,
+// "cuda_tf32x3"), the bf16 cluster kernel's structure on TF32 tensor cores
+// in the 3xTF32 split. Bound at the LLaVA adapter's (4, 640, 8, 896),
+// causal: operations (4 B H D S (S + 1) / 2 = 23.5 GFLOP; three TF32
+// products each at 494.7 TFLOP/s: 0.14 ms, against 0.35 ms of fp32 at 67
+// TFLOP/s and 0.088 ms of bytes). The first design scored one key a lane
+// with a serial D-long dot product from shared memory (two loads an fma),
+// left lanes 16-31 idle above D = 512 and took 172-192 KB of shared memory
+// (one 4-warp block an SM), re-staging K and V with scalar loads for every
+// 16-row q-block. Here:
+//  - mma.sync.m16n8k8 with TF32 operands and fp32 accumulators (mma.cuh):
+//    each fp32 operand x enters as hi = tf32_rna(x) and lo = tf32_rna(x -
+//    hi), and each product as lo hi + hi lo + hi hi in that order, for
+//    Q K^T and for P V, so fp32 callers keep 1e-5 (about 22 bits of each
+//    operand where one TF32 pass keeps 11). The split is made as a
+//    fragment is read, so shared memory holds fp32 once.
+//  - A tensor-core accumulation chain is X_CHAIN k8 steps long (32 dims
+//    of a score, one key tile of P V), started from zero; the chains are
+//    added in fp32 on the CUDA cores (O as O corr + P V). Chained over a
+//    whole slice and all of Skv, the tensor cores' own adds (which do not
+//    round to nearest) left Whisper's cross-attention to 1500 keys 1.4e-5
+//    of the largest magnitude off the plain version on the card.
+//  - 64-row q-tiles, 4 warps x 16 rows; 32-key K/V tiles in a 2-stage
+//    cp.async ring; the ceil(Dp / 128) D-slice blocks of a q-tile (Dp = D
+//    rounded up to 8) form one cluster whose partial scores are summed in
+//    rank order through distributed shared memory, a reduce-scatter then
+//    an all-gather, as flash_tc_cluster_kernel does: every rank holds the
+//    same scores, bit for bit, and two calls are bitwise equal. At D <=
+//    128 the cluster is one block and nothing is exchanged.
+//  - P's C fragment becomes the A fragment of P V in registers with the
+//    keys of each k8 block taken in the order 0 2 4 6 1 3 5 7 (a lane holds
+//    keys 2c and 2c + 1 of its rows, where m16n8k8's A wants k = c and c +
+//    4); V's B fragment reads its rows in the same order, which leaves the
+//    sum over keys unchanged.
+//  - Tiles are fp32 [rows][128] without padding, each row's 16-byte chunk
+//    j stored at chunk j ^ (row % 8): the Q and K fragments' 8 rows x 4
+//    columns and V's permuted 8 x (2 x 4) reads fall in 32 distinct banks.
+//    Q 32 KB, the ring 64 KB, partials and sums 16 KB: 112 KB, two blocks
+//    an SM.
+//
+// fp32, the first design: flash_kernel (flash_attention_launch, the
+// wrapper's force="cuda_v1"), kept only for the card's A/B against the two
+// routes above; the wrapper never picks it. Grid (B*H, ceil(S/16)), 4
+// warps of 4 query rows each, DPL = 8/16/32 output dims a lane; BK-key
+// tiles of K and V staged in shared memory with K rows padded to D + 1,
+// lane j scoring key j and p_j broadcast by shuffle into the P.V update;
+// BK = 32 up to D = 512 (164 KB), above it 16 (192 KB at D = 1024).
 //
 // The gradient is not a kernel yet: the port's autograd.Function
 // (kernels/ops.py) recomputes P in PyTorch.
@@ -793,9 +846,498 @@ cudaError_t launch(const ft::Args& p, int B, int S, cudaStream_t stream) {
 
 }  // namespace fc
 
+// ---- fp32, short S: one warp a query row --------------------------------
+namespace fr {
+
+constexpr int ROW_WARPS = 8;            // query rows a block, one a warp
+constexpr int ROW_KEYS = 4;             // keys scored together
+constexpr int ROW_CHUNK = 128;          // dims a chunk: a float4 a lane
+
+// Lane's dims 128 i + 4 lane .. + 3 of chunk i of a D-long row; dims past
+// D read as 0.
+template <int NC>
+__device__ __forceinline__ void load_row(float (&r)[NC][4],
+                                         const float* __restrict__ src, int D,
+                                         int lane, int vec) {
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    const int d = i * ROW_CHUNK + 4 * lane;
+    if (vec) {                          // D % 4 == 0: a float4 is whole
+      const float4 t = d < D ? __ldg(reinterpret_cast<const float4*>(src + d))
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      r[i][0] = t.x; r[i][1] = t.y; r[i][2] = t.z; r[i][3] = t.w;
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) r[i][c] = d + c < D ? __ldg(src + d + c) : 0.f;
+    }
+  }
+}
+
+// q, o: row r = (b * S + s) * H + h at r * D; k, v (B, Skv, Hkv, D).
+// NC chunks of ROW_CHUNK dims a row (D <= ROW_CHUNK * NC).
+template <int NC>
+__global__ void __launch_bounds__(ROW_WARPS * 32)
+flash_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  int rows, int S, int Skv, int H, int Hkv, int D,
+                  float scale, int causal, int window, int vec) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
+  if (row >= rows) return;              // the whole warp; no barrier follows
+  const int h = row % H, s = (row / H) % S, b = row / H / S;
+  const int hk = h / (H / Hkv);
+  // the keys row s sees: [kb, ke)
+  const int ke = causal ? min(Skv, s + 1) : Skv;
+  const int kb = window > 0 ? max(0, s - window + 1) : 0;
+  const size_t kstride = (size_t)Hkv * D;
+  const float* kbase = k + ((size_t)b * Skv * Hkv + hk) * D;
+  const float* vbase = v + ((size_t)b * Skv * Hkv + hk) * D;
+
+  float qr[NC][4], acc[NC][4];
+  load_row<NC>(qr, q + (size_t)row * D, D, lane, vec);
+#pragma unroll
+  for (int i = 0; i < NC; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      qr[i][c] *= scale;
+      acc[i][c] = 0.f;
+    }
+  float m = NEG_INF, l = 0.f;           // warp-uniform
+  for (int k0 = kb; k0 < ke; k0 += ROW_KEYS) {
+    const int nk = min(ROW_KEYS, ke - k0);
+    float sc[ROW_KEYS];
+#pragma unroll
+    for (int j = 0; j < ROW_KEYS; ++j) {
+      sc[j] = NEG_INF;
+      if (j < nk) {
+        float kr[NC][4];
+        load_row<NC>(kr, kbase + (size_t)(k0 + j) * kstride, D, lane, vec);
+        float part = 0.f;
+#pragma unroll
+        for (int i = 0; i < NC; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) part = fmaf(qr[i][c], kr[i][c], part);
+        sc[j] = warp_sum(part);         // every lane: the same sum
+      }
+    }
+    float mx = m;
+#pragma unroll
+    for (int j = 0; j < ROW_KEYS; ++j) mx = fmaxf(mx, sc[j]);
+    const float corr = expf(m - mx);
+    float p[ROW_KEYS], ps = 0.f;
+#pragma unroll
+    for (int j = 0; j < ROW_KEYS; ++j) {
+      p[j] = j < nk ? expf(sc[j] - mx) : 0.f;
+      ps += p[j];
+    }
+    l = l * corr + ps;
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][c] *= corr;
+#pragma unroll
+    for (int j = 0; j < ROW_KEYS; ++j) {
+      if (j < nk) {
+        float vr[NC][4];
+        load_row<NC>(vr, vbase + (size_t)(k0 + j) * kstride, D, lane, vec);
+#pragma unroll
+        for (int i = 0; i < NC; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(p[j], vr[i][c], acc[i][c]);
+      }
+    }
+    m = mx;
+  }
+
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+  float* orow = o + (size_t)row * D;
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    const int d = i * ROW_CHUNK + 4 * lane;
+    if (vec) {
+      if (d < D)
+        *reinterpret_cast<float4*>(orow + d) =
+            make_float4(acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv,
+                        acc[i][3] * inv);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (d + c < D) orow[d + c] = acc[i][c] * inv;
+    }
+  }
+}
+
+template <int NC>
+cudaError_t launch_rows(const float* q, const float* k, const float* v,
+                        float* o, int B, int S, int Skv, int H, int Hkv,
+                        int D, float scale, int causal, int window, int vec,
+                        cudaStream_t stream) {
+  const int rows = B * S * H;
+  flash_rows_kernel<NC><<<(rows + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32,
+                          0, stream>>>(q, k, v, o, rows, S, Skv, H, Hkv, D,
+                                       scale, causal, window, vec);
+  return cudaGetLastError();
+}
+
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int B, int S, int Skv, int H, int Hkv, int D, float scale,
+                   int causal, int window, cudaStream_t stream) {
+  const int vec = D % 4 == 0 &&
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 == 0;
+  const float *qf = (const float*)q, *kf = (const float*)k,
+              *vf = (const float*)v;
+  float* of = (float*)o;
+  if (D <= ROW_CHUNK)
+    return launch_rows<1>(qf, kf, vf, of, B, S, Skv, H, Hkv, D, scale, causal,
+                          window, vec, stream);
+  if (D <= 2 * ROW_CHUNK)
+    return launch_rows<2>(qf, kf, vf, of, B, S, Skv, H, Hkv, D, scale, causal,
+                          window, vec, stream);
+  if (D <= 4 * ROW_CHUNK)
+    return launch_rows<4>(qf, kf, vf, of, B, S, Skv, H, Hkv, D, scale, causal,
+                          window, vec, stream);
+  return launch_rows<8>(qf, kf, vf, of, B, S, Skv, H, Hkv, D, scale, causal,
+                        window, vec, stream);
+}
+
+}  // namespace fr
+
+// ---- fp32, the rest: 3xTF32 tensor cores, the D-slices a cluster --------
+namespace fx {
+
+using ft::BKV;
+using ft::BQT;
+using ft::DV;
+using ft::NWT;
+using fc::NT;
+using fc::PF;
+constexpr int X_STAGES = 2;             // K/V ring stages
+constexpr int X_MIN_BLOCKS = 2;         // blocks an SM (shared memory)
+constexpr int X_KSTEP = 8;              // m16n8k8: dims (keys) an mma
+constexpr int X_CHAIN = 4;              // k8 steps a tensor-core chain
+
+struct Args {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  int S, Skv, H, Hkv, D, Dp, nsl, causal, window;
+  float scale_log2;                     // log2(e) / sqrt(D)
+  bool vec;                             // 16-byte cp.async (D % 4 == 0)
+};
+
+// byte offsets; Q, K and V tiles are fp32 [rows][DV], swizzled (sw)
+struct Layout {
+  static constexpr int Q = 0;                           // [BQT][DV]
+  static constexpr int K = Q + BQT * DV * 4;            // [NS][BKV][DV]
+  static constexpr int V = K + X_STAGES * BKV * DV * 4; // [NS][BKV][DV]
+  static constexpr int PART = V + X_STAGES * BKV * DV * 4;  // [PF][NT]
+  static constexpr int RED = PART + PF * NT * 4;        // [PF][NT]
+  static constexpr int BYTES = RED + PF * NT * 4;
+  static_assert(BYTES * X_MIN_BLOCKS + 2048 <= 233472, "two blocks an SM");
+};
+
+// Element (r, c) of a [rows][DV] fp32 tile: the 16-byte chunk c / 4 of
+// row r sits at chunk (c / 4) ^ (r % 8) of the row.
+__device__ __forceinline__ int sw(int r, int c) {
+  return r * DV + ((((c >> 2) ^ (r & 7)) << 2) | (c & 3));
+}
+
+// Rows [0, rows) x dims [0, cols) (cols % 8 == 0) of a tile whose row i
+// starts at src + i * rstride, into a swizzled tile; rows >= rvalid and
+// dims >= cvalid are zero (cp.async's zero fill).
+__device__ __forceinline__ void stage(float* dst, const float* src,
+                                      size_t rstride, int rows, int rvalid,
+                                      int cols, int cvalid, bool vec) {
+  if (vec) {                            // cvalid % 4 == 0
+    const int cc = cols >> 2;
+    for (int i = threadIdx.x; i < rows * cc; i += NT) {
+      const int r = i / cc, c = i - r * cc;
+      const bool ok = r < rvalid && 4 * c < cvalid;
+      tc::cp_async16(dst + r * DV + ((c ^ (r & 7)) << 2),
+                     ok ? src + r * rstride + 4 * c : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * cols; i += NT) {
+      const int r = i / cols, c = i - r * cols;
+      const bool ok = r < rvalid && c < cvalid;
+      tc::cp_async4(dst + sw(r, c), ok ? src + r * rstride + c : src, ok);
+    }
+  }
+}
+
+// grid (nsl * q-tiles * B * H), clusters of (nsl, 1, 1), ordered as
+// flash_tc_cluster_kernel's
+__global__ void __launch_bounds__(NT, X_MIN_BLOCKS)
+flash_tf32x3_kernel(const Args p) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw + Layout::Q);
+  float* ks = reinterpret_cast<float*>(smem_raw + Layout::K);
+  float* vs = reinterpret_cast<float*>(smem_raw + Layout::V);
+  float* part = reinterpret_cast<float*>(smem_raw + Layout::PART);
+  float* red = reinterpret_cast<float*>(smem_raw + Layout::RED);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int sl = (int)cluster.block_rank();  // = blockIdx.x % nsl
+  const int nqt = (p.S + BQT - 1) / BQT;
+  const int cid = (int)(blockIdx.x / p.nsl);
+  const int bh = cid / nqt;
+  const int b = bh / p.H, h = bh % p.H, hk = h / (p.H / p.Hkv);
+  const int d0 = sl * DV, dvp = min(DV, p.Dp - d0);
+  const int q0 = (nqt - 1 - cid % nqt) * BQT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c4 = lane & 3, c2 = 2 * c4;
+  const int r0 = warp * 16;             // this warp's first row of the tile
+  const int wq0 = q0 + r0;
+
+  const int q_last = min(q0 + BQT, p.S) - 1;
+  const int k_end = p.causal ? min(p.Skv, q_last + 1) : p.Skv;
+  const int k_begin =
+      p.window > 0 ? (max(0, q0 - p.window + 1) / BKV) * BKV : 0;
+  const int ntile = k_end > k_begin ? (k_end - k_begin + BKV - 1) / BKV : 0;
+
+  const size_t qstride = (size_t)p.H * p.D, kstride = (size_t)p.Hkv * p.D;
+  const float* kbase = p.k + ((size_t)b * p.Skv * p.Hkv + hk) * p.D + d0;
+  const float* vbase = p.v + ((size_t)b * p.Skv * p.Hkv + hk) * p.D + d0;
+  auto stage_kv = [&](int slot, int kt) {
+    stage(ks + slot * BKV * DV, kbase + (size_t)kt * kstride, kstride, BKV,
+          p.Skv - kt, dvp, p.D - d0, p.vec);
+    stage(vs + slot * BKV * DV, vbase + (size_t)kt * kstride, kstride, BKV,
+          p.Skv - kt, dvp, p.D - d0, p.vec);
+  };
+
+  float o[DV / 8][4];
+#pragma unroll
+  for (int j = 0; j < DV / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, cr[2];
+
+  if (ntile > 0) {                      // Q's slice rides with tile 0
+    stage(qs, p.q + (((size_t)b * p.S + q0) * p.H + h) * p.D + d0, qstride,
+          BQT, p.S - q0, dvp, p.D - d0, p.vec);
+  }
+#pragma unroll
+  for (int u = 0; u < X_STAGES - 1; ++u) {
+    if (u < ntile) stage_kv(u, k_begin + u * BKV);
+    tc::cp_commit();                    // one group a tile, empty or not
+  }
+  for (int t = 0; t < ntile; ++t) {
+    const int kt = k_begin + t * BKV;
+    tc::cp_wait<X_STAGES - 2>();        // tile t (and Q) have landed
+    __syncthreads();                    // tile t - 1 consumed by every warp
+    if (t + X_STAGES - 1 < ntile)
+      stage_kv((t + X_STAGES - 1) % X_STAGES, kt + (X_STAGES - 1) * BKV);
+    tc::cp_commit();
+    const bool active =
+        wq0 < p.S && !(p.causal && kt > min(wq0 + 15, p.S - 1)) &&
+        !(p.window > 0 && kt + BKV - 1 < wq0 - p.window + 1);
+    const float* kst = ks + (t % X_STAGES) * BKV * DV;
+    const float* vst = vs + (t % X_STAGES) * BKV * DV;
+    float sc[BKV / 8][4];
+    if (active) {                       // warp-uniform
+#pragma unroll
+      for (int n = 0; n < BKV / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+      // this slice's Q_r K_r^T, X_CHAIN k8 steps a chain on the tensor
+      // cores, the chains added in fp32
+      for (int d0c = 0; d0c < dvp; d0c += X_CHAIN * X_KSTEP) {
+        float cs[BKV / 8][4];
+#pragma unroll
+        for (int n = 0; n < BKV / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) cs[n][e] = 0.f;
+#pragma unroll
+        for (int dc = 0; dc < X_CHAIN * X_KSTEP; dc += X_KSTEP) {
+          const int d = d0c + dc;
+          if (d >= dvp) break;
+          uint32_t qh[4], ql[4];
+          tc::split_tf32(qs[sw(r0 + g, d + c4)], qh[0], ql[0]);
+          tc::split_tf32(qs[sw(r0 + g + 8, d + c4)], qh[1], ql[1]);
+          tc::split_tf32(qs[sw(r0 + g, d + c4 + 4)], qh[2], ql[2]);
+          tc::split_tf32(qs[sw(r0 + g + 8, d + c4 + 4)], qh[3], ql[3]);
+#pragma unroll
+          for (int n = 0; n < BKV / 8; ++n) {
+            uint32_t kh[2], kl[2];
+            tc::split_tf32(kst[sw(n * 8 + g, d + c4)], kh[0], kl[0]);
+            tc::split_tf32(kst[sw(n * 8 + g, d + c4 + 4)], kh[1], kl[1]);
+            tc::mma_tf32(cs[n], ql, kh);
+            tc::mma_tf32(cs[n], qh, kl);
+            tc::mma_tf32(cs[n], qh, kh);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < BKV / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[n][e] += cs[n][e];
+      }
+      if (p.nsl > 1) {
+#pragma unroll
+        for (int f = 0; f < PF; ++f) part[f * NT + tid] = sc[f / 4][f % 4];
+      }
+    }
+    if (p.nsl > 1) {                    // uniform over the grid
+      cluster_arrive();                 // every rank's partials are out
+      cluster_wait();
+      if (active) {
+        // rank r owns values f = r, r + nsl, ...: the ranks' partials of
+        // f added in rank order into red[f]
+        for (int f = sl; f < PF; f += p.nsl) {
+          float v[fc::MAX_CLUSTER];
+#pragma unroll
+          for (int r = 0; r < fc::MAX_CLUSTER; ++r)
+            if (r < p.nsl) v[r] = *cluster.map_shared_rank(part + f * NT + tid, r);
+          float acc = 0.f;
+#pragma unroll
+          for (int r = 0; r < fc::MAX_CLUSTER; ++r)
+            if (r < p.nsl) acc += v[r];
+          red[f * NT + tid] = acc;
+        }
+      }
+      cluster_arrive();                 // every sum is in its owner
+      cluster_wait();
+      if (active) {
+#pragma unroll
+        for (int f = 0; f < PF; ++f)
+          sc[f / 4][f % 4] = *cluster.map_shared_rank(red + f * NT + tid,
+                                                      f % p.nsl);
+      }
+    }
+    if (active) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {  // rows g and g + 8 of the warp
+        const int qp = wq0 + g + 8 * hh;
+        float mx = NEG_INF;
+#pragma unroll
+        for (int n = 0; n < BKV / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kp = kt + n * 8 + c2 + e;
+            bool valid = kp < p.Skv;
+            if (p.causal) valid = valid && qp >= kp;
+            if (p.window > 0) valid = valid && (qp - kp) < p.window;
+            const float v = valid ? sc[n][2 * hh + e] * p.scale_log2 : NEG_INF;
+            sc[n][2 * hh + e] = v;
+            mx = fmaxf(mx, v);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+        const float m_new = fmaxf(m[hh], mx);
+        const float corr = exp2f(m[hh] - m_new);
+        float rs = 0.f;
+#pragma unroll
+        for (int n = 0; n < BKV / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float v = sc[n][2 * hh + e];
+            const float pv = v > NEG_INF ? exp2f(v - m_new) : 0.f;
+            sc[n][2 * hh + e] = pv;
+            rs += pv;
+          }
+        l[hh] = l[hh] * corr + rs;      // this lane's share of the row
+        cr[hh] = corr;
+        m[hh] = m_new;
+      }
+      // P as TF32 hi + lo, keys 0 2 4 6 1 3 5 7 of each k8 block
+      uint32_t ph[BKV / 8][4], pl[BKV / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < BKV / 8; ++kk) {
+        tc::split_tf32(sc[kk][0], ph[kk][0], pl[kk][0]);  // (g, key 2c)
+        tc::split_tf32(sc[kk][2], ph[kk][1], pl[kk][1]);  // (g + 8, key 2c)
+        tc::split_tf32(sc[kk][1], ph[kk][2], pl[kk][2]);  // (g, key 2c + 1)
+        tc::split_tf32(sc[kk][3], ph[kk][3], pl[kk][3]);  // (g + 8, 2c + 1)
+      }
+      // O = O corr + P V: the tile's P V one chain on the tensor cores
+      // from zero, added to the rescaled O in fp32
+#pragma unroll
+      for (int dj = 0; dj < DV / 8; ++dj) {
+        if (dj * 8 >= dvp) break;
+        float pv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < BKV / 8; ++kk) {
+          uint32_t vh[2], vl[2];
+          tc::split_tf32(vst[sw(kk * 8 + c2, dj * 8 + g)], vh[0], vl[0]);
+          tc::split_tf32(vst[sw(kk * 8 + c2 + 1, dj * 8 + g)], vh[1], vl[1]);
+          tc::mma_tf32(pv, pl[kk], vh);
+          tc::mma_tf32(pv, ph[kk], vl);
+          tc::mma_tf32(pv, ph[kk], vh);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[dj][e] = o[dj][e] * cr[e / 2] + pv[e];
+      }
+    }
+  }
+  tc::cp_wait<0>();                     // no copy outlives the block
+  if (ntile > 0 && p.nsl > 1) {         // the others have read our sums
+    cluster_arrive();
+    cluster_wait();
+  }
+
+  const bool pairs = (p.D & 1) == 0;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float lt = l[hh];
+    lt += __shfl_xor_sync(FULL, lt, 1);
+    lt += __shfl_xor_sync(FULL, lt, 2);
+    const float inv = 1.f / fmaxf(lt, 1e-30f);
+    const int qp = wq0 + g + 8 * hh;
+    if (qp >= p.S) continue;
+    float* orow = p.o + (((size_t)b * p.S + qp) * p.H + h) * p.D;
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j) {
+      const int d = d0 + j * 8 + c2;
+      if (j * 8 >= dvp) break;
+      const float v0 = o[j][2 * hh] * inv, v1 = o[j][2 * hh + 1] * inv;
+      if (pairs && d + 1 < p.D) {
+        *reinterpret_cast<float2*>(orow + d) = make_float2(v0, v1);
+      } else {
+        if (d < p.D) orow[d] = v0;
+        if (d + 1 < p.D) orow[d + 1] = v1;
+      }
+    }
+  }
+}
+
+cudaError_t set_attributes() {
+  static bool attr_set = false;
+  if (attr_set) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Layout::BYTES);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(flash_tf32x3_kernel,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  attr_set = true;
+  return cudaSuccess;
+}
+
+cudaError_t launch(const Args& p, int B, int S, cudaStream_t stream) {
+  const cudaError_t e = set_attributes();
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.nsl * ((S + BQT - 1) / BQT) * B * p.H);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = Layout::BYTES;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.nsl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, flash_tf32x3_kernel, p);
+}
+
+}  // namespace fx
+
 }  // namespace
 
-// fp32 q/k/v/o: the CUDA-core kernel. window <= 0: no sliding window.
+// fp32 q/k/v/o: the first design (flash_kernel), kept for the card's
+// A/B against the two fp32 routes (the wrapper's force="cuda_v1").
+// window <= 0: no sliding window.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
                                       int Skv, int H, int Hkv, int D,
@@ -806,6 +1348,55 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   return (int)launch_f32(q, k, v, o, B, S, Skv, H, Hkv, D, scale,
                                   causal, window, (cudaStream_t)stream);
+}
+
+// fp32 q/k/v/o: route 0 flash_rows_kernel (one warp a query row), route
+// 1 flash_tf32x3_kernel (3xTF32 tensor cores, the D-slices a cluster).
+// The wrapper picks the route by S (kernels/flash_attention.py, route);
+// either takes any shape here. window <= 0: no sliding window.
+extern "C" int flash_attention_f32_launch(const void* q, const void* k,
+                                          const void* v, void* o, int B,
+                                          int S, int Skv, int H, int Hkv,
+                                          int D, float scale, int causal,
+                                          int window, int route,
+                                          void* stream) {
+  if (B < 1 || S < 1 || Skv < 1 || H < 1 || Hkv < 1 || H % Hkv || D < 1 ||
+      D > MAXD || route < 0 || route > 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (route == 0) {
+    if ((long long)B * S * H > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    return (int)fr::launch(q, k, v, o, B, S, Skv, H, Hkv, D, scale, causal,
+                           window, st);
+  }
+  fx::Args p;
+  p.q = (const float*)q;
+  p.k = (const float*)k;
+  p.v = (const float*)v;
+  p.o = (float*)o;
+  p.S = S; p.Skv = Skv; p.H = H; p.Hkv = Hkv; p.D = D;
+  p.Dp = (D + fx::X_KSTEP - 1) / fx::X_KSTEP * fx::X_KSTEP;
+  p.nsl = (p.Dp + ft::DV - 1) / ft::DV;
+  p.causal = causal; p.window = window;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  p.vec = D % 4 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  if (p.nsl > fc::MAX_CLUSTER ||
+      (long long)p.nsl * ((S + ft::BQT - 1) / ft::BQT) * B * H > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  return (int)fx::launch(p, B, S, st);
+}
+
+// Resident blocks an SM of an fp32 route's kernel at its registers and
+// shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor): route 0
+// flash_rows_kernel at D <= 1024, route 1 flash_tf32x3_kernel.
+extern "C" int flash_attention_f32_occupancy(int route, int* blocks) {
+  if (route == 0)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, fr::flash_rows_kernel<8>, fr::ROW_WARPS * 32, 0);
+  const cudaError_t e = fx::set_attributes();
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, fx::flash_tf32x3_kernel, fc::NT, fx::Layout::BYTES);
 }
 
 // bf16 q/k/v/o: the tensor-core kernels. window <= 0: no sliding window.

@@ -1,8 +1,11 @@
 // Tensor-core and async-copy building blocks shared by the port's bf16
-// kernels (flash_attention.cu, lora_matmul.cu), as inline PTX so no
-// kernel pulls in CUTLASS's headers (they cost minutes of nvcc per file).
+// kernels (flash_attention.cu, lora_matmul.cu) and the fp32 attention's
+// 3xTF32 route, as inline PTX so no kernel pulls in CUTLASS's headers
+// (they cost minutes of nvcc per file).
 //
 //   mma_bf16      mma.sync.m16n8k16, bf16 operands, fp32 accumulators
+//   mma_tf32      mma.sync.m16n8k8, TF32 operands, fp32 accumulators
+//   split_tf32    x ~ hi + lo, both TF32 (the 3xTF32 split)
 //   ldsm_x4[_t]   ldmatrix.x4 (.trans): four 8x8 b16 tiles from shared
 //                 memory into one warp's fragments
 //   cp_async16/4  cp.async of 16 / 4 bytes, zero-filled when !pred
@@ -88,6 +91,32 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
   const float2 hf = __bfloat1622float2(h);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(a - hf.x, b - hf.y);
+}
+
+// d += a @ b for one m16n8k8 tile, TF32 operands (fp32 bit patterns whose
+// low 13 bits are zero), fp32 accumulators. Fragment layouts (PTX ISA,
+// "mma.m16n8k8", .tf32), g = lane / 4, c = lane % 4:
+//   A (16 x 8)  a0: (g, c)  a1: (g+8, c)  a2: (g, c+4)  a3: (g+8, c+4)
+//   B (8 x 8)   b0: (k c, n g)  b1: (k c+4, n g)
+//   C (16 x 8)  as for m16n8k16
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x ~ hi + lo with hi = tf32_rna(x) and lo = tf32_rna(x - hi) (x - hi is
+// exact in fp32): the 3xTF32 split, about 22 significant bits of x where
+// one TF32 operand carries 11. cvt.rna rounds to nearest, ties away from
+// zero.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float r = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
 }
 
 // cp.async with zero fill: when !pred no byte is read (src must still be

@@ -8,12 +8,17 @@ launch. There is no fallback from the kernel to the plain version.
 ``KERNEL_TRACES`` counts which implementation each call took (the JAX
 package counts at trace time; PyTorch runs eagerly, so here it is per
 call), and every kernel wrapper keeps its own integer ``launches``.
-``flash_attention``, ``lora_matmul`` and ``quant_matmul_t`` have a
-tensor-core instantiation for bf16 and a CUDA-core one for fp32, chosen
-by dtype in the wrapper; their bf16 calls are traced as
-``<op>_cuda_tc``, fp32 as ``<op>_cuda``, and the wrappers count the
-tensor-core launches in ``tc_launches``. ``quant_matmul`` and
-``lora_matmul`` count their GEMV launches (the serve head's and the
+``lora_matmul`` and ``quant_matmul_t`` have a tensor-core
+instantiation for bf16 and a CUDA-core one for fp32, chosen by dtype in
+the wrapper; their bf16 calls are traced as ``<op>_cuda_tc``, fp32 as
+``<op>_cuda``, and the wrappers count the tensor-core launches in
+``tc_launches``. ``flash_attention`` traces its bf16 calls as
+``flash_attention_cuda_tc`` (counted in ``tc_launches``) and its fp32
+calls by route: ``flash_attention_cuda_rows`` (S up to
+``ROWS_MAX_S``, one warp a query row; ``rows_launches``) and
+``flash_attention_cuda_tf32x3`` (3xTF32 tensor cores;
+``tf32_launches``). ``quant_matmul`` and ``lora_matmul`` count their
+GEMV launches (the serve head's and the
 decode step's rows, either dtype; ``lora_matmul`` traces them as
 ``lora_matmul_cuda_gemv``) in ``gemv_launches``; ``quant_matmul`` its
 tensor-core launches (a bf16 x past the GEMV's rows) in
@@ -107,6 +112,8 @@ def reset_launch_counts() -> None:
     qmm_kernel.quant_matmul.tc_launches = 0
     lm_kernel.lora_matmul.gemv_launches = 0
     fa_kernel.flash_attention.cluster_launches = 0
+    fa_kernel.flash_attention.rows_launches = 0
+    fa_kernel.flash_attention.tf32_launches = 0
 
 
 def _on_cuda(t: torch.Tensor, op: str) -> bool:
@@ -147,15 +154,21 @@ def flash_attention_bwd(q, k, v, do, *, causal=True, window=None):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# each route's trace key
+_FLASH_TRACE = {"tc": "flash_attention_cuda_tc",
+                "tc_cluster": "flash_attention_cuda_tc",
+                "cuda_rows": "flash_attention_cuda_rows",
+                "cuda_tf32x3": "flash_attention_cuda_tf32x3"}
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
         ctx.causal, ctx.window = causal, window
         ctx.save_for_backward(q, k, v)
         if _on_cuda(q, "flash_attention"):
-            trace_count("flash_attention_cuda_tc"
-                        if fa_kernel.uses_tensor_cores(q)
-                        else "flash_attention_cuda")
+            how = fa_kernel.route(q.shape[1], q.shape[-1], q.dtype)
+            trace_count(_FLASH_TRACE[how])
             return fa_kernel.flash_attention(q, k, v, causal=causal,
                                              window=window)
         trace_count("flash_attention_ref")

@@ -10,14 +10,17 @@ package's bf16 bound), ``blockwise_quant`` bitwise, ``selective_scan``,
 its backward kernel and the op's gradient 1e-5 times each output's
 largest magnitude (the JAX package's interpret-vs-plain bound), the
 backward kernel and ``quant_matmul`` bitwise equal across two calls. bf16 ``flash_attention`` and
-``lora_matmul`` run their tensor-core kernels, fp32 their CUDA-core
-ones; so does ``quant_matmul`` past the GEMV's 4 rows (bf16: the tc
+``lora_matmul`` run their tensor-core kernels, fp32 ``lora_matmul`` its
+CUDA-core one; so does ``quant_matmul`` past the GEMV's 4 rows (bf16: the tc
 route) and ``quant_matmul_t`` by g's dtype, its bf16-g route held to
 1e-4 of the largest magnitude in fp32 output (W enters as two bf16
 parts, about 16 bits). ``lora_matmul`` at decode rows (up to
 ``MAX_ROWS``) runs its decode route in either dtype, and bf16
 ``flash_attention`` above D = 512 its cluster route, each bitwise equal
-across two calls."""
+across two calls. fp32 ``flash_attention`` runs ``"cuda_rows"`` up to
+``ROWS_MAX_S`` query rows and ``"cuda_tf32x3"`` past them; each, forced
+at every fp32 case, is held at 1e-5 of the largest magnitude and
+bitwise equal across two calls."""
 import numpy as np
 import pytest
 import torch
@@ -278,9 +281,11 @@ def test_cuda_flash_attention_matches_plain(cuda_device, B, S, H, Hkv, D,
     q, k, v = (torch.from_numpy(_np(s, B, S, h, D)).to(cuda_device, dtype)
                for s, h in ((26, H), (27, Hkv), (28, Hkv)))
     before = fa_kernel.flash_attention.tc_launches
+    counts = fa_kernel.route_counts()
     got = fa_kernel.flash_attention(q, k, v, causal=causal, window=window)
     assert fa_kernel.flash_attention.tc_launches - before == \
         int(dtype == BF16)
+    _took_route(counts, fa_kernel.route(S, D, dtype))
     _close(got, ref.flash_attention(q, k, v, causal=causal, window=window))
 
 
@@ -293,10 +298,81 @@ def test_cuda_flash_attention_zoo_shapes_match_plain(
     k, v = (torch.from_numpy(_np(s, B, Skv, Hkv, D)).to(cuda_device, dtype)
             for s in (27, 28))
     before = fa_kernel.flash_attention.tc_launches
+    counts = fa_kernel.route_counts()
     got = fa_kernel.flash_attention(q, k, v, causal=causal, window=window)
     assert fa_kernel.flash_attention.tc_launches - before == \
         int(dtype == BF16)
+    _took_route(counts, fa_kernel.route(S, D, dtype))
     _close(got, ref.flash_attention(q, k, v, causal=causal, window=window))
+
+
+def _took_route(before: dict, route: str):
+    """The one launch since ``before`` was counted on ``route`` alone."""
+    after = fa_kernel.route_counts()
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == route) for r in after}
+
+
+# the fp32 routes' cases at full size: (B, S, Skv, H, Hkv, D, causal,
+# window): the round's cohort at both CLIP widths, the serve oracle,
+# the adapter's causal S = 5, the fp32 step check's backbone and
+# adapter, the LLaVA adapter, the cluster route's other widths (GQA, a
+# window, not causal, a ragged S, D % 8 != 0 against a longer Skv), D %
+# 4 != 0, Whisper's cross-attention
+FLASH_F32_CASES = [
+    (160, 1, 1, 4, 4, 192, False, None), (160, 1, 1, 4, 4, 16, False, None),
+    (1, 1, 1, 4, 4, 192, False, None), (1, 5, 5, 4, 4, 16, True, None),
+    (4, 64, 64, 32, 4, 128, True, None), (4, 64, 64, 8, 8, 512, True, None),
+    (4, 640, 640, 8, 8, 896, True, None),
+    (4, 640, 640, 8, 8, 1024, True, None),
+    (2, 256, 256, 8, 2, 896, True, None), (2, 300, 300, 4, 4, 896, True, 64),
+    (2, 77, 77, 4, 4, 600, True, None), (1, 50, 70, 2, 1, 530, False, None),
+    (1, 33, 33, 2, 2, 777, False, None), (4, 64, 1500, 16, 16, 64, False, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["cuda_rows", "cuda_tf32x3"])
+@pytest.mark.parametrize("B,S,Skv,H,Hkv,D,causal,window", FLASH_F32_CASES)
+def test_cuda_flash_attention_fp32_routes_match_plain(
+        cuda_device, how, B, S, Skv, H, Hkv, D, causal, window):
+    """Either fp32 route, forced at any S, within 1e-5 of the plain
+    version's largest magnitude (TF32 off), two calls bitwise equal, the
+    launch counted on its route; the first design (``"cuda_v1"``) on the
+    same inputs within the same bound."""
+    q = torch.from_numpy(_np(26, B, S, H, D)).to(cuda_device)
+    k, v = (torch.from_numpy(_np(s, B, Skv, Hkv, D)).to(cuda_device)
+            for s in (27, 28))
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    tol = 1e-5 * want.abs().max().item()
+    counts = fa_kernel.route_counts()
+    got = fa_kernel._flash_attention(q, k, v, causal=causal, window=window,
+                                     force=how)
+    _took_route(counts, how)
+    again = fa_kernel._flash_attention(q, k, v, causal=causal,
+                                       window=window, force=how)
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    assert (got - want).abs().max().item() <= tol
+    if how == fa_kernel.route(S, D, F32):
+        assert torch.equal(got, fa_kernel.flash_attention(
+            q, k, v, causal=causal, window=window))
+    if how == "cuda_rows":
+        v1 = fa_kernel._flash_attention(q, k, v, causal=causal,
+                                        window=window, force="cuda_v1")
+        assert (v1 - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_fp32_refuses_other_routes(cuda_device):
+    q = torch.from_numpy(_np(26, 1, 4, 2, 64)).to(cuda_device)
+    for how in ("tc", "tc_single", "tc_cluster", "gemv"):
+        with pytest.raises(ValueError, match="cannot be forced"):
+            fa_kernel._flash_attention(q, q, q, force=how)
+    with pytest.raises(ValueError, match="cannot be forced"):
+        fa_kernel._flash_attention(q.to(BF16), q.to(BF16), q.to(BF16),
+                                   force="cuda_tf32x3")
+    assert fa_kernel.f32_occupancy("cuda_tf32x3") >= 1
+    assert fa_kernel.f32_occupancy("cuda_rows") >= 1
 
 
 @pytest.mark.cuda
@@ -784,7 +860,7 @@ def test_cuda_cohort_round_matches_sequential(cuda_device, arm):
     key = cohort_lib.RoundKey(streams, (3, 0))
     ops.reset_kernel_traces()
     new, m = engine.run_round(g0, key)
-    assert ops.KERNEL_TRACES.get("flash_attention_cuda") == 3
+    assert ops.KERNEL_TRACES.get("flash_attention_cuda_rows") == 3
     assert "flash_attention_ref" not in ops.KERNEL_TRACES
     idx = cohort_lib.round_indices(key, engine.lens, 3, 8)
     outs = [c.local_train(frozen, g0, class_emb, ccfg, steps=3, batch_size=8,
@@ -819,7 +895,7 @@ def test_cuda_run_federated_matches_cpu(cuda_device, arm):
     ops.reset_kernel_traces()
     card = sim_lib.run_federated(cfg, device=cuda_device, streams=streams)
     assert "flash_attention_ref" not in ops.KERNEL_TRACES
-    assert ops.KERNEL_TRACES.get("flash_attention_cuda", 0) >= \
+    assert ops.KERNEL_TRACES.get("flash_attention_cuda_rows", 0) >= \
         cfg.rounds * cfg.local_steps
     cpu = sim_lib.run_federated(cfg, device="cpu", streams=streams)
     assert card.uplink_bytes == cpu.uplink_bytes
@@ -895,7 +971,7 @@ def test_cuda_run_federated_sched_matches_cpu(cuda_device, arm, policy):
     ops.reset_kernel_traces()
     card = sim_lib.run_federated(cfg, device=cuda_device, streams=streams)
     assert "flash_attention_ref" not in ops.KERNEL_TRACES
-    assert ops.KERNEL_TRACES.get("flash_attention_cuda", 0) >= \
+    assert ops.KERNEL_TRACES.get("flash_attention_cuda_rows", 0) >= \
         cfg.rounds * cfg.local_steps
     cpu = sim_lib.run_federated(cfg, device="cpu", streams=streams)
     seq = sim_lib.run_federated(

@@ -40,14 +40,16 @@ def _np(seed, *shape):
 def test_route_and_cluster_size():
     for D in range(1, fa.MAX_D + 1):
         dp = -(-D // 16) * 16
-        assert fa.route(D, torch.float32) == "cuda"
-        assert fa.route(D, torch.bfloat16) == (
+        assert fa.route(64, D, torch.float32) == "cuda_tf32x3"
+        assert fa.route(1, D, torch.float32) == "cuda_rows"
+        assert fa.route(64, D, torch.bfloat16) == (
             "tc" if dp <= fa.MAX_D_STAGED else "tc_cluster")
-        if fa.route(D, torch.bfloat16) == "tc_cluster":
+        if fa.route(64, D, torch.bfloat16) == "tc_cluster":
             assert fa.cluster_size(D) == -(-dp // fa.DV)
             assert 5 <= fa.cluster_size(D) <= fa.MAX_CLUSTER
     assert fa.cluster_size(896) == 7 and fa.cluster_size(1024) == 8
-    assert fa.cluster_size(513) == 5 and fa.route(512, torch.bfloat16) == "tc"
+    assert fa.cluster_size(513) == 5 and \
+        fa.route(64, 512, torch.bfloat16) == "tc"
 
 
 def cluster_emulation(q, k, v, *, causal, window):

@@ -122,13 +122,14 @@ def test_split_k_emulation_matches_the_jax_reference(bits, mode, M, K, N,
 
 @pytest.mark.parametrize("dtype,lora_key,flash_key", [
     (torch.bfloat16, "lora_matmul_cuda_tc", "flash_attention_cuda_tc"),
-    (torch.float32, "lora_matmul_cuda", "flash_attention_cuda")])
+    (torch.float32, "lora_matmul_cuda", "flash_attention_cuda_rows")])
 def test_card_routes_are_traced_by_dtype(monkeypatch, dtype, lora_key,
                                          flash_key):
     """On the card (``_on_cuda`` forced, the kernels stood in for by their
     plain versions) bf16 calls past the decode route's rows trace the
-    tensor-core keys and fp32 calls the CUDA-core ones; both reach the
-    same kernel wrapper."""
+    tensor-core keys and fp32 calls the CUDA-core ``lora_matmul`` key and
+    the attention's route at S = 5 (``"cuda_rows"``); both reach the same
+    kernel wrapper."""
     calls = []
     monkeypatch.setattr(ops, "_on_cuda", lambda t, op: True)
     monkeypatch.setattr(
