@@ -242,12 +242,17 @@ K, N % 16 != 0), and ``flash_attention``'s D > 512 cluster route at D =
 544, 896 and 1024 with the single-stage route it replaces forced beside
 it. bf16 calls of ``flash_attention``,
 ``lora_matmul`` (past its decode rows) and ``quant_matmul_t`` (a bf16
-cotangent) run their tensor-core kernels; fp32 calls of the last two
-their CUDA-core ones, and fp32 ``flash_attention`` its row route
-(``"cuda_rows"``, up to ``ROWS_MAX_S`` query rows) or its 3xTF32
-tensor-core route (``"cuda_tf32x3"``); each row prints the route it took,
-and the bf16 trainer must launch only the tensor-core kernels of the
-three. Phase 2 (b') holds the fp32 attention at the fp32 step check's
+cotangent) run their tensor-core kernels; fp32 ``lora_matmul`` its
+CUDA-core one, fp32 ``quant_matmul`` past the GEMV's rows and fp32
+``quant_matmul_t`` their 3xTF32 tensor-core routes (``"tf32x3"``), and
+fp32 ``flash_attention`` its row route (``"cuda_rows"``, up to
+``ROWS_MAX_S`` query rows) or its 3xTF32 route (``"cuda_tf32x3"``);
+each row prints the route it took, and the bf16 trainer must launch only
+the tensor-core kernels of the three. Phase 2 (a') holds the two fp32
+GEMMs' 3xTF32 routes at the paths' shapes (``check_fp32_gemms``: the
+MoE experts' 20 rows and the calibrated RecurrentGemma-2B MLP's 2048)
+with the first fp32 designs forced beside them (``tiled_ms``) and, at
+20 rows, the time under each split count. Phase 2 (b') holds the fp32 attention at the fp32 step check's
 shapes, both fp32 routes forced at S = 1-32 (the crossover that sets
 ``ROWS_MAX_S``), and every fp32 row the first fp32 design's time on the
 same inputs beside it (``v1_ms``, forced); (f) runs ``FLASH_WIDE`` in
@@ -257,12 +262,15 @@ and fp32 GEMM call by the Model step it ran under and its route
 in phases 12-16 a decode step's ``lora_matmul`` calls must take the
 decode route and a train step's the training rows' (``check_lora_routes``);
 the ``kernels`` record's ``flash_attention`` rows count each route's
-launches over phases 3-16; the fp32 GEMM kernels (``lora_kernel``,
-``qmt_kernel``, ``qmm_kernel``) are timed after phase 16 at the shapes
-the paths launched them most (``time_fp32_gemms``).
+launches over phases 3-16, and so do the fp32 GEMMs' 3xTF32 rows, whose
+calls must all take that route (``check_lora_routes``,
+``check_qmm_routes``); the fp32 GEMM kernels (``lora_kernel``,
+``qmt_tf32_kernel``, ``qmm_tf32_kernel``) are timed after phase 16 at
+the shapes the paths launched them most (``time_fp32_gemms``).
 ``quant_matmul`` is timed at the shape that every serve replay launch
 has (4 users x 1 row, 768 x 768, block 64), each row with the route it
-took (the cluster split-K GEMV or the tiled kernel), the GEMV's plan and
+took (the cluster split-K GEMV, or the tc / tf32x3 route off its
+layout), the GEMV's plan and
 two calls held bitwise equal, and phase 3 counts the replay's
 ``quant_matmul`` launches by users, route and planned CTAs, and requires
 the GEMV for every one. ``flash_attention`` is also held at the
@@ -282,6 +290,7 @@ import dataclasses
 import functools
 import importlib.util
 import json
+import math
 import os
 import re
 import shutil
@@ -369,6 +378,10 @@ REPLACES = {
     # and past it (flash_tf32x3_kernel)
     "flash_attention_rows": "src/repro/kernels/flash_attention.py:72",
     "flash_attention_tf32x3": "src/repro/kernels/flash_attention.py:72",
+    # the fp32 quantized GEMMs' 3xTF32 routes: quant_matmul past the
+    # GEMV's rows (qmm_tf32_kernel) and quant_matmul_t (qmt_tf32_kernel)
+    "quant_matmul_tf32x3": "src/repro/kernels/quant_matmul.py:66",
+    "quant_matmul_t_tf32x3": "src/repro/kernels/lora_matmul.py:146",
 }
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
            for name in REPLACES}
@@ -379,6 +392,8 @@ SOURCES["flash_attention_cluster"] = SOURCES["flash_attention"]
 SOURCES["flash_attention_rows"] = SOURCES["flash_attention"]
 SOURCES["flash_attention_tf32x3"] = SOURCES["flash_attention"]
 SOURCES["selective_scan_bwd"] = SOURCES["selective_scan"]
+SOURCES["quant_matmul_tf32x3"] = SOURCES["quant_matmul"]
+SOURCES["quant_matmul_t_tf32x3"] = SOURCES["lora_matmul"]
 SERVE_KERNELS = ("quant_matmul", "blockwise_quant", "flash_attention")
 # the kernels each trainer's main path launches
 TRAIN_KERNELS = {"yi-9b": ("lora_matmul", "quant_matmul_t", "flash_attention"),
@@ -554,25 +569,39 @@ def nbytes(*ts) -> int:
 
 def routed(wrapper, run) -> tuple:
     """``run()``'s result and the route its launch took, read from the
-    kernel wrapper's own count of tensor-core launches."""
-    before = wrapper.tc_launches
+    kernel wrapper's own counts of tensor-core launches (bf16, and the
+    3xTF32 route's where the wrapper has one)."""
+    before = (wrapper.tc_launches, getattr(wrapper, "tf32_launches", 0))
     out = run()
-    return out, ("tensor cores" if wrapper.tc_launches > before
-                 else "cuda cores")
+    if wrapper.tc_launches > before[0]:
+        return out, "tensor cores"
+    if getattr(wrapper, "tf32_launches", 0) > before[1]:
+        return out, "tf32x3"
+    return out, "cuda cores"
+
+
+def counted_route(counts, run) -> tuple:
+    """``run()``'s result and the route its launch took, read from a
+    kernel wrapper's own counts by route (``counts()``:
+    ``fa_kernel.route_counts``, ``qmm_kernel.route_counts``,
+    ``lm_kernel.qmt_route_counts``); None where nothing launched."""
+    before = counts()
+    out = run()
+    after = counts()
+    grew = [r for r in after if after[r] > before[r]]
+    if len(grew) > 1:
+        raise AssertionError(f"one call counted on the routes {grew}")
+    return out, grew[0] if grew else None
 
 
 def flash_routed(run) -> tuple:
     """``run()``'s result and the ``flash_attention`` route its launch
-    took, read from the wrapper's own counts of each route
-    (``fa_kernel.route_counts``): ``"tc"``, ``"tc_cluster"``,
-    ``"cuda_rows"`` or ``"cuda_tf32x3"``."""
-    before = fa_kernel.route_counts()
-    out = run()
-    after = fa_kernel.route_counts()
-    grew = [r for r in after if after[r] > before[r]]
-    if len(grew) != 1:
-        raise AssertionError(f"flash_attention: routes counted {grew}")
-    return out, grew[0]
+    took: ``"tc"``, ``"tc_cluster"``, ``"cuda_rows"`` or
+    ``"cuda_tf32x3"``."""
+    out, route = counted_route(fa_kernel.route_counts, run)
+    if route is None:
+        raise AssertionError("flash_attention: no launch counted")
+    return out, route
 
 
 def flash_bound(q, k, v, out, pairs: int, route: str) -> tuple:
@@ -673,30 +702,35 @@ def setup() -> None:
           f"{fa_kernel.f32_occupancy('cuda_rows')} (8 warps, D = 1024), "
           f"cuda_tf32x3 {fa_kernel.f32_occupancy('cuda_tf32x3')} (4 warps, "
           f"{fa_kernel.TF32X3_SMEM_BYTES} B of shared memory)", flush=True)
+    print("  quant_matmul / quant_matmul_t tf32x3 blocks per SM (row tile "
+          "32 / 128; NF4, int8): " + " ".join(
+              f"{op}={qmm_kernel.tf32_occupancy(op, 2, 32)}/"
+              f"{qmm_kernel.tf32_occupancy(op, 2, 128)}, "
+              f"{qmm_kernel.tf32_occupancy(op, 0, 32)}/"
+              f"{qmm_kernel.tf32_occupancy(op, 0, 128)}"
+              for op in ("quant_matmul", "quant_matmul_t")), flush=True)
 
 
 # -- phase 2: kernels against their plain versions ---------------------
 
 def qmm_route(run) -> tuple:
     """``run()``'s result and the route its ``quant_matmul`` launch took
-    (``"gemv"``, ``"tc"`` or ``"tiled"``), read from the wrapper's own
-    counts of GEMV and tensor-core launches."""
-    fn = qmm_kernel.quant_matmul
-    before = (fn.gemv_launches, fn.tc_launches)
-    out = run()
-    if fn.gemv_launches > before[0]:
-        return out, "gemv"
-    return out, "tc" if fn.tc_launches > before[1] else "tiled"
+    (``"gemv"``, ``"tc"``, ``"tf32x3"`` or a forced ``"tiled"``; None
+    where nothing launched)."""
+    return counted_route(qmm_kernel.route_counts, run)
 
 
 def path_launches() -> dict:
     """``ops.launch_counts()`` with the routes' own counts beside their
     wrappers' (``ops.reset_launch_counts`` zeroes them all):
-    ``quant_matmul``'s tc route, ``lora_matmul``'s decode route and
-    ``flash_attention``'s D > 512 route and its two fp32 routes."""
+    ``quant_matmul``'s tc and tf32x3 routes, ``quant_matmul_t``'s tf32x3
+    route, ``lora_matmul``'s decode route and ``flash_attention``'s D >
+    512 route and its two fp32 routes."""
     fa = ops.KERNELS["flash_attention"]
     return {**ops.launch_counts(),
             "quant_matmul_tc": qmm_kernel.quant_matmul.tc_launches,
+            "quant_matmul_tf32x3": qmm_kernel.quant_matmul.tf32_launches,
+            "quant_matmul_t_tf32x3": lm_kernel.quant_matmul_t.tf32_launches,
             "lora_matmul_gemv": lm_kernel.lora_matmul.gemv_launches,
             "flash_attention_cluster": fa.cluster_launches,
             "flash_attention_rows": fa.rows_launches,
@@ -726,10 +760,11 @@ def check_quant_matmul(gen) -> tuple:
     eight users, one large shape and the odd-K / ragged-N edges; then the
     tc route (bf16 x past 4 rows) at every training shape of PERF.md rows
     1b and 1c in NF4 and int8. Two calls must be bitwise equal; bf16
-    within 1.6e-2 of the largest magnitude, fp32 1e-5. Each tc row also
-    times the fp32 route's ``qmm_kernel`` on the same bf16 inputs
-    (``tiled_ms``, forced: the wrapper never picks it for bf16). Returns
-    the replay-shape int8 record and the Kimi-K2 expert's NF4 tc record."""
+    within 1.6e-2 of the largest magnitude, fp32 1e-5 (fp32 past 4 rows:
+    the 3xTF32 route). Each tc and tf32x3 row also times the first fp32
+    design, ``qmm_kernel``, on the same inputs (``tiled_ms``, forced: the
+    wrapper never picks it). Returns the replay-shape int8 record and the
+    Kimi-K2 expert's NF4 tc record."""
     dev = "cuda"
     cases = [  # (name, T, M, K, N, bits, mode, dtype)
         ("serve_t4_int8", 4, 1, 768, 768, 8, "linear", torch.float32),
@@ -773,7 +808,8 @@ def check_quant_matmul(gen) -> tuple:
         G = qt.q.shape[-3]
         Kq = G * qt.block
         b_ms, b_by = bound(nbytes(x, qt.q, qt.scales, got),
-                           2.0 * max(T, 1) * M * Kq * N, dtype)
+                           2.0 * max(T, 1) * M * Kq * N,
+                           TF32X3 if route == "tf32x3" else dtype)
         row = {"case": name, "route": route, "max_abs_err": abs_e,
                "rel_err": rel_e, "repeat_bitwise": True,
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
@@ -781,8 +817,10 @@ def check_quant_matmul(gen) -> tuple:
             row.update(gemv_plan_row(T, M, G, N, qt.block))
         timed(row, "ms", lambda: qmm_kernel.quant_matmul(x, qt))
         timed(row, "plain_ms", lambda: ref.quant_matmul(x, qt))
-        if route == "tc":
-            pl = qmm_kernel.plan_tc(max(T, 1), M, Kq, N, qt.block)
+        if route in ("tc", "tf32x3"):
+            pl = (qmm_kernel.plan_tc(max(T, 1), M, Kq, N, qt.block)
+                  if route == "tc" else qmm_kernel.plan_tf32(
+                      max(T, 1), M, Kq, N, math.lcm(qt.block, 32)))
             row.update(plan_bm=pl.bm, plan_splits=pl.splits,
                        plan_blocks=pl.blocks)
             timed(row, "tiled_ms", lambda: qmm_kernel._quant_matmul(
@@ -851,6 +889,97 @@ def qmm_tc_sweep(gen, iters: int = 20) -> None:
             f"{bm}/{s}={t:.4g}" for (bm, s), t in times.items()), flush=True)
         del w, qt, x
     torch.cuda.empty_cache()
+
+
+# phase 2 (a'): the fp32 GEMMs' 3xTF32 routes at the paths' shapes (PERF.md
+# rows 1d and 5e), NF4 block 64: quant_matmul (M, K, N) as the MoE
+# experts' wg/wu under the Runtime (phase 13) and the calibrated
+# RecurrentGemma-2B MLP's wg/wu (phase 15); quant_matmul_t g (M, N)
+# against W (K, N): the experts' two dx shapes and the MLP's two
+TF32_QMM = [("moe_expert_wg_wu", 20, 4096, 1536),
+            ("rgemma_wg_wu_2048", 2048, 2560, 7680)]
+TF32_QMT = [("moe_expert_dx_wg_wu", 20, 4096, 1536),
+            ("moe_expert_dx_wd", 20, 1536, 4096),
+            ("rgemma_dx_wg_wu_2048", 2048, 2560, 7680),
+            ("rgemma_dx_wd_2048", 2048, 7680, 2560)]
+TF32_SPLITS = (1, 2, 4, 6, 8, 11, 16, 24, 32)
+
+
+def check_fp32_gemms(gen) -> tuple:
+    """The 3xTF32 routes (``qmm_tf32_kernel``, ``qmt_tf32_kernel``) at
+    ``TF32_QMM`` / ``TF32_QMT``: route ``"tf32x3"``, within 1e-5 of the
+    plain version's largest magnitude (fp32, TF32 off), two calls bitwise
+    equal; each row with the plan, the bound under the 3xTF32 rule, the
+    device ms beside the first design's (forced, ``tiled_ms``) and the
+    plain version's on the same inputs; at the 20-row shapes the device
+    time (``queued_ms``) under each split count of ``TF32_SPLITS``
+    beside the plan's. Returns the experts' wg/wu record of each op."""
+    dev, f32 = "cuda", torch.float32
+    main = {}
+    cases = [("quant_matmul", *c) for c in TF32_QMM] + \
+        [("quant_matmul_t", *c) for c in TF32_QMT]
+    for op, name, M, K, N in cases:
+        w = torch.randn((K, N), generator=gen, device=dev) / K ** 0.5
+        qt = qlib.quantize(w, bits=4, block=64, mode="nf4")
+        del w
+        if op == "quant_matmul":
+            a = torch.randn((M, K), generator=gen, device=dev)
+            run = lambda: qmm_kernel.quant_matmul(a, qt)
+            first = lambda: qmm_kernel._quant_matmul(a, qt, None,
+                                                     force="tiled")
+            plain = lambda: ref.quant_matmul(a, qt)
+            pl = qmm_kernel.plan_tf32(1, M, K, N, 64)
+            forced = lambda s_: (lambda: qmm_kernel._quant_matmul(
+                a, qt, None, tf32_plan=dataclasses.replace(
+                    pl, splits=s_, ranges=qmm_kernel.split_ranges(
+                        K, 64, s_))))
+            got, route = qmm_route(run)
+        else:
+            a = torch.randn((M, N), generator=gen, device=dev)
+            run = lambda: lm_kernel.quant_matmul_t(a, qt)
+            first = lambda: lm_kernel._quant_matmul_t(a, qt, None, None,
+                                                      force="tiled")
+            plain = lambda: ref.quant_matmul_t(a, qt, out_dtype=f32)
+            pl = lm_kernel.plan_t_tf32(M, K, N)
+            forced = lambda s_: (lambda: lm_kernel._quant_matmul_t(
+                a, qt, None, s_))
+            got, route = counted_route(lm_kernel.qmt_route_counts, run)
+        again = run()
+        want = plain()
+        torch.cuda.synchronize()
+        abs_e, rel_e = rel_err(got, want)
+        if route != "tf32x3":
+            raise AssertionError(f"{op} {name}: fp32 took {route}")
+        if not (rel_e <= 1e-5 and torch.isfinite(got).all()):
+            raise AssertionError(f"{op} {name}: rel err {rel_e} > 1e-5")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{op} {name}: two calls differ")
+        b_ms, b_by = bound(nbytes(a, qt.q, qt.scales, got),
+                           2.0 * M * K * N, TF32X3)
+        row = {"case": name, "route": route, "M": M, "K": K, "N": N,
+               "plan_bm": pl.bm, "plan_splits": pl.splits,
+               "plan_blocks": pl.blocks, "max_abs_err": abs_e,
+               "rel_err": rel_e, "repeat_bitwise": True, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": None}
+        timed(row, "ms", run)
+        timed(row, "tiled_ms", first)
+        timed(row, "plain_ms", plain)
+        report({op + "_tf32x3": 1, **row})
+        if M <= qmm_kernel.TF32_SMALL_ROWS:
+            times = {s_: queued_ms(forced(s_))
+                     for s_ in sorted({*TF32_SPLITS, pl.splits})}
+            best = min(times, key=times.get)
+            print(f"    queued ms by split count (plan {pl.splits}, best "
+                  f"{best}): " + " ".join(f"{s_}={t:.4g}"
+                                          for s_, t in times.items()),
+                  flush=True)
+        main.setdefault(op, row)
+        del a, qt, got, again, want
+    torch.cuda.empty_cache()
+    print("  library: no single PyTorch call computes x @ dequant(W_q) or "
+          "g @ dequant(W_q)^T from the quantized payload (library_ms = "
+          "null)", flush=True)
+    return main["quant_matmul"], main["quant_matmul_t"]
 
 
 def check_blockwise_quant(gen) -> dict:
@@ -1013,11 +1142,13 @@ def check_lora_kernels(gen) -> tuple:
             if not (rel_e <= tol and torch.isfinite(got).all()):
                 raise AssertionError(f"{kname} {name}: rel err {rel_e} > {tol}")
             b_ms, b_by = bound(nbytes(*ins, qt.q, qt.scales, got), nops,
-                               ins[0].dtype)
+                               TF32X3 if route == "tf32x3" else ins[0].dtype)
             row = {"case": name, "route": route}
             if dtype == bf16:
                 if route != "tensor cores":
                     raise AssertionError(f"{kname} {name}: bf16 took {route}")
+            elif kname == "quant_matmul_t" and route != "tf32x3":
+                raise AssertionError(f"{kname} {name}: fp32 took {route}")
                 row["splits"] = (lm_kernel.plan(M, K, N, qt.block)
                                  if kname == "lora_matmul" else
                                  lm_kernel.plan_t(M, Kq, N)).splits
@@ -1587,8 +1718,9 @@ def profile_replay(engine, trace, images) -> dict:
 @contextlib.contextmanager
 def record_quant_matmul():
     """Count the ``quant_matmul`` kernel launches made inside the block
-    by (users T, rows a user M, route ``"gemv"`` / ``"tc"`` / ``"tiled"``,
-    the plan's CTAs (0 for the tiled route), x's dtype), read around each
+    by (users T, rows a user M, route ``"gemv"`` / ``"tc"`` / ``"tf32x3"``
+    (``"tiled"`` only if forced), the plan's CTAs (0 for the tiled
+    route), x's dtype), read around each
     call of the op ``ops.quant_matmul``, which the serve engine and the
     models call; the kernel wrapper and its counts are left as they
     are."""
@@ -1608,6 +1740,9 @@ def record_quant_matmul():
             elif route == "tc":
                 ctas = qmm_kernel.plan_tc(T, M, G * qt.block, N,
                                           qt.block).blocks
+            elif route == "tf32x3":
+                ctas = qmm_kernel.plan_tf32(T, M, G * qt.block, N, math.lcm(
+                    qt.block, 32)).blocks
             calls[(T, M, route, ctas, str(x.dtype).split(".")[-1])] += 1
         return y
 
@@ -1637,8 +1772,10 @@ def record_routes():
     ``"cuda_tf32x3"``). The fp32 GEMMs are recorded under their CUDA-core
     kernels' names with their shapes (M, K, N, LoRA rank or 0, bits,
     mode, block): ``lora_matmul``'s training rows (``"lora_kernel"``),
-    the dx of a quantized weight (``"qmt_kernel"``, K the padded Kq) and
-    ``quant_matmul``'s tiled route (``"qmm_kernel"``). The ops' entries (``ops._lora_kernel``,
+    an fp32 dx of a quantized weight (``"qmt_tf32_kernel"``, K the padded
+    Kq) and an fp32 ``quant_matmul`` past the GEMV's rows
+    (``"qmm_tf32_kernel"``), each with the route it took (``"tf32x3"``,
+    or ``"tiled"`` if the first design ran). The ops' entries (``ops._lora_kernel``,
     ``ops._FlashAttention``, ``ops._dx_through_w``, ``ops._qmm_kernel``)
     are wrapped, and the Model's step methods mark the step; the kernel
     wrappers and their counts are left as they are."""
@@ -1679,24 +1816,26 @@ def record_routes():
 
     def dx_through_w(g, qt, K):
         w = lm_kernel.quant_matmul_t
-        before = (w.launches, w.tc_launches)
-        dx = dx_op(g, qt, K)
-        if w.launches > before[0] and w.tc_launches == before[1]:
-            calls[("qmt_kernel", step(), (g.numel() // g.shape[-1],
-                                          qt.q.shape[-3] * qt.block,
-                                          g.shape[-1], 0, qt.bits, qt.mode,
-                                          qt.block),
-                   "cuda", "float32")] += 1
+        before = w.launches
+        dx, route = counted_route(lm_kernel.qmt_route_counts,
+                                  lambda: dx_op(g, qt, K))
+        if w.launches > before and route != "tc":
+            calls[("qmt_tf32_kernel", step(), (g.numel() // g.shape[-1],
+                                               qt.q.shape[-3] * qt.block,
+                                               g.shape[-1], 0, qt.bits,
+                                               qt.mode, qt.block),
+                   route, "float32")] += 1
         return dx
 
     def qmm(x, qt):
         w = qmm_kernel.quant_matmul
         before = w.launches
         y, route = qmm_route(lambda: qmm_op(x, qt))
-        if w.launches > before and route == "tiled":
-            calls[("qmm_kernel", step(), (x.numel() // x.shape[-1],
-                                          x.shape[-1], qt.q.shape[-1], 0,
-                                          qt.bits, qt.mode, qt.block),
+        if w.launches > before and route in ("tf32x3", "tiled"):
+            calls[("qmm_tf32_kernel", step(), (x.numel() // x.shape[-1],
+                                               x.shape[-1], qt.q.shape[-1],
+                                               0, qt.bits, qt.mode,
+                                               qt.block),
                    route, dtype_of(x))] += 1
         return y
 
@@ -1727,7 +1866,7 @@ def record_routes():
 
 
 # the fp32 kernels record_routes counts by shape
-FP32_GEMMS = ("lora_kernel", "qmt_kernel", "qmm_kernel")
+FP32_GEMMS = ("lora_kernel", "qmt_tf32_kernel", "qmm_tf32_kernel")
 
 
 def check_lora_routes(phases: dict, decode_phases=(12, 13, 14, 16),
@@ -1737,8 +1876,10 @@ def check_lora_routes(phases: dict, decode_phases=(12, 13, 14, 16),
     fp32 launches by route and phase; fail unless, in ``lora_phases``,
     every ``lora_matmul`` call of a decode step took the decode route
     (``"gemv"``) and every one of a train step the training rows' route
-    (``"tc"`` for bf16, ``"cuda"`` for fp32), and each of
-    ``decode_phases`` launched the decode route. Returns the launches of
+    (``"tc"`` for bf16, ``"cuda"`` for fp32), every fp32 ``quant_matmul``
+    past the GEMV's rows and every fp32 ``quant_matmul_t`` took its 3xTF32
+    route (``"tf32x3"``), and each of ``decode_phases`` launched the
+    decode route. Returns the launches of
     each route of ``flash_attention`` and of ``lora_matmul``'s decode
     route, summed over the phases, and the fp32 GEMMs' launches by
     (kernel, shape) and phase under ``"fp32_gemms"``."""
@@ -1761,6 +1902,10 @@ def check_lora_routes(phases: dict, decode_phases=(12, 13, 14, 16),
             if op in FP32_GEMMS:
                 gemms[(op, rows)][phase] += n
                 if op != "lora_kernel":
+                    if route != "tf32x3":
+                        raise AssertionError(f"phase {phase}: {n} fp32 "
+                                             f"{op} calls at {rows} took "
+                                             f"{route}, not tf32x3")
                     continue
                 route = "cuda"
             total["lora_matmul_gemv"] += n * (route == "gemv")
@@ -2151,7 +2296,8 @@ def train_phase(*, arch="yi-9b", rounds=2, clients=2, steps=2, batch=4,
     res["tc_launches"] = tc
     if "quant_matmul_t" in kernels and cfg.dtype == "bfloat16":
         per_step = traces.get("quant_matmul_t_cuda_tc", 0) / n_steps
-        if "quant_matmul_t_cuda" in traces or per_step != qmt_per_step(cfg):
+        if "quant_matmul_t_cuda_tf32x3" in traces or \
+                per_step != qmt_per_step(cfg):
             raise AssertionError(
                 f"quant_matmul_t: {per_step} tensor-core launches per local "
                 f"step (want {qmt_per_step(cfg)}), traces {traces}")
@@ -4153,7 +4299,8 @@ def check_quant_matmul_zoo(gen) -> list:
         if not (rel_e <= tol and torch.isfinite(got).all()):
             raise AssertionError(f"quant_matmul {name}: rel err {rel_e} > {tol}")
         b_ms, b_by = bound(nbytes(x, qt.q, qt.scales, got),
-                           2.0 * M * Kq * N, dt)
+                           2.0 * M * Kq * N,
+                           TF32X3 if route == "tf32x3" else dt)
         row = {"case": name, "route": route, "max_abs_err": abs_e,
                "rel_err": rel_e, "tol": tol, "bound_ms": b_ms,
                "bound_by": b_by, "library_ms": None}
@@ -4172,7 +4319,8 @@ def check_quant_matmul_zoo(gen) -> list:
                 dx[side], = torch.autograd.grad(fn(xr, qt), xr, g)
         torch.cuda.synchronize()
         tc = dt == torch.bfloat16
-        want_trace = "quant_matmul_t_cuda_tc" if tc else "quant_matmul_t_cuda"
+        want_trace = "quant_matmul_t_cuda_tc" if tc else \
+            "quant_matmul_t_cuda_tf32x3"
         if ops.KERNEL_TRACES.get(want_trace, 0) != 1:
             raise AssertionError(f"quant_matmul {name}: the dx took "
                                  f"{dict(ops.KERNEL_TRACES)}")
@@ -4184,9 +4332,9 @@ def check_quant_matmul_zoo(gen) -> list:
         run = lambda: lm_kernel.quant_matmul_t(gk, qt, out_dtype=f32)
         dxw = run()
         b_ms, b_by = bound(nbytes(gk, qt.q, qt.scales, dxw),
-                           2.0 * M * Kq * N, gk.dtype)
+                           2.0 * M * Kq * N, gk.dtype if tc else TF32X3)
         row = {"case": name + "_dx", "route": "tensor cores" if tc
-               else "cuda cores", "max_abs_err": abs_e, "rel_err": rel_e,
+               else "tf32x3", "max_abs_err": abs_e, "rel_err": rel_e,
                "tol": tol, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": None}
         timed(row, "ms", run)
@@ -5995,13 +6143,13 @@ def check_qmm_routes(phases: dict) -> None:
     """Print each phase's ``quant_matmul`` launches (its paths and its
     checks) by (users, rows, route, plan CTAs, dtype) and fail if a bf16
     call past 4 rows took another route than "tc" or an fp32 one past 4
-    rows another than "tiled"."""
+    rows another than "tf32x3"."""
     for phase, calls in phases.items():
         print(f"  phase {phase} quant_matmul launches by (users T, rows M, "
               "route, plan CTAs, dtype): " + " ".join(
                   f"{k}={n}" for k, n in sorted(calls.items())), flush=True)
         for (T, M, route, ctas, dtype), n in calls.items():
-            want = {"bfloat16": "tc", "float32": "tiled"}[dtype] \
+            want = {"bfloat16": "tc", "float32": "tf32x3"}[dtype] \
                 if M > qmm_kernel.MAX_ROWS else None
             if want is not None and route != want:
                 raise AssertionError(f"phase {phase}: {n} {dtype} "
@@ -6010,14 +6158,17 @@ def check_qmm_routes(phases: dict) -> None:
 
 
 def time_fp32_gemms(gen, gemms: dict, top: int = 2) -> list:
-    """The fp32 GEMM kernels (``lora_kernel``, ``qmt_kernel``,
-    ``qmm_kernel``) at the shapes the paths ran them (``gemms``: launches
-    by (kernel, shape) and phase, from ``check_lora_routes``): each
-    kernel's ``top`` shapes by the work their launches did (launches x 2
-    M K N), a seeded weight quantized as recorded, the kernel's device ms
-    and its plain version's beside the bound (fp32 operations at 67
-    TFLOP/s or the bytes), and the launches by phase. Returns the
-    rows."""
+    """The fp32 GEMM kernels (``lora_kernel``, ``qmt_tf32_kernel``,
+    ``qmm_tf32_kernel``) at the shapes the paths ran them (``gemms``:
+    launches by (kernel, shape) and phase, from ``check_lora_routes``):
+    each kernel's ``top`` shapes by the work their launches did (launches
+    x 2 M K N), a seeded weight quantized as recorded, the kernel's
+    device ms and its plain version's beside the bound (``lora_kernel``:
+    fp32 operations at 67 TFLOP/s or the bytes; the 3xTF32 kernels under
+    the 3xTF32 rule), the first design's ms on the same inputs (forced,
+    ``tiled_ms``) beside the 3xTF32 kernels', and the launches by phase.
+    Each kernel is held within 1e-5 of the plain version's largest
+    magnitude. Returns the rows."""
     f32 = torch.float32
     rows = []
     for kernel in FP32_GEMMS:
@@ -6036,26 +6187,33 @@ def time_fp32_gemms(gen, gemms: dict, top: int = 2) -> list:
                 run = lambda: lm_kernel.lora_matmul(x, qt, a, b, scale=2.0)
                 plain = lambda: ref.lora_matmul(x, qt, a, b, scale=2.0)
                 ins, nops = (x, a, b), 2.0 * M * (Kq * N + K * r + r * N)
-            elif kernel == "qmt_kernel":
+            elif kernel == "qmt_tf32_kernel":
                 g = rnd(M, N)
                 run = lambda: lm_kernel.quant_matmul_t(g, qt, out_dtype=f32)
+                first = lambda: lm_kernel._quant_matmul_t(g, qt, None, None,
+                                                          force="tiled")
                 plain = lambda: ref.quant_matmul_t(g, qt, out_dtype=f32)
                 ins, nops = (g,), 2.0 * M * Kq * N
             else:
                 x = rnd(M, K)
                 run = lambda: qmm_kernel.quant_matmul(x, qt)
+                first = lambda: qmm_kernel._quant_matmul(x, qt, None,
+                                                         force="tiled")
                 plain = lambda: ref.quant_matmul(x, qt)
                 ins, nops = (x,), 2.0 * M * Kq * N
             got = run()
             abs_e, rel_e = rel_err(got, plain())
             if not rel_e <= 1e-5:
                 raise AssertionError(f"{kernel} {M}x{K}x{N}: rel err {rel_e}")
-            b_ms, b_by = bound(nbytes(*ins, qt.q, qt.scales, got), nops, f32)
+            b_ms, b_by = bound(nbytes(*ins, qt.q, qt.scales, got), nops,
+                               f32 if kernel == "lora_kernel" else TF32X3)
             row = {"fp32_gemm": kernel, "M": M, "K": K, "N": N, "rank": r,
                    "quant": f"{mode}{bits}/{block}", "rel_err": rel_e,
                    "bound_ms": b_ms, "bound_by": b_by,
                    "launches": {str(ph): c for ph, c in by.items()}}
             timed(row, "ms", run)
+            if kernel != "lora_kernel":
+                timed(row, "tiled_ms", first)
             timed(row, "plain_ms", plain)
             report(row)
             rows.append(row)
@@ -6096,6 +6254,10 @@ def _main() -> int:
     main_rows = {}
     main_rows["quant_matmul"], main_rows["quant_matmul_tc"] = \
         check_quant_matmul(gen)
+    # the fp32 GEMMs' 3xTF32 routes, early, where the profiler records
+    # every activity
+    main_rows["quant_matmul_tf32x3"], main_rows["quant_matmul_t_tf32x3"] = \
+        check_fp32_gemms(gen)
     main_rows["blockwise_quant"] = check_blockwise_quant(gen)
     check_flash_attention(gen)      # the serve shapes
     main_rows["flash_attention"] = check_flash_train(gen)
@@ -6276,6 +6438,12 @@ def _main() -> int:
     # runs it), apart from its wrapper's row
     launches["lora_matmul_gemv"] = new_routes["lora_matmul_gemv"]
     launches["lora_matmul"] -= new_routes["lora_matmul_gemv"]
+    # the fp32 GEMMs' 3xTF32 routes over phases 3-16 (record_routes)
+    for name, kernel in (("quant_matmul_tf32x3", "qmm_tf32_kernel"),
+                         ("quant_matmul_t_tf32x3", "qmt_tf32_kernel")):
+        launches[name] = sum(sum(by.values()) for (op, _), by in
+                             new_routes["fp32_gemms"].items()
+                             if op == kernel)
     # flash_attention by route over phases 3-16 (record_routes): the bf16
     # tensor cores up to D = 512 and above, the two fp32 routes
     for name, route in (("flash_attention", "tc"),
@@ -6285,7 +6453,8 @@ def _main() -> int:
         launches[name] = new_routes["flash_attention_" + route]
     for name in ("lora_matmul_gemv", "flash_attention",
                  "flash_attention_cluster", "flash_attention_rows",
-                 "flash_attention_tf32x3"):
+                 "flash_attention_tf32x3", "quant_matmul_tf32x3",
+                 "quant_matmul_t_tf32x3"):
         if launches[name] < 1:
             raise AssertionError(f"phases 3-16 launched no {name}")
     print(f"fp32 GEMM rows: {len(fp32_rows)}", flush=True)

@@ -13,8 +13,9 @@
 //
 // Each op has two instantiations, chosen by the activation's dtype in the
 // wrapper (kernels/lora_matmul.py), never as a fallback of one another:
-// bf16 runs the tensor-core kernels below, fp32 the CUDA-core ones, which
-// keep fp32 callers at 1e-5 (tensor cores at fp32 would need TF32).
+// bf16 runs the tensor-core kernels below; fp32 lora_matmul the CUDA-core
+// lora_kernel and fp32 quant_matmul_t the 3xTF32 tensor cores
+// (qmt_tf32_kernel), both at 1e-5.
 //
 // bf16 x: lora_tc_kernel, tensor cores (lora_matmul_tc_launch).
 //  - mma.sync.m16n8k16 (bf16 operands, fp32 accumulators) fed by
@@ -102,14 +103,27 @@
 //    kernel's (bm, r) scratch does; after the loop h and the (r x 128)
 //    tile of B meet in shared memory and y = acc + scale * h @ B is
 //    written. r is padded to 16 or 32 with zero columns.
-// fp32 g: qmt_kernel, the same CUDA-core tiles for quant_matmul_t. It
+// fp32 g: qmt_tf32_kernel (quant_matmul_t_tf32_launch), tf32_gemm.cuh's
+// 3xTF32 body turned over, as qmt_tc_kernel turns over lora_tc_kernel:
+// g is the A operand, split into TF32 hi and lo as its fragment is read;
+// W's stored [Kq][N] orientation is the col-major B operand m16n8k8
+// wants, so each tile decodes into [128 Kq rows][32 N columns] TF32 hi
+// and lo tiles once per block; chains of 4 k8 steps are added in fp32,
+// at 1e-5. Bound: at the MoE experts' dx, g (20, 4096) against W (1536,
+// 4096), the bytes of W against 1.53 us of three TF32 products; the old
+// kernel's 12 column tiles left 120 of 132 SMs idle, so N is split by
+// kernels/lora_matmul.plan_t_tf32 (one 32-wide k-tile the granule) until
+// the grid fills the card (11 splits, 132 blocks; 5 at g (20, 1536)),
+// the (splits, M, Kq) partials summed in split order.
+// fp32 g, forced only (force="tiled", the card's A/B): qmt_kernel, the
+// first design on the CUDA cores, the same tiles as lora_kernel. It
 // reduces over N and writes columns of Kq: its weight tile is W^T, read
 // along N (coalesced) and stored transposed in shared memory with a
 // padded stride. Columns past N (ragged N) load as zeros.
 // Odd K: x and A are masked past the true K and W's pad rows are zero,
 // which contracts as the zero-padding of lora_matmul.py:75-84 does.
 // All accumulation is fp32. No route writes a dense W to device memory.
-#include "tc_tile.cuh"
+#include "tf32_gemm.cuh"
 
 namespace {
 
@@ -625,11 +639,6 @@ struct Layout {
   static constexpr int WB = NS * STAGE;
   static constexpr int CODE = WB + 4 * BN * LDW * 2; // f32 [16]
   static constexpr int BYTES = CODE + 16 * 4;
-  // 16-byte chunks a tile stages: g, payload (scales: tid < rows * 8)
-  static constexpr int GCH = BM * BK / 8 / NT;       // per thread
-  static constexpr int QCH = QROWS * BK / 16;        // threads tid < QCH
-  static_assert(GCH * NT * 8 == BM * BK && QCH <= NT && SR * 8 <= NT,
-                "chunks");
   static_assert(STAGE % 16 == 0 && WB % 16 == 0, "align");
 };
 
@@ -645,65 +654,21 @@ struct Args {
 };
 
 // Stage N-tile [n0, n0 + BK) (of the split ending at ne) of g rows m0..
-// and of W rows kb0.. into one ring slot: payload row j of the (G, rows,
-// N) layout is weight row j * RSTEP, so the block's payload is QROWS
-// consecutive rows from kb0 / RSTEP, 32 bytes of each; the scale row of
-// weight row k is k >> bshift. Zero fill past M, ne (<= N) and Kq;
-// N % 8 != 0 (g) or N % 16 != 0 (payload, scales) take element copies.
+// and of W rows kb0.. into one ring slot (tc_tile.cuh's stage_rows and
+// stage_w): the block's payload is QROWS consecutive rows from kb0 /
+// RSTEP, 32 bytes of each, and the scale rows they touch. Zero fill past
+// M, ne (<= N) and Kq; N % 8 != 0 (g) or N % 16 != 0 (payload, scales)
+// take element copies.
 template <int FMT>
 __device__ __forceinline__ void load_tile(const Args& p, uint8_t* st, int m0,
                                           int kb0, int n0, int ne) {
   using L = Layout<FMT>;
-  const int tid = threadIdx.x;
-  __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(st + L::G);
-  uint8_t* qs = st + L::Q;
-  float* ss = reinterpret_cast<float*>(st + L::S);
-  if (p.g_vec) {                    // N % 8 == 0: a chunk is all in or out
-#pragma unroll
-    for (int e = 0; e < L::GCH; ++e) {
-      const int i = tid + e * NT, row = i >> 2, c = (i & 3) * 8;
-      const int m = m0 + row, n = n0 + c;
-      const bool ok = m < p.M && n < ne;
-      tc::cp_async16(gs + row * LDG + c, ok ? p.g + (size_t)m * p.N + n : p.g,
-                     ok);
-    }
-  } else {
-    for (int i = tid; i < BM * BK; i += NT) {
-      const int row = i / BK, c = i % BK, m = m0 + row, n = n0 + c;
-      gs[row * LDG + c] = (m < p.M && n < ne) ? p.g[(size_t)m * p.N + n]
-                                              : __float2bfloat16(0.f);
-    }
-  }
-  const int g0 = kb0 >> p.bshift;
-  const int nsr = p.bshift >= 7 ? 1 : BN >> p.bshift;  // scale rows
-  if (p.w_vec) {                    // N % 16 == 0
-    if (tid < L::QCH) {
-      const int pr = tid >> 1, c = (tid & 1) * 16, n = n0 + c;
-      const bool ok = kb0 + L::RSTEP * pr < p.Kq && n < ne;
-      tc::cp_async16(
-          qs + pr * BK + c,
-          ok ? p.q + (size_t)(kb0 / L::RSTEP + pr) * p.N + n : p.q, ok);
-    }
-    if (tid < nsr * 8) {
-      const int sr = tid >> 3, c = (tid & 7) * 4, n = n0 + c;
-      const bool ok = n < ne && ((g0 + sr) << p.bshift) < p.Kq;
-      tc::cp_async16(ss + sr * BK + c,
-                     ok ? p.s + (size_t)(g0 + sr) * p.N + n : p.s, ok);
-    }
-  } else {
-    for (int i = tid; i < L::QROWS * BK; i += NT) {
-      const int pr = i / BK, n = n0 + i % BK;
-      qs[i] = (kb0 + L::RSTEP * pr < p.Kq && n < ne)
-                  ? p.q[(size_t)(kb0 / L::RSTEP + pr) * p.N + n]
-                  : (uint8_t)0;
-    }
-    for (int i = tid; i < nsr * BK; i += NT) {
-      const int sr = i / BK, n = n0 + i % BK;
-      const bool ok = n < ne && ((g0 + sr) << p.bshift) < p.Kq;
-      tc::cp_async4(ss + i, ok ? p.s + (size_t)(g0 + sr) * p.N + n : p.s,
-                    ok);
-    }
-  }
+  tt::stage_rows<__nv_bfloat16, BM, NT, LDG>(
+      p.g, p.N, p.M, ne, p.g_vec,
+      reinterpret_cast<__nv_bfloat16*>(st + L::G), m0, n0);
+  tt::stage_w<FMT, BN, BK, NT>(p.q, p.s, p.N, p.bshift, p.w_vec, st + L::Q,
+                               reinterpret_cast<float*>(st + L::S), kb0,
+                               p.Kq, n0, ne);
 }
 
 template <int FMT>
@@ -836,6 +801,51 @@ cudaError_t launch(const Args& p, int splits, cudaStream_t st) {
 
 }  // namespace qmt
 
+// ---- fp32 g: 3xTF32 tensor cores ---------------------------------------
+namespace qtf {
+
+// dx tile (m0.., kb0..) of split z: tf32_gemm.cuh's body with W's [128 Kq
+// rows][32 N columns] tile turned over (W^T is the B operand).
+template <int FMT, int BM>
+__global__ void __launch_bounds__(tg::NT, tg::Cfg<BM>::MINB)
+qmt_tf32_kernel(const tg::Args p) {
+  tg::gemm_tf32<FMT, BM, true>(p);
+}
+
+template <int FMT, int BM>
+cudaError_t launch_tile(const tg::Args& p, cudaStream_t st) {
+  constexpr int bytes = tg::Layout<FMT, BM, true>::BYTES;
+  static bool attr_set = false;
+  const cudaError_t e = tg::set_smem(qmt_tf32_kernel<FMT, BM>, bytes,
+                                     attr_set);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.O + tg::BO - 1) / tg::BO, (p.M + BM - 1) / BM,
+                  p.splits);
+  qmt_tf32_kernel<FMT, BM><<<grid, tg::NT, bytes, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <int FMT>
+cudaError_t launch_bm(const tg::Args& p, int bm, cudaStream_t st) {
+  switch (bm) {
+    case 32: return launch_tile<FMT, 32>(p, st);
+    case 128: return launch_tile<FMT, 128>(p, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int FMT, int BM>
+cudaError_t occupancy(int* blocks) {
+  constexpr int bytes = tg::Layout<FMT, BM, true>::BYTES;
+  bool done = false;
+  const cudaError_t e = tg::set_smem(qmt_tf32_kernel<FMT, BM>, bytes, done);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, qmt_tf32_kernel<FMT, BM>, tg::NT, bytes);
+}
+
+}  // namespace qtf
+
 template <int FMT>
 cudaError_t lora_fmt(const void* x, const void* q, const void* s,
                      const void* a, const void* b, void* y, int M, int K,
@@ -954,7 +964,8 @@ extern "C" int lora_matmul_tc_launch(const void* x, const void* q,
                              (long long)M * N, splits, st);
 }
 
-// fp32 g, o: the CUDA-core kernel. g (M, N) -> o (M, Kq).
+// fp32 g, o: the first design's CUDA-core kernel (run only when the
+// wrapper is forced to it). g (M, N) -> o (M, Kq).
 extern "C" int quant_matmul_t_launch(const void* g, const void* q,
                                      const void* s, void* o, int M, int Kq,
                                      int N, int block, int rows, int fmt,
@@ -1004,4 +1015,53 @@ extern "C" int quant_matmul_t_tc_launch(const void* g, const void* q,
              ? (int)tt::sum_splits((const float*)ws, (float*)o, mn, splits, st)
              : (int)tt::sum_splits((const float*)ws, (__nv_bfloat16*)o, mn,
                                    splits, st);
+}
+
+// fp32 g, o: the 3xTF32 tensor-core kernel, g (M, N) -> o (M, Kq), with a
+// row tile of bm (32 or 128) rows and N in `splits` slices on multiples
+// of unit (a multiple of 32; kernels/lora_matmul.plan_t_tf32), then
+// (splits > 1) splitk_sum over the fp32 workspace ws (splits, M, Kq).
+// block is a power of two >= 16.
+extern "C" int quant_matmul_t_tf32_launch(const void* g, const void* q,
+                                          const void* s, void* o, void* ws,
+                                          int M, int Kq, int N, int block,
+                                          int rows, int fmt, int bm,
+                                          int splits, int unit,
+                                          void* stream) {
+  if (M < 1 || N < 1 || Kq < 1 || bad_layout(fmt, Kq, block, rows) ||
+      block < tt::MIN_BLOCK || (block & (block - 1)) || bm < 32 ||
+      (M + bm - 1) / bm > 65535 || splits < 1 || splits > tg::MAX_SPLITS ||
+      unit < 1 || unit % tt::BK || (splits > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  tg::Args p;
+  p.a = (const float*)g;
+  p.q = (const uint8_t*)q;
+  p.s = (const float*)s;
+  p.y = (float*)o;
+  p.ws = (float*)ws;
+  p.T = 1; p.M = M; p.C = N; p.O = Kq; p.Kq = Kq; p.N = N; p.rows = rows;
+  p.bshift = __builtin_ctz(block); p.unit = unit; p.splits = splits;
+  p.a_vec = N % 4 == 0 && (uintptr_t)g % 16 == 0;
+  p.w_vec = N % 16 == 0 && ((uintptr_t)q | (uintptr_t)s) % 16 == 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (fmt) {
+    case FMT_INT8: err = qtf::launch_bm<FMT_INT8>(p, bm, st); break;
+    case FMT_INT4: err = qtf::launch_bm<FMT_INT4>(p, bm, st); break;
+    case FMT_NF4: err = qtf::launch_bm<FMT_NF4>(p, bm, st); break;
+  }
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  return (int)tt::sum_splits((const float*)ws, (float*)o, (long long)M * Kq,
+                             splits, st);
+}
+
+// Resident blocks an SM of qmt_tf32_kernel (row tile bm: 32, else 128;
+// fmt 0 int8, else NF4, whose 4-bit stage int4 shares) at its registers
+// and shared memory.
+extern "C" int quant_matmul_t_tf32_occupancy(int fmt, int bm, int* blocks) {
+  if (fmt == FMT_INT8)
+    return (int)(bm == 32 ? qtf::occupancy<FMT_INT8, 32>(blocks)
+                          : qtf::occupancy<FMT_INT8, 128>(blocks));
+  return (int)(bm == 32 ? qtf::occupancy<FMT_NF4, 32>(blocks)
+                        : qtf::occupancy<FMT_NF4, 128>(blocks));
 }

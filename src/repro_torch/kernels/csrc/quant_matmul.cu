@@ -15,8 +15,8 @@
 //
 // Design: W is never written dense, and the stacked user axis is a grid
 // axis, so a whole serve group is one launch. Three routes, chosen by
-// the wrapper (kernels/quant_matmul.py) and counted there; none stands
-// in for another:
+// the wrapper (kernels/quant_matmul.py) and counted there, and a fourth
+// run only when forced; none stands in for another:
 //  - GEMV (M <= 4 rows per user, N % 4 == 0, 4-byte aligned payload);
 //    gemv.cuh's gemv_kernel with the QmvOut epilogue ("qmv" below). K is
 //    split across the CTAs of a thread-block
@@ -76,18 +76,32 @@
 //    BM = 64 (8 warps of 32 x 32) covers the tens of rows between.
 //    Split-K partials go to an fp32 (splits, T, M, N) workspace that
 //    splitk_sum adds in split order: no atomics, two calls bitwise equal.
-//  - tiled (fp32 x, any other shape): qmm_kernel, the first design, fp32
-//    CUDA cores, which keeps fp32 callers at 1e-5. Each block owns a (BM
-//    x 64) output tile and walks K in 32-row tiles, dequantizing the (32
-//    x 64) weight tile into shared memory (loads coalesced along N),
-//    fp32 accumulation. A bf16 x reaches it only when a caller names the
-//    route (the card's A/B against the tc route).
+//  - tf32x3 (fp32 x, any other shape): qmm_tf32_kernel, the body of
+//    tf32_gemm.cuh (shared with lora_matmul.cu's qmt_tf32_kernel): 3xTF32
+//    mma.sync.m16n8k8, each fp32 operand split into TF32 hi and lo and
+//    each product taken as lo hi + hi lo + hi hi, in chains of 4 k8 steps
+//    added in fp32, which keeps fp32 callers at 1e-5. Bound: at the MoE
+//    experts' 20 x 4096 x 1536 (NF4) the bytes of W (1.19 us at 3.35
+//    TB/s) against 1.53 us of three TF32 products at 494.7 TFLOP/s, so the
+//    call is a matter of reading W once and filling the SMs; at the
+//    calibrated RecurrentGemma-2B MLP's 2048 x 2560 x 7680 operations
+//    (0.488 ms). Each k-tile's weights are decoded once per block into
+//    TF32 hi and lo tiles in shared memory that every warp reads; a row
+//    tile of 32 rows (two m16 rows, for tens of rows) or 128, and K split
+//    on whole quant groups and k-tiles until the grid fills the 132 SMs
+//    (kernels/quant_matmul.py:plan_tf32: 11 splits, 132 blocks at 20 x
+//    4096 x 1536), the partials summed in split order.
+//  - tiled (forced only: the wrapper's force="tiled", the card's A/B):
+//    qmm_kernel, the first fp32 design, fp32 CUDA cores. Each block owns
+//    a (BM x 64) output tile and walks all of K in 32-row tiles,
+//    dequantizing each weight by its own load into shared memory; 24
+//    blocks at 20 x 4096 x 1536, 0.50 ms against the new route's 0.027.
 // Packed 4-bit row j holds rows 2j (hi nibble) and 2j+1 (lo nibble); the
 // decode is dequant.cuh's, shared with lora_matmul.cu, and NF4 codes map
 // through the 16-entry codebook in shared memory. A weight is code x
 // scale in fp32, the product the plain version computes.
 #include "gemv.cuh"
-#include "tc_tile.cuh"
+#include "tf32_gemm.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -490,10 +504,56 @@ cudaError_t launch_bm(const Args& p, int bm, cudaStream_t st) {
 
 }  // namespace qtc
 
+// ---- tf32x3 route: fp32 x on the tensor cores ---------------------------
+namespace qtf {
+
+// y tile (m0.., n0..) of user t, split z: tf32_gemm.cuh's body with W's
+// [32 K rows][128 N columns] tile read as it is stored.
+template <int FMT, int BM>
+__global__ void __launch_bounds__(tg::NT, tg::Cfg<BM>::MINB)
+qmm_tf32_kernel(const tg::Args p) {
+  tg::gemm_tf32<FMT, BM, false>(p);
+}
+
+template <int FMT, int BM>
+cudaError_t launch_tile(const tg::Args& p, cudaStream_t st) {
+  constexpr int bytes = tg::Layout<FMT, BM, false>::BYTES;
+  static bool attr_set = false;
+  const cudaError_t e = tg::set_smem(qmm_tf32_kernel<FMT, BM>, bytes,
+                                     attr_set);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.O + tg::BO - 1) / tg::BO, (p.M + BM - 1) / BM,
+                  p.T * p.splits);
+  qmm_tf32_kernel<FMT, BM><<<grid, tg::NT, bytes, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <int FMT>
+cudaError_t launch_bm(const tg::Args& p, int bm, cudaStream_t st) {
+  switch (bm) {
+    case 32: return launch_tile<FMT, 32>(p, st);
+    case 128: return launch_tile<FMT, 128>(p, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int FMT, int BM>
+cudaError_t occupancy(int* blocks) {
+  constexpr int bytes = tg::Layout<FMT, BM, false>::BYTES;
+  bool done = false;
+  const cudaError_t e = tg::set_smem(qmm_tf32_kernel<FMT, BM>, bytes, done);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, qmm_tf32_kernel<FMT, BM>, tg::NT, bytes);
+}
+
+}  // namespace qtf
+
 }  // namespace
 
 // fmt: 0 int8, 1 int4 (packed), 2 NF4 (packed); is_bf16: x and y dtype;
-// cols, csize: the GEMV's column tile and cluster size (cols 0: tiled).
+// cols, csize: the GEMV's column tile and cluster size (cols 0: the tiled
+// qmm_kernel, the first design, run only when the wrapper is forced to it).
 extern "C" int quant_matmul_launch(const void* x, const void* q,
                                    const void* s, void* y, int T, int M,
                                    int Kq, int N, int block, int rows,
@@ -558,4 +618,55 @@ extern "C" int quant_matmul_tc_launch(const void* x, const void* q,
   if (err != cudaSuccess || splits == 1) return (int)err;
   return (int)tt::sum_splits((const float*)ws, (__nv_bfloat16*)y,
                              (long long)T * M * N, splits, st);
+}
+
+// fp32 x, y: the 3xTF32 tensor-core kernel with a row tile of bm (32 or
+// 128) rows and K in `splits` slices on multiples of unit (a multiple of
+// both the block and 32; kernels/quant_matmul.py:plan_tf32), then (splits
+// > 1) splitk_sum over the fp32 workspace ws (splits, T, M, N). block is
+// a power of two >= 16.
+extern "C" int quant_matmul_tf32_launch(const void* x, const void* q,
+                                        const void* s, void* y, void* ws,
+                                        int T, int M, int Kq, int N,
+                                        int block, int rows, int fmt, int bm,
+                                        int splits, int unit, void* stream) {
+  const int rstep = fmt == FMT_INT8 ? 1 : 2;
+  if (T < 1 || M < 1 || N < 1 || block < tt::MIN_BLOCK ||
+      (block & (block - 1)) || Kq < block || Kq % block ||
+      rows * rstep != block || bm < 32 || (M + bm - 1) / bm > 65535 ||
+      splits < 1 || splits > tg::MAX_SPLITS || (long long)T * splits > 65535 ||
+      unit < 1 || unit % tt::BK || unit % block ||
+      (splits > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  tg::Args p;
+  p.a = (const float*)x;
+  p.q = (const uint8_t*)q;
+  p.s = (const float*)s;
+  p.y = (float*)y;
+  p.ws = (float*)ws;
+  p.T = T; p.M = M; p.C = Kq; p.O = N; p.Kq = Kq; p.N = N; p.rows = rows;
+  p.bshift = __builtin_ctz(block); p.unit = unit; p.splits = splits;
+  p.a_vec = (uintptr_t)x % 16 == 0;           // Kq % 16 == 0: block >= 16
+  p.w_vec = N % 16 == 0 && ((uintptr_t)q | (uintptr_t)s) % 16 == 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (fmt) {
+    case FMT_INT8: err = qtf::launch_bm<FMT_INT8>(p, bm, st); break;
+    case FMT_INT4: err = qtf::launch_bm<FMT_INT4>(p, bm, st); break;
+    case FMT_NF4: err = qtf::launch_bm<FMT_NF4>(p, bm, st); break;
+  }
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  return (int)tt::sum_splits((const float*)ws, (float*)y,
+                             (long long)T * M * N, splits, st);
+}
+
+// Resident blocks an SM of qmm_tf32_kernel (row tile bm: 32, else 128;
+// fmt 0 int8, else NF4, whose 4-bit stage int4 shares) at its registers
+// and shared memory.
+extern "C" int quant_matmul_tf32_occupancy(int fmt, int bm, int* blocks) {
+  if (fmt == FMT_INT8)
+    return (int)(bm == 32 ? qtf::occupancy<FMT_INT8, 32>(blocks)
+                          : qtf::occupancy<FMT_INT8, 128>(blocks));
+  return (int)(bm == 32 ? qtf::occupancy<FMT_NF4, 32>(blocks)
+                        : qtf::occupancy<FMT_NF4, 128>(blocks));
 }

@@ -22,11 +22,18 @@ counted:
   split-K that :func:`plan` picks; ``lora_matmul.tc_launches``);
 - ``"cuda"``: any other fp32 call (the CUDA-core kernel, which keeps
   fp32 callers at 1e-5).
-``quant_matmul_t`` has two, by g's dtype: bf16 the tensor-core kernel
-(``quant_matmul_t_tc_launch`` with the split over N that :func:`plan_t`
-picks; ``tc_launches``), fp32 the CUDA-core one. No route stands in for
-another: an input the chosen kernel refuses raises, and the tc route runs
-at decode rows only when a caller forces it (the card's A/B).
+``quant_matmul_t`` has two, by g's dtype (:func:`qmt_route`): bf16
+``"tc"``, the bf16 tensor-core kernel (``quant_matmul_t_tc_launch`` with
+the split over N that :func:`plan_t` picks; ``tc_launches``); fp32
+``"tf32x3"``, ``qmt_tf32_kernel`` (``csrc/tf32_gemm.cuh``, shared with
+``quant_matmul``'s fp32 route: 3xTF32 tensor cores, W decoded once a
+block into TF32 hi and lo tiles, chains of 4 k8 steps added in fp32, at
+1e-5; the row tile and split over N that :func:`plan_t_tf32` picks;
+``tf32_launches``). The first fp32 design, ``qmt_kernel`` (fp32 CUDA
+cores, no split), runs only when a caller forces ``"tiled"`` (the card's
+A/B). No route stands in for another: an input the chosen kernel refuses
+raises, and the tc route runs at decode rows only when a caller forces
+it (the card's A/B).
 """
 from __future__ import annotations
 
@@ -40,7 +47,8 @@ import torch
 from repro_torch.core.quant import QTensor
 from repro_torch.kernels import build
 from repro_torch.kernels.quant_matmul import (GemvPlan, check_qtensor,
-                                              group_ranges)
+                                              check_tc_block, group_ranges,
+                                              plan_tf32)
 
 MAX_RANK = 32
 _P = ctypes.c_void_p
@@ -63,7 +71,6 @@ _GEMV_ARGS = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
 # written, read back, summed to bf16) move at PARTIAL_BYTES_PER_US.
 SMS = 132
 BM, BN, BK = 256, 128, 32
-MIN_BLOCK = 16
 SPLITS = (1, 2, 3, 4, 8, 16, 32)
 MIN_TILES_PER_SPLIT = 4
 TILE_US = 2.05
@@ -143,6 +150,14 @@ def plan_t(M: int, Kq: int, N: int) -> Plan:
                 partial_rate=T_PARTIAL_BYTES_PER_US)
 
 
+def plan_t_tf32(M: int, Kq: int, N: int):
+    """The row tile and split over N of ``quant_matmul_t``'s tf32x3
+    kernel for ``g (M, N) @ W (Kq, N)ᵀ``: ``quant_matmul.plan_tf32`` with
+    the contraction N, the output columns Kq and the granule one 32-wide
+    k-tile (a ``quant_matmul.TcPlan``)."""
+    return plan_tf32(1, M, N, Kq, BK)
+
+
 def split_ranges(Kq: int, unit: int, splits: int) -> tuple:
     """The (k0, k1) of each split of a contraction of depth Kq, as
     ``lora_tc_kernel`` and ``qmt_tc_kernel`` compute them: split z owns
@@ -155,7 +170,7 @@ def split_ranges(Kq: int, unit: int, splits: int) -> tuple:
 
 
 def uses_tensor_cores(x: torch.Tensor) -> bool:
-    """Whether a call with ``x``'s (or ``g``'s) dtype takes the
+    """Whether a ``lora_matmul`` call with ``x``'s dtype takes the
     tensor-core kernel past the GEMV's rows."""
     return x.dtype == torch.bfloat16
 
@@ -293,13 +308,6 @@ def route(M: int, N: int, qt: QTensor, dtype: torch.dtype) -> str:
     return "tc" if dtype == torch.bfloat16 else "cuda"
 
 
-def _check_tc_block(qt: QTensor, op: str) -> None:
-    if qt.block < MIN_BLOCK or qt.block & (qt.block - 1):
-        raise NotImplementedError(
-            f"{op} tensor-core kernel: block {qt.block} is not a power of "
-            f"two >= {MIN_BLOCK}")
-
-
 def _factor(t: torch.Tensor, shape, name: str) -> torch.Tensor:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"LoRA {name} {tuple(t.shape)}, expected {shape}")
@@ -365,7 +373,7 @@ def _lora_matmul(x, qt, a, b, scale, splits, *, force=None,
                 int(x.dtype == torch.bfloat16), pl.cols, pl.cluster,
                 float(scale), stream)
     elif how == "tc":
-        _check_tc_block(qt, "lora_matmul")
+        check_tc_block(qt.block, "lora_matmul")
         rp = 16 if r <= 16 else 32      # A's rows padded to 16-byte chunks
         if r != rp or a32.data_ptr() % 16:
             a32 = torch.nn.functional.pad(a32, (0, rp - r))
@@ -400,13 +408,39 @@ def quant_matmul_t(g: torch.Tensor, qt: QTensor, *,
     return _quant_matmul_t(g, qt, out_dtype, None)
 
 
-def _quant_matmul_t(g, qt, out_dtype, splits):
-    """:func:`quant_matmul_t` with the split count of a bf16 call forced
-    to ``splits`` (None: :func:`plan_t`'s), for the checks of each
-    count."""
-    tc = uses_tensor_cores(g)
+def qmt_route(dtype: torch.dtype) -> str:
+    """The kernel a ``quant_matmul_t`` call with a ``dtype`` cotangent
+    runs: ``"tc"`` for bf16, ``"tf32x3"`` for fp32."""
+    return "tc" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def qmt_route_counts() -> dict:
+    """``quant_matmul_t``'s launches so far by route: ``"tc"``,
+    ``"tf32x3"`` and ``"tiled"``, the rest (the first fp32 design, run
+    only when forced)."""
+    fn = quant_matmul_t
+    return {"tc": fn.tc_launches, "tf32x3": fn.tf32_launches,
+            "tiled": fn.launches - fn.tc_launches - fn.tf32_launches}
+
+
+def _quant_matmul_t(g, qt, out_dtype, splits, *, force=None):
+    """:func:`quant_matmul_t` with the split count of its tensor-core
+    route forced to ``splits`` (None: :func:`plan_t`'s for bf16,
+    :func:`plan_t_tf32`'s for fp32), for the checks of each count;
+    ``force="tiled"`` runs the first fp32 design, ``qmt_kernel`` (an fp32
+    g; the card's A/B against the tf32x3 route)."""
+    how = qmt_route(g.dtype)
+    if force is not None:
+        if force != "tiled" or how != "tf32x3":
+            raise ValueError(f"quant_matmul_t: only the tiled route can be "
+                             f"forced, and only for an fp32 g, not "
+                             f"{force!r}")
+        how = force
+    if splits is not None and how == "tiled":
+        raise ValueError("quant_matmul_t: the tiled route has no split")
     out_dtype = g.dtype if out_dtype is None else out_dtype
-    if out_dtype != g.dtype and not (tc and out_dtype == torch.float32):
+    if out_dtype != g.dtype and not (how == "tc" and
+                                     out_dtype == torch.float32):
         raise TypeError(f"quant_matmul_t: out_dtype {out_dtype} for a "
                         f"{g.dtype} g (only a bf16 g may write fp32)")
     fmt, G, rows, N = check_qtensor(g, qt, "quant_matmul_t", ndims=(3,))
@@ -418,25 +452,34 @@ def _quant_matmul_t(g, qt, out_dtype, splits):
     M = g2.shape[0]
     o = torch.empty((M, Kq), dtype=out_dtype, device=g.device)
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    if tc:
-        _check_tc_block(qt, "quant_matmul_t")
-        pl = plan_t(M, Kq, N)
-        n_split = pl.splits if splits is None else int(splits)
-        ws = torch.empty((n_split, M, Kq), dtype=torch.float32,
-                         device=g.device) if n_split > 1 else None
-        fn = build.function("lora_matmul", "quant_matmul_t_tc_launch",
-                            _T_TC_ARGS)
-        rc = fn(g2.data_ptr(), qt.q.data_ptr(), qt.scales.data_ptr(),
-                o.data_ptr(), None if ws is None else ws.data_ptr(), M, Kq,
-                N, qt.block, rows, fmt, int(out_dtype == torch.float32),
-                n_split, pl.unit, stream)
-    else:
+    if how == "tiled":
         fn = build.function("lora_matmul", "quant_matmul_t_launch", _T_ARGS)
         rc = fn(g2.data_ptr(), qt.q.data_ptr(), qt.scales.data_ptr(),
                 o.data_ptr(), M, Kq, N, qt.block, rows, fmt, stream)
+    else:
+        check_tc_block(qt.block, "quant_matmul_t")
+        pl = plan_t(M, Kq, N) if how == "tc" else plan_t_tf32(M, Kq, N)
+        n_split = pl.splits if splits is None else int(splits)
+        ws = torch.empty((n_split, M, Kq), dtype=torch.float32,
+                         device=g.device) if n_split > 1 else None
+        wsp = None if ws is None else ws.data_ptr()
+        if how == "tc":
+            fn = build.function("lora_matmul", "quant_matmul_t_tc_launch",
+                                _T_TC_ARGS)
+            rc = fn(g2.data_ptr(), qt.q.data_ptr(), qt.scales.data_ptr(),
+                    o.data_ptr(), wsp, M, Kq, N, qt.block, rows, fmt,
+                    int(out_dtype == torch.float32), n_split, pl.unit,
+                    stream)
+        else:
+            fn = build.function("lora_matmul", "quant_matmul_t_tf32_launch",
+                                _T_TC_ARGS)
+            rc = fn(g2.data_ptr(), qt.q.data_ptr(), qt.scales.data_ptr(),
+                    o.data_ptr(), wsp, M, Kq, N, qt.block, rows, fmt,
+                    pl.bm, n_split, pl.unit, stream)
     build.check(rc, "quant_matmul_t")
     quant_matmul_t.launches += 1
-    quant_matmul_t.tc_launches += int(tc)
+    quant_matmul_t.tc_launches += int(how == "tc")
+    quant_matmul_t.tf32_launches += int(how == "tf32x3")
     return o.reshape(*lead, Kq)
 
 
@@ -445,3 +488,4 @@ lora_matmul.tc_launches = 0
 lora_matmul.gemv_launches = 0
 quant_matmul_t.launches = 0
 quant_matmul_t.tc_launches = 0
+quant_matmul_t.tf32_launches = 0

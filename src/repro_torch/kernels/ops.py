@@ -9,20 +9,21 @@ launch. There is no fallback from the kernel to the plain version.
 package counts at trace time; PyTorch runs eagerly, so here it is per
 call), and every kernel wrapper keeps its own integer ``launches``.
 ``lora_matmul`` and ``quant_matmul_t`` have a tensor-core
-instantiation for bf16 and a CUDA-core one for fp32, chosen by dtype in
-the wrapper; their bf16 calls are traced as ``<op>_cuda_tc``, fp32 as
-``<op>_cuda``, and the wrappers count the tensor-core launches in
-``tc_launches``. ``flash_attention`` traces its bf16 calls as
+instantiation for bf16, chosen by dtype in the wrapper, traced as
+``<op>_cuda_tc`` and counted in ``tc_launches``; fp32 ``lora_matmul``
+runs a CUDA-core kernel (``lora_matmul_cuda``), fp32 ``quant_matmul_t``
+the 3xTF32 tensor cores (``quant_matmul_t_cuda_tf32x3``,
+``tf32_launches``). ``flash_attention`` traces its bf16 calls as
 ``flash_attention_cuda_tc`` (counted in ``tc_launches``) and its fp32
 calls by route: ``flash_attention_cuda_rows`` (S up to
 ``ROWS_MAX_S``, one warp a query row; ``rows_launches``) and
 ``flash_attention_cuda_tf32x3`` (3xTF32 tensor cores;
 ``tf32_launches``). ``quant_matmul`` and ``lora_matmul`` count their
-GEMV launches (the serve head's and the
-decode step's rows, either dtype; ``lora_matmul`` traces them as
-``lora_matmul_cuda_gemv``) in ``gemv_launches``; ``quant_matmul`` its
-tensor-core launches (a bf16 x past the GEMV's rows) in
-``tc_launches``. ``flash_attention`` counts its D > 512 bf16 route (a
+GEMV launches (the serve head's and the decode step's rows, either
+dtype; ``lora_matmul`` traces them as ``lora_matmul_cuda_gemv``) in
+``gemv_launches``; ``quant_matmul`` its tensor-core launches past the
+GEMV's rows in ``tc_launches`` (bf16 x) and ``tf32_launches`` (fp32 x,
+3xTF32). ``flash_attention`` counts its D > 512 bf16 route (a
 thread-block cluster over D) in ``cluster_launches``.
 
 ``lora_matmul``, ``flash_attention`` and ``selective_scan`` are
@@ -110,6 +111,8 @@ def reset_launch_counts() -> None:
         fn.tc_launches = 0
     qmm_kernel.quant_matmul.gemv_launches = 0
     qmm_kernel.quant_matmul.tc_launches = 0
+    qmm_kernel.quant_matmul.tf32_launches = 0
+    lm_kernel.quant_matmul_t.tf32_launches = 0
     lm_kernel.lora_matmul.gemv_launches = 0
     fa_kernel.flash_attention.cluster_launches = 0
     fa_kernel.flash_attention.rows_launches = 0
@@ -280,12 +283,13 @@ def _dx_through_w(g, qt: qlib.QTensor, K: int) -> torch.Tensor:
     (the payload covers K padded to the block). A bf16 g goes to its
     tensor-core kernel as it is (its fp32 copy holds the same values, so
     the products and their fp32 sum are the same), any other g as fp32
-    to the CUDA-core kernel."""
-    tc = lm_kernel.uses_tensor_cores(g)
-    trace_count("quant_matmul_t_cuda_tc" if tc else "quant_matmul_t_cuda")
+    to the 3xTF32 kernel; each traces its route
+    (``quant_matmul_t_cuda_tc`` / ``quant_matmul_t_cuda_tf32x3``)."""
     g2 = g.reshape(-1, g.shape[-1])
-    return lm_kernel.quant_matmul_t(g2 if tc else g2.to(torch.float32), qt,
-                                    out_dtype=torch.float32)[:, :K]
+    if g2.dtype != torch.bfloat16:
+        g2 = g2.to(torch.float32)
+    trace_count("quant_matmul_t_cuda_" + lm_kernel.qmt_route(g2.dtype))
+    return lm_kernel.quant_matmul_t(g2, qt, out_dtype=torch.float32)[:, :K]
 
 
 def _qmm_kernel(x, qt: qlib.QTensor):

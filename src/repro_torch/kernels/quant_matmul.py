@@ -16,8 +16,15 @@ Three routes, chosen here by :func:`route` and counted:
 - ``"tc"``: any other bf16 call (``qmm_tc_kernel``: bf16 tensor cores,
   the row tile and split-K that :func:`plan_tc` picks;
   ``quant_matmul.tc_launches``);
-- ``"tiled"``: any other fp32 call (``qmm_kernel``, fp32 CUDA cores).
-Neither stands in for another: a call the chosen kernel refuses raises.
+- ``"tf32x3"``: any other fp32 call (``qmm_tf32_kernel`` of
+  ``csrc/tf32_gemm.cuh``: 3xTF32 tensor cores, each weight decoded once
+  a block into TF32 hi and lo tiles, chains of 4 k8 steps added in fp32,
+  which keeps fp32 callers at 1e-5; the row tile and split-K that
+  :func:`plan_tf32` picks; ``quant_matmul.tf32_launches``).
+None stands in for another: a call the chosen kernel refuses raises.
+The first fp32 design, ``qmm_kernel`` (fp32 CUDA cores, one 32 x 64
+tile a block, no split), runs only when a caller forces ``"tiled"``
+(the card's A/B); :func:`route_counts` reads every route's launches.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)
 _TC_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)
+_OCC_ARGS = (_I, _I, ctypes.POINTER(ctypes.c_int))
 _FMT = {(8, "linear"): 0, (4, "linear"): 1, (4, "nf4"): 2}
 
 # The GEMV's constants (csrc/gemv.cuh, GV_*): 128 threads a CTA,
@@ -112,10 +120,21 @@ def takes_gemv(M: int, N: int, q: torch.Tensor) -> bool:
 def route(M: int, N: int, q: torch.Tensor, dtype: torch.dtype) -> str:
     """The kernel a call with M rows a user, payload ``q`` and activation
     dtype ``dtype`` runs: ``"gemv"``, else ``"tc"`` for bf16 and
-    ``"tiled"`` for fp32."""
+    ``"tf32x3"`` for fp32."""
     if takes_gemv(M, N, q):
         return "gemv"
-    return "tc" if dtype == torch.bfloat16 else "tiled"
+    return "tc" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def route_counts() -> dict:
+    """Every route's launches so far: the three routes' own counts and
+    ``"tiled"``, the rest of ``launches`` (the first fp32 design, run
+    only when forced)."""
+    fn = quant_matmul
+    out = {"gemv": fn.gemv_launches, "tc": fn.tc_launches,
+           "tf32x3": fn.tf32_launches}
+    out["tiled"] = fn.launches - sum(out.values())
+    return out
 
 
 # The tc route's tile (csrc/tc_tile.cuh, csrc/quant_matmul.cu namespace
@@ -144,10 +163,11 @@ TC_PARTIAL_BYTES_PER_US = 2.28e6
 
 @dataclasses.dataclass(frozen=True)
 class TcPlan:
-    """How the tc route covers one call: for each of ``users`` users,
-    ``tiles`` output tiles of ``bm`` x 128 times ``splits`` slices of the
-    padded K, split z owning ``ranges[z] = (k0, k1)`` (multiples of
-    ``unit``, as ``qmm_tc_kernel`` computes them)."""
+    """How a tensor-core route (tc, tf32x3) covers one call: for each of
+    ``users`` users, ``tiles`` output tiles of ``bm`` x 128 times
+    ``splits`` slices of the (padded) contraction, split z owning
+    ``ranges[z] = (k0, k1)`` (multiples of ``unit``, as the kernels
+    compute them)."""
     users: int
     bm: int
     tiles: int
@@ -220,6 +240,67 @@ def plan_tc(T: int, M: int, Kq: int, N: int, block: int) -> TcPlan:
         tc_cost_us(T, M, Kq, N, block, pl.bm, pl.splits), pl.splits, -pl.bm))
 
 
+# The tf32x3 route's tile (csrc/tf32_gemm.cuh), shared with
+# quant_matmul_t's fp32 route: a block owns a bm x 128 output tile of one
+# user and walks its split of the contraction in 32-deep k-tiles. bm is
+# 32 (two m16 rows) up to TF32_SMALL_ROWS rows a user, where the call
+# reads W more than it multiplies (the MoE experts' 20 rows) and a second
+# 32-row tile costs a second decode of W rather than 96 rows of zeros,
+# and 128 past them. Where the output tiles do not fill the card's SMS,
+# the contraction is split, one split more at a time, until the grid has
+# SMS blocks, every split keeping TF32_MIN_TILES_PER_SPLIT k-tiles or
+# more; splits fall on multiples of ``unit`` (lcm(block, 32) here: whole
+# quant groups and whole k-tiles).
+TF32_ROW_TILES = (32, 128)
+TF32_SMALL_ROWS = 64
+TF32_MIN_TILES_PER_SPLIT = 2
+TF32_MAX_SPLITS = 64
+
+
+@functools.lru_cache(maxsize=None)
+def plan_tf32(T: int, M: int, C: int, O: int, unit: int) -> TcPlan:
+    """The row tile and split count of a tf32x3 kernel for ``T`` users
+    of ``M`` rows, a contraction of depth ``C`` and ``O`` output columns
+    (``quant_matmul``: C = Kq, O = N; ``quant_matmul_t``: C = N, O = Kq),
+    the splits on multiples of ``unit``."""
+    bm = TF32_ROW_TILES[0] if M <= TF32_SMALL_ROWS else TF32_ROW_TILES[1]
+    tiles = -(-M // bm) * -(-O // TC_BN)
+    nu = -(-C // unit)
+    splits = 1
+    while T * tiles * splits < SMS:
+        s = splits + 1
+        if s > min(nu, TF32_MAX_SPLITS) or T * s > 65535 or \
+                (nu // s) * unit // TC_BK < TF32_MIN_TILES_PER_SPLIT:
+            break
+        splits = s
+    return TcPlan(users=T, bm=bm, tiles=tiles, splits=splits, unit=unit,
+                  ranges=split_ranges(C, unit, splits))
+
+
+def check_tc_block(block: int, op: str) -> None:
+    """Raise unless ``block`` is a power of two >= 16, the quant blocks
+    the tensor-core kernels take."""
+    if block < TC_MIN_BLOCK or block & (block - 1):
+        raise NotImplementedError(
+            f"{op} tensor-core kernel: block {block} is not a power of "
+            f"two >= {TC_MIN_BLOCK}")
+
+
+def tf32_occupancy(op: str, fmt: int, bm: int) -> int:
+    """Resident blocks an SM of a tf32x3 kernel (``op`` "quant_matmul"
+    or "quant_matmul_t"; ``fmt`` 0 int8, else NF4) at row tile ``bm``,
+    from its registers and shared memory (the card's occupancy query)."""
+    lib, sym = {"quant_matmul": ("quant_matmul",
+                                 "quant_matmul_tf32_occupancy"),
+                "quant_matmul_t": ("lora_matmul",
+                                   "quant_matmul_t_tf32_occupancy")}[op]
+    out = ctypes.c_int(0)
+    build.check(build.function(lib, sym, _OCC_ARGS)(fmt, bm,
+                                                    ctypes.byref(out)),
+                f"{op} tf32 occupancy")
+    return out.value
+
+
 def check_qtensor(x: torch.Tensor, qt: QTensor, op: str, ndims=(3, 4)):
     """The checks every quantized-weight kernel makes before it launches:
     ``x`` and the payload on one CUDA device, f32/bf16 ``x``, a supported
@@ -255,12 +336,14 @@ def quant_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     return _quant_matmul(x, qt, None)
 
 
-def _quant_matmul(x, qt, gemv_plan, *, force=None, tc_plan=None):
-    """:func:`quant_matmul` with the GEMV's plan forced to ``gemv_plan``
-    or the tc route's to ``tc_plan`` (None: :func:`plan`'s,
-    :func:`plan_tc`'s), for the checks and times of each plan;
-    ``force="tiled"`` runs the fp32 route's ``qmm_kernel`` on a bf16 x
-    too (the card's A/B against the tc route)."""
+def _quant_matmul(x, qt, gemv_plan, *, force=None, tc_plan=None,
+                  tf32_plan=None):
+    """:func:`quant_matmul` with the GEMV's plan forced to ``gemv_plan``,
+    the tc route's to ``tc_plan`` or the tf32x3 route's to ``tf32_plan``
+    (None: :func:`plan`'s, :func:`plan_tc`'s, :func:`plan_tf32`'s), for
+    the checks and times of each plan; ``force="tiled"`` runs the first
+    fp32 design, ``qmm_kernel``, on an fp32 or a bf16 x (the card's A/B
+    against the tf32x3 and tc routes)."""
     q, s = qt.q, qt.scales
     fmt, G, rows, N = check_qtensor(x, qt, "quant_matmul")
     T = q.shape[0] if q.ndim == 4 else 1
@@ -286,17 +369,24 @@ def _quant_matmul(x, qt, gemv_plan, *, force=None, tc_plan=None):
     if gemv_plan is not None and how != "gemv":
         raise ValueError(f"quant_matmul: M={M}, N={N} takes the {how} "
                          "route, not the GEMV")
-    if tc_plan is not None and how != "tc":
+    if (tc_plan is not None and how != "tc") or (
+            tf32_plan is not None and how != "tf32x3"):
         raise ValueError(f"quant_matmul: M={M}, N={N} takes the {how} "
-                         "route, not the tc one")
+                         "route, not the forced plan's")
     y = torch.empty((T, M, N), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if how == "tc":
-        pl = tc_plan or plan_tc(T, M, Kq, N, qt.block)
+    if how in ("tc", "tf32x3"):
+        check_tc_block(qt.block, "quant_matmul")
+        if how == "tc":
+            pl = tc_plan or plan_tc(T, M, Kq, N, qt.block)
+        else:
+            pl = tf32_plan or plan_tf32(T, M, Kq, N,
+                                        math.lcm(qt.block, TC_BK))
         ws = torch.empty((pl.splits, T, M, N), dtype=torch.float32,
                          device=x.device) if pl.splits > 1 else None
-        fn = build.function("quant_matmul", "quant_matmul_tc_launch",
-                            _TC_ARGS)
+        fn = build.function("quant_matmul", {
+            "tc": "quant_matmul_tc_launch",
+            "tf32x3": "quant_matmul_tf32_launch"}[how], _TC_ARGS)
         rc = fn(x3.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(),
                 None if ws is None else ws.data_ptr(), T, M, Kq, N,
                 qt.block, rows, fmt, pl.bm, pl.splits, pl.unit, stream)
@@ -312,9 +402,11 @@ def _quant_matmul(x, qt, gemv_plan, *, force=None, tc_plan=None):
     quant_matmul.launches += 1
     quant_matmul.gemv_launches += int(how == "gemv")
     quant_matmul.tc_launches += int(how == "tc")
+    quant_matmul.tf32_launches += int(how == "tf32x3")
     return y.reshape(out_shape)
 
 
 quant_matmul.launches = 0
 quant_matmul.gemv_launches = 0
 quant_matmul.tc_launches = 0
+quant_matmul.tf32_launches = 0

@@ -11,16 +11,20 @@ its backward kernel and the op's gradient 1e-5 times each output's
 largest magnitude (the JAX package's interpret-vs-plain bound), the
 backward kernel and ``quant_matmul`` bitwise equal across two calls. bf16 ``flash_attention`` and
 ``lora_matmul`` run their tensor-core kernels, fp32 ``lora_matmul`` its
-CUDA-core one; so does ``quant_matmul`` past the GEMV's 4 rows (bf16: the tc
-route) and ``quant_matmul_t`` by g's dtype, its bf16-g route held to
-1e-4 of the largest magnitude in fp32 output (W enters as two bf16
-parts, about 16 bits). ``lora_matmul`` at decode rows (up to
+CUDA-core one; ``quant_matmul`` past the GEMV's 4 rows and
+``quant_matmul_t`` pick by dtype: bf16 the tc routes (``quant_matmul_t``'s
+held to 1e-4 of the largest magnitude in fp32 output: W enters as two
+bf16 parts, about 16 bits), fp32 the 3xTF32 routes (``"tf32x3"``) at
+1e-5 and bitwise equal across two calls, their first designs forced
+beside them. ``lora_matmul`` at decode rows (up to
 ``MAX_ROWS``) runs its decode route in either dtype, and bf16
 ``flash_attention`` above D = 512 its cluster route, each bitwise equal
 across two calls. fp32 ``flash_attention`` runs ``"cuda_rows"`` up to
 ``ROWS_MAX_S`` query rows and ``"cuda_tf32x3"`` past them; each, forced
 at every fp32 case, is held at 1e-5 of the largest magnitude and
 bitwise equal across two calls."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -157,8 +161,8 @@ def cuda_device():
 def test_cuda_quant_matmul_matches_plain(cuda_device, T, M, K, N, bits,
                                          mode, dtype):
     """Every format and dtype, through the GEMV (M <= 4, N % 4 == 0), the
-    tc kernel (bf16) or the tiled one (fp32), counted by route; two calls
-    bitwise equal."""
+    tc kernel (bf16) or the 3xTF32 one (fp32), counted by route; two
+    calls bitwise equal."""
     lead = (T,) if T else ()
     # the serve widths' weights at 1/sqrt(K), so outputs are O(1) as the
     # head's are; the K = 100 edge cases keep their unit weights
@@ -167,13 +171,16 @@ def test_cuda_quant_matmul_matches_plain(cuda_device, T, M, K, N, bits,
     x = torch.from_numpy(_np(24, *lead, M, K)).to(cuda_device, dtype)
     qt = ref.blockwise_quant(w, bits=bits, block=64, mode=mode)
     fn = qmm_kernel.quant_matmul
-    before = (fn.launches, fn.gemv_launches, fn.tc_launches)
+    before = (fn.launches, fn.gemv_launches, fn.tc_launches,
+              fn.tf32_launches)
     got = fn(x, qt)
     again = fn(x, qt)
     gemv = M <= qmm_kernel.MAX_ROWS and N % 4 == 0
     tc = not gemv and dtype == BF16
+    tf32 = not gemv and dtype == F32
     assert (fn.launches - before[0], fn.gemv_launches - before[1],
-            fn.tc_launches - before[2]) == (2, 2 * int(gemv), 2 * int(tc))
+            fn.tc_launches - before[2], fn.tf32_launches - before[3]) == \
+        (2, 2 * int(gemv), 2 * int(tc), 2 * int(tf32))
     assert torch.equal(got, again)
     _close(got, ref.quant_matmul(x, qt))
 
@@ -196,7 +203,8 @@ def test_cuda_quant_matmul_grad_matches_plain(cuda_device, M, K, N, dtype):
         xr = x.detach().requires_grad_(True)
         y = fn(xr, qt)
         out[side] = (y.detach(), *torch.autograd.grad(y, xr, g))
-    route = "quant_matmul_t_cuda_tc" if dtype == BF16 else "quant_matmul_t_cuda"
+    route = "quant_matmul_t_cuda_tc" if dtype == BF16 else \
+        "quant_matmul_t_cuda_tf32x3"
     traces = dict(ops.KERNEL_TRACES)
     assert traces.get(route) == 1 and traces.get("quant_matmul_cuda") == 1, \
         traces
@@ -646,14 +654,118 @@ def test_cuda_quant_matmul_t_bf16_other_blocks(cuda_device, block, bits,
 @pytest.mark.parametrize("M,K,N,bits,mode", QMT_CASES[4:6])
 def test_cuda_quant_matmul_t_fp32_route_unchanged(cuda_device, M, K, N,
                                                   bits, mode):
-    """An fp32 g keeps the CUDA-core kernel at 1e-5 and counts no
-    tensor-core launch."""
+    """An fp32 g takes the 3xTF32 route at 1e-5 and counts no bf16
+    tensor-core launch; the first design, forced, still matches."""
     qt, g = _qmt_inputs(cuda_device, M, K, N, bits, mode)
-    before = lm_kernel.quant_matmul_t.tc_launches
+    fn = lm_kernel.quant_matmul_t
+    before = (fn.tc_launches, fn.tf32_launches)
     got = lm_kernel.quant_matmul_t(g.float(), qt)
-    assert lm_kernel.quant_matmul_t.tc_launches == before
+    assert (fn.tc_launches, fn.tf32_launches) == (before[0], before[1] + 1)
     assert got.dtype == F32
-    _close(got, ref.quant_matmul_t(g.float(), qt))
+    want = ref.quant_matmul_t(g.float(), qt)
+    _close(got, want)
+    _close(lm_kernel._quant_matmul_t(g.float(), qt, None, None,
+                                     force="tiled"), want)
+
+
+TF32_QMM_CASES = [  # (T, M, K, N): fp32 x past the GEMV's rows
+    (0, 20, 1024, 384),    # the MoE experts' 20 rows at reduced width
+    (0, 37, 200, 70),      # odd K (padded to 256), ragged N
+    (2, 20, 300, 70),      # a stacked QTensor, odd K, ragged N
+    (0, 300, 512, 136),    # three 128-row tiles, a partial column tile
+    (4, 3, 100, 70),       # 3 rows off the GEMV's layout (N % 4 != 0)
+]
+TF32_QMT_CASES = [  # (M, K, N): fp32 g
+    (20, 1024, 384),       # the experts' dx at reduced width
+    (20, 384, 1024),
+    (37, 200, 33),         # odd K (Kq 256), ragged N, N % 4 != 0
+    (300, 384, 40),        # three row tiles, N % 16 != 0
+]
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max() /
+            want.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,mode", FORMATS)
+@pytest.mark.parametrize("T,M,K,N", TF32_QMM_CASES)
+def test_cuda_quant_matmul_tf32x3_route_matches_plain(cuda_device, T, M, K,
+                                                      N, bits, mode):
+    """fp32 x past the GEMV's rows: ``qmm_tf32_kernel`` (route
+    ``"tf32x3"``) within 1e-5 of the plain version's largest magnitude,
+    counted in ``tf32_launches``, two calls bitwise equal, and within the
+    bound under 1, 2 and 5 splits; the first design, forced, too."""
+    lead = (T,) if T else ()
+    w = torch.from_numpy(_np(51, *lead, K, N) / np.sqrt(K)).to(cuda_device)
+    qt = ref.blockwise_quant(w, bits=bits, block=64, mode=mode)
+    x = torch.from_numpy(_np(52, *lead, M, K)).to(cuda_device)
+    before = qmm_kernel.route_counts()
+    got = qmm_kernel.quant_matmul(x, qt)
+    again = qmm_kernel.quant_matmul(x, qt)
+    after = qmm_kernel.route_counts()
+    assert {r: after[r] - before[r] for r in after} == {
+        "gemv": 0, "tc": 0, "tf32x3": 2, "tiled": 0}
+    assert got.dtype == F32 and torch.equal(got, again)
+    want = ref.quant_matmul(x, qt)
+    assert _rel(got, want) <= 1e-5
+    Kq, unit = qt.q.shape[-3] * qt.block, 64
+    for splits in (1, 2, 5):
+        pl = qmm_kernel.TcPlan(
+            users=max(T, 1), bm=32, tiles=0, splits=splits, unit=unit,
+            ranges=qmm_kernel.split_ranges(Kq, unit, splits))
+        for bm in (32, 128):
+            pl = dataclasses.replace(pl, bm=bm)
+            assert _rel(qmm_kernel._quant_matmul(x, qt, None, tf32_plan=pl),
+                        want) <= 1e-5
+    assert _rel(qmm_kernel._quant_matmul(x, qt, None, force="tiled"),
+                want) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,mode", FORMATS)
+@pytest.mark.parametrize("M,K,N", TF32_QMT_CASES)
+def test_cuda_quant_matmul_t_tf32x3_route_matches_plain(cuda_device, M, K,
+                                                        N, bits, mode):
+    """fp32 g: ``qmt_tf32_kernel`` within 1e-5, counted in
+    ``tf32_launches``, two calls bitwise equal, the same within the bound
+    under 1, 2 and 7 splits over N; the first design, forced, too."""
+    qt, g = _qmt_inputs(cuda_device, M, K, N, bits, mode)
+    g = g.float()
+    before = lm_kernel.qmt_route_counts()
+    got = lm_kernel.quant_matmul_t(g, qt)
+    again = lm_kernel.quant_matmul_t(g, qt)
+    after = lm_kernel.qmt_route_counts()
+    assert {r: after[r] - before[r] for r in after} == {
+        "tc": 0, "tf32x3": 2, "tiled": 0}
+    assert got.dtype == F32 and torch.equal(got, again)
+    want = ref.quant_matmul_t(g, qt)
+    assert _rel(got, want) <= 1e-5
+    for splits in (1, 2, 7):
+        assert _rel(lm_kernel._quant_matmul_t(g, qt, None, splits),
+                    want) <= 1e-5
+    assert _rel(lm_kernel._quant_matmul_t(g, qt, None, None, force="tiled"),
+                want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_tf32x3_routes_refuse_a_block_they_do_not_take(cuda_device):
+    """An fp32 call at a quant block the 3xTF32 kernels do not take (not
+    a power of two >= 16) raises and launches nothing: no fallback to the
+    first design or the plain version."""
+    w = torch.from_numpy(_np(53, 96, 64)).to(cuda_device)
+    x = torch.from_numpy(_np(54, 20, 96)).to(cuda_device)
+    for block, bits in ((8, 4), (48, 8)):
+        qt = ref.blockwise_quant(w, bits=bits, block=block)
+        before = (qmm_kernel.quant_matmul.launches,
+                  lm_kernel.quant_matmul_t.launches)
+        with pytest.raises(NotImplementedError, match=f"block {block}"):
+            qmm_kernel.quant_matmul(x, qt)
+        with pytest.raises(NotImplementedError, match=f"block {block}"):
+            lm_kernel.quant_matmul_t(x[:, :64].contiguous(), qt)
+        assert (qmm_kernel.quant_matmul.launches,
+                lm_kernel.quant_matmul_t.launches) == before
 
 
 @pytest.mark.cuda
@@ -708,7 +820,7 @@ def test_cuda_lora_op_grads_match_the_cpu_route(cuda_device):
         grads[dev.type] = [t.grad.cpu() for t in ts]
         if dev.type == "cuda":
             assert ops.KERNEL_TRACES == {"lora_matmul_cuda": 1,
-                                         "quant_matmul_t_cuda": 1}
+                                         "quant_matmul_t_cuda_tf32x3": 1}
     for got, want in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 

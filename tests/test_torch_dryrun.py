@@ -161,7 +161,7 @@ def test_record_keys_and_argument_bytes(kind):
     # through the Runtime's head split (the decode's split-KV body)
     kern, dist_ = rec["routes"]["kernel"], rec["routes"]["dist"]
     assert "lora_matmul_dense" in kern
-    assert not any(k.endswith(("_cuda", "_cuda_tc")) for k in kern)
+    assert not any("_cuda" in k for k in kern)   # no card route
     if kind == "decode":
         assert "decode_attention_plain" in kern
         assert "decode_attention_dist" in dist_

@@ -63,7 +63,7 @@ def test_family_step_traces_on_fake_tensors(family, kind):
     assert rec["collectives"] == {}            # one device, no world
     kern = rec["routes"]["kernel"]
     assert ROUTES[kind] in kern, kern
-    assert not any(k.endswith(("_cuda", "_cuda_tc")) for k in kern)
+    assert not any("_cuda" in k for k in kern)   # no card route
     if family == "ssm" and kind == "train":
         assert {"selective_scan_ref", "selective_scan_bwd_ref"} <= set(kern)
 

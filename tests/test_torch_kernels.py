@@ -225,7 +225,7 @@ def test_ops_refuse_unported_kernel_paths(monkeypatch):
     assert calls == ["lora_matmul", "quant_matmul_t"]
     # two rows: the decode route, either dtype
     assert ops.KERNEL_TRACES == {"lora_matmul_cuda_gemv": 1,
-                                 "quant_matmul_t_cuda": 1}
+                                 "quant_matmul_t_cuda_tf32x3": 1}
     np.testing.assert_allclose(
         xg.grad.numpy(), (ref.quant_matmul_t(torch.ones(2, 32), qt)
                           + (torch.ones(2, 32) @ b.t()) @ a.t()).numpy(),

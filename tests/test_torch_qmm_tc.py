@@ -20,8 +20,8 @@ chip_smoke.py). Here:
   products to bf16, and the sums differ only in order); its decoded
   weights equal the JAX package's ``dequantize`` to bf16 bitwise;
 - the routing rule: bf16 past 4 rows (or off the GEMV's layout) takes
-  ``"tc"``, fp32 ``"tiled"``, at most 4 rows on the GEMV's layout
-  ``"gemv"``;
+  ``"tc"``, fp32 ``"tf32x3"`` (tests/test_torch_qmm_tf32.py), at most 4
+  rows on the GEMV's layout ``"gemv"``;
 - the constants the plan assumes are the CUDA sources'."""
 import math
 import re
@@ -229,12 +229,12 @@ def test_routes_by_rows_layout_and_dtype():
     q = torch.zeros((2, 32, 64), dtype=torch.uint8)
     assert qmm.route(7, 64, q, bf) == "tc"
     assert qmm.route(256, 64, q, bf) == "tc"
-    assert qmm.route(7, 64, q, f32) == "tiled"
+    assert qmm.route(7, 64, q, f32) == "tf32x3"
     for M in range(1, qmm.MAX_ROWS + 1):
         assert qmm.route(M, 64, q, bf) == qmm.route(M, 64, q, f32) == "gemv"
         # off the GEMV's layout (N % 4 != 0): the kernel of the dtype
         assert qmm.route(M, 70, q, bf) == "tc"
-        assert qmm.route(M, 70, q, f32) == "tiled"
+        assert qmm.route(M, 70, q, f32) == "tf32x3"
 
 
 def test_tc_launches_reset_with_the_others():
@@ -265,4 +265,4 @@ def test_ops_counts_the_tc_route_on_the_card(monkeypatch):
     for M, dt in ((7, torch.bfloat16), (7, torch.float32),
                   (3, torch.bfloat16)):
         ops.quant_matmul(torch.from_numpy(_np(44, M, 64)).to(dt), qt)
-    assert seen == ["tc", "tiled", "gemv"]
+    assert seen == ["tc", "tf32x3", "gemv"]
