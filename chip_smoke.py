@@ -242,17 +242,19 @@ K, N % 16 != 0), and ``flash_attention``'s D > 512 cluster route at D =
 544, 896 and 1024 with the single-stage route it replaces forced beside
 it. bf16 calls of ``flash_attention``,
 ``lora_matmul`` (past its decode rows) and ``quant_matmul_t`` (a bf16
-cotangent) run their tensor-core kernels; fp32 ``lora_matmul`` its
-CUDA-core one, fp32 ``quant_matmul`` past the GEMV's rows and fp32
+cotangent) run their tensor-core kernels; fp32 ``lora_matmul`` past its
+decode rows, fp32 ``quant_matmul`` past the GEMV's rows and fp32
 ``quant_matmul_t`` their 3xTF32 tensor-core routes (``"tf32x3"``), and
 fp32 ``flash_attention`` its row route (``"cuda_rows"``, up to
 ``ROWS_MAX_S`` query rows) or its 3xTF32 route (``"cuda_tf32x3"``);
 each row prints the route it took, and the bf16 trainer must launch only
-the tensor-core kernels of the three. Phase 2 (a') holds the two fp32
+the tensor-core kernels of the three. Phase 2 (a') holds the three fp32
 GEMMs' 3xTF32 routes at the paths' shapes (``check_fp32_gemms``: the
-MoE experts' 20 rows and the calibrated RecurrentGemma-2B MLP's 2048)
-with the first fp32 designs forced beside them (``tiled_ms``) and, at
-20 rows, the time under each split count. Phase 2 (b') holds the fp32 attention at the fp32 step check's
+MoE experts' 20 rows and the calibrated RecurrentGemma-2B MLP's 2048;
+``lora_matmul`` at Qwen3-MoE's fp32 wq / wo and the fp32 Yi-9B step's
+linears, 256 rows) with the first fp32 designs forced beside them
+(``tiled_ms``) and, at 20 rows and for ``lora_matmul``, the time under
+each split count. Phase 2 (b') holds the fp32 attention at the fp32 step check's
 shapes, both fp32 routes forced at S = 1-32 (the crossover that sets
 ``ROWS_MAX_S``), and every fp32 row the first fp32 design's time on the
 same inputs beside it (``v1_ms``, forced); (f) runs ``FLASH_WIDE`` in
@@ -264,7 +266,7 @@ decode route and a train step's the training rows' (``check_lora_routes``);
 the ``kernels`` record's ``flash_attention`` rows count each route's
 launches over phases 3-16, and so do the fp32 GEMMs' 3xTF32 rows, whose
 calls must all take that route (``check_lora_routes``,
-``check_qmm_routes``); the fp32 GEMM kernels (``lora_kernel``,
+``check_qmm_routes``); the fp32 GEMM kernels (``lora_tf32_kernel``,
 ``qmt_tf32_kernel``, ``qmm_tf32_kernel``) are timed after phase 16 at
 the shapes the paths launched them most (``time_fp32_gemms``).
 ``quant_matmul`` is timed at the shape that every serve replay launch
@@ -382,6 +384,8 @@ REPLACES = {
     # GEMV's rows (qmm_tf32_kernel) and quant_matmul_t (qmt_tf32_kernel)
     "quant_matmul_tf32x3": "src/repro/kernels/quant_matmul.py:66",
     "quant_matmul_t_tf32x3": "src/repro/kernels/lora_matmul.py:146",
+    # lora_matmul's fp32 route past its decode rows (lora_tf32_kernel)
+    "lora_matmul_tf32x3": "src/repro/kernels/lora_matmul.py:64",
 }
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
            for name in REPLACES}
@@ -394,6 +398,7 @@ SOURCES["flash_attention_tf32x3"] = SOURCES["flash_attention"]
 SOURCES["selective_scan_bwd"] = SOURCES["selective_scan"]
 SOURCES["quant_matmul_tf32x3"] = SOURCES["quant_matmul"]
 SOURCES["quant_matmul_t_tf32x3"] = SOURCES["lora_matmul"]
+SOURCES["lora_matmul_tf32x3"] = SOURCES["lora_matmul"]
 SERVE_KERNELS = ("quant_matmul", "blockwise_quant", "flash_attention")
 # the kernels each trainer's main path launches
 TRAIN_KERNELS = {"yi-9b": ("lora_matmul", "quant_matmul_t", "flash_attention"),
@@ -709,6 +714,11 @@ def setup() -> None:
               f"{qmm_kernel.tf32_occupancy(op, 0, 32)}/"
               f"{qmm_kernel.tf32_occupancy(op, 0, 128)}"
               for op in ("quant_matmul", "quant_matmul_t")), flush=True)
+    print("  lora_matmul tf32x3 blocks per SM (rank padded to 16 / 32; "
+          f"NF4, int8): {lm_kernel.tf32_occupancy(2, 16)}/"
+          f"{lm_kernel.tf32_occupancy(2, 32)}, "
+          f"{lm_kernel.tf32_occupancy(0, 16)}/"
+          f"{lm_kernel.tf32_occupancy(0, 32)}", flush=True)
 
 
 # -- phase 2: kernels against their plain versions ---------------------
@@ -724,14 +734,15 @@ def path_launches() -> dict:
     """``ops.launch_counts()`` with the routes' own counts beside their
     wrappers' (``ops.reset_launch_counts`` zeroes them all):
     ``quant_matmul``'s tc and tf32x3 routes, ``quant_matmul_t``'s tf32x3
-    route, ``lora_matmul``'s decode route and ``flash_attention``'s D >
-    512 route and its two fp32 routes."""
+    route, ``lora_matmul``'s decode and tf32x3 routes and
+    ``flash_attention``'s D > 512 route and its two fp32 routes."""
     fa = ops.KERNELS["flash_attention"]
     return {**ops.launch_counts(),
             "quant_matmul_tc": qmm_kernel.quant_matmul.tc_launches,
             "quant_matmul_tf32x3": qmm_kernel.quant_matmul.tf32_launches,
             "quant_matmul_t_tf32x3": lm_kernel.quant_matmul_t.tf32_launches,
             "lora_matmul_gemv": lm_kernel.lora_matmul.gemv_launches,
+            "lora_matmul_tf32x3": lm_kernel.lora_matmul.tf32_launches,
             "flash_attention_cluster": fa.cluster_launches,
             "flash_attention_rows": fa.rows_launches,
             "flash_attention_tf32x3": fa.tf32_launches}
@@ -903,26 +914,51 @@ TF32_QMT = [("moe_expert_dx_wg_wu", 20, 4096, 1536),
             ("rgemma_dx_wg_wu_2048", 2048, 2560, 7680),
             ("rgemma_dx_wd_2048", 2048, 7680, 2560)]
 TF32_SPLITS = (1, 2, 4, 6, 8, 11, 16, 24, 32)
+# lora_matmul x (M, K) against W (K, N), rank 16: phase 13's Qwen3-MoE wq
+# and wo in fp32 under the Runtime (PERF.md row 4g) and phase 4's
+# full-width fp32 Yi-9B step's linears
+TF32_LORA = [("qwen3_wq", 256, 4096, 8192), ("qwen3_wo", 256, 8192, 4096),
+             *(("yi_" + n, 256, K, N) for n, (K, N) in YI_LINEARS.items())]
+LORA_TF32_SPLITS = (1, 2, 3, 4)
 
 
 def check_fp32_gemms(gen) -> tuple:
-    """The 3xTF32 routes (``qmm_tf32_kernel``, ``qmt_tf32_kernel``) at
-    ``TF32_QMM`` / ``TF32_QMT``: route ``"tf32x3"``, within 1e-5 of the
-    plain version's largest magnitude (fp32, TF32 off), two calls bitwise
-    equal; each row with the plan, the bound under the 3xTF32 rule, the
-    device ms beside the first design's (forced, ``tiled_ms``) and the
-    plain version's on the same inputs; at the 20-row shapes the device
-    time (``queued_ms``) under each split count of ``TF32_SPLITS``
-    beside the plan's. Returns the experts' wg/wu record of each op."""
+    """The 3xTF32 routes (``qmm_tf32_kernel``, ``qmt_tf32_kernel``,
+    ``lora_tf32_kernel``) at ``TF32_QMM`` / ``TF32_QMT`` / ``TF32_LORA``:
+    route ``"tf32x3"``, within 1e-5 of the plain version's largest
+    magnitude (fp32, TF32 off), two calls bitwise equal; each row with the
+    plan, the bound under the 3xTF32 rule, the device ms beside the first
+    design's (forced, ``tiled_ms``) and the plain version's on the same
+    inputs; at the 20-row shapes the device time (``queued_ms``) under
+    each split count of ``TF32_SPLITS`` beside the plan's, and
+    ``lora_matmul``'s under ``LORA_TF32_SPLITS`` and the plan's at each
+    of its shapes (the data ``plan_lora_tf32``'s rule was chosen from).
+    Returns the experts' wg/wu record of each of the first two ops and
+    Qwen3-MoE's wq of ``lora_matmul``."""
     dev, f32 = "cuda", torch.float32
     main = {}
     cases = [("quant_matmul", *c) for c in TF32_QMM] + \
-        [("quant_matmul_t", *c) for c in TF32_QMT]
+        [("quant_matmul_t", *c) for c in TF32_QMT] + \
+        [("lora_matmul", *c) for c in TF32_LORA]
     for op, name, M, K, N in cases:
         w = torch.randn((K, N), generator=gen, device=dev) / K ** 0.5
         qt = qlib.quantize(w, bits=4, block=64, mode="nf4")
         del w
-        if op == "quant_matmul":
+        nops, extra = 2.0 * M * K * N, ()
+        if op == "lora_matmul":
+            a = torch.randn((M, K), generator=gen, device=dev)
+            la = torch.randn((K, 16), generator=gen, device=dev) / K ** 0.5
+            lb = torch.randn((16, N), generator=gen, device=dev) * 0.05
+            run = lambda: lm_kernel.lora_matmul(a, qt, la, lb, scale=2.0)
+            first = lambda: lm_kernel._lora_matmul(a, qt, la, lb, 2.0, None,
+                                                   force="tiled")
+            plain = lambda: ref.lora_matmul(a, qt, la, lb, scale=2.0)
+            pl = lm_kernel.plan_lora_tf32(M, K, N, 64)
+            forced = lambda s_: (lambda: lm_kernel._lora_matmul(
+                a, qt, la, lb, 2.0, s_))
+            got, route = counted_route(lm_kernel.route_counts, run)
+            nops, extra = 2.0 * M * (K * N + K * 16 + 16 * N), (la, lb)
+        elif op == "quant_matmul":
             a = torch.randn((M, K), generator=gen, device=dev)
             run = lambda: qmm_kernel.quant_matmul(a, qt)
             first = lambda: qmm_kernel._quant_matmul(a, qt, None,
@@ -954,8 +990,8 @@ def check_fp32_gemms(gen) -> tuple:
             raise AssertionError(f"{op} {name}: rel err {rel_e} > 1e-5")
         if not torch.equal(got, again):
             raise AssertionError(f"{op} {name}: two calls differ")
-        b_ms, b_by = bound(nbytes(a, qt.q, qt.scales, got),
-                           2.0 * M * K * N, TF32X3)
+        b_ms, b_by = bound(nbytes(a, *extra, qt.q, qt.scales, got), nops,
+                           TF32X3)
         row = {"case": name, "route": route, "M": M, "K": K, "N": N,
                "plan_bm": pl.bm, "plan_splits": pl.splits,
                "plan_blocks": pl.blocks, "max_abs_err": abs_e,
@@ -965,21 +1001,28 @@ def check_fp32_gemms(gen) -> tuple:
         timed(row, "tiled_ms", first)
         timed(row, "plain_ms", plain)
         report({op + "_tf32x3": 1, **row})
-        if M <= qmm_kernel.TF32_SMALL_ROWS:
+        if M <= qmm_kernel.TF32_SMALL_ROWS or op == "lora_matmul":
+            counts = LORA_TF32_SPLITS if op == "lora_matmul" else \
+                TF32_SPLITS
             times = {s_: queued_ms(forced(s_))
-                     for s_ in sorted({*TF32_SPLITS, pl.splits})}
+                     for s_ in sorted({*counts, pl.splits})}
             best = min(times, key=times.get)
             print(f"    queued ms by split count (plan {pl.splits}, best "
                   f"{best}): " + " ".join(f"{s_}={t:.4g}"
                                           for s_, t in times.items()),
                   flush=True)
+            if op == "lora_matmul":   # plan_lora_tf32's model beside them
+                model = lambda s_: lm_kernel.lora_tf32_cost_us(
+                    M, N, pl.tiles, -(-K // pl.unit), pl.unit, s_) / 1e3
+                print("    model ms: " + " ".join(
+                    f"{s_}={model(s_):.4g}" for s_ in times), flush=True)
         main.setdefault(op, row)
-        del a, qt, got, again, want
+        del a, qt, got, again, want, extra
     torch.cuda.empty_cache()
-    print("  library: no single PyTorch call computes x @ dequant(W_q) or "
-          "g @ dequant(W_q)^T from the quantized payload (library_ms = "
-          "null)", flush=True)
-    return main["quant_matmul"], main["quant_matmul_t"]
+    print("  library: no single PyTorch call computes x @ dequant(W_q), "
+          "g @ dequant(W_q)^T or x @ dequant(W_q) + s(x@A)@B from the "
+          "quantized payload (library_ms = null)", flush=True)
+    return main["quant_matmul"], main["quant_matmul_t"], main["lora_matmul"]
 
 
 def check_blockwise_quant(gen) -> dict:
@@ -1097,12 +1140,8 @@ def check_lora_kernels(gen) -> tuple:
     bf16 calls take the tensor-core kernels with ``plan``'s / ``plan_t``'s
     split count, printed beside them; ``quant_matmul_t`` with a bf16 g
     writes fp32, as the trainer's backward calls it, and is held to 1e-4
-    of the largest magnitude (its fp32-g route to 1e-5). At the Yi shapes
-    a dense bf16 ``torch.matmul`` of the same (M, K, N) is timed as
-    context for ``lora_matmul`` (not a yardstick: it reads a dense W),
-    and the fp32-g route of ``quant_matmul_t`` (the trainer's before this
-    kernel) on the same values. Returns the two records at the wg/wu
-    shape (the largest per-call work)."""
+    of the largest magnitude (its fp32-g route to 1e-5). Returns the two
+    records at the wg/wu shape (the largest per-call work)."""
     dev = "cuda"
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [(name, 256, K, N, 4, "nf4", bf16, 16)
@@ -1147,21 +1186,15 @@ def check_lora_kernels(gen) -> tuple:
             if dtype == bf16:
                 if route != "tensor cores":
                     raise AssertionError(f"{kname} {name}: bf16 took {route}")
-            elif kname == "quant_matmul_t" and route != "tf32x3":
-                raise AssertionError(f"{kname} {name}: fp32 took {route}")
                 row["splits"] = (lm_kernel.plan(M, K, N, qt.block)
                                  if kname == "lora_matmul" else
                                  lm_kernel.plan_t(M, Kq, N)).splits
+            elif route != "tf32x3":
+                raise AssertionError(f"{kname} {name}: fp32 took {route}")
             row.update(max_abs_err=abs_e, rel_err=rel_e, tol=tol,
                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
             timed(row, "ms", run)
             timed(row, "plain_ms", plain)
-            if name in YI_LINEARS and kname == "lora_matmul":
-                timed(row, "dense_bf16_ms", lambda: x @ w)
-            if name in YI_LINEARS and kname == "quant_matmul_t":
-                g32 = g.float()
-                timed(row, "fp32_g_ms",
-                      lambda: lm_kernel.quant_matmul_t(g32, qt))
             report({kname: 1, **row})
             if name == "wg_wu":
                 main[kname] = row
@@ -1767,15 +1800,15 @@ def record_routes():
     an fp32 GEMM, route, dtype): step is the Model method the call ran
     under (``"decode"``, ``"prefill"``, ``"train"`` for ``train_step`` /
     ``grads``, ``"other"`` outside them), the route is read from the
-    wrappers' own counts (``"gemv"``, ``"tc"``, ``"cuda"``;
+    wrappers' own counts (``"gemv"``, ``"tc"``, ``"tf32x3"``;
     ``flash_attention``'s ``"tc"``, ``"tc_cluster"``, ``"cuda_rows"``,
-    ``"cuda_tf32x3"``). The fp32 GEMMs are recorded under their CUDA-core
+    ``"cuda_tf32x3"``). The fp32 GEMMs are recorded under their 3xTF32
     kernels' names with their shapes (M, K, N, LoRA rank or 0, bits,
-    mode, block): ``lora_matmul``'s training rows (``"lora_kernel"``),
-    an fp32 dx of a quantized weight (``"qmt_tf32_kernel"``, K the padded
-    Kq) and an fp32 ``quant_matmul`` past the GEMV's rows
-    (``"qmm_tf32_kernel"``), each with the route it took (``"tf32x3"``,
-    or ``"tiled"`` if the first design ran). The ops' entries (``ops._lora_kernel``,
+    mode, block): an fp32 ``lora_matmul`` past its decode rows
+    (``"lora_tf32_kernel"``), an fp32 dx of a quantized weight
+    (``"qmt_tf32_kernel"``, K the padded Kq) and an fp32 ``quant_matmul``
+    past the GEMV's rows (``"qmm_tf32_kernel"``), each with the route it
+    took (``"tf32x3"``, or ``"tiled"`` if the first design ran). The ops' entries (``ops._lora_kernel``,
     ``ops._FlashAttention``, ``ops._dx_through_w``, ``ops._qmm_kernel``)
     are wrapped, and the Model's step methods mark the step; the kernel
     wrappers and their counts are left as they are."""
@@ -1799,18 +1832,15 @@ def record_routes():
         return run
 
     def lora(x, qt, a, b, scale):
-        w = lm_kernel.lora_matmul
-        before = (w.launches, w.gemv_launches, w.tc_launches)
-        y = lora_op(x, qt, a, b, scale)
-        route = "gemv" if w.gemv_launches > before[1] else \
-            "tc" if w.tc_launches > before[2] else "cuda"
+        y, route = counted_route(lm_kernel.route_counts,
+                                 lambda: lora_op(x, qt, a, b, scale))
         M = x.numel() // x.shape[-1]
-        if route == "cuda" and w.launches > before[0]:
-            calls[("lora_kernel", step(), (M, x.shape[-1], qt.q.shape[-1],
-                                           a.shape[-1], qt.bits, qt.mode,
-                                           qt.block),
+        if route in ("tf32x3", "tiled"):
+            calls[("lora_tf32_kernel", step(), (M, x.shape[-1],
+                                                qt.q.shape[-1], a.shape[-1],
+                                                qt.bits, qt.mode, qt.block),
                    route, dtype_of(x))] += 1
-        else:
+        elif route is not None:
             calls[("lora_matmul", step(), M, route, dtype_of(x))] += 1
         return y
 
@@ -1866,7 +1896,7 @@ def record_routes():
 
 
 # the fp32 kernels record_routes counts by shape
-FP32_GEMMS = ("lora_kernel", "qmt_tf32_kernel", "qmm_tf32_kernel")
+FP32_GEMMS = ("lora_tf32_kernel", "qmt_tf32_kernel", "qmm_tf32_kernel")
 
 
 def check_lora_routes(phases: dict, decode_phases=(12, 13, 14, 16),
@@ -1875,11 +1905,11 @@ def check_lora_routes(phases: dict, decode_phases=(12, 13, 14, 16),
     GEMM launches by (op, step, rows, D or shape, route, dtype), then the
     fp32 launches by route and phase; fail unless, in ``lora_phases``,
     every ``lora_matmul`` call of a decode step took the decode route
-    (``"gemv"``) and every one of a train step the training rows' route
-    (``"tc"`` for bf16, ``"cuda"`` for fp32), every fp32 ``quant_matmul``
-    past the GEMV's rows and every fp32 ``quant_matmul_t`` took its 3xTF32
-    route (``"tf32x3"``), and each of ``decode_phases`` launched the
-    decode route. Returns the launches of
+    (``"gemv"``) and every bf16 one of a train step the tensor cores
+    (``"tc"``); in every phase each fp32 ``lora_matmul`` past its decode
+    rows, fp32 ``quant_matmul`` past the GEMV's rows and fp32
+    ``quant_matmul_t`` took its 3xTF32 route (``"tf32x3"``), and each of
+    ``decode_phases`` launched the decode route. Returns the launches of
     each route of ``flash_attention`` and of ``lora_matmul``'s decode
     route, summed over the phases, and the fp32 GEMMs' launches by
     (kernel, shape) and phase under ``"fp32_gemms"``."""
@@ -1901,17 +1931,13 @@ def check_lora_routes(phases: dict, decode_phases=(12, 13, 14, 16),
                 continue
             if op in FP32_GEMMS:
                 gemms[(op, rows)][phase] += n
-                if op != "lora_kernel":
-                    if route != "tf32x3":
-                        raise AssertionError(f"phase {phase}: {n} fp32 "
-                                             f"{op} calls at {rows} took "
-                                             f"{route}, not tf32x3")
-                    continue
-                route = "cuda"
+                if route != "tf32x3":
+                    raise AssertionError(f"phase {phase}: {n} fp32 {op} "
+                                         f"calls at {rows} took {route}, "
+                                         "not tf32x3")
+                continue
             total["lora_matmul_gemv"] += n * (route == "gemv")
-            want = {"decode": "gemv",
-                    "train": "tc" if dtype == "bfloat16" else "cuda"
-                    }.get(step)
+            want = {"decode": "gemv", "train": "tc"}.get(step)
             if phase in lora_phases and want is not None and route != want:
                 raise AssertionError(f"phase {phase}: {n} lora_matmul calls "
                                      f"of a {step} step at M={rows} "
@@ -6158,15 +6184,14 @@ def check_qmm_routes(phases: dict) -> None:
 
 
 def time_fp32_gemms(gen, gemms: dict, top: int = 2) -> list:
-    """The fp32 GEMM kernels (``lora_kernel``, ``qmt_tf32_kernel``,
+    """The fp32 GEMM kernels (``lora_tf32_kernel``, ``qmt_tf32_kernel``,
     ``qmm_tf32_kernel``) at the shapes the paths ran them (``gemms``:
     launches by (kernel, shape) and phase, from ``check_lora_routes``):
     each kernel's ``top`` shapes by the work their launches did (launches
     x 2 M K N), a seeded weight quantized as recorded, the kernel's
-    device ms and its plain version's beside the bound (``lora_kernel``:
-    fp32 operations at 67 TFLOP/s or the bytes; the 3xTF32 kernels under
-    the 3xTF32 rule), the first design's ms on the same inputs (forced,
-    ``tiled_ms``) beside the 3xTF32 kernels', and the launches by phase.
+    device ms and its plain version's beside the bound under the 3xTF32
+    rule, the first design's ms on the same inputs (forced,
+    ``tiled_ms``), and the launches by phase.
     Each kernel is held within 1e-5 of the plain version's largest
     magnitude. Returns the rows."""
     f32 = torch.float32
@@ -6182,9 +6207,11 @@ def time_fp32_gemms(gen, gemms: dict, top: int = 2) -> list:
             qt = ref.blockwise_quant(w, bits=bits, block=block, mode=mode)
             Kq = qt.q.shape[-3] * qt.block
             rnd = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
-            if kernel == "lora_kernel":
+            if kernel == "lora_tf32_kernel":
                 x, a, b = rnd(M, K), rnd(K, r) / K ** 0.5, rnd(r, N) * 0.05
                 run = lambda: lm_kernel.lora_matmul(x, qt, a, b, scale=2.0)
+                first = lambda: lm_kernel._lora_matmul(x, qt, a, b, 2.0,
+                                                       None, force="tiled")
                 plain = lambda: ref.lora_matmul(x, qt, a, b, scale=2.0)
                 ins, nops = (x, a, b), 2.0 * M * (Kq * N + K * r + r * N)
             elif kernel == "qmt_tf32_kernel":
@@ -6206,14 +6233,13 @@ def time_fp32_gemms(gen, gemms: dict, top: int = 2) -> list:
             if not rel_e <= 1e-5:
                 raise AssertionError(f"{kernel} {M}x{K}x{N}: rel err {rel_e}")
             b_ms, b_by = bound(nbytes(*ins, qt.q, qt.scales, got), nops,
-                               f32 if kernel == "lora_kernel" else TF32X3)
+                               TF32X3)
             row = {"fp32_gemm": kernel, "M": M, "K": K, "N": N, "rank": r,
                    "quant": f"{mode}{bits}/{block}", "rel_err": rel_e,
                    "bound_ms": b_ms, "bound_by": b_by,
                    "launches": {str(ph): c for ph, c in by.items()}}
             timed(row, "ms", run)
-            if kernel != "lora_kernel":
-                timed(row, "tiled_ms", first)
+            timed(row, "tiled_ms", first)
             timed(row, "plain_ms", plain)
             report(row)
             rows.append(row)
@@ -6256,8 +6282,8 @@ def _main() -> int:
         check_quant_matmul(gen)
     # the fp32 GEMMs' 3xTF32 routes, early, where the profiler records
     # every activity
-    main_rows["quant_matmul_tf32x3"], main_rows["quant_matmul_t_tf32x3"] = \
-        check_fp32_gemms(gen)
+    (main_rows["quant_matmul_tf32x3"], main_rows["quant_matmul_t_tf32x3"],
+     main_rows["lora_matmul_tf32x3"]) = check_fp32_gemms(gen)
     main_rows["blockwise_quant"] = check_blockwise_quant(gen)
     check_flash_attention(gen)      # the serve shapes
     main_rows["flash_attention"] = check_flash_train(gen)
@@ -6440,10 +6466,17 @@ def _main() -> int:
     launches["lora_matmul"] -= new_routes["lora_matmul_gemv"]
     # the fp32 GEMMs' 3xTF32 routes over phases 3-16 (record_routes)
     for name, kernel in (("quant_matmul_tf32x3", "qmm_tf32_kernel"),
-                         ("quant_matmul_t_tf32x3", "qmt_tf32_kernel")):
+                         ("quant_matmul_t_tf32x3", "qmt_tf32_kernel"),
+                         ("lora_matmul_tf32x3", "lora_tf32_kernel")):
         launches[name] = sum(sum(by.values()) for (op, _), by in
                              new_routes["fp32_gemms"].items()
                              if op == kernel)
+    # the lora_matmul row is the bf16 tensor-core kernel: its count (the
+    # wrapper's over phases 5 and 12-16) less the fp32 route's there
+    launches["lora_matmul"] -= sum(
+        n for (op, _), by in new_routes["fp32_gemms"].items()
+        if op == "lora_tf32_kernel" for ph, n in by.items()
+        if ph in (5, 12, 13, 14, 15, 16))
     # flash_attention by route over phases 3-16 (record_routes): the bf16
     # tensor cores up to D = 512 and above, the two fp32 routes
     for name, route in (("flash_attention", "tc"),
@@ -6454,7 +6487,7 @@ def _main() -> int:
     for name in ("lora_matmul_gemv", "flash_attention",
                  "flash_attention_cluster", "flash_attention_rows",
                  "flash_attention_tf32x3", "quant_matmul_tf32x3",
-                 "quant_matmul_t_tf32x3"):
+                 "quant_matmul_t_tf32x3", "lora_matmul_tf32x3"):
         if launches[name] < 1:
             raise AssertionError(f"phases 3-16 launched no {name}")
     print(f"fp32 GEMM rows: {len(fp32_rows)}", flush=True)

@@ -13,9 +13,8 @@
 //
 // Each op has two instantiations, chosen by the activation's dtype in the
 // wrapper (kernels/lora_matmul.py), never as a fallback of one another:
-// bf16 runs the tensor-core kernels below; fp32 lora_matmul the CUDA-core
-// lora_kernel and fp32 quant_matmul_t the 3xTF32 tensor cores
-// (qmt_tf32_kernel), both at 1e-5.
+// bf16 runs the bf16 tensor-core kernels below; fp32 the 3xTF32 tensor
+// cores (lora_tf32_kernel, qmt_tf32_kernel), at 1e-5.
 //
 // bf16 x: lora_tc_kernel, tensor cores (lora_matmul_tc_launch).
 //  - mma.sync.m16n8k16 (bf16 operands, fp32 accumulators) fed by
@@ -90,7 +89,26 @@
 //    contract inertly, as the Pallas kernel's zero scales make them;
 //    Kq rows past the true Kq decode to zero and are not written.
 //
-// fp32 x: lora_kernel, fp32 CUDA cores, the first design. Each block
+// fp32 x: lora_tf32_kernel (lora_matmul_tf32_launch), tf32_gemm.cuh's
+// 3xTF32 body (qmm_tf32_kernel's, W's [32 K rows][128 N columns] tile read
+// as it is stored) with the rank-r term carried beside it (RP = 16 or
+// 32): each k-tile's rows of A ride the same cp.async ring, h = x @ A
+// runs in the same chains of 4 k8 steps and 3 products as x @ W, kept in
+// shared memory, and after the loop each thread adds scale * (h @ B) in
+// fp32; W is decoded once a block into TF32 hi and lo tiles. One row tile
+// of 128 rows: the paths' fp32 calls are 256 rows. Bound on an NVIDIA
+// H100 80GB HBM3 at 700 W (its published rates) at the paths' Qwen3-MoE
+// wq / wo (256 x 4096 x 8192 and 256 x 8192 x 4096, NF4): 3 TF32
+// products of 17.28 GFLOP at 494.7 TFLOP/s, 0.1048 ms, against about 31
+// MB of x, payload, scales and y (0.009 ms at 3.35 TB/s), so operations.
+// 2 x 64 output tiles are one wave on its 132 SMs at one block an SM
+// (152-172 KB of shared memory, 255 registers, no spills);
+// where the tiles fill less, K is split on whole quant groups and
+// k-tiles (kernels/lora_matmul.plan_lora_tf32), each split adding its own
+// scale * (h_s @ B), the (splits, M, N) partials summed in split order.
+// The wrapper pads x and A with zero rows to Kq (odd K).
+// fp32 x, forced only (force="tiled", the card's A/B): lora_kernel, fp32
+// CUDA cores, the first design. Each block
 // owns a (64 x 128) output tile, 256 threads as 16 x 16, each thread a
 // 4 x 8 register micro-tile at stride 16 (conflict-free shared reads).
 // The block walks the reduction axis in 32-deep tiles: the activation
@@ -846,6 +864,49 @@ cudaError_t occupancy(int* blocks) {
 
 }  // namespace qtf
 
+// ---- fp32 x: 3xTF32 tensor cores with the rank-r term -------------------
+namespace ltf {
+
+constexpr int BM = 128;             // the row tile: the paths' 256 rows
+
+// y tile (m0.., n0..) of split z: tf32_gemm.cuh's body as qmm_tf32_kernel
+// runs it, plus scale * (h_z @ B).
+template <int FMT, int RP>
+__global__ void __launch_bounds__(tg::NT, tg::Cfg<BM>::MINB)
+lora_tf32_kernel(const tg::Args p) {
+  tg::gemm_tf32<FMT, BM, false, RP>(p);
+}
+
+template <int FMT, int RP>
+cudaError_t launch(const tg::Args& p, cudaStream_t st) {
+  constexpr int bytes = tg::Layout<FMT, BM, false, RP>::BYTES;
+  static bool attr_set = false;
+  const cudaError_t e = tg::set_smem(lora_tf32_kernel<FMT, RP>, bytes,
+                                     attr_set);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.O + tg::BO - 1) / tg::BO, (p.M + BM - 1) / BM,
+                  p.splits);
+  lora_tf32_kernel<FMT, RP><<<grid, tg::NT, bytes, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <int FMT>
+cudaError_t launch_fmt(const tg::Args& p, cudaStream_t st) {
+  return p.r <= 16 ? launch<FMT, 16>(p, st) : launch<FMT, 32>(p, st);
+}
+
+template <int FMT, int RP>
+cudaError_t occupancy(int* blocks) {
+  constexpr int bytes = tg::Layout<FMT, BM, false, RP>::BYTES;
+  bool done = false;
+  const cudaError_t e = tg::set_smem(lora_tf32_kernel<FMT, RP>, bytes, done);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, lora_tf32_kernel<FMT, RP>, tg::NT, bytes);
+}
+
+}  // namespace ltf
+
 template <int FMT>
 cudaError_t lora_fmt(const void* x, const void* q, const void* s,
                      const void* a, const void* b, void* y, int M, int K,
@@ -909,8 +970,9 @@ bool bad_layout(int fmt, int Kq, int block, int rows) {
 
 }  // namespace
 
-// fp32 x, y: the CUDA-core kernel. fmt: 0 int8, 1 int4 (packed), 2 NF4
-// (packed); a and b are fp32. K is x's true width, Kq = G * block >= K.
+// fp32 x, y: the first design's CUDA-core kernel (run only when the
+// wrapper is forced to it). fmt: 0 int8, 1 int4 (packed), 2 NF4 (packed);
+// a and b are fp32. K is x's true width, Kq = G * block >= K.
 extern "C" int lora_matmul_launch(const void* x, const void* q, const void* s,
                                   const void* a, const void* b, void* y,
                                   int M, int K, int Kq, int N, int r,
@@ -962,6 +1024,62 @@ extern "C" int lora_matmul_tc_launch(const void* x, const void* q,
   if (err != cudaSuccess || splits == 1) return (int)err;
   return (int)tt::sum_splits((const float*)ws, (__nv_bfloat16*)y,
                              (long long)M * N, splits, st);
+}
+
+// fp32 x, y: the 3xTF32 tensor-core kernel. x (M, Kq) and a (Kq, RP)
+// zero-padded to Kq (odd K) and to RP = 16 (r <= 16) or 32 columns, a
+// 16-byte aligned; b (r, N); K in `splits` slices on multiples of unit (a
+// multiple of both the block and 32; kernels/lora_matmul.plan_lora_tf32),
+// then (splits > 1) splitk_sum over the fp32 workspace ws (splits, M, N).
+// block is a power of two >= 16.
+extern "C" int lora_matmul_tf32_launch(const void* x, const void* q,
+                                       const void* s, const void* a,
+                                       const void* b, void* y, void* ws,
+                                       int M, int Kq, int N, int r,
+                                       int block, int rows, int fmt,
+                                       float scale, int splits, int unit,
+                                       void* stream) {
+  if (M < 1 || N < 1 || r < 1 || r > 32 || bad_layout(fmt, Kq, block, rows) ||
+      block < tt::MIN_BLOCK || (block & (block - 1)) ||
+      (M + ltf::BM - 1) / ltf::BM > 65535 || splits < 1 ||
+      splits > tg::MAX_SPLITS || unit < 1 || unit % tt::BK || unit % block ||
+      (splits > 1 && ws == nullptr) || (uintptr_t)a % 16)
+    return (int)cudaErrorInvalidValue;
+  tg::Args p;
+  p.a = (const float*)x;
+  p.q = (const uint8_t*)q;
+  p.s = (const float*)s;
+  p.y = (float*)y;
+  p.ws = (float*)ws;
+  p.T = 1; p.M = M; p.C = Kq; p.O = N; p.Kq = Kq; p.N = N; p.rows = rows;
+  p.bshift = __builtin_ctz(block); p.unit = unit; p.splits = splits;
+  p.a_vec = (uintptr_t)x % 16 == 0;           // Kq % 16 == 0: block >= 16
+  p.w_vec = N % 16 == 0 && ((uintptr_t)q | (uintptr_t)s) % 16 == 0;
+  p.la = (const float*)a;
+  p.lb = (const float*)b;
+  p.r = r;
+  p.scale = scale;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (fmt) {
+    case FMT_INT8: err = ltf::launch_fmt<FMT_INT8>(p, st); break;
+    case FMT_INT4: err = ltf::launch_fmt<FMT_INT4>(p, st); break;
+    case FMT_NF4: err = ltf::launch_fmt<FMT_NF4>(p, st); break;
+  }
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  return (int)tt::sum_splits((const float*)ws, (float*)y, (long long)M * N,
+                             splits, st);
+}
+
+// Resident blocks an SM of lora_tf32_kernel (r padded to rp: 16, else 32;
+// fmt 0 int8, else NF4, whose 4-bit stage int4 shares) at its registers
+// and shared memory.
+extern "C" int lora_matmul_tf32_occupancy(int fmt, int rp, int* blocks) {
+  if (fmt == FMT_INT8)
+    return (int)(rp == 16 ? ltf::occupancy<FMT_INT8, 16>(blocks)
+                          : ltf::occupancy<FMT_INT8, 32>(blocks));
+  return (int)(rp == 16 ? ltf::occupancy<FMT_NF4, 16>(blocks)
+                        : ltf::occupancy<FMT_NF4, 32>(blocks));
 }
 
 // fp32 g, o: the first design's CUDA-core kernel (run only when the

@@ -1,8 +1,10 @@
 // The fp32 quantized-weight GEMMs on Hopper's tensor cores in the 3xTF32
 // split, shared by quant_matmul.cu's qmm_tf32_kernel (y = x @ W, the
 // contraction along W's rows Kq) and lora_matmul.cu's qmt_tf32_kernel
-// (dx = g @ W^T, the contraction along W's columns N): one body, with W's
-// tile read straight (TRANS false) or turned over (TRANS true).
+// (dx = g @ W^T, the contraction along W's columns N) and
+// lora_tf32_kernel (y = x @ W + scale (x @ A) @ B): one body, with W's
+// tile read straight (TRANS false) or turned over (TRANS true), and with
+// RP > 0 the rank-r term carried beside it.
 //
 //   A (T, M, C) fp32 row-major: x (C = Kq) or g (C = N)
 //   W (T, G, rows, N) quantized, scales (T, G, 1, N): the QTensor layout
@@ -40,6 +42,18 @@
 //    calls bitwise equal.
 //  - mma.sync, not wgmma: at the 20-row products the call is bound by
 //    reading W and by filling the SMs, not by the tensor rate.
+//  - The rank-r term (RP = r padded to 16 or 32 with zero columns; only
+//    TRANS false): each k-tile's rows of A (K, RP) ride the same cp.async
+//    ring, and after the tile's W chains each warp adds its units of h =
+//    x @ A (an m16 row fragment by an n8 column block) as chains of the
+//    same 4 k8 steps and 3 products, x split again from the staged tile
+//    and A as its fragment is read, into an fp32 h tile [BM][RP + 8] in
+//    shared memory that only that warp touches. h lives in shared memory,
+//    not registers: the BM = 128 body already holds 242-253 registers.
+//    After the loop B's (RP x 128) tile takes the drained ring and each
+//    thread adds scale * (h @ B) (its own fp32 sum over r, as the Pallas
+//    kernel's flush adds scale * delta) to its accumulators. A split adds
+//    its own scale * (h_s @ B): the term is linear in h.
 #pragma once
 
 #include "tc_tile.cuh"
@@ -72,23 +86,32 @@ struct Cfg {
 
 // Byte offsets of one block's shared memory. W's tile: WR weight rows
 // (of Kq) by WC columns (of N), decoded [WR][LDW] as u32 TF32 patterns.
-template <int FMT, int BM, bool TRANS>
+// RP > 0 adds A's rows to each ring slot and the h tile; RP = 0 is the
+// plain GEMM's layout.
+template <int FMT, int BM, bool TRANS, int RP = 0>
 struct Layout {
   static constexpr int RSTEP = FMT == dq::FMT_INT8 ? 1 : 2;
   static constexpr int WR = TRANS ? BO : BK;
   static constexpr int WC = TRANS ? BK : BO;
   static constexpr int LDW = TRANS ? LDWT : LDWN;
+  static constexpr int LDL = RP + 8;                 // A rows and h: the
+                                                     // fragments' banks
   static constexpr int SRM = WR / tt::MIN_BLOCK;     // scale rows at most
   static constexpr int A = 0;                        // f32 [BM][LDA]
   static constexpr int Q = A + BM * LDA * 4;         // u8 [WR / RSTEP][WC]
   static constexpr int S = Q + WR / RSTEP * WC;      // f32 [SRM][WC]
-  static constexpr int STAGE = S + SRM * WC * 4;
+  static constexpr int LA = S + SRM * WC * 4;        // f32 [BK][LDL]: A
+  static constexpr int STAGE = LA + (RP ? BK * LDL * 4 : 0);
   static constexpr int WTILE = 2 * WR * LDW;         // u32: hi, then lo
   static constexpr int WB = Cfg<BM>::NS * STAGE;     // [2][WTILE]
   static constexpr int CODE = WB + 2 * WTILE * 4;    // f32 [16]
-  static constexpr int BYTES = CODE + 16 * 4;
+  static constexpr int H = CODE + 16 * 4;            // f32 [BM][LDL]: h
+  static constexpr int BYTES = H + (RP ? BM * LDL * 4 : 0);
   static_assert(STAGE % 16 == 0 && WB % 16 == 0, "align");
   static_assert((BYTES + 1024) * Cfg<BM>::MINB <= 233472, "blocks an SM");
+  static_assert(RP == 0 || RP == 16 || RP == 32, "rank padded to 16 / 32");
+  static_assert(RP == 0 || (!TRANS && RP * BO * 4 <= WB &&
+                            BK * RP / 4 <= NT), "the rank-r term");
 };
 
 struct Args {
@@ -99,15 +122,23 @@ struct Args {
   float* ws;                        // splits > 1: (splits, T, M, O)
   int T, M, C, O, Kq, N, rows, bshift, unit, splits;  // block 1 << bshift
   bool a_vec, w_vec;                // 16-byte cp.async for A / payload
+  // the rank-r term (RP > 0; T = 1): la (C, RP) fp32, r zero-padded to
+  // RP, 16-byte aligned; lb (r, O) fp32
+  const float* la = nullptr;
+  const float* lb = nullptr;
+  int r = 0;
+  float scale = 0.f;
 };
 
 // The output tile (m0.., o0..) of user t, split z: the sum over the
-// split's k-tiles of chains of 3xTF32 products, in fp32. Grid (O tiles,
-// M tiles, T * splits); the caller's __global__ sets the launch bounds.
-template <int FMT, int BM, bool TRANS>
+// split's k-tiles of chains of 3xTF32 products, in fp32, and with RP > 0
+// scale * (h_z @ B), h_z = x @ A over the same k-tiles in the same
+// chains. Grid (O tiles, M tiles, T * splits); the caller's __global__
+// sets the launch bounds.
+template <int FMT, int BM, bool TRANS, int RP = 0>
 __device__ __forceinline__ void gemm_tf32(const Args& p) {
   using C = Cfg<BM>;
-  using L = Layout<FMT, BM, TRANS>;
+  using L = Layout<FMT, BM, TRANS, RP>;
   constexpr int NS = C::NS, LDW = L::LDW;
   extern __shared__ __align__(16) uint8_t smem[];
   uint32_t* wbuf = reinterpret_cast<uint32_t*>(smem + L::WB);
@@ -141,6 +172,14 @@ __device__ __forceinline__ void gemm_tf32(const Args& p) {
     else          // W rows k0.. to ke, columns o0.. (of N)
       tt::stage_w<FMT, L::WR, L::WC, NT>(q, s, p.N, p.bshift, p.w_vec,
                                          st + L::Q, ss, k0, ke, o0, p.N);
+    if constexpr (RP > 0) {   // A rows k0.. to ke: RP / 4 chunks a row
+      if (tid < BK * RP / 4) {
+        const int kk = tid / (RP / 4), c = (tid % (RP / 4)) * 4;
+        const bool ok = k0 + kk < ke;
+        tc::cp_async16(reinterpret_cast<float*>(st + L::LA) + kk * L::LDL + c,
+                       ok ? p.la + (size_t)(k0 + kk) * RP + c : p.la, ok);
+      }
+    }
   };
   auto decode = [&](int slot, uint32_t* wb, int k0, int part) {
     const uint8_t* st = smem + slot * L::STAGE;
@@ -157,6 +196,10 @@ __device__ __forceinline__ void gemm_tf32(const Args& p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
+  if constexpr (RP > 0) {
+    float* hs = reinterpret_cast<float*>(smem + L::H);
+    for (int i = tid; i < BM * L::LDL; i += NT) hs[i] = 0.f;
+  }
 #pragma unroll
   for (int u = 0; u < NS - 1; ++u) {
     if (u < ntile) stage(u, kb + u * BK);
@@ -218,8 +261,96 @@ __device__ __forceinline__ void gemm_tf32(const Args& p) {
       for (int j = 0; j < C::NJ; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][j][e] += ch[i][j][e];
+    if constexpr (RP > 0) {         // h += this k-tile's chains of x @ A
+      constexpr int NB = RP / 8, UNITS = C::MI * NB;
+      const float* ls = reinterpret_cast<const float*>(
+          smem + (u % NS) * L::STAGE + L::LA);
+      float* hs = reinterpret_cast<float*>(smem + L::H);
+#pragma unroll
+      for (int e = 0; e < (UNITS + C::WN - 1) / C::WN; ++e) {
+        const int un = wn + e * C::WN;  // a unit: m16 fragment i, n8 block
+        if (un >= UNITS) break;
+        const int i = un / NB, jn = un % NB;
+        const int row = wm * (BM / C::WM) + i * 16 + g;
+        float hc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < CHAIN; ++kk) {
+          const int k = kk * KSTEP;
+          uint32_t ah[4], al[4], bh[2], bl[2];
+          const float* ar = as + row * LDA + k + c4;
+          tc::split_tf32(ar[0], ah[0], al[0]);
+          tc::split_tf32(ar[8 * LDA], ah[1], al[1]);
+          tc::split_tf32(ar[4], ah[2], al[2]);
+          tc::split_tf32(ar[8 * LDA + 4], ah[3], al[3]);
+          const float* br = ls + (k + c4) * L::LDL + jn * 8 + g;
+          tc::split_tf32(br[0], bh[0], bl[0]);
+          tc::split_tf32(br[4 * L::LDL], bh[1], bl[1]);
+          tc::mma_tf32(hc, al, bh);
+          tc::mma_tf32(hc, ah, bl);
+          tc::mma_tf32(hc, ah, bh);
+        }
+        float2* h0 = reinterpret_cast<float2*>(hs + row * L::LDL + jn * 8 + c2);
+        float2* h1 = h0 + 4 * L::LDL;   // row + 8
+        float2 v0 = *h0, v1 = *h1;
+        v0.x += hc[0];
+        v0.y += hc[1];
+        v1.x += hc[2];
+        v1.y += hc[3];
+        *h0 = v0;
+        *h1 = v1;
+      }
+    }
   }
   tc::cp_wait<0>();                 // no copy outlives the block
+
+  if constexpr (RP > 0) {           // acc += scale * (h @ B), in fp32
+    __syncthreads();                // h is whole; the ring is drained
+    float* bs = reinterpret_cast<float*>(smem);      // [RP][BO]
+    const float* hs = reinterpret_cast<const float*>(smem + L::H);
+    for (int i = tid; i < RP * BO; i += NT) {
+      const int c = i / BO, o = o0 + i % BO;
+      bs[i] = (c < p.r && o < p.O) ? p.lb[(size_t)c * p.O + o] : 0.f;
+    }
+    __syncthreads();
+    float d[C::MI][C::NJ][4];
+#pragma unroll
+    for (int i = 0; i < C::MI; ++i)
+#pragma unroll
+      for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[i][j][e] = 0.f;
+    for (int c = 0; c < p.r; ++c) {
+      float hv[C::MI][2], bv[C::NJ][2];
+#pragma unroll
+      for (int i = 0; i < C::MI; ++i) {
+        const int row = wm * (BM / C::WM) + i * 16 + g;
+        hv[i][0] = hs[row * L::LDL + c];
+        hv[i][1] = hs[(row + 8) * L::LDL + c];
+      }
+#pragma unroll
+      for (int j = 0; j < C::NJ; ++j) {
+        const float2 b2 = *reinterpret_cast<const float2*>(
+            bs + c * BO + wn * (BO / C::WN) + j * 8 + c2);
+        bv[j][0] = b2.x;
+        bv[j][1] = b2.y;
+      }
+#pragma unroll
+      for (int i = 0; i < C::MI; ++i)
+#pragma unroll
+        for (int j = 0; j < C::NJ; ++j) {
+          d[i][j][0] = fmaf(hv[i][0], bv[j][0], d[i][j][0]);
+          d[i][j][1] = fmaf(hv[i][0], bv[j][1], d[i][j][1]);
+          d[i][j][2] = fmaf(hv[i][1], bv[j][0], d[i][j][2]);
+          d[i][j][3] = fmaf(hv[i][1], bv[j][1], d[i][j][3]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < C::MI; ++i)
+#pragma unroll
+      for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += p.scale * d[i][j][e];
+  }
 
   const bool pairs = (p.O & 1) == 0;
   const size_t base = (size_t)t * p.M * p.O;

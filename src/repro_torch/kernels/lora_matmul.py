@@ -20,8 +20,14 @@ counted:
   ``lora_matmul.gemv_launches``);
 - ``"tc"``: any other bf16 call (``lora_matmul_tc_launch`` with the
   split-K that :func:`plan` picks; ``lora_matmul.tc_launches``);
-- ``"cuda"``: any other fp32 call (the CUDA-core kernel, which keeps
-  fp32 callers at 1e-5).
+- ``"tf32x3"``: any other fp32 call (``lora_tf32_kernel``,
+  ``csrc/tf32_gemm.cuh``'s 3xTF32 body with the rank-r term beside it:
+  h = x@A in the same chains as x@W, kept in shared memory, then
+  scale·(h@B) added in fp32, at 1e-5; the split-K that
+  :func:`plan_lora_tf32` picks; ``lora_matmul.tf32_launches``).
+The first fp32 design, ``lora_kernel`` (fp32 CUDA cores, no split),
+runs only when a caller forces ``"tiled"`` (the card's A/B);
+:func:`route_counts` reads every route's launches.
 ``quant_matmul_t`` has two, by g's dtype (:func:`qmt_route`): bf16
 ``"tc"``, the bf16 tensor-core kernel (``quant_matmul_t_tc_launch`` with
 the split over N that :func:`plan_t` picks; ``tc_launches``); fp32
@@ -46,9 +52,11 @@ import torch
 
 from repro_torch.core.quant import QTensor
 from repro_torch.kernels import build
-from repro_torch.kernels.quant_matmul import (GemvPlan, check_qtensor,
-                                              check_tc_block, group_ranges,
-                                              plan_tf32)
+from repro_torch.kernels.quant_matmul import (TF32_MAX_SPLITS,
+                                              TF32_MIN_TILES_PER_SPLIT,
+                                              GemvPlan, TcPlan,
+                                              check_qtensor, check_tc_block,
+                                              group_ranges, plan_tf32)
 
 MAX_RANK = 32
 _P = ctypes.c_void_p
@@ -57,6 +65,9 @@ _LORA_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
               ctypes.c_float, _P)
 _TC_ARGS = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
             ctypes.c_float, _I, _I, _P)
+_TF32_ARGS = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+              ctypes.c_float, _I, _I, _P)
+_OCC_ARGS = (_I, _I, ctypes.POINTER(ctypes.c_int))
 _T_ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 _T_TC_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)
 _GEMV_ARGS = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -158,6 +169,68 @@ def plan_t_tf32(M: int, Kq: int, N: int):
     return plan_tf32(1, M, N, Kq, BK)
 
 
+# The tf32x3 route's tile (csrc/lora_matmul.cu namespace ltf, the body of
+# csrc/tf32_gemm.cuh): a block owns a 128 x 128 output tile (the paths'
+# fp32 calls are 256 rows) and walks its split of K in 32-deep k-tiles;
+# one block an SM (152-172 KB of shared memory, 255 registers). The
+# split count is the one of least modelled time (lora_tf32_cost_us): the
+# busiest SM runs ceil(blocks / SMS) waves of one block, each a split's
+# k-tiles at LORA_TF32_TILE_US, then the (splits, M, N) fp32 partials
+# are written and summed at the tc kernel's PARTIAL_BYTES_PER_US. The
+# tile time was fitted to the kernel's device times at split counts 1-4
+# (and the pick) at the paths' six 256-row shapes (NF4 block 64, r = 16;
+# an NVIDIA H100 80GB HBM3 at 700 W; PERF.md row 4g;
+# chip_smoke.check_fp32_gemms prints them): the model is within 5% of
+# every time but wk/wv's 16 splits (14% under), and its pick the fastest
+# count at each, where filling one wave and no more ran Yi-9B's wg/wu
+# (172 tiles, two waves) 40% slower than its 3 splits.
+LORA_TF32_BM = 128
+LORA_TF32_TILE_US = 3.43
+
+
+def lora_tf32_cost_us(M: int, N: int, tiles: int, nu: int, unit: int,
+                      splits: int) -> float:
+    """The model's time of one tf32x3 call with an (M, N) output and
+    ``tiles`` output tiles, K in ``nu`` units of ``unit``, cut into
+    ``splits``."""
+    t = -(-tiles * splits // SMS) * (-(-nu // splits) * unit // BK) * \
+        LORA_TF32_TILE_US
+    if splits > 1:
+        t += (2 * splits + 1) * M * N * 4 / PARTIAL_BYTES_PER_US
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def plan_lora_tf32(M: int, K: int, N: int, block: int) -> TcPlan:
+    """The split-K of ``lora_matmul``'s tf32x3 route for ``x (M, K) @
+    W (K, N)`` quantized at ``block`` (K padded to a multiple of it): of
+    the split counts up to ``TF32_MAX_SPLITS`` that leave every split
+    ``TF32_MIN_TILES_PER_SPLIT`` k-tiles or more, on multiples of
+    lcm(block, 32), the least :func:`lora_tf32_cost_us` (ties to fewer
+    splits); a ``quant_matmul.TcPlan``."""
+    Kq = -(-K // block) * block
+    unit = math.lcm(block, BK)
+    nu = -(-Kq // unit)
+    tiles = -(-M // LORA_TF32_BM) * -(-N // BN)
+    counts = [s for s in range(1, min(nu, TF32_MAX_SPLITS) + 1)
+              if s == 1 or (nu // s) * unit // BK >= TF32_MIN_TILES_PER_SPLIT]
+    splits = min(counts, key=lambda s: (
+        lora_tf32_cost_us(M, N, tiles, nu, unit, s), s))
+    return TcPlan(users=1, bm=LORA_TF32_BM, tiles=tiles, splits=splits,
+                  unit=unit, ranges=split_ranges(Kq, unit, splits))
+
+
+def tf32_occupancy(fmt: int, rp: int) -> int:
+    """Resident blocks an SM of ``lora_tf32_kernel`` (``fmt`` 0 int8,
+    else NF4; rank padded to ``rp``, 16 or 32) from its registers and
+    shared memory (the card's occupancy query)."""
+    out = ctypes.c_int(0)
+    build.check(build.function("lora_matmul", "lora_matmul_tf32_occupancy",
+                               _OCC_ARGS)(fmt, rp, ctypes.byref(out)),
+                "lora_matmul tf32 occupancy")
+    return out.value
+
+
 def split_ranges(Kq: int, unit: int, splits: int) -> tuple:
     """The (k0, k1) of each split of a contraction of depth Kq, as
     ``lora_tc_kernel`` and ``qmt_tc_kernel`` compute them: split z owns
@@ -167,12 +240,6 @@ def split_ranges(Kq: int, unit: int, splits: int) -> tuple:
     return tuple((z * nu // splits * unit,
                   min((z + 1) * nu // splits * unit, Kq))
                  for z in range(splits))
-
-
-def uses_tensor_cores(x: torch.Tensor) -> bool:
-    """Whether a ``lora_matmul`` call with ``x``'s dtype takes the
-    tensor-core kernel past the GEMV's rows."""
-    return x.dtype == torch.bfloat16
 
 
 # The decode route (csrc/lora_gemv.cu, the GEMV of csrc/gemv.cuh): 128
@@ -299,13 +366,24 @@ def gemv_plan_of(G: int, N: int, cols: int, cluster: int):
 def route(M: int, N: int, qt: QTensor, dtype: torch.dtype) -> str:
     """The kernel a call with M rows of ``dtype`` against ``qt`` runs:
     ``"gemv"`` at most ``MAX_ROWS`` rows with N % 4 == 0, a 4-byte aligned
-    payload and a plan that fits; else ``"tc"`` for bf16, ``"cuda"`` for
-    fp32."""
+    payload and a plan that fits; else ``"tc"`` for bf16, ``"tf32x3"``
+    for fp32."""
     G = qt.q.shape[-3]
     if M <= MAX_ROWS and N % 4 == 0 and qt.q.data_ptr() % 4 == 0 and \
             plan_gemv(M, G, N, qt.block) is not None:
         return "gemv"
-    return "tc" if dtype == torch.bfloat16 else "cuda"
+    return "tc" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def route_counts() -> dict:
+    """``lora_matmul``'s launches so far by route: the three routes'
+    own counts and ``"tiled"``, the rest (the first fp32 design, run only
+    when forced)."""
+    fn = lora_matmul
+    out = {"gemv": fn.gemv_launches, "tc": fn.tc_launches,
+           "tf32x3": fn.tf32_launches}
+    out["tiled"] = fn.launches - sum(out.values())
+    return out
 
 
 def _factor(t: torch.Tensor, shape, name: str) -> torch.Tensor:
@@ -325,10 +403,12 @@ def lora_matmul(x: torch.Tensor, qt: QTensor, a: torch.Tensor,
 
 def _lora_matmul(x, qt, a, b, scale, splits, *, force=None,
                  gemv_plan=None):
-    """:func:`lora_matmul` with the tc route's split count forced to
-    ``splits`` or the GEMV's plan to ``gemv_plan`` (None: :func:`plan`'s,
-    :func:`plan_gemv`'s), for the checks and times of each; ``force="tc"``
-    runs the tensor-core kernel at the GEMV's rows too (the card's A/B)."""
+    """:func:`lora_matmul` with the tc or tf32x3 route's split count
+    forced to ``splits`` or the GEMV's plan to ``gemv_plan`` (None:
+    :func:`plan`'s, :func:`plan_lora_tf32`'s, :func:`plan_gemv`'s), for
+    the checks and times of each; ``force="tc"`` runs the bf16
+    tensor-core kernel at the GEMV's rows too, ``force="tiled"`` the first
+    fp32 design, ``lora_kernel``, on an fp32 x (the card's A/Bs)."""
     fmt, G, rows, N = check_qtensor(x, qt, "lora_matmul", ndims=(3,))
     K = x.shape[-1]
     Kq = G * qt.block
@@ -348,11 +428,12 @@ def _lora_matmul(x, qt, a, b, scale, splits, *, force=None,
     M = x2.shape[0]
     how = route(M, N, qt, x.dtype)
     if force is not None:
-        if force != "tc" or not uses_tensor_cores(x):
-            raise ValueError(f"lora_matmul: only the tc route can be forced, "
-                             f"and only for a bf16 x, not {force!r}")
+        if force != {torch.bfloat16: "tc"}.get(x.dtype, "tiled"):
+            raise ValueError(f"lora_matmul: only the tc route (a bf16 x) or "
+                             f"the tiled one (an fp32 x) can be forced, not "
+                             f"{force!r} for a {x.dtype} x")
         how = force
-    if (splits is not None and how != "tc") or (
+    if (splits is not None and how not in ("tc", "tf32x3")) or (
             gemv_plan is not None and how != "gemv"):
         raise ValueError(f"lora_matmul: M={M}, N={N} takes the {how} route")
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
@@ -387,6 +468,25 @@ def _lora_matmul(x, qt, a, b, scale, splits, *, force=None,
                 a32.data_ptr(), b32.data_ptr(), y.data_ptr(),
                 None if ws is None else ws.data_ptr(), M, K, Kq, N, r,
                 qt.block, rows, fmt, float(scale), n_split, pl.unit, stream)
+    elif how == "tf32x3":
+        check_tc_block(qt.block, "lora_matmul")
+        rp = 16 if r <= 16 else 32
+        # x and A padded with zero rows to Kq (odd K); A's columns to rp,
+        # in 16-byte rows
+        if Kq != K or r != rp or a32.data_ptr() % 16:
+            a32 = torch.nn.functional.pad(a32, (0, rp - r, 0, Kq - K))
+        if Kq != K:
+            x2 = torch.nn.functional.pad(x2, (0, Kq - K))
+        pl = plan_lora_tf32(M, K, N, qt.block)
+        n_split = pl.splits if splits is None else int(splits)
+        ws = torch.empty((n_split, M, N), dtype=torch.float32,
+                         device=x.device) if n_split > 1 else None
+        fn = build.function("lora_matmul", "lora_matmul_tf32_launch",
+                            _TF32_ARGS)
+        rc = fn(x2.data_ptr(), qt.q.data_ptr(), qt.scales.data_ptr(),
+                a32.data_ptr(), b32.data_ptr(), y.data_ptr(),
+                None if ws is None else ws.data_ptr(), M, Kq, N, r,
+                qt.block, rows, fmt, float(scale), n_split, pl.unit, stream)
     else:
         fn = build.function("lora_matmul", "lora_matmul_launch", _LORA_ARGS)
         rc = fn(x2.data_ptr(), qt.q.data_ptr(), qt.scales.data_ptr(),
@@ -396,6 +496,7 @@ def _lora_matmul(x, qt, a, b, scale, splits, *, force=None,
     lora_matmul.launches += 1
     lora_matmul.tc_launches += int(how == "tc")
     lora_matmul.gemv_launches += int(how == "gemv")
+    lora_matmul.tf32_launches += int(how == "tf32x3")
     return y.reshape(*lead, N)
 
 
@@ -486,6 +587,7 @@ def _quant_matmul_t(g, qt, out_dtype, splits, *, force=None):
 lora_matmul.launches = 0
 lora_matmul.tc_launches = 0
 lora_matmul.gemv_launches = 0
+lora_matmul.tf32_launches = 0
 quant_matmul_t.launches = 0
 quant_matmul_t.tc_launches = 0
 quant_matmul_t.tf32_launches = 0

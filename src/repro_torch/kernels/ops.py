@@ -11,9 +11,8 @@ call), and every kernel wrapper keeps its own integer ``launches``.
 ``lora_matmul`` and ``quant_matmul_t`` have a tensor-core
 instantiation for bf16, chosen by dtype in the wrapper, traced as
 ``<op>_cuda_tc`` and counted in ``tc_launches``; fp32 ``lora_matmul``
-runs a CUDA-core kernel (``lora_matmul_cuda``), fp32 ``quant_matmul_t``
-the 3xTF32 tensor cores (``quant_matmul_t_cuda_tf32x3``,
-``tf32_launches``). ``flash_attention`` traces its bf16 calls as
+and ``quant_matmul_t`` run the 3xTF32 tensor cores
+(``<op>_cuda_tf32x3``, ``tf32_launches``). ``flash_attention`` traces its bf16 calls as
 ``flash_attention_cuda_tc`` (counted in ``tc_launches``) and its fp32
 calls by route: ``flash_attention_cuda_rows`` (S up to
 ``ROWS_MAX_S``, one warp a query row; ``rows_launches``) and
@@ -114,6 +113,7 @@ def reset_launch_counts() -> None:
     qmm_kernel.quant_matmul.tf32_launches = 0
     lm_kernel.quant_matmul_t.tf32_launches = 0
     lm_kernel.lora_matmul.gemv_launches = 0
+    lm_kernel.lora_matmul.tf32_launches = 0
     fa_kernel.flash_attention.cluster_launches = 0
     fa_kernel.flash_attention.rows_launches = 0
     fa_kernel.flash_attention.tf32_launches = 0
@@ -391,9 +391,7 @@ class _QLoraMatmul(torch.autograd.Function):
         if _on_cuda(x, "lora_matmul"):
             how = lm_kernel.route(math.prod(x.shape[:-1]),
                                   qt.q.shape[-1], qt, x.dtype)
-            trace_count({"gemv": "lora_matmul_cuda_gemv",
-                         "tc": "lora_matmul_cuda_tc"}.get(
-                             how, "lora_matmul_cuda"))
+            trace_count("lora_matmul_cuda_" + how)
             ctx.save_for_backward(x, a, b)
             return _lora_kernel(x, qt, a, b, scale)
         trace_count("lora_matmul_ref")
@@ -432,11 +430,12 @@ def lora_matmul(x, w, a, b, *, scale: float):
 
 
 def blockwise_quant(x, *, bits=8, block=128, mode="linear"):
-    if _on_cuda(x, "blockwise_quant"):
-        if x.ndim != 2 or mode != "linear":
-            raise NotImplementedError(
-                f"blockwise_quant kernel: ndim={x.ndim} mode={mode!r} "
-                "(the kernel takes 2-D linear int8/int4)")
+    """The reference op's branch, chosen from the input before any
+    launch: on the card a 2-D linear (int8 / int4) input runs the kernel;
+    NF4 or input that is not 2-D takes the plain quantizer on either
+    device (``repro/kernels/ops.py:259-264``, whose Pallas kernel takes
+    the same inputs)."""
+    if _on_cuda(x, "blockwise_quant") and x.ndim == 2 and mode != "nf4":
         trace_count("blockwise_quant_cuda")
         return bq_kernel.blockwise_quant(x, bits=bits, block=block)
     trace_count("blockwise_quant_ref")

@@ -729,12 +729,14 @@ class Model:
         rt = rt_lib.get_runtime()
         if rt is None:
             return frozen["embed"][tokens.long()].to(dt)
-        spec = self.held_specs(rt)["params"]["frozen"]["embed"]
+        # (vocab, d) specs; a table held whole may have an empty spec
+        sv, sd = (*self.held_specs(rt)["params"]["frozen"]["embed"],
+                  None, None)[:2]
         e = frozen["embed"]
-        if not rt_lib.spec_axes(spec[0]):
+        if not rt_lib.spec_axes(sv):
             # whole, or the d-split fallback gathered at use
             return rt_lib.gather_at_use(e[tokens.long()], rt_lib.P(
-                None, None, spec[1]), rt, "embed").to(dt)
+                None, None, sd), rt, "embed").to(dt)
         # vocab-parallel: the rank's rows, zero outside, summed over model
         rt_lib.dist_trace("embed_vocab_dist")
         Vl = e.shape[0]

@@ -29,7 +29,12 @@ run's shapes as ``meta`` tensors. In the production layout the block's
 leaves arrive as the rank's blocks (``shardings.rank_params``) and the
 body takes them as they are, and ``rglru_decode`` runs on the rank's
 channels of the weights and of the cache's ``h`` and ``conv``, as
-``models.ssm``'s Mamba block does.
+``models.ssm``'s Mamba block does. Where the model axis divides the LRU
+width but not the 16 gate blocks (m = 5 at width 320), the cache's state
+is still cut over ``model`` (``shardings.rank_cache``): the decode
+gathers the rank's ``h`` and ``conv`` whole, steps on the whole weights
+and writes back the rank's block (``rglru_decode_gather``), the JAX
+package's GSPMD decode on that cut.
 """
 from __future__ import annotations
 
@@ -259,9 +264,7 @@ def rglru_decode(p, x, cache, cfg: ModelConfig, *, lora=None, specs=None):
         return _rglru_decode_core(p, x, cache, cfg, lo)
     if not _body_ok(cfg, rt.tp_size):
         if (cfg.lru_width or cfg.d_model) % rt.tp_size == 0:
-            raise NotImplementedError(
-                "rglru_decode: a cache cut over the model axis whose gate "
-                "blocks it does not divide")
+            return _rglru_decode_gather(p, x, cache, cfg, lo, specs, rt)
         rt_lib.dist_trace("rglru_decode_fallback")
         return _rglru_decode_core(body_weights(p, specs, None, rt), x,
                                   cache, cfg, lo)
@@ -270,6 +273,23 @@ def rglru_decode(p, x, cache, cfg: ModelConfig, *, lora=None, specs=None):
     out, st = _rglru_decode_core(p, x, cache, cfg, lo,
                                  sl_rank=rt.index(rt.tp_axis))
     return rt_lib.psum(out, rt.tp_axis, rt), st
+
+
+def _rglru_decode_gather(p, x, cache, cfg: ModelConfig, lo, specs, rt):
+    """The decode where ``model`` cuts the state's channels but not the
+    gate blocks: the rank's ``h`` (B, w / m) and ``conv`` (B, K - 1, w /
+    m) gathered whole at use, the step on the whole weights (the output
+    whole on every rank), the rank's block of the new state returned, cut
+    as ``shardings.rank_cache`` cuts it."""
+    rt_lib.dist_trace("rglru_decode_gather")
+    tp = rt.tp_axis
+    whole = {"h": rt_lib.gather_at_use(cache["h"], P(None, tp), rt, "h"),
+             "conv": rt_lib.gather_at_use(cache["conv"], P(None, None, tp),
+                                          rt, "conv")}
+    out, st = _rglru_decode_core(body_weights(p, specs, None, rt), x, whole,
+                                 cfg, lo)
+    wl, r = cache["h"].shape[-1], rt.index(tp)
+    return out, {k: v.narrow(-1, r * wl, wl) for k, v in st.items()}
 
 
 def _rglru_decode_core(p, x, cache, cfg: ModelConfig, lo, sl_rank=None):

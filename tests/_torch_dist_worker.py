@@ -563,6 +563,60 @@ def tensor_parallel(inp):
     return out
 
 
+def rglru_mesh(inp):
+    """Reduced RecurrentGemma in the production layout on a model axis
+    that cuts its LRU width but not its 16 gate blocks: the rank's
+    parameter blocks (``rank_params``), a prefill, then teacher-forced
+    decode steps from the prefill's held cache, and the same steps from
+    ``rank_cache`` of the JAX package's prefill cache (``inp["cache"]``).
+    Returns the logits, the held RG-LRU state (``h``, ``conv``) after the
+    prefill and after each step, each stretch's ``DIST_TRACES`` and the
+    cache's block against the JAX prefill's."""
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import Mesh, dp_axes
+    from repro_torch.models import build_model
+    from repro_torch.models import runtime as rt_lib
+    mesh = Mesh(*inp["mesh"])
+    dp = dp_axes(mesh)
+    rt = rt_lib.Runtime(mesh=mesh, dp_axes=dp, tp_axis="model")
+    cfg = inp["cfg"]
+    model = build_model(cfg)
+    held = sh.rank_params(cfg, {"frozen": inp["frozen"],
+                                "trainable": inp["trainable"]}, rt)
+    fz, tr = held["frozen"], held["trainable"]
+    lru = lambda c: {k: v.detach().clone()
+                     for k, v in c["scan"]["lru"].items()}
+
+    def run(cache, toks):
+        logits, states, traces = [], [], []
+        for tok, pos in toks:
+            rt_lib.reset_dist_traces()
+            logits.append(model.decode_step(fz, tr, cache, tok, pos)[0]
+                          .detach())
+            states.append(lru(cache))
+            traces.append(dict(rt_lib.DIST_TRACES))
+        return logits, states, traces
+
+    with rt_lib.runtime(rt):
+        rt_lib.reset_dist_traces()
+        pre = sh.rank_batch(cfg, inp["prefill"], rt)
+        first, cache = model.prefill(fz, tr, pre, max_len=inp["max_len"])
+        res = {"prefill_traces": dict(rt_lib.DIST_TRACES),
+               "prefill": [first.detach(), lru(cache)],
+               "cache_blocks": _blocks_err(
+                   cache, inp["cache"], sh.cache_specs_tree(
+                       cfg, inp["cache"], mesh, dp), mesh)}
+        toks = [(sh.rank_batch(cfg, {"tokens": tok}, rt)["tokens"], pos)
+                for tok, pos in inp["decode"]]
+        res["decode"] = run(cache, toks)
+        res["decode_rank_cache"] = run(sh.rank_cache(cfg, inp["cache"], rt),
+                                       toks)
+    res.update(model_index=rt.index("model"),
+               dp_index=rt.index(dp) if dp else 0)
+    return res
+
+
 CASES = {"model_bodies": model_bodies, "draws": draws,
          "cohort_mesh": cohort_mesh, "moe_calibrate": moe_calibrate,
-         "collectives": collectives, "tensor_parallel": tensor_parallel}
+         "collectives": collectives, "tensor_parallel": tensor_parallel,
+         "rglru_mesh": rglru_mesh}

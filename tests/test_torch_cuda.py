@@ -10,8 +10,8 @@ package's bf16 bound), ``blockwise_quant`` bitwise, ``selective_scan``,
 its backward kernel and the op's gradient 1e-5 times each output's
 largest magnitude (the JAX package's interpret-vs-plain bound), the
 backward kernel and ``quant_matmul`` bitwise equal across two calls. bf16 ``flash_attention`` and
-``lora_matmul`` run their tensor-core kernels, fp32 ``lora_matmul`` its
-CUDA-core one; ``quant_matmul`` past the GEMV's 4 rows and
+``lora_matmul`` run their tensor-core kernels; ``lora_matmul`` past its
+decode rows, ``quant_matmul`` past the GEMV's 4 rows and
 ``quant_matmul_t`` pick by dtype: bf16 the tc routes (``quant_matmul_t``'s
 held to 1e-4 of the largest magnitude in fp32 output: W enters as two
 bf16 parts, about 16 bits), fp32 the 3xTF32 routes (``"tf32x3"``) at
@@ -428,13 +428,47 @@ def test_cuda_lora_matmul_matches_plain(cuda_device, M, K, N, bits, mode,
     qt, x, a, b = _lora_inputs(cuda_device, M, K, N, bits, mode, dtype, r)
     route = lm_kernel.route(M, N, qt, dtype)
     assert route == ("gemv" if M <= lm_kernel.MAX_ROWS else
-                     "tc" if dtype == BF16 else "cuda")
-    w = lm_kernel.lora_matmul
-    before = (w.tc_launches, w.gemv_launches)
+                     "tc" if dtype == BF16 else "tf32x3")
+    before = lm_kernel.route_counts()
     got = lm_kernel.lora_matmul(x, qt, a, b, scale=2.0)
-    assert (w.tc_launches - before[0], w.gemv_launches - before[1]) == \
-        (int(route == "tc"), int(route == "gemv"))
+    after = lm_kernel.route_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == route) for k in after}
     _close(got, ref.lora_matmul(x, qt, a, b, scale=2.0))
+
+
+# fp32 lora_matmul's tf32x3 route: (M, K, N, bits, mode, rank): the paths'
+# shapes (phase 13's Qwen3-MoE wq and wo, phase 4's Yi-9B linears) and
+# the edges (int8, int4, odd K with ragged N, rank 20 padded to 32)
+LORA_TF32_CASES = [
+    (256, 4096, 8192, 4, "nf4", 16), (256, 8192, 4096, 4, "nf4", 16),
+    (256, 4096, 512, 4, "nf4", 16), (256, 11008, 4096, 4, "nf4", 16),
+    (64, 512, 256, 8, "linear", 16), (64, 512, 256, 4, "linear", 16),
+    (37, 200, 33, 8, "linear", 4), (130, 256, 136, 4, "nf4", 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,bits,mode,r", LORA_TF32_CASES)
+def test_cuda_lora_matmul_tf32x3_route_matches_plain(cuda_device, M, K, N,
+                                                     bits, mode, r):
+    """``lora_tf32_kernel`` within 1e-5 of the plain version's largest
+    magnitude, two calls bitwise equal, at the plan's split count and at
+    1 and 3 splits; the first design (``force="tiled"``) beside it."""
+    qt, x, a, b = _lora_inputs(cuda_device, M, K, N, bits, mode, F32, r)
+    want = ref.lora_matmul(x, qt, a, b, scale=2.0)
+    w = lm_kernel.lora_matmul
+    before = w.tf32_launches
+    got = lm_kernel.lora_matmul(x, qt, a, b, scale=2.0)
+    again = lm_kernel.lora_matmul(x, qt, a, b, scale=2.0)
+    assert w.tf32_launches - before == 2
+    _close_rel(got, want)
+    assert torch.equal(got, again)
+    for splits in (1, 3):
+        _close_rel(lm_kernel._lora_matmul(x, qt, a, b, 2.0, splits), want)
+    _close_rel(lm_kernel._lora_matmul(x, qt, a, b, 2.0, None,
+                                      force="tiled"), want)
+    with pytest.raises(ValueError, match="can be forced"):
+        lm_kernel._lora_matmul(x, qt, a, b, 2.0, None, force="tc")
 
 
 @pytest.mark.cuda
@@ -756,16 +790,22 @@ def test_cuda_tf32x3_routes_refuse_a_block_they_do_not_take(cuda_device):
     first design or the plain version."""
     w = torch.from_numpy(_np(53, 96, 64)).to(cuda_device)
     x = torch.from_numpy(_np(54, 20, 96)).to(cuda_device)
+    a = torch.from_numpy(_np(55, 96, 4)).to(cuda_device)
+    b = torch.from_numpy(_np(56, 4, 64)).to(cuda_device)
     for block, bits in ((8, 4), (48, 8)):
         qt = ref.blockwise_quant(w, bits=bits, block=block)
         before = (qmm_kernel.quant_matmul.launches,
-                  lm_kernel.quant_matmul_t.launches)
+                  lm_kernel.quant_matmul_t.launches,
+                  lm_kernel.lora_matmul.launches)
         with pytest.raises(NotImplementedError, match=f"block {block}"):
             qmm_kernel.quant_matmul(x, qt)
         with pytest.raises(NotImplementedError, match=f"block {block}"):
             lm_kernel.quant_matmul_t(x[:, :64].contiguous(), qt)
+        with pytest.raises(NotImplementedError, match=f"block {block}"):
+            lm_kernel.lora_matmul(x, qt, a, b, scale=2.0)
         assert (qmm_kernel.quant_matmul.launches,
-                lm_kernel.quant_matmul_t.launches) == before
+                lm_kernel.quant_matmul_t.launches,
+                lm_kernel.lora_matmul.launches) == before
 
 
 @pytest.mark.cuda
@@ -819,7 +859,7 @@ def test_cuda_lora_op_grads_match_the_cpu_route(cuda_device):
             .backward()
         grads[dev.type] = [t.grad.cpu() for t in ts]
         if dev.type == "cuda":
-            assert ops.KERNEL_TRACES == {"lora_matmul_cuda": 1,
+            assert ops.KERNEL_TRACES == {"lora_matmul_cuda_tf32x3": 1,
                                          "quant_matmul_t_cuda_tf32x3": 1}
     for got, want in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

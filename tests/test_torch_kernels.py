@@ -246,8 +246,30 @@ def test_ops_refuse_unported_kernel_paths(monkeypatch):
         (ref.quant_matmul_t(torch.ones(2, 32), qt)
          + (torch.ones(2, 32) @ b.t()) @ a.t()).to(torch.bfloat16).float()
         .numpy(), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="2-D linear"):
-        ops.blockwise_quant(x, bits=4, block=32, mode="nf4")
+    # blockwise_quant takes the reference op's branch: the kernel for 2-D
+    # linear input, the plain quantizer for NF4 or input that is not 2-D,
+    # bitwise the JAX package's ref.blockwise_quant
+    monkeypatch.setattr(ops.bq_kernel, "blockwise_quant",
+                        lambda x_, bits, block: calls.append("bq") or
+                        ref.blockwise_quant(x_, bits=bits, block=block))
+    w3 = _np(27, 3, 64, 32)
+    for w, bits, mode in ((_np(22, 64, 32), 4, "nf4"), (w3, 8, "linear"),
+                          (w3, 4, "nf4")):
+        ops.reset_kernel_traces()
+        calls.clear()
+        got = ops.blockwise_quant(torch.from_numpy(w), bits=bits, block=32,
+                                  mode=mode)
+        want = jref.blockwise_quant(jnp.asarray(w), bits=bits, block=32,
+                                    mode=mode)
+        assert ops.KERNEL_TRACES == {"blockwise_quant_ref": 1} and not calls
+        np.testing.assert_array_equal(got.q.numpy(), np.asarray(want.q))
+        np.testing.assert_array_equal(got.scales.numpy(),
+                                      np.asarray(want.scales))
+        assert tuple(got.orig_shape) == tuple(want.orig_shape)
+    ops.reset_kernel_traces()
+    ops.blockwise_quant(torch.from_numpy(_np(22, 64, 32)), bits=4, block=32)
+    assert ops.KERNEL_TRACES == {"blockwise_quant_cuda": 1}
+    assert calls == ["bq"]
 
 
 def test_port_imports_no_jax_and_no_reference_package():

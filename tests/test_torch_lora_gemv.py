@@ -94,14 +94,14 @@ def test_route_boundaries():
         assert lm.route(M, 96, qt, torch.float32) == "gemv"
     M = lm.MAX_ROWS + 1
     assert lm.route(M, 96, qt, torch.bfloat16) == "tc"
-    assert lm.route(M, 96, qt, torch.float32) == "cuda"
+    assert lm.route(M, 96, qt, torch.float32) == "tf32x3"
     # N % 4 != 0 and a payload off 4-byte alignment leave the GEMV
     _, odd = _qt(256, 33, 4, "nf4")
     assert lm.route(4, 33, odd, torch.bfloat16) == "tc"
     flat = torch.zeros(qt.q.numel() + 1, dtype=qt.q.dtype)
     shifted = dataclasses.replace(qt, q=flat[1:].view(qt.q.shape))
     assert shifted.q.data_ptr() % 4 == 1
-    assert lm.route(4, 96, shifted, torch.float32) == "cuda"
+    assert lm.route(4, 96, shifted, torch.float32) == "tf32x3"
     # a K whose slice no cluster of 8 holds in shared memory
     assert lm.plan_gemv(8, 4096, 512, 64) is None
     _, wide = _qt(64, 8, 8, "linear")

@@ -122,12 +122,13 @@ def test_split_k_emulation_matches_the_jax_reference(bits, mode, M, K, N,
 
 @pytest.mark.parametrize("dtype,lora_key,flash_key", [
     (torch.bfloat16, "lora_matmul_cuda_tc", "flash_attention_cuda_tc"),
-    (torch.float32, "lora_matmul_cuda", "flash_attention_cuda_rows")])
+    (torch.float32, "lora_matmul_cuda_tf32x3",
+     "flash_attention_cuda_rows")])
 def test_card_routes_are_traced_by_dtype(monkeypatch, dtype, lora_key,
                                          flash_key):
     """On the card (``_on_cuda`` forced, the kernels stood in for by their
     plain versions) bf16 calls past the decode route's rows trace the
-    tensor-core keys and fp32 calls the CUDA-core ``lora_matmul`` key and
+    tensor-core keys and fp32 calls the 3xTF32 ``lora_matmul`` key and
     the attention's route at S = 5 (``"cuda_rows"``); both reach the same
     kernel wrapper."""
     calls = []
@@ -150,7 +151,8 @@ def test_card_routes_are_traced_by_dtype(monkeypatch, dtype, lora_key,
     ops.flash_attention(q, q, q, causal=True)
     assert calls == ["lora_matmul", "flash_attention"]
     assert ops.KERNEL_TRACES == {lora_key: 1, flash_key: 1}
-    assert lm.uses_tensor_cores(x) == (dtype == torch.bfloat16)
+    assert lm.route(lm.MAX_ROWS + 1, 32, qt, dtype) == \
+        ("tc" if dtype == torch.bfloat16 else "tf32x3")
 
 
 def test_launch_counters_reset_together():
